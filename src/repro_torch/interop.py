@@ -1,0 +1,79 @@
+"""Weights across the two packages.
+
+``params_from_reference`` converts a ``repro`` ``TransformerLM`` param
+pytree, given with numpy leaves (``jax.tree.map(np.asarray, params)``),
+into the port's param tree; ``params_to_reference`` goes back.  The
+reference groups layers into periods of ``cfg.block_pattern`` and stacks
+each pattern position's params over the periods (leading axis
+``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
+leftover layers unstacked under ``tail``; the port keeps one dict per
+layer in a list.  Leaf layouts are the reference's ((in, out) weights),
+so no leaf is transposed.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _n_periods(cfg) -> int:
+    return cfg.n_layers // len(cfg.block_pattern)
+
+
+def params_from_reference(tree, cfg, device="cpu"):
+    """Reference param pytree (numpy leaves) -> the port's param tree on
+    ``device`` (fp32 tensors)."""
+    pat = len(cfg.block_pattern)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p, pos = divmod(i, pat)
+        if p < _n_periods(cfg):
+            layers.append(_map(lambda a: tensor(np.asarray(a)[p]),
+                               tree["periods"][pos]))
+        else:
+            layers.append(_map(tensor, tree["tail"][pos]))
+    out = {"embed": _map(tensor, tree["embed"]), "layers": layers,
+           "final_norm": _map(tensor, tree["final_norm"])}
+    if tree.get("mux_engine"):
+        out["mux_engine"] = _map(tensor, tree["mux_engine"])
+    return out
+
+
+def params_to_reference(params, cfg):
+    """The port's param tree -> the reference's pytree layout with numpy
+    leaves (periods stacked, leftover layers in ``tail``)."""
+    pat = len(cfg.block_pattern)
+    n_per = _n_periods(cfg)
+
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack([arr(x) for x in xs])
+
+    layers = params["layers"]
+    out = {"embed": _map(arr, params["embed"]),
+           "periods": tuple(stack(*(layers[p * pat + pos]
+                                    for p in range(n_per)))
+                            for pos in range(pat)) if n_per else
+           tuple(None for _ in range(pat)),
+           "tail": tuple(_map(arr, layers[n_per * pat + k])
+                         for k in range(cfg.n_layers - n_per * pat)),
+           "final_norm": _map(arr, params["final_norm"])}
+    if "mux_engine" in params:
+        out["mux_engine"] = _map(arr, params["mux_engine"])
+    return out

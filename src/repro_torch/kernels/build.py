@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), loaded with ``ctypes``.  Libraries land in
+``build/repro_torch/<hash>/`` at the repository root, keyed by a hash of
+all the sources, and are built at first use: every source at once, one
+``nvcc`` process each, started together.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+REPO = pathlib.Path(__file__).resolve().parents[3]
+BUILD = REPO / "build" / "repro_torch"
+SOURCES = ("paged_attention", "demux_rsa")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not pathlib.Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit to build the port's kernels")
+    return found
+
+
+def build_dir() -> pathlib.Path:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / h.hexdigest()[:16]
+
+
+@functools.cache
+def build_all() -> dict:
+    """Compile every source that is not built yet, in parallel.  Returns
+    {"seconds": wall time, "log": nvcc's output (ptxas register and shared
+    memory report)}.  Raises if any compile fails."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in SOURCES:
+        lib = out / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out / f"lib{name}.{os.getpid()}.tmp.so"
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib)
+    log, failed = [], []
+    for name, (proc, tmp, lib) in procs.items():
+        text, _ = proc.communicate()
+        log.append(f"== {name}.cu\n{text}")
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, lib)
+    (out / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return {"seconds": time.perf_counter() - t0, "log": "\n".join(log)}
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "paged_attention": {
+        "paged_attention_decode": [_P] * 7 + [_I] * 8 + [_F, _P],
+        "paged_attention_prefill": [_P] * 8 + [_I] * 9 + [_F, _P],
+    },
+    "demux_rsa": {
+        "demux_rsa_forward": [_P] * 12 + [_I] * 4 + [_P],
+        "demux_rsa_split": [],
+    },
+}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first call),
+    with ``argtypes``/``restype`` declared for every entry point."""
+    build_all()
+    lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

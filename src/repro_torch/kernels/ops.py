@@ -1,0 +1,93 @@
+"""Public kernel wrappers (counterpart of ``repro/kernels/ops.py``).
+
+Each wrapper dispatches on the device of its tensors: on the CPU it runs
+the kernel's plain PyTorch version; on a CUDA tensor it launches the
+hand-written kernel or raises — there is no fallback.  Each wrapper keeps
+two plain integer counts as attributes: ``calls`` (every call) and
+``launches`` (kernel launches only, added right after the launch).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import demux_rsa as _demux
+from repro_torch.kernels import mux_embed as _mux
+from repro_torch.kernels import paged_attention as _paged
+
+
+def _on_cpu(x) -> bool:
+    return x.device.type == "cpu"
+
+
+def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0):
+    """Fused embed + embedding scale + Gaussian mux-combine:
+    tokens (N, T), emb (V, D), v (N, D) -> (T, D)."""
+    mux_embed_combine.calls += 1
+    if _on_cpu(emb):
+        return _mux.mux_embed_ref(tokens, emb, v, scale=scale)
+    out = _mux.mux_embed_combine_cuda(tokens, emb, v, scale=scale)
+    mux_embed_combine.launches += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, page_pos, q_pos, *,
+                    window=None, causal: bool = True):
+    """Decode attention over the paged pool: q (B, 1, H, Dh)."""
+    paged_attention.calls += 1
+    if _on_cpu(q):
+        return _paged.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                          page_pos, q_pos, window=window,
+                                          causal=causal)
+    out = _paged.paged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                      page_pos, q_pos, window=window,
+                                      causal=causal)
+    paged_attention.launches += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_tables, page_pos,
+                            q_start, q_len, *, window=None,
+                            causal: bool = True):
+    """Chunked-prefill attention over the paged pool: q (B, Lq, H, Dh)."""
+    paged_prefill_attention.calls += 1
+    if _on_cpu(q):
+        return _paged.paged_prefill_attention_ref(
+            q, k_pages, v_pages, block_tables, page_pos, q_start, q_len,
+            window=window, causal=causal)
+    out = _paged.paged_prefill_attention_cuda(
+        q, k_pages, v_pages, block_tables, page_pos, q_start, q_len,
+        window=window, causal=causal)
+    paged_prefill_attention.launches += 1
+    return out
+
+
+def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
+    """Fused demux exit; h may be (B, L, D) or (T, D) -> (N, [B, L,] D).
+    ``norms``: entry_kind / entry_scale / entry_bias / exit_scale /
+    exit_bias, as ``kernels.demux_rsa.demux_rsa_fused_ref``."""
+    demux_rsa.calls += 1
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if _on_cpu(h):
+        out = _demux.demux_rsa_fused_ref(h2, k, w1h, w1k, b1, w2, b2,
+                                         **norms)
+    else:
+        out = _demux.demux_rsa_cuda(h2, k, w1h, w1k, b1, w2, b2, **norms)
+        demux_rsa.launches += 1
+    return out.reshape(out.shape[0], *lead, h.shape[-1])
+
+
+WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
+            demux_rsa)
+
+
+def reset_counts():
+    for w in WRAPPERS:
+        w.calls = 0
+        w.launches = 0
+
+
+def counts(kind: str = "launches") -> dict:
+    """{wrapper name: count} for ``kind`` 'launches' or 'calls'."""
+    return {w.__name__: getattr(w, kind) for w in WRAPPERS}
+
+
+reset_counts()

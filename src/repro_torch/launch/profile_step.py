@@ -1,0 +1,149 @@
+"""Where the time of one serve step goes, on the card.
+
+    python -m repro_torch.launch.profile_step [--no-use-kernels]
+
+Builds full-width qwen2-1.5b (random seeded weights) at mux N=2 with 4
+backbone rows holding ~100-token contexts, then runs ``torch.profiler``
+(CPU + CUDA activities) over a few decode steps and a few 32-token
+prefill chunks, each group ending in a synchronize.  From the Chrome
+trace it reports, per step: host wall time, device busy time (the union
+of kernel, memcpy and memset intervals), the device's idle share, the
+number of kernels launched, and the device time by kernel name.  The
+idle share is taken against the wall time of the same steps run without
+the profiler.  Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import MuxSpec
+from repro_torch.models import TransformerLM
+from repro_torch.serve import engine
+from repro_torch.serve.runtime import resolve_device
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_us(intervals):
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def _summarize(label, trace, steps, wall_s, prof_wall_s, top):
+    evs = [e for e in trace["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+    if not evs:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in evs)
+    by_name = collections.Counter()
+    for e in evs:
+        by_name[e["name"]] += e["dur"]
+    n_kernels = sum(e["cat"] == "kernel" for e in evs)
+    wall_us = wall_s * 1e6
+    print(f"{label}: wall {wall_us / steps / 1e3:.3f} ms/step "
+          f"({prof_wall_s * 1e3 / steps:.3f} under the profiler), device "
+          f"busy {busy / steps / 1e3:.3f} ms/step, idle share "
+          f"{1 - busy / wall_us:.3f}, {n_kernels / steps:.0f} kernels/step")
+    for name, us in by_name.most_common(top):
+        print(f"  {us / steps:10.1f} us/step  {us / busy:6.1%}  {name[:90]}")
+
+
+def _wall(fn, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _profile(fn, steps):
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f), wall
+    finally:
+        os.unlink(path)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile_step")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
+                    default=True, help="kernel path (default) or plain path")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    cfg = get_config("qwen2-1.5b")
+    mux = MuxSpec(n=2)
+    params = TransformerLM.init(torch.Generator(device=dev).manual_seed(0),
+                                cfg, mux)
+    rows, ctx = 4, 96
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124, block_size=16)
+    cache = engine.init_cache(sc, mux.n * rows, dev)
+    pool = engine.make_pool(sc, mux.n * rows)
+    for r in range(rows):
+        pool.allocate(r, ctx + 8)
+    engine.set_block_tables(cache, pool.table_array(range(rows)))
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def toks(shape):
+        return torch.randint(4, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+    for r in range(rows):
+        for s in range(0, ctx, 32):
+            engine.prefill_chunk(params, sc, cache, toks((mux.n, 32)),
+                                 rows=[r], start=s, length=32,
+                                 use_kernels=args.use_kernels)
+    dtok = toks((mux.n * rows, 1))
+    pos = torch.tensor([ctx] * rows, device=dev)
+    ctok = toks((mux.n, 32))
+
+    def decode():
+        logits, _ = engine.decode_step(params, sc, cache, dtok, pos,
+                                       use_kernels=args.use_kernels)
+        return logits[:, 0].argmax(-1)
+
+    def chunk():
+        logits, _ = engine.prefill_chunk(params, sc, cache, ctok, rows=[0],
+                                         start=64, length=32,
+                                         use_kernels=args.use_kernels)
+        return logits.argmax(-1)
+
+    path = "kernel" if args.use_kernels else "plain"
+    print(f"qwen2-1.5b full width, N=2, {rows} rows at context {ctx}, "
+          f"{path} path, {torch.cuda.get_device_name(dev)}")
+    for label, fn in (("decode step", decode), ("prefill chunk (32)", chunk)):
+        for _ in range(2):
+            fn()
+        wall = _wall(fn, args.steps)
+        trace, prof_wall = _profile(fn, args.steps)
+        _summarize(label, trace, args.steps, wall, prof_wall, args.top)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

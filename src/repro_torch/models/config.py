@@ -1,0 +1,66 @@
+"""ModelConfig (counterpart of ``repro.models.config``).
+
+The same frozen dataclass as the reference, so a reference config and its
+port compare field by field.  This slice runs the dense attention blocks
+('attn' / 'local') only; ``models.transformer`` rejects the rest.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense|moe|hybrid|ssm|vlm|audio|encoder
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab_size: int
+    n_kv_heads: int = 0           # 0 -> n_heads (MHA)
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    activation: str = "silu"      # FFN activation (gate act when glu)
+    glu: bool = True
+    qkv_bias: bool = False
+    norm: str = "rms"             # rms|ln
+    positions: str = "rope"       # rope|none
+    rope_theta: float = 10000.0
+    max_seq_len: int = 8192
+    window: int | None = None     # sliding window (all attention blocks)
+    logit_softcap: float | None = None
+    embedding_scale: bool = False  # gemma: embeds *= sqrt(d_model)
+    tie_embeddings: bool = True
+    causal: bool = True
+    block_pattern: tuple = ("attn",)
+    local_window: int = 2048
+
+    def __post_init__(self):
+        if self.n_kv_heads == 0:
+            object.__setattr__(self, "n_kv_heads", self.n_heads)
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def pattern_layers(self):
+        """Per-layer block types, the pattern cycled to n_layers."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of a dense attention LM (embeddings once if tied)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    n = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    attn += cfg.n_heads * hd * d
+    if cfg.qkv_bias:
+        attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    ffn = (3 if cfg.glu else 2) * d * cfg.d_ff
+    norms = 2 * d * (2 if cfg.norm == "ln" else 1)
+    n += cfg.n_layers * (attn + ffn + norms)
+    return n + d * (2 if cfg.norm == "ln" else 1)

@@ -1,0 +1,124 @@
+"""Serving engine over the paged cache (counterpart of
+``repro.serve.engine``): config, pool and cache construction, block-table
+installs, and the two step functions of continuous serving —
+``prefill_chunk`` and ``decode_step``.
+
+Unlike the reference's functional updates, ``set_block_tables``,
+``reset_blocks`` and both step functions update the cache IN PLACE (the
+pages, slot-position maps and the shared block table); they return the
+cache for symmetry with the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core import MuxSpec
+from repro_torch.models import TransformerLM
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.kvpool import KVPool, blocks_for
+
+
+def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
+    if global_batch % max(mux.n, 1):
+        raise ValueError(f"batch {global_batch} not divisible by N={mux.n}")
+    return global_batch // max(mux.n, 1)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """A decoder-only LM served from fp32 pages of ``block_size`` tokens
+    (the reference's ``kind``, ``cache_layout``, ``dtype``, ``kv_dtype``
+    and ``n_shards`` fields are fixed to 'lm', 'paged', fp32, None and 1
+    in this slice)."""
+    cfg: ModelConfig
+    mux: MuxSpec
+    capacity: int              # KV capacity (max context)
+    block_size: int = 16
+
+    def __post_init__(self):
+        if self.block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {self.block_size}")
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return blocks_for(self.capacity, self.block_size)
+
+    def pool_blocks(self, global_batch: int) -> int:
+        """Worst case (every row at capacity) plus the trash block."""
+        b = backbone_batch(global_batch, self.mux)
+        return b * self.max_blocks_per_seq + 1
+
+
+def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
+    """Host allocator matching ``init_cache(sc, global_batch)``."""
+    return KVPool(num_blocks=sc.pool_blocks(global_batch),
+                  block_size=sc.block_size,
+                  max_blocks_per_seq=sc.max_blocks_per_seq)
+
+
+def init_cache(sc: ServeConfig, global_batch: int, device="cpu"):
+    return TransformerLM.init_cache(
+        sc.cfg, backbone_batch(global_batch, sc.mux), sc.capacity,
+        block_size=sc.block_size, num_blocks=sc.pool_blocks(global_batch),
+        device=device)
+
+
+def set_block_tables(cache, block_tables):
+    """Install a host (B, max_blocks_per_seq) table into the cache's shared
+    block table, in place."""
+    cache["bt"].copy_(torch.as_tensor(np.asarray(block_tables, np.int32)))
+    return cache
+
+
+def reset_blocks(cache, block_ids):
+    """Mark pool blocks empty (position entries -1) in every layer, in
+    place.  Required for blocks from ``KVPool.allocate``/``append`` before
+    their first write: freed blocks are reused without clearing, and stale
+    position entries would leak a retired request's KV into the new
+    owner."""
+    ids = list(block_ids)
+    if not ids:
+        return cache
+    idx = torch.as_tensor(ids, dtype=torch.long, device=cache["bt"].device)
+    for c in cache["layers"]:
+        c["ppos"][idx] = -1
+    return cache
+
+
+def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
+                  length, use_kernels: bool = True):
+    """One bucket-padded prompt chunk for the backbone rows ``rows``.
+
+    tokens: (len(rows) * N, C); KV is written at positions start ..
+    start + length - 1 of the rows' pages (the padded tail goes to the
+    trash block) and each query attends causally over the rows' written
+    blocks.  Returns (logits at the chunk's last valid position
+    (len(rows) * N, V), cache)."""
+    dev = cache["bt"].device
+    start = torch.as_tensor(start, device=dev).long()
+    length = torch.as_tensor(length, device=dev).long()
+    ctx = {"rows": torch.as_tensor(rows, device=dev).long(),
+           "chunked": True, "q_end": start + length}
+    h = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux, cache=cache,
+                            q_offset=start, logits_out=False,
+                            use_kernels=use_kernels,
+                            extra_ctx=ctx)["hidden"]          # (NB, C, D)
+    if length.ndim:          # per-row lengths, mux-major instance order
+        last = length.repeat(h.shape[0] // length.shape[0]) - 1
+    else:
+        last = (length - 1).expand(h.shape[0])
+    h_last = h[torch.arange(h.shape[0], device=dev), last]
+    return TransformerLM.logits(params, sc.cfg, h_last), cache
+
+
+def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
+                use_kernels: bool = True):
+    """One decode step.  tokens (N*B, 1); pos (B,) per-row positions (-1 =
+    inactive row).  Returns (logits (N*B, 1, V), cache)."""
+    out = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
+                              cache=cache, q_offset=pos,
+                              use_kernels=use_kernels)
+    return out["logits"], cache

@@ -1,0 +1,205 @@
+"""Paged KV-cache pool: host block allocator + device page ops
+(counterpart of ``repro.serve.kvpool``; fp pages, one shard).
+
+  * ``KVPool``   — host-side allocator (numpy only): free list, per-client
+                   block tables, allocate / append / free.  A client is one
+                   backbone row of the serve grid (a mux group of N
+                   streams sharing the row's muxed KV).
+  * page ops     — per attention layer, ``(num_blocks, block_size, Hkv,
+                   Dh)`` K/V pages plus a per-slot absolute position map;
+                   ``paged_write`` scatters new entries IN PLACE (the
+                   reference's functional ``.at[].set`` becomes an
+                   in-place ``index_put_``), ``paged_view`` gathers a
+                   contiguous view for the plain attention path.
+
+Block 0 is the trash block: writes for invalid positions (bucket padding,
+inactive rows) go there and its position entries stay -1, so they are
+always masked out of attention.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+class PoolError(RuntimeError):
+    """Misuse of the pool API (double alloc / double free / unknown client)."""
+
+
+class PoolExhausted(PoolError):
+    """No free blocks left (or a client hit its per-sequence block cap)."""
+
+
+TRASH_BLOCK = 0
+
+
+def blocks_for(num_tokens: int, block_size: int) -> int:
+    """Number of blocks needed to hold ``num_tokens`` entries."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    return -(-max(num_tokens, 0) // block_size)
+
+
+@dataclass
+class KVPool:
+    """Host-side block allocator with per-client block tables.
+    ``num_blocks`` includes the reserved trash block 0."""
+    num_blocks: int
+    block_size: int
+    max_blocks_per_seq: int
+    _free: list = field(init=False, repr=False)
+    _tables: dict = field(default_factory=dict, init=False, repr=False)
+    _lens: dict = field(default_factory=dict, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        if self.block_size < 1 or self.max_blocks_per_seq < 1:
+            raise ValueError("block_size / max_blocks_per_seq must be >= 1")
+        # LIFO free list over ids 1..num_blocks-1 (0 = trash)
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+
+    @property
+    def n_free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used_blocks(self) -> int:
+        return (self.num_blocks - 1) - len(self._free)
+
+    def used_tokens(self) -> int:
+        return sum(self._lens.values())
+
+    def utilization(self) -> float:
+        """Fraction of allocatable pool slots holding live tokens."""
+        return self.used_tokens() / ((self.num_blocks - 1) * self.block_size)
+
+    def occupancy_stats(self) -> list:
+        """One entry (this unsharded pool): live/free blocks and the
+        occupied fraction; telemetry publishes them as gauges."""
+        return [{"used": self.n_used_blocks, "free": self.n_free_blocks,
+                 "occupancy": self.n_used_blocks / (self.num_blocks - 1)}]
+
+    def _take(self, n: int):
+        if n > len(self._free):
+            raise PoolExhausted(f"need {n} blocks, {len(self._free)} free")
+        return [self._free.pop() for _ in range(n)]
+
+    def allocate(self, cid, num_tokens: int = 0):
+        """Register ``cid`` and reserve blocks for ``num_tokens``.  Blocks
+        are reused without device-side clearing: reset their position
+        entries (``engine.reset_blocks``) before the first write."""
+        if cid in self._tables:
+            raise PoolError(f"client {cid!r} already allocated")
+        n = blocks_for(num_tokens, self.block_size)
+        if n > self.max_blocks_per_seq:
+            raise PoolExhausted(
+                f"{num_tokens} tokens exceed per-seq cap "
+                f"{self.max_blocks_per_seq * self.block_size}")
+        blocks = self._take(n)
+        self._tables[cid] = blocks
+        self._lens[cid] = num_tokens
+        return list(blocks)
+
+    def append(self, cid, n: int = 1) -> list:
+        """Grow ``cid`` by ``n`` tokens; returns the newly allocated block
+        ids (reset them before writing)."""
+        if cid not in self._tables:
+            raise PoolError(f"client {cid!r} not allocated")
+        new_len = self._lens[cid] + n
+        need = blocks_for(new_len, self.block_size)
+        if need > self.max_blocks_per_seq:
+            raise PoolExhausted(
+                f"client {cid!r}: {new_len} tokens exceed per-seq cap "
+                f"{self.max_blocks_per_seq * self.block_size}")
+        fresh = []
+        if need > len(self._tables[cid]):
+            fresh = self._take(need - len(self._tables[cid]))
+            self._tables[cid].extend(fresh)
+        self._lens[cid] = new_len
+        return fresh
+
+    def free(self, cid):
+        if cid not in self._tables:
+            raise PoolError(f"client {cid!r} not allocated (double free?)")
+        self._free.extend(reversed(self._tables.pop(cid)))
+        del self._lens[cid]
+
+    def block_table(self, cid) -> np.ndarray:
+        """(max_blocks_per_seq,) int32, -1-padded."""
+        if cid not in self._tables:
+            raise PoolError(f"client {cid!r} not allocated")
+        bt = np.full((self.max_blocks_per_seq,), -1, np.int32)
+        blocks = self._tables[cid]
+        bt[:len(blocks)] = blocks
+        return bt
+
+    def table_array(self, clients) -> np.ndarray:
+        """(len(clients), max_blocks_per_seq) int32; None or unallocated
+        clients give all -1 rows."""
+        out = np.full((len(clients), self.max_blocks_per_seq), -1, np.int32)
+        for i, cid in enumerate(clients):
+            if cid is not None and cid in self._tables:
+                out[i] = self.block_table(cid)
+        return out
+
+    def check_invariants(self):
+        """Test hook: no block owned twice, free list disjoint."""
+        owned = [b for blks in self._tables.values() for b in blks]
+        assert len(owned) == len(set(owned)), "block owned by two clients"
+        assert not (set(owned) & set(self._free)), "owned block on free list"
+        assert TRASH_BLOCK not in owned and TRASH_BLOCK not in self._free
+        assert len(owned) + len(self._free) == self.num_blocks - 1
+
+
+# ---------------------------------------------------------------- device
+
+def init_pages(num_blocks: int, block_size: int, n_kv_heads: int,
+               head_dim: int, device="cpu"):
+    """fp32 pages for ONE attention layer + its per-slot position map."""
+    shape = (num_blocks, block_size, n_kv_heads, head_dim)
+    return {"kp": torch.zeros(shape, device=device),
+            "vp": torch.zeros(shape, device=device),
+            "ppos": torch.full((num_blocks, block_size), -1,
+                               dtype=torch.int32, device=device)}
+
+
+def paged_write(cache, k, v, positions, block_tables=None):
+    """Scatter L new KV entries per row into their pages, in place.
+
+    k, v: (B, L, Hkv, Dh); positions: (B, L) absolute positions, entries
+    < 0 (padding, inactive rows) go to the trash block and stay masked.
+    block_tables overrides ``cache['bt']`` (a row subset).  Rows own
+    disjoint blocks, so scatters never collide across rows.  Returns
+    ``cache``."""
+    bt = (cache["bt"] if block_tables is None else block_tables).long()
+    bs = cache["kp"].shape[1]
+    positions = positions.long()
+    blk = torch.div(positions, bs, rounding_mode="floor")
+    in_range = (positions >= 0) & (blk < bt.shape[1])
+    page = torch.gather(bt, 1, blk.clamp(0, bt.shape[1] - 1))
+    valid = in_range & (page >= 0)
+    page = torch.where(valid, page, TRASH_BLOCK)
+    slot = torch.where(valid, positions % bs, 0)
+    stored = torch.where(valid, positions, -1)
+    cache["kp"].index_put_((page, slot), k)
+    cache["vp"].index_put_((page, slot), v)
+    cache["ppos"].index_put_((page, slot), stored.to(torch.int32))
+    return cache
+
+
+def paged_view(cache, block_tables=None):
+    """Each row's pages gathered into a contiguous (B, MB*BS, Hkv, Dh)
+    view plus per-row slot positions (B, MB*BS), -1 for empty or
+    unallocated.  The plain attention path reads this; the kernels read
+    the pages in place."""
+    bt = (cache["bt"] if block_tables is None else block_tables).long()
+    b = bt.shape[0]
+    btc = bt.clamp(min=0)
+    k = cache["kp"][btc]
+    v = cache["vp"][btc]
+    pos = torch.where(bt[..., None] >= 0, cache["ppos"][btc], -1)
+    return (k.reshape(b, -1, *k.shape[3:]), v.reshape(b, -1, *v.shape[3:]),
+            pos.reshape(b, -1))

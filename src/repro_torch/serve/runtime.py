@@ -1,0 +1,312 @@
+"""Serve runtime: chunked prefill interleaved with decode, one device
+(counterpart of ``repro.serve.runtime``, paged and chunked; mesh, shards,
+lanes, handoff and kill-shard are later slices).
+
+``ServeRuntime`` executes the scheduler's plans against the paged cache:
+
+  * **decode step** — the whole N_mux × B grid advances one token: (NB, 1)
+    tokens and a (B,) per-row position vector go in, the (NB,) sampled
+    tokens come back to the host (the one device sync per step).
+  * **prefill-chunk step** — a joining row's prompt advances one
+    fixed-size chunk per engine step, padded to a power-of-two bucket
+    (padded positions go to the trash block and are fully masked).
+
+PyTorch runs eagerly, so nothing is compiled per shape.  The reference's
+compile-once contract keeps its meaning through ``trace_counts``: each
+distinct step shape signature (``decode``, ``prefill_<bucket>``) is
+counted the first time it runs, and ``check_compile_once`` asserts that
+only the declared signatures ever ran.  Every step updates the cache in
+place.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.serve import sampling
+from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
+                                      make_pool, prefill_chunk, reset_blocks,
+                                      set_block_tables)
+from repro_torch.serve.kvpool import PoolExhausted
+from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.telemetry import NULL_TELEMETRY
+
+MIN_BUCKET = 4
+PAD_ID = 0           # token fed to empty slots and bucket padding
+
+
+def chunk_buckets(chunk: int, min_bucket: int = MIN_BUCKET):
+    """Powers of two below ``chunk``, then ``chunk`` itself."""
+    b, out = min_bucket, []
+    while b < chunk:
+        out.append(b)
+        b *= 2
+    out.append(chunk)
+    return out
+
+
+def resolve_device(device=None) -> torch.device:
+    """The serving device: ``cuda`` unless the caller names another.  A
+    CUDA device with no card raises — serving never falls back to the CPU
+    on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to serve on "
+                           "the CPU with the kernels' plain versions")
+    if dev.type == "cuda":
+        # the reference serves in full fp32; TF32 would keep ~3 digits
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def params_to(params, device):
+    """The param tree with every tensor on ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    return params.to(device)
+
+
+class ServeRuntime:
+    """Plan-executing runtime over the paged KV pool.
+
+    params/sc: model params and a ``ServeConfig``.  backbone_rows: B rows
+    of the N_mux × B grid.  chunk: prefill chunk size in tokens.
+    Requests carry their own ``SamplingParams`` (None = greedy).
+    use_kernels: run the main path's kernels (the wrappers in
+    ``kernels.ops`` launch them on CUDA and use their plain versions on
+    the CPU); False runs the plain model path.  device: defaults to
+    ``cuda`` and raises without a card.  telemetry: a
+    ``serve.telemetry.Telemetry`` (None = disabled).
+    """
+
+    def __init__(self, params, sc: ServeConfig, backbone_rows: int, *,
+                 chunk: int = 32, on_prefill=None, use_kernels: bool = True,
+                 device=None, telemetry=None):
+        if chunk is None or chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk} (blocking "
+                             "prefill is a later slice of the port)")
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+        self.sc = sc
+        self.n_mux = max(sc.mux.n, 1)
+        self.nrows = backbone_rows
+        self.nb = self.n_mux * backbone_rows
+        self.chunk = chunk
+        self.buckets = chunk_buckets(chunk)
+        self.on_prefill = on_prefill
+        self.use_kernels = use_kernels
+        self.tele = telemetry if telemetry is not None else NULL_TELEMETRY
+        self.sched = ContinuousScheduler(n_mux=self.n_mux,
+                                         backbone_batch=backbone_rows,
+                                         max_len=sc.capacity,
+                                         telemetry=self.tele)
+        self.pool = make_pool(sc, self.nb)
+        self.cache = init_cache(sc, self.nb, self.device)
+        self.row_len: dict[int, int] = {}      # rows holding blocks
+        self.row_tokens: dict[int, np.ndarray] = {}
+        self.next_tok = np.full((self.n_mux, backbone_rows), PAD_ID,
+                                np.int32)
+        self.engine_steps = 0
+        self.trace_counts: dict[str, int] = {}
+        self.stats = {"prefill_tokens": 0, "prefill_events": 0,
+                      "prefill_compute_tokens": 0, "decode_steps": 0,
+                      "prefill_log": [], "slot_util": [], "cache_util": [],
+                      "completed": self.sched.completed,
+                      "trace_counts": self.trace_counts}
+
+    def _first_run(self, key: str):
+        """Count a step signature the first time it runs."""
+        if key not in self.trace_counts:
+            self.trace_counts[key] = 1
+            if self.tele.enabled:
+                self.tele.inc("compiles", program=key)
+                self.tele.instant("compile", program=key)
+
+    def check_compile_once(self):
+        """Assert that only the declared step signatures ran: one decode
+        step and one per prefill bucket."""
+        legal = {"decode"} | {f"prefill_{b}" for b in self.buckets}
+        for k, v in self.trace_counts.items():
+            if k not in legal or v != 1:
+                raise AssertionError(
+                    f"unexpected step signature {k!r}: {self.trace_counts} "
+                    f"(declared buckets {self.buckets})")
+
+    # -- per-stream sampling vectors --------------------------------------
+    def _sampling_row(self, j: int):
+        reqs = [self.sched.slots[j][i].request for i in range(self.n_mux)]
+        arr = sampling.params_arrays(
+            [r.sampling if r is not None else None for r in reqs])
+        steps = np.asarray([len(r.output) if r is not None else 0
+                            for r in reqs], np.int32)
+        return arr, steps
+
+    def _sampling_grid(self):
+        """Mux-major (NB,) vectors: stream i of row j at i * B + j."""
+        plist, steps = [], []
+        for i in range(self.n_mux):
+            for j in range(self.nrows):
+                r = self.sched.slots[j][i].request
+                plist.append(r.sampling if r is not None else None)
+                steps.append(len(r.output) if r is not None else 0)
+        return sampling.params_arrays(plist), np.asarray(steps, np.int32)
+
+    def _sample(self, logits, arr, steps):
+        return sampling.sample(logits, arr["temperature"], arr["top_k"],
+                               arr["top_p"], arr["seed"], steps)
+
+    # -- plan execution ----------------------------------------------------
+    def submit(self, request):
+        self.sched.submit(request)
+
+    def has_work(self) -> bool:
+        return bool(self.sched.queue) or self.sched.n_active > 0
+
+    def step(self):
+        """One engine step: admissions, one chunk per mid-prefill row,
+        one decode over the grid, frees."""
+        with self.tele.span("engine_step", metric="step_latency_s"):
+            self._exec_admissions()
+            for plan in self.sched.plan_chunks(self.chunk):
+                with self.tele.span("prefill_chunk",
+                                    metric="prefill_chunk_s", row=plan.row,
+                                    start=plan.start, length=plan.length,
+                                    last=plan.last):
+                    self._exec_chunk(plan)
+            self._exec_frees()         # e.g. max_new=1 done at prefill
+            rows = [j for j in self.sched.plan_decode().rows
+                    if j in self.row_len]
+            if rows:
+                self._exec_decode(rows)
+                self._exec_frees()
+        self.engine_steps += 1
+        if self.tele.enabled:
+            st = self.pool.occupancy_stats()[0]
+            self.tele.gauge("pool_occupancy", st["occupancy"])
+            self.tele.gauge("pool_free_blocks", st["free"])
+
+    def _install_tables(self):
+        set_block_tables(self.cache, self.pool.table_array(range(self.nrows)))
+
+    def _exec_admissions(self):
+        admitted = False
+        for plan in self.sched.plan_admissions(PAD_ID):
+            try:
+                blocks = self.pool.allocate(plan.row, plan.total)
+            except PoolExhausted:
+                # backpressure: roll the group back, retry after drains
+                self.sched.cancel_admit(plan)
+                if self.tele.enabled:
+                    self.tele.inc("admit_rollbacks")
+                if self.pool.n_used_blocks == 0:
+                    raise PoolExhausted(
+                        f"request group of {plan.total} tokens cannot fit "
+                        f"an empty pool (num_blocks={self.pool.num_blocks}, "
+                        f"block_size={self.pool.block_size})")
+                continue
+            self.row_len[plan.row] = plan.total
+            self.row_tokens[plan.row] = np.asarray(plan.tokens, np.int32)
+            reset_blocks(self.cache, blocks)
+            admitted = True
+        if admitted:
+            self._install_tables()
+
+    def _bucket(self, n: int) -> int:
+        return next((b for b in self.buckets if b >= n), self.buckets[-1])
+
+    def _exec_chunk(self, plan):
+        j = plan.row
+        toks = self.row_tokens[j][:, plan.start:plan.start + plan.length]
+        arr, steps = self._sampling_row(j)
+        compute = self._bucket(plan.length)
+        buf = np.full((self.n_mux, compute), PAD_ID, np.int64)
+        buf[:, :plan.length] = toks
+        self._first_run(f"prefill_{compute}")
+        logits, _ = prefill_chunk(
+            self.params, self.sc, self.cache,
+            torch.from_numpy(buf).to(self.device), rows=[j],
+            start=plan.start, length=plan.length,
+            use_kernels=self.use_kernels)
+        out = self._sample(logits, arr, steps)
+        self.stats["prefill_tokens"] += plan.length
+        self.stats["prefill_compute_tokens"] += compute
+        self.stats["prefill_events"] += 1
+        self.stats["prefill_log"].append(((j,), plan.length))
+        if self.on_prefill is not None:
+            self.on_prefill((j,), plan.length)
+        done = self.sched.chunk_done(j, plan.length)
+        if plan.last:
+            assert done
+            first = out.cpu().numpy()          # the row's first tokens
+            self.sched.record_row_tokens(j, first, now=time.time())
+            self.next_tok[:, j] = first
+
+    def _clear_dead_slots(self):
+        for j in range(self.nrows):
+            if j in self.sched.prefill_progress:
+                self.next_tok[:, j] = PAD_ID
+                continue
+            for i in range(self.n_mux):
+                if self.sched.slots[j][i].request is None:
+                    self.next_tok[i, j] = PAD_ID
+
+    def _exec_decode(self, rows):
+        pos_vec = np.full((self.nrows,), -1, np.int64)
+        fresh, preempt = [], []
+        for j in rows:
+            try:
+                fresh += self.pool.append(j)    # reserve the new slot
+            except PoolExhausted:
+                preempt.append(j)
+                continue
+            pos_vec[j] = self.row_len[j]
+        if preempt and len(self.row_len) == 1:
+            raise PoolExhausted(
+                f"a single row outgrew the whole pool (num_blocks="
+                f"{self.pool.num_blocks}, block_size={self.pool.block_size})"
+                " — it can never be served")
+        for j in preempt:
+            self.sched.preempt_row(j)
+            self.pool.free(j)
+            del self.row_len[j]
+            del self.row_tokens[j]
+            if self.tele.enabled:
+                self.tele.inc("preempts")
+        reset_blocks(self.cache, fresh)
+        if fresh or preempt:
+            self._install_tables()
+        rows = [j for j in rows if j not in preempt]
+        if not rows:
+            return
+        self._clear_dead_slots()
+        toks_in = torch.from_numpy(
+            self.next_tok.reshape(-1, 1).astype(np.int64)).to(self.device)
+        arr, steps = self._sampling_grid()
+        self._first_run("decode")
+        with self.tele.span("decode", metric="decode_step_s", rows=len(rows)):
+            logits, _ = decode_step(self.params, self.sc, self.cache,
+                                    toks_in,
+                                    torch.from_numpy(pos_vec).to(self.device),
+                                    use_kernels=self.use_kernels)
+            out = self._sample(logits[:, 0], arr, steps)
+            grid = out.cpu().numpy().reshape(self.n_mux, self.nrows)
+        now = time.time()
+        for j in rows:
+            self.sched.record_row_tokens(j, grid[:, j], now=now)
+            self.row_len[j] += 1
+        self.next_tok = grid.astype(np.int32)
+        self.stats["decode_steps"] += 1
+        self.stats["slot_util"].append(self.sched.utilization())
+        self.stats["cache_util"].append(self.pool.utilization())
+
+    def _exec_frees(self):
+        for plan in self.sched.plan_frees():
+            if plan.row in self.row_len:
+                self.pool.free(plan.row)
+                del self.row_len[plan.row]
+                del self.row_tokens[plan.row]

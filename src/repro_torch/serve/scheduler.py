@@ -1,0 +1,233 @@
+"""Continuous batching policy (host-side copy of the parts of
+``repro.serve.scheduler`` that the paged, chunked, single-device runtime
+uses; shards, lanes and handoffs are later slices).
+
+``ContinuousScheduler`` keeps an N_mux × B grid of stream slots: slot
+(i, j) is mux stream i of backbone row j.  Admission is row-level: queued
+requests are grouped into entirely empty rows only, so a joining group is
+prefilled once into freshly allocated blocks and occupied rows are never
+re-prefilled.  The scheduler emits typed plans — ``AdmitPlan``,
+``PrefillChunkPlan``, ``DecodePlan``, ``FreePlan`` — that
+``serve.runtime.ServeRuntime`` executes; allocation failures come back
+through ``cancel_admit`` and ``preempt_row``.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.serve.telemetry import NULL_TELEMETRY
+
+
+@dataclass
+class StreamSlot:
+    request: object = None        # serve.batcher.Request | None
+    pos: int = 0                  # next decode position
+
+
+@dataclass(frozen=True)
+class AdmitPlan:
+    """A newly formed mux group, already placed in row ``row``'s slots.
+    The runtime either allocates blocks for ``total`` tokens and starts
+    chunked prefill of ``tokens`` (N_mux, total), or rolls the plan back
+    with ``cancel_admit``."""
+    row: int
+    placed: tuple                 # ((slot, request), ...)
+    tokens: np.ndarray            # (N_mux, total) padded current sequences
+    total: int
+
+
+@dataclass(frozen=True)
+class PrefillChunkPlan:
+    """Advance row ``row``'s prefill by ``length`` tokens from ``start``;
+    ``last`` marks the chunk that completes the prompt (its logits give
+    the row's first generated tokens)."""
+    row: int
+    start: int
+    length: int
+    last: bool
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """Rows that decode one token this step: active, not mid-prefill."""
+    rows: tuple
+
+
+@dataclass(frozen=True)
+class FreePlan:
+    """A drained row whose blocks the runtime returns to the pool."""
+    row: int
+
+
+@dataclass
+class ContinuousScheduler:
+    n_mux: int
+    backbone_batch: int
+    max_len: int
+    telemetry: object = None
+    queue: collections.deque = field(default_factory=collections.deque)
+    slots: list = field(init=False)
+    completed: list = field(default_factory=list, init=False)
+    # row -> [filled, total] for rows mid-way through chunked prefill
+    prefill_progress: dict = field(default_factory=dict, init=False)
+
+    def __post_init__(self):
+        if self.telemetry is None:
+            self.telemetry = NULL_TELEMETRY
+        self.slots = [[StreamSlot() for _ in range(self.n_mux)]
+                      for _ in range(self.backbone_batch)]
+
+    def submit(self, request):
+        if getattr(request, "t_submit", None) is None:
+            request.t_submit = time.time()
+        self.queue.append(request)
+
+    @property
+    def n_active(self):
+        return sum(1 for row in self.slots for s in row
+                   if s.request is not None)
+
+    def _stamp_admit(self, r):
+        r.t_admit = now = time.time()
+        if self.telemetry.enabled and r.t_submit is not None:
+            self.telemetry.observe("queue_wait_s", now - r.t_submit)
+
+    def admit_paged(self):
+        """Group queued requests (up to N per row) into empty rows.
+        Returns [(row, [(slot, request), ...]), ...]."""
+        placements = []
+        for j in range(self.backbone_batch):
+            if not self.queue:
+                break
+            if self.row_active(j):
+                continue
+            placed = []
+            for i in range(self.n_mux):
+                if not self.queue:
+                    break
+                r = self.queue.popleft()
+                self.slots[j][i] = StreamSlot(request=r)
+                self._stamp_admit(r)
+                placed.append((i, r))
+            # every stream's position in the muxed row is the row's padded
+            # length, keeping max_len retirement in step with the row's
+            # physical length
+            l_pad = max(len(r.prompt) + len(r.output) for _, r in placed)
+            for i, _ in placed:
+                self.slots[j][i].pos = l_pad
+            placements.append((j, placed))
+        return placements
+
+    def plan_admissions(self, pad_id: int = 0):
+        """One AdmitPlan per newly formed group; registers the row for
+        chunked prefill."""
+        plans = []
+        for j, placed in self.admit_paged():
+            tokens = self.row_prompts(j, pad_id)
+            self.prefill_progress[j] = [0, tokens.shape[1]]
+            plans.append(AdmitPlan(row=j, placed=tuple(placed),
+                                   tokens=tokens, total=tokens.shape[1]))
+        return plans
+
+    def cancel_admit(self, plan: AdmitPlan):
+        """Roll an admission back: un-place the group and put its requests
+        back at the head of the queue."""
+        del self.prefill_progress[plan.row]
+        for i, r in reversed(plan.placed):
+            self.slots[plan.row][i] = StreamSlot()
+            self.queue.appendleft(r)
+
+    def plan_chunks(self, chunk: int):
+        """One PrefillChunkPlan per mid-prefill row: its next ``chunk``
+        tokens."""
+        plans = []
+        for j, (filled, total) in self.prefill_progress.items():
+            n = min(chunk, total - filled)
+            plans.append(PrefillChunkPlan(row=j, start=filled, length=n,
+                                          last=filled + n >= total))
+        return plans
+
+    def chunk_done(self, row: int, n: int) -> bool:
+        """Advance a row's prefill; True when the prompt is complete."""
+        st = self.prefill_progress[row]
+        st[0] += n
+        if st[0] >= st[1]:
+            del self.prefill_progress[row]
+            return True
+        return False
+
+    def plan_decode(self):
+        return DecodePlan(rows=tuple(
+            j for j in range(self.backbone_batch)
+            if j not in self.prefill_progress and self.row_active(j)))
+
+    def plan_frees(self):
+        return [FreePlan(row=j) for j in range(self.backbone_batch)
+                if j not in self.prefill_progress and not self.row_active(j)]
+
+    def preempt_row(self, j: int):
+        """Requeue row j's live requests at the head of the queue (prompt +
+        generated-so-far is re-prefilled on re-admission)."""
+        self.prefill_progress.pop(j, None)
+        for i in reversed(range(self.n_mux)):
+            s = self.slots[j][i]
+            if s.request is not None:
+                self.queue.appendleft(s.request)
+            self.slots[j][i] = StreamSlot()
+
+    def row_active(self, j: int) -> bool:
+        return any(s.request is not None for s in self.slots[j])
+
+    def row_prompts(self, j: int, pad_id: int = 0):
+        """Row j's N current token sequences, right-padded to one length."""
+        seqs = [list(s.request.prompt) + s.request.output if s.request
+                else [pad_id] for s in self.slots[j]]
+        arr = np.full((self.n_mux, max(map(len, seqs))), pad_id, np.int32)
+        for i, t in enumerate(seqs):
+            arr[i, :len(t)] = t
+        return arr
+
+    def _record_slot(self, j: int, i: int, token, now: float) -> int:
+        s = self.slots[j][i]
+        if s.request is None:
+            return 0
+        r = s.request
+        r.output.append(int(token))
+        tele = self.telemetry
+        if r.t_first is None:
+            r.t_first = now
+            if tele.enabled and r.t_submit is not None:
+                tele.observe("ttft_s", now - r.t_submit)
+        s.pos += 1
+        if len(r.output) < r.max_new and s.pos < self.max_len:
+            return 0
+        r.done = True
+        r.t_done = now
+        self.completed.append(r)
+        self.slots[j][i] = StreamSlot()
+        if tele.enabled:
+            tele.inc("requests_completed")
+            if len(r.output) > 1 and now > r.t_first:
+                tele.observe("tpot_s",
+                             (now - r.t_first) / (len(r.output) - 1))
+        return 1
+
+    def record_row_tokens(self, j: int, tokens, now: float | None = None):
+        """tokens (N_mux,): the next token of each stream of row j, on the
+        host.  Retires finished requests; returns the number retired."""
+        if now is None:
+            now = time.time()
+        before = sum(1 for s in self.slots[j] if s.request is not None)
+        retired = sum(self._record_slot(j, i, tokens[i], now)
+                      for i in range(self.n_mux))
+        if self.telemetry.enabled:
+            self.telemetry.inc("tokens_generated", before)
+        return retired
+
+    def utilization(self) -> float:
+        """Occupied fraction of the N_mux × B slot grid."""
+        return self.n_active / (self.n_mux * self.backbone_batch)

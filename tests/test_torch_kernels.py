@@ -1,0 +1,278 @@
+"""The port's four main-path kernels (``repro_torch.kernels``).
+
+CPU: each kernel's plain PyTorch version against the JAX Pallas kernel in
+interpret mode, over the edge shapes of ``tests/test_paged_attention.py``
+(single-block rows, a chunk ending on a block boundary, non-power-of-2
+lengths, B=1, -1 table entries, inactive rows — compared whole: both sides
+return the uniform mean of V for a fully masked query), plus the wrappers'
+CPU dispatch and counts.  Inputs come from ``np.random.default_rng``.
+
+Tolerances: fp32 on both sides, differing only in summation order — the
+reference suite's own kernel-vs-oracle bounds (atol 3e-5 / rtol 1e-4 for
+attention over O(1) inputs, 2e-4 for the demux MLP whose two products sum
+over D=64 and F=128 terms).
+
+CUDA (marked ``cuda``, skipped without a card): each kernel against its
+plain version on the card, at these shapes and at the full qwen2-1.5b
+widths.  The card's machine has no JAX, so the reference is imported
+inside the CPU tests only: ``pytest -m cuda`` runs there.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(2)
+
+ATT_TOL = dict(atol=3e-5, rtol=1e-4)
+DEMUX_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def build_pool(rng, lens, *, num_blocks, block_size, max_blocks, hkv, dh):
+    """Per-row blocks (block 0 = trash) with random K/V; a negative length
+    is an unallocated (all -1) row."""
+    kp = rng.standard_normal((num_blocks, block_size, hkv, dh), np.float32)
+    vp = rng.standard_normal((num_blocks, block_size, hkv, dh), np.float32)
+    bt = np.full((len(lens), max_blocks), -1, np.int32)
+    ppos = np.full((num_blocks, block_size), -1, np.int32)
+    free = list(range(1, num_blocks))
+    for b, n in enumerate(lens):
+        if n < 0:
+            continue
+        blocks = [free.pop() for _ in range(-(-n // block_size))]
+        bt[b, :len(blocks)] = blocks
+        for t in range(n):
+            ppos[blocks[t // block_size], t % block_size] = t
+    return kp, vp, bt, ppos
+
+
+# (B, H, Hkv, Dh, BS, MB, P, lens, q_pos, window)
+DECODE_CASES = {
+    "hetero_inactive": (3, 8, 2, 16, 8, 6, 16, [37, 12, -1], [36, 11, -1],
+                        None),
+    "window": (3, 8, 2, 16, 8, 6, 16, [37, 12, 20], [36, 11, 19], 12),
+    "mha": (3, 8, 8, 16, 8, 6, 16, [37, 12, 5], [36, 11, 4], None),
+    "single_block_rows": (3, 4, 2, 8, 8, 1, 8, [8, 3, 1], [7, 2, 0], None),
+    "non_pow2": (3, 8, 2, 16, 8, 4, 16, [29, 13, 7], [28, 12, 6], None),
+    "b1": (1, 4, 2, 8, 4, 4, 8, [13], [12], None),
+}
+
+# (B, Lq, H, Hkv, Dh, BS, MB, P, lens, q_start, q_len)
+PREFILL_CASES = {
+    "single_block_rows": (2, 4, 4, 2, 8, 8, 1, 8, [8, 6], [4, 2], [4, 4]),
+    "block_boundary": (2, 4, 4, 2, 8, 4, 6, 16, [16, 12], [12, 8], [4, 4]),
+    "non_pow2_padded": (2, 7, 4, 2, 8, 8, 4, 12, [23, 11], [16, 6], [7, 5]),
+    "inactive_row": (2, 4, 4, 2, 8, 4, 4, 12, [10, -1], [6, -1], [4, 0]),
+    "b1": (1, 4, 4, 2, 8, 4, 4, 8, [13], [9], [4]),
+}
+
+
+def _decode_inputs(case, seed=0):
+    b, h, hkv, dh, bs, mb, p, lens, q_pos, window = DECODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
+                                  max_blocks=mb, hkv=hkv, dh=dh)
+    q = rng.standard_normal((b, 1, h, dh), np.float32)
+    return (q, kp, vp, bt, ppos, np.asarray(q_pos, np.int32)), window
+
+
+def _prefill_inputs(case, seed=0):
+    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql = PREFILL_CASES[case]
+    rng = np.random.default_rng(seed)
+    kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
+                                  max_blocks=mb, hkv=hkv, dh=dh)
+    q = rng.standard_normal((b, lq, h, dh), np.float32)
+    return (q, kp, vp, bt, ppos, np.asarray(qs, np.int32),
+            np.asarray(ql, np.int32))
+
+
+def _pallas():
+    """The reference's kernel wrappers and jnp (imported on use)."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    return jops, jnp
+
+
+def _torch(args, device="cpu"):
+    return [torch.as_tensor(a, device=device) for a in args]
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_paged_attention_plain_matches_pallas(case):
+    jops, jnp = _pallas()
+    args, window = _decode_inputs(case)
+    want = jops.paged_attention(*map(jnp.asarray, args), window=window,
+                                interpret=True)
+    got = ref.paged_attention_ref(*_torch(args), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_paged_prefill_plain_matches_pallas(case):
+    jops, jnp = _pallas()
+    args = _prefill_inputs(case)
+    want = jops.paged_prefill_attention(*map(jnp.asarray, args),
+                                        interpret=True)
+    got = ref.paged_prefill_attention_ref(*_torch(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
+def _mux_inputs(n, t, vocab=97, d=48, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (n, t)).astype(np.int32),
+            rng.standard_normal((vocab, d), np.float32),
+            rng.standard_normal((n, d), np.float32))
+
+
+@pytest.mark.parametrize("n,t,scale", [(2, 4, 1.0), (2, 32, 1.0),
+                                       (4, 7, 8.0), (1, 3, 1.0)])
+def test_mux_embed_plain_matches_pallas(n, t, scale):
+    jops, jnp = _pallas()
+    args = _mux_inputs(n, t)
+    want = jops.mux_embed_combine(*map(jnp.asarray, args), scale=scale,
+                                  block_d=16, interpret=True)
+    got = ref.mux_embed_ref(*_torch(args), scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _demux_inputs(t, n=2, d=64, f=128, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    args = (r(t, d), r(n, d), r(d, f, s=0.1), r(d, f, s=0.1), r(f, s=0.1),
+            r(f, d, s=0.1), r(d, s=0.1))
+    norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+             "exit_scale": r(d, s=0.1) + 1.0, "exit_bias": r(d, s=0.1)}
+    return args, norms
+
+
+@pytest.mark.parametrize("t", [4, 32, 5])
+def test_demux_rsa_plain_matches_pallas(t):
+    jops, jnp = _pallas()
+    args, norms = _demux_inputs(t)
+    want = jops.demux_rsa(*map(jnp.asarray, args), block_t=16, block_f=64,
+                          interpret=True,
+                          **{k: v if isinstance(v, str) else jnp.asarray(v)
+                             for k, v in norms.items()})
+    got = ref.demux_rsa_fused_ref(
+        *_torch(args), **{k: v if isinstance(v, str) else torch.as_tensor(v)
+                          for k, v in norms.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DEMUX_TOL)
+
+
+def test_wrappers_use_plain_versions_on_cpu():
+    """On CPU tensors every wrapper counts the call, launches nothing and
+    returns exactly its plain version's result."""
+    ops.reset_counts()
+    args, window = _decode_inputs("hetero_inactive")
+    t = _torch(args)
+    assert torch.equal(ops.paged_attention(*t, window=window),
+                       ref.paged_attention_ref(*t, window=window))
+    t = _torch(_prefill_inputs("block_boundary"))
+    assert torch.equal(ops.paged_prefill_attention(*t),
+                       ref.paged_prefill_attention_ref(*t))
+    t = _torch(_mux_inputs(2, 4))
+    assert torch.equal(ops.mux_embed_combine(*t), ref.mux_embed_ref(*t))
+    args, norms = _demux_inputs(4)
+    norms = {k: v if isinstance(v, str) else torch.as_tensor(v)
+             for k, v in norms.items()}
+    t = _torch(args)
+    h3 = t[0].reshape(2, 2, -1)
+    got = ops.demux_rsa(h3, *t[1:], **norms)
+    assert got.shape == (2, 2, 2, 64)
+    assert torch.equal(got.reshape(2, 4, 64),
+                       ref.demux_rsa_fused_ref(*t, **norms))
+    assert ops.counts("calls") == dict.fromkeys(ops.counts(), 1)
+    assert ops.counts("launches") == dict.fromkeys(ops.counts(), 0)
+
+
+def test_kernel_launchers_reject_cpu_tensors():
+    """The kernel entry points launch on CUDA tensors only — a CPU tensor
+    is an error there, never a silent fallback."""
+    from repro_torch.kernels import demux_rsa, mux_embed, paged_attention
+    args, _ = _decode_inputs("b1")
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention_cuda(*_torch(args))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_prefill_attention_cuda(
+            *_torch(_prefill_inputs("b1")))
+    with pytest.raises(ValueError, match="CUDA"):
+        mux_embed.mux_embed_combine_cuda(*_torch(_mux_inputs(2, 4)))
+    args, _ = _demux_inputs(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        demux_rsa.demux_rsa_cuda(*_torch(args))
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_paged_attention_kernel_on_card(cuda, case):
+    args, window = _decode_inputs(case)
+    t = _torch(args, cuda)
+    got = ops.paged_attention(*t, window=window)
+    want = ref.paged_attention_ref(*t, window=window)
+    torch.testing.assert_close(got, want, **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_paged_prefill_kernel_on_card(cuda, case):
+    t = _torch(_prefill_inputs(case), cuda)
+    torch.testing.assert_close(ops.paged_prefill_attention(*t),
+                               ref.paged_prefill_attention_ref(*t),
+                               **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,vocab,d", [(2, 4, 97, 48), (2, 32, 151936, 1536),
+                                         (3, 5, 1000, 600)])
+def test_mux_embed_kernel_on_card(cuda, n, t, vocab, d):
+    a = _torch(_mux_inputs(n, t, vocab=vocab, d=d), cuda)
+    torch.testing.assert_close(ops.mux_embed_combine(*a, scale=2.0),
+                               ref.mux_embed_ref(*a, scale=2.0),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,f", [(4, 64, 128), (5, 64, 100),
+                                   (4, 1536, 3072), (33, 1536, 3072)])
+def test_demux_rsa_kernel_on_card(cuda, t, d, f):
+    args, norms = _demux_inputs(t, d=d, f=f)
+    a = _torch(args, cuda)
+    nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
+          for k, v in norms.items()}
+    torch.testing.assert_close(ops.demux_rsa(*a, **nm),
+                               ref.demux_rsa_fused_ref(*a, **nm),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_full_width_on_card(cuda):
+    """qwen2-1.5b widths: H=12 over Hkv=2, Dh=128, BS=16, decode rows and a
+    32-token chunk."""
+    rng = np.random.default_rng(1)
+    kp, vp, bt, ppos = build_pool(rng, [117, 100, 37, -1], num_blocks=33,
+                                  block_size=16, max_blocks=8, hkv=2, dh=128)
+    q = rng.standard_normal((4, 1, 12, 128), np.float32)
+    t = _torch((q, kp, vp, bt, ppos, np.asarray([116, 99, 36, -1],
+                                                np.int32)), cuda)
+    torch.testing.assert_close(ops.paged_attention(*t),
+                               ref.paged_attention_ref(*t), **ATT_TOL)
+    qc = rng.standard_normal((1, 32, 12, 128), np.float32)
+    t = _torch((qc, kp, vp, bt[:1], ppos, np.asarray([64], np.int32),
+                np.asarray([32], np.int32)), cuda)
+    torch.testing.assert_close(ops.paged_prefill_attention(*t),
+                               ref.paged_prefill_attention_ref(*t),
+                               **ATT_TOL)
