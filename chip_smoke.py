@@ -64,7 +64,10 @@ class Timer:
     calls of the same kernel) and the stream is held busy by a spin
     kernel, so the host enqueues the events and the call while the device
     is still spinning: the interval holds device time, not the host's
-    launch overhead (which the serve-step latency in phase 4 includes)."""
+    launch overhead (which the serve-step latency in phase 4 includes).
+    That holds only if ``fn`` never waits for the device, so the timed
+    calls run under torch's sync debug mode "error": a call that
+    synchronizes (a host-to-device copy, ``.item()``) fails the run."""
 
     SPIN_CYCLES = 20_000_000          # ~10 ms at the H100's boost clock
 
@@ -83,7 +86,11 @@ class Timer:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             b.record()
             b.synchronize()
             total += a.elapsed_time(b)
@@ -93,6 +100,32 @@ class Timer:
 def bound(nbytes, flops):
     t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh):
+    """The work paged attention needs on this data (no window): K/V of the
+    valid slots of each row's pages only, and QK + PV products only for
+    the (query, slot) pairs that pass the validity and causal mask.
+    q (B, Lq, H, Dh); bt (B, MB); pp (P, BS); q_pos_rows (B, Lq): each
+    query's position, -1 for a masked query.  Returns (bytes, flops, a
+    note with both counts)."""
+    bt, pp = bt.cpu().numpy(), pp.cpu().numpy()
+    q_pos_rows = q_pos_rows.cpu().numpy()
+    bs = pp.shape[1]
+    h = q.shape[2]
+    n_pages = valid = pairs = 0
+    for b in range(bt.shape[0]):
+        pages = bt[b][bt[b] >= 0]
+        pos = pp[pages].ravel()
+        pos = pos[pos >= 0]
+        n_pages += len(pages)
+        valid += len(pos)
+        pairs += sum(int((pos <= qp).sum()) for qp in q_pos_rows[b]
+                     if qp >= 0)
+    nbytes = (2 * valid * hkv * dh * 4 + 2 * q.numel() * 4
+              + bt.size * 4 + n_pages * bs * 4)
+    return nbytes, 4 * pairs * h * dh, (f"{valid} valid slots, {pairs} "
+                                        "query-slot pairs")
 
 
 def phase_kernels(torch, timer):
@@ -134,19 +167,15 @@ def phase_kernels(torch, timer):
         if timing:
             s.setdefault("timing", timing)
             s["cases"].append({"case": case, **timing})
-            line += ("  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                     "library {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                     "({bound_by})").format(**timing)
+            line += ("  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                     "library {library_ms:.5f} ms  bound {bound_ms:.6f} ms "
+                     "({bound_by}: {bytes} bytes, {flops} flops)"
+                     ).format(**timing)
+            if "work" in timing:
+                line += f"  [{timing['work']}]"
         print(line, flush=True)
         need(err <= tol, f"{name} [{case}] disagrees with its plain version: "
              f"max_abs_err {err} > {tol}")
-
-    def attn_bytes_flops(q, bt, BS, hkv, dh, lq, h):
-        n_pages = int((bt >= 0).sum())
-        nbytes = (2 * n_pages * BS * hkv * dh * 4 + 2 * q.numel() * 4
-                  + bt.numel() * 4 + n_pages * BS * 4)
-        slots = n_pages * BS        # each row attends its own pages
-        return nbytes, 4 * slots * lq * h * dh
 
     def sdpa(q, k_pages, v_pages, bt, pp, qpos_rows):
         """Library yardstick: gather the rows' pages, then SDPA (K/V
@@ -182,9 +211,9 @@ def phase_kernels(torch, timer):
         want = ref.paged_attention_ref(q, k_p, v_p, bt, pp, qp)
         timing = None
         if i == 0:
-            nb, fl = attn_bytes_flops(q, bt, 16, 2, 128, 1, 12)
+            nb, fl, work = attn_bytes_flops(q, bt, pp, qp[:, None], 2, 128)
             bms, by = bound(nb, fl)
-            timing = {
+            timing = {"work": work,
                 "ms": timer(lambda: kp.paged_attention_cuda(q, k_p, v_p, bt,
                                                             pp, qp)),
                 "plain_ms": timer(lambda: ref.paged_attention_ref(
@@ -213,10 +242,13 @@ def phase_kernels(torch, timer):
                                                ql_t)
         timing = None
         if i == 0:
-            nb, fl = attn_bytes_flops(q, bt, 16, 2, 128, lq, 12)
+            li = torch.arange(lq, device=dev)[None]
+            qrows = qs_t[:, None] + li
+            masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)
+            nb, fl, work = attn_bytes_flops(
+                q, bt, pp, torch.where(masked, -1, qrows), 2, 128)
             bms, by = bound(nb, fl)
-            qrows = qs_t[:, None] + torch.arange(lq, device=dev)[None]
-            timing = {
+            timing = {"work": work,
                 "ms": timer(lambda: kp.paged_prefill_attention_cuda(
                     q, k_p, v_p, bt, pp, qs_t, ql_t)),
                 "plain_ms": timer(lambda: ref.paged_prefill_attention_ref(
@@ -266,7 +298,7 @@ def phase_kernels(torch, timer):
         got = kd.demux_rsa_cuda(h, *w, **norms)
         want = ref.demux_rsa_fused_ref(h, *w, **norms)
         timing = None
-        if i == 0:
+        if i < 2:          # decode rows (the JSON's) and a prefill chunk
             nb = (2 * d * f + tt * d + n * d + d * f + f + 4 * d) * 4 \
                 + n * tt * d * 4
             fl = 2 * tt * d * f + 2 * n * tt * f * d + 2 * n * d * f

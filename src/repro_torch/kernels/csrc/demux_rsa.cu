@@ -14,14 +14,19 @@
 // Bound.  Bytes: the two weight matrices, 2*D*F*4 = 37.7 MB at qwen2-1.5b
 // width (F = 2D), against ~2*T*D*F*(1 + N) flops — under 2 flops per byte
 // at T <= 32, far below the fp32 rate.  So the design is about streaming
-// the weights at full rate with every weight byte read once.
+// the weights at full rate.
 //
 // Design.  The Pallas grid (N, T/bt, F/bf) runs F sequentially; copied
 // literally it would launch N blocks at decode, each streaming all the
 // weights.  Here both products split their reduction axis over kSplit
 // blocks as well as their output columns, so ~400-800 small blocks keep
 // enough loads in flight to hide DRAM latency, and the partial sums are
-// added in a fixed order by the next kernel (deterministic, no atomics):
+// added in a fixed order by the next kernel (deterministic, no atomics).
+// Each block covers kTT rows of T (first product) or kRT rows of N*T
+// (second), so the weights are read from DRAM once only while T <= kTT
+// and N*T <= kRT, as at decode (T = backbone rows).  A prefill chunk
+// (T = 32, N*T = 64) has 4 row tiles in each product, and each tile
+// streams its W1h or W2 slice again (from L2 where it still holds it):
 //   1. demux_hidden_partial: zp[s] = (h * (1 + scale)) @ W1h over the s-th
 //      D slice, blocks over (F tiles, D slices, T tiles).  The entry
 //      RMSNorm's per-row factor rsqrt(mean(h^2) + eps) is a scalar per

@@ -23,12 +23,16 @@
 // the uniform mean of V over the gathered slots, exactly as the Pallas
 // kernel and the plain version do, instead of NaN.
 //
-// Bound.  Bytes: each referenced page is read once per KV head, so the
-// kernel moves ~2 * n_pages * BS * Dh * 4 bytes per KV head plus q and the
-// output; the work is ~4 * queries * slots * Dh flops, far below the fp32
-// rate, so it is bound by bytes (and, at decode's few blocks, by latency:
-// B * Hkv blocks do not fill 132 SMs — splitting the page loop across
-// blocks is the known next step).
+// Bound.  Each referenced page is read once per KV head, so the kernel
+// moves ~2 * slots * Dh * 4 bytes per KV head plus q and the output; the
+// work is 4 * Dh flops per (query head, visible slot).  At decode (one
+// query per row) that is ~3 flops per byte: bound by bytes.  A causal
+// 32-token chunk has ~27 flops per byte, above the card's fp32 balance
+// (~20), so it is bound by operations.  In practice both are bound by
+// latency: B * Hkv * ceil(G * Lq / 16) blocks (8 at decode, 24 at a
+// one-row chunk) do not fill 132 SMs, and each walks its row's MB pages
+// in series, -1 entries included, with four barriers per page.  Splitting
+// the page loop across blocks (flash-decoding) is the known next step.
 #include <cuda_runtime.h>
 
 namespace {

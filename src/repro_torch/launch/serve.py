@@ -60,7 +60,6 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
             uid += 1
         rt.step()
         step += 1
-        telemetry.maybe_snapshot(step)
     rt.check_compile_once()
     stats = rt.stats
     stats["wall"] = time.time() - t0

@@ -74,12 +74,14 @@ class TransformerLM:
 
     @staticmethod
     def apply(params, cfg: ModelConfig, tokens, *, mux: MuxSpec = MuxSpec(),
-              cache, q_offset=0, logits_out: bool = True, use_kernels: bool = False,
+              cache, q_offset=0, logits_out: bool = True, use_kernels: bool = True,
               extra_ctx: dict | None = None):
         """tokens (N*B, L) int (mux-major instance order).  q_offset: a
         scalar chunk start or a (B,) vector of per-row positions (-1 =
         inactive row).  The cache's pages are updated in place.  Computes
-        in fp32, as the reference serves.  Returns dict(logits | hidden)."""
+        in fp32, as the reference serves.  use_kernels: the main path's
+        kernels (default; their plain versions on CPU tensors), False for
+        the plain model path.  Returns dict(logits | hidden)."""
         _check_supported(cfg, mux)
         d = cfg.d_model
         dev = params["embed"]["table"].device

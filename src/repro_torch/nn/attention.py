@@ -42,8 +42,7 @@ def attention_core(q, k, v, *, mask=None,
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     if mask is not None:
         m = mask[:, None, None] if mask.ndim == 3 else mask
-        logits = torch.where(m, logits,
-                             torch.tensor(NEG_INF, device=logits.device))
+        logits = logits.masked_fill(~m, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(b, lq, h, dh)

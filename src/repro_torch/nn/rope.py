@@ -9,8 +9,7 @@ def rope_frequencies(head_dim: int, positions, *, theta: float = 10000.0):
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), exponent)
+    freq = torch.pow(float(theta), exponent)    # no host-to-device copy
     ang = positions.float()[..., None] * freq
     return torch.sin(ang), torch.cos(ang)
 

@@ -1,24 +1,23 @@
-"""Serve-stack observability: metrics, step-span tracing, snapshots.
+"""Serve-stack observability: metrics and step-span tracing.
 
-Host-side copy of ``repro.serve.telemetry`` (DESIGN.md §observability);
-the only change is the optional trace annotation, which is
+Host-side copy of the part of ``repro.serve.telemetry`` (DESIGN.md
+§observability) that the runtime and scheduler write and the serve loop's
+callers read; the optional trace annotation is
 ``torch.profiler.record_function`` here:
 
-  * ``MetricsRegistry`` — counters, gauges and *mergeable* fixed-bucket
-    streaming histograms, keyed by free-form labels (the serve stack
-    uses ``lane`` and ``shard``).  Histograms share one log-spaced
-    bucket grid so registries from different lanes/processes merge by
-    bucket-count addition; percentiles are computed online from the
-    buckets, not from stored samples.
+  * ``MetricsRegistry`` — counters, gauges and fixed-bucket streaming
+    histograms, keyed by free-form labels.  Percentiles are computed
+    online from the buckets, not from stored samples.
   * ``StepTracer`` — a ring-buffered span recorder.  The runtime emits
-    admit / prefill-chunk / decode / free / preempt / cancel /
-    rebalance / compile events with start/end stamps; ``export`` writes
-    Chrome trace-event JSON loadable in Perfetto (https://ui.perfetto.dev).
+    engine-step / prefill-chunk / decode spans with start/end stamps and
+    compile instants into ``events``.
   * ``Telemetry`` — the facade the serve stack passes around: one
-    registry + one tracer + an ``enabled`` flag, periodic registry
-    snapshots (``snapshot_every`` engine steps), JSON /
-    Prometheus-text exposition, and optional ``torch.profiler``
-    annotations around the spans (``annotate=True``).
+    registry + one tracer + an ``enabled`` flag, and optional
+    ``torch.profiler`` annotations around the spans (``annotate=True``).
+
+The reference's exporters (histogram and registry merge, Prometheus text,
+Chrome-trace JSON, periodic snapshots) and its lane/shard span labels
+port with the telemetry CLI flags and the lanes (ROADMAP §1 items 8, 10).
 
 **The no-host-sync invariant**: telemetry must not change what the serve
 stack computes.  All instrumentation is host-side Python at EXISTING step
@@ -35,8 +34,6 @@ nothing is allocated per event.
 from __future__ import annotations
 
 import collections
-import json
-import pathlib
 import time
 
 
@@ -47,8 +44,7 @@ import time
 def default_edges(lo: float = 1e-5, hi: float = 100.0,
                   per_decade: int = 4) -> tuple:
     """Log-spaced bucket upper bounds: ``per_decade`` buckets per decade
-    from ``lo`` to >= ``hi`` (seconds).  Every histogram in a registry
-    shares one grid so histograms merge by bucket addition."""
+    from ``lo`` to >= ``hi`` (seconds)."""
     if lo <= 0 or hi <= lo or per_decade < 1:
         raise ValueError(f"bad bucket grid lo={lo} hi={hi}/{per_decade}")
     factor = 10.0 ** (1.0 / per_decade)
@@ -60,7 +56,7 @@ def default_edges(lo: float = 1e-5, hi: float = 100.0,
 
 
 class StreamingHistogram:
-    """Fixed-bucket online histogram: O(#buckets) memory, mergeable.
+    """Fixed-bucket online histogram: O(#buckets) memory.
 
     ``edges`` are bucket UPPER bounds; an implicit overflow bucket
     catches values above ``edges[-1]``.  Alongside the bucket counts it
@@ -95,20 +91,6 @@ class StreamingHistogram:
         self.vmin = v if self.vmin is None else min(self.vmin, v)
         self.vmax = v if self.vmax is None else max(self.vmax, v)
 
-    def merge(self, other: "StreamingHistogram"):
-        """Add ``other``'s buckets into this histogram (same edge grid
-        required — the point of fixed buckets)."""
-        if self.edges != other.edges:
-            raise ValueError("cannot merge histograms with different edges")
-        for i, c in enumerate(other.counts):
-            self.counts[i] += c
-        self.count += other.count
-        self.total += other.total
-        for v in (other.vmin, other.vmax):
-            if v is not None:
-                self.vmin = v if self.vmin is None else min(self.vmin, v)
-                self.vmax = v if self.vmax is None else max(self.vmax, v)
-
     @property
     def mean(self) -> float:
         return self.total / self.count if self.count else 0.0
@@ -136,15 +118,6 @@ class StreamingHistogram:
             cum += c
         return self.vmax
 
-    def snapshot(self) -> dict:
-        return {"count": self.count, "sum": self.total, "mean": self.mean,
-                "min": self.vmin, "max": self.vmax,
-                "p50": self.percentile(50), "p95": self.percentile(95),
-                "p99": self.percentile(99),
-                "buckets": [[e, c] for e, c
-                            in zip(self.edges + ("+Inf",), self.counts)
-                            if c]}
-
 
 # ---------------------------------------------------------------------------
 # metrics registry
@@ -153,15 +126,11 @@ class StreamingHistogram:
 class MetricsRegistry:
     """Counters, gauges and streaming histograms keyed by (name, labels).
 
-    Labels are free-form keyword arguments; the serve stack keys its
-    metrics by ``lane`` and ``shard`` (DESIGN.md §observability lists
-    every metric name).  All three families are mergeable across
-    registries — counters/histograms add, gauges last-write-wins — so
-    per-lane or per-process registries can be combined for exposition.
-    """
+    Labels are free-form keyword arguments (DESIGN.md §observability
+    lists every metric name)."""
 
-    def __init__(self, edges=None):
-        self.edges = tuple(edges) if edges is not None else default_edges()
+    def __init__(self):
+        self.edges = default_edges()
         self._counters: dict = {}
         self._gauges: dict = {}
         self._hists: dict = {}
@@ -196,77 +165,19 @@ class MetricsRegistry:
     def hist(self, name: str, **labels) -> StreamingHistogram | None:
         return self._hists.get(self._key(name, labels))
 
-    def merge(self, other: "MetricsRegistry"):
-        for k, v in other._counters.items():
-            self._counters[k] = self._counters.get(k, 0) + v
-        self._gauges.update(other._gauges)
-        for k, h in other._hists.items():
-            mine = self._hists.get(k)
-            if mine is None:
-                mine = self._hists[k] = StreamingHistogram(h.edges)
-            mine.merge(h)
-
-    # -- exposition --------------------------------------------------------
-    def snapshot(self) -> dict:
-        """JSON-serializable dump of every metric."""
-        def rows(d, render):
-            return [{"name": name, "labels": dict(labels),
-                     **render(v)}
-                    for (name, labels), v in sorted(d.items())]
-        return {
-            "counters": rows(self._counters, lambda v: {"value": v}),
-            "gauges": rows(self._gauges, lambda v: {"value": v}),
-            "histograms": rows(self._hists, lambda h: h.snapshot()),
-        }
-
-    def to_prometheus(self, prefix: str = "repro_") -> str:
-        """Prometheus text exposition (counters, gauges, histograms with
-        cumulative ``_bucket{le=...}`` series)."""
-        def fmt_labels(labels, extra=()):
-            items = [*sorted(labels.items()), *extra]
-            if not items:
-                return ""
-            return ("{" + ",".join(f'{k}="{v}"' for k, v in items) + "}")
-
-        out, seen_type = [], set()
-
-        def typeline(name, kind):
-            if name not in seen_type:
-                seen_type.add(name)
-                out.append(f"# TYPE {prefix}{name} {kind}")
-
-        for (name, labels), v in sorted(self._counters.items()):
-            typeline(name, "counter")
-            out.append(f"{prefix}{name}{fmt_labels(dict(labels))} {v}")
-        for (name, labels), v in sorted(self._gauges.items()):
-            typeline(name, "gauge")
-            out.append(f"{prefix}{name}{fmt_labels(dict(labels))} {v}")
-        for (name, labels), h in sorted(self._hists.items()):
-            typeline(name, "histogram")
-            lb = dict(labels)
-            cum = 0
-            for e, c in zip(h.edges + ("+Inf",), h.counts):
-                cum += c
-                out.append(f"{prefix}{name}_bucket"
-                           f"{fmt_labels(lb, (('le', e),))} {cum}")
-            out.append(f"{prefix}{name}_sum{fmt_labels(lb)} {h.total}")
-            out.append(f"{prefix}{name}_count{fmt_labels(lb)} {h.count}")
-        return "\n".join(out) + "\n"
-
 
 # ---------------------------------------------------------------------------
 # step-span tracer
 # ---------------------------------------------------------------------------
 
 class StepTracer:
-    """Ring-buffered span recorder exporting Chrome trace-event JSON.
+    """Ring-buffered span recorder.
 
-    Events are stored as tuples in a bounded deque (oldest dropped
-    first, ``dropped`` counts evictions), timestamps in microseconds
-    since the tracer's construction (``perf_counter`` based — monotonic,
-    sub-µs resolution).  In the exported trace the ``pid`` is the
-    serving lane and the ``tid`` the data shard, so Perfetto renders one
-    process track per lane with per-shard rows.
+    Events are tuples ``(ph, name, ts_us, dur_us, args)`` in a bounded
+    deque (oldest dropped first, ``dropped`` counts evictions): ``ph`` is
+    "X" for a complete span and "i" for an instant, timestamps in
+    microseconds since the tracer's construction (``perf_counter`` based —
+    monotonic, sub-µs resolution).
     """
 
     def __init__(self, capacity: int = 65536):
@@ -276,14 +187,9 @@ class StepTracer:
         self.events: collections.deque = collections.deque(maxlen=capacity)
         self.dropped = 0
         self._t0 = time.perf_counter()
-        self._pid_names: dict = {}
 
     def now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
-
-    def process_name(self, pid: int, name: str):
-        """Label a pid (= serving lane) track in the exported trace."""
-        self._pid_names[pid] = name
 
     def _push(self, ev: tuple):
         if len(self.events) == self.capacity:
@@ -291,35 +197,12 @@ class StepTracer:
         self.events.append(ev)
 
     def complete(self, name: str, ts_us: float, dur_us: float, *,
-                 pid: int = 0, tid: int = 0, args: dict | None = None):
+                 args: dict | None = None):
         """Record a complete ('X') span with explicit start/duration."""
-        self._push(("X", name, ts_us, dur_us, pid, tid, args))
+        self._push(("X", name, ts_us, dur_us, args))
 
-    def instant(self, name: str, *, pid: int = 0, tid: int = 0,
-                args: dict | None = None):
-        self._push(("i", name, self.now_us(), None, pid, tid, args))
-
-    def chrome_trace(self) -> dict:
-        """The Chrome trace-event JSON object (Perfetto-loadable)."""
-        events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
-                   "args": {"name": label}}
-                  for pid, label in sorted(self._pid_names.items())]
-        for ph, name, ts, dur, pid, tid, args in self.events:
-            ev = {"ph": ph, "name": name, "ts": ts, "pid": pid, "tid": tid,
-                  "cat": "serve"}
-            if ph == "X":
-                ev["dur"] = dur
-            else:
-                ev["s"] = "t"                      # thread-scoped instant
-            if args:
-                ev["args"] = args
-            events.append(ev)
-        return {"traceEvents": events, "displayTimeUnit": "ms",
-                "otherData": {"dropped_events": self.dropped}}
-
-    def export(self, path):
-        with open(path, "w") as f:
-            json.dump(self.chrome_trace(), f)
+    def instant(self, name: str, *, args: dict | None = None):
+        self._push(("i", name, self.now_us(), None, args))
 
 
 # ---------------------------------------------------------------------------
@@ -345,14 +228,11 @@ class _Span:
     the tracer, optionally the duration into a registry histogram and a
     ``torch.profiler`` annotation around the body."""
 
-    __slots__ = ("tele", "name", "lane", "shard", "metric", "args",
-                 "_t0", "_ann")
+    __slots__ = ("tele", "name", "metric", "args", "_t0", "_ann")
 
-    def __init__(self, tele, name, lane, shard, metric, args):
+    def __init__(self, tele, name, metric, args):
         self.tele = tele
         self.name = name
-        self.lane = lane
-        self.shard = shard
         self.metric = metric
         self.args = args or None
         self._ann = None
@@ -370,11 +250,9 @@ class _Span:
             self._ann.__exit__(*exc)
         tracer = self.tele.tracer
         tracer.complete(self.name, (self._t0 - tracer._t0) * 1e6,
-                        (t1 - self._t0) * 1e6, pid=self.lane,
-                        tid=self.shard, args=self.args)
+                        (t1 - self._t0) * 1e6, args=self.args)
         if self.metric is not None:
-            self.tele.registry.observe(self.metric, t1 - self._t0,
-                                       lane=self.lane, shard=self.shard)
+            self.tele.registry.observe(self.metric, t1 - self._t0)
         return False
 
 
@@ -386,40 +264,30 @@ def _trace_annotation(name: str):
 
 
 class Telemetry:
-    """Serve-wide telemetry handle: registry + tracer + snapshot policy.
+    """Serve-wide telemetry handle: registry + tracer.
 
     enabled: master switch — when False every hook is a no-op (no
     clocks read, nothing recorded; the no-host-sync invariant's
-    "zero overhead when disabled" leg).  snapshot_every: take a registry
-    snapshot every K engine steps via ``maybe_snapshot`` (0 = final
-    only).  annotate: additionally wrap spans in
-    ``torch.profiler.record_function`` so they show up in torch profiler
-    timelines.  trace_capacity: ring-buffer size of the tracer.
+    "zero overhead when disabled" leg).  annotate: additionally wrap
+    spans in ``torch.profiler.record_function`` so they show up in torch
+    profiler timelines.
     """
 
-    def __init__(self, *, enabled: bool = True, snapshot_every: int = 0,
-                 annotate: bool = False, trace_capacity: int = 65536,
-                 registry: MetricsRegistry | None = None,
-                 tracer: StepTracer | None = None):
+    def __init__(self, *, enabled: bool = True, annotate: bool = False):
         self.enabled = enabled
-        self.snapshot_every = snapshot_every
         self.annotate = annotate
-        self.registry = registry if registry is not None else MetricsRegistry()
-        self.tracer = (tracer if tracer is not None
-                       else StepTracer(capacity=trace_capacity))
-        self.snapshots: list = []
+        self.registry = MetricsRegistry()
+        self.tracer = StepTracer()
 
     # -- hooks (all no-ops when disabled) ----------------------------------
-    def span(self, name: str, *, lane: int = 0, shard: int = 0,
-             metric: str | None = None, **args):
+    def span(self, name: str, *, metric: str | None = None, **args):
         if not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, lane, shard, metric, args)
+        return _Span(self, name, metric, args)
 
-    def instant(self, name: str, *, lane: int = 0, shard: int = 0, **args):
+    def instant(self, name: str, **args):
         if self.enabled:
-            self.tracer.instant(name, pid=lane, tid=shard,
-                                args=args or None)
+            self.tracer.instant(name, args=args or None)
 
     def inc(self, name: str, n: int = 1, **labels):
         if self.enabled:
@@ -432,38 +300,6 @@ class Telemetry:
     def gauge(self, name: str, value: float, **labels):
         if self.enabled:
             self.registry.gauge(name, value, **labels)
-
-    # -- snapshots / exposition -------------------------------------------
-    def take_snapshot(self, step: int | None = None):
-        if self.enabled:
-            self.snapshots.append({"step": step,
-                                   "t_us": self.tracer.now_us(),
-                                   **self.registry.snapshot()})
-
-    def maybe_snapshot(self, step: int):
-        """Periodic snapshot hook for serve loops: records every
-        ``snapshot_every`` engine steps (disabled when 0)."""
-        if (self.enabled and self.snapshot_every > 0
-                and step % self.snapshot_every == 0):
-            self.take_snapshot(step)
-
-    def metrics_json(self) -> dict:
-        return {"snapshots": self.snapshots,
-                "final": self.registry.snapshot()}
-
-    def write_metrics(self, path) -> pathlib.Path:
-        """Write the JSON metrics dump to ``path`` and a Prometheus text
-        dump next to it (same stem, ``.prom`` suffix).  Returns the
-        Prometheus path."""
-        p = pathlib.Path(path)
-        with open(p, "w") as f:
-            json.dump(self.metrics_json(), f, indent=1)
-        prom = p.with_suffix(".prom")
-        prom.write_text(self.registry.to_prometheus())
-        return prom
-
-    def write_trace(self, path):
-        self.tracer.export(path)
 
 
 NULL_TELEMETRY = Telemetry(enabled=False)

@@ -9,6 +9,8 @@ reference's compile counts.  Also: wrapper call counts per step, the
 ``cuda`` default of the entry points, the CLI's accepted and rejected
 flags, and the host-side copies (pool, sampling, telemetry).
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,7 @@ from repro_torch.serve import engine, sampling
 from repro_torch.serve.batcher import Request
 from repro_torch.serve.kvpool import KVPool, PoolExhausted, paged_write
 from repro_torch.serve.runtime import ServeRuntime
-from repro_torch.serve.telemetry import StreamingHistogram
+from repro_torch.serve.telemetry import Telemetry
 
 torch.set_num_threads(2)
 
@@ -227,21 +229,30 @@ def test_sampling_greedy_and_seeded():
     assert a[3] in order[:int((p < 0.5).sum()) + 1]
 
 
-def test_histogram_merge_equals_concat():
-    """The telemetry copy's histograms merge by bucket addition; sums and
-    means within fp tolerance (merging adds a total as one term)."""
-    xs, ys = [1e-6, 0.3, 2.0], [32.0, 480.9305111679527]
-    a, b, both = StreamingHistogram(), StreamingHistogram(), \
-        StreamingHistogram()
-    for v in xs:
-        a.observe(v)
-        both.observe(v)
-    for v in ys:
-        b.observe(v)
-        both.observe(v)
-    a.merge(b)
-    sa, sb = a.snapshot(), both.snapshot()
-    for k in ("count", "min", "max", "buckets", "p50", "p99"):
-        assert sa[k] == sb[k], k
-    assert sa["sum"] == pytest.approx(sb["sum"], rel=1e-12)
-    assert sa["mean"] == pytest.approx(sb["mean"], rel=1e-12)
+def test_telemetry_records_the_runtime():
+    """The telemetry copy records one span per decode step and chunk, one
+    compile instant per step signature and the scheduler's counters, and
+    changes no token (it reads no device value the runtime does not)."""
+    _, port, _, sc = _pair(2)
+    arrivals = _churn(n_req=3)
+    tele = Telemetry()
+    on = cli.run_continuous(port, sc, 2, arrivals, chunk=8,
+                            use_kernels=False, telemetry=tele, device="cpu")
+    off = cli.run_continuous(port, sc, 2, arrivals, chunk=8,
+                             use_kernels=False, device="cpu")
+    assert ({r.uid: r.output for r in on["completed"]}
+            == {r.uid: r.output for r in off["completed"]})
+    spans = collections.Counter(ev[1] for ev in tele.tracer.events
+                                if ev[0] == "X")
+    assert spans["decode"] == on["decode_steps"]
+    assert spans["prefill_chunk"] == on["prefill_events"]
+    compiles = [ev[4]["program"] for ev in tele.tracer.events
+                if ev[0] == "i" and ev[1] == "compile"]
+    assert sorted(compiles) == sorted(on["trace_counts"])
+    reg = tele.registry
+    assert reg.value("requests_completed") == len(arrivals)
+    assert reg.value("tokens_generated") == on["generated_tokens"]
+    h = reg.hist("decode_step_s")
+    assert h.count == on["decode_steps"]
+    assert h.vmin <= h.percentile(50) <= h.percentile(99) <= h.vmax
+    assert reg.hist("ttft_s").count == len(arrivals)
