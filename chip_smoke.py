@@ -10,19 +10,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's full-width shapes and at edge shapes,
                 with kernel / plain / library-yardstick times (cold L2)
-                and the least time the card could take (bound);
+                and the least time the card could take (bound); the two
+                paged kernels also over bf16, int8 and fp8 pages, held
+                against the dequantize-then-attend plain version and,
+                within the analytic bound, the pristine fp32 one;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
-                random seeded weights), mux N=2, fp32 pages, chunked
-                prefill; every request must complete and the launch
-                counts must be exactly what the path requires;
-  5. paths    — kernel path against plain path: logits of one prefill
-                chunk and one decode step on identical inputs, and the
-                share of identical greedy tokens over the phase-4 trace.
+                random seeded weights), mux N=2, chunked prefill, once
+                per page storage (fp32, bf16, int8, fp8) on one trace;
+                every request must complete, the launch counts must be
+                exactly what the path requires (per storage kind), and
+                the pool's bytes per token the reference's;
+  5. paths    — kernel path against plain path, on fp32 and int8 pages:
+                logits of one prefill chunk and of one decode step from
+                identical caches, and the share of identical greedy
+                tokens over the phase-4 trace (on int8 pages the chunk
+                is held to the payloads it stores, see ``compare_paths``).
 The last two lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -39,6 +47,14 @@ ATT_TOL = 1e-4             # fp32, summation order only; O(1) outputs
 MUX_TOL = 1e-5             # a sum of N=2 products per element
 DEMUX_TOL = 5e-4           # fp32 sums over D=1536 then F=3072 terms, post-LN
 LOGIT_TOL = 2e-3           # 28 fp32 layers, two summation orders
+BF16_REL = 2.0 ** -8       # bf16 half-ulp relative rounding error
+KINDS = ("fp32", "bf16", "int8", "fp8")       # page storage
+# the reference's ServeConfig figures for full-width qwen2-1.5b, N=2, 4 rows
+# at capacity 124 in blocks of 16 (33 blocks with the trash block)
+KV_BYTES_PER_TOKEN = {"fp32": 57456, "bf16": 28784, "int8": 14896,
+                      "fp8": 14896}
+POOL_BYTES = {"fp32": 30_336_768, "bf16": 15_197_952, "int8": 7_865_088,
+              "fp8": 7_865_088}
 
 
 class SmokeFailure(RuntimeError):
@@ -102,13 +118,14 @@ def bound(nbytes, flops):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh):
+def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
     """The work paged attention needs on this data (no window): K/V of the
-    valid slots of each row's pages only, and QK + PV products only for
-    the (query, slot) pairs that pass the validity and causal mask.
-    q (B, Lq, H, Dh); bt (B, MB); pp (P, BS); q_pos_rows (B, Lq): each
-    query's position, -1 for a masked query.  Returns (bytes, flops, a
-    note with both counts)."""
+    valid slots of each row's pages only (``elem`` bytes per element, and
+    with ``scaled`` pages one fp32 K and one fp32 V scale per valid (slot,
+    KV head)), and QK + PV products only for the (query, slot) pairs that
+    pass the validity and causal mask.  q (B, Lq, H, Dh); bt (B, MB);
+    pp (P, BS); q_pos_rows (B, Lq): each query's position, -1 for a
+    masked query.  Returns (bytes, flops, a note with both counts)."""
     bt, pp = bt.cpu().numpy(), pp.cpu().numpy()
     q_pos_rows = q_pos_rows.cpu().numpy()
     bs = pp.shape[1]
@@ -122,8 +139,9 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh):
         valid += len(pos)
         pairs += sum(int((pos <= qp).sum()) for qp in q_pos_rows[b]
                      if qp >= 0)
-    nbytes = (2 * valid * hkv * dh * 4 + 2 * q.numel() * 4
-              + bt.size * 4 + n_pages * bs * 4)
+    nbytes = (2 * valid * hkv * dh * elem + 2 * q.numel() * 4
+              + bt.size * 4 + n_pages * bs * 4
+              + (2 * valid * hkv * 4 if scaled else 0))
     return nbytes, 4 * pairs * h * dh, (f"{valid} valid slots, {pairs} "
                                         "query-slot pairs")
 
@@ -177,13 +195,23 @@ def phase_kernels(torch, timer):
         need(err <= tol, f"{name} [{case}] disagrees with its plain version: "
              f"max_abs_err {err} > {tol}")
 
-    def sdpa(q, k_pages, v_pages, bt, pp, qpos_rows):
-        """Library yardstick: gather the rows' pages, then SDPA (K/V
-        repeated to H heads, boolean mask)."""
+    def sdpa(q, k_pages, v_pages, bt, pp, qpos_rows, k_scales=None,
+             v_scales=None):
+        """Library yardstick: gather the rows' pages (and scales), dequant
+        to fp32, then SDPA (K/V repeated to H heads, boolean mask)."""
         b, lq, h, dh = q.shape
         btc = bt.long().clamp(min=0)
-        k = k_pages[btc].reshape(b, -1, *k_pages.shape[2:])
-        v = v_pages[btc].reshape(b, -1, *v_pages.shape[2:])
+
+        def rows(x):          # fp8 pages gather as their bytes
+            if x.dtype == torch.float8_e4m3fn:
+                return x.view(torch.uint8)[btc].view(x.dtype)
+            return x[btc]
+        k, v = rows(k_pages).float(), rows(v_pages).float()
+        if k_scales is not None:
+            k = k * rows(k_scales)[..., None]
+            v = v * rows(v_scales)[..., None]
+        k = k.reshape(b, -1, *k_pages.shape[2:])
+        v = v.reshape(b, -1, *v_pages.shape[2:])
         pos = torch.where(bt[..., None] >= 0, pp[btc], -1).reshape(b, -1)
         g = h // k.shape[2]
         k = k.repeat_interleave(g, 2).transpose(1, 2)
@@ -321,6 +349,119 @@ def phase_kernels(torch, timer):
                 "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
         record("demux_rsa", case, (got - want).abs().max().item(), DEMUX_TOL,
                timing)
+
+    # -- the paged kernels over bf16, int8 and fp8 pages -------------------
+    from repro_torch.core import quant as tq
+
+    def store(kind, k, v):
+        """fp32 pages stored as the pool stores them at ``kind``."""
+        if kind == "bf16":
+            return k.bfloat16(), v.bfloat16(), {}
+        kq, ks = tq.quantize_kv(k, kind)
+        vq, vs = tq.quantize_kv(v, kind)
+        return kq, vq, {"k_scales": ks, "v_scales": vs}
+
+    def storage_bound(q, kind, k, v, sc):
+        """Analytic bound on |attention over the stored pages - attention
+        over the pristine fp32 pages|: core.quant's for int8 / fp8, its
+        relative-rounding analogue for bf16 (tests/test_paged_attention.py
+        ``_storage_bound``)."""
+        if kind != "bf16":
+            return tq.paged_attention_error_bound(
+                q, sc["k_scales"], sc["v_scales"], kind).item()
+        q_l1 = q.abs().sum(-1).max().item()
+        e_k = BF16_REL * k.abs().max().item()
+        v_max = v.abs().max().item()
+        e_v = BF16_REL * v_max
+        return 2.0 * q_l1 * e_k * q.shape[-1] ** -0.5 * (v_max + e_v) + e_v
+
+    def oracle(name, kind, case, err, bnd):
+        print(f"  {name:<24} {case:<30} vs pristine fp32: max_abs_err "
+              f"{err:.3e} (analytic bound {bnd:.3e})", flush=True)
+        need(err <= bnd, f"{name} [{case}] exceeds its analytic bound "
+             f"against the fp32 oracle: {err} > {bnd}")
+
+    for kind in KINDS[1:]:
+        name = f"paged_attention[{kind}]"
+        for i in (0, 1):                  # main rows; -1 entries + inactive
+            case, lens, qpos, mb, p = decode_cases[i]
+            k_p, v_p, bt, pp = pool(lens, P=p, MB=mb)
+            q = t(rng.standard_normal((len(lens), 1, 12, 128), np.float32))
+            qp = t(np.asarray(qpos, np.int32))
+            kq, vq, sc = store(kind, k_p, v_p)
+
+            def kernel():
+                return kp.paged_attention_cuda(q, kq, vq, bt, pp, qp, **sc)
+
+            def plain():
+                if sc:
+                    return ref.paged_attention_quant_ref(
+                        q, kq, vq, sc["k_scales"], sc["v_scales"], bt, pp,
+                        qp)
+                return ref.paged_attention_ref(q, kq, vq, bt, pp, qp)
+            got = kernel()
+            err = (got - plain()).abs().max().item()
+            act = qp >= 0
+            pristine = ref.paged_attention_ref(q, k_p, v_p, bt, pp, qp)
+            oracle(name, kind, case, (got - pristine)[act].abs().max().item(),
+                   storage_bound(q[act], kind, k_p, v_p, sc) + ATT_TOL)
+            timing = None
+            if i == 0:
+                nb, fl, work = attn_bytes_flops(
+                    q, bt, pp, qp[:, None], 2, 128, elem=kq.element_size(),
+                    scaled=bool(sc))
+                bms, by = bound(nb, fl)
+                timing = {"work": work, "ms": timer(kernel),
+                          "plain_ms": timer(plain),
+                          "library_ms": timer(lambda: sdpa(
+                              q, kq, vq, bt, pp, qp[:, None], **sc)),
+                          "bound_ms": bms, "bound_by": by, "bytes": nb,
+                          "flops": fl}
+            record(name, case, err, ATT_TOL, timing)
+
+        name = f"paged_prefill_attention[{kind}]"
+        for i in (0, 3):                  # chunk 32 at 64; padded + inactive
+            case, lens, qs, ql, lq, mb, p = prefill_cases[i]
+            k_p, v_p, bt, pp = pool(lens, P=p, MB=mb)
+            q = t(rng.standard_normal((len(lens), lq, 12, 128), np.float32))
+            qs_t, ql_t = t(np.asarray(qs, np.int32)), t(np.asarray(ql,
+                                                                 np.int32))
+            kq, vq, sc = store(kind, k_p, v_p)
+
+            def kernel():
+                return kp.paged_prefill_attention_cuda(
+                    q, kq, vq, bt, pp, qs_t, ql_t, **sc)
+
+            def plain():
+                if sc:
+                    return ref.paged_prefill_attention_quant_ref(
+                        q, kq, vq, sc["k_scales"], sc["v_scales"], bt, pp,
+                        qs_t, ql_t)
+                return ref.paged_prefill_attention_ref(q, kq, vq, bt, pp,
+                                                       qs_t, ql_t)
+            got = kernel()
+            err = (got - plain()).abs().max().item()
+            li = torch.arange(lq, device=dev)[None]
+            qrows = qs_t[:, None] + li
+            masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)
+            pristine = ref.paged_prefill_attention_ref(q, k_p, v_p, bt, pp,
+                                                       qs_t, ql_t)
+            oracle(name, kind, case,
+                   (got - pristine)[~masked].abs().max().item(),
+                   storage_bound(q[~masked], kind, k_p, v_p, sc) + ATT_TOL)
+            timing = None
+            if i == 0:
+                nb, fl, work = attn_bytes_flops(
+                    q, bt, pp, torch.where(masked, -1, qrows), 2, 128,
+                    elem=kq.element_size(), scaled=bool(sc))
+                bms, by = bound(nb, fl)
+                timing = {"work": work, "ms": timer(kernel),
+                          "plain_ms": timer(plain),
+                          "library_ms": timer(lambda: sdpa(
+                              q, kq, vq, bt, pp, qrows, **sc)),
+                          "bound_ms": bms, "bound_by": by, "bytes": nb,
+                          "flops": fl}
+            record(name, case, err, ATT_TOL, timing)
     torch.cuda.synchronize()
     return out
 
@@ -347,11 +488,9 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.core import MuxSpec
-        from repro_torch.kernels import build, mux_embed, ops
-        from repro_torch.launch.serve import run_continuous
+        from repro_torch.kernels import build, mux_embed
         from repro_torch.models import TransformerLM, param_count
         from repro_torch.serve import engine
-        from repro_torch.serve.telemetry import Telemetry
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run from the root "
               "of a checkout", file=sys.stderr)
@@ -385,7 +524,7 @@ def main() -> int:
     timer = Timer(torch)
     summary = phase_kernels(torch, timer)
 
-    # 4. serve, full width
+    # 4. serve, full width, once per page storage
     cfg = get_config("qwen2-1.5b")
     mux = MuxSpec(n=2)
     t0 = time.perf_counter()
@@ -397,29 +536,110 @@ def main() -> int:
           f"{n_params / 1e9:.3f} B params ({param_count(cfg) / 1e9:.3f} B "
           f"backbone) in {time.perf_counter() - t0:.1f} s", flush=True)
     prompt_len, new_tokens, rows = 100, 16, 4
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
-                            capacity=prompt_len + new_tokens + 8,
-                            block_size=16)
     trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    runs = {}
+    for kind in KINDS:
+        sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                                capacity=prompt_len + new_tokens + 8,
+                                block_size=16, kv_dtype=kind)
+        runs[kind] = serve_once(params, sc, rows, trace, new_tokens)
+    fp32_out = runs["fp32"]["outputs"]
+    for kind in KINDS[1:]:
+        out = runs[kind]["outputs"]
+        same = sum(a == b for u in out for a, b in zip(out[u], fp32_out[u]))
+        total = sum(len(v) for v in out.values())
+        print(f"  {kind} pages: greedy tokens identical to the fp32 trace "
+              f"{same}/{total} ({same / total:.3f})", flush=True)
+
+    # 5. kernel path against plain path
+    print("phase 5: kernel path against plain path", flush=True)
+    for kind in ("fp32", "int8"):
+        sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                                capacity=prompt_len + new_tokens + 8,
+                                block_size=16, kv_dtype=kind)
+        compare_paths(params, sc, rows, trace, prompt_len, runs[kind])
+
+    # 6. summary
+    meta = {
+        "mux_embed_combine": ("triton", "src/repro_torch/kernels/mux_embed.py",
+                              "src/repro/kernels/mux_embed.py:68"),
+        "demux_rsa": ("cuda", "src/repro_torch/kernels/csrc/demux_rsa.cu",
+                      "src/repro/kernels/demux_rsa.py:135"),
+    }
+    paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    for kind in KINDS:
+        sfx = "" if kind == "fp32" else f"[{kind}]"
+        meta[f"paged_attention{sfx}"] = (
+            "cuda", paged_src, "src/repro/kernels/paged_attention.py:162")
+        meta[f"paged_prefill_attention{sfx}"] = (
+            "cuda", paged_src, "src/repro/kernels/paged_attention.py:297")
+    rows_json = []
+    for kname, (route, src, repl) in meta.items():
+        s = summary[kname]
+        tm = s["timing"]
+        base, _, kind = kname.partition("[")
+        kind = kind.rstrip("]") or "fp32"
+        if base in ("paged_attention", "paged_prefill_attention"):
+            launches = runs[kind]["by_storage"][base][kind]
+        else:                   # the entry and exit run on every path
+            launches = runs["fp32"]["launches"][base]
+        rows_json.append({
+            "name": kname, "route": route, "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": s["max_abs_err"],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"]})
+        need(launches > 0, f"{kname} was never launched on the main path")
+    print("kernels: " + "; ".join(
+        f"{k['name']} launches={k['launches']} max_abs_err="
+        f"{k['max_abs_err']:.3e} ms={k['ms']:.4f}" for k in rows_json))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows_json}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serve_once(params, sc, rows, trace, new_tokens):
+    """Phase 4 for one page storage: the launch counts set to 0 just
+    before the run and read just after, and every check of the path.
+    Returns what phases 5 and 6 read."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve.telemetry import Telemetry
+    cfg, kind = sc.cfg, sc.kv_dtype
     tele = Telemetry()
     ops.reset_counts()
     stats = run_continuous(params, sc, rows, trace, chunk=32,
                            telemetry=tele, device="cuda",
                            on_prefill=lambda *_: torch.cuda.synchronize())
     launches = ops.counts("launches")
+    by_storage = {w.__name__: dict(w.by_storage) for w in ops.PAGED}
     dsteps, chunks = stats["decode_steps"], stats["prefill_events"]
     need(len(stats["completed"]) == len(trace),
-         f"{len(stats['completed'])} of {len(trace)} requests completed")
+         f"{kind}: {len(stats['completed'])} of {len(trace)} requests "
+         "completed")
     need(all(len(r.output) == new_tokens for r in stats["completed"]),
-         "a request stopped short of its new tokens")
+         f"{kind}: a request stopped short of its new tokens")
     want = {"paged_attention": cfg.n_layers * dsteps,
             "paged_prefill_attention": cfg.n_layers * chunks,
             "mux_embed_combine": dsteps + chunks,
             "demux_rsa": dsteps + chunks}
-    need(launches == want, f"launch counts {launches} != required {want} "
-         f"({dsteps} decode steps, {chunks} prefill chunks)")
+    need(launches == want, f"{kind}: launch counts {launches} != required "
+         f"{want} ({dsteps} decode steps, {chunks} prefill chunks)")
+    need(by_storage == {k: {kind: v} for k, v in want.items()
+                        if k in by_storage},
+         f"{kind}: paged launches by storage {by_storage}")
     need(set(stats["trace_counts"]) == {"decode", "prefill_4", "prefill_32"},
-         f"step signatures {stats['trace_counts']}")
+         f"{kind}: step signatures {stats['trace_counts']}")
+    need(stats["kv_bytes_per_token"] == KV_BYTES_PER_TOKEN[kind]
+         and stats["pool_bytes"] == POOL_BYTES[kind],
+         f"{kind}: {stats['kv_bytes_per_token']} bytes per token, pool "
+         f"{stats['pool_bytes']} bytes; the reference's figures are "
+         f"{KV_BYTES_PER_TOKEN[kind]} and {POOL_BYTES[kind]}")
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
@@ -427,15 +647,26 @@ def main() -> int:
     decode_ms = statistics.median(spans["decode"])
     chunk_ms = statistics.median(spans["prefill_chunk"])
     tok_s = stats["generated_tokens"] / stats["wall"]
-    print(f"  served {len(stats['completed'])} requests, "
+    print(f"  {kind} pages: served {len(stats['completed'])} requests, "
           f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
           f"{tok_s:.2f} tok/s; decode step p50 {decode_ms:.3f} ms over "
           f"{dsteps} steps; prefill chunk p50 {chunk_ms:.3f} ms over "
-          f"{chunks} chunks; launches {launches}", flush=True)
+          f"{chunks} chunks; pool {stats['pool_bytes']} bytes, "
+          f"{stats['kv_bytes_per_token']} bytes per token; launches "
+          f"{launches}", flush=True)
+    return {"outputs": {r.uid: r.output for r in stats["completed"]},
+            "launches": launches, "by_storage": by_storage}
 
-    # 5. kernel path against plain path
-    print("phase 5: kernel path against plain path", flush=True)
-    cache = engine.init_cache(sc, 2 * rows, "cuda")
+
+def compare_paths(params, sc, rows, trace, prompt_len, kernel_run):
+    """Phase 5 for one page storage: kernel path against plain path on
+    one chunk and one decode step from identical caches, then the share
+    of identical greedy tokens over the phase-4 trace."""
+    import torch
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    kind = sc.kv_dtype
+    cache = engine.init_cache(sc, 2 * rows, device="cuda")
     pool = engine.make_pool(sc, 2 * rows)
     pool.allocate(0, prompt_len)
     engine.set_block_tables(cache, pool.table_array(range(rows)))
@@ -453,6 +684,34 @@ def main() -> int:
     lp, _ = engine.prefill_chunk(params, sc, plain_cache, toks, rows=[0],
                                  start=0, length=32, use_kernels=False)
     err_chunk = (lk - lp).abs().max().item()
+    chunk_tol = LOGIT_TOL
+    if sc.kv_quant == "int8":
+        # Each path writes its own chunk K/V at every layer, from hidden
+        # states ~1e-6 apart (two summation orders); an element that sits
+        # on a rounding boundary then stores one level apart on the two
+        # paths, and that difference carries into the next layers.  So the
+        # payloads are held to one level, and the logits to a tenth of
+        # what int8 storage itself moves them from fp32 pages.
+        flips, levels = 0, 0
+        kv_width = sc.cfg.n_kv_heads * sc.cfg.head_dim
+        for a, b in zip(cache["layers"], plain_cache["layers"]):
+            for key in ("kp", "vp"):
+                d = (a[key].int() - b[key].int()).abs()
+                flips += int((d > 0).sum())
+                levels = max(levels, int(d.max()))
+        sc32 = dataclasses.replace(sc, kv_dtype="fp32")
+        cache32 = engine.init_cache(sc32, 2 * rows, device="cuda")
+        engine.set_block_tables(cache32, pool.table_array(range(rows)))
+        l32, _ = engine.prefill_chunk(params, sc32, cache32, toks, rows=[0],
+                                      start=0, length=32, use_kernels=True)
+        effect = (lk - l32).abs().max().item()
+        chunk_tol = 0.1 * effect
+        print(f"  {kind} pages: chunk K/V payloads written by the two paths: "
+              f"{flips} of {2 * len(cache['layers']) * 32 * kv_width} differ, "
+              f"by at most {levels} level(s); int8 against fp32 pages moves "
+              f"the chunk logits by {effect:.3e}", flush=True)
+        need(levels <= 1, f"{kind}: the paths' stored payloads differ by "
+             f"{levels} levels")
     plain_cache = clone(cache)
     dtok = torch.as_tensor([[int(lk[0].argmax())]] * (2 * rows),
                            device="cuda")
@@ -462,54 +721,22 @@ def main() -> int:
                                use_kernels=False)
     act = torch.as_tensor([0, rows], device="cuda")      # row 0's streams
     err_dec = (dk[act] - dp[act]).abs().max().item()
-    print(f"  logits max_abs_err: chunk {err_chunk:.3e}, decode "
-          f"{err_dec:.3e} (tol {LOGIT_TOL:g}; |logits| max "
-          f"{lk.abs().max().item():.3f})", flush=True)
-    need(err_chunk <= LOGIT_TOL and err_dec <= LOGIT_TOL,
-         "kernel path disagrees with the plain path")
+    print(f"  {kind} pages: logits max_abs_err: chunk {err_chunk:.3e} (tol "
+          f"{chunk_tol:.3e}), decode from identical caches {err_dec:.3e} "
+          f"(tol {LOGIT_TOL:g}); |logits| max {lk.abs().max().item():.3f}",
+          flush=True)
+    need(err_chunk <= chunk_tol and err_dec <= LOGIT_TOL,
+         f"{kind}: kernel path disagrees with the plain path")
     plain = run_continuous(params, sc, rows, trace, chunk=32,
                            use_kernels=False, device="cuda")
-    ko = {r.uid: r.output for r in stats["completed"]}
+    ko = kernel_run["outputs"]
     po = {r.uid: r.output for r in plain["completed"]}
     same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
     total = sum(len(v) for v in ko.values())
-    print(f"  greedy tokens identical, kernel vs plain path: {same}/{total} "
-          f"({same / total:.3f}); plain path {plain['generated_tokens'] / plain['wall']:.2f} tok/s",
+    print(f"  {kind} pages: greedy tokens identical, kernel vs plain path: "
+          f"{same}/{total} ({same / total:.3f}); plain path "
+          f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
-
-    # 6. summary
-    meta = {
-        "mux_embed_combine": ("triton", "src/repro_torch/kernels/mux_embed.py",
-                              "src/repro/kernels/mux_embed.py:68"),
-        "paged_attention": ("cuda",
-                            "src/repro_torch/kernels/csrc/paged_attention.cu",
-                            "src/repro/kernels/paged_attention.py:162"),
-        "paged_prefill_attention": (
-            "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:297"),
-        "demux_rsa": ("cuda", "src/repro_torch/kernels/csrc/demux_rsa.cu",
-                      "src/repro/kernels/demux_rsa.py:135"),
-    }
-    rows_json = []
-    for kname, (route, src, repl) in meta.items():
-        s = summary[kname]
-        tm = s["timing"]
-        rows_json.append({
-            "name": kname, "route": route, "source": src, "replaces": repl,
-            "launches": launches[kname], "max_abs_err": s["max_abs_err"],
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": tm["library_ms"]})
-    print("kernels: " + "; ".join(
-        f"{k['name']} launches={k['launches']} max_abs_err="
-        f"{k['max_abs_err']:.3e} ms={k['ms']:.4f}" for k in rows_json))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows_json}))
-    print(smi_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def _leaves(tree):

@@ -8,7 +8,8 @@ each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
 leftover layers unstacked under ``tail``; the port keeps one dict per
 layer in a list.  Leaf layouts are the reference's ((in, out) weights),
-so no leaf is transposed.  Nothing here imports JAX.
+so no leaf is transposed.  ``pages_from_reference`` carries one layer's
+reference page pool across bit for bit.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def _n_periods(cfg) -> int:
     return cfg.n_layers // len(cfg.block_pattern)
 
 
-def params_from_reference(tree, cfg, device="cpu"):
+def params_from_reference(tree, cfg, *, device):
     """Reference param pytree (numpy leaves) -> the port's param tree on
     ``device`` (fp32 tensors)."""
     pat = len(cfg.block_pattern)
@@ -76,4 +77,27 @@ def params_to_reference(params, cfg):
            "final_norm": _map(arr, params["final_norm"])}
     if "mux_engine" in params:
         out["mux_engine"] = _map(arr, params["mux_engine"])
+    return out
+
+
+# numpy dtypes (from ml_dtypes) that torch.from_numpy refuses: cross as
+# raw bits of the same width and reinterpret on the torch side
+_BIT_VIEWS = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+              "bfloat16": (np.int16, torch.bfloat16)}
+
+
+def pages_from_reference(pages, *, device):
+    """One layer's reference page pool (a dict of numpy or JAX arrays:
+    ``kp``, ``vp``, ``ppos``, for int8/fp8 pages ``ksc`` and ``vsc``, and
+    ``bt`` where present) -> the port's dict of tensors on ``device``,
+    every payload, scale and position bit for bit."""
+    out = {}
+    for key, a in pages.items():
+        a = np.asarray(a)
+        if a.dtype.name in _BIT_VIEWS:
+            bits, dt = _BIT_VIEWS[a.dtype.name]
+            t = torch.from_numpy(a.view(bits).copy()).view(dt)
+        else:
+            t = torch.from_numpy(np.array(a))
+        out[key] = t.to(device)
     return out

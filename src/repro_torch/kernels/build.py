@@ -80,8 +80,11 @@ def build_all() -> dict:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
-        "paged_attention_decode": [_P] * 7 + [_I] * 8 + [_F, _P],
-        "paged_attention_prefill": [_P] * 8 + [_I] * 9 + [_F, _P],
+        # q, kp, vp, ksc, vsc, bt, ppos, q_pos, out; kind, B, H, Hkv, Dh,
+        # BS, MB, causal, window; scale; stream
+        "paged_attention_decode": [_P] * 9 + [_I] * 9 + [_F, _P],
+        # ... q_start, q_len, out; kind, B, Lq, H, ...
+        "paged_attention_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
     },
     "demux_rsa": {
         "demux_rsa_forward": [_P] * 12 + [_I] * 4 + [_P],

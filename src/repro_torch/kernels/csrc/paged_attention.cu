@@ -4,10 +4,20 @@
 //   paged_attention          (_kernel)          -> paged_decode_kernel
 //   paged_prefill_attention  (_prefill_kernel)  -> paged_prefill_kernel
 //
-// Layouts (as in the reference): q (B, Lq, H, Dh); pages (P, BS, Hkv, Dh);
-// block tables (B, MB) int32 (-1 = unallocated); page_pos (P, BS) int32
-// (-1 = empty slot); decode q_pos (B,) (-1 = inactive row); prefill
-// q_start / q_len (B,).  All fp32.
+// Layouts (as in the reference): q (B, Lq, H, Dh) fp32; pages (P, BS, Hkv,
+// Dh) stored as fp32, bf16, int8 or fp8 e4m3 (the storage kind); for int8
+// and fp8 pages, fp32 scales ksc / vsc (P, BS, Hkv), one per (slot, KV
+// head); block tables (B, MB) int32 (-1 = unallocated); page_pos (P, BS)
+// int32 (-1 = empty slot); decode q_pos (B,) (-1 = inactive row); prefill
+// q_start / q_len (B,).
+//
+// Storage.  One body, templated on the page element type; only the shared-
+// memory fill differs.  Each thread loads four elements at a time (float4,
+// two bf162, char4, or four packed e4m3 bytes), converts them to fp32
+// exactly, and for int8 / fp8 multiplies each by its slot's scale before
+// it lands in shared memory: the Pallas body's k.astype(f32) * ks, one
+// rounding, the same bits as core.quant.dequantize_kv.  Scores, softmax
+// and the accumulator are fp32 for every kind.
 //
 // Design.  One block per (row, KV head, tile of 16 query rows).  The query
 // rows of a block are the G = H / Hkv grouped heads of that KV head times
@@ -24,16 +34,23 @@
 // kernel and the plain version do, instead of NaN.
 //
 // Bound.  Each referenced page is read once per KV head, so the kernel
-// moves ~2 * slots * Dh * 4 bytes per KV head plus q and the output; the
-// work is 4 * Dh flops per (query head, visible slot).  At decode (one
-// query per row) that is ~3 flops per byte: bound by bytes.  A causal
-// 32-token chunk has ~27 flops per byte, above the card's fp32 balance
-// (~20), so it is bound by operations.  In practice both are bound by
+// moves ~2 * slots * Dh * E bytes per KV head (E = 4, 2, 1, 1 for fp32,
+// bf16, int8, fp8), plus 8 bytes of scales per (slot, KV head) for int8 and
+// fp8, plus q and the output; the work is 4 * Dh flops per (query head,
+// visible slot).  At decode (one query per row) that is ~3 flops per byte
+// at fp32 and ~10 at int8 / fp8: bound by bytes.  A causal 32-token chunk
+// has ~27 flops per byte at fp32 (~100 at int8), above the card's fp32
+// balance (~20), so it is bound by operations.  In practice all are bound by
 // latency: B * Hkv * ceil(G * Lq / 16) blocks (8 at decode, 24 at a
 // one-row chunk) do not fill 132 SMs, and each walks its row's MB pages
 // in series, -1 entries included, with four barriers per page.  Splitting
 // the page loop across blocks (flash-decoding) is the known next step.
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -44,8 +61,10 @@ constexpr float kNegInf = -1073741824.0f;   // -2**30, as the reference
 
 struct Args {
   const float* q;
-  const float* kp;
-  const float* vp;
+  const void* kp;       // page storage: float, bf16, int8 or e4m3
+  const void* vp;
+  const float* ksc;     // int8 / fp8: (P, BS, Hkv) scales; else nullptr
+  const float* vsc;
   const int* bt;
   const int* ppos;
   const int* q_start;   // decode: q_pos
@@ -54,6 +73,33 @@ struct Args {
   int B, Lq, H, Hkv, Dh, BS, MB, causal, window;
   float scale;
 };
+
+// four consecutive page elements (16-, 8- or 4-byte aligned) -> fp32, exact
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
+  return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
+}
+
+template <typename T>
+constexpr bool kQuantized =
+    std::is_same<T, int8_t>::value || std::is_same<T, __nv_fp8_e4m3>::value;
+
+__device__ __forceinline__ float4 scaled(float4 v, float s) {
+  v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+  return v;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -72,7 +118,10 @@ size_t smem_bytes(int Dh, int BS) {
          sizeof(int) * (size_t)BS;
 }
 
+template <typename T>
 __device__ void paged_attention_body(const Args& a) {
+  const T* kp = static_cast<const T*>(a.kp);
+  const T* vp = static_cast<const T*>(a.vp);
   const int b = blockIdx.x, kvh = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = a.H / a.Hkv;
@@ -122,11 +171,15 @@ __device__ void paged_attention_body(const Args& a) {
     __syncthreads();             // previous page's tiles fully consumed
     for (int i = tid; i < a.BS * d4; i += kThreads) {
       const int s = i / d4, c = i % d4;
-      const size_t off = ((size_t)(pc * a.BS + s) * a.Hkv + kvh) * a.Dh;
-      reinterpret_cast<float4*>(sk + s * ldk)[c] =
-          reinterpret_cast<const float4*>(a.kp + off)[c];
-      reinterpret_cast<float4*>(sv + s * a.Dh)[c] =
-          reinterpret_cast<const float4*>(a.vp + off)[c];
+      const size_t sh = (size_t)(pc * a.BS + s) * a.Hkv + kvh;  // (slot, head)
+      const size_t off = sh * a.Dh + 4 * c;
+      float4 kv = load4(kp + off), vv = load4(vp + off);
+      if constexpr (kQuantized<T>) {   // fused dequant: payload * scale
+        kv = scaled(kv, a.ksc[sh]);
+        vv = scaled(vv, a.vsc[sh]);
+      }
+      reinterpret_cast<float4*>(sk + s * ldk)[c] = kv;
+      reinterpret_cast<float4*>(sv + s * a.Dh)[c] = vv;
     }
     for (int s = tid; s < a.BS; s += kThreads) spos[s] = a.ppos[pc * a.BS + s];
     __syncthreads();
@@ -199,15 +252,18 @@ __device__ void paged_attention_body(const Args& a) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
-  paged_attention_body(a);
+  paged_attention_body<T>(a);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Args a) {
-  paged_attention_body(a);
+  paged_attention_body<T>(a);
 }
 
 int launch(void (*kernel)(Args), const Args& a, void* stream) {
+  // Dh % 4 == 0 keeps every four-element load aligned for every kind
   if (a.Dh % 4 || a.Dh > kThreads * kMaxDpt || a.H % a.Hkv) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(a.Dh, a.BS);
   if (smem > 48 * 1024) {
@@ -221,24 +277,46 @@ int launch(void (*kernel)(Args), const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// storage kind: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3 (kernels/paged_attention.py
+// STORAGE_KINDS); int8 and fp8 need both scale arrays, the others none
+template <typename T>
+int launch_kind(bool prefill, const Args& a, void* stream) {
+  return launch(prefill ? paged_prefill_kernel<T> : paged_decode_kernel<T>,
+                a, stream);
+}
+
+int dispatch(int kind, bool prefill, const Args& a, void* stream) {
+  const bool quant = kind == 2 || kind == 3;
+  if (quant != (a.ksc != nullptr) || quant != (a.vsc != nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (kind) {
+    case 0: return launch_kind<float>(prefill, a, stream);
+    case 1: return launch_kind<__nv_bfloat16>(prefill, a, stream);
+    case 2: return launch_kind<int8_t>(prefill, a, stream);
+    case 3: return launch_kind<__nv_fp8_e4m3>(prefill, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int paged_attention_decode(
-    const float* q, const float* kp, const float* vp, const int* bt,
-    const int* ppos, const int* q_pos, float* out, int B, int H, int Hkv,
-    int Dh, int BS, int MB, int causal, int window, float scale,
-    void* stream) {
-  Args a{q, kp, vp, bt, ppos, q_pos, nullptr, out,
+    const float* q, const void* kp, const void* vp, const float* ksc,
+    const float* vsc, const int* bt, const int* ppos, const int* q_pos,
+    float* out, int kind, int B, int H, int Hkv, int Dh, int BS, int MB,
+    int causal, int window, float scale, void* stream) {
+  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_pos, nullptr, out,
          B, 1, H, Hkv, Dh, BS, MB, causal, window, scale};
-  return launch(paged_decode_kernel, a, stream);
+  return dispatch(kind, false, a, stream);
 }
 
 extern "C" int paged_attention_prefill(
-    const float* q, const float* kp, const float* vp, const int* bt,
-    const int* ppos, const int* q_start, const int* q_len, float* out, int B,
-    int Lq, int H, int Hkv, int Dh, int BS, int MB, int causal, int window,
-    float scale, void* stream) {
-  Args a{q, kp, vp, bt, ppos, q_start, q_len, out,
+    const float* q, const void* kp, const void* vp, const float* ksc,
+    const float* vsc, const int* bt, const int* ppos, const int* q_start,
+    const int* q_len, float* out, int kind, int B, int Lq, int H, int Hkv,
+    int Dh, int BS, int MB, int causal, int window, float scale,
+    void* stream) {
+  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_start, q_len, out,
          B, Lq, H, Hkv, Dh, BS, MB, causal, window, scale};
-  return launch(paged_prefill_kernel, a, stream);
+  return dispatch(kind, true, a, stream);
 }

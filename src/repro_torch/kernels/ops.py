@@ -4,9 +4,15 @@ Each wrapper dispatches on the device of its tensors: on the CPU it runs
 the kernel's plain PyTorch version; on a CUDA tensor it launches the
 hand-written kernel or raises — there is no fallback.  Each wrapper keeps
 two plain integer counts as attributes: ``calls`` (every call) and
-``launches`` (kernel launches only, added right after the launch).
+``launches`` (kernel launches only, added right after the launch).  The
+two paged wrappers also count their launches per page storage kind
+(``by_storage``: 'fp32' / 'bf16' / 'int8' / 'fp8').
 """
 from __future__ import annotations
+
+import collections
+
+from repro_torch.core.quant import KV_DTYPES
 
 from repro_torch.kernels import demux_rsa as _demux
 from repro_torch.kernels import mux_embed as _mux
@@ -15,6 +21,12 @@ from repro_torch.kernels import paged_attention as _paged
 
 def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
+
+
+def _launched(wrapper, pages):
+    """Count one launch of a paged kernel over ``pages``' storage."""
+    wrapper.launches += 1
+    wrapper.by_storage[KV_DTYPES[_paged.STORAGE_KINDS[pages.dtype]]] += 1
 
 
 def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0):
@@ -29,33 +41,47 @@ def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0):
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, page_pos, q_pos, *,
-                    window=None, causal: bool = True):
-    """Decode attention over the paged pool: q (B, 1, H, Dh)."""
+                    k_scales=None, v_scales=None, window=None,
+                    causal: bool = True):
+    """Decode attention over the paged pool: q (B, 1, H, Dh); pages fp32,
+    bf16, or int8/fp8 with their (P, BS, Hkv) fp32 scales."""
     paged_attention.calls += 1
     if _on_cpu(q):
+        _paged.storage_kind(k_pages, v_pages, k_scales, v_scales)
+        if k_scales is not None:
+            return _paged.paged_attention_quant_ref(
+                q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                page_pos, q_pos, window=window, causal=causal)
         return _paged.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                           page_pos, q_pos, window=window,
                                           causal=causal)
     out = _paged.paged_attention_cuda(q, k_pages, v_pages, block_tables,
-                                      page_pos, q_pos, window=window,
+                                      page_pos, q_pos, k_scales=k_scales,
+                                      v_scales=v_scales, window=window,
                                       causal=causal)
-    paged_attention.launches += 1
+    _launched(paged_attention, k_pages)
     return out
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, page_pos,
-                            q_start, q_len, *, window=None,
-                            causal: bool = True):
-    """Chunked-prefill attention over the paged pool: q (B, Lq, H, Dh)."""
+                            q_start, q_len, *, k_scales=None, v_scales=None,
+                            window=None, causal: bool = True):
+    """Chunked-prefill attention over the paged pool: q (B, Lq, H, Dh);
+    pages as ``paged_attention``."""
     paged_prefill_attention.calls += 1
     if _on_cpu(q):
+        _paged.storage_kind(k_pages, v_pages, k_scales, v_scales)
+        if k_scales is not None:
+            return _paged.paged_prefill_attention_quant_ref(
+                q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                page_pos, q_start, q_len, window=window, causal=causal)
         return _paged.paged_prefill_attention_ref(
             q, k_pages, v_pages, block_tables, page_pos, q_start, q_len,
             window=window, causal=causal)
     out = _paged.paged_prefill_attention_cuda(
         q, k_pages, v_pages, block_tables, page_pos, q_start, q_len,
-        window=window, causal=causal)
-    paged_prefill_attention.launches += 1
+        k_scales=k_scales, v_scales=v_scales, window=window, causal=causal)
+    _launched(paged_prefill_attention, k_pages)
     return out
 
 
@@ -77,12 +103,15 @@ def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
 
 WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
             demux_rsa)
+PAGED = (paged_attention, paged_prefill_attention)
 
 
 def reset_counts():
     for w in WRAPPERS:
         w.calls = 0
         w.launches = 0
+    for w in PAGED:
+        w.by_storage = collections.Counter()
 
 
 def counts(kind: str = "launches") -> dict:

@@ -2,27 +2,64 @@
 (``csrc/paged_attention.cu``) and their plain PyTorch versions.
 
 Counterpart of ``repro/kernels/paged_attention.py`` (``paged_attention``
-and ``paged_prefill_attention``).  ``*_cuda`` launch the kernels on CUDA
-tensors and nothing else; ``*_ref`` are the plain versions (gather each
-row's pages, then naive attention), mirroring ``repro/kernels/ref.py``.
-The dispatching wrappers with launch counts are in ``kernels/ops.py``.
+and ``paged_prefill_attention``).  Pages are stored as fp32, bf16, int8 or
+fp8 e4m3; int8 and fp8 pages come with per-(slot, head) fp32 scales
+``k_scales``/``v_scales`` of shape (P, BS, Hkv), and the kernels fuse the
+dequant (``payload.float() * scale``) into each page load.  ``*_cuda``
+launch the kernels on CUDA tensors and nothing else; ``*_ref`` and
+``*_quant_ref`` are the plain versions (dequantize, gather each row's
+pages, then naive attention), mirroring ``repro/kernels/ref.py``.  The
+dispatching wrappers with launch counts are in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import (KV_DTYPES, dequantize_kv, kv_quant_kind,
+                                    kv_store_dtype)
 from repro_torch.kernels import build
 from repro_torch.nn.attention import attention_core, make_attention_mask
+
+# page storage dtype -> the kernels' storage-kind argument, the index of its
+# name in KV_DTYPES: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3
+STORAGE_KINDS = {kv_store_dtype(k): i for i, k in enumerate(KV_DTYPES)}
+
+
+def storage_kind(k_pages, v_pages, k_scales=None, v_scales=None) -> int:
+    """Check the page storage and its scales; return the kernels' storage
+    kind.  fp32 and bf16 pages take no scales; int8 and fp8 pages need
+    both, fp32, shaped (P, BS, Hkv) like the pages, on their device."""
+    dt = k_pages.dtype
+    if v_pages.dtype != dt or dt not in STORAGE_KINDS:
+        raise ValueError(f"pages {dt} / {v_pages.dtype}: need one of "
+                         f"{sorted(map(str, STORAGE_KINDS))} for both")
+    given = [s is not None for s in (k_scales, v_scales)]
+    if kv_quant_kind(dt) is None:
+        if any(given):
+            raise ValueError(f"{dt} pages are not quantized: pass no "
+                             "k_scales / v_scales")
+        return STORAGE_KINDS[dt]
+    if not all(given):
+        raise ValueError(f"{dt} pages need both k_scales and v_scales")
+    for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if (s.dtype != torch.float32 or s.shape != k_pages.shape[:3]
+                or s.device != k_pages.device):
+            raise ValueError(f"{name}: need fp32 {tuple(k_pages.shape[:3])} "
+                             f"on {k_pages.device}, got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
+    return STORAGE_KINDS[dt]
 
 
 # --------------------------------------------------------- plain versions
 
 def _gather(k_pages, v_pages, block_tables, page_pos):
+    """Rows' pages gathered contiguous; bf16 pages upcast to fp32
+    (exactly), as the reference's fp32 x bf16 promotion does."""
     bt = block_tables.long()
     b = bt.shape[0]
     btc = bt.clamp(min=0)
-    k = k_pages[btc].reshape(b, -1, *k_pages.shape[2:])
-    v = v_pages[btc].reshape(b, -1, *v_pages.shape[2:])
+    k = k_pages[btc].float().reshape(b, -1, *k_pages.shape[2:])
+    v = v_pages[btc].float().reshape(b, -1, *v_pages.shape[2:])
     pos = torch.where(bt[..., None] >= 0, page_pos[btc], -1).reshape(b, -1)
     return k, v, pos
 
@@ -59,17 +96,43 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
     return attention_core(q, k, v, mask=mask)
 
 
+def paged_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
+                              block_tables, page_pos, q_pos, *, window=None,
+                              causal=True):
+    """Plain version of the fused-dequant decode kernel: dequantize the
+    whole pool in fp32 (the per-slot ``payload * scale`` the kernel fuses
+    into its page loads), then ``paged_attention_ref``."""
+    return paged_attention_ref(q, dequantize_kv(k_pages, k_scales),
+                               dequantize_kv(v_pages, v_scales),
+                               block_tables, page_pos, q_pos, window=window,
+                               causal=causal)
+
+
+def paged_prefill_attention_quant_ref(q, k_pages, v_pages, k_scales,
+                                      v_scales, block_tables, page_pos,
+                                      q_start, q_len, *, window=None,
+                                      causal=True):
+    """Chunked-prefill analogue of ``paged_attention_quant_ref``."""
+    return paged_prefill_attention_ref(q, dequantize_kv(k_pages, k_scales),
+                                       dequantize_kv(v_pages, v_scales),
+                                       block_tables, page_pos, q_start,
+                                       q_len, window=window, causal=causal)
+
+
 # ----------------------------------------------------------- CUDA launch
 
-def _checked(q, k_pages, v_pages, block_tables, page_pos, *vecs):
+def _checked(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+             page_pos, *vecs):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the paged attention kernel runs on CUDA tensors, "
                          f"got {dev}")
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.dtype != torch.float32 or x.device != dev:
-            raise ValueError(f"{name}: need fp32 on {dev}, got {x.dtype} "
-                             f"on {x.device}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"q: need fp32, got {q.dtype}")
+    if k_pages.device != dev or v_pages.device != dev:
+        raise ValueError(f"pages on {k_pages.device} / {v_pages.device}, "
+                         f"q on {dev}")
+    kind = storage_kind(k_pages, v_pages, k_scales, v_scales)
     b, _, h, dh = q.shape
     p, bs, hkv, dh2 = k_pages.shape
     if v_pages.shape != k_pages.shape or dh2 != dh or h % hkv:
@@ -87,7 +150,18 @@ def _checked(q, k_pages, v_pages, block_tables, page_pos, *vecs):
         if v.shape != (b,):
             raise ValueError(f"per-row vector of shape {tuple(v.shape)}, "
                              f"want ({b},)")
-    return ([x.contiguous() for x in (q, k_pages, v_pages)], ints)
+    kp, vp = k_pages.contiguous(), v_pages.contiguous()
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("pages must start on a 16-byte boundary (the "
+                         "kernels load four elements at a time)")
+    scales = [None if s is None else s.contiguous()
+              for s in (k_scales, v_scales)]
+    return kind, [q.contiguous(), kp, vp], scales, ints
+
+
+def _ptr(x):
+    """A tensor's device address; None (a null pointer) for no tensor."""
+    return None if x is None else x.data_ptr()
 
 
 def _window(window) -> int:
@@ -97,34 +171,42 @@ def _window(window) -> int:
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, page_pos,
-                         q_pos, *, window=None, causal=True):
-    """Launch ``paged_decode_kernel``; arguments as ``paged_attention_ref``."""
-    (q, kp, vp), (bt, pp, qp) = _checked(q, k_pages, v_pages, block_tables,
-                                         page_pos, q_pos)
+                         q_pos, *, k_scales=None, v_scales=None, window=None,
+                         causal=True):
+    """Launch ``paged_decode_kernel`` for the pages' storage kind;
+    arguments as ``paged_attention_ref`` (int8/fp8 pages: with their
+    scales, as ``paged_attention_quant_ref``)."""
+    kind, (q, kp, vp), (ks, vs), (bt, pp, qp) = _checked(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, page_pos,
+        q_pos)
     b, _, h, dh = q.shape
     out = torch.empty_like(q)
     err = build.load("paged_attention").paged_attention_decode(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
-        pp.data_ptr(), qp.data_ptr(), out.data_ptr(), b, h, kp.shape[2], dh,
-        kp.shape[1], bt.shape[1], int(causal), _window(window),
-        float(dh ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
+        bt.data_ptr(), pp.data_ptr(), qp.data_ptr(), out.data_ptr(), kind,
+        b, h, kp.shape[2], dh, kp.shape[1], bt.shape[1], int(causal),
+        _window(window), float(dh ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_kernel")
     return out
 
 
 def paged_prefill_attention_cuda(q, k_pages, v_pages, block_tables,
-                                 page_pos, q_start, q_len, *, window=None,
-                                 causal=True):
-    """Launch ``paged_prefill_kernel``; arguments as
-    ``paged_prefill_attention_ref``."""
-    (q, kp, vp), (bt, pp, qs, ql) = _checked(
-        q, k_pages, v_pages, block_tables, page_pos, q_start, q_len)
+                                 page_pos, q_start, q_len, *, k_scales=None,
+                                 v_scales=None, window=None, causal=True):
+    """Launch ``paged_prefill_kernel`` for the pages' storage kind;
+    arguments as ``paged_prefill_attention_ref`` (int8/fp8 pages: with
+    their scales)."""
+    kind, (q, kp, vp), (ks, vs), (bt, pp, qs, ql) = _checked(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, page_pos,
+        q_start, q_len)
     b, lq, h, dh = q.shape
     out = torch.empty_like(q)
     err = build.load("paged_attention").paged_attention_prefill(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
-        pp.data_ptr(), qs.data_ptr(), ql.data_ptr(), out.data_ptr(), b, lq,
-        h, kp.shape[2], dh, kp.shape[1], bt.shape[1], int(causal),
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
+        bt.data_ptr(), pp.data_ptr(), qs.data_ptr(), ql.data_ptr(),
+        out.data_ptr(), kind, b, lq, h, kp.shape[2], dh, kp.shape[1],
+        bt.shape[1], int(causal),
         _window(window), float(dh ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_prefill_kernel")

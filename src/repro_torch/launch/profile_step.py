@@ -1,6 +1,7 @@
 """Where the time of one serve step goes, on the card.
 
     python -m repro_torch.launch.profile_step [--no-use-kernels]
+        [--kv-dtype fp32|bf16|int8|fp8]
 
 Builds full-width qwen2-1.5b (random seeded weights) at mux N=2 with 4
 backbone rows holding ~100-token contexts, then runs ``torch.profiler``
@@ -10,7 +11,8 @@ trace it reports, per step: host wall time, device busy time (the union
 of kernel, memcpy and memset intervals), the device's idle share, the
 number of kernels launched, and the device time by kernel name.  The
 idle share is taken against the wall time of the same steps run without
-the profiler.  Needs a GPU.
+the profiler.  ``--kv-dtype`` sets the page storage (default fp32).
+Needs a GPU.
 """
 from __future__ import annotations
 
@@ -95,6 +97,9 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True, help="kernel path (default) or plain path")
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=["fp32", "bf16", "int8", "fp8"],
+                    help="KV-page storage dtype (default fp32)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_config("qwen2-1.5b")
@@ -102,8 +107,9 @@ def main(argv=None):
     params = TransformerLM.init(torch.Generator(device=dev).manual_seed(0),
                                 cfg, mux)
     rows, ctx = 4, 96
-    sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124, block_size=16)
-    cache = engine.init_cache(sc, mux.n * rows, dev)
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124, block_size=16,
+                            kv_dtype=args.kv_dtype)
+    cache = engine.init_cache(sc, mux.n * rows, device=dev)
     pool = engine.make_pool(sc, mux.n * rows)
     for r in range(rows):
         pool.allocate(r, ctx + 8)
@@ -135,7 +141,8 @@ def main(argv=None):
 
     path = "kernel" if args.use_kernels else "plain"
     print(f"qwen2-1.5b full width, N=2, {rows} rows at context {ctx}, "
-          f"{path} path, {torch.cuda.get_device_name(dev)}")
+          f"{sc.page_dtype} pages, {path} path, "
+          f"{torch.cuda.get_device_name(dev)}")
     for label, fn in (("decode step", decode), ("prefill chunk (32)", chunk)):
         for _ in range(2):
             fn()

@@ -5,10 +5,11 @@ prefill (counterpart of ``repro.launch.serve``'s paged arm).
         --no-reduced --mux-n 2 --requests 8 --new-tokens 16
 
 Runs on ``cuda`` unless ``--device cpu``; weights come from a seeded
-init.  The reference's other modes (ring cache, blocking prefill,
-fill-drain, quantized pages, lanes, recovery, mesh, telemetry output)
-are later slices: their flags are rejected with an error that names the
-slice.
+init.  ``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and
+fp8 pages carry per-slot scales; the kernels fuse the dequant).  The
+reference's other modes (ring cache, blocking prefill, fill-drain, lanes,
+recovery, mesh, telemetry output) are later slices: their flags are
+rejected with an error that names the slice.
 """
 from __future__ import annotations
 
@@ -70,7 +71,6 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
 
 # flag -> where its mode stands in ROADMAP §1 (the reference still runs it)
 _LATER = {
-    "--kv-dtype": "quantized pages, ROADMAP §1 item 9",
     "--lanes": "width lanes, ROADMAP §1 item 10",
     "--lane-rows": "width lanes, ROADMAP §1 item 10",
     "--slo-mix": "width lanes, ROADMAP §1 item 10",
@@ -117,6 +117,11 @@ def _parser():
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=["fp32", "bf16", "int8", "fp8"],
+                    help="KV-page storage dtype (int8/fp8 store quantized "
+                         "pages with per-slot scales; the paged kernels "
+                         "fuse the dequant). Default: fp32")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -133,6 +138,8 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported yet ({where}); the JAX package "
                      "serves it: python -m repro.launch.serve")
+    if args.kv_dtype and not (args.continuous and args.cache == "paged"):
+        ap.error("--kv-dtype requires --continuous --cache paged")
     if not args.continuous:
         ap.error("fill-drain serving is a later slice of the port (ROADMAP "
                  "§1 item 8): pass --continuous --cache paged")
@@ -155,7 +162,7 @@ def main(argv=None):
     params = TransformerLM.init(gen, cfg, mux)
     sc = ServeConfig(cfg=cfg, mux=mux,
                      capacity=args.prompt_len + args.new_tokens + 8,
-                     block_size=args.block_size)
+                     block_size=args.block_size, kv_dtype=args.kv_dtype)
     rng = np.random.default_rng(args.seed)
     arrivals = []
     for i in range(args.requests):
@@ -179,6 +186,8 @@ def main(argv=None):
           f"prefill {stats['prefill_tokens']} backbone tokens "
           f"({stats['prefill_compute_tokens']} padded) in "
           f"{stats['prefill_events']} events, slot util {util:.2f})")
+    print(f"kv pages {sc.page_dtype}: pool {stats['pool_bytes']} bytes, "
+          f"{stats['kv_bytes_per_token']} bytes per token")
     compiled = ", ".join(f"{k}×{v}"
                          for k, v in sorted(stats["trace_counts"].items()))
     print(f"step signatures: {compiled}")

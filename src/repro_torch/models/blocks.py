@@ -4,8 +4,8 @@ block with its two paged serving branches and the dense (GLU) FFN.
     init_attention(generator, cfg)          -> params
     apply_attention(p, cfg, blk, x, ctx, cache) -> (x, cache)
 
-``cache`` is one layer's paged KV dict (``kp``/``vp``/``ppos``/``bt``),
-written in place.  ``ctx`` carries sin/cos, q_offset, q_end, rows,
+``cache`` is one layer's paged KV dict (``kp``/``vp``/``ppos``/``bt``,
+plus ``ksc``/``vsc`` scales for int8/fp8 pages), written in place.  ``ctx`` carries sin/cos, q_offset, q_end, rows,
 chunked and use_kernels, shared across layers.  Ported branches:
 
   * paged decode (L == 1, no ``rows``): write the token's K/V, attend over
@@ -98,22 +98,28 @@ def apply_attention(p, cfg, blk, x, ctx, cache):
     bt = cache["bt"] if rows is None else cache["bt"][rows]
     posm = paged_positions(ctx, b, l, x.device)
     paged_write(cache, k, v, posm, block_tables=bt)
+    # quantized pages: the kernels take the per-slot scales and fuse the
+    # dequant into their page loads
+    scale_kw = ({"k_scales": cache["ksc"], "v_scales": cache["vsc"]}
+                if "ksc" in cache else {})
     if ctx.get("chunked"):
         if kernels:
             o = kops.paged_prefill_attention(
                 q, cache["kp"], cache["vp"], bt, cache["ppos"], posm[:, 0],
-                (posm >= 0).sum(-1), window=window, causal=cfg.causal)
+                (posm >= 0).sum(-1), window=window, causal=cfg.causal,
+                **scale_kw)
     elif l == 1 and rows is None:
         if kernels:
             o = kops.paged_attention(q, cache["kp"], cache["vp"], bt,
                                      cache["ppos"], posm[:, 0],
-                                     window=window, causal=cfg.causal)
+                                     window=window, causal=cfg.causal,
+                                     **scale_kw)
     else:
         raise NotImplementedError(
             "blocking (whole-prompt) prefill is a later slice of the port; "
             "serve with chunked prefill")
     if not kernels:
-        kc, vc, kvpos = paged_view(cache, bt)
+        kc, vc, kvpos = paged_view(cache, bt)         # fp32, dequantized
         mask = make_attention_mask(posm, kvpos, causal=cfg.causal,
                                    window=window, kv_valid=kvpos >= 0)
         mask = mask & (posm >= 0)[..., None]

@@ -4,8 +4,9 @@
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
-``interop`` converts between the two.  This slice serves from a paged
-cache only (decode steps and chunked-prefill chunks).
+``interop`` converts between the two.  The port serves from a paged
+cache only (decode steps and chunked-prefill chunks), with fp32, bf16,
+int8 or fp8 pages.
 """
 from __future__ import annotations
 
@@ -56,18 +57,21 @@ class TransformerLM:
         return params
 
     @staticmethod
-    def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-                   block_size: int = 16, num_blocks: int, device="cpu"):
-        """Paged cache for ``batch`` backbone rows: per layer a page pool
-        and slot-position map; one (batch, max_blocks) block table shared
-        by every layer (tables are installed in place by
-        ``serve.engine.set_block_tables``)."""
+    def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+                   dtype=torch.float32, *, block_size: int = 16,
+                   num_blocks: int, kv_quant: str | None = None, device):
+        """Paged cache for ``batch`` backbone rows on ``device``: per layer
+        a page pool and slot-position map; one (batch, max_blocks) block
+        table shared by every layer (tables are installed in place by
+        ``serve.engine.set_block_tables``).  Pages are stored as ``dtype``;
+        kv_quant='int8'/'fp8' stores quantized pages with per-slot scales
+        instead (``ServeConfig.page_dtype`` / ``kv_quant`` give both)."""
         mb = -(-capacity // block_size)
         bt = torch.full((batch, mb), -1, dtype=torch.int32, device=device)
         layers = []
         for _ in range(cfg.n_layers):
             c = init_pages(num_blocks, block_size, cfg.n_kv_heads,
-                           cfg.head_dim, device)
+                           cfg.head_dim, dtype, kv_quant, device=device)
             c["bt"] = bt
             layers.append(c)
         return {"layers": layers, "bt": bt}

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import MuxSpec
+from repro_torch.core import quant as quantlib
 from repro_torch.models import TransformerLM
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import KVPool, blocks_for
@@ -29,22 +30,58 @@ def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """A decoder-only LM served from fp32 pages of ``block_size`` tokens
-    (the reference's ``kind``, ``cache_layout``, ``dtype``, ``kv_dtype``
-    and ``n_shards`` fields are fixed to 'lm', 'paged', fp32, None and 1
-    in this slice)."""
+    """A decoder-only LM served from paged KV of ``block_size`` tokens.
+
+    kv_dtype: page storage — 'fp32' | 'bf16' | 'int8' | 'fp8' (any
+    ``core.quant.resolve_kv_dtype`` spelling); None keeps the serve dtype,
+    fp32.  int8 and fp8 pages carry per-(slot, head) fp32 scales.  The
+    reference's ``kind``, ``cache_layout``, ``dtype``, ``num_blocks`` and
+    ``n_shards`` fields are fixed to 'lm', 'paged', fp32, the worst case
+    and 1 in the port so far."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
     block_size: int = 16
+    kv_dtype: str | None = None
 
     def __post_init__(self):
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
+        quantlib.resolve_kv_dtype(self.kv_dtype)
 
     @property
     def max_blocks_per_seq(self) -> int:
         return blocks_for(self.capacity, self.block_size)
+
+    @property
+    def kv_quant(self) -> str | None:
+        """Quantization kind of the page store ('int8'/'fp8'), or None for
+        plain floating-point pages."""
+        kind = quantlib.resolve_kv_dtype(self.kv_dtype)
+        return kind if kind in quantlib.KV_QUANT_KINDS else None
+
+    @property
+    def page_dtype(self) -> torch.dtype:
+        """Storage dtype of the KV pages under this config."""
+        kind = quantlib.resolve_kv_dtype(self.kv_dtype)
+        return quantlib.kv_store_dtype(kind or "fp32")
+
+    def kv_bytes_per_token(self) -> int:
+        """Pool bytes one token occupies across all attention layers
+        (payload + scales + the shared slot-position entry)."""
+        cfg = self.cfg
+        n_attn = sum(b in ("attn", "local") for b in cfg.pattern_layers)
+        per_layer = (2 * cfg.n_kv_heads * cfg.head_dim
+                     * self.page_dtype.itemsize)
+        if self.kv_quant is not None:
+            per_layer += 2 * cfg.n_kv_heads * 4          # fp32 ksc/vsc
+        per_layer += 4                                   # int32 ppos entry
+        return n_attn * per_layer
+
+    def pool_bytes(self, global_batch: int) -> int:
+        """Total device bytes of the page pool for ``global_batch``."""
+        return (self.pool_blocks(global_batch) * self.block_size
+                * self.kv_bytes_per_token())
 
     def pool_blocks(self, global_batch: int) -> int:
         """Worst case (every row at capacity) plus the trash block."""
@@ -59,10 +96,13 @@ def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
                   max_blocks_per_seq=sc.max_blocks_per_seq)
 
 
-def init_cache(sc: ServeConfig, global_batch: int, device="cpu"):
+def init_cache(sc: ServeConfig, global_batch: int, *, device):
+    """The paged cache for ``global_batch`` streams on ``device``, pages
+    stored as ``sc.kv_dtype`` says."""
     return TransformerLM.init_cache(
         sc.cfg, backbone_batch(global_batch, sc.mux), sc.capacity,
-        block_size=sc.block_size, num_blocks=sc.pool_blocks(global_batch),
+        sc.page_dtype, block_size=sc.block_size,
+        num_blocks=sc.pool_blocks(global_batch), kv_quant=sc.kv_quant,
         device=device)
 
 

@@ -1,5 +1,5 @@
 """Paged KV-cache pool: host block allocator + device page ops
-(counterpart of ``repro.serve.kvpool``; fp pages, one shard).
+(counterpart of ``repro.serve.kvpool``; one shard).
 
   * ``KVPool``   — host-side allocator (numpy only): free list, per-client
                    block tables, allocate / append / free.  A client is one
@@ -9,8 +9,10 @@
                    Dh)`` K/V pages plus a per-slot absolute position map;
                    ``paged_write`` scatters new entries IN PLACE (the
                    reference's functional ``.at[].set`` becomes an
-                   in-place ``index_put_``), ``paged_view`` gathers a
-                   contiguous view for the plain attention path.
+                   in-place ``index_put_``; int8/fp8 pages quantize at
+                   write with per-(slot, head) fp32 scales ``ksc``/``vsc``),
+                   ``paged_view`` gathers a dequantized fp32 view for the
+                   plain attention path.
 
 Block 0 is the trash block: writes for invalid positions (bucket padding,
 inactive rows) go there and its position entries stay -1, so they are
@@ -22,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.core import quant as quantlib
 
 
 class PoolError(RuntimeError):
@@ -156,23 +160,51 @@ class KVPool:
 
 # ---------------------------------------------------------------- device
 
+def _bits(x):
+    """fp8 pages as their uint8 bytes (scatters and gathers move fp8
+    payloads bit for bit without needing fp8 indexing kernels); other
+    dtypes unchanged."""
+    return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+
+def _zeros(shape, dtype, device):
+    if dtype == torch.float8_e4m3fn:      # 0x00 is +0.0 in e4m3
+        return torch.zeros(shape, dtype=torch.uint8,
+                           device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def init_pages(num_blocks: int, block_size: int, n_kv_heads: int,
-               head_dim: int, device="cpu"):
-    """fp32 pages for ONE attention layer + its per-slot position map."""
+               head_dim: int, dtype, quant: str | None = None, *, device):
+    """Pages for ONE attention layer + its per-slot position map, on
+    ``device``.
+
+    quant: 'int8' / 'fp8' stores the pages in that dtype (``dtype`` is
+    then ignored) with per-(slot, kv-head) fp32 scales alongside
+    (``ksc``/``vsc``, shape (P, BS, Hkv)).  The presence of ``ksc`` marks
+    a cache as quantized downstream: ``paged_write`` quantizes at write,
+    the kernels fuse the dequant into their page loads."""
     shape = (num_blocks, block_size, n_kv_heads, head_dim)
-    return {"kp": torch.zeros(shape, device=device),
-            "vp": torch.zeros(shape, device=device),
-            "ppos": torch.full((num_blocks, block_size), -1,
-                               dtype=torch.int32, device=device)}
+    store = dtype if quant is None else quantlib.kv_store_dtype(quant)
+    out = {"kp": _zeros(shape, store, device),
+           "vp": _zeros(shape, store, device),
+           "ppos": torch.full((num_blocks, block_size), -1,
+                              dtype=torch.int32, device=device)}
+    if quant is not None:
+        out["ksc"] = torch.zeros(shape[:3], device=device)
+        out["vsc"] = torch.zeros(shape[:3], device=device)
+    return out
 
 
 def paged_write(cache, k, v, positions, block_tables=None):
     """Scatter L new KV entries per row into their pages, in place.
 
-    k, v: (B, L, Hkv, Dh); positions: (B, L) absolute positions, entries
-    < 0 (padding, inactive rows) go to the trash block and stay masked.
-    block_tables overrides ``cache['bt']`` (a row subset).  Rows own
-    disjoint blocks, so scatters never collide across rows.  Returns
+    k, v: (B, L, Hkv, Dh) fp32; positions: (B, L) absolute positions,
+    entries < 0 (padding, inactive rows) go to the trash block and stay
+    masked.  block_tables overrides ``cache['bt']`` (a row subset).  Rows
+    own disjoint blocks, so scatters never collide across rows.
+    Quantized caches (``ksc`` present) quantize at write time, per
+    (slot, head) vector; bf16 pages store the rounded cast.  Returns
     ``cache``."""
     bt = (cache["bt"] if block_tables is None else block_tables).long()
     bs = cache["kp"].shape[1]
@@ -184,22 +216,37 @@ def paged_write(cache, k, v, positions, block_tables=None):
     page = torch.where(valid, page, TRASH_BLOCK)
     slot = torch.where(valid, positions % bs, 0)
     stored = torch.where(valid, positions, -1)
-    cache["kp"].index_put_((page, slot), k)
-    cache["vp"].index_put_((page, slot), v)
-    cache["ppos"].index_put_((page, slot), stored.to(torch.int32))
+    idx = (page, slot)
+    if "ksc" in cache:
+        kind = quantlib.kv_quant_kind(cache["kp"].dtype)
+        kq, ks = quantlib.quantize_kv(k, kind)
+        vq, vs = quantlib.quantize_kv(v, kind)
+        cache["ksc"].index_put_(idx, ks)
+        cache["vsc"].index_put_(idx, vs)
+    else:
+        kq, vq = k.to(cache["kp"].dtype), v.to(cache["vp"].dtype)
+    _bits(cache["kp"]).index_put_(idx, _bits(kq))
+    _bits(cache["vp"]).index_put_(idx, _bits(vq))
+    cache["ppos"].index_put_(idx, stored.to(torch.int32))
     return cache
 
 
 def paged_view(cache, block_tables=None):
-    """Each row's pages gathered into a contiguous (B, MB*BS, Hkv, Dh)
+    """Each row's pages gathered into a contiguous fp32 (B, MB*BS, Hkv, Dh)
     view plus per-row slot positions (B, MB*BS), -1 for empty or
-    unallocated.  The plain attention path reads this; the kernels read
-    the pages in place."""
+    unallocated.  Quantized pages are dequantized and bf16 pages upcast
+    (exactly), so the plain attention path computes in fp32 as the
+    reference's promotion does; the kernels read the pages in place."""
     bt = (cache["bt"] if block_tables is None else block_tables).long()
     b = bt.shape[0]
     btc = bt.clamp(min=0)
-    k = cache["kp"][btc]
-    v = cache["vp"][btc]
+    k = _bits(cache["kp"])[btc].view(cache["kp"].dtype)
+    v = _bits(cache["vp"])[btc].view(cache["vp"].dtype)
+    if "ksc" in cache:
+        k = quantlib.dequantize_kv(k, cache["ksc"][btc])
+        v = quantlib.dequantize_kv(v, cache["vsc"][btc])
+    else:
+        k, v = k.float(), v.float()
     pos = torch.where(bt[..., None] >= 0, cache["ppos"][btc], -1)
     return (k.reshape(b, -1, *k.shape[3:]), v.reshape(b, -1, *v.shape[3:]),
             pos.reshape(b, -1))

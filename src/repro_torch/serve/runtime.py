@@ -74,7 +74,9 @@ def params_to(params, device):
 class ServeRuntime:
     """Plan-executing runtime over the paged KV pool.
 
-    params/sc: model params and a ``ServeConfig``.  backbone_rows: B rows
+    params/sc: model params and a ``ServeConfig`` (its ``kv_dtype`` sets
+    the page storage; ``stats`` records the pool's bytes and bytes per
+    token).  backbone_rows: B rows
     of the N_mux × B grid.  chunk: prefill chunk size in tokens.
     Requests carry their own ``SamplingParams`` (None = greedy).
     use_kernels: run the main path's kernels (the wrappers in
@@ -106,7 +108,7 @@ class ServeRuntime:
                                          max_len=sc.capacity,
                                          telemetry=self.tele)
         self.pool = make_pool(sc, self.nb)
-        self.cache = init_cache(sc, self.nb, self.device)
+        self.cache = init_cache(sc, self.nb, device=self.device)
         self.row_len: dict[int, int] = {}      # rows holding blocks
         self.row_tokens: dict[int, np.ndarray] = {}
         self.next_tok = np.full((self.n_mux, backbone_rows), PAD_ID,
@@ -117,7 +119,9 @@ class ServeRuntime:
                       "prefill_compute_tokens": 0, "decode_steps": 0,
                       "prefill_log": [], "slot_util": [], "cache_util": [],
                       "completed": self.sched.completed,
-                      "trace_counts": self.trace_counts}
+                      "trace_counts": self.trace_counts,
+                      "pool_bytes": sc.pool_bytes(self.nb),
+                      "kv_bytes_per_token": sc.kv_bytes_per_token()}
 
     def _first_run(self, key: str):
         """Count a step signature the first time it runs."""

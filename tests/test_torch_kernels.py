@@ -1,4 +1,5 @@
-"""The port's four main-path kernels (``repro_torch.kernels``).
+"""The port's four main-path kernels (``repro_torch.kernels``), the two
+paged ones for every page storage kind (fp32, bf16, int8, fp8).
 
 CPU: each kernel's plain PyTorch version against the JAX Pallas kernel in
 interpret mode, over the edge shapes of ``tests/test_paged_attention.py``
@@ -12,21 +13,34 @@ reference suite's own kernel-vs-oracle bounds (atol 3e-5 / rtol 1e-4 for
 attention over O(1) inputs, 2e-4 for the demux MLP whose two products sum
 over D=64 and F=128 terms).
 
+Storage parity (after ``tests/test_paged_attention.py``'s layer): pages
+stored as bf16, int8 or fp8 (with their per-slot scales) go through the
+port's plain versions and the Pallas kernels in interpret mode; the two
+agree within the reference's ``KERNEL_ATOL`` (3e-5: identical dequantized
+inputs, reordered fp32 sums), and both stay within the analytic bound of
+the pristine fp32 oracle (``core.quant.paged_attention_error_bound`` for
+int8/fp8, its relative-rounding analogue for bf16).
+
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
-widths.  The card's machine has no JAX, so the reference is imported
-inside the CPU tests only: ``pytest -m cuda`` runs there.
+widths, for every storage kind.  The card's machine has no JAX, so the
+reference is imported inside the CPU tests only: ``pytest -m cuda`` runs
+there.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quant as tq
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
 
 ATT_TOL = dict(atol=3e-5, rtol=1e-4)
 DEMUX_TOL = dict(atol=2e-4, rtol=2e-4)
+KERNEL_ATOL = 3e-5              # the reference suite's kernel tolerance
+BF16_REL = 2.0 ** -8            # bf16 half-ulp relative rounding error
+STORE_KINDS = ["fp32", "bf16", "int8", "fp8"]
 
 
 @pytest.fixture
@@ -214,6 +228,148 @@ def test_kernel_launchers_reject_cpu_tensors():
         demux_rsa.demux_rsa_cuda(*_torch(args))
 
 
+# ------------------------------------------------- page storage kinds
+
+def _store(kind, kp, vp, device="cpu"):
+    """fp32 numpy pages stored as ``kind`` the way the pool stores them:
+    (k_pages, v_pages, scale kwargs) as tensors on ``device``."""
+    k, v = torch.as_tensor(kp, device=device), torch.as_tensor(vp,
+                                                               device=device)
+    if kind not in tq.KV_QUANT_KINDS:
+        dt = tq.kv_store_dtype(kind)
+        return k.to(dt), v.to(dt), {}
+    kq, ks = tq.quantize_kv(k, kind)
+    vq, vs = tq.quantize_kv(v, kind)
+    return kq, vq, {"k_scales": ks, "v_scales": vs}
+
+
+def _to_jax(t):
+    """A CPU tensor as a JAX array, bit for bit (bf16 and fp8 cross as
+    raw bits: ``.numpy()`` refuses them)."""
+    import jax.numpy as jnp
+    views = {torch.bfloat16: (torch.int16, jnp.bfloat16),
+             torch.float8_e4m3fn: (torch.uint8, jnp.float8_e4m3fn)}
+    if t.dtype in views:
+        bits, dt = views[t.dtype]
+        return jnp.asarray(t.view(bits).numpy().view(dt))
+    return jnp.asarray(t.numpy())
+
+
+def _storage_bound(q, kind, kp, vp, scale_kw):
+    """Analytic |attention over stored pages - pristine fp32 oracle|
+    bound (tests/test_paged_attention.py ``_storage_bound``)."""
+    if kind == "fp32":
+        return 0.0
+    if kind == "bf16":
+        q_l1 = float(q.abs().sum(-1).max())
+        e_k = BF16_REL * float(np.abs(kp).max())
+        v_max = float(np.abs(vp).max())
+        e_v = BF16_REL * v_max
+        return 2.0 * q_l1 * e_k * q.shape[-1] ** -0.5 * (v_max + e_v) + e_v
+    return float(tq.paged_attention_error_bound(
+        q, scale_kw["k_scales"], scale_kw["v_scales"], kind))
+
+
+# tests/test_paged_attention.py's storage-parity cases: (lens, q_pos, MB)
+# at B=len(lens), H=8, Hkv=2, Dh=16, BS=8, P=32
+STORAGE_DECODE_CASES = {
+    "hetero_inactive": ([37, 12, -1], [36, 11, -1], 6),
+    "single_block_rows": ([8, 3, 1], [7, 2, 0], 1),
+    "non_pow2": ([29, 13, 7], [28, 12, 6], 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORAGE_DECODE_CASES))
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_decode_storage_parity(kind, case):
+    jops, jnp = _pallas()
+    lens, q_pos, mb = STORAGE_DECODE_CASES[case]
+    rng = np.random.default_rng(mb)
+    kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=32, block_size=8,
+                                  max_blocks=mb, hkv=2, dh=16)
+    q = torch.as_tensor(rng.standard_normal((len(lens), 1, 8, 16),
+                                            np.float32))
+    qp, bt, ppos = map(torch.as_tensor, (np.asarray(q_pos, np.int32), bt,
+                                         ppos))
+    ks, vs, scale_kw = _store(kind, kp, vp)
+    got = ops.paged_attention(q, ks, vs, bt, ppos, qp, **scale_kw)
+    want = jops.paged_attention(
+        *map(_to_jax, (q, ks, vs, bt, ppos, qp)), interpret=True,
+        **{k: _to_jax(v) for k, v in scale_kw.items()})
+    # (a) the plain version == the Pallas kernel on the same stored pages
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=KERNEL_ATOL, rtol=1e-4)
+    # (b) within the analytic bound of the pristine fp32 oracle
+    act = qp.numpy() >= 0
+    pristine = ref.paged_attention_ref(q, torch.as_tensor(kp),
+                                       torch.as_tensor(vp), bt, ppos, qp)
+    err = (got - pristine).abs().numpy()[act].max()
+    assert err <= _storage_bound(q, kind, kp, vp, scale_kw) + KERNEL_ATOL
+    assert kind == "fp32" or err > 0          # the storage is not fp32
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_prefill_storage_parity(kind):
+    """A non-power-of-2 chunk with a padded row (the reference's case)."""
+    jops, jnp = _pallas()
+    rng = np.random.default_rng(0)
+    kp, vp, bt, ppos = build_pool(rng, [23, 11], num_blocks=12, block_size=8,
+                                  max_blocks=4, hkv=2, dh=8)
+    q = torch.as_tensor(rng.standard_normal((2, 7, 4, 8), np.float32))
+    qs, ql, bt, ppos = map(torch.as_tensor, (np.asarray([16, 6], np.int32),
+                                             np.asarray([7, 5], np.int32),
+                                             bt, ppos))
+    ks, vs, scale_kw = _store(kind, kp, vp)
+    got = ops.paged_prefill_attention(q, ks, vs, bt, ppos, qs, ql,
+                                      **scale_kw)
+    want = jops.paged_prefill_attention(
+        *map(_to_jax, (q, ks, vs, bt, ppos, qs, ql)), interpret=True,
+        **{k: _to_jax(v) for k, v in scale_kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=KERNEL_ATOL, rtol=1e-4)
+    pristine = ref.paged_prefill_attention_ref(
+        q, torch.as_tensor(kp), torch.as_tensor(vp), bt, ppos, qs, ql)
+    bound = _storage_bound(q, kind, kp, vp, scale_kw) + KERNEL_ATOL
+    for sl in (np.s_[0], np.s_[1, :5]):          # skip padded queries
+        assert (got - pristine).abs().numpy()[sl].max() <= bound
+
+
+def test_wrappers_check_page_storage():
+    """Quantized pages need both scales, fp pages take none, scales must
+    be fp32 (P, BS, Hkv); on the CPU a wrapper with scales returns its
+    dequantize-then-attend plain version."""
+    args, _ = _decode_inputs("hetero_inactive")
+    q, kp, vp, bt, ppos, qp = _torch(args)
+    k8, v8, sc = _store("int8", args[1], args[2])
+    ops.reset_counts()
+    assert torch.equal(ops.paged_attention(q, k8, v8, bt, ppos, qp, **sc),
+                       ref.paged_attention_quant_ref(q, k8, v8, sc["k_scales"],
+                                                     sc["v_scales"], bt, ppos,
+                                                     qp))
+    assert ops.paged_attention.launches == 0            # CPU: plain version
+    assert not ops.paged_attention.by_storage
+    with pytest.raises(ValueError, match="need both"):
+        ops.paged_attention(q, k8, v8, bt, ppos, qp)
+    with pytest.raises(ValueError, match="need both"):
+        ops.paged_attention(q, k8, v8, bt, ppos, qp,
+                            k_scales=sc["k_scales"])
+    with pytest.raises(ValueError, match="not quantized"):
+        ops.paged_attention(q, kp, vp, bt, ppos, qp, **sc)
+    with pytest.raises(ValueError, match="not quantized"):
+        ops.paged_attention(q, kp.bfloat16(), vp.bfloat16(), bt, ppos, qp,
+                            **sc)
+    with pytest.raises(ValueError, match="k_scales"):
+        ops.paged_attention(q, k8, v8, bt, ppos, qp,
+                            k_scales=sc["k_scales"][..., :1],
+                            v_scales=sc["v_scales"])
+    with pytest.raises(ValueError, match="need one of"):
+        ops.paged_attention(q, kp.half(), vp.half(), bt, ppos, qp)
+    t = _torch(_prefill_inputs("b1"))
+    with pytest.raises(ValueError, match="need both"):
+        ops.paged_prefill_attention(t[0], *_store("fp8", *_prefill_inputs(
+            "b1")[1:3])[:2], *t[3:])
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
@@ -276,3 +432,60 @@ def test_paged_kernels_full_width_on_card(cuda):
     torch.testing.assert_close(ops.paged_prefill_attention(*t),
                                ref.paged_prefill_attention_ref(*t),
                                **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_quantized_paged_attention_kernel_on_card(cuda, kind, case):
+    (q, kp, vp, bt, ppos, qp), window = _decode_inputs(case)
+    ks, vs, sc = _store(kind, kp, vp, cuda)
+    t = _torch((q, bt, ppos, qp), cuda)
+    got = ops.paged_attention(t[0], ks, vs, *t[1:], window=window, **sc)
+    want = (ref.paged_attention_quant_ref(t[0], ks, vs, sc["k_scales"],
+                                          sc["v_scales"], *t[1:],
+                                          window=window) if sc else
+            ref.paged_attention_ref(t[0], ks, vs, *t[1:], window=window))
+    torch.testing.assert_close(got, want, **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_quantized_paged_prefill_kernel_on_card(cuda, kind, case):
+    q, kp, vp, *rest = _prefill_inputs(case)
+    ks, vs, sc = _store(kind, kp, vp, cuda)
+    t = _torch((q, *rest), cuda)
+    got = ops.paged_prefill_attention(t[0], ks, vs, *t[1:], **sc)
+    want = (ref.paged_prefill_attention_quant_ref(
+                t[0], ks, vs, sc["k_scales"], sc["v_scales"], *t[1:])
+            if sc else ref.paged_prefill_attention_ref(t[0], ks, vs, *t[1:]))
+    torch.testing.assert_close(got, want, **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_quantized_paged_kernels_full_width_on_card(cuda, kind):
+    """qwen2-1.5b widths with stored pages: decode rows (one inactive) and
+    a 32-token chunk."""
+    rng = np.random.default_rng(2)
+    kp, vp, bt, ppos = build_pool(rng, [117, 100, 37, -1], num_blocks=33,
+                                  block_size=16, max_blocks=8, hkv=2, dh=128)
+    ks, vs, sc = _store(kind, kp, vp, cuda)
+    plain = ((lambda *a: ref.paged_attention_quant_ref(
+                  a[0], ks, vs, sc["k_scales"], sc["v_scales"], *a[1:]))
+             if sc else (lambda *a: ref.paged_attention_ref(a[0], ks, vs,
+                                                             *a[1:])))
+    q = rng.standard_normal((4, 1, 12, 128), np.float32)
+    t = _torch((q, bt, ppos, np.asarray([116, 99, 36, -1], np.int32)), cuda)
+    torch.testing.assert_close(ops.paged_attention(t[0], ks, vs, *t[1:], **sc),
+                               plain(*t), **ATT_TOL)
+    qc = rng.standard_normal((1, 32, 12, 128), np.float32)
+    t = _torch((qc, bt[:1], ppos, np.asarray([64], np.int32),
+                np.asarray([32], np.int32)), cuda)
+    want = (ref.paged_prefill_attention_quant_ref(
+                t[0], ks, vs, sc["k_scales"], sc["v_scales"], *t[1:])
+            if sc else ref.paged_prefill_attention_ref(t[0], ks, vs, *t[1:]))
+    torch.testing.assert_close(
+        ops.paged_prefill_attention(t[0], ks, vs, *t[1:], **sc), want,
+        **ATT_TOL)

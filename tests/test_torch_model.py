@@ -10,7 +10,8 @@ trash block and return the same uniform mean for a fully masked query.
 
 Tolerance: atol = rtol = 1e-5 on logits of magnitude < 1 — fp32 on both
 sides, differing only in summation order through two small layers
-(measured differences are ~4e-7).
+(measured differences are ~4e-7).  bf16, int8 and fp8 pages: QUANT_TOL,
+with its reason below.
 """
 import numpy as np
 import pytest
@@ -32,6 +33,13 @@ from repro_torch.serve import engine
 torch.set_num_threads(2)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# bf16 / int8 / fp8 pages: a K or V element computed ~1e-7 apart by the two
+# packages can round to neighbouring storage levels (one bf16 ulp, one int8
+# level); such a flip in layer 0 moves the next layer's K/V by ~1e-5 and
+# flips more there.  Measured: logits ~5e-5 apart at bf16, ~2e-6 at int8,
+# ~3e-7 at fp8.  1e-4 is a fifth of what bf16 storage itself moves the
+# logits from fp32 pages (5e-4 to 7e-4; int8 2e-3, fp8 1e-2).
+QUANT_TOL = dict(atol=1e-4, rtol=1e-5)
 ARCH = "qwen2-1.5b"
 
 
@@ -58,7 +66,7 @@ def test_interop_round_trip(n):
     the port holds one dict per layer with the reference's leaf layouts."""
     cfg = get_config(ARCH, reduced=True)
     ref = _ref_params(n)
-    port = interop.params_from_reference(ref, cfg)
+    port = interop.params_from_reference(ref, cfg, device="cpu")
     assert len(port["layers"]) == cfg.n_layers
     assert port["layers"][0]["wq"]["w"].shape == (cfg.d_model, cfg.n_heads,
                                                   cfg.head_dim)
@@ -103,19 +111,20 @@ def test_port_init_matches_reference_structure(n):
     assert not torch.equal(init(1)["embed"]["table"], p["embed"]["table"])
 
 
-def _setup(n):
+def _setup(n, kv_dtype=None):
     cfg_r = ref_config(ARCH, reduced=True)
     cfg = get_config(ARCH, reduced=True)
     ref = _ref_params(n)
-    port = interop.params_from_reference(ref, cfg)
+    port = interop.params_from_reference(ref, cfg, device="cpu")
     sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
                                   capacity=40, dtype=jnp.float32,
-                                  cache_layout="paged", block_size=4)
+                                  cache_layout="paged", block_size=4,
+                                  kv_dtype=kv_dtype)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n),
-                            capacity=40, block_size=4)
+                            capacity=40, block_size=4, kv_dtype=kv_dtype)
     rows = 3
     cache_r = ref_engine.init_cache(sc_r, n * rows)
-    cache = engine.init_cache(sc, n * rows)
+    cache = engine.init_cache(sc, n * rows, device="cpu")
     pool = ref_engine.make_pool(sc_r, n * rows)
     pool.allocate(0, 30)
     pool.allocate(1, 21)          # row 2 stays unallocated (inactive)
@@ -125,10 +134,10 @@ def _setup(n):
     return ref, port, sc_r, sc, cache_r, cache, rows
 
 
-@pytest.mark.parametrize("n", [1, 2])
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_logits_match_reference(n, use_kernels):
-    ref, port, sc_r, sc, cache_r, cache, rows = _setup(n)
+def _prefill_then_decode(n, use_kernels, kv_dtype=None):
+    """Three chunks and one decode step through both packages; yields
+    (port logits, reference logits) per step."""
+    ref, port, sc_r, sc, cache_r, cache, rows = _setup(n, kv_dtype)
     rng = np.random.default_rng(n)
     # row 0: a 16-token prompt in a bucket-8 chunk (6 valid), then 8 more
     # (chunk ending on a block boundary); row 1: one chunk of 5
@@ -140,7 +149,7 @@ def test_logits_match_reference(n, use_kernels):
         got, _ = engine.prefill_chunk(port, sc, cache, torch.as_tensor(toks),
                                       rows=[row], start=start, length=length,
                                       use_kernels=use_kernels)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        yield got, want
     toks = rng.integers(4, 512, size=(n * rows, 1)).astype(np.int32)
     pos = np.asarray([14, 5, -1], np.int32)
     want, _ = ref_engine.decode_step(ref, sc_r, cache_r, jnp.asarray(toks),
@@ -149,4 +158,26 @@ def test_logits_match_reference(n, use_kernels):
     got, _ = engine.decode_step(port, sc, cache, torch.as_tensor(toks),
                                 torch.as_tensor(pos), use_kernels=use_kernels)
     assert got.shape == (n * rows, 1, 512)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    yield got, want
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_logits_match_reference(n, use_kernels):
+    for got, want in _prefill_then_decode(n, use_kernels):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kv_dtype,n,use_kernels", [
+    ("bf16", 1, True), ("bf16", 2, True), ("int8", 1, True),
+    ("int8", 2, True), ("fp8", 1, True), ("fp8", 2, True),
+    ("int8", 2, False)])
+def test_quantized_page_logits_match_reference(kv_dtype, n, use_kernels):
+    """bf16, int8 and fp8 pages: the kernel path (reference: the fused-
+    dequant Pallas kernels in interpret mode; port: the wrappers' plain
+    dequantize-then-attend versions) and, for int8, the plain path.  Both
+    sides store the same payloads unless a K/V element computed ~1e-7
+    apart lands on the other side of a rounding boundary (QUANT_TOL)."""
+    for got, want in _prefill_then_decode(n, use_kernels, kv_dtype):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **QUANT_TOL)

@@ -32,7 +32,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as cli
 from repro_torch.serve import engine, sampling
 from repro_torch.serve.batcher import Request
-from repro_torch.serve.kvpool import KVPool, PoolExhausted, paged_write
+from repro_torch.models import TransformerLM
+from repro_torch.serve.kvpool import (KVPool, PoolExhausted, init_pages,
+                                      paged_write)
 from repro_torch.serve.runtime import ServeRuntime
 from repro_torch.serve.telemetry import Telemetry
 
@@ -42,16 +44,19 @@ ARCH = "qwen2-1.5b"
 CAPACITY = 48
 
 
-def _pair(n):
+def _pair(n, kv_dtype=None):
     cfg_r = ref_config(ARCH, reduced=True)
     ref = RefLM.init(jax.random.PRNGKey(3), cfg_r, RefMux(n=n))
     cfg = get_config(ARCH, reduced=True)
-    port = interop.params_from_reference(jax.tree.map(np.asarray, ref), cfg)
+    port = interop.params_from_reference(jax.tree.map(np.asarray, ref), cfg,
+                                          device="cpu")
     sc_r = RefServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
                           capacity=CAPACITY, dtype=jnp.float32,
-                          cache_layout="paged", block_size=4)
+                          cache_layout="paged", block_size=4,
+                          kv_dtype=kv_dtype)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n),
-                            capacity=CAPACITY, block_size=4)
+                            capacity=CAPACITY, block_size=4,
+                            kv_dtype=kv_dtype)
     return ref, port, sc_r, sc
 
 
@@ -126,6 +131,31 @@ def test_runtime_kernel_path_token_identical():
     assert rt.trace_counts == rt_r.trace_counts
 
 
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_churn_token_identical(kv_dtype):
+    """Quantized pages through ``run_continuous`` on both sides, kernel
+    path (reference: the fused-dequant Pallas kernels in interpret mode;
+    port: the wrappers' plain dequantize-then-attend versions), chunk 4:
+    greedy token-identical, the same step signatures and prefill
+    accounting, and the pool's byte accounting in the port's stats."""
+    ref, port, sc_r, sc = _pair(2, kv_dtype)
+    arrivals = _churn(n_req=4)
+    want = ref_run_continuous(ref, sc_r, 2, arrivals, chunk=4,
+                              use_kernels=True)
+    got = cli.run_continuous(port, sc, 2, arrivals, chunk=4,
+                             use_kernels=True, device="cpu")
+    outs = {r.uid: r.output for r in got["completed"]}
+    assert len(outs) == len(arrivals)
+    assert outs == {r.uid: r.output for r in want["completed"]}
+    assert got["trace_counts"] == want["trace_counts"]
+    for k in ("prefill_tokens", "prefill_events", "decode_steps"):
+        assert got[k] == want[k], k
+    assert got["pool_bytes"] == sc_r.pool_bytes(4)
+    assert got["kv_bytes_per_token"] == sc_r.kv_bytes_per_token()
+    layer = got["runtime"].cache["layers"][0]
+    assert layer["kp"].dtype == sc.page_dtype and "ksc" in layer
+
+
 @pytest.mark.parametrize("n,extra", [(1, 0), (2, 2)])
 def test_wrapper_calls_per_step(n, extra):
     """A decode step calls n_layers paged-attention wrappers plus, at
@@ -133,7 +163,7 @@ def test_wrapper_calls_per_step(n, extra):
     n_layers + 2); a prefill chunk calls n_layers prefill wrappers."""
     _, port, _, sc = _pair(n)
     cfg = sc.cfg
-    cache = engine.init_cache(sc, 2 * n)
+    cache = engine.init_cache(sc, 2 * n, device="cpu")
     pool = engine.make_pool(sc, 2 * n)
     for r in range(2):
         pool.allocate(r, 9)
@@ -175,10 +205,46 @@ def test_cli_serves_on_cpu(capsys):
     assert "decode×1" in out and "prefill_4×1" in out
 
 
+@pytest.mark.parametrize("kv_dtype,per_token", [("int8", 1064),
+                                                ("fp8", 1064),
+                                                ("bf16", 2056)])
+def test_cli_serves_quantized_pages_on_cpu(capsys, kv_dtype, per_token):
+    """Reduced qwen2-1.5b (2 layers, Hkv=2, Dh=128): per layer and token
+    2 x 2 x 128 payload bytes + 2 x 2 x 4 scale bytes + 4 position bytes
+    = 532 at int8/fp8, 2 x 2 x 256 + 4 = 1028 at bf16; the pool holds
+    2 rows x 5 blocks + the trash block, of 4 tokens each."""
+    assert cli.main(["--continuous", "--cache", "paged", "--device", "cpu",
+                     "--kv-dtype", kv_dtype, "--requests", "3",
+                     "--prompt-len", "6", "--new-tokens", "3",
+                     "--block-size", "4", "--chunk", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests (9 tokens)" in out
+    assert "decode×1" in out and "prefill_4×1" in out
+    assert (f"pool {11 * 4 * per_token} bytes, {per_token} bytes per token"
+            in out)
+
+
+@pytest.mark.parametrize("build", [
+    lambda sc, cfg: engine.init_cache(sc, 2),
+    lambda sc, cfg: TransformerLM.init_cache(cfg, 1, 8, num_blocks=3),
+    lambda sc, cfg: init_pages(3, 4, 2, 16, torch.float32),
+    lambda sc, cfg: interop.params_from_reference({}, cfg),
+], ids=["engine.init_cache", "TransformerLM.init_cache", "init_pages",
+        "params_from_reference"])
+def test_constructors_require_a_device(build):
+    """No public constructor puts tensors on a device the caller did not
+    name: ``device`` is a required keyword."""
+    _, _, _, sc = _pair(2)
+    with pytest.raises(TypeError, match="device"):
+        build(sc, sc.cfg)
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--cache", "ring"], "ring"),
     (["--prefill", "blocking"], "blocking"),
-    (["--kv-dtype", "int8"], "item 9"),
+    (["--kv-dtype", "int4"], "invalid choice"),
+    (["--cache", "ring", "--kv-dtype", "int8"],
+     "--kv-dtype requires --continuous --cache paged"),
     (["--lanes", "1,2"], "item 10"),
     (["--mesh", "2,2"], "item 12"),
     (["--kill-shard", "3:1"], "item 11"),
