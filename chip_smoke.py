@@ -14,17 +14,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 paged kernels also over bf16, int8 and fp8 pages, held
                 against the dequantize-then-attend plain version and,
                 within the analytic bound, the pristine fp32 one;
+                flash-decode over a ring and flash attention over ragged,
+                windowed, bidirectional, offset and fully masked shapes;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
                 every request must complete, the launch counts must be
                 exactly what the path requires (per storage kind), and
                 the pool's bytes per token the reference's;
+  4b. dense   — the same trace with ``attn_impl='flash'`` through the
+                continuous ring arm, paged serving with blocking prefill,
+                and fill-drain: every request complete, launch counts
+                exact (flash_attention once per layer per prefill,
+                decode_attention once per layer per ring decode step, no
+                paged kernel on the ring);
   5. paths    — kernel path against plain path, on fp32 and int8 pages:
                 logits of one prefill chunk and of one decode step from
                 identical caches, and the share of identical greedy
                 tokens over the phase-4 trace (on int8 pages the chunk
-                is held to the payloads it stores, see ``compare_paths``).
+                is held to the payloads it stores, see ``compare_paths``);
+                on the ring, the flash prefill against the naive one and
+                the ring decode step from identical caches, and the
+                greedy share of the ring arm.
 The last two lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
@@ -350,6 +361,113 @@ def phase_kernels(torch, timer):
         record("demux_rsa", case, (got - want).abs().max().item(), DEMUX_TOL,
                timing)
 
+    # -- flash-decode over a ring cache ------------------------------------
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfl
+
+    def ring_pos(c, written):
+        """Slot positions of a c-slot ring after writing 0 .. written-1."""
+        pos = np.full((c,), -1, np.int32)
+        for p in range(written):
+            pos[p % c] = p
+        return t(pos)
+
+    def visible(q_pos, k_pos, causal, window, valid):
+        """(Lq, Lk) bool: which (query, key) pairs the mask lets through."""
+        m = valid[None, :].expand(len(q_pos), len(k_pos))
+        if causal:
+            m = m & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            m = m & (k_pos[None, :] > q_pos[:, None] - window)
+        return m
+
+    def dense_bound(q, k, vis):
+        """Least work: q and the output once, K/V of the keys some query
+        sees once per KV head, 4 * Dh flops per (query head, visible
+        pair)."""
+        b, _, h, dh = q.shape
+        hkv = k.shape[2]
+        keys = int(vis.any(0).sum())
+        pairs = int(vis.sum())
+        nb = 2 * q.numel() * 4 + 2 * b * keys * hkv * dh * 4
+        fl = 4 * b * h * dh * pairs
+        return nb, fl, (f"{keys} keys read, {pairs} query-key pairs per "
+                        "(row, head)")
+
+    def sdpa_dense(q, k, v, mask):
+        """Library yardstick: SDPA over the same K/V (GQA, boolean mask)."""
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    decode_dense_cases = [
+        # (case, C, written, q_pos, window, causal)
+        ("main: B=4, C=124 at 116", 124, 117, 116, None, True),
+        ("edge: ring wrapped at 139", 124, 140, 139, None, True),
+        ("edge: C=37, empty slots", 37, 20, 19, None, True),
+        ("edge: window 5, wrapped", 37, 50, 49, 5, True),
+        ("edge: bidirectional", 37, 30, 10, None, False),
+        ("edge: fully masked query", 37, 37, 80, 3, True),
+    ]
+    for i, (case, c, written, q_pos, window, causal) in enumerate(
+            decode_dense_cases):
+        q = t(rng.standard_normal((4, 1, 12, 128), np.float32))
+        kc = t(rng.standard_normal((4, c, 2, 128), np.float32))
+        vc = t(rng.standard_normal((4, c, 2, 128), np.float32))
+        pos = ring_pos(c, written)
+        kw = dict(q_pos=q_pos, window=window, causal=causal)
+        got = kdec.decode_attention_cuda(q, kc, vc, pos, **kw)
+        want = ref.decode_attention_ref(q, kc, vc, pos, **kw)
+        timing = None
+        if i == 0:
+            vis = visible(torch.full((1,), q_pos, device=dev), pos.long(),
+                          causal, window, pos >= 0)
+            nb, fl, work = dense_bound(q, kc, vis)
+            nb += c * 4                                   # slot positions
+            bms, by = bound(nb, fl)
+            timing = {"work": work,
+                "ms": timer(lambda: kdec.decode_attention_cuda(
+                    q, kc, vc, pos, **kw)),
+                "plain_ms": timer(lambda: ref.decode_attention_ref(
+                    q, kc, vc, pos, **kw)),
+                "library_ms": timer(lambda: sdpa_dense(q, kc, vc, vis)),
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("decode_attention", case, (got - want).abs().max().item(),
+               ATT_TOL, timing)
+
+    # -- flash attention over fresh K/V --------------------------------------
+    flash_cases = [
+        # (case, Lq, Lk, kwargs)
+        ("main: B=4, causal L=116", 116, 116, {}),
+        ("edge: L=37 ragged", 37, 37, {}),
+        ("edge: window 32", 116, 116, dict(window=32)),
+        ("edge: bidirectional softcap 30", 40, 40,
+         dict(causal=False, logit_softcap=30.0)),
+        ("edge: q_offset 28, Lq 9 < Lk 37", 9, 37, dict(q_offset=28)),
+        ("edge: fully masked queries", 9, 37, dict(q_offset=36, window=3)),
+    ]
+    for i, (case, lq, lk, kw) in enumerate(flash_cases):
+        q = t(rng.standard_normal((4, lq, 12, 128), np.float32))
+        k = t(rng.standard_normal((4, lk, 2, 128), np.float32))
+        v = t(rng.standard_normal((4, lk, 2, 128), np.float32))
+        got = kfl.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        timing = None
+        if i == 0:
+            vis = visible(torch.arange(lq, device=dev),
+                          torch.arange(lk, device=dev), True, None,
+                          torch.ones(lk, dtype=torch.bool, device=dev))
+            nb, fl, work = dense_bound(q, k, vis)
+            bms, by = bound(nb, fl)
+            timing = {"work": work,
+                "ms": timer(lambda: kfl.flash_attention_cuda(q, k, v, **kw)),
+                "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v,
+                                                                  **kw)),
+                "library_ms": timer(lambda: sdpa_dense(q, k, v, vis)),
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("flash_attention", case, (got - want).abs().max().item(),
+               ATT_TOL, timing)
+
     # -- the paged kernels over bf16, int8 and fp8 pages -------------------
     from repro_torch.core import quant as tq
 
@@ -541,7 +659,8 @@ def main() -> int:
     for kind in KINDS:
         sc = engine.ServeConfig(cfg=cfg, mux=mux,
                                 capacity=prompt_len + new_tokens + 8,
-                                block_size=16, kv_dtype=kind)
+                                cache_layout="paged", block_size=16,
+                                kv_dtype=kind)
         runs[kind] = serve_once(params, sc, rows, trace, new_tokens)
     fp32_out = runs["fp32"]["outputs"]
     for kind in KINDS[1:]:
@@ -551,13 +670,24 @@ def main() -> int:
         print(f"  {kind} pages: greedy tokens identical to the fp32 trace "
               f"{same}/{total} ({same / total:.3f})", flush=True)
 
+    # 4b. ring, paged-blocking and fill-drain serving with the flash prefill
+    cfg_flash = cfg.replace(attn_impl="flash")
+    print("phase 4b: ring / blocking / fill-drain, attn_impl='flash'",
+          flush=True)
+    dense = {mode: serve_dense(params, cfg_flash, mux, rows, trace,
+                               new_tokens, mode)
+             for mode in ("ring", "blocking", "fill-drain")}
+
     # 5. kernel path against plain path
     print("phase 5: kernel path against plain path", flush=True)
     for kind in ("fp32", "int8"):
         sc = engine.ServeConfig(cfg=cfg, mux=mux,
                                 capacity=prompt_len + new_tokens + 8,
-                                block_size=16, kv_dtype=kind)
+                                cache_layout="paged", block_size=16,
+                                kv_dtype=kind)
         compare_paths(params, sc, rows, trace, prompt_len, runs[kind])
+    compare_ring_paths(params, cfg_flash, mux, rows, trace, new_tokens,
+                       dense["ring"])
 
     # 6. summary
     meta = {
@@ -566,6 +696,12 @@ def main() -> int:
         "demux_rsa": ("cuda", "src/repro_torch/kernels/csrc/demux_rsa.cu",
                       "src/repro/kernels/demux_rsa.py:135"),
     }
+    meta["decode_attention"] = (
+        "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:89")
+    meta["flash_attention"] = (
+        "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:100")
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     for kind in KINDS:
         sfx = "" if kind == "fp32" else f"[{kind}]"
@@ -581,6 +717,8 @@ def main() -> int:
         kind = kind.rstrip("]") or "fp32"
         if base in ("paged_attention", "paged_prefill_attention"):
             launches = runs[kind]["by_storage"][base][kind]
+        elif base in ("decode_attention", "flash_attention"):
+            launches = dense["ring"]["launches"][base]     # the CLI default
         else:                   # the entry and exit run on every path
             launches = runs["fp32"]["launches"][base]
         rows_json.append({
@@ -624,10 +762,11 @@ def serve_once(params, sc, rows, trace, new_tokens):
          "completed")
     need(all(len(r.output) == new_tokens for r in stats["completed"]),
          f"{kind}: a request stopped short of its new tokens")
-    want = {"paged_attention": cfg.n_layers * dsteps,
-            "paged_prefill_attention": cfg.n_layers * chunks,
-            "mux_embed_combine": dsteps + chunks,
-            "demux_rsa": dsteps + chunks}
+    want = dict.fromkeys(launches, 0)
+    want.update({"paged_attention": cfg.n_layers * dsteps,
+                 "paged_prefill_attention": cfg.n_layers * chunks,
+                 "mux_embed_combine": dsteps + chunks,
+                 "demux_rsa": dsteps + chunks})
     need(launches == want, f"{kind}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {chunks} prefill chunks)")
     need(by_storage == {k: {kind: v} for k, v in want.items()
@@ -734,6 +873,107 @@ def compare_paths(params, sc, rows, trace, prompt_len, kernel_run):
     same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
     total = sum(len(v) for v in ko.values())
     print(f"  {kind} pages: greedy tokens identical, kernel vs plain path: "
+          f"{same}/{total} ({same / total:.3f}); plain path "
+          f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
+          flush=True)
+
+
+def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode):
+    """Phase 4b for one mode: the continuous ring arm, paged serving with
+    blocking prefill, or fill-drain, on the phase-4 trace, with the launch
+    counts set to 0 just before the run and read just after.  Every
+    prefill is blocking and runs flash_attention once per layer; a ring
+    decode step runs decode_attention once per layer, a paged one
+    paged_attention; each decode step runs the fused entry and exit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fill_drain, run_continuous
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    layout = "paged" if mode == "blocking" else "ring"
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8,
+                            cache_layout=layout, block_size=16)
+    tele = Telemetry()
+    ops.reset_counts()
+    if mode == "fill-drain":
+        stats = fill_drain(params, sc, rows, [a[1] for a in trace],
+                           new_tokens, telemetry=tele, device="cuda")
+    else:
+        stats = run_continuous(
+            params, sc, rows, trace, prefill_mode="blocking", telemetry=tele,
+            device="cuda", on_prefill=lambda *_: torch.cuda.synchronize())
+    launches = ops.counts("launches")
+    dsteps, events = stats["decode_steps"], stats["prefill_events"]
+    need(len(stats["completed"]) == len(trace),
+         f"{mode}: {len(stats['completed'])} of {len(trace)} requests "
+         "completed")
+    need(all(len(r.output) == new_tokens for r in stats["completed"]),
+         f"{mode}: a request stopped short of its new tokens")
+    attn = "paged_attention" if layout == "paged" else "decode_attention"
+    want = dict.fromkeys(launches, 0)
+    want.update({attn: cfg.n_layers * dsteps,
+                 "flash_attention": cfg.n_layers * events,
+                 "mux_embed_combine": dsteps, "demux_rsa": dsteps})
+    need(launches == want, f"{mode}: launch counts {launches} != required "
+         f"{want} ({dsteps} decode steps, {events} prefill events)")
+    spans = {}
+    for ev in tele.tracer.events:
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[3] / 1e3)
+    pre = spans["prefill_chunk" if layout == "paged" else "prefill"]
+    tok_s = stats["generated_tokens"] / stats["wall"]
+    print(f"  {mode}: served {len(stats['completed'])} requests, "
+          f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
+          f"{tok_s:.2f} tok/s; decode step p50 "
+          f"{statistics.median(spans['decode']):.3f} ms over {dsteps} "
+          f"steps; prefill p50 {statistics.median(pre):.3f} ms over "
+          f"{events} prefills; launches {launches}", flush=True)
+    return {"outputs": {r.uid: r.output for r in stats["completed"]},
+            "launches": launches}
+
+
+def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
+    """Phase 5 for the ring: the flash prefill against the naive one, and
+    the kernel decode step against the plain one from identical caches
+    (logits of every stream), then the share of identical greedy tokens
+    of the ring arm's kernel and plain paths over the phase-4 trace."""
+    import torch
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8)
+    import numpy as np
+    sc_naive = dataclasses.replace(sc, cfg=cfg.replace(attn_impl="naive"))
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    cache = engine.init_cache(sc, nb, device="cuda")
+    plain_cache = engine.init_cache(sc_naive, nb, device="cuda")
+    lk, _ = engine.prefill(params, sc, cache, toks)
+    lp, _ = engine.prefill(params, sc_naive, plain_cache, toks)
+    err_pre = (lk - lp).abs().max().item()
+    for a, b in zip(cache["layers"], plain_cache["layers"]):
+        b["k"].copy_(a["k"])
+        b["v"].copy_(a["v"])
+    dtok = lk.argmax(-1)[:, None]
+    pos = toks.shape[1]
+    dk, _ = engine.decode_step(params, sc, cache, dtok, pos, use_kernels=True)
+    dp, _ = engine.decode_step(params, sc, plain_cache, dtok, pos,
+                               use_kernels=False)
+    err_dec = (dk - dp).abs().max().item()
+    print(f"  ring: logits max_abs_err: flash vs naive prefill {err_pre:.3e}, "
+          f"decode from identical caches {err_dec:.3e} (tol {LOGIT_TOL:g})",
+          flush=True)
+    need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
+         "ring: kernel path disagrees with the plain path")
+    plain = run_continuous(params, sc_naive, rows, trace, use_kernels=False,
+                           device="cuda")
+    ko = ring_run["outputs"]
+    po = {r.uid: r.output for r in plain["completed"]}
+    same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
+    total = sum(len(v) for v in ko.values())
+    print(f"  ring: greedy tokens identical, kernel vs plain path: "
           f"{same}/{total} ({same / total:.3f}); plain path "
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)

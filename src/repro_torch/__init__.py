@@ -2,10 +2,11 @@
 
 Mirrors the module layout of the JAX package ``repro`` (the reference):
 ``nn``, ``core``, ``kernels``, ``models``, ``configs``, ``serve``,
-``launch``.  This slice carries the main path — continuous paged serving
-of a decoder-only ``TransformerLM`` with a Gaussian mux and an RSA demux —
-through four hand-written kernels (``kernels/``).  Weights cross over from
-the reference through ``interop``.
+``launch``.  It serves a decoder-only ``TransformerLM`` with a Gaussian
+mux and an RSA demux in the reference's serving modes — fill-drain and
+continuous over a ring cache, continuous over paged KV with chunked or
+blocking prefill — through six hand-written kernels (``kernels/``).
+Weights and caches cross over from the reference through ``interop``.
 
 The package imports ``torch`` and numpy only; Triton and the CUDA kernels
 are built at first launch (``kernels/build.py``), so importing it needs

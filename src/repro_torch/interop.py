@@ -9,7 +9,8 @@ each pattern position's params over the periods (leading axis
 leftover layers unstacked under ``tail``; the port keeps one dict per
 layer in a list.  Leaf layouts are the reference's ((in, out) weights),
 so no leaf is transposed.  ``pages_from_reference`` carries one layer's
-reference page pool across bit for bit.  Nothing here imports JAX.
+reference page pool across bit for bit, ``ring_cache_from_reference`` a
+whole reference ring cache.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -101,3 +102,27 @@ def pages_from_reference(pages, *, device):
             t = torch.from_numpy(np.array(a))
         out[key] = t.to(device)
     return out
+
+
+def ring_cache_from_reference(cache, cfg, *, device):
+    """A reference ring cache (``TransformerLM.init_cache`` pytree:
+    period-stacked ``k``/``v``/``pos``/``idx`` per pattern position, then
+    ``tail``), with numpy or JAX leaves -> the port's ring cache
+    (``{"layers": [...]}``, one dict per layer, ``idx`` a host int) on
+    ``device``, bit for bit."""
+    pat = len(cfg.block_pattern)
+
+    def layer(c, p=None):
+        pick = (lambda a: np.asarray(a)) if p is None else (
+            lambda a: np.asarray(a)[p])
+        return {"k": torch.from_numpy(np.array(pick(c["k"]))).to(device),
+                "v": torch.from_numpy(np.array(pick(c["v"]))).to(device),
+                "pos": torch.from_numpy(np.array(pick(c["pos"]))).to(device),
+                "idx": int(pick(c["idx"]))}
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p, pos = divmod(i, pat)
+        layers.append(layer(cache["periods"][pos], p)
+                      if p < _n_periods(cfg) else layer(cache["tail"][pos]))
+    return {"layers": layers}

@@ -21,7 +21,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD = REPO / "build" / "repro_torch"
-SOURCES = ("paged_attention", "demux_rsa")
+SOURCES = ("paged_attention", "demux_rsa", "decode_attention",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +90,16 @@ SIGNATURES = {
     "demux_rsa": {
         "demux_rsa_forward": [_P] * 12 + [_I] * 4 + [_P],
         "demux_rsa_split": [],
+    },
+    "decode_attention": {
+        # q, k, v, slot_pos, part_acc, part_ml, out; B, C, H, Hkv, Dh,
+        # q_pos, causal, window, nsplit, split_len; scale; stream
+        "decode_attention_forward": [_P] * 7 + [_I] * 10 + [_F, _P],
+    },
+    "flash_attention": {
+        # q, k, v, out; B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset;
+        # softcap, scale; stream
+        "flash_attention_forward": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
     },
 }
 

@@ -14,7 +14,9 @@ import collections
 
 from repro_torch.core.quant import KV_DTYPES
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import demux_rsa as _demux
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mux_embed as _mux
 from repro_torch.kernels import paged_attention as _paged
 
@@ -101,8 +103,40 @@ def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
     return out.reshape(out.shape[0], *lead, h.shape[-1])
 
 
+def decode_attention(q, k_cache, v_cache, slot_pos, *, q_pos: int,
+                     window=None, causal: bool = True):
+    """Flash-decode over a contiguous ring cache: q (B, 1, H, Dh); cache
+    (B, C, Hkv, Dh); slot_pos (C,) (-1 = empty); q_pos an int."""
+    decode_attention.calls += 1
+    if _on_cpu(q):
+        return _dec.decode_attention_ref(q, k_cache, v_cache, slot_pos,
+                                         q_pos=q_pos, window=window,
+                                         causal=causal)
+    out = _dec.decode_attention_cuda(q, k_cache, v_cache, slot_pos,
+                                     q_pos=q_pos, window=window,
+                                     causal=causal)
+    decode_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offset: int = 0, logit_softcap=None):
+    """Attention over fresh K/V: q (B, Lq, H, Dh); k, v (B, Lk, Hkv, Dh);
+    queries at q_offset + arange(Lq), keys at arange(Lk)."""
+    flash_attention.calls += 1
+    if _on_cpu(q):
+        return _flash.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          logit_softcap=logit_softcap)
+    out = _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset,
+                                      logit_softcap=logit_softcap)
+    flash_attention.launches += 1
+    return out
+
+
 WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
-            demux_rsa)
+            demux_rsa, decode_attention, flash_attention)
 PAGED = (paged_attention, paged_prefill_attention)
 
 

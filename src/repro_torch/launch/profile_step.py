@@ -107,7 +107,8 @@ def main(argv=None):
     params = TransformerLM.init(torch.Generator(device=dev).manual_seed(0),
                                 cfg, mux)
     rows, ctx = 4, 96
-    sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124, block_size=16,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124,
+                            cache_layout="paged", block_size=16,
                             kv_dtype=args.kv_dtype)
     cache = engine.init_cache(sc, mux.n * rows, device=dev)
     pool = engine.make_pool(sc, mux.n * rows)

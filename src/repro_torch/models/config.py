@@ -3,6 +3,10 @@
 The same frozen dataclass as the reference, so a reference config and its
 port compare field by field.  This slice runs the dense attention blocks
 ('attn' / 'local') only; ``models.transformer`` rejects the rest.
+``attn_impl`` picks the attention of a blocking (whole-prompt) forward:
+'naive', 'chunked' (online softmax over ``attn_chunk``-key chunks),
+'flash' (the flash-attention kernel) or 'auto' (chunked above 2048
+tokens, else naive), as the reference's field does.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ class ModelConfig:
     causal: bool = True
     block_pattern: tuple = ("attn",)
     local_window: int = 2048
+    attn_impl: str = "auto"       # auto|naive|chunked|flash
+    attn_chunk: int = 1024
 
     def __post_init__(self):
         if self.n_kv_heads == 0:

@@ -4,9 +4,10 @@
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
-``interop`` converts between the two.  The port serves from a paged
-cache only (decode steps and chunked-prefill chunks), with fp32, bf16,
-int8 or fp8 pages.
+``interop`` converts between the two.  The port serves from a ring
+cache (blocking prefill, decode at one shared position) or a paged cache
+(blocking or chunked prefill, decode at per-row positions) with fp32,
+bf16, int8 or fp8 pages.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.core import MuxEngine, MuxSpec
 from repro_torch.kernels import ops as kops
-from repro_torch.models.blocks import apply_attention, init_attention
+from repro_torch.models.blocks import (apply_attention, init_attention,
+                                      init_kv_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import Embedding, LayerNorm, RMSNorm, rope_frequencies
 from repro_torch.serve.kvpool import init_pages
@@ -58,14 +60,32 @@ class TransformerLM:
 
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-                   dtype=torch.float32, *, block_size: int = 16,
-                   num_blocks: int, kv_quant: str | None = None, device):
-        """Paged cache for ``batch`` backbone rows on ``device``: per layer
-        a page pool and slot-position map; one (batch, max_blocks) block
-        table shared by every layer (tables are installed in place by
-        ``serve.engine.set_block_tables``).  Pages are stored as ``dtype``;
-        kv_quant='int8'/'fp8' stores quantized pages with per-slot scales
-        instead (``ServeConfig.page_dtype`` / ``kv_quant`` give both)."""
+                   dtype=torch.float32, *, layout: str = "ring",
+                   block_size: int = 16, num_blocks: int | None = None,
+                   kv_quant: str | None = None, device):
+        """The KV cache for ``batch`` backbone rows on ``device``.
+
+        layout='ring': per layer a contiguous (batch, cap, Hkv, Dh) ring
+        with a shared slot-position vector, cap = capacity cut to the
+        layer's window.  layout='paged': per layer a page pool and
+        slot-position map, and one (batch, max_blocks) block table shared
+        by every layer (installed in place by
+        ``serve.engine.set_block_tables``); pages are stored as ``dtype``,
+        or quantized with per-slot scales under kv_quant='int8'/'fp8'
+        (``ServeConfig.page_dtype`` / ``kv_quant`` give both)."""
+        if layout == "ring":
+            layers = []
+            for blk in cfg.pattern_layers:
+                w = cfg.local_window if blk == "local" else cfg.window
+                cap = capacity if w is None else min(capacity, w)
+                layers.append(init_kv_cache(cfg, batch, cap, dtype,
+                                            device=device))
+            return {"layers": layers}
+        if layout != "paged":
+            raise ValueError(f"unknown cache layout {layout!r}")
+        if num_blocks is None:
+            raise ValueError("paged layout requires num_blocks (see "
+                             "ServeConfig.pool_blocks)")
         mb = -(-capacity // block_size)
         bt = torch.full((batch, mb), -1, dtype=torch.int32, device=device)
         layers = []
@@ -80,12 +100,16 @@ class TransformerLM:
     def apply(params, cfg: ModelConfig, tokens, *, mux: MuxSpec = MuxSpec(),
               cache, q_offset=0, logits_out: bool = True, use_kernels: bool = True,
               extra_ctx: dict | None = None):
-        """tokens (N*B, L) int (mux-major instance order).  q_offset: a
-        scalar chunk start or a (B,) vector of per-row positions (-1 =
-        inactive row).  The cache's pages are updated in place.  Computes
-        in fp32, as the reference serves.  use_kernels: the main path's
-        kernels (default; their plain versions on CPU tensors), False for
-        the plain model path.  Returns dict(logits | hidden)."""
+        """tokens (N*B, L) int (mux-major instance order).  q_offset: an
+        int start position, or on a paged cache a (B,) vector of per-row
+        positions (-1 = inactive row).  The cache is updated in place.
+        Computes in fp32, as the reference serves.  use_kernels: the
+        decode and chunk kernels and the fused entry and exit (default;
+        their plain versions on CPU tensors), False for the plain model
+        path.  The attention of a blocking forward follows
+        ``cfg.attn_impl`` ('auto': chunked above 2048 tokens, else naive;
+        'flash' launches the flash kernel).  Returns dict(logits |
+        hidden)."""
         _check_supported(cfg, mux)
         d = cfg.d_model
         dev = params["embed"]["table"].device
@@ -107,15 +131,24 @@ class TransformerLM:
             x = MuxEngine.combine(params.get("mux_engine", {}), mux, x)
         b, l, _ = x.shape
 
-        qo = torch.as_tensor(q_offset, device=dev).long()
         ar = torch.arange(l, device=dev)
-        pos = qo.clamp(min=0)[:, None] + ar[None] if qo.ndim else qo + ar
-        ctx = {"sin": None, "cos": None, "q_offset": q_offset,
+        per_row = isinstance(q_offset, torch.Tensor) and q_offset.ndim > 0
+        if per_row:
+            pos = q_offset.to(dev).long().clamp(min=0)[:, None] + ar[None]
+        else:             # an int, or a 0-d tensor (a device value)
+            pos = ar + (q_offset.to(dev) if isinstance(q_offset, torch.Tensor)
+                        else q_offset)
+        impl = cfg.attn_impl
+        if impl == "auto":
+            # long blocking forwards take the online-softmax chunked path;
+            # decode (l == 1) stays naive
+            impl = "chunked" if l > 2048 else "naive"
+        ctx = {"sin": None, "cos": None, "q_offset": q_offset, "impl": impl,
                "use_kernels": use_kernels}
         if cfg.positions == "rope":
             sin, cos = rope_frequencies(cfg.head_dim, pos,
                                         theta=cfg.rope_theta)
-            ctx["sin"], ctx["cos"] = ((sin, cos) if qo.ndim
+            ctx["sin"], ctx["cos"] = ((sin, cos) if per_row
                                       else (sin[None], cos[None]))
         if extra_ctx:
             ctx.update(extra_ctx)

@@ -7,9 +7,12 @@ plain functions.
 from repro_torch.nn.layers import Linear, Embedding, LayerNorm, RMSNorm
 from repro_torch.nn.rope import rope_frequencies, apply_rope
 from repro_torch.nn.attention import (NEG_INF, attention_core,
-                                      make_attention_mask)
+                                      chunked_attention_core,
+                                      make_attention_mask,
+                                      multi_head_attention)
 from repro_torch.nn.activations import ACTIVATIONS, gelu_tanh
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm",
            "rope_frequencies", "apply_rope", "NEG_INF", "attention_core",
-           "make_attention_mask", "ACTIVATIONS", "gelu_tanh"]
+           "chunked_attention_core", "make_attention_mask",
+           "multi_head_attention", "ACTIVATIONS", "gelu_tanh"]

@@ -1,12 +1,22 @@
-"""Serving engine over the paged cache (counterpart of
-``repro.serve.engine``): config, pool and cache construction, block-table
-installs, and the two step functions of continuous serving —
-``prefill_chunk`` and ``decode_step``.
+"""Serving engine (counterpart of ``repro.serve.engine``): config, pool
+and cache construction, block-table installs, and the step functions —
+``prefill`` (blocking, whole prompt), ``prefill_chunk`` (paged, one
+chunk), ``decode_step`` — plus ``greedy_generate``.
+
+Two cache layouts, as in the reference:
+
+  * ``ring``  — one contiguous (B, capacity, Hkv, Dh) buffer per layer
+                with a shared slot-position vector; every row decodes at
+                one shared position (fill-drain and the continuous ring
+                arm, which re-prefills the grid when it changes);
+  * ``paged`` — a shared page pool per layer addressed through per-row
+                block tables (``serve.kvpool``); rows decode at their own
+                positions and ``prefill(..., rows=[j])`` writes one
+                joining row's K/V without touching its siblings.
 
 Unlike the reference's functional updates, ``set_block_tables``,
-``reset_blocks`` and both step functions update the cache IN PLACE (the
-pages, slot-position maps and the shared block table); they return the
-cache for symmetry with the reference.
+``reset_blocks`` and the step functions update the cache IN PLACE; they
+return the cache for symmetry with the reference.
 """
 from __future__ import annotations
 
@@ -30,21 +40,26 @@ def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """A decoder-only LM served from paged KV of ``block_size`` tokens.
+    """A decoder-only LM served from a ring cache or from paged KV of
+    ``block_size`` tokens (``cache_layout``, 'ring' by default as in the
+    reference).
 
-    kv_dtype: page storage — 'fp32' | 'bf16' | 'int8' | 'fp8' (any
-    ``core.quant.resolve_kv_dtype`` spelling); None keeps the serve dtype,
-    fp32.  int8 and fp8 pages carry per-(slot, head) fp32 scales.  The
-    reference's ``kind``, ``cache_layout``, ``dtype``, ``num_blocks`` and
-    ``n_shards`` fields are fixed to 'lm', 'paged', fp32, the worst case
-    and 1 in the port so far."""
+    kv_dtype (paged only): page storage — 'fp32' | 'bf16' | 'int8' |
+    'fp8' (any ``core.quant.resolve_kv_dtype`` spelling); None keeps the
+    serve dtype, fp32.  int8 and fp8 pages carry per-(slot, head) fp32
+    scales.  The reference's ``kind``, ``dtype``, ``num_blocks`` and
+    ``n_shards`` fields are fixed to 'lm', fp32, the worst case and 1 in
+    the port so far."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
-    block_size: int = 16
-    kv_dtype: str | None = None
+    cache_layout: str = "ring"      # ring | paged
+    block_size: int = 16            # paged: tokens per block
+    kv_dtype: str | None = None     # paged: page storage
 
     def __post_init__(self):
+        if self.cache_layout not in ("ring", "paged"):
+            raise ValueError(f"unknown cache layout {self.cache_layout!r}")
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
         quantlib.resolve_kv_dtype(self.kv_dtype)
@@ -97,13 +112,16 @@ def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
 
 
 def init_cache(sc: ServeConfig, global_batch: int, *, device):
-    """The paged cache for ``global_batch`` streams on ``device``, pages
-    stored as ``sc.kv_dtype`` says."""
+    """The cache for ``global_batch`` streams on ``device``: a fp32 ring,
+    or pages stored as ``sc.kv_dtype`` says."""
+    b = backbone_batch(global_batch, sc.mux)
+    if sc.cache_layout == "ring":
+        return TransformerLM.init_cache(sc.cfg, b, sc.capacity,
+                                        torch.float32, device=device)
     return TransformerLM.init_cache(
-        sc.cfg, backbone_batch(global_batch, sc.mux), sc.capacity,
-        sc.page_dtype, block_size=sc.block_size,
-        num_blocks=sc.pool_blocks(global_batch), kv_quant=sc.kv_quant,
-        device=device)
+        sc.cfg, b, sc.capacity, sc.page_dtype, layout="paged",
+        block_size=sc.block_size, num_blocks=sc.pool_blocks(global_batch),
+        kv_quant=sc.kv_quant, device=device)
 
 
 def set_block_tables(cache, block_tables):
@@ -128,6 +146,24 @@ def reset_blocks(cache, block_ids):
     return cache
 
 
+def prefill(params, sc: ServeConfig, cache, tokens, *, rows=None):
+    """Blocking prefill of whole prompts: tokens (NB, L).  The K/V go into
+    the ring at positions 0 .. L-1, or (paged) into the pages of the
+    backbone rows ``rows`` (default: every row), and every query attends
+    over the prompt's own fresh K/V with ``cfg.attn_impl``.  As in the
+    reference, the entry and exit are the plain ones (no ``use_kernels``).
+    Returns (last-position logits (NB, V), cache)."""
+    ctx = {}
+    if rows is not None:
+        if sc.cache_layout != "paged":
+            raise ValueError("rows= requires the paged cache layout")
+        ctx["rows"] = torch.as_tensor(rows, device=cache["bt"].device).long()
+    logits = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
+                                 cache=cache, use_kernels=False,
+                                 extra_ctx=ctx)["logits"]
+    return logits[:, -1], cache
+
+
 def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
                   length, use_kernels: bool = True):
     """One bucket-padded prompt chunk for the backbone rows ``rows``.
@@ -137,6 +173,8 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
     trash block) and each query attends causally over the rows' written
     blocks.  Returns (logits at the chunk's last valid position
     (len(rows) * N, V), cache)."""
+    if sc.cache_layout != "paged":
+        raise ValueError("prefill_chunk requires the paged cache layout")
     dev = cache["bt"].device
     start = torch.as_tensor(start, device=dev).long()
     length = torch.as_tensor(length, device=dev).long()
@@ -156,9 +194,37 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
 
 def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
                 use_kernels: bool = True):
-    """One decode step.  tokens (N*B, 1); pos (B,) per-row positions (-1 =
-    inactive row).  Returns (logits (N*B, 1, V), cache)."""
+    """One decode step.  tokens (N*B, 1); pos: an int, the position every
+    row writes at (the ring's only form), or on the paged layout a (B,)
+    tensor of per-row positions (-1 = inactive row).  Returns (logits
+    (N*B, 1, V), cache)."""
+    if sc.cache_layout == "ring" and isinstance(pos, torch.Tensor):
+        raise TypeError("the ring cache decodes at one int position")
     out = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
                               cache=cache, q_offset=pos,
                               use_kernels=use_kernels)
     return out["logits"], cache
+
+
+def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int):
+    """Host-loop greedy decoding of prompt (NB, L) for ``steps`` tokens on
+    the params' device (decode steps on the kernel path), from a fresh
+    cache of either layout (paged: every row's blocks allocated up
+    front).  Returns (NB, steps) tokens."""
+    dev = params["embed"]["table"].device
+    prompt = torch.as_tensor(prompt, device=dev)
+    cache = init_cache(sc, prompt.shape[0], device=dev)
+    if sc.cache_layout == "paged":
+        b = backbone_batch(prompt.shape[0], sc.mux)
+        pool = make_pool(sc, prompt.shape[0])
+        for j in range(b):
+            pool.allocate(j, prompt.shape[1] + steps)
+        set_block_tables(cache, pool.table_array(range(b)))
+    logits, _ = prefill(params, sc, cache, prompt)
+    tok = logits.argmax(-1)[:, None]
+    out = [tok]
+    for t in range(steps - 1):
+        logits, _ = decode_step(params, sc, cache, tok, prompt.shape[1] + t)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)

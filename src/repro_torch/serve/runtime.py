@@ -1,6 +1,6 @@
-"""Serve runtime: chunked prefill interleaved with decode, one device
-(counterpart of ``repro.serve.runtime``, paged and chunked; mesh, shards,
-lanes, handoff and kill-shard are later slices).
+"""Serve runtime: chunked or blocking prefill interleaved with decode, one
+device (counterpart of ``repro.serve.runtime``; mesh, shards, lanes,
+handoff and kill-shard are later slices).
 
 ``ServeRuntime`` executes the scheduler's plans against the paged cache:
 
@@ -9,13 +9,16 @@ lanes, handoff and kill-shard are later slices).
     tokens come back to the host (the one device sync per step).
   * **prefill-chunk step** — a joining row's prompt advances one
     fixed-size chunk per engine step, padded to a power-of-two bucket
-    (padded positions go to the trash block and are fully masked).
+    (padded positions go to the trash block and are fully masked); under
+    blocking prefill (``chunk=None``) the whole prompt is prefilled at
+    once (``engine.prefill``, attending over its fresh K/V), unpadded.
 
 PyTorch runs eagerly, so nothing is compiled per shape.  The reference's
 compile-once contract keeps its meaning through ``trace_counts``: each
 distinct step shape signature (``decode``, ``prefill_<bucket>``) is
 counted the first time it runs, and ``check_compile_once`` asserts that
-only the declared signatures ever ran.  Every step updates the cache in
+only the declared signatures ever ran.  Blocking prefill is eager in the
+reference and declares no signature here either.  Every step updates the cache in
 place.
 """
 from __future__ import annotations
@@ -27,8 +30,8 @@ import torch
 
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
-                                      make_pool, prefill_chunk, reset_blocks,
-                                      set_block_tables)
+                                      make_pool, prefill, prefill_chunk,
+                                      reset_blocks, set_block_tables)
 from repro_torch.serve.kvpool import PoolExhausted
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.telemetry import NULL_TELEMETRY
@@ -62,6 +65,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def grid_sampling(sched):
+    """The scheduler's grid as mux-major (NB,) sampling vectors (stream i
+    of row j at i * B + j) and the generation index of each stream."""
+    plist, steps = [], []
+    for i in range(sched.n_mux):
+        for j in range(sched.backbone_batch):
+            r = sched.slots[j][i].request
+            plist.append(r.sampling if r is not None else None)
+            steps.append(len(r.output) if r is not None else 0)
+    return sampling.params_arrays(plist), np.asarray(steps, np.int32)
+
+
 def params_to(params, device):
     """The param tree with every tensor on ``device``."""
     if isinstance(params, dict):
@@ -74,10 +89,12 @@ def params_to(params, device):
 class ServeRuntime:
     """Plan-executing runtime over the paged KV pool.
 
-    params/sc: model params and a ``ServeConfig`` (its ``kv_dtype`` sets
-    the page storage; ``stats`` records the pool's bytes and bytes per
-    token).  backbone_rows: B rows
-    of the N_mux × B grid.  chunk: prefill chunk size in tokens.
+    params/sc: model params and a ``ServeConfig`` with
+    ``cache_layout='paged'`` (its ``kv_dtype`` sets the page storage;
+    ``stats`` records the pool's bytes and bytes per token).
+    backbone_rows: B rows of the N_mux × B grid.  chunk: prefill chunk
+    size in tokens; None is blocking prefill (a joining row's whole
+    prompt in one call, ``stats['prefill_mode']`` says which ran).
     Requests carry their own ``SamplingParams`` (None = greedy).
     use_kernels: run the main path's kernels (the wrappers in
     ``kernels.ops`` launch them on CUDA and use their plain versions on
@@ -87,11 +104,13 @@ class ServeRuntime:
     """
 
     def __init__(self, params, sc: ServeConfig, backbone_rows: int, *,
-                 chunk: int = 32, on_prefill=None, use_kernels: bool = True,
-                 device=None, telemetry=None):
-        if chunk is None or chunk < 1:
-            raise ValueError(f"chunk must be >= 1, got {chunk} (blocking "
-                             "prefill is a later slice of the port)")
+                 chunk: int | None = 32, on_prefill=None,
+                 use_kernels: bool = True, device=None, telemetry=None):
+        if sc.cache_layout != "paged":
+            raise ValueError("ServeRuntime requires cache_layout='paged'")
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"chunk must be >= 1 (or None for blocking "
+                             f"prefill), got {chunk}")
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.sc = sc
@@ -99,7 +118,7 @@ class ServeRuntime:
         self.nrows = backbone_rows
         self.nb = self.n_mux * backbone_rows
         self.chunk = chunk
-        self.buckets = chunk_buckets(chunk)
+        self.buckets = chunk_buckets(chunk) if chunk is not None else []
         self.on_prefill = on_prefill
         self.use_kernels = use_kernels
         self.tele = telemetry if telemetry is not None else NULL_TELEMETRY
@@ -121,7 +140,9 @@ class ServeRuntime:
                       "completed": self.sched.completed,
                       "trace_counts": self.trace_counts,
                       "pool_bytes": sc.pool_bytes(self.nb),
-                      "kv_bytes_per_token": sc.kv_bytes_per_token()}
+                      "kv_bytes_per_token": sc.kv_bytes_per_token(),
+                      "prefill_mode": ("chunked" if chunk is not None
+                                       else "blocking")}
 
     def _first_run(self, key: str):
         """Count a step signature the first time it runs."""
@@ -150,15 +171,6 @@ class ServeRuntime:
                             for r in reqs], np.int32)
         return arr, steps
 
-    def _sampling_grid(self):
-        """Mux-major (NB,) vectors: stream i of row j at i * B + j."""
-        plist, steps = [], []
-        for i in range(self.n_mux):
-            for j in range(self.nrows):
-                r = self.sched.slots[j][i].request
-                plist.append(r.sampling if r is not None else None)
-                steps.append(len(r.output) if r is not None else 0)
-        return sampling.params_arrays(plist), np.asarray(steps, np.int32)
 
     def _sample(self, logits, arr, steps):
         return sampling.sample(logits, arr["temperature"], arr["top_k"],
@@ -225,17 +237,25 @@ class ServeRuntime:
 
     def _exec_chunk(self, plan):
         j = plan.row
-        toks = self.row_tokens[j][:, plan.start:plan.start + plan.length]
         arr, steps = self._sampling_row(j)
-        compute = self._bucket(plan.length)
-        buf = np.full((self.n_mux, compute), PAD_ID, np.int64)
-        buf[:, :plan.length] = toks
-        self._first_run(f"prefill_{compute}")
-        logits, _ = prefill_chunk(
-            self.params, self.sc, self.cache,
-            torch.from_numpy(buf).to(self.device), rows=[j],
-            start=plan.start, length=plan.length,
-            use_kernels=self.use_kernels)
+        if self.chunk is None:
+            # blocking prefill: the whole prompt, unpadded, fresh-KV attention
+            compute = plan.length
+            toks = self.row_tokens[j].astype(np.int64)
+            logits, _ = prefill(self.params, self.sc, self.cache,
+                                torch.from_numpy(toks).to(self.device),
+                                rows=[j])
+        else:
+            compute = self._bucket(plan.length)
+            buf = np.full((self.n_mux, compute), PAD_ID, np.int64)
+            buf[:, :plan.length] = self.row_tokens[j][
+                :, plan.start:plan.start + plan.length]
+            self._first_run(f"prefill_{compute}")
+            logits, _ = prefill_chunk(
+                self.params, self.sc, self.cache,
+                torch.from_numpy(buf).to(self.device), rows=[j],
+                start=plan.start, length=plan.length,
+                use_kernels=self.use_kernels)
         out = self._sample(logits, arr, steps)
         self.stats["prefill_tokens"] += plan.length
         self.stats["prefill_compute_tokens"] += compute
@@ -290,7 +310,7 @@ class ServeRuntime:
         self._clear_dead_slots()
         toks_in = torch.from_numpy(
             self.next_tok.reshape(-1, 1).astype(np.int64)).to(self.device)
-        arr, steps = self._sampling_grid()
+        arr, steps = grid_sampling(self.sched)
         self._first_run("decode")
         with self.tele.span("decode", metric="decode_step_s", rows=len(rows)):
             logits, _ = decode_step(self.params, self.sc, self.cache,

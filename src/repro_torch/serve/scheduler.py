@@ -1,12 +1,14 @@
 """Continuous batching policy (host-side copy of the parts of
-``repro.serve.scheduler`` that the paged, chunked, single-device runtime
-uses; shards, lanes and handoffs are later slices).
+``repro.serve.scheduler`` that the single-device paged runtime and the
+ring arm use; shards, lanes and handoffs are later slices).
 
 ``ContinuousScheduler`` keeps an N_mux × B grid of stream slots: slot
-(i, j) is mux stream i of backbone row j.  Admission is row-level: queued
-requests are grouped into entirely empty rows only, so a joining group is
-prefilled once into freshly allocated blocks and occupied rows are never
-re-prefilled.  The scheduler emits typed plans — ``AdmitPlan``,
+(i, j) is mux stream i of backbone row j.  Paged admission is row-level:
+queued requests are grouped into entirely empty rows only, so a joining
+group is prefilled once into freshly allocated blocks and occupied rows
+are never re-prefilled.  Ring admission (``admit``) fills any free slot
+and reports the rows that changed: the ring arm then re-prefills the
+whole grid.  The scheduler emits typed plans — ``AdmitPlan``,
 ``PrefillChunkPlan``, ``DecodePlan``, ``FreePlan`` — that
 ``serve.runtime.ServeRuntime`` executes; allocation failures come back
 through ``cancel_admit`` and ``preempt_row``.
@@ -96,6 +98,22 @@ class ContinuousScheduler:
         if self.telemetry.enabled and r.t_submit is not None:
             self.telemetry.observe("queue_wait_s", now - r.t_submit)
 
+    def admit(self):
+        """Place queued requests into free slots, row by row.  Returns the
+        rows whose composition changed (they need a re-prefill)."""
+        dirty = set()
+        for j in range(self.backbone_batch):
+            for i in range(self.n_mux):
+                if not self.queue:
+                    return sorted(dirty)
+                if self.slots[j][i].request is None:
+                    r = self.queue.popleft()
+                    self.slots[j][i] = StreamSlot(request=r,
+                                                  pos=len(r.prompt))
+                    self._stamp_admit(r)
+                    dirty.add(j)
+        return sorted(dirty)
+
     def admit_paged(self):
         """Group queued requests (up to N per row) into empty rows.
         Returns [(row, [(slot, request), ...]), ...]."""
@@ -141,12 +159,14 @@ class ContinuousScheduler:
             self.slots[plan.row][i] = StreamSlot()
             self.queue.appendleft(r)
 
-    def plan_chunks(self, chunk: int):
+    def plan_chunks(self, chunk: int | None):
         """One PrefillChunkPlan per mid-prefill row: its next ``chunk``
-        tokens."""
+        tokens (all remaining tokens when ``chunk`` is None — blocking
+        prefill)."""
         plans = []
         for j, (filled, total) in self.prefill_progress.items():
-            n = min(chunk, total - filled)
+            n = total - filled if chunk is None else min(chunk,
+                                                        total - filled)
             plans.append(PrefillChunkPlan(row=j, start=filled, length=n,
                                           last=filled + n >= total))
         return plans
@@ -215,6 +235,20 @@ class ContinuousScheduler:
                 tele.observe("tpot_s",
                              (now - r.t_first) / (len(r.output) - 1))
         return 1
+
+    def record_tokens(self, tokens, now: float | None = None):
+        """tokens (N_mux * B,): the next token of every stream, mux-major
+        (stream i of row j at i * B + j), on the host.  Retires finished
+        requests; returns the number retired."""
+        if now is None:
+            now = time.time()
+        retired = sum(self._record_slot(j, i, tokens[i * self.backbone_batch
+                                                     + j], now)
+                      for i in range(self.n_mux)
+                      for j in range(self.backbone_batch))
+        if self.telemetry.enabled:
+            self.telemetry.inc("tokens_generated", self.n_active + retired)
+        return retired
 
     def record_row_tokens(self, j: int, tokens, now: float | None = None):
         """tokens (N_mux,): the next token of each stream of row j, on the

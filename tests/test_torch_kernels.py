@@ -207,6 +207,14 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert got.shape == (2, 2, 2, 64)
     assert torch.equal(got.reshape(2, 4, 64),
                        ref.demux_rsa_fused_ref(*t, **norms))
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s, np.float32))
+               for s in ((2, 1, 4, 8), (2, 6, 2, 8), (2, 6, 2, 8)))
+    pos = torch.tensor([0, 1, 2, -1, 4, 5], dtype=torch.int32)
+    assert torch.equal(ops.decode_attention(q, k, v, pos, q_pos=4),
+                       ref.decode_attention_ref(q, k, v, pos, q_pos=4))
+    assert torch.equal(ops.flash_attention(q, k, v, q_offset=3),
+                       ref.flash_attention_ref(q, k, v, q_offset=3))
     assert ops.counts("calls") == dict.fromkeys(ops.counts(), 1)
     assert ops.counts("launches") == dict.fromkeys(ops.counts(), 0)
 

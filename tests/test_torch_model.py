@@ -120,8 +120,9 @@ def _setup(n, kv_dtype=None):
                                   capacity=40, dtype=jnp.float32,
                                   cache_layout="paged", block_size=4,
                                   kv_dtype=kv_dtype)
-    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n),
-                            capacity=40, block_size=4, kv_dtype=kv_dtype)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=40,
+                            cache_layout="paged", block_size=4,
+                            kv_dtype=kv_dtype)
     rows = 3
     cache_r = ref_engine.init_cache(sc_r, n * rows)
     cache = engine.init_cache(sc, n * rows, device="cpu")

@@ -159,7 +159,8 @@ def test_byte_accounting_equals_reference(kind):
     for reduced in (False, True):
         sc = engine.ServeConfig(cfg=get_config("qwen2-1.5b", reduced=reduced),
                                 mux=MuxSpec(n=2), capacity=124,
-                                block_size=16, kv_dtype=kind)
+                                cache_layout="paged", block_size=16,
+                                kv_dtype=kind)
         sc_r = RefServeConfig(cfg=ref_config("qwen2-1.5b", reduced=reduced),
                               kind="lm", mux=RefMux(n=2), capacity=124,
                               dtype=jnp.float32, cache_layout="paged",

@@ -6,8 +6,8 @@ reference's ``ServeRuntime`` / ``run_continuous`` and the port's, from the
 same weights (``repro_torch.interop``): greedy decoding must be
 token-identical, and the step signatures (``trace_counts``) must be the
 reference's compile counts.  Also: wrapper call counts per step, the
-``cuda`` default of the entry points, the CLI's accepted and rejected
-flags, and the host-side copies (pool, sampling, telemetry).
+``cuda`` default of the entry points, the CLI's modes (ring, blocking,
+fill-drain, chunked paged) and rejected flags, and the host-side copies (pool, sampling, telemetry).
 """
 import collections
 
@@ -55,8 +55,8 @@ def _pair(n, kv_dtype=None):
                           cache_layout="paged", block_size=4,
                           kv_dtype=kv_dtype)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n),
-                            capacity=CAPACITY, block_size=4,
-                            kv_dtype=kv_dtype)
+                            capacity=CAPACITY, cache_layout="paged",
+                            block_size=4, kv_dtype=kv_dtype)
     return ref, port, sc_r, sc
 
 
@@ -173,7 +173,8 @@ def test_wrapper_calls_per_step(n, extra):
                          rows=[0], start=0, length=8)
     assert ops.counts("calls") == {
         "paged_prefill_attention": cfg.n_layers, "paged_attention": 0,
-        "mux_embed_combine": extra // 2, "demux_rsa": extra // 2}
+        "mux_embed_combine": extra // 2, "demux_rsa": extra // 2,
+        "decode_attention": 0, "flash_attention": 0}
     ops.reset_counts()
     engine.decode_step(port, sc, cache, torch.zeros((2 * n, 1), dtype=torch.long),
                        torch.tensor([8, -1]))
@@ -239,22 +240,40 @@ def test_constructors_require_a_device(build):
         build(sc, sc.cfg)
 
 
+@pytest.mark.parametrize("argv,want", [
+    (["--continuous", "--cache", "ring"],
+     ["continuous[ring/cpu] served 3 requests (9 tokens)",
+      "prefill 36 backbone tokens (36 padded) in 3 events"]),
+    (["--continuous", "--cache", "paged", "--prefill", "blocking"],
+     ["continuous[paged/blocking/cpu] served 3 requests (9 tokens)",
+      "prefill 18 backbone tokens (18 padded) in 3 events",
+      "step signatures: decode×1\n"]),
+    ([], ["served 3 requests x 3 tokens in ",
+          "(mux N=2, backbone batch 2; throughput "]),
+], ids=["ring", "paged-blocking", "fill-drain"])
+def test_cli_serves_ring_blocking_and_fill_drain_on_cpu(capsys, argv, want):
+    """The reference CLI's modes and summary lines; the counts are the
+    ones ``python -m repro.launch.serve`` prints for the same flags (its
+    ring re-prefills both rows at every admission: 3 events of 6 tokens
+    x 2 rows; blocking prefills each joining row once, unpadded)."""
+    assert cli.main(argv + ["--device", "cpu", "--requests", "3",
+                            "--prompt-len", "6", "--new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    for line in want:
+        assert line in out
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--cache", "ring"], "ring"),
-    (["--prefill", "blocking"], "blocking"),
     (["--kv-dtype", "int4"], "invalid choice"),
     (["--cache", "ring", "--kv-dtype", "int8"],
      "--kv-dtype requires --continuous --cache paged"),
     (["--lanes", "1,2"], "item 10"),
     (["--mesh", "2,2"], "item 12"),
     (["--kill-shard", "3:1"], "item 11"),
-    ([], "fill-drain"),
 ])
 def test_cli_rejects_later_slices(capsys, argv, match):
-    if argv:
-        argv = ["--continuous", *argv]
     with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--device", "cpu"])
+        cli.main(["--continuous", *argv, "--device", "cpu"])
     assert e.value.code == 2
     assert match in capsys.readouterr().err
 
