@@ -16,6 +16,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 within the analytic bound, the pristine fp32 one;
                 flash-decode over a ring and flash attention over ragged,
                 windowed, bidirectional, offset and fully masked shapes;
+                the demux with its LN entry at rwkv6-7b's width; the RWKV6
+                recurrence at decode, 100, 109 and 128 tokens, head dim
+                32, strong and weak decay, against its chunkwise plain
+                version and the sequential oracle (elementwise, the
+                reference suite's tolerance), and two halves chained
+                through the state against one pass;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -35,13 +41,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 is held to the payloads it stores, see ``compare_paths``);
                 on the ring, the flash prefill against the naive one and
                 the ring decode step from identical caches, and the
-                greedy share of the ring arm.
-The last two lines are the card's name and power limit, then the device
+                greedy share of the ring arm;
+  6. rwkv     — the qwen2-1.5b weights freed, full-width rwkv6-7b (32
+                layers, d 4096, random seeded weights) serves the same
+                trace through the ring arm and fill-drain on the kernel
+                path: every request complete, launch counts exact
+                (rwkv6_chunked once per layer per forward, the entry and
+                the LN-entry demux once per decode step); then kernel
+                path against plain path: logits of one prefill and of one
+                decode step from identical states within 2e-3, and the
+                ring arm's greedy tokens identical.
+The kernels' JSON line lists every kernel of phases 3-6.  The last two
+lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -58,6 +75,12 @@ ATT_TOL = 1e-4             # fp32, summation order only; O(1) outputs
 MUX_TOL = 1e-5             # a sum of N=2 products per element
 DEMUX_TOL = 5e-4           # fp32 sums over D=1536 then F=3072 terms, post-LN
 LOGIT_TOL = 2e-3           # 28 fp32 layers, two summation orders
+# the RWKV6 kernel against its plain versions, elementwise on out and sT:
+# the reference suite's own kernel tolerance (tests/test_kernels.py
+# test_rwkv6); the plain chunkwise form rounds exp(la_prev - la_j), a
+# difference of cumulative sums, the kernel one exp per token
+RWKV_TOL = {"atol": 5e-4, "rtol": 1e-3}
+RWKV_TOL_TEXT = "atol 5e-4 + rtol 1e-3 * |want|"
 BF16_REL = 2.0 ** -8       # bf16 half-ulp relative rounding error
 KINDS = ("fp32", "bf16", "int8", "fp8")       # page storage
 # the reference's ServeConfig figures for full-width qwen2-1.5b, N=2, 4 rows
@@ -189,17 +212,26 @@ def phase_kernels(torch, timer):
 
     out = {}
 
-    def record(name, case, err, tol, timing=None):
+    def record(name, case, err, tol, timing=None, share=None):
+        """``share``: an elementwise tolerance's largest used share (the
+        check is then share <= 1, and ``tol`` names the tolerance)."""
         s = out.setdefault(name, {"max_abs_err": 0.0, "cases": []})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        line = f"  {name:<24} {case:<30} max_abs_err {err:.3e} (tol {tol:g})"
+        line = f"  {name:<24} {case:<30} max_abs_err {err:.3e} "
+        if share is None:
+            line += f"(tol {tol:g})"
+        else:
+            line += f"({share:.3f} of {tol})"
+            err, tol = share, 1.0
         if timing:
             s.setdefault("timing", timing)
             s["cases"].append({"case": case, **timing})
+            lib = timing["library_ms"]
             line += ("  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-                     "library {library_ms:.5f} ms  bound {bound_ms:.6f} ms "
+                     "library {lib}  bound {bound_ms:.6f} ms "
                      "({bound_by}: {bytes} bytes, {flops} flops)"
-                     ).format(**timing)
+                     ).format(lib="none" if lib is None else f"{lib:.5f} ms",
+                              **timing)
             if "work" in timing:
                 line += f"  [{timing['work']}]"
         print(line, flush=True)
@@ -468,6 +500,109 @@ def phase_kernels(torch, timer):
         record("flash_attention", case, (got - want).abs().max().item(),
                ATT_TOL, timing)
 
+    # -- fused demux exit with the LN entry (rwkv6-7b's final norm) --------
+    d, f, n = 4096, 8192, 2
+    w = (r(n, d), r(d, f, s=0.02), r(d, f, s=0.02), r(f, s=0.02),
+         r(f, d, s=0.02), r(d, s=0.02))
+    norms = {"entry_kind": "ln", "entry_scale": 1.0 + r(d, s=0.1),
+             "entry_bias": r(d, s=0.1), "exit_scale": 1.0 + r(d, s=0.1),
+             "exit_bias": r(d, s=0.1)}
+    for i, (case, tt) in enumerate([("main: decode T=4", 4),
+                                    ("edge: T=5", 5)]):
+        h = r(tt, d) + 2.0                 # a residual stream with an offset
+        got = kd.demux_rsa_cuda(h, *w, **norms)
+        want = ref.demux_rsa_fused_ref(h, *w, **norms)
+        timing = None
+        if i == 0:
+            nb = (2 * d * f + tt * d + n * d + d * f + f + 5 * d) * 4 \
+                + n * tt * d * 4
+            fl = 2 * tt * d * f + 2 * n * tt * f * d + 2 * n * d * f
+            bms, by = bound(nb, fl)
+
+            def library():
+                hn = F.layer_norm(h, (d,), norms["entry_scale"],
+                                  norms["entry_bias"], eps=1e-6)
+                z = F.gelu(torch.matmul(hn, w[1])[None]
+                           + (w[0] @ w[2] + w[3])[:, None],
+                           approximate="tanh")
+                return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                    norms["exit_scale"], norms["exit_bias"],
+                                    eps=1e-6)
+            timing = {
+                "ms": timer(lambda: kd.demux_rsa_cuda(h, *w, **norms)),
+                "plain_ms": timer(lambda: ref.demux_rsa_fused_ref(h, *w,
+                                                                  **norms)),
+                "library_ms": timer(library),
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("demux_rsa[ln]", case, (got - want).abs().max().item(),
+               DEMUX_TOL, timing)
+
+    # -- the RWKV6 recurrence ---------------------------------------------
+    from repro_torch.kernels import rwkv6 as krw
+
+    def rwkv_inputs(b, l, h, hd, logw=None):
+        """As the reference suite draws them (tests/test_kernels.py
+        test_rwkv6): logw = -exp(0.5 z), about -1.1 a token, or fixed."""
+        shape = (b, l, h, hd)
+        lw = (-torch.exp(r(*shape, s=0.5)) if logw is None
+              else torch.full(shape, logw, device=dev))
+        return (r(*shape), r(*shape, s=0.5), r(*shape), lw, r(h, hd, s=0.1),
+                r(b, h, hd, hd, s=0.1))
+
+    def rwkv_err(got, want):
+        """Max abs error over (out, sT), and the largest share of the
+        elementwise tolerance atol + rtol * |want| it uses."""
+        err = share = 0.0
+        for g, w_ in zip(got, want):
+            diff = (g - w_).abs()
+            err = max(err, diff.max().item())
+            tol = RWKV_TOL["atol"] + RWKV_TOL["rtol"] * w_.abs()
+            share = max(share, (diff / tol).max().item())
+        return err, share
+
+    rwkv_cases = [
+        # (case, B, L, H, hd, chunk of the plain version, logw)
+        ("main: decode L=1", 4, 1, 64, 64, 1, None),
+        ("main: prefill L=100", 4, 100, 64, 64, 100, None),
+        ("main: prefill L=109", 4, 109, 64, 64, 109, None),
+        ("main: L=128 chunks of 32", 4, 128, 64, 64, 32, None),
+        ("edge: hd=32", 4, 100, 128, 32, 100, None),
+        ("edge: strong decay -5", 4, 100, 64, 64, 100, -5.0),
+        ("edge: weak decay -1e-3", 4, 100, 64, 64, 100, -1e-3),
+    ]
+    for i, (case, b, l, h, hd, chunk, logw) in enumerate(rwkv_cases):
+        a = rwkv_inputs(b, l, h, hd, logw)
+        got = krw.rwkv6_cuda(*a)
+        err, share = rwkv_err(got, krw.rwkv_chunked(*a, chunk))
+        err_o, share_o = rwkv_err(got, krw.rwkv6_ref(*a))
+        print(f"  {'rwkv6_chunked':<24} {case:<30} vs sequential oracle: "
+              f"max_abs_err {err_o:.3e} ({share_o:.3f} of {RWKV_TOL_TEXT})",
+              flush=True)
+        need(share_o <= 1.0, f"rwkv6_chunked [{case}] disagrees with the "
+             "sequential oracle")
+        timing = None
+        if i < 2:          # decode (the JSON's) and a 100-token prefill
+            nb = (5 * b * l * h * hd + h * hd + 2 * b * h * hd * hd) * 4
+            fl = b * l * h * (5 * hd * hd + 5 * hd)
+            bms, by = bound(nb, fl)
+            timing = {
+                "ms": timer(lambda: krw.rwkv6_cuda(*a)),
+                "plain_ms": timer(lambda: krw.rwkv_chunked(*a, chunk)),
+                "library_ms": None,     # no single PyTorch call computes it
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("rwkv6_chunked", case, err, RWKV_TOL_TEXT, timing,
+               share=share)
+    # two halves chained through the state equal one pass
+    a = rwkv_inputs(4, 100, 64, 64)
+    whole = krw.rwkv6_cuda(*a)
+    o1, s1 = krw.rwkv6_cuda(*(x[:, :50] for x in a[:4]), a[4], a[5])
+    o2, s2 = krw.rwkv6_cuda(*(x[:, 50:] for x in a[:4]), a[4], s1)
+    err = max((torch.cat([o1, o2], 1) - whole[0]).abs().max().item(),
+              (s2 - whole[1]).abs().max().item())
+    print(f"  {'rwkv6_chunked':<24} {'edge: halves chained by sT':<30} "
+          f"max_abs_err {err:.3e} against one pass (tol 1e-4)", flush=True)
+    need(err <= 1e-4, "rwkv6_chunked: chained halves differ from one pass")
+
     # -- the paged kernels over bf16, int8 and fp8 pages -------------------
     from repro_torch.core import quant as tq
 
@@ -689,7 +824,15 @@ def main() -> int:
     compare_ring_paths(params, cfg_flash, mux, rows, trace, new_tokens,
                        dense["ring"])
 
-    # 6. summary
+    # 6. rwkv6-7b, full width, ring arm and fill-drain; the qwen2-1.5b
+    # weights are freed first (a finished runtime and its stats refer to
+    # each other, so only the cycle collector lets them go)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv = phase_rwkv(torch, mux, rows, prompt_len, new_tokens)
+
+    # 7. summary
     meta = {
         "mux_embed_combine": ("triton", "src/repro_torch/kernels/mux_embed.py",
                               "src/repro/kernels/mux_embed.py:68"),
@@ -702,6 +845,11 @@ def main() -> int:
     meta["flash_attention"] = (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:100")
+    meta["rwkv6_chunked"] = ("cuda", "src/repro_torch/kernels/csrc/rwkv6.cu",
+                             "src/repro/kernels/rwkv6.py:82")
+    meta["demux_rsa[ln]"] = ("cuda",
+                             "src/repro_torch/kernels/csrc/demux_rsa.cu",
+                             "src/repro/kernels/demux_rsa.py:135")
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     for kind in KINDS:
         sfx = "" if kind == "fp32" else f"[{kind}]"
@@ -719,6 +867,8 @@ def main() -> int:
             launches = runs[kind]["by_storage"][base][kind]
         elif base in ("decode_attention", "flash_attention"):
             launches = dense["ring"]["launches"][base]     # the CLI default
+        elif kname in ("rwkv6_chunked", "demux_rsa[ln]"):
+            launches = rwkv["ring"]["launches"][base]
         else:                   # the entry and exit run on every path
             launches = runs["fp32"]["launches"][base]
         rows_json.append({
@@ -977,6 +1127,136 @@ def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
           f"{same}/{total} ({same / total:.3f}); plain path "
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
+
+
+def phase_rwkv(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 6: full-width rwkv6-7b from seeded random weights on the
+    card, the phase-4 trace through the ring arm and fill-drain on the
+    kernel path with exact launch counts, then the kernel path against
+    the plain path.  Returns {mode: serve_rwkv's result}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, param_count
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = TransformerLM.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"phase 6: rwkv6-7b full width, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.rwkv_heads} heads of "
+          f"{cfg.d_model // cfg.rwkv_heads}, {n_params / 1e9:.3f} B params "
+          f"({param_count(cfg) / 1e9:.3f} B backbone) in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    runs = {mode: serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode)
+            for mode in ("ring", "fill-drain")}
+    compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens,
+                       runs["ring"])
+    return runs
+
+
+def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
+    """Phase 6 for one mode, the launch counts set to 0 just before the
+    run and read just after.  Every forward (blocking prefill or decode
+    step) runs rwkv6_chunked once per layer; each decode step runs the
+    fused entry and exit (demux_rsa with the LN entry), the prefill the
+    plain ones, as in the reference; nothing else launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fill_drain, run_continuous
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8)
+    tele = Telemetry()
+    ops.reset_counts()
+    if mode == "fill-drain":
+        stats = fill_drain(params, sc, rows, [a[1] for a in trace],
+                           new_tokens, telemetry=tele, device="cuda")
+    else:
+        stats = run_continuous(
+            params, sc, rows, trace, telemetry=tele, device="cuda",
+            on_prefill=lambda *_: torch.cuda.synchronize())
+    launches = ops.counts("launches")
+    dsteps, events = stats["decode_steps"], stats["prefill_events"]
+    need(len(stats["completed"]) == len(trace),
+         f"rwkv {mode}: {len(stats['completed'])} of {len(trace)} requests "
+         "completed")
+    need(all(len(r.output) == new_tokens for r in stats["completed"]),
+         f"rwkv {mode}: a request stopped short of its new tokens")
+    want = dict.fromkeys(launches, 0)
+    want.update({"rwkv6_chunked": cfg.n_layers * (dsteps + events),
+                 "mux_embed_combine": dsteps, "demux_rsa": dsteps})
+    need(launches == want, f"rwkv {mode}: launch counts {launches} != "
+         f"required {want} ({dsteps} decode steps, {events} prefills)")
+    spans = {}
+    for ev in tele.tracer.events:
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[3] / 1e3)
+    lens = ([g for _, g in stats["prefill_log"]] if mode == "ring"
+            else [len(trace[0][1])])
+    tok_s = stats["generated_tokens"] / stats["wall"]
+    print(f"  rwkv {mode}: served {len(stats['completed'])} requests, "
+          f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
+          f"{tok_s:.2f} tok/s; decode step p50 "
+          f"{statistics.median(spans['decode']):.3f} ms over {dsteps} "
+          f"steps; prefill p50 {statistics.median(spans['prefill']):.3f} ms "
+          f"over {events} prefills of {rows} rows x {lens} tokens; launches "
+          f"{launches}", flush=True)
+    return {"outputs": {r.uid: r.output for r in stats["completed"]},
+            "launches": launches}
+
+
+def compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
+    """Phase 6, kernel path against plain path: the logits of one blocking
+    prefill of the grid (100 tokens: one chunk of the plain version) and
+    of one decode step from identical states, then the share of identical
+    greedy tokens of the ring arm's two paths over the trace."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8)
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    cache = engine.init_cache(sc, nb, device="cuda")
+    plain_cache = engine.init_cache(sc, nb, device="cuda")
+    lk, _ = engine.prefill(params, sc, cache, toks, use_kernels=True)
+    lp, _ = engine.prefill(params, sc, plain_cache, toks, use_kernels=False)
+    need(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+         "rwkv: prefill logits are not finite")
+    err_pre = (lk - lp).abs().max().item()
+    for a, b in zip(cache["layers"], plain_cache["layers"]):
+        for key in a:
+            b[key] = a[key].clone()
+    dtok = lk.argmax(-1)[:, None]
+    dk, _ = engine.decode_step(params, sc, cache, dtok, toks.shape[1],
+                               use_kernels=True)
+    dp, _ = engine.decode_step(params, sc, plain_cache, dtok, toks.shape[1],
+                               use_kernels=False)
+    err_dec = (dk - dp).abs().max().item()
+    print(f"  rwkv: logits max_abs_err kernel vs plain path: prefill "
+          f"{err_pre:.3e}, decode from identical states {err_dec:.3e} (tol "
+          f"{LOGIT_TOL:g}); |logits| max {lk.abs().max().item():.3f}",
+          flush=True)
+    need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
+         "rwkv: kernel path disagrees with the plain path")
+    plain = run_continuous(params, sc, rows, trace, use_kernels=False,
+                           device="cuda")
+    ko = ring_run["outputs"]
+    po = {r.uid: r.output for r in plain["completed"]}
+    same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
+    total = sum(len(v) for v in ko.values())
+    print(f"  rwkv ring: greedy tokens identical, kernel vs plain path: "
+          f"{same}/{total} ({same / total:.3f}); plain path "
+          f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
+          flush=True)
+    need(same == total, "rwkv ring: the kernel path's greedy tokens differ "
+         "from the plain path's")
 
 
 def _leaves(tree):

@@ -7,10 +7,12 @@ reference groups layers into periods of ``cfg.block_pattern`` and stacks
 each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
 leftover layers unstacked under ``tail``; the port keeps one dict per
-layer in a list.  Leaf layouts are the reference's ((in, out) weights),
-so no leaf is transposed.  ``pages_from_reference`` carries one layer's
-reference page pool across bit for bit, ``ring_cache_from_reference`` a
-whole reference ring cache.  Nothing here imports JAX.
+layer in a list, whatever the block kind (attention or RWKV), and an
+untied ``lm_head`` beside the embedding.  Leaf layouts are the
+reference's ((in, out) weights), so no leaf is transposed.
+``pages_from_reference`` carries one layer's reference page pool across
+bit for bit, ``ring_cache_from_reference`` a whole reference ring cache.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ def params_from_reference(tree, cfg, *, device):
             layers.append(_map(tensor, tree["tail"][pos]))
     out = {"embed": _map(tensor, tree["embed"]), "layers": layers,
            "final_norm": _map(tensor, tree["final_norm"])}
-    if tree.get("mux_engine"):
-        out["mux_engine"] = _map(tensor, tree["mux_engine"])
+    for key in ("lm_head", "mux_engine"):
+        if tree.get(key):
+            out[key] = _map(tensor, tree[key])
     return out
 
 
@@ -76,8 +79,9 @@ def params_to_reference(params, cfg):
            "tail": tuple(_map(arr, layers[n_per * pat + k])
                          for k in range(cfg.n_layers - n_per * pat)),
            "final_norm": _map(arr, params["final_norm"])}
-    if "mux_engine" in params:
-        out["mux_engine"] = _map(arr, params["mux_engine"])
+    for key in ("lm_head", "mux_engine"):
+        if key in params:
+            out[key] = _map(arr, params[key])
     return out
 
 

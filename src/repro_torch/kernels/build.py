@@ -22,7 +22,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD = REPO / "build" / "repro_torch"
 SOURCES = ("paged_attention", "demux_rsa", "decode_attention",
-           "flash_attention")
+           "flash_attention", "rwkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,7 +88,9 @@ SIGNATURES = {
         "paged_attention_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
     },
     "demux_rsa": {
-        "demux_rsa_forward": [_P] * 12 + [_I] * 4 + [_P],
+        # h, entry_scale, entry_bias, w1h, kb, w2, b2, exit_scale,
+        # exit_bias, stats, zp, g, yp, out; entry_kind, T, N, D, F; stream
+        "demux_rsa_forward": [_P] * 14 + [_I] * 5 + [_P],
         "demux_rsa_split": [],
     },
     "decode_attention": {
@@ -100,6 +102,10 @@ SIGNATURES = {
         # q, k, v, out; B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset;
         # softcap, scale; stream
         "flash_attention_forward": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+    },
+    "rwkv6": {
+        # r, k, v, logw, u, s0, out, sT; B, L, H, hd; stream
+        "rwkv6_forward": [_P] * 8 + [_I] * 4 + [_P],
     },
 }
 

@@ -1,20 +1,21 @@
 // Fused RSA demux exit for Hopper (sm_90a):
 //
-//   out[n, t] = LN_exit( gelu_tanh( rms(h[t]) @ W1h + kb[n] ) @ W2 + b2 )
+//   out[n, t] = LN_exit( gelu_tanh( norm(h[t]) @ W1h + kb[n] ) @ W2 + b2 )
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/demux_rsa.py
-// (demux_rsa / _kernel_full) with its fused entry RMSNorm (the backbone's
-// final norm) and exit LayerNorm (the demux's own).  kb = k @ W1k + b1 is
-// an (N, F) matrix computed outside, as in the reference.
+// (demux_rsa / _kernel_full) with its fused entry norm (the backbone's
+// final norm: RMSNorm, or LayerNorm with a bias) and exit LayerNorm (the
+// demux's own).  kb = k @ W1k + b1 is an (N, F) matrix computed outside,
+// as in the reference.
 //
 // Layouts: h (T, D); W1h (D, F); kb (N, F); W2 (F, D); b2 (D,); out
-// (N, T, D).  All fp32.  Scratch: zp (S, T, F), g (N, T, F), yp (S, N*T, D)
-// with S = kSplit.
+// (N, T, D).  All fp32.  Scratch: stats (T, 2), zp (S, T, F), g (N, T, F),
+// yp (S, N*T, D) with S = kSplit.
 //
 // Bound.  Bytes: the two weight matrices, 2*D*F*4 = 37.7 MB at qwen2-1.5b
-// width (F = 2D), against ~2*T*D*F*(1 + N) flops — under 2 flops per byte
-// at T <= 32, far below the fp32 rate.  So the design is about streaming
-// the weights at full rate.
+// width (F = 2D; 268 MB at rwkv6-7b's D = 4096), against ~2*T*D*F*(1 + N)
+// flops — under 2 flops per byte at T <= 32, far below the fp32 rate.  So
+// the design is about streaming the weights at full rate.
 //
 // Design.  The Pallas grid (N, T/bt, F/bf) runs F sequentially; copied
 // literally it would launch N blocks at decode, each streaming all the
@@ -27,12 +28,16 @@
 // and N*T <= kRT, as at decode (T = backbone rows).  A prefill chunk
 // (T = 32, N*T = 64) has 4 row tiles in each product, and each tile
 // streams its W1h or W2 slice again (from L2 where it still holds it):
-//   1. demux_hidden_partial: zp[s] = (h * (1 + scale)) @ W1h over the s-th
-//      D slice, blocks over (F tiles, D slices, T tiles).  The entry
-//      RMSNorm's per-row factor rsqrt(mean(h^2) + eps) is a scalar per
-//      row, so it is applied after the product, in step 2.
-//   2. demux_gelu: one block per row t: the row's inverse rms, the sum of
-//      the S partials, + kb[n], GELU -> g (N, T, F).
+//   0. demux_ln_stats (LN entry only): one block per row t: its mean and
+//      inverse standard deviation -> stats.
+//   1. demux_hidden_partial: zp[s] = norm(h) @ W1h over the s-th D slice,
+//      blocks over (F tiles, D slices, T tiles).  The LN entry normalises
+//      each staged h element with its row's stats, scale and bias.  The
+//      RMS entry stages h * (1 + scale): its per-row factor
+//      rsqrt(mean(h^2) + eps) is a scalar per row, applied after the
+//      product, in step 2.
+//   2. demux_gelu: one block per row t: (RMS entry) the row's inverse rms,
+//      the sum of the S partials, + kb[n], GELU -> g (N, T, F).
 //   3. demux_out_partial: yp[s] = g @ W2 over the s-th F slice, blocks
 //      over (D tiles, F slices, row tiles).
 //   4. demux_exit: one block per output row: the sum of the S partials
@@ -51,6 +56,8 @@ constexpr int kTT = 8;      // T rows per block
 constexpr int kDB = 32;     // D columns per block
 constexpr int kRT = 16;     // N*T rows per block
 constexpr int kRowThreads = 256;
+// entry norm kinds (the wrapper's entry_kind None / 'rms' / 'ln')
+constexpr int kEntryRms = 1, kEntryLn = 2;      // 0: no entry norm
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -78,8 +85,30 @@ __host__ __device__ __forceinline__ int slice_len(int n) {
   return ((n + kSplit - 1) / kSplit + kDC - 1) / kDC * kDC;
 }
 
+__global__ void __launch_bounds__(kRowThreads) demux_ln_stats(
+    const float* __restrict__ h, float* __restrict__ stats, int D) {
+  __shared__ float red[kRowThreads / 32];
+  const int t = blockIdx.x;
+  const float* row = h + (size_t)t * D;
+  float s = 0.f;
+  for (int d = threadIdx.x; d < D; d += kRowThreads) s += row[d];
+  const float mu = block_sum(s, red) / D;
+  s = 0.f;
+  for (int d = threadIdx.x; d < D; d += kRowThreads) {
+    const float c = row[d] - mu;
+    s += c * c;
+  }
+  const float inv = rsqrtf(block_sum(s, red) / D + 1e-6f);
+  if (threadIdx.x == 0) {
+    stats[2 * t] = mu;
+    stats[2 * t + 1] = inv;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) demux_hidden_partial(
-    const float* __restrict__ h, const float* __restrict__ entry_scale,
+    const float* __restrict__ h, int entry_kind,
+    const float* __restrict__ entry_scale,
+    const float* __restrict__ entry_bias, const float* __restrict__ stats,
     const float* __restrict__ w1h, float* __restrict__ zp, int T, int D,
     int F) {
   __shared__ float sh[kTT][kDC];
@@ -100,7 +129,12 @@ __global__ void __launch_bounds__(kThreads) demux_hidden_partial(
       float x = 0.f;
       if (r < rows && d < d_hi) {
         x = h[(size_t)(t0 + r) * D + d];
-        if (entry_scale) x *= 1.f + entry_scale[d];
+        if (entry_kind == kEntryRms) {
+          x *= 1.f + entry_scale[d];
+        } else if (entry_kind == kEntryLn) {
+          const float* st = stats + 2 * (t0 + r);
+          x = (x - st[0]) * st[1] * entry_scale[d] + entry_bias[d];
+        }
       }
       sh[r][c] = x;
     }
@@ -127,13 +161,13 @@ __global__ void __launch_bounds__(kThreads) demux_hidden_partial(
 }
 
 __global__ void __launch_bounds__(kRowThreads) demux_gelu(
-    const float* __restrict__ h, const float* __restrict__ entry_scale,
+    const float* __restrict__ h, int entry_kind,
     const float* __restrict__ zp, const float* __restrict__ kb,
     float* __restrict__ g, int T, int N, int D, int F) {
   __shared__ float red[kRowThreads / 32];
   const int t = blockIdx.x;
   float inv = 1.f;
-  if (entry_scale) {           // entry RMSNorm: rsqrt(mean(h^2) + 1e-6)
+  if (entry_kind == kEntryRms) {  // entry RMSNorm: rsqrt(mean(h^2) + 1e-6)
     float s = 0.f;
     for (int d = threadIdx.x; d < D; d += kRowThreads) {
       const float x = h[(size_t)t * D + d];
@@ -223,21 +257,25 @@ __global__ void __launch_bounds__(kRowThreads) demux_exit(
 
 }  // namespace
 
-// entry_scale: RMSNorm scale, or nullptr for no entry norm.  exit_scale /
-// exit_bias: demux LayerNorm, or nullptr for none.  zp holds kSplit*T*F
-// floats, g N*T*F, yp kSplit*N*T*D.
+// entry_kind: 0 none, 1 RMSNorm (entry_scale), 2 LayerNorm (entry_scale,
+// entry_bias; stats holds 2*T floats).  exit_scale / exit_bias: demux
+// LayerNorm, or nullptr for none.  zp holds kSplit*T*F floats, g N*T*F,
+// yp kSplit*N*T*D.
 extern "C" int demux_rsa_split() { return kSplit; }
 
 extern "C" int demux_rsa_forward(
-    const float* h, const float* entry_scale, const float* w1h,
-    const float* kb, const float* w2, const float* b2,
-    const float* exit_scale, const float* exit_bias, float* zp, float* g,
-    float* yp, float* out, int T, int N, int D, int F, void* stream) {
+    const float* h, const float* entry_scale, const float* entry_bias,
+    const float* w1h, const float* kb, const float* w2, const float* b2,
+    const float* exit_scale, const float* exit_bias, float* stats,
+    float* zp, float* g, float* yp, float* out, int entry_kind, int T, int N,
+    int D, int F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int NT = N * T;
+  if (entry_kind == kEntryLn) demux_ln_stats<<<T, kRowThreads, 0, st>>>(h, stats, D);
   dim3 g1((F + kFB - 1) / kFB, kSplit, (T + kTT - 1) / kTT);
-  demux_hidden_partial<<<g1, kThreads, 0, st>>>(h, entry_scale, w1h, zp, T, D, F);
-  demux_gelu<<<T, kRowThreads, 0, st>>>(h, entry_scale, zp, kb, g, T, N, D, F);
+  demux_hidden_partial<<<g1, kThreads, 0, st>>>(h, entry_kind, entry_scale, entry_bias,
+                                                stats, w1h, zp, T, D, F);
+  demux_gelu<<<T, kRowThreads, 0, st>>>(h, entry_kind, zp, kb, g, T, N, D, F);
   dim3 g3((D + kDB - 1) / kDB, kSplit, (NT + kRT - 1) / kRT);
   demux_out_partial<<<g3, kThreads, 0, st>>>(g, w2, yp, NT, D, F);
   const size_t smem = sizeof(float) * (size_t)D;

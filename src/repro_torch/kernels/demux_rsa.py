@@ -40,22 +40,31 @@ def demux_rsa_fused_ref(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
     return out
 
 
+ENTRY_KINDS = {None: 0, "rms": 1, "ln": 2}      # the source's kEntry*
+
+
 def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
                    entry_scale=None, entry_bias=None, exit_scale=None,
                    exit_bias=None):
     """Launch the demux kernels on (T, D) ``h``; arguments as
-    ``demux_rsa_fused_ref``.  The entry norm may be 'rms' or None."""
+    ``demux_rsa_fused_ref`` (the LN entry needs ``entry_bias``)."""
     if h.device.type != "cuda":
         raise ValueError(f"the demux kernel runs on CUDA tensors, got "
                          f"{h.device}")
-    if entry_kind not in (None, "rms"):
-        raise ValueError(f"entry_kind {entry_kind!r}: the kernel fuses the "
-                         "RMS entry norm only")
-    del entry_bias
+    if entry_kind not in ENTRY_KINDS:
+        raise ValueError(f"entry_kind {entry_kind!r}: the kernel fuses "
+                         "None, 'rms' or 'ln'")
+    if entry_kind is not None and entry_scale is None:
+        raise ValueError(f"entry_kind {entry_kind!r} needs entry_scale")
+    if entry_kind == "ln" and entry_bias is None:
+        raise ValueError("the LN entry needs entry_bias")
+    if entry_kind != "ln":
+        entry_bias = None
     t, d = h.shape
     n, f = k.shape[0], w1h.shape[1]
     ts = [h, k, w1h, w1k, b1, w2, b2]
-    ts += [x for x in (entry_scale, exit_scale, exit_bias) if x is not None]
+    ts += [x for x in (entry_scale, entry_bias, exit_scale, exit_bias)
+           if x is not None]
     for x in ts:
         if x.dtype != torch.float32 or x.device != h.device:
             raise ValueError(f"need fp32 on {h.device}, got {x.dtype} on "
@@ -69,6 +78,7 @@ def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
     h, w1h, w2, b2 = (x.contiguous() for x in (h, w1h, w2, b2))
     kb = (k @ w1k + b1[None]).contiguous()
     es = None if entry_kind is None else entry_scale.contiguous()
+    eb = None if entry_bias is None else entry_bias.contiguous()
     xs = None if exit_scale is None else exit_scale.contiguous()
     xb = None if exit_bias is None else exit_bias.contiguous()
     lib = build.load("demux_rsa")
@@ -77,6 +87,7 @@ def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
     def scratch(*shape):
         return torch.empty(shape, device=h.device, dtype=torch.float32)
 
+    stats = scratch(t, 2) if entry_kind == "ln" else None
     zp, g = scratch(split, t, f), scratch(n, t, f)
     yp, out = scratch(split, n * t, d), scratch(n, t, d)
 
@@ -84,9 +95,10 @@ def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
         return None if x is None else x.data_ptr()
 
     err = lib.demux_rsa_forward(
-        h.data_ptr(), ptr(es), w1h.data_ptr(), kb.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), ptr(xs), ptr(xb), zp.data_ptr(), g.data_ptr(),
-        yp.data_ptr(), out.data_ptr(), t, n, d, f,
+        h.data_ptr(), ptr(es), ptr(eb), w1h.data_ptr(), kb.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), ptr(xs), ptr(xb), ptr(stats),
+        zp.data_ptr(), g.data_ptr(), yp.data_ptr(), out.data_ptr(),
+        ENTRY_KINDS[entry_kind], t, n, d, f,
         torch.cuda.current_stream(h.device).cuda_stream)
     build.check(err, "demux_rsa kernels")
     return out

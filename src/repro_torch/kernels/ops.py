@@ -19,6 +19,7 @@ from repro_torch.kernels import demux_rsa as _demux
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mux_embed as _mux
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rwkv6 as _rwkv
 
 
 def _on_cpu(x) -> bool:
@@ -135,8 +136,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return out
 
 
+def rwkv6_chunked(r, k, v, logw, u, s0, *, chunk: int):
+    """The RWKV6 recurrence: r, k, v, logw (B, L, H, hd) fp32, u (H, hd),
+    s0 (B, H, hd, hd) -> (out, sT).  ``chunk`` is the plain version's
+    (chunkwise, the reference's rule); the kernel scans token by token
+    and takes any L."""
+    rwkv6_chunked.calls += 1
+    if _on_cpu(r):
+        return _rwkv.rwkv_chunked(r, k, v, logw, u, s0, chunk)
+    out = _rwkv.rwkv6_cuda(r, k, v, logw, u, s0)
+    rwkv6_chunked.launches += 1
+    return out
+
+
 WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
-            demux_rsa, decode_attention, flash_attention)
+            demux_rsa, decode_attention, flash_attention, rwkv6_chunked)
 PAGED = (paged_attention, paged_prefill_attention)
 
 

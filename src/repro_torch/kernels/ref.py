@@ -8,8 +8,9 @@ from repro_torch.kernels.mux_embed import mux_embed_ref
 from repro_torch.kernels.paged_attention import (
     paged_attention_quant_ref, paged_attention_ref,
     paged_prefill_attention_quant_ref, paged_prefill_attention_ref)
+from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv_chunked
 
 __all__ = ["decode_attention_ref", "demux_rsa_ref", "demux_rsa_fused_ref",
            "flash_attention_ref", "mux_embed_ref", "paged_attention_ref",
            "paged_prefill_attention_ref", "paged_attention_quant_ref",
-           "paged_prefill_attention_quant_ref"]
+           "paged_prefill_attention_quant_ref", "rwkv6_ref", "rwkv_chunked"]

@@ -1,0 +1,127 @@
+"""The RWKV6 (Finch) recurrence: the CUDA kernel (``csrc/rwkv6.cu``) and
+its plain PyTorch versions.
+
+    out_t = r_t S_{t-1} + ((r_t * u) . k_t) v_t
+    S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
+
+over r, k, v, logw (B, L, H, hd), u (H, hd) and the carried state s0
+(B, H, hd, hd); returns out (B, L, H, hd) and the final state sT.
+
+Counterpart of ``repro/kernels/rwkv6.py`` (``rwkv6_chunked``, the Pallas
+kernel) and of the function the reference's model path runs in its place,
+``repro/models/blocks.py`` ``rwkv_chunked``:
+
+  * ``rwkv_chunked`` — the plain version: the reference's chunkwise form
+    (inter-chunk term from the carried state, intra-chunk scores weighted
+    by exp(la_prev_t - la_j), the state carried chunk to chunk) with its
+    ``intra_dtype`` option.  One change: the pairwise log decay is masked
+    to the strict lower triangle *before* the exp.  The reference takes
+    the exp of the whole (c, c, hd) tensor and multiplies by the mask
+    afterwards; past ~88 nats of decay inside one chunk (a 100-token
+    chunk at the default decay exp(-1) per token) the upper triangle
+    overflows to inf and inf * 0 makes the output NaN.  Masking first
+    gives the reference's values bit for bit wherever those are finite.
+  * ``rwkv6_ref`` — the sequential per-token oracle
+    (``repro/kernels/ref.py`` ``rwkv6_ref``).
+  * ``rwkv6_cuda`` — launches the kernel on CUDA tensors and nothing
+    else: a per-token scan with the state in registers, any L (no chunk
+    rule); see the source.
+
+The counted dispatching wrapper is ``kernels.ops.rwkv6_chunked``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
+
+
+def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
+                 intra_dtype=torch.float32):
+    """Chunkwise-parallel recurrence in chunks of ``chunk`` tokens (L a
+    multiple of it).  The (c, c, hd) pairwise decay and the intra-chunk
+    products run in ``intra_dtype`` (fp32 or bf16), as the reference's."""
+    b, l, h, hd = r.shape
+    if l % chunk:
+        raise ValueError(f"L={l} is not a multiple of chunk={chunk}")
+    nc, c = l // chunk, chunk
+
+    def chunks(x):                    # (B, L, H, hd) -> (nc, B, H, c, hd)
+        return x.reshape(b, nc, c, h, hd).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(chunks, (r, k, v, logw))
+    below = torch.ones(c, c, dtype=torch.bool, device=r.device).tril(-1)
+    s, outs = s0, []
+    for rj, kj, vj, lw in zip(rc, kc, vc, lwc):      # (B, H, c, hd) each
+        la = torch.cumsum(lw, dim=2)                 # log decay incl. t
+        la_prev = la - lw                            # ... up to t-1
+        out = torch.einsum("bhck,bhkv->bhcv", rj * torch.exp(la_prev), s)
+        decay = la_prev[:, :, :, None, :] - la[:, :, None, :, :]
+        decay.masked_fill_(~below[:, :, None], float("-inf"))
+        decay = decay.exp_().to(intra_dtype)         # (B, H, c, c, hd)
+        att = torch.einsum("bhtk,bhjk,bhtjk->bhtj", rj.to(intra_dtype),
+                           kj.to(intra_dtype), decay)
+        bonus = torch.einsum("bhtk,bhtk->bht", rj * u[None, :, None, :], kj)
+        out = (out + torch.einsum("bhtj,bhjv->bhtv", att,
+                                  vj.to(intra_dtype)).float()
+               + bonus[..., None] * vj)
+        la_end = la[:, :, -1:, :]
+        k_scaled = kj * torch.exp(la_end - la)
+        s = (torch.exp(la_end[:, :, 0, :])[..., None] * s
+             + torch.einsum("bhck,bhcv->bhkv", k_scaled, vj))
+        outs.append(out)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, l, h, hd)
+    return out, s
+
+
+def rwkv6_ref(r, k, v, logw, u, s0):
+    """The sequential per-token recurrence (the definition).  Returns
+    (out (B, L, H, hd), sT (B, H, hd, hd))."""
+    w = torch.exp(logw)
+    s, outs = s0, []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s)
+                    + torch.einsum("bhk,bhk->bh", rt * u[None], kt)[..., None]
+                    * vt)
+        s = wt[..., None] * s + kt[..., None] * vt[:, :, None, :]
+    return torch.stack(outs, 1), s
+
+
+def _aligned(x):
+    """Contiguous, with the 16-byte alignment the kernel's vector loads
+    need."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def rwkv6_cuda(r, k, v, logw, u, s0):
+    """Launch ``rwkv6_scan``; arguments as ``rwkv6_ref``, fp32 CUDA
+    tensors, hd one of ``HEAD_DIMS``, any L >= 1."""
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"the rwkv6 kernel runs on CUDA tensors, got {dev}")
+    for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
+                    ("s0", s0)):
+        if x.dtype != torch.float32 or x.device != dev:
+            raise ValueError(f"{name}: need fp32 on {dev}, got {x.dtype} on "
+                             f"{x.device}")
+    b, l, h, hd = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
+            or u.shape != (h, hd) or s0.shape != (b, h, hd, hd) or l < 1):
+        raise ValueError(f"shapes r/k/v/logw {tuple(r.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)} "
+                         f"{tuple(logw.shape)}, u {tuple(u.shape)}, s0 "
+                         f"{tuple(s0.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
+    r, k, v, logw, u, s0 = map(_aligned, (r, k, v, logw, u, s0))
+    out, s_t = torch.empty_like(r), torch.empty_like(s0)
+    err = build.load("rwkv6").rwkv6_forward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_t.data_ptr(), b, l, h,
+        hd, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "rwkv6_scan")
+    return out, s_t

@@ -15,9 +15,12 @@ Three modes, as in the reference:
     python -m repro_torch.launch.serve --continuous --cache paged \
         --no-reduced --mux-n 2 --requests 8 --new-tokens 16
 
-Runs on ``cuda`` unless ``--device cpu``; weights come from a seeded
-init.  ``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and
-fp8 pages carry per-slot scales; the kernels fuse the dequant).  The
+Architectures: ``--arch qwen2-1.5b`` (default) and ``--arch rwkv6-7b``
+(RWKV6, on the ring arm and in fill-drain: the reference's paged arm
+fails on RWKV, so ``--cache paged`` with it is an error).  Runs on
+``cuda`` unless ``--device cpu``; weights come from a seeded init.
+``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and fp8
+pages carry per-slot scales; the kernels fuse the dequant).  The
 reference's other modes (lanes, recovery, mesh, telemetry output) are
 later slices: their flags are rejected with an error that names the
 slice.
@@ -62,9 +65,13 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     tokens, right-padded with the pad token (the shared slot-position
     vector makes positions uniform across rows), and so does the write
     position reaching capacity.  use_kernels reaches the ring decode
-    (``decode_attention`` and the fused entry and exit) — the reference's
-    CLI decodes plain, its ``decode_step(use_kernels=True)`` takes this
-    route; the prefill is blocking and plain but for ``attn_impl``.
+    (``decode_attention`` or the RWKV6 kernel, and the fused entry and
+    exit) — the reference's CLI decodes plain, its
+    ``decode_step(use_kernels=True)`` takes this route — and the RWKV6
+    kernel of the blocking prefill, whose entry and exit stay plain and
+    whose attention follows ``attn_impl``.  An RWKV grid restarts from a
+    zero state at each re-prefill and takes the pad tokens into it, as in
+    the reference.
 
     Either way the stats hold ``wall`` and ``generated_tokens``, and the
     prefill accounting: ``prefill_tokens`` backbone token positions,
@@ -145,7 +152,7 @@ def _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals, *,
             cache = init_cache(sc, nb, device=dev)
             with telemetry.span("prefill", tokens=l_pad * nrows):
                 logits, _ = prefill(params, sc, cache, torch.from_numpy(
-                    arr.reshape(nb, l_pad)).to(dev))
+                    arr.reshape(nb, l_pad)).to(dev), use_kernels=use_kernels)
                 toks = _sample_grid(sched, logits)
             grid_pos = l_pad
             stats["prefill_tokens"] += l_pad * nrows
@@ -181,20 +188,20 @@ def _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals, *,
 
 
 def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
-               new_tokens: int, *, samplings=None, telemetry=None,
-               device=None):
+               new_tokens: int, *, samplings=None, use_kernels: bool = True,
+               telemetry=None, device=None):
     """Fill-drain serving over a ring cache: batches of up to N_mux x B
     requests, spare slots holding duplicates whose logits are averaged
     (ensembling).  prompts: equal-length token sequences; every request
     gets ``new_tokens`` tokens.  samplings: one ``SamplingParams`` (or
     None, greedy) per prompt.  Each batch is one blocking prefill and
-    ``new_tokens - 1`` decode steps on the kernel path (the reference's
-    CLI decodes plain: see ``run_continuous``); each step's tokens come to
-    the host
-    (the step's one device wait, as in the continuous arms), so the
-    telemetry spans ``prefill`` and ``decode`` time whole steps.  Returns
-    stats: ``completed`` requests, ``wall``, ``generated_tokens``,
-    ``prefill_events``, ``decode_steps``."""
+    ``new_tokens - 1`` decode steps, on the kernel path under use_kernels
+    as in ``run_continuous``'s ring arm (the reference's CLI decodes
+    plain); each step's tokens come to the host (the step's one device
+    wait, as in the continuous arms), so the telemetry spans ``prefill``
+    and ``decode`` time whole steps.  Returns stats: ``completed``
+    requests, ``wall``, ``generated_tokens``, ``prefill_events``,
+    ``decode_steps``."""
     telemetry = NULL_TELEMETRY if telemetry is None else telemetry
     dev = resolve_device(device)
     params = params_to(params, dev)
@@ -223,14 +230,16 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
                                          for s in slots])).long().to(dev)
         cache = init_cache(sc, toks.shape[0], device=dev)
         with telemetry.span("prefill", tokens=toks.numel()):
-            logits, _ = prefill(params, sc, cache, toks)
+            logits, _ = prefill(params, sc, cache, toks,
+                                use_kernels=use_kernels)
             tok, toks_in = sample(logits, 0)
             outs = [tok.cpu().numpy()]
         stats["prefill_events"] += 1
         for t in range(new_tokens - 1):
             with telemetry.span("decode", metric="decode_step_s"):
                 lg, _ = decode_step(params, sc, cache, toks_in,
-                                    toks.shape[1] + t)
+                                    toks.shape[1] + t,
+                                    use_kernels=use_kernels)
                 tok, toks_in = sample(lg[:, 0], t + 1)
                 outs.append(tok.cpu().numpy())
             stats["decode_steps"] += 1
@@ -322,6 +331,12 @@ def main(argv=None):
         model_kind(args.arch)
     except NotImplementedError as e:
         ap.error(str(e))
+    if args.cache == "paged" and "rwkv" in cfg.block_pattern:
+        ap.error(f"--cache paged with {args.arch}: the reference's paged arm "
+                 "fails on RWKV (its blocking prefill of one row meets the "
+                 "whole batch's token-shift state: 'Cannot concatenate "
+                 "arrays'; ROADMAP.md §3); serve it with --cache ring or in "
+                 "fill-drain")
     dev = resolve_device(args.device)
     mux = MuxSpec(n=args.mux_n)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -1,9 +1,13 @@
 """Per-layer blocks (counterpart of ``repro.models.blocks``): the attention
-block with its serving branches and the dense (GLU) FFN.
+block with its serving branches, the dense (GLU) FFN, and the RWKV6
+(Finch) block; ``init_block`` / ``init_block_cache`` / ``apply_block``
+dispatch on the block kind ('attn', 'local', 'rwkv').
 
     init_attention(generator, cfg)              -> params
     init_kv_cache(cfg, batch, capacity, dtype, device=...) -> ring cache
     apply_attention(p, cfg, blk, x, ctx, cache) -> x
+    init_rwkv(generator, cfg) / init_rwkv_cache(cfg, batch, dtype, ...)
+    apply_rwkv(p, cfg, blk, x, ctx, cache)      -> x
 
 ``cache`` is one layer's KV dict, updated in place: a paged pool
 (``kp``/``vp``/``ppos``/``bt``, plus ``ksc``/``vsc`` scales for int8/fp8
@@ -23,17 +27,29 @@ across layers.  Branches:
     chunked, or flash (``kernels.ops.flash_attention``, whatever
     use_kernels says, as in the reference).
 
-The MoE, RG-LRU, RWKV and cross-attention branches are later slices.
+An RWKV layer's cache is its recurrent state, O(1) per row on either
+layout: the (B, H, hd, hd) fp32 matrix state ``s`` and the last token's
+normed input to the time mix and to the channel mix (``shift_tm``,
+``shift_cm``, (B, D)).  ``apply_rwkv`` runs the recurrence through
+``kernels.ops.rwkv6_chunked`` under use_kernels, else its plain version
+``rwkv_chunked`` (the reference's ``blocks.rwkv_chunked``, chunk rule
+included).
+
+The MoE, RG-LRU and cross-attention branches are later slices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.rwkv6 import rwkv_chunked
 from repro_torch.nn import (ACTIVATIONS, LayerNorm, Linear, RMSNorm,
                             apply_rope, attention_core, make_attention_mask,
                             multi_head_attention)
-from repro_torch.serve.kvpool import paged_view, paged_write
+from repro_torch.nn.activations import squared_relu
+from repro_torch.nn.layers import normal
+from repro_torch.serve.kvpool import init_pages, paged_view, paged_write
 
 
 def _norm(cfg):
@@ -201,3 +217,161 @@ def _fresh_attention(q, k, v, cfg, window, ctx):
                                 causal=cfg.causal, window=window,
                                 chunk_size=cfg.attn_chunk,
                                 logit_softcap=cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block (Finch: data-dependent decay linear attention + channel mix)
+# ---------------------------------------------------------------------------
+
+def _rwkv_heads(cfg):
+    """(heads, head_dim) of the time mix."""
+    nh = cfg.rwkv_heads or cfg.d_model // 64
+    return nh, cfg.d_model // nh
+
+
+def init_rwkv(generator, cfg):
+    d = cfg.d_model
+    nh, hd = _rwkv_heads(cfg)
+    lora = 64
+    dev = generator.device
+    return {
+        "ln1": _norm(cfg).init(dev, d),
+        # token-shift lerp coefficients for r, k, v, g
+        "mu": normal(generator, (4, d), 0.02),
+        "w_r": Linear.init(generator, d, (nh, hd), use_bias=False),
+        "w_k": Linear.init(generator, d, (nh, hd), use_bias=False),
+        "w_v": Linear.init(generator, d, (nh, hd), use_bias=False),
+        "w_g": Linear.init(generator, d, d, use_bias=False),
+        # data-dependent decay: w = exp(-exp(w0 + tanh(x A) B))
+        "dec_w0": normal(generator, (d,), 0.02),
+        "dec_a": normal(generator, (d, lora), 0.02),
+        "dec_b": normal(generator, (lora, d), 0.02),
+        "u": normal(generator, (nh, hd), 0.02),            # bonus
+        "gn_scale": torch.ones(d, device=dev),             # per-head groupnorm
+        "gn_bias": torch.zeros(d, device=dev),
+        "w_o": Linear.init(generator, d, d, use_bias=False),
+        "ln2": _norm(cfg).init(dev, d),
+        # channel mix (squared-relu MLP with token shift)
+        "mu_cm": normal(generator, (d,), 0.02),
+        "cm_k": Linear.init(generator, d, cfg.d_ff, use_bias=False),
+        "cm_v": Linear.init(generator, cfg.d_ff, d, use_bias=False),
+    }
+
+
+def init_rwkv_cache(cfg, batch: int, dtype=torch.float32, *, device):
+    """One layer's recurrent state on ``device``: ``s`` in fp32, the two
+    token shifts in ``dtype``."""
+    d = cfg.d_model
+    nh, hd = _rwkv_heads(cfg)
+    return {"s": torch.zeros((batch, nh, hd, hd), device=device),
+            "shift_tm": torch.zeros((batch, d), dtype=dtype, device=device),
+            "shift_cm": torch.zeros((batch, d), dtype=dtype, device=device)}
+
+
+def _token_shift(x, prev):
+    """x: (B, L, D); prev: (B, D), the last token of the previous segment
+    (None: zeros)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, 0])
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def apply_rwkv(p, cfg, blk, x, ctx, cache):
+    """One RWKV6 layer.  ``cache``: the layer's state, read and then
+    updated in place (None or empty: a zero state, nothing kept)."""
+    if ctx.get("rows") is not None:
+        raise NotImplementedError(
+            "a row-subset prefill of RWKV state: the reference's apply_rwkv "
+            "ignores ctx['rows'] and fails on the batch's token shift "
+            "(ROADMAP.md §3)")
+    b, l, d = x.shape
+    nh, hd = _rwkv_heads(cfg)
+    h = _norm(cfg).apply(p["ln1"], x)
+
+    hs = _token_shift(h, cache["shift_tm"] if cache else None)
+    mu = p["mu"]
+    hr, hk, hv, hg = (h + (hs - h) * mu[i] for i in range(4))
+
+    r = Linear.apply(p["w_r"], hr)                  # (B, L, H, hd)
+    k = Linear.apply(p["w_k"], hk)
+    v = Linear.apply(p["w_v"], hv)
+    g = F.silu(Linear.apply(p["w_g"], hg))          # (B, L, D)
+
+    dec = p["dec_w0"] + torch.tanh(h @ p["dec_a"]) @ p["dec_b"]
+    logw = -torch.exp(dec).reshape(b, l, nh, hd)    # log decay < 0
+
+    s0 = cache["s"] if cache else torch.zeros((b, nh, hd, hd),
+                                              device=x.device)
+    # the reference's chunk rule (blocks.py rwkv_chunked's caller)
+    chunk = min(l, cfg.rwkv_chunk if l % cfg.rwkv_chunk == 0 else l)
+    intra = (torch.bfloat16 if cfg.rwkv_intra_dtype == "bf16"
+             else torch.float32)
+    if ctx.get("use_kernels"):
+        if intra != torch.float32:
+            raise NotImplementedError(
+                "rwkv_intra_dtype='bf16' runs on the plain path only "
+                "(use_kernels=False): the kernel computes in fp32")
+        out, s_t = kops.rwkv6_chunked(r, k, v, logw, p["u"], s0, chunk=chunk)
+    else:
+        out, s_t = rwkv_chunked(r, k, v, logw, p["u"], s0, chunk,
+                                intra_dtype=intra)
+    if cache:
+        cache["s"] = s_t
+        cache["shift_tm"].copy_(h[:, -1])
+
+    # per-head groupnorm, then gate and project
+    o = out.reshape(b, l, nh, hd)
+    o = (o - o.mean(-1, keepdim=True)) * torch.rsqrt(
+        o.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    o = o.reshape(b, l, d) * p["gn_scale"] + p["gn_bias"]
+    x = x + Linear.apply(p["w_o"], o * g)
+
+    # channel mix with token shift
+    h2 = _norm(cfg).apply(p["ln2"], x)
+    h2s = _token_shift(h2, cache["shift_cm"] if cache else None)
+    if cache:
+        cache["shift_cm"].copy_(h2[:, -1])
+    hk2 = h2 + (h2s - h2) * p["mu_cm"]
+    kk = squared_relu(Linear.apply(p["cm_k"], hk2))
+    return x + Linear.apply(p["cm_v"], kk)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+_INIT = {"attn": init_attention, "local": init_attention, "rwkv": init_rwkv}
+_APPLY = {"attn": apply_attention, "local": apply_attention,
+          "rwkv": apply_rwkv}
+BLOCKS = tuple(_APPLY)
+
+
+def init_block(generator, cfg, blk: str):
+    return _INIT[blk](generator, cfg)
+
+
+def apply_block(p, cfg, blk: str, x, ctx, cache):
+    return _APPLY[blk](p, cfg, blk, x, ctx, cache)
+
+
+def init_block_cache(cfg, blk: str, batch: int, capacity: int,
+                     dtype=torch.float32, *, layout: str = "ring",
+                     block_size: int = 16, num_blocks: int | None = None,
+                     kv_quant: str | None = None, device):
+    """One layer's cache.  Attention: a ring buffer cut to the layer's
+    window, or (paged) a page pool with its slot-position map, whose block
+    table the caller installs; RWKV: its recurrent state, the same on both
+    layouts."""
+    if layout not in ("ring", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
+    if blk == "rwkv":
+        return init_rwkv_cache(cfg, batch, dtype, device=device)
+    if layout == "paged":
+        if num_blocks is None:
+            raise ValueError("paged layout requires num_blocks (see "
+                             "ServeConfig.pool_blocks)")
+        return init_pages(num_blocks, block_size, cfg.n_kv_heads,
+                          cfg.head_dim, dtype, kv_quant, device=device)
+    w = cfg.local_window if blk == "local" else cfg.window
+    cap = capacity if w is None else min(capacity, w)
+    return init_kv_cache(cfg, batch, cap, dtype, device=device)

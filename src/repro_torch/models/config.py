@@ -1,12 +1,13 @@
 """ModelConfig (counterpart of ``repro.models.config``).
 
 The same frozen dataclass as the reference, so a reference config and its
-port compare field by field.  This slice runs the dense attention blocks
-('attn' / 'local') only; ``models.transformer`` rejects the rest.
-``attn_impl`` picks the attention of a blocking (whole-prompt) forward:
-'naive', 'chunked' (online softmax over ``attn_chunk``-key chunks),
-'flash' (the flash-attention kernel) or 'auto' (chunked above 2048
-tokens, else naive), as the reference's field does.
+port compare field by field.  The port runs the dense attention blocks
+('attn' / 'local') and RWKV6 ('rwkv'); ``models.transformer`` rejects
+the rest.  ``attn_impl`` picks the attention of a blocking
+(whole-prompt) forward: 'naive', 'chunked' (online softmax over
+``attn_chunk``-key chunks), 'flash' (the flash-attention kernel) or
+'auto' (chunked above 2048 tokens, else naive), as the reference's field
+does.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ class ModelConfig:
     local_window: int = 2048
     attn_impl: str = "auto"       # auto|naive|chunked|flash
     attn_chunk: int = 1024
+    # rwkv6
+    rwkv_heads: int = 0           # 0 -> d_model // 64
+    rwkv_chunk: int = 32          # chunk of the plain chunkwise recurrence
+    rwkv_intra_dtype: str = "f32"  # 'bf16': plain path only
 
     def __post_init__(self):
         if self.n_kv_heads == 0:
@@ -59,14 +64,25 @@ class ModelConfig:
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of a dense attention LM (embeddings once if tied)."""
-    d, hd = cfg.d_model, cfg.head_dim
+    """Parameters of the LM without the mux engine (embeddings once if
+    tied), as the reference's ``param_count``."""
+    d = cfg.d_model
     n = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    n += sum(_block_params(cfg, blk) for blk in cfg.pattern_layers)
+    return n + d * (2 if cfg.norm == "ln" else 1)
+
+
+def _block_params(cfg: ModelConfig, blk: str) -> int:
+    d, hd = cfg.d_model, cfg.head_dim
+    n = 2 * d * (2 if cfg.norm == "ln" else 1)    # two norms (LN has bias)
+    if blk == "rwkv":
+        lora = 64
+        n += 4 * d + 4 * d * d                    # mu; w_r, w_k, w_v, w_g
+        n += d + 2 * d * lora                     # decay w0 + LoRA
+        n += 3 * d + d * d                        # u, groupnorm; w_o
+        return n + d + 2 * d * cfg.d_ff           # mu_cm; cm_k, cm_v
     attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
     attn += cfg.n_heads * hd * d
     if cfg.qkv_bias:
         attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-    ffn = (3 if cfg.glu else 2) * d * cfg.d_ff
-    norms = 2 * d * (2 if cfg.norm == "ln" else 1)
-    n += cfg.n_layers * (attn + ffn + norms)
-    return n + d * (2 if cfg.norm == "ln" else 1)
+    return n + attn + (3 if cfg.glu else 2) * d * cfg.d_ff

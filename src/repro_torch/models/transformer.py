@@ -4,10 +4,13 @@
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
-``interop`` converts between the two.  The port serves from a ring
-cache (blocking prefill, decode at one shared position) or a paged cache
-(blocking or chunked prefill, decode at per-row positions) with fp32,
-bf16, int8 or fp8 pages.
+``interop`` converts between the two.  Layers are attention blocks or
+RWKV6 blocks (``models.blocks`` dispatches on ``cfg.block_pattern``).
+The port serves from a ring cache (blocking prefill, decode at one
+shared position) or a paged cache (blocking or chunked prefill, decode
+at per-row positions) with fp32, bf16, int8 or fp8 pages; an RWKV
+layer's cache is its recurrent state on either layout.  Embeddings are
+tied, or untied with ``params["lm_head"]``.
 """
 from __future__ import annotations
 
@@ -17,22 +20,20 @@ import torch
 
 from repro_torch.core import MuxEngine, MuxSpec
 from repro_torch.kernels import ops as kops
-from repro_torch.models.blocks import (apply_attention, init_attention,
-                                      init_kv_cache)
+from repro_torch.models.blocks import (BLOCKS, apply_block, init_block,
+                                      init_block_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn import Embedding, LayerNorm, RMSNorm, rope_frequencies
-from repro_torch.serve.kvpool import init_pages
+from repro_torch.nn import (Embedding, LayerNorm, Linear, RMSNorm,
+                            rope_frequencies)
 
 
 def _check_supported(cfg: ModelConfig, mux: MuxSpec):
-    if any(b not in ("attn", "local") for b in cfg.block_pattern):
+    if any(b not in BLOCKS for b in cfg.block_pattern):
         raise NotImplementedError(
-            f"block pattern {cfg.block_pattern}: the port runs attention "
-            "blocks only so far")
+            f"block pattern {cfg.block_pattern}: the port runs {BLOCKS} "
+            "blocks so far")
     if cfg.positions not in ("rope", "none"):
         raise NotImplementedError(f"positions {cfg.positions!r}")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied lm_head is a later slice")
     mux.validate()
 
 
@@ -41,19 +42,23 @@ class TransformerLM:
     def init(generator: torch.Generator, cfg: ModelConfig,
              mux: MuxSpec = MuxSpec()):
         """The port's own seeded init, on ``generator.device``, with the
-        reference's distributions: N(0, 0.02) weights and embeddings, zero
-        biases, zero RMSNorm scales (the norm is 1 + scale), unit
-        LayerNorm scales, N(0, 1) mux keys v and demux keys k.  Draws are
-        the port's own: the same seed does not give the reference's
-        values (use ``interop.params_from_reference`` for those)."""
+        reference's distributions: N(0, 0.02) weights, embeddings and RWKV
+        mixing / decay / bonus vectors, zero biases, zero RMSNorm scales
+        (the norm is 1 + scale), unit LayerNorm and group-norm scales,
+        N(0, 1) mux keys v and demux keys k.  Draws are the port's own:
+        the same seed does not give the reference's values (use
+        ``interop.params_from_reference`` for those)."""
         _check_supported(cfg, mux)
         dev = generator.device
         params = {"embed": Embedding.init(generator, cfg.vocab_size,
                                           cfg.d_model)}
-        params["layers"] = [init_attention(generator, cfg)
-                            for _ in range(cfg.n_layers)]
+        params["layers"] = [init_block(generator, cfg, blk)
+                            for blk in cfg.pattern_layers]
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
         params["final_norm"] = norm.init(dev, cfg.d_model)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = Linear.init(generator, cfg.d_model,
+                                            cfg.vocab_size, use_bias=False)
         if mux.enabled:
             params["mux_engine"] = MuxEngine.init(generator, mux, cfg.d_model)
         return params
@@ -72,50 +77,46 @@ class TransformerLM:
         by every layer (installed in place by
         ``serve.engine.set_block_tables``); pages are stored as ``dtype``,
         or quantized with per-slot scales under kv_quant='int8'/'fp8'
-        (``ServeConfig.page_dtype`` / ``kv_quant`` give both)."""
+        (``ServeConfig.page_dtype`` / ``kv_quant`` give both).  An RWKV
+        layer holds its recurrent state on either layout (its token
+        shifts in ``dtype``)."""
+        layers = [init_block_cache(cfg, blk, batch, capacity, dtype,
+                                   layout=layout, block_size=block_size,
+                                   num_blocks=num_blocks, kv_quant=kv_quant,
+                                   device=device)
+                  for blk in cfg.pattern_layers]
         if layout == "ring":
-            layers = []
-            for blk in cfg.pattern_layers:
-                w = cfg.local_window if blk == "local" else cfg.window
-                cap = capacity if w is None else min(capacity, w)
-                layers.append(init_kv_cache(cfg, batch, cap, dtype,
-                                            device=device))
             return {"layers": layers}
-        if layout != "paged":
-            raise ValueError(f"unknown cache layout {layout!r}")
-        if num_blocks is None:
-            raise ValueError("paged layout requires num_blocks (see "
-                             "ServeConfig.pool_blocks)")
         mb = -(-capacity // block_size)
         bt = torch.full((batch, mb), -1, dtype=torch.int32, device=device)
-        layers = []
-        for _ in range(cfg.n_layers):
-            c = init_pages(num_blocks, block_size, cfg.n_kv_heads,
-                           cfg.head_dim, dtype, kv_quant, device=device)
-            c["bt"] = bt
-            layers.append(c)
+        for c in layers:
+            if "ppos" in c:
+                c["bt"] = bt
         return {"layers": layers, "bt": bt}
 
     @staticmethod
     def apply(params, cfg: ModelConfig, tokens, *, mux: MuxSpec = MuxSpec(),
               cache, q_offset=0, logits_out: bool = True, use_kernels: bool = True,
-              extra_ctx: dict | None = None):
+              fuse_io: bool = True, extra_ctx: dict | None = None):
         """tokens (N*B, L) int (mux-major instance order).  q_offset: an
         int start position, or on a paged cache a (B,) vector of per-row
         positions (-1 = inactive row).  The cache is updated in place.
         Computes in fp32, as the reference serves.  use_kernels: the
-        decode and chunk kernels and the fused entry and exit (default;
-        their plain versions on CPU tensors), False for the plain model
-        path.  The attention of a blocking forward follows
-        ``cfg.attn_impl`` ('auto': chunked above 2048 tokens, else naive;
-        'flash' launches the flash kernel).  Returns dict(logits |
-        hidden)."""
+        layers' kernels (decode and chunk attention, the RWKV6
+        recurrence) and, with ``fuse_io``, the fused entry and exit
+        (default; their plain versions on CPU tensors), False for the
+        plain model path.  fuse_io=False keeps the plain entry and exit,
+        as a blocking prefill runs them.  The attention of a blocking
+        forward follows ``cfg.attn_impl`` ('auto': chunked above 2048
+        tokens, else naive; 'flash' launches the flash kernel).  Returns
+        dict(logits | hidden)."""
         _check_supported(cfg, mux)
         d = cfg.d_model
         dev = params["embed"]["table"].device
         tokens = torch.as_tensor(tokens, device=dev)
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0
-        if use_kernels and mux.enabled:
+        fused = use_kernels and fuse_io and mux.enabled
+        if fused:
             # fused entry: gather + embedding scale + mux combine, one kernel
             nb, l_in = tokens.shape
             bb = nb // mux.n
@@ -154,11 +155,11 @@ class TransformerLM:
             ctx.update(extra_ctx)
 
         for i, blk in enumerate(cfg.pattern_layers):
-            x = apply_attention(params["layers"][i], cfg, blk, x, ctx,
-                                cache["layers"][i])
+            x = apply_block(params["layers"][i], cfg, blk, x, ctx,
+                            cache["layers"][i])
 
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
-        if use_kernels and mux.enabled:
+        if fused:
             # fused exit: final norm + RSA demux + demux LN, one kernel
             x = MuxEngine.separate_fused(
                 params["mux_engine"], mux, x, final_norm=params["final_norm"],
@@ -172,5 +173,8 @@ class TransformerLM:
 
     @staticmethod
     def logits(params, cfg: ModelConfig, hidden):
-        """Tied-embedding logits: hidden @ table.T (a plain matmul)."""
-        return Embedding.attend(params["embed"], hidden)
+        """hidden @ table.T (tied) or hidden @ lm_head (untied); plain
+        matmuls."""
+        if cfg.tie_embeddings:
+            return Embedding.attend(params["embed"], hidden)
+        return Linear.apply(params["lm_head"], hidden)

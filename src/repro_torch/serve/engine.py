@@ -14,6 +14,9 @@ Two cache layouts, as in the reference:
                 positions and ``prefill(..., rows=[j])`` writes one
                 joining row's K/V without touching its siblings.
 
+An RWKV layer's cache is its recurrent state, O(1) per row, on both
+layouts; the paged runtime refuses RWKV (``serve.runtime``).
+
 Unlike the reference's functional updates, ``set_block_tables``,
 ``reset_blocks`` and the step functions update the cache IN PLACE; they
 return the cache for symmetry with the reference.
@@ -83,7 +86,8 @@ class ServeConfig:
 
     def kv_bytes_per_token(self) -> int:
         """Pool bytes one token occupies across all attention layers
-        (payload + scales + the shared slot-position entry)."""
+        (payload + scales + the shared slot-position entry); 0 for a model
+        without attention layers."""
         cfg = self.cfg
         n_attn = sum(b in ("attn", "local") for b in cfg.pattern_layers)
         per_layer = (2 * cfg.n_kv_heads * cfg.head_dim
@@ -113,7 +117,8 @@ def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
 
 def init_cache(sc: ServeConfig, global_batch: int, *, device):
     """The cache for ``global_batch`` streams on ``device``: a fp32 ring,
-    or pages stored as ``sc.kv_dtype`` says."""
+    or pages stored as ``sc.kv_dtype`` says; RWKV layers hold their
+    recurrent state on either layout."""
     b = backbone_batch(global_batch, sc.mux)
     if sc.cache_layout == "ring":
         return TransformerLM.init_cache(sc.cfg, b, sc.capacity,
@@ -146,21 +151,25 @@ def reset_blocks(cache, block_ids):
     return cache
 
 
-def prefill(params, sc: ServeConfig, cache, tokens, *, rows=None):
+def prefill(params, sc: ServeConfig, cache, tokens, *, rows=None,
+            use_kernels: bool = False):
     """Blocking prefill of whole prompts: tokens (NB, L).  The K/V go into
     the ring at positions 0 .. L-1, or (paged) into the pages of the
     backbone rows ``rows`` (default: every row), and every query attends
-    over the prompt's own fresh K/V with ``cfg.attn_impl``.  As in the
-    reference, the entry and exit are the plain ones (no ``use_kernels``).
-    Returns (last-position logits (NB, V), cache)."""
+    over the prompt's own fresh K/V with ``cfg.attn_impl``; an RWKV layer
+    runs its recurrence from the cache's state and leaves its final state
+    there.  use_kernels: the layers' kernels (the RWKV6 recurrence; the
+    attention follows ``cfg.attn_impl`` either way).  As in the reference,
+    the entry and exit are the plain ones.  Returns (last-position logits
+    (NB, V), cache)."""
     ctx = {}
     if rows is not None:
         if sc.cache_layout != "paged":
             raise ValueError("rows= requires the paged cache layout")
         ctx["rows"] = torch.as_tensor(rows, device=cache["bt"].device).long()
     logits = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
-                                 cache=cache, use_kernels=False,
-                                 extra_ctx=ctx)["logits"]
+                                 cache=cache, use_kernels=use_kernels,
+                                 fuse_io=False, extra_ctx=ctx)["logits"]
     return logits[:, -1], cache
 
 

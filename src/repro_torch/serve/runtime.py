@@ -91,7 +91,9 @@ class ServeRuntime:
 
     params/sc: model params and a ``ServeConfig`` with
     ``cache_layout='paged'`` (its ``kv_dtype`` sets the page storage;
-    ``stats`` records the pool's bytes and bytes per token).
+    ``stats`` records the pool's bytes and bytes per token) over
+    attention blocks only: recurrent (RWKV) blocks raise
+    ``NotImplementedError``, as the reference fails there.
     backbone_rows: B rows of the N_mux × B grid.  chunk: prefill chunk
     size in tokens; None is blocking prefill (a joining row's whole
     prompt in one call, ``stats['prefill_mode']`` says which ran).
@@ -111,6 +113,18 @@ class ServeRuntime:
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1 (or None for blocking "
                              f"prefill), got {chunk}")
+        recurrent = sorted(set(sc.cfg.block_pattern) - {"attn", "local"})
+        if recurrent:
+            # The reference sends recurrent blocks to blocking prefill
+            # (chunk=None: bucket padding would run pad tokens through
+            # their state), and its blocking prefill fails on RWKV: refuse.
+            raise NotImplementedError(
+                f"paged serving of {recurrent} blocks: the reference falls "
+                "back to blocking prefill (repro/serve/runtime.py:155-161), "
+                "whose prefill(rows=[j]) reaches apply_rwkv with one row "
+                "against the whole batch's token-shift state and fails "
+                "('Cannot concatenate arrays'); the port serves RWKV on the "
+                "ring arm and in fill-drain (ROADMAP.md §3)")
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.sc = sc

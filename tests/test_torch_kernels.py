@@ -1,5 +1,7 @@
-"""The port's four main-path kernels (``repro_torch.kernels``), the two
-paged ones for every page storage kind (fp32, bf16, int8, fp8).
+"""The port's main-path kernels (``repro_torch.kernels``), the two paged
+ones for every page storage kind (fp32, bf16, int8, fp8).  The plain
+RWKV6 versions and the demux's LN entry are held to the reference in
+``tests/test_torch_rwkv.py``; their card tests are here.
 
 CPU: each kernel's plain PyTorch version against the JAX Pallas kernel in
 interpret mode, over the edge shapes of ``tests/test_paged_attention.py``
@@ -23,9 +25,14 @@ int8/fp8, its relative-rounding analogue for bf16).
 
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
-widths, for every storage kind.  The card's machine has no JAX, so the
-reference is imported inside the CPU tests only: ``pytest -m cuda`` runs
-there.
+widths, for every storage kind; the demux with its LN entry at
+rwkv6-7b's width; the RWKV6 kernel against the chunkwise plain version
+(the reference's chunk rule) and the sequential oracle at the reference
+suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, one
+100-token chunk, chunks of 32, head dims 16 / 32 / 128, strong and weak
+decay, and two halves chained through the state.  The card's machine
+has no JAX, so the reference is imported inside the CPU tests only:
+``pytest -m cuda`` runs there.
 """
 import numpy as np
 import pytest
@@ -159,15 +166,20 @@ def test_mux_embed_plain_matches_pallas(n, t, scale):
                                atol=1e-5, rtol=1e-5)
 
 
-def _demux_inputs(t, n=2, d=64, f=128, seed=0):
+def _demux_inputs(t, n=2, d=64, f=128, seed=0, entry="rms"):
     rng = np.random.default_rng(seed)
 
     def r(*shape, s=1.0):
         return (rng.standard_normal(shape) * s).astype(np.float32)
     args = (r(t, d), r(n, d), r(d, f, s=0.1), r(d, f, s=0.1), r(f, s=0.1),
             r(f, d, s=0.1), r(d, s=0.1))
-    norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+    norms = {"entry_kind": entry, "entry_scale": r(d, s=0.1),
              "exit_scale": r(d, s=0.1) + 1.0, "exit_bias": r(d, s=0.1)}
+    if entry == "ln":
+        # a backbone state with an offset, as LayerNorm's input has
+        args = (args[0] + 3.0, *args[1:])
+        norms["entry_scale"] += 1.0
+        norms["entry_bias"] = r(d, s=0.1)
     return args, norms
 
 
@@ -183,6 +195,21 @@ def test_demux_rsa_plain_matches_pallas(t):
         *_torch(args), **{k: v if isinstance(v, str) else torch.as_tensor(v)
                           for k, v in norms.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DEMUX_TOL)
+
+
+def _rwkv_inputs(b, l, h, d, seed=0, logw=None):
+    """r, k, v, logw (B, L, H, d), u (H, d), s0 (B, H, d, d) as the
+    reference suite draws them (``tests/test_kernels.py`` test_rwkv6);
+    ``logw`` fixes the log decay instead (the strong / weak edges)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    shape = (b, l, h, d)
+    lw = (-np.exp(r(*shape, s=0.5)) if logw is None else
+          np.full(shape, logw, np.float32))
+    return (r(*shape), r(*shape, s=0.5), r(*shape), lw.astype(np.float32),
+            r(h, d, s=0.1), r(b, h, d, d, s=0.1))
 
 
 def test_wrappers_use_plain_versions_on_cpu():
@@ -215,6 +242,10 @@ def test_wrappers_use_plain_versions_on_cpu():
                        ref.decode_attention_ref(q, k, v, pos, q_pos=4))
     assert torch.equal(ops.flash_attention(q, k, v, q_offset=3),
                        ref.flash_attention_ref(q, k, v, q_offset=3))
+    rw = _torch(_rwkv_inputs(2, 8, 2, 8))
+    got = ops.rwkv6_chunked(*rw, chunk=4)
+    want = ref.rwkv_chunked(*rw, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ops.counts("calls") == dict.fromkeys(ops.counts(), 1)
     assert ops.counts("launches") == dict.fromkeys(ops.counts(), 0)
 
@@ -222,7 +253,8 @@ def test_wrappers_use_plain_versions_on_cpu():
 def test_kernel_launchers_reject_cpu_tensors():
     """The kernel entry points launch on CUDA tensors only — a CPU tensor
     is an error there, never a silent fallback."""
-    from repro_torch.kernels import demux_rsa, mux_embed, paged_attention
+    from repro_torch.kernels import (demux_rsa, mux_embed, paged_attention,
+                                     rwkv6)
     args, _ = _decode_inputs("b1")
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.paged_attention_cuda(*_torch(args))
@@ -234,6 +266,8 @@ def test_kernel_launchers_reject_cpu_tensors():
     args, _ = _demux_inputs(4)
     with pytest.raises(ValueError, match="CUDA"):
         demux_rsa.demux_rsa_cuda(*_torch(args))
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6.rwkv6_cuda(*_torch(_rwkv_inputs(1, 3, 2, 16)))
 
 
 # ------------------------------------------------- page storage kinds
@@ -497,3 +531,57 @@ def test_quantized_paged_kernels_full_width_on_card(cuda, kind):
     torch.testing.assert_close(
         ops.paged_prefill_attention(t[0], ks, vs, *t[1:], **sc), want,
         **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,f", [(4, 64, 128), (5, 64, 100),
+                                   (4, 4096, 8192), (33, 512, 1024)])
+def test_demux_rsa_ln_entry_kernel_on_card(cuda, t, d, f):
+    """The LN entry (rwkv6-7b's final norm) at small and full width."""
+    args, norms = _demux_inputs(t, d=d, f=f, entry="ln")
+    a = _torch(args, cuda)
+    nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
+          for k, v in norms.items()}
+    torch.testing.assert_close(ops.demux_rsa(*a, **nm),
+                               ref.demux_rsa_fused_ref(*a, **nm),
+                               atol=1e-3, rtol=1e-3)
+
+
+RWKV_TOL = dict(atol=5e-4, rtol=1e-3)   # tests/test_kernels.py test_rwkv6
+# (B, L, H, hd, chunk of the plain version, fixed log decay or None)
+RWKV_CASES = {
+    "decode": (4, 1, 8, 64, 1, None),
+    "one_chunk_100": (2, 100, 4, 64, 100, None),
+    "chunks_of_32": (2, 128, 4, 64, 32, None),
+    "hd32_ragged": (2, 37, 3, 32, 37, None),
+    "hd16": (1, 40, 2, 16, 8, None),
+    "hd128": (1, 20, 2, 128, 20, None),
+    "strong_decay": (2, 64, 4, 64, 32, -5.0),
+    "weak_decay": (2, 100, 4, 64, 100, -1e-3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RWKV_CASES))
+def test_rwkv6_kernel_on_card(cuda, case):
+    b, l, h, hd, chunk, logw = RWKV_CASES[case]
+    a = _torch(_rwkv_inputs(b, l, h, hd, logw=logw), cuda)
+    out, s_t = ops.rwkv6_chunked(*a, chunk=chunk)
+    for want in (ref.rwkv_chunked(*a, chunk), ref.rwkv6_ref(*a)):
+        torch.testing.assert_close(out, want[0], **RWKV_TOL)
+        torch.testing.assert_close(s_t, want[1], **RWKV_TOL)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_state_chaining_on_card(cuda):
+    """Two halves chained through the final state == one pass
+    (``tests/test_kernels.py`` test_rwkv6_state_chaining)."""
+    r, k, v, logw, u, s0 = _torch(_rwkv_inputs(2, 64, 2, 64), cuda)
+    o_full, s_full = ops.rwkv6_chunked(r, k, v, logw, u, s0, chunk=32)
+    o1, s1 = ops.rwkv6_chunked(r[:, :32], k[:, :32], v[:, :32],
+                               logw[:, :32], u, s0, chunk=32)
+    o2, s2 = ops.rwkv6_chunked(r[:, 32:], k[:, 32:], v[:, 32:],
+                               logw[:, 32:], u, s1, chunk=32)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(s2, s_full, atol=1e-4, rtol=0)

@@ -174,7 +174,7 @@ def test_wrapper_calls_per_step(n, extra):
     assert ops.counts("calls") == {
         "paged_prefill_attention": cfg.n_layers, "paged_attention": 0,
         "mux_embed_combine": extra // 2, "demux_rsa": extra // 2,
-        "decode_attention": 0, "flash_attention": 0}
+        "decode_attention": 0, "flash_attention": 0, "rwkv6_chunked": 0}
     ops.reset_counts()
     engine.decode_step(port, sc, cache, torch.zeros((2 * n, 1), dtype=torch.long),
                        torch.tensor([8, -1]))
