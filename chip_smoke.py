@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 32, strong and weak decay, against its chunkwise plain
                 version and the sequential oracle (elementwise, the
                 reference suite's tolerance), and two halves chained
-                through the state against one pass;
+                through the state against one pass; the mux-combine entry
+                at whisper-small's encoder entry and a qwen2-1.5b prefill
+                entry, in fp32 and bf16, and at odd N, T and D;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -33,7 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 and fill-drain: every request complete, launch counts
                 exact (flash_attention once per layer per prefill,
                 decode_attention once per layer per ring decode step, no
-                paged kernel on the ring);
+                paged kernel on the ring, mux_combine once per blocking
+                prefill: its unfused entry);
   5. paths    — kernel path against plain path, on fp32 and int8 pages:
                 logits of one prefill chunk and of one decode step from
                 identical caches, and the share of identical greedy
@@ -47,11 +50,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 trace through the ring arm and fill-drain on the kernel
                 path: every request complete, launch counts exact
                 (rwkv6_chunked once per layer per forward, the entry and
-                the LN-entry demux once per decode step); then kernel
-                path against plain path: logits of one prefill and of one
-                decode step from identical states within 2e-3, and the
-                ring arm's greedy tokens identical.
-The kernels' JSON line lists every kernel of phases 3-6.  The last two
+                the LN-entry demux once per decode step, mux_combine once
+                per prefill); then kernel path against plain path: logits
+                of one prefill and of one decode step from identical
+                states within 2e-3, and the ring arm's greedy tokens
+                identical;
+  7. whisper  — the rwkv6-7b weights freed, full-width whisper-small (12
+                encoder and 12 decoder layers, d 768, random seeded
+                weights, ``attn_impl='flash'``) serves the same trace in
+                fill-drain with seeded N(0, 1) frames (1500 a request):
+                every request complete, launch counts exact (mux_combine
+                twice per prefill — the encoder's and the decoder's entry
+                —, flash_attention once per encoder layer and twice per
+                decoder layer per prefill, decode_attention twice per
+                decoder layer per decode step, the fused entry and exit
+                once per step); then kernel path against plain path:
+                logits of the prefill and of one decode step from
+                identical caches within 2e-3, greedy tokens identical.
+The kernels' JSON line lists every kernel of phases 3-7.  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
@@ -73,6 +89,9 @@ HBM_BYTES_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_S = 67e12        # H100 SXM fp32 outside the tensor cores
 ATT_TOL = 1e-4             # fp32, summation order only; O(1) outputs
 MUX_TOL = 1e-5             # a sum of N=2 products per element
+# mux_combine against its plain version: the reference suite's tolerance
+# (tests/test_kernels.py TOL); bf16 rounds the fp32 sum once on both sides
+COMBINE_TOL = {"fp32": 2e-5, "bf16": 5e-2}
 DEMUX_TOL = 5e-4           # fp32 sums over D=1536 then F=3072 terms, post-LN
 LOGIT_TOL = 2e-3           # 28 fp32 layers, two summation orders
 # the RWKV6 kernel against its plain versions, elementwise on out and sT:
@@ -353,6 +372,44 @@ def phase_kernels(torch, timer):
         record("mux_embed_combine", case, (got - want).abs().max().item(),
                MUX_TOL, timing)
 
+    # -- Gaussian mux-combine of precomputed embeddings ------------------
+    from repro_torch.kernels import mux_combine as kc
+    crng = np.random.default_rng(16)     # the other cases keep their draws
+    combine_cases = [
+        # (case, N, T, D, dtype); the first three are timed
+        ("main: whisper enc N=2 T=6000", 2, 6000, 768, "fp32"),
+        ("main: qwen2 prefill T=400", 2, 400, 1536, "fp32"),
+        ("bf16: whisper enc T=6000", 2, 6000, 768, "bf16"),
+        ("edge: N=5 T=100 D=96", 5, 100, 96, "fp32"),
+        ("edge: N=10 T=33 D=200 bf16", 10, 33, 200, "bf16"),
+        ("edge: N=1 T=7 D=5", 1, 7, 5, "fp32"),
+        ("edge: N=3 T=17 D=257 bf16", 3, 17, 257, "bf16"),
+    ]
+    for i, (case, n, tt, d, dt) in enumerate(combine_cases):
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        x = t(crng.standard_normal((n, tt, d), np.float32)).to(dtype)
+        v = t(crng.standard_normal((n, d), np.float32)).to(dtype)
+        got = kc.mux_combine_cuda(x, v)
+        want = ref.mux_combine_ref(x, v)
+        need(got.dtype == dtype and got.shape == (tt, d),
+             f"mux_combine [{case}]: {got.dtype} {tuple(got.shape)}")
+        timing = None
+        if i < 3:
+            nb = (n * tt * d + n * d + tt * d) * x.element_size()
+            fl = 2 * n * tt * d
+            bms, by = bound(nb, fl)
+            timing = {
+                "ms": timer(lambda: kc.mux_combine_cuda(x, v)),
+                "plain_ms": timer(lambda: ref.mux_combine_ref(x, v)),
+                # the one PyTorch call for this function; in fp32 it is
+                # also the plain version's arithmetic
+                "library_ms": timer(lambda: torch.einsum("ntd,nd->td", x, v)
+                                    / n),
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("mux_combine", case,
+               (got.float() - want.float()).abs().max().item(),
+               COMBINE_TOL[dt], timing)
+
     # -- fused demux exit --------------------------------------------------
     d, f, n = 1536, 3072, 2
 
@@ -500,6 +557,48 @@ def phase_kernels(torch, timer):
         record("flash_attention", case, (got - want).abs().max().item(),
                ATT_TOL, timing)
 
+    # -- whisper-small's attention shapes (phase 7), timed beside the main
+    # rows: MHA at head_dim 64, bidirectional over 1500 frames
+    wrng = np.random.default_rng(17)     # the other cases keep their draws
+
+    def wr(*shape, s=1.0):
+        return t((wrng.standard_normal(shape) * s).astype(np.float32))
+    every = torch.ones(1500, dtype=torch.bool, device=dev)
+    for case, lq in [("whisper enc: L=1500 bidir.", 1500),
+                     ("whisper cross: Lq 100 x 1500", 100)]:
+        q, k, v = wr(4, lq, 12, 64), wr(4, 1500, 12, 64), wr(4, 1500, 12, 64)
+        got = kfl.flash_attention_cuda(q, k, v, causal=False)
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        vis = every[None].expand(lq, 1500)
+        nb, fl, work = dense_bound(q, k, vis)
+        bms, by = bound(nb, fl)
+        timing = {"work": work,
+            "ms": timer(lambda: kfl.flash_attention_cuda(q, k, v,
+                                                         causal=False)),
+            "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v,
+                                                              causal=False)),
+            "library_ms": timer(lambda: sdpa_dense(q, k, v, vis)),
+            "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("flash_attention", case, (got - want).abs().max().item(),
+               ATT_TOL, timing)
+    q, kc, vc = wr(4, 1, 12, 64), wr(4, 1500, 12, 64), wr(4, 1500, 12, 64)
+    frames = torch.arange(1500, dtype=torch.int32, device=dev)
+    kw = dict(q_pos=0, causal=False)
+    got = kdec.decode_attention_cuda(q, kc, vc, frames, **kw)
+    want = ref.decode_attention_ref(q, kc, vc, frames, **kw)
+    nb, fl, work = dense_bound(q, kc, every[None])
+    nb += 1500 * 4                                        # slot positions
+    bms, by = bound(nb, fl)
+    timing = {"work": work,
+        "ms": timer(lambda: kdec.decode_attention_cuda(q, kc, vc, frames,
+                                                       **kw)),
+        "plain_ms": timer(lambda: ref.decode_attention_ref(q, kc, vc, frames,
+                                                           **kw)),
+        "library_ms": timer(lambda: sdpa_dense(q, kc, vc, every[None])),
+        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+    record("decode_attention", "whisper cross: C=1500 bidir.",
+           (got - want).abs().max().item(), ATT_TOL, timing)
+
     # -- fused demux exit with the LN entry (rwkv6-7b's final norm) --------
     d, f, n = 4096, 8192, 2
     w = (r(n, d), r(d, f, s=0.02), r(d, f, s=0.02), r(f, s=0.02),
@@ -536,6 +635,27 @@ def phase_kernels(torch, timer):
                 "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
         record("demux_rsa[ln]", case, (got - want).abs().max().item(),
                DEMUX_TOL, timing)
+    # whisper-small's exit (phase 7): d 768, F 1536, T=4 decode rows;
+    # ``library`` above reads these tensors when it is called
+    d, f, n = 768, 1536, 2
+    w = (wr(n, d), wr(d, f, s=0.02), wr(d, f, s=0.02), wr(f, s=0.02),
+         wr(f, d, s=0.02), wr(d, s=0.02))
+    norms = {"entry_kind": "ln", "entry_scale": 1.0 + wr(d, s=0.1),
+             "entry_bias": wr(d, s=0.1), "exit_scale": 1.0 + wr(d, s=0.1),
+             "exit_bias": wr(d, s=0.1)}
+    h = wr(4, d) + 2.0
+    got = kd.demux_rsa_cuda(h, *w, **norms)
+    want = ref.demux_rsa_fused_ref(h, *w, **norms)
+    nb = (2 * d * f + 4 * d + n * d + d * f + f + 5 * d) * 4 + n * 4 * d * 4
+    fl = 2 * 4 * d * f + 2 * n * 4 * f * d + 2 * n * d * f
+    bms, by = bound(nb, fl)
+    timing = {
+        "ms": timer(lambda: kd.demux_rsa_cuda(h, *w, **norms)),
+        "plain_ms": timer(lambda: ref.demux_rsa_fused_ref(h, *w, **norms)),
+        "library_ms": timer(library),
+        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+    record("demux_rsa[ln]", "whisper: d 768, T=4", (got - want).abs().max()
+           .item(), DEMUX_TOL, timing)
 
     # -- the RWKV6 recurrence ---------------------------------------------
     from repro_torch.kernels import rwkv6 as krw
@@ -741,7 +861,7 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.core import MuxSpec
-        from repro_torch.kernels import build, mux_embed
+        from repro_torch.kernels import build, mux_combine, mux_embed
         from repro_torch.models import TransformerLM, param_count
         from repro_torch.serve import engine
     except ImportError as e:
@@ -765,6 +885,8 @@ def main() -> int:
     mux_embed.mux_embed_combine_cuda(
         torch.zeros((2, 1), dtype=torch.int32, device="cuda"),
         torch.zeros((4, 8), device="cuda"), torch.zeros((2, 8), device="cuda"))
+    mux_combine.mux_combine_cuda(torch.zeros((2, 1, 8), device="cuda"),
+                                 torch.zeros((2, 8), device="cuda"))
     torch.cuda.synchronize()
     print(f"phase 2: nvcc build {b['seconds']:.1f} s (parallel), Triton "
           f"compile {time.perf_counter() - t0:.1f} s; into {build.build_dir()}",
@@ -832,7 +954,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv = phase_rwkv(torch, mux, rows, prompt_len, new_tokens)
 
-    # 7. summary
+    # 7. whisper-small, full width, fill-drain; the rwkv6-7b weights were
+    # phase 6's own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = phase_whisper(torch, mux, rows, prompt_len, new_tokens)
+
+    # summary
     meta = {
         "mux_embed_combine": ("triton", "src/repro_torch/kernels/mux_embed.py",
                               "src/repro/kernels/mux_embed.py:68"),
@@ -850,6 +978,8 @@ def main() -> int:
     meta["demux_rsa[ln]"] = ("cuda",
                              "src/repro_torch/kernels/csrc/demux_rsa.cu",
                              "src/repro/kernels/demux_rsa.py:135")
+    meta["mux_combine"] = ("triton", "src/repro_torch/kernels/mux_combine.py",
+                           "src/repro/kernels/mux_combine.py:35")
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     for kind in KINDS:
         sfx = "" if kind == "fp32" else f"[{kind}]"
@@ -869,6 +999,8 @@ def main() -> int:
             launches = dense["ring"]["launches"][base]     # the CLI default
         elif kname in ("rwkv6_chunked", "demux_rsa[ln]"):
             launches = rwkv["ring"]["launches"][base]
+        elif kname == "mux_combine":      # the encoder's and decoder's entry
+            launches = whisper["launches"][base]
         else:                   # the entry and exit run on every path
             launches = runs["fp32"]["launches"][base]
         rows_json.append({
@@ -1034,7 +1166,8 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode):
     counts set to 0 just before the run and read just after.  Every
     prefill is blocking and runs flash_attention once per layer; a ring
     decode step runs decode_attention once per layer, a paged one
-    paged_attention; each decode step runs the fused entry and exit."""
+    paged_attention; each decode step runs the fused entry and exit, each
+    prefill the mux-combine kernel of its unfused entry."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
@@ -1064,7 +1197,8 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode):
     want = dict.fromkeys(launches, 0)
     want.update({attn: cfg.n_layers * dsteps,
                  "flash_attention": cfg.n_layers * events,
-                 "mux_embed_combine": dsteps, "demux_rsa": dsteps})
+                 "mux_embed_combine": dsteps, "demux_rsa": dsteps,
+                 "mux_combine": events})
     need(launches == want, f"{mode}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {events} prefill events)")
     spans = {}
@@ -1162,7 +1296,8 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
     run and read just after.  Every forward (blocking prefill or decode
     step) runs rwkv6_chunked once per layer; each decode step runs the
     fused entry and exit (demux_rsa with the LN entry), the prefill the
-    plain ones, as in the reference; nothing else launches."""
+    plain ones, as in the reference, its entry through mux_combine;
+    nothing else launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
@@ -1188,7 +1323,8 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
          f"rwkv {mode}: a request stopped short of its new tokens")
     want = dict.fromkeys(launches, 0)
     want.update({"rwkv6_chunked": cfg.n_layers * (dsteps + events),
-                 "mux_embed_combine": dsteps, "demux_rsa": dsteps})
+                 "mux_embed_combine": dsteps, "demux_rsa": dsteps,
+                 "mux_combine": events})
     need(launches == want, f"rwkv {mode}: launch counts {launches} != "
          f"required {want} ({dsteps} decode steps, {events} prefills)")
     spans = {}
@@ -1256,6 +1392,147 @@ def compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
     need(same == total, "rwkv ring: the kernel path's greedy tokens differ "
+         "from the plain path's")
+
+
+def phase_whisper(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 7: full-width whisper-small from seeded random weights on the
+    card, ``attn_impl='flash'`` in both stacks, the phase-4 trace in
+    fill-drain with seeded N(0, 1) frames, exact launch counts, then the
+    kernel path against the plain path.  Returns the run's result."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import EncDecLM, param_count
+    cfg = get_config("whisper-small")
+    cfg = cfg.replace(attn_impl="flash",
+                      encoder=cfg.encoder.replace(attn_impl="flash"))
+    t0 = time.perf_counter()
+    params = EncDecLM.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           mux)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    enc = cfg.encoder
+    print(f"phase 7: whisper-small full width, {enc.n_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {enc.frontend_len}"
+          f" frames, {n_params / 1e9:.3f} B params ({param_count(cfg) / 1e9:.3f}"
+          f" B backbone) in {time.perf_counter() - t0:.1f} s", flush=True)
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    frames = np.random.default_rng(7).standard_normal(
+        (len(trace), enc.frontend_len, enc.d_model), np.float32)
+    run = serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens)
+    compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
+                          run)
+    return run
+
+
+def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
+    """Phase 7 on the kernel path, the launch counts set to 0 just before
+    the run and read just after.  A prefill runs the encoder (its entry
+    through mux_combine, flash_attention once per layer) and the decoder
+    (its entry through mux_combine, flash_attention for the self- and the
+    cross-attention of each layer); a decode step runs decode_attention
+    for the self- and the cross-attention of each layer, and the fused
+    entry and exit; nothing else launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fill_drain
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8,
+                            kind="encdec")
+    tele = Telemetry()
+    ops.reset_counts()
+    stats = fill_drain(params, sc, rows, [a[1] for a in trace], new_tokens,
+                       frames=frames, telemetry=tele, device="cuda")
+    launches = ops.counts("launches")
+    dsteps, events = stats["decode_steps"], stats["prefill_events"]
+    need(len(stats["completed"]) == len(trace),
+         f"whisper: {len(stats['completed'])} of {len(trace)} requests "
+         "completed")
+    need(all(len(r.output) == new_tokens for r in stats["completed"]),
+         "whisper: a request stopped short of its new tokens")
+    want = dict.fromkeys(launches, 0)
+    want.update({
+        "mux_combine": 2 * events,
+        "flash_attention": (cfg.encoder.n_layers + 2 * cfg.n_layers) * events,
+        "decode_attention": 2 * cfg.n_layers * dsteps,
+        "mux_embed_combine": dsteps, "demux_rsa": dsteps})
+    need(launches == want, f"whisper: launch counts {launches} != required "
+         f"{want} ({dsteps} decode steps, {events} prefills)")
+    spans = {}
+    for ev in tele.tracer.events:
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[3] / 1e3)
+    tok_s = stats["generated_tokens"] / stats["wall"]
+    print(f"  whisper fill-drain: served {len(stats['completed'])} requests, "
+          f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
+          f"{tok_s:.2f} tok/s; decode step p50 "
+          f"{statistics.median(spans['decode']):.3f} ms over {dsteps} steps;"
+          f" prefill p50 {statistics.median(spans['prefill']):.3f} ms over "
+          f"{events} prefills of {rows} rows x {len(trace[0][1])} tokens and "
+          f"{cfg.encoder.frontend_len} frames; launches {launches}",
+          flush=True)
+    return {"outputs": {r.uid: r.output for r in stats["completed"]},
+            "launches": launches}
+
+
+def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
+                          kernel_run):
+    """Phase 7, kernel path (flash attention, mux-combine, flash-decode,
+    fused entry and exit) against plain path (naive attention, einsum
+    entries, the plain model path): the logits of the prefill and of one
+    decode step from identical caches, then the greedy tokens of the
+    whole trace, which must be identical."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import fill_drain
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8,
+                            kind="encdec")
+    naive = cfg.replace(attn_impl="naive",
+                        encoder=cfg.encoder.replace(attn_impl="naive"))
+    sc_plain = dataclasses.replace(sc, cfg=naive)
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    extra = torch.as_tensor(frames[:nb], device="cuda")
+    cache = engine.init_cache(sc, nb, device="cuda")
+    plain_cache = engine.init_cache(sc_plain, nb, device="cuda")
+    lk, _ = engine.prefill(params, sc, cache, toks, extra=extra,
+                           use_kernels=True)
+    lp, _ = engine.prefill(params, sc_plain, plain_cache, toks, extra=extra,
+                           use_kernels=False)
+    need(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+         "whisper: prefill logits are not finite")
+    err_pre = (lk - lp).abs().max().item()
+    for a, b in zip(cache["layers"], plain_cache["layers"]):
+        for key in ("k", "v", "pos", "xk", "xv"):
+            b[key] = a[key].clone()
+    dtok = lk.argmax(-1)[:, None]
+    dk, _ = engine.decode_step(params, sc, cache, dtok, toks.shape[1],
+                               use_kernels=True)
+    dp, _ = engine.decode_step(params, sc_plain, plain_cache, dtok,
+                               toks.shape[1], use_kernels=False)
+    err_dec = (dk - dp).abs().max().item()
+    print(f"  whisper: logits max_abs_err kernel vs plain path: prefill "
+          f"{err_pre:.3e}, decode from identical caches {err_dec:.3e} (tol "
+          f"{LOGIT_TOL:g}); |logits| max {lk.abs().max().item():.3f}",
+          flush=True)
+    need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
+         "whisper: kernel path disagrees with the plain path")
+    plain = fill_drain(params, sc_plain, rows, [a[1] for a in trace],
+                       new_tokens, frames=frames, use_kernels=False,
+                       device="cuda")
+    ko = kernel_run["outputs"]
+    po = {r.uid: r.output for r in plain["completed"]}
+    same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
+    total = sum(len(v) for v in ko.values())
+    print(f"  whisper: greedy tokens identical, kernel vs plain path: "
+          f"{same}/{total} ({same / total:.3f}); plain path "
+          f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
+          flush=True)
+    need(same == total, "whisper: the kernel path's greedy tokens differ "
          "from the plain path's")
 
 

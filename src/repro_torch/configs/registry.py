@@ -1,12 +1,13 @@
 """Architecture registry of the port (counterpart of
-``repro.configs.registry``).  The port serves ``qwen2-1.5b`` and
-``rwkv6-7b``, each in full and reduced form; the other architectures are
-later slices."""
+``repro.configs.registry``).  The port serves ``qwen2-1.5b``,
+``rwkv6-7b`` and ``whisper-small`` (kind 'encdec'), each in full and
+reduced form; the other architectures are later slices."""
 from __future__ import annotations
 
-from repro_torch.configs import qwen2_1_5b, rwkv6_7b
+from repro_torch.configs import qwen2_1_5b, rwkv6_7b, whisper_small
 
-_ARCH_MODULES = {"qwen2-1.5b": qwen2_1_5b, "rwkv6-7b": rwkv6_7b}
+_ARCH_MODULES = {"qwen2-1.5b": qwen2_1_5b, "rwkv6-7b": rwkv6_7b,
+                 "whisper-small": whisper_small}
 ARCHS = tuple(_ARCH_MODULES)
 
 

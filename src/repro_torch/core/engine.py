@@ -24,15 +24,17 @@ class MuxEngine:
                 "demux": RSADemux.init(generator, spec.n, d, 2 * d)}
 
     @staticmethod
-    def combine(p, spec: MuxSpec, x):
-        """x: (N*B, L, D) -> mux'd (B, L, D)."""
+    def combine(p, spec: MuxSpec, x, *, use_kernels: bool = False):
+        """x: (N*B, L, D) -> mux'd (B, L, D); use_kernels: through the
+        mux-combine kernel (``GaussianMux.apply(use_kernel=True)``)."""
         if not spec.enabled:
             return x
         nb, l, d = x.shape
         if nb % spec.n:
             raise ValueError(f"batch {nb} not divisible by mux N={spec.n}")
         return GaussianMux.apply(p["mux"], x.reshape(spec.n, nb // spec.n,
-                                                     l, d))
+                                                     l, d),
+                                 use_kernel=use_kernels)
 
     @staticmethod
     def separate(p, spec: MuxSpec, h):

@@ -2,7 +2,9 @@
 
 ``params_from_reference`` converts a ``repro`` ``TransformerLM`` param
 pytree, given with numpy leaves (``jax.tree.map(np.asarray, params)``),
-into the port's param tree; ``params_to_reference`` goes back.  The
+into the port's param tree; ``params_to_reference`` goes back.  An
+``EncDecLM`` tree (``encoder``, ``decoder``, ``enc_mux``) converts stack
+by stack, the encoder under ``cfg.encoder``.  The
 reference groups layers into periods of ``cfg.block_pattern`` and stacks
 each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
@@ -40,6 +42,15 @@ def params_from_reference(tree, cfg, *, device):
     def tensor(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
+    if "encoder" in tree:
+        out = {"encoder": params_from_reference(tree["encoder"], cfg.encoder,
+                                                device=device),
+               "decoder": params_from_reference(tree["decoder"], cfg,
+                                                device=device)}
+        if tree.get("enc_mux"):
+            out["enc_mux"] = _map(tensor, tree["enc_mux"])
+        return out
+
     layers = []
     for i in range(cfg.n_layers):
         p, pos = divmod(i, pat)
@@ -53,6 +64,8 @@ def params_from_reference(tree, cfg, *, device):
     for key in ("lm_head", "mux_engine"):
         if tree.get(key):
             out[key] = _map(tensor, tree[key])
+    if tree.get("pos_emb") is not None:
+        out["pos_emb"] = tensor(tree["pos_emb"])
     return out
 
 
@@ -64,6 +77,13 @@ def params_to_reference(params, cfg):
 
     def arr(t):
         return t.detach().cpu().numpy()
+
+    if "encoder" in params:
+        out = {"encoder": params_to_reference(params["encoder"], cfg.encoder),
+               "decoder": params_to_reference(params["decoder"], cfg)}
+        if "enc_mux" in params:
+            out["enc_mux"] = _map(arr, params["enc_mux"])
+        return out
 
     def stack(*xs):
         if isinstance(xs[0], dict):
@@ -79,7 +99,7 @@ def params_to_reference(params, cfg):
            "tail": tuple(_map(arr, layers[n_per * pat + k])
                          for k in range(cfg.n_layers - n_per * pat)),
            "final_norm": _map(arr, params["final_norm"])}
-    for key in ("lm_head", "mux_engine"):
+    for key in ("lm_head", "mux_engine", "pos_emb"):
         if key in params:
             out[key] = _map(arr, params[key])
     return out

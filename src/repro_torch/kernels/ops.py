@@ -17,6 +17,7 @@ from repro_torch.core.quant import KV_DTYPES
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import demux_rsa as _demux
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mux_combine as _combine
 from repro_torch.kernels import mux_embed as _mux
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rwkv6 as _rwkv
@@ -40,6 +41,17 @@ def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0):
         return _mux.mux_embed_ref(tokens, emb, v, scale=scale)
     out = _mux.mux_embed_combine_cuda(tokens, emb, v, scale=scale)
     mux_embed_combine.launches += 1
+    return out
+
+
+def mux_combine(x, v):
+    """Gaussian mux-combine of precomputed embeddings: x (N, T, D),
+    v (N, D) -> (T, D) = mean_i x_i ⊙ v_i in x's dtype."""
+    mux_combine.calls += 1
+    if _on_cpu(x):
+        return _combine.mux_combine_ref(x, v)
+    out = _combine.mux_combine_cuda(x, v)
+    mux_combine.launches += 1
     return out
 
 
@@ -150,7 +162,8 @@ def rwkv6_chunked(r, k, v, logw, u, s0, *, chunk: int):
 
 
 WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
-            demux_rsa, decode_attention, flash_attention, rwkv6_chunked)
+            demux_rsa, decode_attention, flash_attention, rwkv6_chunked,
+            mux_combine)
 PAGED = (paged_attention, paged_prefill_attention)
 
 

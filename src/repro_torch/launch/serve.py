@@ -15,10 +15,14 @@ Three modes, as in the reference:
     python -m repro_torch.launch.serve --continuous --cache paged \
         --no-reduced --mux-n 2 --requests 8 --new-tokens 16
 
-Architectures: ``--arch qwen2-1.5b`` (default) and ``--arch rwkv6-7b``
+Architectures: ``--arch qwen2-1.5b`` (default), ``--arch rwkv6-7b``
 (RWKV6, on the ring arm and in fill-drain: the reference's paged arm
-fails on RWKV, so ``--cache paged`` with it is an error).  Runs on
-``cuda`` unless ``--device cpu``; weights come from a seeded init.
+fails on RWKV, so ``--cache paged`` with it is an error) and ``--arch
+whisper-small`` (encoder-decoder, fill-drain only, as the reference; its
+frame embeddings are zeros, as the reference CLI's).  Runs on ``cuda``
+unless ``--device cpu``; weights come from a seeded init.
+``--use-kernels`` (default) runs the kernel path, ``--no-use-kernels``
+the plain model path.
 ``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and fp8
 pages carry per-slot scales; the kernels fuse the dequant).  The
 reference's other modes (lanes, recovery, mesh, telemetry output) are
@@ -36,7 +40,7 @@ import torch
 
 from repro_torch.configs import get_config, model_kind
 from repro_torch.core import MuxSpec
-from repro_torch.models import TransformerLM
+from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.serve import sampling
 from repro_torch.serve.batcher import MuxBatcher, Request
 from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
@@ -78,6 +82,9 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     ``prefill_compute_tokens`` the same after bucket padding,
     ``prefill_log`` (rows, per-row tokens) per event.
     """
+    if sc.kind != "lm":
+        raise NotImplementedError(
+            "continuous serving supports decoder-only LM families")
     if prefill_mode not in ("chunked", "blocking"):
         raise ValueError(f"prefill_mode must be chunked|blocking, got "
                          f"{prefill_mode!r}")
@@ -188,13 +195,16 @@ def _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals, *,
 
 
 def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
-               new_tokens: int, *, samplings=None, use_kernels: bool = True,
-               telemetry=None, device=None):
+               new_tokens: int, *, samplings=None, frames=None,
+               use_kernels: bool = True, telemetry=None, device=None):
     """Fill-drain serving over a ring cache: batches of up to N_mux x B
     requests, spare slots holding duplicates whose logits are averaged
     (ensembling).  prompts: equal-length token sequences; every request
     gets ``new_tokens`` tokens.  samplings: one ``SamplingParams`` (or
-    None, greedy) per prompt.  Each batch is one blocking prefill and
+    None, greedy) per prompt.  frames (kind 'encdec'): one
+    (frontend_len, d_enc) array of frame embeddings per prompt, stacked
+    in slot order for each batch's prefill; None gives zeros, as the
+    reference's CLI.  Each batch is one blocking prefill and
     ``new_tokens - 1`` decode steps, on the kernel path under use_kernels
     as in ``run_continuous``'s ring arm (the reference's CLI decodes
     plain); each step's tokens come to the host (the step's one device
@@ -206,9 +216,15 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
     dev = resolve_device(device)
     params = params_to(params, dev)
     batcher = MuxBatcher(n_mux=max(sc.mux.n, 1), backbone_batch=backbone_rows)
+    frame_of = {}
     for i, p in enumerate(prompts):
         r = batcher.submit(np.asarray(p), max_new=new_tokens)
         r.sampling = samplings[i] if samplings else None
+        if sc.kind == "encdec":
+            enc = sc.cfg.encoder
+            frame_of[r.uid] = (np.zeros((enc.frontend_len, enc.d_model),
+                                        np.float32) if frames is None
+                               else np.asarray(frames[i], np.float32))
     stats = {"completed": [], "prefill_events": 0, "decode_steps": 0}
     t0 = time.time()
     while True:
@@ -229,8 +245,12 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
         toks = torch.as_tensor(np.stack([np.asarray(s.prompt)
                                          for s in slots])).long().to(dev)
         cache = init_cache(sc, toks.shape[0], device=dev)
+        extra = None
+        if frame_of:
+            extra = torch.from_numpy(np.stack([frame_of[s.uid]
+                                               for s in slots])).to(dev)
         with telemetry.span("prefill", tokens=toks.numel()):
-            logits, _ = prefill(params, sc, cache, toks,
+            logits, _ = prefill(params, sc, cache, toks, extra=extra,
                                 use_kernels=use_kernels)
             tok, toks_in = sample(logits, 0)
             outs = [tok.cpu().numpy()]
@@ -309,6 +329,11 @@ def _parser():
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the kernel path (default; the kernels' plain "
+                         "versions on the CPU); --no-use-kernels runs the "
+                         "plain model path")
     for flag in _LATER:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -328,9 +353,13 @@ def main(argv=None):
         ap.error(f"--block-size must be >= 1, got {args.block_size}")
     try:
         cfg = get_config(args.arch, reduced=args.reduced)
-        model_kind(args.arch)
+        kind = model_kind(args.arch)
     except NotImplementedError as e:
         ap.error(str(e))
+    if kind != "lm" and args.continuous:
+        ap.error(f"--continuous with {args.arch}: continuous serving "
+                 "supports decoder-only LM families, as the reference's "
+                 "(repro/serve/runtime.py:128); serve it in fill-drain")
     if args.cache == "paged" and "rwkv" in cfg.block_pattern:
         ap.error(f"--cache paged with {args.arch}: the reference's paged arm "
                  "fails on RWKV (its blocking prefill of one row meets the "
@@ -340,11 +369,13 @@ def main(argv=None):
     dev = resolve_device(args.device)
     mux = MuxSpec(n=args.mux_n)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = TransformerLM.init(gen, cfg, mux)
+    model = EncDecLM if kind == "encdec" else TransformerLM
+    params = model.init(gen, cfg, mux)
     sc = ServeConfig(cfg=cfg, mux=mux,
                      capacity=args.prompt_len + args.new_tokens + 8,
                      cache_layout=args.cache if args.continuous else "ring",
-                     block_size=args.block_size, kv_dtype=args.kv_dtype)
+                     block_size=args.block_size, kv_dtype=args.kv_dtype,
+                     kind=kind)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(4, cfg.vocab_size, size=(args.prompt_len,))
                for _ in range(args.requests)]
@@ -355,7 +386,8 @@ def main(argv=None):
             top_p=args.top_p, seed=i) for i in range(args.requests)]
     if not args.continuous:
         stats = fill_drain(params, sc, args.backbone_batch, prompts,
-                           args.new_tokens, samplings=samplings, device=dev)
+                           args.new_tokens, samplings=samplings,
+                           use_kernels=args.use_kernels, device=dev)
         served, dt = len(stats["completed"]), stats["wall"]
         print(f"served {served} requests x {args.new_tokens} tokens in "
               f"{dt:.1f}s  (mux N={mux.n}, backbone batch "
@@ -366,7 +398,7 @@ def main(argv=None):
                 for i, (p, sp) in enumerate(zip(prompts, samplings))]
     stats = run_continuous(params, sc, args.backbone_batch, arrivals,
                            chunk=args.chunk, prefill_mode=args.prefill,
-                           device=dev)
+                           use_kernels=args.use_kernels, device=dev)
     util = float(np.mean(stats["slot_util"])) if stats["slot_util"] else 0.0
     mode = (f"paged/{stats['prefill_mode']}" if sc.cache_layout == "paged"
             else "ring")

@@ -1,19 +1,25 @@
 """Per-layer blocks (counterpart of ``repro.models.blocks``): the attention
-block with its serving branches, the dense (GLU) FFN, and the RWKV6
-(Finch) block; ``init_block`` / ``init_block_cache`` / ``apply_block``
-dispatch on the block kind ('attn', 'local', 'rwkv').
+block with its serving branches, the dense (GLU) FFN, the RWKV6 (Finch)
+block and the cross-attention decoder block (whisper);
+``init_block`` / ``init_block_cache`` / ``apply_block`` dispatch on the
+block kind ('attn', 'local', 'rwkv', 'xattn').
 
     init_attention(generator, cfg)              -> params
     init_kv_cache(cfg, batch, capacity, dtype, device=...) -> ring cache
     apply_attention(p, cfg, blk, x, ctx, cache) -> x
     init_rwkv(generator, cfg) / init_rwkv_cache(cfg, batch, dtype, ...)
     apply_rwkv(p, cfg, blk, x, ctx, cache)      -> x
+    init_xattn(generator, cfg) / init_xattn_cache(cfg, batch, capacity,
+                                                   enc_len, dtype, ...)
+    apply_xattn(p, cfg, blk, x, ctx, cache)     -> x
 
 ``cache`` is one layer's KV dict, updated in place: a paged pool
 (``kp``/``vp``/``ppos``/``bt``, plus ``ksc``/``vsc`` scales for int8/fp8
-pages) or a ring buffer (``k``/``v``/``pos``/``idx``).  ``ctx`` carries
-sin/cos, q_offset, q_end, rows, chunked, impl and use_kernels, shared
-across layers.  Branches:
+pages) or a ring buffer (``k``/``v``/``pos``/``idx``); None is the
+no-cache forward (an encoder, or a full forward without serving state).
+``ctx`` carries sin/cos, q_offset, q_end, rows, chunked, impl,
+use_kernels and, for the cross-attention block, enc_out, shared across
+layers.  Branches:
 
   * decode (L == 1, no ``rows``): write the token's K/V, attend over the
     row's pages (``kernels.ops.paged_attention`` under use_kernels) or
@@ -22,10 +28,11 @@ across layers.  Branches:
   * paged chunked prefill (``ctx['chunked']``): write the chunk's K/V into
     the rows' pages, attend over every written block —
     ``kernels.ops.paged_prefill_attention`` under use_kernels;
-  * blocking (whole-prompt) prefill: write the K/V into the rows' pages or
-    the ring, attend over the fresh K/V with ``ctx['impl']`` — naive,
-    chunked, or flash (``kernels.ops.flash_attention``, whatever
-    use_kernels says, as in the reference).
+  * blocking (whole-prompt) prefill, and the no-cache forward: write the
+    K/V into the rows' pages or the ring (if there is a cache), attend
+    over the fresh K/V with ``ctx['impl']`` — naive, chunked, or flash
+    (``kernels.ops.flash_attention``, whatever use_kernels says, as in
+    the reference).
 
 An RWKV layer's cache is its recurrent state, O(1) per row on either
 layout: the (B, H, hd, hd) fp32 matrix state ``s`` and the last token's
@@ -35,7 +42,13 @@ normed input to the time mix and to the channel mix (``shift_tm``,
 ``rwkv_chunked`` (the reference's ``blocks.rwkv_chunked``, chunk rule
 included).
 
-The MoE, RG-LRU and cross-attention branches are later slices.
+A cross-attention layer (whisper's decoder) runs the attention block's
+self-attention over a ring, then attends over the encoder's output:
+``ctx['enc_out']`` (B, Lenc, D) at a prefill, whose projected cross-K/V
+the layer keeps in its cache (``xk``/``xv``, (B, Lenc, Hkv, Dh)), the
+cached cross-K/V at a decode step.  Ring only, as in the reference.
+
+The MoE and RG-LRU branches are later slices.
 """
 from __future__ import annotations
 
@@ -143,6 +156,13 @@ def paged_positions(ctx, batch: int, l: int, device):
 
 
 def apply_attention(p, cfg, blk, x, ctx, cache):
+    x = _self_attention(p, cfg, blk, x, ctx, cache)
+    return x + apply_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x))
+
+
+def _self_attention(p, cfg, blk, x, ctx, cache):
+    """x plus the block's self-attention (``ln1``, ``wq``/``wk``/``wv``,
+    ``wo``) over its cache, or over the fresh K/V without one."""
     b, l, _ = x.shape
     h = _norm(cfg).apply(p["ln1"], x)
     q = Linear.apply(p["wq"], h)          # (B, L, H, hd)
@@ -156,7 +176,9 @@ def apply_attention(p, cfg, blk, x, ctx, cache):
     rows = ctx.get("rows")
     # a 1-token prompt of a row-subset prefill is not a decode step
     decode = l == 1 and rows is None
-    if "bt" in cache:
+    if not cache:                         # the no-cache forward
+        o = _fresh_attention(q, k, v, cfg, window, ctx)
+    elif "bt" in cache:
         bt = cache["bt"] if rows is None else cache["bt"][rows]
         posm = paged_positions(ctx, b, l, x.device)
         paged_write(cache, k, v, posm, block_tables=bt)
@@ -181,8 +203,7 @@ def apply_attention(p, cfg, blk, x, ctx, cache):
                                        window=window, kv_valid=pos >= 0)
             o = attention_core(q, cache["k"], cache["v"], mask=mask[None],
                                logit_softcap=cfg.logit_softcap)
-    x = x + Linear.apply(p["wo"], o.reshape(b, l, -1))
-    return x + apply_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x))
+    return x + Linear.apply(p["wo"], o.reshape(b, l, -1))
 
 
 def _paged_attention(q, cfg, window, cache, bt, posm, kernels, *, chunked):
@@ -337,12 +358,76 @@ def apply_rwkv(p, cfg, blk, x, ctx, cache):
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention decoder block (whisper): self-attn + cross-attn + FFN
+# ---------------------------------------------------------------------------
+
+def init_xattn(generator, cfg):
+    """The reference's parameter names, so ``interop`` maps them one to
+    one: the attention block's plus ``lnx`` and ``xwq``/``xwk``/``xwv``/
+    ``xwo`` for the cross-attention."""
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = init_attention(generator, cfg)
+    p["lnx"] = _norm(cfg).init(generator.device, d)
+    p["xwq"] = Linear.init(generator, d, (h, hd), use_bias=cfg.qkv_bias)
+    p["xwk"] = Linear.init(generator, d, (hk, hd), use_bias=cfg.qkv_bias)
+    p["xwv"] = Linear.init(generator, d, (hk, hd), use_bias=cfg.qkv_bias)
+    p["xwo"] = Linear.init(generator, h * hd, d, use_bias=False)
+    return p
+
+
+def init_xattn_cache(cfg, batch: int, capacity: int, enc_len: int,
+                     dtype=torch.float32, *, device):
+    """A ring of ``capacity`` slots for the self-attention (no window, as
+    in the reference) and zero cross-K/V of ``enc_len`` frames."""
+    c = init_kv_cache(cfg, batch, capacity, dtype, device=device)
+    shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+    c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
+def apply_xattn(p, cfg, blk, x, ctx, cache):
+    """Whisper-style decoder layer.  ``ctx['enc_out']`` (B, Lenc, D) is
+    given for a prefill or a full forward: its cross-K/V are projected and
+    kept in the cache; a decode step reads them from the cache.  The
+    cross-attention is bidirectional over every frame: at a prefill or a
+    full forward it follows ``ctx['impl']`` ('flash': the flash kernel
+    with Lq queries over Lenc keys); at a decode step under use_kernels
+    it runs ``kernels.ops.decode_attention`` (causal=False) over the
+    cached cross-K/V, else the plain path."""
+    x = _self_attention(p, cfg, blk, x, ctx, cache)
+    b, l, _ = x.shape
+    xq = Linear.apply(p["xwq"], _norm(cfg).apply(p["lnx"], x))
+    enc_out = ctx.get("enc_out")
+    if enc_out is not None:
+        e = enc_out.to(x.dtype)
+        xk, xv = Linear.apply(p["xwk"], e), Linear.apply(p["xwv"], e)
+        if cache:
+            cache["xk"], cache["xv"] = xk, xv
+    else:
+        xk, xv = cache["xk"], cache["xv"]
+    decode = bool(cache) and l == 1 and ctx.get("rows") is None
+    if decode and ctx.get("use_kernels"):
+        frames = torch.arange(xk.shape[1], dtype=torch.int32,
+                              device=x.device)
+        o = kops.decode_attention(xq, xk, xv, frames, q_pos=0, causal=False)
+    elif decode or ctx.get("impl", "naive") == "naive":
+        o = attention_core(xq, xk, xv)
+    else:
+        o = multi_head_attention(xq, xk, xv, impl=ctx["impl"], causal=False,
+                                 chunk_size=cfg.attn_chunk)
+    x = x + Linear.apply(p["xwo"], o.reshape(b, l, -1))
+    return x + apply_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x))
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-_INIT = {"attn": init_attention, "local": init_attention, "rwkv": init_rwkv}
+_INIT = {"attn": init_attention, "local": init_attention, "rwkv": init_rwkv,
+         "xattn": init_xattn}
 _APPLY = {"attn": apply_attention, "local": apply_attention,
-          "rwkv": apply_rwkv}
+          "rwkv": apply_rwkv, "xattn": apply_xattn}
 BLOCKS = tuple(_APPLY)
 
 
@@ -361,11 +446,19 @@ def init_block_cache(cfg, blk: str, batch: int, capacity: int,
     """One layer's cache.  Attention: a ring buffer cut to the layer's
     window, or (paged) a page pool with its slot-position map, whose block
     table the caller installs; RWKV: its recurrent state, the same on both
-    layouts."""
+    layouts; cross-attention: a ring and the cross-K/V of
+    ``cfg.encoder.frontend_len`` frames (ring only, as in the
+    reference)."""
     if layout not in ("ring", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     if blk == "rwkv":
         return init_rwkv_cache(cfg, batch, dtype, device=device)
+    if blk == "xattn":
+        if layout == "paged":
+            raise NotImplementedError("paged layout: decoder-only families")
+        return init_xattn_cache(cfg, batch, capacity,
+                                cfg.encoder.frontend_len, dtype,
+                                device=device)
     if layout == "paged":
         if num_blocks is None:
             raise ValueError("paged layout requires num_blocks (see "

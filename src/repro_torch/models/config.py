@@ -2,7 +2,8 @@
 
 The same frozen dataclass as the reference, so a reference config and its
 port compare field by field.  The port runs the dense attention blocks
-('attn' / 'local') and RWKV6 ('rwkv'); ``models.transformer`` rejects
+('attn' / 'local'), RWKV6 ('rwkv') and the cross-attention decoder block
+('xattn', with ``encoder`` set: whisper); ``models.transformer`` rejects
 the rest.  ``attn_impl`` picks the attention of a blocking
 (whole-prompt) forward: 'naive', 'chunked' (online softmax over
 ``attn_chunk``-key chunks), 'flash' (the flash-attention kernel) or
@@ -30,7 +31,7 @@ class ModelConfig:
     glu: bool = True
     qkv_bias: bool = False
     norm: str = "rms"             # rms|ln
-    positions: str = "rope"       # rope|none
+    positions: str = "rope"       # rope|learned|none
     rope_theta: float = 10000.0
     max_seq_len: int = 8192
     window: int | None = None     # sliding window (all attention blocks)
@@ -46,6 +47,11 @@ class ModelConfig:
     rwkv_heads: int = 0           # 0 -> d_model // 64
     rwkv_chunk: int = 32          # chunk of the plain chunkwise recurrence
     rwkv_intra_dtype: str = "f32"  # 'bf16': plain path only
+    # frontends are stubs, as in the reference: the caller hands in
+    # precomputed frame embeddings (frontend_len of them)
+    frontend: str | None = None   # vision|audio
+    frontend_len: int = 0
+    encoder: "ModelConfig | None" = None   # enc-dec models (whisper)
 
     def __post_init__(self):
         if self.n_kv_heads == 0:
@@ -65,11 +71,17 @@ class ModelConfig:
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the LM without the mux engine (embeddings once if
-    tied), as the reference's ``param_count``."""
+    tied; learned positions and the encoder included), as the
+    reference's ``param_count``."""
     d = cfg.d_model
     n = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.positions == "learned":
+        n += cfg.max_seq_len * d
     n += sum(_block_params(cfg, blk) for blk in cfg.pattern_layers)
-    return n + d * (2 if cfg.norm == "ln" else 1)
+    n += d * (2 if cfg.norm == "ln" else 1)
+    if cfg.encoder is not None:
+        n += param_count(cfg.encoder)
+    return n
 
 
 def _block_params(cfg: ModelConfig, blk: str) -> int:
@@ -85,4 +97,7 @@ def _block_params(cfg: ModelConfig, blk: str) -> int:
     attn += cfg.n_heads * hd * d
     if cfg.qkv_bias:
         attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-    return n + attn + (3 if cfg.glu else 2) * d * cfg.d_ff
+    ffn = (3 if cfg.glu else 2) * d * cfg.d_ff
+    if blk == "xattn":                            # third norm, cross-attn
+        return n + d * (2 if cfg.norm == "ln" else 1) + 2 * attn + ffn
+    return n + attn + ffn

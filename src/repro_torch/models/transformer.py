@@ -4,13 +4,17 @@
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
-``interop`` converts between the two.  Layers are attention blocks or
-RWKV6 blocks (``models.blocks`` dispatches on ``cfg.block_pattern``).
-The port serves from a ring cache (blocking prefill, decode at one
-shared position) or a paged cache (blocking or chunked prefill, decode
-at per-row positions) with fp32, bf16, int8 or fp8 pages; an RWKV
-layer's cache is its recurrent state on either layout.  Embeddings are
-tied, or untied with ``params["lm_head"]``.
+``interop`` converts between the two.  Layers are attention blocks, RWKV6
+blocks or cross-attention decoder blocks (``models.blocks`` dispatches on
+``cfg.block_pattern``).  The port serves from a ring cache (blocking
+prefill, decode at one shared position) or a paged cache (blocking or
+chunked prefill, decode at per-row positions) with fp32, bf16, int8 or
+fp8 pages; an RWKV layer's cache is its recurrent state on either
+layout.  ``cache=None`` is the no-cache forward (whisper's encoder).
+Positions are RoPE, learned (``params["pos_emb"]``, added after the
+entry) or none.  Embeddings are tied, or untied with
+``params["lm_head"]``; ``embeds=`` replaces the token embedding with
+precomputed (N*B, L, D) embeddings (a frontend stub's frames).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.models.blocks import (BLOCKS, apply_block, init_block,
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import (Embedding, LayerNorm, Linear, RMSNorm,
                             rope_frequencies)
+from repro_torch.nn.layers import normal
 
 
 def _check_supported(cfg: ModelConfig, mux: MuxSpec):
@@ -32,7 +37,7 @@ def _check_supported(cfg: ModelConfig, mux: MuxSpec):
         raise NotImplementedError(
             f"block pattern {cfg.block_pattern}: the port runs {BLOCKS} "
             "blocks so far")
-    if cfg.positions not in ("rope", "none"):
+    if cfg.positions not in ("rope", "learned", "none"):
         raise NotImplementedError(f"positions {cfg.positions!r}")
     mux.validate()
 
@@ -45,13 +50,17 @@ class TransformerLM:
         reference's distributions: N(0, 0.02) weights, embeddings and RWKV
         mixing / decay / bonus vectors, zero biases, zero RMSNorm scales
         (the norm is 1 + scale), unit LayerNorm and group-norm scales,
-        N(0, 1) mux keys v and demux keys k.  Draws are the port's own:
+        N(0, 0.02) learned positions, N(0, 1) mux keys v and demux keys
+        k.  Draws are the port's own:
         the same seed does not give the reference's values (use
         ``interop.params_from_reference`` for those)."""
         _check_supported(cfg, mux)
         dev = generator.device
         params = {"embed": Embedding.init(generator, cfg.vocab_size,
                                           cfg.d_model)}
+        if cfg.positions == "learned":
+            params["pos_emb"] = normal(generator,
+                                       (cfg.max_seq_len, cfg.d_model), 0.02)
         params["layers"] = [init_block(generator, cfg, blk)
                             for blk in cfg.pattern_layers]
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
@@ -95,29 +104,35 @@ class TransformerLM:
         return {"layers": layers, "bt": bt}
 
     @staticmethod
-    def apply(params, cfg: ModelConfig, tokens, *, mux: MuxSpec = MuxSpec(),
-              cache, q_offset=0, logits_out: bool = True, use_kernels: bool = True,
-              fuse_io: bool = True, extra_ctx: dict | None = None):
-        """tokens (N*B, L) int (mux-major instance order).  q_offset: an
-        int start position, or on a paged cache a (B,) vector of per-row
-        positions (-1 = inactive row).  The cache is updated in place.
-        Computes in fp32, as the reference serves.  use_kernels: the
-        layers' kernels (decode and chunk attention, the RWKV6
-        recurrence) and, with ``fuse_io``, the fused entry and exit
-        (default; their plain versions on CPU tensors), False for the
-        plain model path.  fuse_io=False keeps the plain entry and exit,
-        as a blocking prefill runs them.  The attention of a blocking
+    def apply(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+              mux: MuxSpec = MuxSpec(), cache=None, q_offset=0,
+              logits_out: bool = True, use_kernels: bool = True,
+              fuse_io: bool = True, demux: bool = True,
+              extra_ctx: dict | None = None):
+        """tokens (N*B, L) int (mux-major instance order), or ``embeds``
+        (N*B, L, D) precomputed embeddings instead.  q_offset: an int
+        start position, or on a paged cache a (B,) vector of per-row
+        positions (-1 = inactive row).  The cache is updated in place;
+        None runs the no-cache forward.  Computes in fp32, as the
+        reference serves.  use_kernels: the layers' kernels (decode and
+        chunk attention, the RWKV6 recurrence), the mux-combine kernel of
+        the plain entry and, with ``fuse_io``, the fused entry and exit
+        instead (default; their plain versions on CPU tensors), False for
+        the plain model path.  fuse_io=False keeps the plain entry and
+        exit, as a blocking prefill runs them; ``embeds`` always takes the
+        plain entry.  demux=False returns the backbone's normed hidden
+        without the demux (an encoder).  The attention of a blocking
         forward follows ``cfg.attn_impl`` ('auto': chunked above 2048
         tokens, else naive; 'flash' launches the flash kernel).  Returns
         dict(logits | hidden)."""
         _check_supported(cfg, mux)
         d = cfg.d_model
         dev = params["embed"]["table"].device
-        tokens = torch.as_tensor(tokens, device=dev)
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0
-        fused = use_kernels and fuse_io and mux.enabled
+        fused = use_kernels and fuse_io and mux.enabled and embeds is None
         if fused:
             # fused entry: gather + embedding scale + mux combine, one kernel
+            tokens = torch.as_tensor(tokens, device=dev)
             nb, l_in = tokens.shape
             bb = nb // mux.n
             x = kops.mux_embed_combine(
@@ -126,10 +141,15 @@ class TransformerLM:
                 scale=scale)
             x = x.reshape(bb, l_in, d)
         else:
-            x = Embedding.apply(params["embed"], tokens)
+            if embeds is None:
+                x = Embedding.apply(params["embed"],
+                                    torch.as_tensor(tokens, device=dev))
+            else:
+                x = torch.as_tensor(embeds, device=dev).float()
             if cfg.embedding_scale:
                 x = x * scale
-            x = MuxEngine.combine(params.get("mux_engine", {}), mux, x)
+            x = MuxEngine.combine(params.get("mux_engine", {}), mux, x,
+                                  use_kernels=use_kernels)
         b, l, _ = x.shape
 
         ar = torch.arange(l, device=dev)
@@ -151,22 +171,26 @@ class TransformerLM:
                                         theta=cfg.rope_theta)
             ctx["sin"], ctx["cos"] = ((sin, cos) if per_row
                                       else (sin[None], cos[None]))
+        elif cfg.positions == "learned":
+            pe = params["pos_emb"][pos]
+            x = x + (pe if per_row else pe[None])
         if extra_ctx:
             ctx.update(extra_ctx)
 
         for i, blk in enumerate(cfg.pattern_layers):
             x = apply_block(params["layers"][i], cfg, blk, x, ctx,
-                            cache["layers"][i])
+                            None if cache is None else cache["layers"][i])
 
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
-        if fused:
+        if fused and demux:
             # fused exit: final norm + RSA demux + demux LN, one kernel
             x = MuxEngine.separate_fused(
                 params["mux_engine"], mux, x, final_norm=params["final_norm"],
                 norm_kind=cfg.norm)
         else:
             x = norm.apply(params["final_norm"], x)
-            x = MuxEngine.separate(params.get("mux_engine", {}), mux, x)
+            if demux:
+                x = MuxEngine.separate(params.get("mux_engine", {}), mux, x)
         if logits_out:
             return {"logits": TransformerLM.logits(params, cfg, x)}
         return {"hidden": x}

@@ -15,7 +15,11 @@ Two cache layouts, as in the reference:
                 joining row's K/V without touching its siblings.
 
 An RWKV layer's cache is its recurrent state, O(1) per row, on both
-layouts; the paged runtime refuses RWKV (``serve.runtime``).
+layouts; the paged runtime refuses RWKV (``serve.runtime``).  An
+encoder-decoder model (``ServeConfig.kind='encdec'``, whisper) serves on
+the ring only, as in the reference: its prefill takes the frame
+embeddings (``extra``), runs the encoder and fills each decoder layer's
+cross-K/V, which its decode steps read.
 
 Unlike the reference's functional updates, ``set_block_tables``,
 ``reset_blocks`` and the step functions update the cache IN PLACE; they
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch.core import MuxSpec
 from repro_torch.core import quant as quantlib
-from repro_torch.models import TransformerLM
+from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import KVPool, blocks_for
 
@@ -41,26 +45,33 @@ def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
     return global_batch // max(mux.n, 1)
 
 
+KINDS = ("lm", "encdec")
+
+
 @dataclass(frozen=True)
 class ServeConfig:
-    """A decoder-only LM served from a ring cache or from paged KV of
-    ``block_size`` tokens (``cache_layout``, 'ring' by default as in the
-    reference).
+    """A model served from a ring cache or from paged KV of ``block_size``
+    tokens (``cache_layout``, 'ring' by default as in the reference).
 
-    kv_dtype (paged only): page storage — 'fp32' | 'bf16' | 'int8' |
-    'fp8' (any ``core.quant.resolve_kv_dtype`` spelling); None keeps the
-    serve dtype, fp32.  int8 and fp8 pages carry per-(slot, head) fp32
-    scales.  The reference's ``kind``, ``dtype``, ``num_blocks`` and
-    ``n_shards`` fields are fixed to 'lm', fp32, the worst case and 1 in
-    the port so far."""
+    kind: 'lm' (decoder-only, the default) or 'encdec' (whisper; ring
+    only, as the reference).  kv_dtype (paged only): page storage —
+    'fp32' | 'bf16' | 'int8' | 'fp8' (any ``core.quant.resolve_kv_dtype``
+    spelling); None keeps the serve dtype, fp32.  int8 and fp8 pages
+    carry per-(slot, head) fp32 scales.  The reference's 'vlm' kind and
+    its ``dtype``, ``num_blocks`` and ``n_shards`` fields are fixed to
+    fp32, the worst case and 1 in the port so far."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
     cache_layout: str = "ring"      # ring | paged
     block_size: int = 16            # paged: tokens per block
     kv_dtype: str | None = None     # paged: page storage
+    kind: str = "lm"                # lm | encdec
 
     def __post_init__(self):
+        if self.kind not in KINDS:
+            raise NotImplementedError(f"serve kind {self.kind!r}: the port "
+                                      f"serves {KINDS} so far")
         if self.cache_layout not in ("ring", "paged"):
             raise ValueError(f"unknown cache layout {self.cache_layout!r}")
         if self.block_size < 1:
@@ -118,8 +129,14 @@ def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
 def init_cache(sc: ServeConfig, global_batch: int, *, device):
     """The cache for ``global_batch`` streams on ``device``: a fp32 ring,
     or pages stored as ``sc.kv_dtype`` says; RWKV layers hold their
-    recurrent state on either layout."""
+    recurrent state on either layout, cross-attention layers their
+    cross-K/V beside a ring."""
     b = backbone_batch(global_batch, sc.mux)
+    if sc.kind == "encdec":
+        if sc.cache_layout == "paged":
+            raise NotImplementedError(
+                "paged cache layout: decoder-only LM families")
+        return EncDecLM.init_cache(sc.cfg, b, sc.capacity, device=device)
     if sc.cache_layout == "ring":
         return TransformerLM.init_cache(sc.cfg, b, sc.capacity,
                                         torch.float32, device=device)
@@ -151,25 +168,34 @@ def reset_blocks(cache, block_ids):
     return cache
 
 
-def prefill(params, sc: ServeConfig, cache, tokens, *, rows=None,
-            use_kernels: bool = False):
+def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
+            rows=None, use_kernels: bool = False):
     """Blocking prefill of whole prompts: tokens (NB, L).  The K/V go into
     the ring at positions 0 .. L-1, or (paged) into the pages of the
     backbone rows ``rows`` (default: every row), and every query attends
     over the prompt's own fresh K/V with ``cfg.attn_impl``; an RWKV layer
     runs its recurrence from the cache's state and leaves its final state
-    there.  use_kernels: the layers' kernels (the RWKV6 recurrence; the
-    attention follows ``cfg.attn_impl`` either way).  As in the reference,
-    the entry and exit are the plain ones.  Returns (last-position logits
-    (NB, V), cache)."""
+    there.  extra (kind 'encdec'): the (NB, frames, D_enc) frame
+    embeddings the encoder runs over.  use_kernels: the layers' kernels
+    (the RWKV6 recurrence; the attention follows ``cfg.attn_impl`` either
+    way) and the mux-combine kernel of the entries.  As in the
+    reference, the entry and exit are the plain (unfused) ones.  Returns
+    (last-position logits (NB, V), cache)."""
     ctx = {}
     if rows is not None:
         if sc.cache_layout != "paged":
             raise ValueError("rows= requires the paged cache layout")
         ctx["rows"] = torch.as_tensor(rows, device=cache["bt"].device).long()
-    logits = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
-                                 cache=cache, use_kernels=use_kernels,
-                                 fuse_io=False, extra_ctx=ctx)["logits"]
+    kw = dict(mux=sc.mux, cache=cache, use_kernels=use_kernels,
+              fuse_io=False, extra_ctx=ctx)
+    if sc.kind == "encdec":
+        if extra is None:
+            raise ValueError("an encoder-decoder prefill needs the frame "
+                             "embeddings (extra=)")
+        logits = EncDecLM.apply(params, sc.cfg, tokens, extra, **kw)["logits"]
+    else:
+        logits = TransformerLM.apply(params, sc.cfg, tokens,
+                                     **kw)["logits"]
     return logits[:, -1], cache
 
 
@@ -184,6 +210,9 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
     (len(rows) * N, V), cache)."""
     if sc.cache_layout != "paged":
         raise ValueError("prefill_chunk requires the paged cache layout")
+    if sc.kind != "lm":
+        raise NotImplementedError(
+            "chunked prefill supports decoder-only LM families")
     dev = cache["bt"].device
     start = torch.as_tensor(start, device=dev).long()
     length = torch.as_tensor(length, device=dev).long()
@@ -205,22 +234,25 @@ def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
                 use_kernels: bool = True):
     """One decode step.  tokens (N*B, 1); pos: an int, the position every
     row writes at (the ring's only form), or on the paged layout a (B,)
-    tensor of per-row positions (-1 = inactive row).  Returns (logits
-    (N*B, 1, V), cache)."""
+    tensor of per-row positions (-1 = inactive row).  An encoder-decoder
+    step reads the cross-K/V its prefill left in the cache.  Returns
+    (logits (N*B, 1, V), cache)."""
     if sc.cache_layout == "ring" and isinstance(pos, torch.Tensor):
         raise TypeError("the ring cache decodes at one int position")
-    out = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux,
-                              cache=cache, q_offset=pos,
-                              use_kernels=use_kernels)
+    model = EncDecLM if sc.kind == "encdec" else TransformerLM
+    out = model.apply(params, sc.cfg, tokens, mux=sc.mux, cache=cache,
+                      q_offset=pos, use_kernels=use_kernels)
     return out["logits"], cache
 
 
-def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int):
+def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int,
+                    extra=None):
     """Host-loop greedy decoding of prompt (NB, L) for ``steps`` tokens on
     the params' device (decode steps on the kernel path), from a fresh
     cache of either layout (paged: every row's blocks allocated up
-    front).  Returns (NB, steps) tokens."""
-    dev = params["embed"]["table"].device
+    front); ``extra`` as ``prefill``'s.  Returns (NB, steps) tokens."""
+    dec = params["decoder"] if sc.kind == "encdec" else params
+    dev = dec["embed"]["table"].device
     prompt = torch.as_tensor(prompt, device=dev)
     cache = init_cache(sc, prompt.shape[0], device=dev)
     if sc.cache_layout == "paged":
@@ -229,7 +261,7 @@ def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int):
         for j in range(b):
             pool.allocate(j, prompt.shape[1] + steps)
         set_block_tables(cache, pool.table_array(range(b)))
-    logits, _ = prefill(params, sc, cache, prompt)
+    logits, _ = prefill(params, sc, cache, prompt, extra=extra)
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     for t in range(steps - 1):

@@ -91,9 +91,10 @@ class ServeRuntime:
 
     params/sc: model params and a ``ServeConfig`` with
     ``cache_layout='paged'`` (its ``kv_dtype`` sets the page storage;
-    ``stats`` records the pool's bytes and bytes per token) over
-    attention blocks only: recurrent (RWKV) blocks raise
-    ``NotImplementedError``, as the reference fails there.
+    ``stats`` records the pool's bytes and bytes per token) of a
+    decoder-only LM (kind 'lm', as the reference) over attention blocks
+    only: recurrent (RWKV) blocks raise ``NotImplementedError``, as the
+    reference fails there.
     backbone_rows: B rows of the N_mux × B grid.  chunk: prefill chunk
     size in tokens; None is blocking prefill (a joining row's whole
     prompt in one call, ``stats['prefill_mode']`` says which ran).
@@ -110,6 +111,9 @@ class ServeRuntime:
                  use_kernels: bool = True, device=None, telemetry=None):
         if sc.cache_layout != "paged":
             raise ValueError("ServeRuntime requires cache_layout='paged'")
+        if sc.kind != "lm":
+            raise NotImplementedError(
+                "continuous serving supports decoder-only LM families")
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1 (or None for blocking "
                              f"prefill), got {chunk}")
@@ -258,7 +262,7 @@ class ServeRuntime:
             toks = self.row_tokens[j].astype(np.int64)
             logits, _ = prefill(self.params, self.sc, self.cache,
                                 torch.from_numpy(toks).to(self.device),
-                                rows=[j])
+                                rows=[j], use_kernels=self.use_kernels)
         else:
             compute = self._bucket(plan.length)
             buf = np.full((self.n_mux, compute), PAD_ID, np.int64)

@@ -23,9 +23,15 @@ inputs, reordered fp32 sums), and both stay within the analytic bound of
 the pristine fp32 oracle (``core.quant.paged_attention_error_bound`` for
 int8/fp8, its relative-rounding analogue for bf16).
 
+The mux-combine entry (``mux_combine_ref``) is held to the Pallas
+``mux_combine`` in interpret mode at the reference suite's shapes and
+tolerance (``tests/test_kernels.py`` test_mux_combine: fp32 2e-5, bf16
+5e-2, where both sides round the bf16 output once).
+
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
-widths, for every storage kind; the demux with its LN entry at
+widths, for every storage kind; the mux-combine kernel in fp32 and bf16
+at odd T and D, at N 1 to 10, and at whisper-small's encoder entry; the demux with its LN entry at
 rwkv6-7b's width; the RWKV6 kernel against the chunkwise plain version
 (the reference's chunk rule) and the sequential oracle at the reference
 suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, one
@@ -154,6 +160,38 @@ def _mux_inputs(n, t, vocab=97, d=48, seed=0):
             rng.standard_normal((n, d), np.float32))
 
 
+MUX_COMBINE_TOL = {"fp32": 2e-5, "bf16": 5e-2}   # tests/test_kernels.py TOL
+
+
+def _combine_inputs(n, t, d, dtype="fp32", seed=0):
+    """x (N, T, D), v (N, D) from numpy, as torch tensors of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    return (torch.as_tensor(rng.standard_normal((n, t, d), np.float32)).to(dt),
+            torch.as_tensor(rng.standard_normal((n, d), np.float32)).to(dt))
+
+
+@pytest.mark.parametrize("n,t,d", [(2, 64, 128), (5, 100, 96), (10, 33, 200)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_mux_combine_plain_matches_pallas(n, t, d, dtype):
+    """The reference suite's shapes (T and D not multiples of its tiles)
+    and tolerance; the bf16 inputs are the same bf16 values on both
+    sides."""
+    import jax.numpy as jnp
+    from repro.kernels.mux_combine import mux_combine
+    x, v = _combine_inputs(n, t, d, dtype)
+    jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+    want = mux_combine(jnp.asarray(x.float().numpy()).astype(jdt),
+                       jnp.asarray(v.float().numpy()).astype(jdt),
+                       block_t=32, block_d=64, interpret=True)
+    got = ref.mux_combine_ref(x, v)
+    assert got.dtype == x.dtype and got.shape == (t, d)
+    tol = MUX_COMBINE_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("n,t,scale", [(2, 4, 1.0), (2, 32, 1.0),
                                        (4, 7, 8.0), (1, 3, 1.0)])
 def test_mux_embed_plain_matches_pallas(n, t, scale):
@@ -246,6 +284,8 @@ def test_wrappers_use_plain_versions_on_cpu():
     got = ops.rwkv6_chunked(*rw, chunk=4)
     want = ref.rwkv_chunked(*rw, 4)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    x, v = _combine_inputs(3, 5, 24)
+    assert torch.equal(ops.mux_combine(x, v), ref.mux_combine_ref(x, v))
     assert ops.counts("calls") == dict.fromkeys(ops.counts(), 1)
     assert ops.counts("launches") == dict.fromkeys(ops.counts(), 0)
 
@@ -253,8 +293,8 @@ def test_wrappers_use_plain_versions_on_cpu():
 def test_kernel_launchers_reject_cpu_tensors():
     """The kernel entry points launch on CUDA tensors only — a CPU tensor
     is an error there, never a silent fallback."""
-    from repro_torch.kernels import (demux_rsa, mux_embed, paged_attention,
-                                     rwkv6)
+    from repro_torch.kernels import (demux_rsa, mux_combine, mux_embed,
+                                     paged_attention, rwkv6)
     args, _ = _decode_inputs("b1")
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention.paged_attention_cuda(*_torch(args))
@@ -268,6 +308,8 @@ def test_kernel_launchers_reject_cpu_tensors():
         demux_rsa.demux_rsa_cuda(*_torch(args))
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6.rwkv6_cuda(*_torch(_rwkv_inputs(1, 3, 2, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        mux_combine.mux_combine_cuda(*_combine_inputs(2, 4, 8))
 
 
 # ------------------------------------------------- page storage kinds
@@ -431,6 +473,25 @@ def test_paged_prefill_kernel_on_card(cuda, case):
     torch.testing.assert_close(ops.paged_prefill_attention(*t),
                                ref.paged_prefill_attention_ref(*t),
                                **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d", [(2, 64, 128), (5, 100, 96), (10, 33, 200),
+                                   (1, 7, 5), (3, 17, 257),
+                                   (2, 6000, 768), (2, 400, 1536)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_mux_combine_kernel_on_card(cuda, n, t, d, dtype):
+    """The kernel against its plain version in the working dtype: fp32
+    within 2e-5, bf16 within 5e-2 (the reference suite's tolerance; both
+    round the fp32 sum to bf16 once).  The wrapper launches it."""
+    x, v = (a.to(cuda) for a in _combine_inputs(n, t, d, dtype))
+    ops.reset_counts()
+    got = ops.mux_combine(x, v)
+    assert ops.mux_combine.launches == 1
+    assert got.dtype == x.dtype and got.shape == (t, d)
+    tol = MUX_COMBINE_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.mux_combine_ref(x, v).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda

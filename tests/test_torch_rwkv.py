@@ -354,9 +354,9 @@ def test_cache_holds_recurrent_state_only():
 
 def test_rwkv_calls_per_step():
     """A blocking prefill calls rwkv6_chunked once per layer under
-    use_kernels and no entry or exit wrapper (plain, as the reference's
-    prefill); a decode step calls it once per layer plus the fused entry
-    and exit."""
+    use_kernels and, of the entry and exit wrappers, only the mux-combine
+    of the plain (unfused) entry, as the reference's prefill; a decode
+    step calls it once per layer plus the fused entry and exit."""
     _, port, _, sc = _pair(2)
     layers = sc.cfg.n_layers
     cache = engine.init_cache(sc, 4, device="cpu")
@@ -364,7 +364,8 @@ def test_rwkv_calls_per_step():
     engine.prefill(port, sc, cache, torch.zeros((4, 8), dtype=torch.long),
                    use_kernels=True)
     assert ops.counts("calls") == {**dict.fromkeys(ops.counts(), 0),
-                                   "rwkv6_chunked": layers}
+                                   "rwkv6_chunked": layers,
+                                   "mux_combine": 1}
     ops.reset_counts()
     engine.decode_step(port, sc, cache, torch.zeros((4, 1), dtype=torch.long),
                        8)

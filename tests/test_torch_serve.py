@@ -174,7 +174,8 @@ def test_wrapper_calls_per_step(n, extra):
     assert ops.counts("calls") == {
         "paged_prefill_attention": cfg.n_layers, "paged_attention": 0,
         "mux_embed_combine": extra // 2, "demux_rsa": extra // 2,
-        "decode_attention": 0, "flash_attention": 0, "rwkv6_chunked": 0}
+        "decode_attention": 0, "flash_attention": 0, "rwkv6_chunked": 0,
+        "mux_combine": 0}
     ops.reset_counts()
     engine.decode_step(port, sc, cache, torch.zeros((2 * n, 1), dtype=torch.long),
                        torch.tensor([8, -1]))
@@ -261,6 +262,41 @@ def test_cli_serves_ring_blocking_and_fill_drain_on_cpu(capsys, argv, want):
     out = capsys.readouterr().out
     for line in want:
         assert line in out
+
+
+def test_cli_use_kernels_flag_runs_the_reference_drive_line(capsys):
+    """The reference's ``store_true`` spelling ``--use-kernels`` parses:
+    the verify recipe's quantized-pages line serves on the kernel path
+    (the wrappers' plain versions on CPU tensors: calls, no launches)."""
+    ops.reset_counts()
+    assert cli.main(["--continuous", "--cache", "paged", "--use-kernels",
+                     "--kv-dtype", "int8", "--requests", "5",
+                     "--new-tokens", "4", "--prompt-len", "8",
+                     "--block-size", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "continuous[paged/chunked/cpu] served 5 requests (20 tokens)" in out
+    assert "decode×1" in out
+    calls = ops.counts("calls")
+    assert calls["paged_attention"] and calls["paged_prefill_attention"]
+    assert calls["mux_embed_combine"] and calls["demux_rsa"]
+    assert not any(ops.counts("launches").values())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--continuous", "--cache", "paged"],
+    ["--continuous", "--cache", "paged", "--prefill", "blocking"],
+    ["--continuous", "--cache", "ring"],
+    [],
+], ids=["paged-chunked", "paged-blocking", "ring", "fill-drain"])
+def test_cli_no_use_kernels_runs_the_plain_path(capsys, argv):
+    """``--no-use-kernels`` reaches every mode's plain model path: no
+    wrapper is called at all."""
+    ops.reset_counts()
+    assert cli.main(argv + ["--no-use-kernels", "--device", "cpu",
+                            "--requests", "3", "--prompt-len", "6",
+                            "--new-tokens", "3", "--block-size", "4"]) == 0
+    assert "served 3 requests" in capsys.readouterr().out
+    assert not any(ops.counts("calls").values())
 
 
 @pytest.mark.parametrize("argv,match", [
