@@ -10,13 +10,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's full-width shapes and at edge shapes,
                 with kernel / plain / library-yardstick times (cold L2)
-                and the least time the card could take (bound); the two
+                and the least time the card could take (bound: bytes at
+                the HBM rate, or fp32 operations at the faster of the
+                CUDA cores and the 3xTF32 tensor-core route); the two
                 paged kernels also over bf16, int8 and fp8 pages, held
                 against the dequantize-then-attend plain version and,
                 within the analytic bound, the pristine fp32 one;
                 flash-decode over a ring and flash attention over ragged,
-                windowed, bidirectional, offset and fully masked shapes;
-                the demux with its LN entry at rwkv6-7b's width; the RWKV6
+                windowed, bidirectional, offset and fully masked shapes,
+                at whisper-small's two shapes and at gemma-2b's heads (Dh
+                256, 8 over 1 KV head); the demux with its LN entry at
+                rwkv6-7b's width (decode and a 32-token chunk); the RWKV6
                 recurrence at decode, 100, 109 and 128 tokens, head dim
                 32, strong and weak decay, against its chunkwise plain
                 version and the sequential oracle (elementwise, the
@@ -87,6 +91,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_S = 67e12        # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# fp32-exact products on the tensor cores take three TF32 products (the
+# flash kernel's split), so fp32 work can run at TF32_FLOP_S / 3
+FP32_EXACT_FLOP_S = max(FP32_FLOP_S, TF32_FLOP_S / 3)
 ATT_TOL = 1e-4             # fp32, summation order only; O(1) outputs
 MUX_TOL = 1e-5             # a sum of N=2 products per element
 # mux_combine against its plain version: the reference suite's tolerance
@@ -167,7 +175,9 @@ class Timer:
 
 
 def bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    """The least time the card could take: bytes over the HBM rate, or fp32
+    operations over the faster of the CUDA cores and the 3xTF32 route."""
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_EXACT_FLOP_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -581,6 +591,21 @@ def phase_kernels(torch, timer):
             "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
         record("flash_attention", case, (got - want).abs().max().item(),
                ATT_TOL, timing)
+    # gemma-2b's heads (8 over 1 KV head, head_dim 256), a causal prefill
+    q, k, v = wr(4, 116, 8, 256), wr(4, 116, 1, 256), wr(4, 116, 1, 256)
+    got = kfl.flash_attention_cuda(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    vis = visible(torch.arange(116, device=dev), torch.arange(116, device=dev),
+                  True, None, torch.ones(116, dtype=torch.bool, device=dev))
+    nb, fl, work = dense_bound(q, k, vis)
+    bms, by = bound(nb, fl)
+    timing = {"work": work,
+        "ms": timer(lambda: kfl.flash_attention_cuda(q, k, v)),
+        "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v)),
+        "library_ms": timer(lambda: sdpa_dense(q, k, v, vis)),
+        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+    record("flash_attention", "gemma heads: Dh 256, 8 over 1",
+           (got - want).abs().max().item(), ATT_TOL, timing)
     q, kc, vc = wr(4, 1, 12, 64), wr(4, 1500, 12, 64), wr(4, 1500, 12, 64)
     frames = torch.arange(1500, dtype=torch.int32, device=dev)
     kw = dict(q_pos=0, causal=False)
@@ -607,12 +632,13 @@ def phase_kernels(torch, timer):
              "entry_bias": r(d, s=0.1), "exit_scale": 1.0 + r(d, s=0.1),
              "exit_bias": r(d, s=0.1)}
     for i, (case, tt) in enumerate([("main: decode T=4", 4),
-                                    ("edge: T=5", 5)]):
+                                    ("edge: T=5", 5),
+                                    ("chunk T=32", 32)]):
         h = r(tt, d) + 2.0                 # a residual stream with an offset
         got = kd.demux_rsa_cuda(h, *w, **norms)
         want = ref.demux_rsa_fused_ref(h, *w, **norms)
         timing = None
-        if i == 0:
+        if i != 1:
             nb = (2 * d * f + tt * d + n * d + d * f + f + 5 * d) * 4 \
                 + n * tt * d * 4
             fl = 2 * tt * d * f + 2 * n * tt * f * d + 2 * n * d * f
@@ -892,7 +918,8 @@ def main() -> int:
           f"compile {time.perf_counter() - t0:.1f} s; into {build.build_dir()}",
           flush=True)
     for line in b["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "Function properties",
+                                   "==")):
             print("  " + line.strip())
 
     # 3. kernels

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded with ``ctypes``.  Libraries land in
-``build/repro_torch/<hash>/`` at the repository root, keyed by a hash of
-all the sources, and are built at first use: every source at once, one
-``nvcc`` process each, started together.  Nothing here runs at import.
+seconds), loaded with ``ctypes``; ``csrc/*.cuh`` holds device helpers
+they share.  Libraries land in ``build/repro_torch/<hash>/`` at the
+repository root, keyed by a hash of all the sources and headers, and are
+built at first use: every source at once, one ``nvcc`` process each,
+started together.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ def build_dir() -> pathlib.Path:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):       # shared device helpers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / h.hexdigest()[:16]
 
@@ -88,10 +91,10 @@ SIGNATURES = {
         "paged_attention_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
     },
     "demux_rsa": {
-        # h, entry_scale, entry_bias, w1h, kb, w2, b2, exit_scale,
-        # exit_bias, stats, zp, g, yp, out; entry_kind, T, N, D, F; stream
-        "demux_rsa_forward": [_P] * 14 + [_I] * 5 + [_P],
-        "demux_rsa_split": [],
+        # h, k, entry_scale, entry_bias, w1h, w1k, b1, w2, b2, exit_scale,
+        # exit_bias, zp, st, g, yp, out, counter; entry_kind, T, N, D, F,
+        # s1, len1, s2, len2; stream
+        "demux_rsa_forward": [_P] * 17 + [_I] * 9 + [_P],
     },
     "decode_attention": {
         # q, k, v, slot_pos, part_acc, part_ml, out; B, C, H, Hkv, Dh,
@@ -99,9 +102,9 @@ SIGNATURES = {
         "decode_attention_forward": [_P] * 7 + [_I] * 10 + [_F, _P],
     },
     "flash_attention": {
-        # q, k, v, out; B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset;
-        # softcap, scale; stream
-        "flash_attention_forward": [_P] * 4 + [_I] * 9 + [_F, _F, _P],
+        # q, k, v, out, part_o, part_ml; B, Lq, Lk, H, Hkv, Dh, causal,
+        # window, q_offset, nsplit, split_tiles; softcap, scale; stream
+        "flash_attention_forward": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
     },
     "rwkv6": {
         # r, k, v, logw, u, s0, out, sT; B, L, H, hd; stream

@@ -1,8 +1,9 @@
 // Flash attention (causal / sliding-window / bidirectional, GQA, logit
-// softcap) over fresh K/V, for Hopper (sm_90a).
+// softcap) over fresh K/V, for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, _kernel): flash_attention_kernel.
+// (flash_attention, _kernel): flash_attention_kernel, and
+// flash_combine_kernel when the key axis is split.
 //
 // Layouts (as in the reference, read in place): q (B, Lq, H, Dh) fp32;
 // k, v (B, Lk, Hkv, Dh) fp32; out (B, Lq, H, Dh).  Query i sits at
@@ -10,90 +11,115 @@
 // key j < Lk, and j <= q (causal), j > q - window (window > 0); the
 // softcap tanh(s / c) * c applies to the scaled logit before the mask.
 //
-// Design.  One block per (query tile of kBQ rows, head, row).  Its KV head
-// is h / G (G = H / Hkv): K/V are never broadcast to H heads.  The TPU
-// grid's sequential KV axis becomes a loop inside the block over K/V tiles
-// of kBK keys: each tile's K and V go to shared memory, scores and an
-// online softmax run in fp32, and the accumulator stays in registers (one
-// head dimension per thread).  The loop visits only the K tiles that meet
-// the tile's causal / window band (the Pallas docstring claims this skip,
-// its grid does not make it).  The mask value is the finite -2**30 of the
-// reference: a query that sees no key returns the uniform mean of V over
-// all Lk keys, as the plain version does; a tile holding such a query
-// therefore visits every K tile.  Lq and Lk need not be tile multiples:
-// rows past Lq are not computed and keys past Lk are never loaded.
+// Bound.  Each (query, visible key) pair costs 4 * Dh flops.  Whisper's
+// encoder (bidirectional L = 1500, 12 heads of 64, 4 rows) is 27.65
+// GFLOP against 4.6 MB of q, k, v and out: operations bound it.  On the
+// CUDA cores (67 TFLOP/s fp32) that is 0.41 ms; on the TF32 tensor cores
+// (495 TFLOP/s dense) three products per product (below) give 165
+// TFLOP/s of fp32-exact work: 0.168 ms.  Short or narrow shapes (whisper's
+// cross-attention, Lq 100 over Lk 1500) are bound by their bytes.
 //
-// Bound.  Each (query, visible key) pair costs 4 * Dh flops; K and V are
-// read once per query tile and head (from L2 after the first).  A causal
-// 116-token prefill at the main path's width is ~27 flops per input byte,
-// above the card's fp32 balance (~20): bound by operations, on the CUDA
-// cores (fp32, no tensor-core path in this first version).
-#include <cuda_runtime.h>
+// Why three TF32 products.  The port serves in fp32 and holds this kernel
+// to 1e-4 of its plain version.  One TF32 product keeps 10 mantissa bits
+// of each operand: at L = 1500 its error is ~1.4e-4, outside that bound.
+// Each operand x is split into hi = tf32(x) and lo = tf32(x - hi) (both
+// rounded with cvt.rna.tf32.f32) and the product is accumulated in fp32
+// as lo*hi + hi*lo + hi*hi; the dropped lo*lo term is ~2^-22 relative, so
+// the result has fp32's accuracy (~2e-7 at L = 1500).  Both products (Q
+// K^T and P V) take the split on both operands.
+//
+// Design.
+//  * mma.sync.m16n8k8 TF32 with fp32 accumulators (FA2 layout).  A block
+//    is four warps over one (row, head); each warp holds MT m-tiles of 16
+//    query rows: MT = 2 at Dh <= 64 (128 rows a block), 1 above (64 rows,
+//    as the accumulators of Dh 128 / 256 fill the registers).  Q is scaled,
+//    split once per block and kept in shared memory as hi and lo; each K/V
+//    element is split in registers as its warp loads it (three ALU ops) and
+//    serves the warp's MT m-tiles.  A pre-split lo copy of each K/V tile
+//    would double the shared bytes the fragment loads move and cost the
+//    second block an SM.
+//  * Scores and probabilities stay in registers: the online softmax
+//    (running max, rescale, sum, in log2 units) runs on the mma
+//    accumulators with quad shuffles, and P feeds the PV product straight
+//    from the accumulator layout.  The accumulator holds keys (2t, 2t+1)
+//    of each 8-key group where the A fragment wants (t, t+4); the PV
+//    product therefore reads V rows 2t and 2t+1 for k-slots t and t+4 (a
+//    permutation of the summation order, no shuffle).
+//  * K/V tiles of BK keys stream through a two-stage cp.async ring: tile
+//    i+1 is in flight while tile i is consumed.  Shared rows are padded to
+//    Dh + 4 floats, so every fragment load is free of bank conflicts.
+//  * The head dim is padded to the mma depth: D = 32, 64, 128 or 256 (one
+//    instantiation each) with zero columns in shared memory; BK = 64, 32,
+//    16, 16, so that two blocks fit an SM up to D = 128 and D = 256 fits
+//    one (Q 133 KB + ring 67 KB) without spills.
+//  * The loop visits only the K tiles that meet the block's causal /
+//    window band.  The mask value is the finite -2**30 of the reference: a
+//    query that sees no key returns the mean of V over all Lk keys; a tile
+//    holding such a query visits every K tile.  Keys past Lk are zero-
+//    filled by the copy and weigh exactly 0.
+//  * Grid fill: where (query tiles x H x B) leaves SMs idle (whisper's
+//    cross-attention: 48 blocks), the wrapper splits the key tiles over
+//    nsplit blocks (kernels/flash_attention.py ``splits``); each writes its
+//    unnormalised (acc, m, l) and flash_combine_kernel merges them in
+//    split order by their log-sum-exp (deterministic, no atomics), as
+//    decode_attention.cu merges its splits.
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 16;          // query rows per block
-constexpr int kBK = 32;          // keys per shared-memory tile
-constexpr int kMaxDpt = 2;       // head dims per thread: Dh <= 256
-constexpr float kNegInf = -1073741824.0f;   // -2**30, as the reference
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr float kNegMask = -1073741824.0f;     // -2**30, as the reference
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;
   const float* k;
   const float* v;
   float* out;
-  int B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset;
+  float* part_o;    // (nsplit, B, Lq, H, Dh) unnormalised; nsplit == 1: unused
+  float* part_ml;   // (nsplit, B, Lq, H, 2) running max (log2 units), sum
+  int B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset, nsplit, split_tiles;
   float scale, softcap;     // softcap <= 0: none
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// per padded head dim: keys per tile, blocks an SM (for launch bounds),
+// m-tiles of 16 query rows a warp
+template <int D> struct Cfg;
+template <> struct Cfg<32> { static constexpr int BK = 64, kMinBlocks = 2, MT = 2; };
+template <> struct Cfg<64> { static constexpr int BK = 32, kMinBlocks = 2, MT = 2; };
+template <> struct Cfg<128> { static constexpr int BK = 16, kMinBlocks = 2, MT = 1; };
+template <> struct Cfg<256> { static constexpr int BK = 16, kMinBlocks = 1, MT = 1; };
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // Q hi + Q lo (BQ rows each), two stages of K and V (BK rows each)
+  return sizeof(float) *
+         (size_t)(2 * 16 * kWarps * Cfg<D>::MT + 4 * Cfg<D>::BK) * (D + 4);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-size_t smem_bytes(int Dh) {
-  const int ldk = Dh + 4;
-  return sizeof(float) * (size_t)(kBQ * ldk + kBK * ldk + kBK * Dh +
-                                  kBQ * kBK + 3 * kBQ);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kvh = h / (a.H / a.Hkv);
-  const int rows = min(kBQ, a.Lq - q0);
-  const int ldk = a.Dh + 4;      // padded row stride: fewer bank conflicts
-  const int d4 = a.Dh / 4;
-
+template <int D>
+__global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
+    flash_attention_kernel(Args a) {
+  constexpr int BK = Cfg<D>::BK, MT = Cfg<D>::MT, LD = D + 4;
+  constexpr int BQ = 16 * kWarps * MT;     // query rows a block
+  constexpr int NT = BK / 8, DT = D / 8;   // key groups, head-dim groups
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // kBQ x ldk, pre-scaled q
-  float* sk = sq + kBQ * ldk;                   // kBK x ldk
-  float* sv = sk + kBK * ldk;                   // kBK x Dh
-  float* sp = sv + kBK * a.Dh;                  // kBQ x kBK scores / probs
-  float* sm = sp + kBQ * kBK;                   // running max
-  float* sl = sm + kBQ;                         // running sum
-  float* salpha = sl + kBQ;                     // per-tile rescale
+  float* sqh = reinterpret_cast<float*>(smem4);   // BQ x LD, tf32 hi
+  float* sql = sqh + BQ * LD;                     // BQ x LD, tf32 lo
+  float* skv = sql + BQ * LD;                     // stages of K then V
 
-  for (int i = tid; i < rows * d4; i += kThreads) {
-    const int r = i / d4, c = i % d4;
-    float4 x = reinterpret_cast<const float4*>(
-        a.q + (((size_t)b * a.Lq + q0 + r) * a.H + h) * a.Dh)[c];
-    x.x *= a.scale; x.y *= a.scale; x.z *= a.scale; x.w *= a.scale;
-    reinterpret_cast<float4*>(sq + r * ldk)[c] = x;
-  }
-  if (tid < kBQ) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
+  const int b = blockIdx.z / a.nsplit, split_id = blockIdx.z % a.nsplit;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kvh = h / (a.H / a.Hkv);
+  const int rows = min(BQ, a.Lq - q0);
+  const int dq = a.Dh / 4;                        // 16-byte chunks a row
+  const size_t nrows = (size_t)a.B * a.Lq * a.H;
 
-  // keys the tile's queries can see: [k_lo, k_hi]; every key when one of
-  // them sees none (its output is then the mean of V over all keys)
+  // key tiles the block's queries can see: [kt_lo, kt_hi]; every tile when
+  // one of them sees no key (its output is then the mean of V)
   int k_lo = a.Lk, k_hi = -1;
   bool blind = false;
   for (int r = 0; r < rows; ++r) {
@@ -108,109 +134,313 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
     k_lo = 0;
     k_hi = a.Lk - 1;
   }
+  const int kt_begin = max(k_lo / BK, split_id * a.split_tiles);
+  const int kt_end = min(k_hi / BK + 1, (split_id + 1) * a.split_tiles);
+  const int n_iter = kt_end - kt_begin;
 
-  float acc[kBQ][kMaxDpt];
-#pragma unroll
-  for (int r = 0; r < kBQ; ++r)
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = (k_lo / kBK) * kBK; k0 <= k_hi; k0 += kBK) {
-    const int n = min(kBK, a.Lk - k0);
-    __syncthreads();             // previous tile fully consumed
-    for (int i = tid; i < n * d4; i += kThreads) {
-      const int s = i / d4, c = i % d4;
-      const size_t off = (((size_t)b * a.Lk + k0 + s) * a.Hkv + kvh) * a.Dh;
-      reinterpret_cast<float4*>(sk + s * ldk)[c] =
-          reinterpret_cast<const float4*>(a.k + off)[c];
-      reinterpret_cast<float4*>(sv + s * a.Dh)[c] =
-          reinterpret_cast<const float4*>(a.v + off)[c];
-    }
-    __syncthreads();
-
-    // scores: one (query row, key) dot product per thread
-    for (int p = tid; p < rows * n; p += kThreads) {
-      const int r = p / n, s = p % n;
-      const float4* qr = reinterpret_cast<const float4*>(sq + r * ldk);
-      const float4* kr = reinterpret_cast<const float4*>(sk + s * ldk);
-      float dot = 0.f;
-      for (int c = 0; c < d4; ++c) {
-        const float4 x = qr[c], y = kr[c];
-        dot += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-      }
-      if (a.softcap > 0.f) dot = tanhf(dot / a.softcap) * a.softcap;
-      const int qp = a.q_offset + q0 + r, kp = k0 + s;
-      bool ok = true;
-      if (a.causal) ok = kp <= qp;
-      if (a.window > 0) ok = ok && kp > qp - a.window;
-      sp[r * kBK + s] = ok ? dot : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row, one key per lane
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const float sc = lane < n ? sp[r * kBK + lane] : kNegInf;
-      const float m_prev = sm[r];
-      const float m_new = fmaxf(m_prev, warp_max(sc));
-      const float e = lane < n ? expf(sc - m_new) : 0.f;
-      if (lane < n) sp[r * kBK + lane] = e;
-      const float sum = warp_sum(e);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sl[r] = sl[r] * alpha + sum;
-        sm[r] = m_new;
-        salpha[r] = alpha;
+  // this thread's rows: m-tile m holds rows r0 + 16 m + g and + 8
+  const int r0 = warp * 16 * MT;
+  if (n_iter <= 0) {        // a split outside the band: an empty partial
+    for (int rr = 0; rr < 2 * MT; ++rr) {
+      const int row = q0 + r0 + 8 * rr + g;
+      if (row >= a.Lq) continue;
+      const size_t i = (size_t)split_id * nrows +
+                       ((size_t)b * a.Lq + row) * a.H + h;
+      for (int d = 2 * t; d < a.Dh; d += 8)
+        *reinterpret_cast<float2*>(a.part_o + i * a.Dh + d) =
+            make_float2(0.f, 0.f);
+      if (t == 0) {
+        a.part_ml[2 * i] = -INFINITY;
+        a.part_ml[2 * i + 1] = 0.f;
       }
     }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) {
-      const int d = tid + j * kThreads;
-      if (d >= a.Dh) continue;
-#pragma unroll
-      for (int r = 0; r < kBQ; ++r) {
-        if (r >= rows) break;
-        float v = acc[r][j] * salpha[r];
-        for (int s = 0; s < n; ++s) v += sp[r * kBK + s] * sv[s * a.Dh + d];
-        acc[r][j] = v;
-      }
-    }
+    return;
   }
 
+  // zero the padded head-dim columns [Dh, D) of every row (no copy writes
+  // them; Q's zeros make K's harmless, V's only reach unstored columns)
+  if (a.Dh < D) {
+    const int pc = (D - a.Dh) / 4;
+    for (int i = tid; i < (2 * BQ + 4 * BK) * pc; i += kThreads)
+      reinterpret_cast<float4*>(sqh + (i / pc) * LD + a.Dh)[i % pc] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int i = tid; i < BQ * dq; i += kThreads) {
+    const int r = i / dq, c = i % dq;
+    const bool ok = q0 + r < a.Lq;
+    cp_async16(sqh + r * LD + 4 * c,
+               a.q + (((size_t)b * a.Lq + (ok ? q0 + r : 0)) * a.H + h) *
+                         a.Dh + 4 * c, ok);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int kt, int stage) {
+    float* sk = skv + stage * 2 * BK * LD;
+    float* sv = sk + BK * LD;
+    const int k0 = kt * BK;
+    for (int i = tid; i < BK * dq; i += kThreads) {
+      const int r = i / dq, c = i % dq;
+      const bool ok = k0 + r < a.Lk;
+      const size_t off =
+          (((size_t)b * a.Lk + (ok ? k0 + r : 0)) * a.Hkv + kvh) * a.Dh +
+          4 * c;
+      cp_async16(sk + r * LD + 4 * c, a.k + off, ok);
+      cp_async16(sv + r * LD + 4 * c, a.v + off, ok);
+    }
+    cp_async_commit();
+  };
+  load_kv(kt_begin, 0);
+
+  // Q: scale, then split once into hi and lo
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int i = tid; i < BQ * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    uint32_t hi, lo;
+    split(sqh[r * LD + c] * a.scale, hi, lo);
+    sqh[r * LD + c] = __uint_as_float(hi);
+    sql[r * LD + c] = __uint_as_float(lo);
+  }
+
+  float o[MT][DT][4];
+  float m_run[MT][2], l_run[MT][2];
 #pragma unroll
-  for (int j = 0; j < kMaxDpt; ++j) {
-    const int d = tid + j * kThreads;
-    if (d >= a.Dh) continue;
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int r = 0; r < kBQ; ++r) {
-      if (r >= rows) break;
-      a.out[(((size_t)b * a.Lq + q0 + r) * a.H + h) * a.Dh + d] =
-          acc[r][j] / fmaxf(sl[r], 1e-30f);
+    for (int n = 0; n < DT; ++n)
+      o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.f;
+    m_run[m][0] = m_run[m][1] = -INFINITY;
+    l_run[m][0] = l_run[m][1] = 0.f;
+  }
+  const int qp0 = a.q_offset + q0 + r0 + g;       // m-tile 0, first row
+  const float* qh = sqh + (r0 + g) * LD + t;
+  const float* ql = sql + (r0 + g) * LD + t;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int kt = kt_begin + it;
+    if (it + 1 < n_iter) {
+      load_kv(kt + 1, (it + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = skv + (it & 1) * 2 * BK * LD;
+    const float* sv = sk + BK * LD;
+
+    // S = Q K^T; each K fragment, split once, serves the MT m-tiles
+    float s[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        s[m][j][0] = s[m][j][1] = s[m][j][2] = s[m][j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DT; ++kd) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int o16 = 16 * m * LD + 8 * kd;
+        ah[m][0] = __float_as_uint(qh[o16]);
+        ah[m][1] = __float_as_uint(qh[o16 + 8 * LD]);
+        ah[m][2] = __float_as_uint(qh[o16 + 4]);
+        ah[m][3] = __float_as_uint(qh[o16 + 8 * LD + 4]);
+        al[m][0] = __float_as_uint(ql[o16]);
+        al[m][1] = __float_as_uint(ql[o16 + 8 * LD]);
+        al[m][2] = __float_as_uint(ql[o16 + 4]);
+        al[m][3] = __float_as_uint(ql[o16 + 8 * LD + 4]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* kr = sk + (8 * j + g) * LD + 8 * kd + t;
+        uint32_t bh[2], bl[2];
+        split(kr[0], bh[0], bl[0]);
+        split(kr[4], bh[1], bl[1]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma3(s[m][j], ah[m], al[m], bh, bl);
+      }
+    }
+
+    // softcap, mask, online softmax in log2 units
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const int qp = qp0 + 16 * m + (e < 2 ? 0 : 8);
+          float x = s[m][j][e];
+          if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+          bool ok = true;
+          if (a.causal) ok = kp <= qp;
+          if (a.window > 0) ok = ok && kp > qp - a.window;
+          x = kp >= a.Lk ? -INFINITY : (ok ? x : kNegMask) * kLog2e;
+          s[m][j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // every visited tile holds a key < Lk, so the new max is finite
+      const float mn0 = fmaxf(m_run[m][0], mx0), mn1 = fmaxf(m_run[m][1], mx1);
+      const float al0 = exp2f(m_run[m][0] - mn0), al1 = exp2f(m_run[m][1] - mn1);
+      m_run[m][0] = mn0;
+      m_run[m][1] = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[m][j][0] = exp2f(s[m][j][0] - mn0);
+        s[m][j][1] = exp2f(s[m][j][1] - mn0);
+        s[m][j][2] = exp2f(s[m][j][2] - mn1);
+        s[m][j][3] = exp2f(s[m][j][3] - mn1);
+        ps0 += s[m][j][0] + s[m][j][1];
+        ps1 += s[m][j][2] + s[m][j][3];
+      }
+      // this thread's columns; quad-summed at the end
+      l_run[m][0] = l_run[m][0] * al0 + ps0;
+      l_run[m][1] = l_run[m][1] * al1 + ps1;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        o[m][n][0] *= al0;
+        o[m][n][1] *= al0;
+        o[m][n][2] *= al1;
+        o[m][n][3] *= al1;
+      }
+    }
+
+    // O += P V; k-slots (t, t+4) of key group j hold keys (2t, 2t+1); each
+    // V fragment, split once, serves the MT m-tiles
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        split(s[m][j][0], ph[m][0], pl[m][0]);
+        split(s[m][j][2], ph[m][1], pl[m][1]);
+        split(s[m][j][1], ph[m][2], pl[m][2]);
+        split(s[m][j][3], ph[m][3], pl[m][3]);
+      }
+      const float* vr = sv + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        uint32_t bh[2], bl[2];
+        split(vr[8 * n], bh[0], bl[0]);
+        split(vr[LD + 8 * n], bh[1], bl[1]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma3(o[m][n], ph[m], pl[m], bh, bl);
+      }
+    }
+    __syncthreads();          // the stage is free for the copy after next
+  }
+
+  const bool part = a.nsplit > 1;
+  float* dst = part ? a.part_o + (size_t)split_id * nrows * a.Dh : a.out;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float l = l_run[m][hf];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = q0 + r0 + 16 * m + 8 * hf + g;
+      if (row >= a.Lq) continue;
+      const float inv = part ? 1.f : 1.f / l;
+      float* orow = dst + (((size_t)b * a.Lq + row) * a.H + h) * a.Dh;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const int d = 8 * n + 2 * t;
+        if (d >= a.Dh) break;
+        *reinterpret_cast<float2*>(orow + d) =
+            make_float2(o[m][n][2 * hf] * inv, o[m][n][2 * hf + 1] * inv);
+      }
+      if (part && t == 0) {
+        const size_t i = (size_t)split_id * nrows +
+                         ((size_t)b * a.Lq + row) * a.H + h;
+        a.part_ml[2 * i] = m_run[m][hf];
+        a.part_ml[2 * i + 1] = l;
+      }
     }
   }
 }
 
+// one warp per (row, query, head): merge the splits by their log-sum-exp,
+// in split order
+__global__ void __launch_bounds__(kThreads) flash_combine_kernel(Args a) {
+  const size_t nrows = (size_t)a.B * a.Lq * a.H;
+  const size_t row = (size_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= nrows) return;
+  float m = -INFINITY;
+  for (int s = 0; s < a.nsplit; ++s)
+    m = fmaxf(m, a.part_ml[2 * (s * nrows + row)]);
+  float l = 0.f;
+  for (int s = 0; s < a.nsplit; ++s)
+    l += a.part_ml[2 * (s * nrows + row) + 1] *
+         exp2f(a.part_ml[2 * (s * nrows + row)] - m);
+  const float inv = 1.f / l;
+  for (int d = lane; d < a.Dh; d += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < a.nsplit; ++s)
+      acc += a.part_o[(s * nrows + row) * a.Dh + d] *
+             exp2f(a.part_ml[2 * (s * nrows + row)] - m);
+    a.out[row * a.Dh + d] = acc * inv;
+  }
+}
+
+// keys per K tile at head_dim Dh (kernels/flash_attention.py TILES)
+int block_k(int Dh) {
+  return Dh <= 32 ? Cfg<32>::BK : Dh <= 64 ? Cfg<64>::BK
+         : Dh <= 128 ? Cfg<128>::BK : Cfg<256>::BK;
+}
+
+template <int D>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  constexpr size_t smem = smem_bytes<D>();
+  static bool sized = false;      // the attribute is set once a process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  constexpr int BQ = 16 * kWarps * Cfg<D>::MT;
+  dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B * a.nsplit);
+  flash_attention_kernel<D><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// nsplit > 1: part_o holds nsplit*B*Lq*H*Dh floats, part_ml nsplit*B*Lq*H*2
 extern "C" int flash_attention_forward(
-    const float* q, const float* k, const float* v, float* out, int B,
-    int Lq, int Lk, int H, int Hkv, int Dh, int causal, int window,
-    int q_offset, float softcap, float scale, void* stream) {
-  if (Dh % 4 || Dh > kThreads * kMaxDpt || H % Hkv || Lq < 1 || Lk < 1 ||
-      q_offset < 0)
+    const float* q, const float* k, const float* v, float* out,
+    float* part_o, float* part_ml, int B, int Lq, int Lk, int H, int Hkv,
+    int Dh, int causal, int window, int q_offset, int nsplit,
+    int split_tiles, float softcap, float scale, void* stream) {
+  const int bk = block_k(Dh);
+  const int tiles = (Lk + bk - 1) / bk;
+  if (Dh % 4 || Dh < 4 || Dh > 256 || H % Hkv || Lq < 1 || Lk < 1 ||
+      q_offset < 0 || nsplit < 1 || split_tiles < 1 ||
+      (long long)nsplit * split_tiles < tiles ||
+      (long long)(nsplit - 1) * split_tiles >= tiles ||
+      (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset,
-         scale, softcap};
-  const size_t smem = smem_bytes(Dh);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  Args a{q, k, v, out, part_o, part_ml, B, Lq, Lk, H, Hkv, Dh, causal,
+         window, q_offset, nsplit, split_tiles, scale, softcap};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = Dh <= 32 ? launch<32>(a, st) : Dh <= 64 ? launch<64>(a, st)
+                  : Dh <= 128 ? launch<128>(a, st) : launch<256>(a, st);
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  const size_t nrows = (size_t)B * Lq * H;
+  flash_combine_kernel<<<(unsigned)((nrows + kWarps - 1) / kWarps), kThreads,
+                         0, st>>>(a);
   return (int)cudaGetLastError();
 }

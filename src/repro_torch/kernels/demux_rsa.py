@@ -5,8 +5,9 @@ Counterpart of ``repro/kernels/demux_rsa.py`` (``demux_rsa``):
 
     out[n] = LN_exit( gelu_tanh( norm(h) @ W1h + k[n] @ W1k + b1 ) @ W2 + b2 )
 
-``kb = k @ W1k + b1`` is a small (N, F) product left to ``torch.matmul``
-outside the kernel, as the reference leaves it to XLA.
+``kb = k @ W1k + b1`` is a small (N, F) product that the reference leaves
+to XLA; the kernel streams W1k in its first launch beside W1h.
+``plan`` sets how the kernels split the weights over blocks.
 """
 from __future__ import annotations
 
@@ -41,6 +42,60 @@ def demux_rsa_fused_ref(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
 
 
 ENTRY_KINDS = {None: 0, "rms": 1, "ln": 2}      # the source's kEntry*
+# the source's tiles: columns per block, depth rows per ring stage, ring
+# stages, rows per job of the first and the second product, slices of D
+COLS, DEPTH, STAGES, ROWS_H, ROWS_G, MAX_SPLIT = 64, 32, 4, 32, 64, 32
+RING_BYTES = 4 * STAGES * DEPTH * (COLS + 8)    # the first product's W ring
+TARGET_BLOCKS = 2 * 132         # ~2 blocks on each of an H100's 132 SMs
+BLOCK_SMEM = 68 * 1024          # a first-product block's ring and rows
+PARTIAL_SHARE = 0.25            # partial-sum bytes / weight bytes, at most
+
+
+def _slices(depth, jobs, rows, max_split, staged):
+    """(slices, slice length) of a reduction axis of ``depth``: at most
+    TARGET_BLOCKS blocks over ``jobs`` (column tile, row job) pairs (one
+    wave), partial sums of ``rows`` rows under PARTIAL_SHARE of the
+    weight bytes, each slice a whole number of ring stages and none
+    empty; with ``staged`` rows held whole in shared memory, the block
+    inside BLOCK_SMEM where ``max_split`` allows."""
+    chunks = -(-depth // DEPTH)
+    top = min(max_split, chunks)
+    s = max(1, min(top, TARGET_BLOCKS // jobs,
+                   int(PARTIAL_SHARE * depth / rows)))
+    while True:
+        per = -(-chunks // s) * DEPTH
+        if (RING_BYTES + 4 * staged * (per + 4) <= BLOCK_SMEM
+                or s >= top):
+            return -(-depth // per), per
+        s += 1
+
+
+def plan(t, n, d, f, entry_kind=None):
+    """The kernels' split of the weights and the scratch they need for
+    h (t, d), k (n, d), W1h (d, f): {"s1", "len1", "s2", "len2", the int
+    count "counters" and the float counts "zp", "st", "g", "yp"}.  The
+    second product's slices are capped at 64: its last block per column
+    tile adds them."""
+    naff = 2 if entry_kind == "ln" else 0
+    f_tiles, d_tiles, nt = -(-f // COLS), -(-d // COLS), n * t
+    jobs1 = f_tiles * (-(-t // ROWS_H) + -(-n // ROWS_H))
+    rows1 = max(min(t, ROWS_H) + naff, min(n, ROWS_H))
+    s1, len1 = _slices(d, jobs1, t + naff + n, MAX_SPLIT, rows1)
+    s2, len2 = _slices(f, d_tiles * -(-nt // ROWS_G), nt, 64, 0)
+    return {"s1": s1, "len1": len1, "s2": s2, "len2": len2,
+            "counters": f_tiles + d_tiles, "zp": s1 * (t + naff + n) * f,
+            "st": -(-f_tiles * s1 * t * 2 // 4) * 4,     # keeps g aligned
+            "g": nt * f, "yp": s2 * nt * d}
+
+
+_COUNTERS = {}      # device -> int32 zeros the first launch counts in
+
+
+def _counter(dev, size):
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < size:
+        c = _COUNTERS[dev] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return c
 
 
 def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
@@ -69,36 +124,41 @@ def demux_rsa_cuda(h, k, w1h, w1k, b1, w2, b2, *, entry_kind=None,
         if x.dtype != torch.float32 or x.device != h.device:
             raise ValueError(f"need fp32 on {h.device}, got {x.dtype} on "
                              f"{x.device}")
-    if (tuple(w1h.shape) != (d, f) or tuple(w2.shape) != (f, d)
-            or tuple(k.shape) != (n, d)):
+    vecs = [(b1, f), (b2, d)] + [(x, d) for x in ts[7:]]
+    if (tuple(w1h.shape) != (d, f) or tuple(w1k.shape) != (d, f)
+            or tuple(w2.shape) != (f, d) or tuple(k.shape) != (n, d)
+            or any(tuple(x.shape) != (m,) for x, m in vecs)):
         raise ValueError(f"shapes h {tuple(h.shape)} k {tuple(k.shape)} "
-                         f"w1h {tuple(w1h.shape)} w2 {tuple(w2.shape)}")
+                         f"w1h {tuple(w1h.shape)} w1k {tuple(w1k.shape)} "
+                         f"w2 {tuple(w2.shape)}")
     if (exit_scale is None) != (exit_bias is None):
         raise ValueError("exit_scale and exit_bias come together")
-    h, w1h, w2, b2 = (x.contiguous() for x in (h, w1h, w2, b2))
-    kb = (k @ w1k + b1[None]).contiguous()
-    es = None if entry_kind is None else entry_scale.contiguous()
-    eb = None if entry_bias is None else entry_bias.contiguous()
-    xs = None if exit_scale is None else exit_scale.contiguous()
-    xb = None if exit_bias is None else exit_bias.contiguous()
-    lib = build.load("demux_rsa")
-    split = lib.demux_rsa_split()
+    if d % 4 or f % 4:
+        raise ValueError(f"D={d}, F={f}: the kernel takes multiples of 4")
 
-    def scratch(*shape):
-        return torch.empty(shape, device=h.device, dtype=torch.float32)
-
-    stats = scratch(t, 2) if entry_kind == "ln" else None
-    zp, g = scratch(split, t, f), scratch(n, t, f)
-    yp, out = scratch(split, n * t, d), scratch(n, t, d)
+    def prep(x):     # contiguous, 16-byte aligned (the kernel copies 16 B)
+        if x is None:
+            return None
+        x = x.contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+    h, k, w1h, w1k, b1, w2, b2 = map(prep, (h, k, w1h, w1k, b1, w2, b2))
+    es, eb, xs, xb = map(prep, (entry_scale if entry_kind else None,
+                                entry_bias, exit_scale, exit_bias))
+    p = plan(t, n, d, f, entry_kind)
+    scratch = torch.empty(p["zp"] + p["st"] + p["g"] + p["yp"],
+                          device=h.device)
+    zp, st, g, yp = torch.split(scratch, [p["zp"], p["st"], p["g"], p["yp"]])
+    out = torch.empty((n, t, d), device=h.device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = lib.demux_rsa_forward(
-        h.data_ptr(), ptr(es), ptr(eb), w1h.data_ptr(), kb.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), ptr(xs), ptr(xb), ptr(stats),
-        zp.data_ptr(), g.data_ptr(), yp.data_ptr(), out.data_ptr(),
-        ENTRY_KINDS[entry_kind], t, n, d, f,
-        torch.cuda.current_stream(h.device).cuda_stream)
+    err = build.load("demux_rsa").demux_rsa_forward(
+        h.data_ptr(), k.data_ptr(), ptr(es), ptr(eb), w1h.data_ptr(),
+        w1k.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(xs),
+        ptr(xb), zp.data_ptr(), st.data_ptr(), g.data_ptr(), yp.data_ptr(),
+        out.data_ptr(), _counter(h.device, p["counters"]).data_ptr(),
+        ENTRY_KINDS[entry_kind], t, n, d, f, p["s1"], p["len1"], p["s2"],
+        p["len2"], torch.cuda.current_stream(h.device).cuda_stream)
     build.check(err, "demux_rsa kernels")
     return out

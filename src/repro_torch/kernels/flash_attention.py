@@ -5,7 +5,9 @@ Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention``):
 causal, sliding-window or bidirectional GQA attention with a query offset
 and an optional logit softcap; queries at ``q_offset + arange(Lq)``, keys
 at ``arange(Lk)``.  ``flash_attention_cuda`` launches the kernel on CUDA
-tensors and nothing else; ``flash_attention_ref`` is the plain version
+tensors and nothing else (products on the tensor cores in split TF32, at
+fp32 accuracy: ``torch.backends.cuda.matmul.allow_tf32`` has no bearing
+on it); ``flash_attention_ref`` is the plain version
 (naive attention, mirroring ``repro/kernels/ref.py``).  The counted
 dispatching wrapper is ``kernels.ops.flash_attention``.
 """
@@ -15,6 +17,30 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.nn.attention import attention_core, make_attention_mask
+
+# padded head dim -> (keys per K tile, blocks an SM, query rows a block):
+# Cfg<D> in the source (BK, kMinBlocks, 64 * MT)
+TILES = {32: (64, 2, 128), 64: (32, 2, 128), 128: (16, 2, 64),
+         256: (16, 1, 64)}
+SMS = 132               # an H100's SMs
+
+
+def padded_head_dim(dh: int) -> int:
+    """The instantiation a head dim runs in: the next of 32, 64, 128, 256."""
+    return next(d for d in TILES if dh <= d)
+
+
+def splits(batch: int, lq: int, lk: int, heads: int,
+           dh: int) -> tuple[int, int]:
+    """(number of key splits, key tiles per split): split the key tiles
+    over blocks where (query tiles x heads x rows) would leave SMs idle,
+    each split a whole number of tiles and none empty."""
+    bk, per_sm, bq = TILES[padded_head_dim(dh)]
+    tiles = -(-lk // bk)
+    blocks = -(-lq // bq) * heads * batch
+    want = max(1, -(-SMS * per_sm // blocks))
+    per = -(-tiles // min(tiles, want))
+    return -(-tiles // per), per
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -58,12 +84,23 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, q_offset=0,
     if logit_softcap is not None and logit_softcap <= 0:
         raise ValueError(f"logit_softcap must be > 0 or None, got "
                          f"{logit_softcap}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    # the kernel copies rows in 16-byte chunks
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
+    nsplit, per = splits(b, lq, lk, h, dh)
+    part_o = part_ml = None
+    if nsplit > 1:
+        scratch = torch.empty(nsplit * b * lq * h * (dh + 2), device=dev)
+        part_o = scratch[:nsplit * b * lq * h * dh]
+        part_ml = scratch[nsplit * b * lq * h * dh:]
     err = build.load("flash_attention").flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk,
-        h, hkv, dh, int(causal), 0 if window is None else int(window),
-        int(q_offset), 0.0 if logit_softcap is None else float(logit_softcap),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), b, lq, lk, h, hkv,
+        dh, int(causal), 0 if window is None else int(window),
+        int(q_offset), nsplit, per,
+        0.0 if logit_softcap is None else float(logit_softcap),
         float(dh ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "flash_attention_kernel")
     return out

@@ -22,9 +22,19 @@ kernel paths, from the reference's own cache and from the port's, and the
 blocking prefill with ``attn_impl`` naive, chunked (small ``attn_chunk``)
 and flash, into a ring and into a paged row.
 
+Tensor-core arithmetic: the flash kernel's products run in three TF32
+products with fp32 accumulation (hi/lo split of each operand).  A CPU
+model of that arithmetic (TF32 rounding emulated here, tiled online
+softmax as the kernel's) stays within the card tests' tolerance of an
+fp64 reference at whisper's, qwen2's and gemma's head dims, where one
+plain TF32 product does not.
+
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card at these shapes, ragged and fully masked ones
-included, and at qwen2-1.5b's widths.  The card's machine has no JAX, so
+included, at qwen2-1.5b's widths, at whisper-small's two attention shapes
+(the second splits the key axis), at gemma-2b's heads (Dh 256, one KV
+head), at head dims that pad to the mma depth, and bit for bit over two
+calls.  The card's machine has no JAX, so
 the reference is imported inside the CPU tests only (``_reference``):
 ``pytest --noconftest -m cuda`` runs there.
 """
@@ -219,6 +229,80 @@ def test_decode_splits_cover_the_cache():
     assert splits(4, 2, 124) == (8, 16)
 
 
+# ------------------------------------------ the kernel's TF32 arithmetic
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round fp32 to 10 mantissa bits, ties away from
+    zero (the magnitude's half ulp added to the bits, then truncated)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, passes):
+    """fp32-accumulated a @ b of TF32 operands: one product of the rounded
+    operands (plain TF32), or hi*hi + hi*lo + lo*hi (the kernel's 3xTF32:
+    hi = tf32(x), lo = tf32(x - hi)); products of TF32 values are exact
+    in fp32, so fp32 matmuls of them model the tensor core."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_attention(q, k, v, passes, block_k=64):
+    """Bidirectional attention for one head, q (L, Dh), k, v (Lk, Dh), the
+    kernel's way: Q pre-scaled, tiles of ``block_k`` keys, online softmax
+    in fp32 (log2 units), P unnormalised through the same products."""
+    q = q * q.shape[-1] ** -0.5
+    m = torch.full((q.shape[0], 1), -torch.inf)
+    l = torch.zeros((q.shape[0], 1))
+    o = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], block_k):
+        s = _split_mm(q, k[k0:k0 + block_k].T, passes) * 1.4426950408889634
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _split_mm(p, v[k0:k0 + block_k], passes)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("lq,dh", [(1500, 64), (116, 128), (256, 256)])
+def test_3xtf32_attention_keeps_fp32_accuracy(lq, dh):
+    """The split keeps fp32's accuracy where plain TF32 breaks the card
+    tests' tolerance (whisper's encoder, qwen2-1.5b's and gemma's head
+    dims)."""
+    rng = np.random.default_rng(lq)
+    q, k, v = (torch.as_tensor(rng.standard_normal((lq, dh), np.float32))
+               for _ in range(3))
+    s = (q.double() * dh ** -0.5) @ k.double().T
+    want = torch.softmax(s, -1) @ v.double()
+    got = _tf32_attention(q, k, v, passes=3)
+    torch.testing.assert_close(got.double(), want, **ATT_TOL)
+    plain = _tf32_attention(q, k, v, passes=1)
+    assert not torch.allclose(plain.double(), want, **ATT_TOL)
+
+
+def test_flash_splits_fill_the_card():
+    """The key-split policy: whole tiles, no empty split, a split only
+    where the query tiles leave SMs idle."""
+    from repro_torch.kernels.flash_attention import TILES, padded_head_dim, \
+        splits
+    assert [padded_head_dim(d) for d in (4, 12, 20, 32, 64, 96, 128, 256)] \
+        == [32, 32, 32, 32, 64, 128, 128, 256]
+    for b, lq, lk, h, dh in [(4, 100, 1500, 12, 64), (4, 1500, 1500, 12, 64),
+                             (4, 116, 116, 12, 128), (1, 1, 5, 1, 256),
+                             (2, 9, 37, 8, 256), (1, 64, 4096, 2, 20)]:
+        n, per = splits(b, lq, lk, h, dh)
+        tiles = -(-lk // TILES[padded_head_dim(dh)][0])
+        assert n * per >= tiles > (n - 1) * per
+    assert splits(4, 100, 1500, 12, 64) == (6, 8)      # whisper's cross
+    assert splits(4, 1500, 1500, 12, 64) == (1, 47)    # whisper's encoder
+    assert splits(4, 116, 116, 12, 128) == (3, 3)      # qwen2's prefill
+
+
 # ----------------------------------------------------------- the model
 
 def _ref_params(R, n, seed=0):
@@ -395,3 +479,48 @@ def test_dense_kernels_reject_other_dtypes_on_card(cuda):
     pos = torch.arange(4, device=cuda, dtype=torch.int32)
     with pytest.raises(ValueError, match="fp32"):
         ops.decode_attention(q[:, :1], k, k, pos, q_pos=3)
+
+
+def _dense_inputs(cuda, rng, lq, lk, h, hkv, dh, b=2):
+    def r(*s):
+        return torch.as_tensor(rng.standard_normal(s, np.float32),
+                               device=cuda)
+    return r(b, lq, h, dh), r(b, lk, hkv, dh), r(b, lk, hkv, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,kw", [(1500, {}), (100, {})],
+                         ids=["encoder", "cross"])
+def test_flash_attention_whisper_shapes_on_card(cuda, lq, kw):
+    """whisper-small's encoder (bidirectional L=1500) and cross-attention
+    (Lq 100 over 1500 frames: the key axis is split over blocks), 12 heads
+    of 64, bit for bit over two calls."""
+    q, k, v = _dense_inputs(cuda, np.random.default_rng(3), lq, 1500, 12,
+                            12, 64)
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got, ref.flash_attention_ref(q, k, v, causal=False), **ATT_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh,kw", [
+    (116, 116, 256, {}),                              # gemma-2b's heads
+    (9, 37, 256, dict(q_offset=28)),
+    (70, 70, 12, {}),                                 # Dh padded to 32
+    (100, 130, 20, dict(causal=False, logit_softcap=5.0)),
+    (96, 96, 128, dict(window=17)),                   # windowed
+    (80, 37, 128, dict(q_offset=36, window=3)),       # fully masked rows
+], ids=["gemma_causal", "gemma_offset", "dh12", "dh20_softcap", "window",
+        "fully_masked"])
+def test_flash_attention_head_dims_on_card(cuda, lq, lk, dh, kw):
+    """Dh 256 over one KV head (8 heads), the head dims that pad to the mma
+    depth, and a windowed and a fully masked case with Lq >= 64 (several
+    warps of a block), bit for bit over two calls."""
+    h, hkv = (8, 1) if dh == 256 else (4, 2)
+    q, k, v = _dense_inputs(cuda, np.random.default_rng(dh), lq, lk, h, hkv,
+                            dh)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw),
+                               **ATT_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, **kw))

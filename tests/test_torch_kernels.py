@@ -31,8 +31,10 @@ tolerance (``tests/test_kernels.py`` test_mux_combine: fp32 2e-5, bf16
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
 widths, for every storage kind; the mux-combine kernel in fp32 and bf16
-at odd T and D, at N 1 to 10, and at whisper-small's encoder entry; the demux with its LN entry at
-rwkv6-7b's width; the RWKV6 kernel against the chunkwise plain version
+at odd T and D, at N 1 to 10, and at whisper-small's encoder entry; the
+demux at T 32 and 40 (two row jobs) at d 1536, without its exit
+LayerNorm, with its LN entry at rwkv6-7b's width, and bit for bit over
+two calls; the RWKV6 kernel against the chunkwise plain version
 (the reference's chunk rule) and the sequential oracle at the reference
 suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, one
 100-token chunk, chunks of 32, head dims 16 / 32 / 128, strong and weak
@@ -504,9 +506,33 @@ def test_mux_embed_kernel_on_card(cuda, n, t, vocab, d):
                                atol=1e-5, rtol=1e-5)
 
 
+def test_demux_plan_streams_each_weight_once():
+    """The demux kernels' split: slices cover the reduction axes with none
+    empty, whole ring stages, at most 32 slices of D (one lane each), and
+    a block's staged rows and ring inside three blocks an SM."""
+    from repro_torch.kernels import demux_rsa as kd
+    for t, n, d, f, entry in [(4, 2, 1536, 3072, "rms"),
+                              (32, 2, 1536, 3072, "rms"),
+                              (32, 2, 4096, 8192, "ln"),
+                              (4, 2, 768, 1536, "ln"), (40, 2, 1536, 3072,
+                                                        None),
+                              (5, 2, 64, 100, "rms"), (3, 35, 64, 128, "ln")]:
+        p = kd.plan(t, n, d, f, entry)
+        for depth, s, ln in [(d, p["s1"], p["len1"]), (f, p["s2"], p["len2"])]:
+            assert ln % kd.DEPTH == 0 and s * ln >= depth > (s - 1) * ln
+        assert p["s1"] <= kd.MAX_SPLIT
+        naff = 2 if entry == "ln" else 0
+        rows1 = max(min(t, kd.ROWS_H) + naff, min(n, kd.ROWS_H))
+        assert kd.RING_BYTES + 4 * rows1 * (p["len1"] + 4) <= kd.BLOCK_SMEM
+        assert p["zp"] == p["s1"] * (t + naff + n) * f
+        assert p["st"] % 4 == 0 and p["g"] == n * t * f
+    assert kd.plan(4, 2, 1536, 3072, "rms")["s1"] == 2      # one wave
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d,f", [(4, 64, 128), (5, 64, 100),
-                                   (4, 1536, 3072), (33, 1536, 3072)])
+                                   (4, 1536, 3072), (33, 1536, 3072),
+                                   (32, 1536, 3072), (40, 1536, 3072)])
 def test_demux_rsa_kernel_on_card(cuda, t, d, f):
     args, norms = _demux_inputs(t, d=d, f=f)
     a = _torch(args, cuda)
@@ -646,3 +672,29 @@ def test_rwkv6_kernel_state_chaining_on_card(cuda):
     torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, atol=1e-4,
                                rtol=0)
     torch.testing.assert_close(s2, s_full, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["rms", "ln"])
+def test_demux_rsa_without_exit_ln_on_card(cuda, entry):
+    """No exit LayerNorm (the third launch writes y + b2), at d 1536."""
+    args, norms = _demux_inputs(32, d=1536, f=3072, entry=entry)
+    a = _torch(args, cuda)
+    nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
+          for k, v in norms.items() if not k.startswith("exit")}
+    torch.testing.assert_close(ops.demux_rsa(*a, **nm),
+                               ref.demux_rsa_fused_ref(*a, **nm),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,f,entry", [(32, 1536, 3072, "rms"),
+                                         (4, 4096, 8192, "ln")])
+def test_demux_rsa_is_bitwise_repeatable_on_card(cuda, t, d, f, entry):
+    """The split partials are added in a fixed order whichever block
+    arrives last: two calls give the same bits."""
+    args, norms = _demux_inputs(t, d=d, f=f, entry=entry)
+    a = _torch(args, cuda)
+    nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
+          for k, v in norms.items()}
+    assert torch.equal(ops.demux_rsa(*a, **nm), ops.demux_rsa(*a, **nm))
