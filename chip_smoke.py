@@ -341,7 +341,7 @@ def phase_kernels(torch, timer):
         want = ref.paged_prefill_attention_ref(q, k_p, v_p, bt, pp, qs_t,
                                                ql_t)
         timing = None
-        if i == 0:
+        if i < 2:                       # the chunk and a 4-token bucket
             li = torch.arange(lq, device=dev)[None]
             qrows = qs_t[:, None] + li
             masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)

@@ -84,11 +84,12 @@ def build_all() -> dict:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
-        # q, kp, vp, ksc, vsc, bt, ppos, q_pos, out; kind, B, H, Hkv, Dh,
-        # BS, MB, causal, window; scale; stream
-        "paged_attention_decode": [_P] * 9 + [_I] * 9 + [_F, _P],
-        # ... q_start, q_len, out; kind, B, Lq, H, ...
-        "paged_attention_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
+        # q, kp, vp, ksc, vsc, bt, ppos, q_pos, out, part_o, part_ml; kind,
+        # B, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len; scale;
+        # stream
+        "paged_attention_decode": [_P] * 11 + [_I] * 11 + [_F, _P],
+        # ... q_start, q_len, out, part_o, part_ml; kind, B, Lq, H, ...
+        "paged_attention_prefill": [_P] * 12 + [_I] * 12 + [_F, _P],
     },
     "demux_rsa": {
         # h, k, entry_scale, entry_bias, w1h, w1k, b1, w2, b2, exit_scale,

@@ -28,7 +28,8 @@
 // the result has fp32's accuracy (~2e-7 at L = 1500).  Both products (Q
 // K^T and P V) take the split on both operands.
 //
-// Design.
+// Design.  The tile step (S = Q K^T, the online softmax, O += P V) and the
+// split merge are in attn_tile.cuh, shared with paged_attention.cu.
 //  * mma.sync.m16n8k8 TF32 with fp32 accumulators (FA2 layout).  A block
 //    is four warps over one (row, head); each warp holds MT m-tiles of 16
 //    query rows: MT = 2 at Dh <= 64 (128 rows a block), 1 above (64 rows,
@@ -63,14 +64,12 @@
 //    unnormalised (acc, m, l) and flash_combine_kernel merges them in
 //    split order by their log-sum-exp (deterministic, no atomics), as
 //    decode_attention.cu merges its splits.
-#include "tf32.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr float kNegMask = -1073741824.0f;     // -2**30, as the reference
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;
@@ -82,14 +81,6 @@ struct Args {
   int B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset, nsplit, split_tiles;
   float scale, softcap;     // softcap <= 0: none
 };
-
-// per padded head dim: keys per tile, blocks an SM (for launch bounds),
-// m-tiles of 16 query rows a warp
-template <int D> struct Cfg;
-template <> struct Cfg<32> { static constexpr int BK = 64, kMinBlocks = 2, MT = 2; };
-template <> struct Cfg<64> { static constexpr int BK = 32, kMinBlocks = 2, MT = 2; };
-template <> struct Cfg<128> { static constexpr int BK = 16, kMinBlocks = 2, MT = 1; };
-template <> struct Cfg<256> { static constexpr int BK = 16, kMinBlocks = 1, MT = 1; };
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -229,46 +220,17 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     const float* sk = skv + (it & 1) * 2 * BK * LD;
     const float* sv = sk + BK * LD;
 
-    // S = Q K^T; each K fragment, split once, serves the MT m-tiles
+    // S = Q K^T
     float s[MT][NT][4];
+    tile_scores<MT, NT, DT, LD>(
+        s, qh, ql, [&](int r, int c) { return sk[r * LD + c]; });
+
+    // softcap, mask (log2 units), online softmax, O += P V
+    const int k0 = kt * BK;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        s[m][j][0] = s[m][j][1] = s[m][j][2] = s[m][j][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < DT; ++kd) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int o16 = 16 * m * LD + 8 * kd;
-        ah[m][0] = __float_as_uint(qh[o16]);
-        ah[m][1] = __float_as_uint(qh[o16 + 8 * LD]);
-        ah[m][2] = __float_as_uint(qh[o16 + 4]);
-        ah[m][3] = __float_as_uint(qh[o16 + 8 * LD + 4]);
-        al[m][0] = __float_as_uint(ql[o16]);
-        al[m][1] = __float_as_uint(ql[o16 + 8 * LD]);
-        al[m][2] = __float_as_uint(ql[o16 + 4]);
-        al[m][3] = __float_as_uint(ql[o16 + 8 * LD + 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float* kr = sk + (8 * j + g) * LD + 8 * kd + t;
-        uint32_t bh[2], bl[2];
-        split(kr[0], bh[0], bl[0]);
-        split(kr[4], bh[1], bl[1]);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma3(s[m][j], ah[m], al[m], bh, bl);
-      }
-    }
-
-    // softcap, mask, online softmax in log2 units
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * j + 2 * t + (e & 1);
@@ -278,65 +240,10 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
           bool ok = true;
           if (a.causal) ok = kp <= qp;
           if (a.window > 0) ok = ok && kp > qp - a.window;
-          x = kp >= a.Lk ? -INFINITY : (ok ? x : kNegMask) * kLog2e;
-          s[m][j][e] = x;
-          if (e < 2) mx0 = fmaxf(mx0, x);
-          else mx1 = fmaxf(mx1, x);
+          s[m][j][e] = kp >= a.Lk ? -INFINITY : (ok ? x : kNegMask) * kLog2e;
         }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // every visited tile holds a key < Lk, so the new max is finite
-      const float mn0 = fmaxf(m_run[m][0], mx0), mn1 = fmaxf(m_run[m][1], mx1);
-      const float al0 = exp2f(m_run[m][0] - mn0), al1 = exp2f(m_run[m][1] - mn1);
-      m_run[m][0] = mn0;
-      m_run[m][1] = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        s[m][j][0] = exp2f(s[m][j][0] - mn0);
-        s[m][j][1] = exp2f(s[m][j][1] - mn0);
-        s[m][j][2] = exp2f(s[m][j][2] - mn1);
-        s[m][j][3] = exp2f(s[m][j][3] - mn1);
-        ps0 += s[m][j][0] + s[m][j][1];
-        ps1 += s[m][j][2] + s[m][j][3];
-      }
-      // this thread's columns; quad-summed at the end
-      l_run[m][0] = l_run[m][0] * al0 + ps0;
-      l_run[m][1] = l_run[m][1] * al1 + ps1;
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        o[m][n][0] *= al0;
-        o[m][n][1] *= al0;
-        o[m][n][2] *= al1;
-        o[m][n][3] *= al1;
-      }
-    }
-
-    // O += P V; k-slots (t, t+4) of key group j hold keys (2t, 2t+1); each
-    // V fragment, split once, serves the MT m-tiles
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t ph[MT][4], pl[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        split(s[m][j][0], ph[m][0], pl[m][0]);
-        split(s[m][j][2], ph[m][1], pl[m][1]);
-        split(s[m][j][1], ph[m][2], pl[m][2]);
-        split(s[m][j][3], ph[m][3], pl[m][3]);
-      }
-      const float* vr = sv + (8 * j + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        uint32_t bh[2], bl[2];
-        split(vr[8 * n], bh[0], bl[0]);
-        split(vr[LD + 8 * n], bh[1], bl[1]);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma3(o[m][n], ph[m], pl[m], bh, bl);
-      }
-    }
+    tile_softmax(s, o, m_run, l_run);
+    tile_pv(o, s, [&](int r, int c) { return sv[r * LD + c]; });
     __syncthreads();          // the stage is free for the copy after next
   }
 
@@ -375,23 +282,9 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
 __global__ void __launch_bounds__(kThreads) flash_combine_kernel(Args a) {
   const size_t nrows = (size_t)a.B * a.Lq * a.H;
   const size_t row = (size_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= nrows) return;
-  float m = -INFINITY;
-  for (int s = 0; s < a.nsplit; ++s)
-    m = fmaxf(m, a.part_ml[2 * (s * nrows + row)]);
-  float l = 0.f;
-  for (int s = 0; s < a.nsplit; ++s)
-    l += a.part_ml[2 * (s * nrows + row) + 1] *
-         exp2f(a.part_ml[2 * (s * nrows + row)] - m);
-  const float inv = 1.f / l;
-  for (int d = lane; d < a.Dh; d += 32) {
-    float acc = 0.f;
-    for (int s = 0; s < a.nsplit; ++s)
-      acc += a.part_o[(s * nrows + row) * a.Dh + d] *
-             exp2f(a.part_ml[2 * (s * nrows + row)] - m);
-    a.out[row * a.Dh + d] = acc * inv;
-  }
+  merge_splits(a.part_o, a.part_ml, a.out, nrows, row, a.Dh, a.nsplit,
+               threadIdx.x % 32);
 }
 
 // keys per K tile at head_dim Dh (kernels/flash_attention.py TILES)

@@ -1,8 +1,11 @@
 // Paged attention over a block-table-addressed KV pool, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/paged_attention.py:
-//   paged_attention          (_kernel)          -> paged_decode_kernel
-//   paged_prefill_attention  (_prefill_kernel)  -> paged_prefill_kernel
+//   paged_attention          (_kernel, :54; call :162)
+//       -> paged_decode_kernel on the CUDA cores
+//   paged_prefill_attention  (_prefill_kernel, :172; call :297)
+//       -> paged_chunk_kernel on the tensor cores (3xTF32)
+// and, where a row's table is split, paged_combine_kernel for both.
 //
 // Layouts (as in the reference): q (B, Lq, H, Dh) fp32; pages (P, BS, Hkv,
 // Dh) stored as fp32, bf16, int8 or fp8 e4m3 (the storage kind); for int8
@@ -11,53 +14,80 @@
 // int32 (-1 = empty slot); decode q_pos (B,) (-1 = inactive row); prefill
 // q_start / q_len (B,).
 //
-// Storage.  One body, templated on the page element type; only the shared-
-// memory fill differs.  Each thread loads four elements at a time (float4,
-// two bf162, char4, or four packed e4m3 bytes), converts them to fp32
-// exactly, and for int8 / fp8 multiplies each by its slot's scale before
-// it lands in shared memory: the Pallas body's k.astype(f32) * ks, one
-// rounding, the same bits as core.quant.dequantize_kv.  Scores, softmax
-// and the accumulator are fp32 for every kind.
+// Bound.  Each page a row references is read once per KV head: ~2 * slots *
+// Dh * E bytes (E = 4, 2, 1, 1 for fp32, bf16, int8, fp8; int8 / fp8 add
+// 8 bytes of scales per slot and KV head), against 4 * Dh flops per (query
+// head, visible slot).  At the main path's shapes (qwen2-1.5b: 12 heads
+// over 2 KV heads of 128, pages of 16) that is 0.92 MB and 2.6 MFLOP at
+// decode (4 rows, 426 slots) and 0.59 MB and 16 MFLOP at a 32-token chunk:
+// well under a microsecond of bytes either way.  What bounds both is
+// latency: the launches, two dependent loads (the table, then the pages),
+// and how many pages a block walks in series.
 //
-// Design.  One block per (row, KV head, tile of 16 query rows).  The query
-// rows of a block are the G = H / Hkv grouped heads of that KV head times
-// the Lq chunk positions, so each K/V page is loaded once for all of them
-// (GQA never repeats K/V).  The TPU kernel's sequential grid axis over the
-// row's MB pages becomes a loop inside the block: each page's BS x Dh K and
-// V tiles go to shared memory (float4 loads, neighbouring threads on
-// neighbouring addresses), scores and an online softmax run in fp32, and
-// the output accumulator stays in registers (one head dimension per
-// thread).  Unallocated table entries are clamped to page 0 for the load
-// and masked.  The mask value is the finite -2**30 of the reference, not
-// -inf: a fully masked query (inactive row, bucket padding) then returns
-// the uniform mean of V over the gathered slots, exactly as the Pallas
-// kernel and the plain version do, instead of NaN.
-//
-// Bound.  Each referenced page is read once per KV head, so the kernel
-// moves ~2 * slots * Dh * E bytes per KV head (E = 4, 2, 1, 1 for fp32,
-// bf16, int8, fp8), plus 8 bytes of scales per (slot, KV head) for int8 and
-// fp8, plus q and the output; the work is 4 * Dh flops per (query head,
-// visible slot).  At decode (one query per row) that is ~3 flops per byte
-// at fp32 and ~10 at int8 / fp8: bound by bytes.  A causal 32-token chunk
-// has ~27 flops per byte at fp32 (~100 at int8), above the card's fp32
-// balance (~20), so it is bound by operations.  In practice all are bound by
-// latency: B * Hkv * ceil(G * Lq / 16) blocks (8 at decode, 24 at a
-// one-row chunk) do not fill 132 SMs, and each walks its row's MB pages
-// in series, -1 entries included, with four barriers per page.  Splitting
-// the page loop across blocks (flash-decoding) is the known next step.
+// Design.
+//  * Split page walk.  Block (row, KV head, [query tile,] split) walks a
+//    contiguous run of split_len table entries; the split plan
+//    (kernels/paged_attention.py ``decode_plan`` / ``prefill_plan``) depends
+//    on shapes only (B, H, Hkv, Lq, Dh, MB, BS), never on positions or table
+//    contents, and aims at ~2 blocks an SM (8 splits of one page at the main
+//    path: 64 decode blocks, 48 chunk blocks).  With one split a block
+//    writes the normalised output; with several it writes its unnormalised
+//    (acc, m, l) and paged_combine_kernel merges them per (row, query,
+//    head) by their log-sum-exp, in split order (deterministic, no
+//    atomics).  All three kernels launch with programmatic dependent launch
+//    (Hopper): the combine is scheduled while the split kernel runs and
+//    waits for it with griddepcontrol.wait, so its launch latency hides.
+//  * Pipelined page loads.  A block first copies its run of table entries to
+//    shared memory, then walks the run's slots in tiles (16 slots at decode,
+//    the flash kernel's key tile BK in a chunk) through a two-stage cp.async
+//    ring: tile i + 1 is in flight while tile i is consumed, one barrier a
+//    tile.  A tile is addressed slot by slot (table entry j / BS, slot
+//    j % BS), so it may span pages: any block size works, the CLI's BS = 4
+//    included, with no separate small-page body.  Pages are copied as
+//    stored (raw bytes, 16-, 8- or 4-byte cp.async), so narrow pages move
+//    2-4x fewer bytes.  A narrow tile is widened once, times each slot's
+//    scale, into an fp32 tile between the stages (one more barrier a tile):
+//    the reference's payload.float() * scale, one rounding, the same bits
+//    as core.quant.dequantize_kv.  The warps that share the tile then read
+//    fp32; widening at each read would convert every element once a warp.
+//    The exception is bf16 in the chunk kernel: its fragments widen by a
+//    shift as they read the stage, which measured faster than the extra
+//    pass and barrier.
+//  * Decode: one warp per query head (at most 8 a block; G > 8 splits the
+//    heads over blocks).  Each lane holds Dh / 32 elements of the pre-scaled
+//    q in registers; a slot's score is a shuffle-reduced dot product, and
+//    the online softmax and the output accumulator live in registers.  At
+//    Lq = 1 a 6-row tile cannot fill an m16 tensor-core product.
+//  * Chunk: the flash kernel's tile step (attn_tile.cuh) with a block-table
+//    K/V source: 64 (Dh > 64) or 128 query rows a block, the G grouped heads
+//    times the Lq chunk positions, so each page is loaded once for all of
+//    them; S and P in registers; the products on the tensor cores in the
+//    fp32-exact 3xTF32 split.  The mask comes from page_pos, the table entry
+//    and q_start + li < q_start + q_len.
+//  * Masked queries.  The mask value is the finite -2**30 of the reference:
+//    a query that sees no slot (an inactive row, bucket padding, a window
+//    that excludes everything) returns the uniform mean of V over all MB *
+//    BS gathered slots, -1 entries read as page 0, as the plain version
+//    does.  No page is skipped (not trailing -1 entries, not pages past a
+//    block's last query position or outside the window): each split then
+//    yields m = -2**30, l = its slot count and acc = its V sum for such a
+//    query, and the merge gives the mean.  Slots past a split's run (a
+//    tile's ragged end) are zero-filled and weigh exactly 0 (score -inf).
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "attn_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 16;        // query rows per block
-constexpr int kMaxDpt = 2;       // head dims per thread: Dh <= 256
-constexpr float kNegInf = -1073741824.0f;   // -2**30, as the reference
+constexpr int kDecodeTile = 16;     // slots a decode stage
+constexpr int kMaxHeads = 8;        // query heads (warps) a decode block
+constexpr int kChunkWarps = 4;
+constexpr int kChunkThreads = 32 * kChunkWarps;
+constexpr int kMaxSmem = 232448;    // an H100 block's shared memory
 
 struct Args {
   const float* q;
@@ -70,40 +100,53 @@ struct Args {
   const int* q_start;   // decode: q_pos
   const int* q_len;     // decode: nullptr (one valid query per row)
   float* out;
-  int B, Lq, H, Hkv, Dh, BS, MB, causal, window;
+  float* part_o;        // (nsplit, B, Lq, H, Dh) unnormalised; nsplit == 1: unused
+  float* part_ml;       // (nsplit, B, Lq, H, 2) running max (log2 units), sum
+  int B, Lq, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len;
   float scale;
 };
 
-// four consecutive page elements (16-, 8- or 4-byte aligned) -> fp32, exact
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <typename T>
+constexpr bool kQuantized =
+    std::is_same<T, int8_t>::value || std::is_same<T, __nv_fp8_e4m3>::value;
+template <typename T>
+constexpr bool kNarrow = !std::is_same<T, float>::value;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+
+// four consecutive stored elements (8- or 4-byte aligned) -> fp32, exact
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-__device__ __forceinline__ float4 load4(const int8_t* p) {
+__device__ __forceinline__ float4 widen4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
-__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
+__device__ __forceinline__ float4 widen4(const __nv_fp8_e4m3* p) {
   return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
 }
 
-template <typename T>
-constexpr bool kQuantized =
-    std::is_same<T, int8_t>::value || std::is_same<T, __nv_fp8_e4m3>::value;
-
-__device__ __forceinline__ float4 scaled(float4 v, float s) {
-  v.x *= s; v.y *= s; v.z *= s; v.w *= s;
-  return v;
+// N bytes global -> shared (N = 4, 8, 16), zero-filled when !valid
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(N), "r"(valid ? N : 0));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// programmatic dependent launch (launch_pdl): wait for the previous kernel
+// in the stream to complete before reading anything, and let the next one
+// (the combine) be scheduled now
+__device__ __forceinline__ void pdl_enter() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -111,212 +154,561 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_bytes(int Dh, int BS) {
-  const int ldk = Dh + 4;
-  return sizeof(float) * (size_t)(kRows * ldk + BS * ldk + BS * Dh +
-                                  kRows * BS + 3 * kRows) +
-         sizeof(int) * (size_t)BS;
+// One stage of the ring: K and V rows of n slots (stored type, row_bytes
+// apart), then per slot its position, its flag (-1: past the split's run,
+// 0: an unallocated entry, read as page 0 and masked, 1: a page) and, for
+// int8 / fp8, its K and V scales.
+struct Stage {
+  char* k;
+  char* v;
+  int* pos;
+  int* flag;
+  float* ks;
+  float* vs;
+};
+
+__host__ __device__ constexpr int stage_bytes(int n, int row_bytes) {
+  return 2 * n * row_bytes + 4 * n * 4;
 }
 
+__device__ __forceinline__ Stage stage_at(char* base, int n, int row_bytes) {
+  Stage s;
+  s.k = base;
+  s.v = base + n * row_bytes;
+  s.pos = reinterpret_cast<int*>(base + 2 * n * row_bytes);
+  s.flag = s.pos + n;
+  s.ks = reinterpret_cast<float*>(s.flag + n);
+  s.vs = s.ks + n;
+  return s;
+}
+
+// Issue the copies of slots [s0, s0 + n) of the split's run (nslots slots;
+// spage holds the run's table entries) into stage st.  K/V by cp.async in
+// the largest of 16, 8, 4 bytes that divides a stored row; flags by plain
+// stores (visible after the next barrier).
 template <typename T>
-__device__ void paged_attention_body(const Args& a) {
-  const T* kp = static_cast<const T*>(a.kp);
-  const T* vp = static_cast<const T*>(a.vp);
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+__device__ void stage_tile(const Args& a, const int* spage, int kvh, int s0,
+                           int n, int nslots, int ld_bytes, const Stage& st) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int rowb = a.Dh * (int)sizeof(T);
+  const int cb = rowb % 16 == 0 ? 16 : rowb % 8 == 0 ? 8 : 4;
+  const int nc = rowb / cb;
+  for (int i = tid; i < n * nc; i += nthr) {
+    const int r = i / nc, c = i % nc, j = s0 + r;
+    const bool ok = j < nslots;
+    const int page = ok ? max(spage[j / a.BS], 0) : 0;
+    const size_t sh =
+        ((size_t)page * a.BS + (ok ? j % a.BS : 0)) * a.Hkv + kvh;
+    const size_t off = sh * rowb + (size_t)c * cb;
+    const char* ks = static_cast<const char*>(a.kp) + off;
+    const char* vs = static_cast<const char*>(a.vp) + off;
+    char* dk = st.k + r * ld_bytes + c * cb;
+    char* dv = st.v + r * ld_bytes + c * cb;
+    if (cb == 16) {
+      cp_async_ca<16>(dk, ks, ok);
+      cp_async_ca<16>(dv, vs, ok);
+    } else if (cb == 8) {
+      cp_async_ca<8>(dk, ks, ok);
+      cp_async_ca<8>(dv, vs, ok);
+    } else {
+      cp_async_ca<4>(dk, ks, ok);
+      cp_async_ca<4>(dv, vs, ok);
+    }
+  }
+  for (int r = tid; r < n; r += nthr) {
+    const int j = s0 + r;
+    const bool ok = j < nslots;
+    const int e = ok ? spage[j / a.BS] : -1;
+    const size_t ps = (size_t)max(e, 0) * a.BS + (ok ? j % a.BS : 0);
+    cp_async_ca<4>(st.pos + r, a.ppos + ps, ok);
+    st.flag[r] = ok ? (e >= 0) : -1;
+    if constexpr (kQuantized<T>) {
+      cp_async_ca<4>(st.ks + r, a.ksc + ps * a.Hkv + kvh, ok);
+      cp_async_ca<4>(st.vs + r, a.vsc + ps * a.Hkv + kvh, ok);
+    }
+  }
+}
+
+// Widen a landed stage of n narrow slots (stored rows ld_in elements apart,
+// cols elements each, a multiple of 4) into fp32 rows ld_out floats apart,
+// times each slot's scale for int8 / fp8: the reference's payload.float()
+// * scale, one rounding.  Once a tile for the whole block, so the warps that
+// share the tile read fp32 and convert nothing.
+template <typename T>
+__device__ void widen_tile(const Stage& st, int n, int cols, int ld_in,
+                           int ld_out, float* wk, float* wv) {
+  const T* sk = reinterpret_cast<const T*>(st.k);
+  const T* sv = reinterpret_cast<const T*>(st.v);
+  const int c4 = cols / 4;
+  for (int i = threadIdx.x; i < n * c4; i += blockDim.x) {
+    const int r = i / c4, c = 4 * (i % c4);
+    float4 k = widen4(sk + r * ld_in + c), v = widen4(sv + r * ld_in + c);
+    if constexpr (kQuantized<T>) {
+      const float ks = st.ks[r], vs = st.vs[r];
+      k.x *= ks; k.y *= ks; k.z *= ks; k.w *= ks;
+      v.x *= vs; v.y *= vs; v.z *= vs; v.w *= vs;
+    }
+    *reinterpret_cast<float4*>(wk + r * ld_out + c) = k;
+    *reinterpret_cast<float4*>(wv + r * ld_out + c) = v;
+  }
+}
+
+// the masked score in log2 units (see the note): -inf past the run, the
+// finite mask value where the slot is not visible to a query at qp
+__device__ __forceinline__ float masked(float s, int flag, int pos, int qp,
+                                        const Args& a) {
+  bool ok = flag > 0 && pos >= 0 && qp >= 0;
+  if (a.causal) ok = ok && pos <= qp;
+  if (a.window > 0) ok = ok && pos > qp - a.window;
+  return flag < 0 ? -INFINITY : (ok ? s : kNegMask) * kLog2e;
+}
+
+// the run of table entries of split blockIdx.z into shared memory
+__device__ __forceinline__ int load_run(const Args& a, int b, int* spage) {
+  const int e0 = blockIdx.z * a.split_len;
+  const int ne = min(a.MB - e0, a.split_len);
+  for (int i = threadIdx.x; i < ne; i += blockDim.x)
+    spage[i] = a.bt[(size_t)b * a.MB + e0 + i];
+  return ne;
+}
+
+// -------------------------------------------------------------- decode
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kMaxHeads) paged_decode_kernel(Args a) {
+  constexpr int NT = kDecodeTile;
   const int G = a.H / a.Hkv;
-  const int r0 = blockIdx.z * kRows;
-  const int rows = min(kRows, G * a.Lq - r0);
-  const int ldk = a.Dh + 4;      // padded row stride: fewer bank conflicts
+  const int groups = gridDim.y / a.Hkv, hg = blockDim.x / 32;
+  const int b = blockIdx.x, kvh = blockIdx.y / groups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = (blockIdx.y % groups) * hg + warp;
+  const bool active = g < G;
+  const int head = kvh * G + min(g, G - 1);
+  const int rowb = a.Dh * (int)sizeof(T);
   const int d4 = a.Dh / 4;
 
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // kRows x ldk, pre-scaled q
-  float* sk = sq + kRows * ldk;                 // BS x ldk
-  float* sv = sk + a.BS * ldk;                  // BS x Dh
-  float* sp = sv + a.BS * a.Dh;                 // kRows x BS scores / probs
-  float* sm = sp + kRows * a.BS;                // running max
-  float* sl = sm + kRows;                       // running sum
-  float* salpha = sl + kRows;                   // per-page rescale
-  int* spos = reinterpret_cast<int*>(salpha + kRows);
-  __shared__ int sqpos[kRows];                  // query position, -1 = masked
+  char* base = reinterpret_cast<char*>(smem4);
+  const int sb = stage_bytes(NT, rowb);
+  float* wk = reinterpret_cast<float*>(base + 2 * sb);   // narrow: widened
+  float* wv = wk + NT * a.Dh;
+  int* spage = reinterpret_cast<int*>(
+      base + 2 * sb + (kNarrow<T> ? 2 * NT * a.Dh * 4 : 0));
+  pdl_enter();
 
-  const int qs = a.q_start[b];
-  const int ql = a.q_len ? a.q_len[b] : 1;
-  if (tid < kRows) {
-    const int li = (r0 + tid) / G;
-    sqpos[tid] = (tid < rows && qs >= 0 && li < ql) ? qs + li : -1;
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
+  // this lane's 4-element groups c = lane, lane + 32 of the pre-scaled q
+  float4 qv[2], acc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = lane + 32 * i;
+    qv[i] = acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d4) {
+      qv[i] = reinterpret_cast<const float4*>(
+          a.q + ((size_t)b * a.H + head) * a.Dh)[c];
+      qv[i].x *= a.scale; qv[i].y *= a.scale;
+      qv[i].z *= a.scale; qv[i].w *= a.scale;
+    }
   }
-  // row r of the tile is query (li, g) = divmod(r0 + r, G): head kvh*G + g
-  for (int i = tid; i < rows * d4; i += kThreads) {
-    const int r = i / d4, c = i % d4;
-    const int gr = r0 + r, li = gr / G, head = kvh * G + gr % G;
-    float4 v = reinterpret_cast<const float4*>(
-        a.q + ((size_t)(b * a.Lq + li) * a.H + head) * a.Dh)[c];
-    v.x *= a.scale; v.y *= a.scale; v.z *= a.scale; v.w *= a.scale;
-    reinterpret_cast<float4*>(sq + r * ldk)[c] = v;
-  }
+  const int qp = a.q_start[b];
+  float m_run = -INFINITY, l_run = 0.f;
 
-  float acc[kRows][kMaxDpt];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) acc[r][j] = 0.f;
+  const int nslots = load_run(a, b, spage) * a.BS;
+  const int ntiles = (nslots + NT - 1) / NT;
+  __syncthreads();
+  stage_tile<T>(a, spage, kvh, 0, NT, nslots, rowb, stage_at(base, NT, rowb));
+  cp_async_commit();
 
-  for (int jb = 0; jb < a.MB; ++jb) {
-    const int page = a.bt[b * a.MB + jb];
-    const int pc = max(page, 0);
-    __syncthreads();             // previous page's tiles fully consumed
-    for (int i = tid; i < a.BS * d4; i += kThreads) {
-      const int s = i / d4, c = i % d4;
-      const size_t sh = (size_t)(pc * a.BS + s) * a.Hkv + kvh;  // (slot, head)
-      const size_t off = sh * a.Dh + 4 * c;
-      float4 kv = load4(kp + off), vv = load4(vp + off);
-      if constexpr (kQuantized<T>) {   // fused dequant: payload * scale
-        kv = scaled(kv, a.ksc[sh]);
-        vv = scaled(vv, a.vsc[sh]);
-      }
-      reinterpret_cast<float4*>(sk + s * ldk)[c] = kv;
-      reinterpret_cast<float4*>(sv + s * a.Dh)[c] = vv;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();     // tile it landed; tile it - 1's stage is free
+    if (it + 1 < ntiles) {
+      stage_tile<T>(a, spage, kvh, (it + 1) * NT, NT, nslots, rowb,
+                    stage_at(base + ((it + 1) & 1) * sb, NT, rowb));
+      cp_async_commit();
     }
-    for (int s = tid; s < a.BS; s += kThreads) spos[s] = a.ppos[pc * a.BS + s];
-    __syncthreads();
-
-    // scores: one (query row, slot) dot product per thread
-    for (int p = tid; p < rows * a.BS; p += kThreads) {
-      const int r = p / a.BS, s = p % a.BS;
-      const float4* qr = reinterpret_cast<const float4*>(sq + r * ldk);
-      const float4* kr = reinterpret_cast<const float4*>(sk + s * ldk);
-      float dot = 0.f;
-      for (int c = 0; c < d4; ++c) {
-        const float4 x = qr[c], y = kr[c];
-        dot += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-      }
-      const int pos = spos[s], qp = sqpos[r];
-      bool ok = pos >= 0 && page >= 0 && qp >= 0;
-      if (a.causal) ok = ok && pos <= qp;
-      if (a.window > 0) ok = ok && pos > qp - a.window;
-      sp[r * a.BS + s] = ok ? dot : kNegInf;
+    const Stage st = stage_at(base + (it & 1) * sb, NT, rowb);
+    const float* sk = reinterpret_cast<const float*>(st.k);
+    const float* sv = reinterpret_cast<const float*>(st.v);
+    if constexpr (kNarrow<T>) {
+      widen_tile<T>(st, NT, a.Dh, a.Dh, a.Dh, wk, wv);
+      __syncthreads();
+      sk = wk;
+      sv = wv;
     }
-    __syncthreads();
+    if (!active) continue;
 
-    // online softmax: one warp per query row
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float mx = kNegInf;
-      for (int s = lane; s < a.BS; s += 32) mx = fmaxf(mx, sp[r * a.BS + s]);
-      const float m_prev = sm[r];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int s = lane; s < a.BS; s += 32) {
-        const float e = expf(sp[r * a.BS + s] - m_new);
-        sp[r * a.BS + s] = e;
-        sum += e;
+    float s[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;
+        if (c < d4) {
+          const float4 k4 =
+              reinterpret_cast<const float4*>(sk + j * a.Dh)[c];
+          part += qv[i].x * k4.x + qv[i].y * k4.y + qv[i].z * k4.z +
+                  qv[i].w * k4.w;
+        }
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sl[r] = sl[r] * alpha + sum;
-        sm[r] = m_new;
-        salpha[r] = alpha;
-      }
+      s[j] = part;
     }
-    __syncthreads();
-
+    float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) {
-      const int d = tid + j * kThreads;
-      if (d >= a.Dh) continue;
+    for (int j = 0; j < NT; ++j) {
+      s[j] = masked(warp_sum(s[j]), st.flag[j], st.pos[j], qp, a);
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f(m_run - m_new);
+    m_run = m_new;
+    l_run *= alpha;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= rows) break;
-        float v = acc[r][j] * salpha[r];
-        for (int s = 0; s < a.BS; ++s) v += sp[r * a.BS + s] * sv[s * a.Dh + d];
-        acc[r][j] = v;
+    for (int i = 0; i < 2; ++i) {
+      acc[i].x *= alpha; acc[i].y *= alpha;
+      acc[i].z *= alpha; acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p = exp2f(s[j] - m_new);
+      l_run += p;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;
+        if (c < d4) {
+          const float4 v4 =
+              reinterpret_cast<const float4*>(sv + j * a.Dh)[c];
+          acc[i].x += p * v4.x; acc[i].y += p * v4.y;
+          acc[i].z += p * v4.z; acc[i].w += p * v4.w;
+        }
       }
     }
   }
+  if (!active) return;
 
+  const size_t nrows = (size_t)a.B * a.H, row = (size_t)b * a.H + head;
+  const bool part = a.nsplit > 1;
+  const float inv = part ? 1.f : 1.f / l_run;
+  float* dst = part ? a.part_o + (blockIdx.z * nrows + row) * a.Dh
+                    : a.out + row * a.Dh;
 #pragma unroll
-  for (int j = 0; j < kMaxDpt; ++j) {
-    const int d = tid + j * kThreads;
-    if (d >= a.Dh) continue;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r >= rows) break;
-      const int gr = r0 + r, li = gr / G, head = kvh * G + gr % G;
-      a.out[((size_t)(b * a.Lq + li) * a.H + head) * a.Dh + d] =
-          acc[r][j] / fmaxf(sl[r], 1e-30f);
+  for (int i = 0; i < 2; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d4)
+      reinterpret_cast<float4*>(dst)[c] = make_float4(
+          acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
+  }
+  if (part && lane == 0) {
+    a.part_ml[2 * (blockIdx.z * nrows + row)] = m_run;
+    a.part_ml[2 * (blockIdx.z * nrows + row) + 1] = l_run;
+  }
+}
+
+// --------------------------------------------------------------- chunk
+
+// stored K/V rows of the chunk kernel: D elements and 16 bytes of padding,
+// so the fragment loads are free of bank conflicts for every element size
+template <typename T, int D>
+constexpr int kChunkLd = D + 16 / (int)sizeof(T);
+
+// Q hi and lo, two stages, the widened K and V tile (int8 / fp8), the run
+// of table entries
+template <typename T, int D>
+constexpr int chunk_smem(int split_len) {
+  return 2 * 16 * kChunkWarps * Cfg<D>::MT * (D + 4) * 4 +
+         2 * stage_bytes(Cfg<D>::BK, kChunkLd<T, D> * (int)sizeof(T)) +
+         (kQuantized<T> ? 2 * Cfg<D>::BK * (D + 4) * 4 : 0) + 4 * split_len;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
+    paged_chunk_kernel(Args a) {
+  constexpr int BK = Cfg<D>::BK, MT = Cfg<D>::MT, LD = D + 4;
+  constexpr int LDS = kChunkLd<T, D>, ROWB = LDS * (int)sizeof(T);
+  constexpr int BQ = 16 * kChunkWarps * MT;     // query rows a block
+  constexpr int NT = BK / 8, DT = D / 8;        // key groups, head-dim groups
+  constexpr int SB = stage_bytes(BK, ROWB);
+  extern __shared__ float4 smem4[];
+  float* sqh = reinterpret_cast<float*>(smem4);   // BQ x LD, tf32 hi
+  float* sql = sqh + BQ * LD;                     // BQ x LD, tf32 lo
+  char* stages = reinterpret_cast<char*>(sql + BQ * LD);
+  float* wk = reinterpret_cast<float*>(stages + 2 * SB);  // int8 / fp8
+  float* wv = wk + BK * LD;
+  int* spage = reinterpret_cast<int*>(
+      stages + 2 * SB + (kQuantized<T> ? 2 * BK * LD * 4 : 0));
+
+  const int G = a.H / a.Hkv, nq = G * a.Lq;       // query rows of a KV head
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int dq = a.Dh / 4;
+  pdl_enter();
+
+  // Q: tile row r is query (li, g') = divmod(q0 + r, G), head kvh * G + g'
+  for (int i = tid; i < BQ * dq; i += kChunkThreads) {
+    const int r = i / dq, c = i % dq, gr = q0 + r;
+    const bool ok = gr < nq;
+    const int li = ok ? gr / G : 0, head = kvh * G + (ok ? gr % G : 0);
+    cp_async16(sqh + r * LD + 4 * c,
+               a.q + (((size_t)b * a.Lq + li) * a.H + head) * a.Dh + 4 * c,
+               ok);
+  }
+  cp_async_commit();
+  // zero the padded head-dim columns [Dh, D) of Q and of every stored K/V
+  // row (no copy writes them; Q's zeros make K's harmless, V's only reach
+  // unstored columns)
+  if (a.Dh < D) {
+    const int pc = D - a.Dh;
+    for (int i = tid; i < 2 * BQ * pc; i += kChunkThreads)
+      sqh[(i / pc) * LD + a.Dh + i % pc] = 0.f;
+    const int bytes = pc * (int)sizeof(T) / 4;     // 4-byte words a row
+    const int lo = a.Dh * (int)sizeof(T);
+    for (int i = tid; i < 2 * 2 * BK * bytes; i += kChunkThreads) {
+      const int r = i / bytes, w = i % bytes;      // r: stage, K|V, row
+      char* row = stages + (r / (2 * BK)) * SB + (r % (2 * BK)) * ROWB;
+      reinterpret_cast<int*>(row + lo)[w] = 0;
     }
   }
+  const int nslots = load_run(a, b, spage) * a.BS;
+  const int ntiles = (nslots + BK - 1) / BK;
+  __syncthreads();
+  stage_tile<T>(a, spage, kvh, 0, BK, nslots, ROWB, stage_at(stages, BK, ROWB));
+  cp_async_commit();
+
+  // Q: scale, then split once into hi and lo
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int i = tid; i < BQ * D; i += kChunkThreads) {
+    const int r = i / D, c = i % D;
+    uint32_t hi, lo;
+    split(sqh[r * LD + c] * a.scale, hi, lo);
+    sqh[r * LD + c] = __uint_as_float(hi);
+    sql[r * LD + c] = __uint_as_float(lo);
+  }
+
+  // this thread's rows: m-tile m holds rows r0 + 16 m + g and + 8; a row's
+  // query position, -1 for bucket padding and inactive rows
+  const int r0 = warp * 16 * MT;
+  const int qs = a.q_start[b], ql = a.q_len[b];
+  int qpos[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int gr = q0 + r0 + 16 * m + 8 * hf + g, li = gr / G;
+      qpos[m][hf] = gr < nq && qs >= 0 && li < ql ? qs + li : -1;
+    }
+  float o[MT][DT][4];
+  float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.f;
+    m_run[m][0] = m_run[m][1] = -INFINITY;
+    l_run[m][0] = l_run[m][1] = 0.f;
+  }
+  const float* qh = sqh + (r0 + g) * LD + t;
+  const float* qlo = sql + (r0 + g) * LD + t;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();     // tile it landed; tile it - 1's stage is free
+    if (it + 1 < ntiles) {
+      stage_tile<T>(a, spage, kvh, (it + 1) * BK, BK, nslots, ROWB,
+                    stage_at(stages + ((it + 1) & 1) * SB, BK, ROWB));
+      cp_async_commit();
+    }
+    // fp32 and bf16 fragments read the stage (bf16 widens by a shift);
+    // int8 / fp8 tiles are widened and scaled once
+    const Stage st = stage_at(stages + (it & 1) * SB, BK, ROWB);
+    const T* sk = reinterpret_cast<const T*>(st.k);
+    const T* sv = reinterpret_cast<const T*>(st.v);
+    if constexpr (kQuantized<T>) {
+      widen_tile<T>(st, BK, D, LDS, LD, wk, wv);
+      __syncthreads();
+    }
+    auto kv = [&](const T* raw, const float* wide, int r, int c) {
+      if constexpr (kQuantized<T>) return wide[r * LD + c];
+      else return to_float(raw[r * LDS + c]);
+    };
+
+    float s[MT][NT][4];
+    tile_scores<MT, NT, DT, LD>(
+        s, qh, qlo, [&](int r, int c) { return kv(sk, wk, r, c); });
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 8 * j + 2 * t + (e & 1);
+        const int flag = st.flag[kk], pos = st.pos[kk];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          s[m][j][e] = masked(s[m][j][e], flag, pos, qpos[m][e >> 1], a);
+      }
+    tile_softmax(s, o, m_run, l_run);
+    tile_pv(o, s, [&](int r, int c) { return kv(sv, wv, r, c); });
+  }
+
+  const size_t nrows = (size_t)a.B * a.Lq * a.H;
+  const bool part = a.nsplit > 1;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float l = l_run[m][hf];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int gr = q0 + r0 + 16 * m + 8 * hf + g;
+      if (gr >= nq) continue;
+      const size_t row = ((size_t)b * a.Lq + gr / G) * a.H + kvh * G + gr % G;
+      const float inv = part ? 1.f : 1.f / l;
+      float* orow = part ? a.part_o + (blockIdx.z * nrows + row) * a.Dh
+                         : a.out + row * a.Dh;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const int d = 8 * n + 2 * t;
+        if (d >= a.Dh) break;
+        *reinterpret_cast<float2*>(orow + d) =
+            make_float2(o[m][n][2 * hf] * inv, o[m][n][2 * hf + 1] * inv);
+      }
+      if (part && t == 0) {
+        a.part_ml[2 * (blockIdx.z * nrows + row)] = m_run[m][hf];
+        a.part_ml[2 * (blockIdx.z * nrows + row) + 1] = l;
+      }
+    }
+  }
+}
+
+// one warp per (row, query, head): merge the splits in split order
+__global__ void __launch_bounds__(128) paged_combine_kernel(Args a) {
+  pdl_enter();
+  const size_t nrows = (size_t)a.B * a.Lq * a.H;
+  const size_t row = (size_t)blockIdx.x * 4 + threadIdx.x / 32;
+  if (row >= nrows) return;
+  merge_splits(a.part_o, a.part_ml, a.out, nrows, row, a.Dh, a.nsplit,
+               threadIdx.x % 32);
+}
+
+// ------------------------------------------------------------- launch
+
+// Launch with programmatic dependent launch (Hopper): the grid may be
+// scheduled while the previous kernel in the stream drains; each kernel
+// here waits for it (pdl_enter) before it reads anything.
+cudaError_t launch_pdl(void (*kernel)(Args), dim3 grid, int threads,
+                       int smem, cudaStream_t st, const Args& a) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+// dynamic shared memory above 48 KB is allowed once a kernel and process
+template <auto Kernel>
+cudaError_t allow_smem(int smem) {
+  static bool done = false;
+  if (smem <= 48 * 1024 || done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  done = e == cudaSuccess;
+  return e;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
-  paged_attention_body<T>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Args a) {
-  paged_attention_body<T>(a);
-}
-
-int launch(void (*kernel)(Args), const Args& a, void* stream) {
-  // Dh % 4 == 0 keeps every four-element load aligned for every kind
-  if (a.Dh % 4 || a.Dh > kThreads * kMaxDpt || a.H % a.Hkv) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.Dh, a.BS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+cudaError_t launch_decode(const Args& a, cudaStream_t st) {
   const int G = a.H / a.Hkv;
-  dim3 grid(a.B, a.Hkv, (G * a.Lq + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const int groups = (G + kMaxHeads - 1) / kMaxHeads;
+  const int hg = (G + groups - 1) / groups;
+  const int smem = 2 * stage_bytes(kDecodeTile, a.Dh * (int)sizeof(T)) +
+                   (kNarrow<T> ? 2 * kDecodeTile * a.Dh * 4 : 0) +
+                   4 * a.split_len;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<paged_decode_kernel<T>>(smem);
+  if (e != cudaSuccess) return e;
+  return launch_pdl(paged_decode_kernel<T>,
+                    dim3(a.B, a.Hkv * groups, a.nsplit), 32 * hg, smem, st,
+                    a);
+}
+
+template <typename T, int D>
+cudaError_t launch_chunk(const Args& a, cudaStream_t st) {
+  const int smem = chunk_smem<T, D>(a.split_len);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<paged_chunk_kernel<T, D>>(smem);
+  if (e != cudaSuccess) return e;
+  constexpr int BQ = 16 * kChunkWarps * Cfg<D>::MT;
+  const int nq = a.H / a.Hkv * a.Lq;
+  return launch_pdl(paged_chunk_kernel<T, D>,
+                    dim3((nq + BQ - 1) / BQ, a.B * a.Hkv, a.nsplit),
+                    kChunkThreads, smem, st, a);
+}
+
+template <typename T>
+cudaError_t launch_kind(bool prefill, const Args& a, cudaStream_t st) {
+  if (!prefill) return launch_decode<T>(a, st);
+  return a.Dh <= 32 ? launch_chunk<T, 32>(a, st)
+         : a.Dh <= 64 ? launch_chunk<T, 64>(a, st)
+         : a.Dh <= 128 ? launch_chunk<T, 128>(a, st)
+                       : launch_chunk<T, 256>(a, st);
 }
 
 // storage kind: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3 (kernels/paged_attention.py
 // STORAGE_KINDS); int8 and fp8 need both scale arrays, the others none
-template <typename T>
-int launch_kind(bool prefill, const Args& a, void* stream) {
-  return launch(prefill ? paged_prefill_kernel<T> : paged_decode_kernel<T>,
-                a, stream);
-}
-
 int dispatch(int kind, bool prefill, const Args& a, void* stream) {
   const bool quant = kind == 2 || kind == 3;
-  if (quant != (a.ksc != nullptr) || quant != (a.vsc != nullptr))
+  // Dh % 4 == 0 keeps every four-element load aligned for every kind
+  if (quant != (a.ksc != nullptr) || quant != (a.vsc != nullptr) ||
+      a.Dh % 4 || a.Dh < 4 || a.Dh > 256 || a.H % a.Hkv || a.Lq < 1 ||
+      a.BS < 1 || a.MB < 1 || a.nsplit < 1 || a.split_len < 1 ||
+      (long long)a.nsplit * a.split_len < a.MB ||
+      (long long)(a.nsplit - 1) * a.split_len >= a.MB ||
+      (a.nsplit > 1 && (a.part_o == nullptr || a.part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   switch (kind) {
-    case 0: return launch_kind<float>(prefill, a, stream);
-    case 1: return launch_kind<__nv_bfloat16>(prefill, a, stream);
-    case 2: return launch_kind<int8_t>(prefill, a, stream);
-    case 3: return launch_kind<__nv_fp8_e4m3>(prefill, a, stream);
+    case 0: e = launch_kind<float>(prefill, a, st); break;
+    case 1: e = launch_kind<__nv_bfloat16>(prefill, a, st); break;
+    case 2: e = launch_kind<int8_t>(prefill, a, st); break;
+    case 3: e = launch_kind<__nv_fp8_e4m3>(prefill, a, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess || a.nsplit == 1) return (int)e;
+  const size_t nrows = (size_t)a.B * a.Lq * a.H;
+  return (int)launch_pdl(paged_combine_kernel,
+                         dim3((unsigned)((nrows + 3) / 4)), 128, 0, st, a);
 }
 
 }  // namespace
 
+// nsplit > 1: part_o holds nsplit*B*Lq*H*Dh floats, part_ml nsplit*B*Lq*H*2;
+// split s walks table entries [s * split_len, min(MB, (s + 1) * split_len))
 extern "C" int paged_attention_decode(
     const float* q, const void* kp, const void* vp, const float* ksc,
     const float* vsc, const int* bt, const int* ppos, const int* q_pos,
-    float* out, int kind, int B, int H, int Hkv, int Dh, int BS, int MB,
-    int causal, int window, float scale, void* stream) {
-  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_pos, nullptr, out,
-         B, 1, H, Hkv, Dh, BS, MB, causal, window, scale};
+    float* out, float* part_o, float* part_ml, int kind, int B, int H,
+    int Hkv, int Dh, int BS, int MB, int causal, int window, int nsplit,
+    int split_len, float scale, void* stream) {
+  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_pos, nullptr, out, part_o, part_ml,
+         B, 1, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len, scale};
   return dispatch(kind, false, a, stream);
 }
 
 extern "C" int paged_attention_prefill(
     const float* q, const void* kp, const void* vp, const float* ksc,
     const float* vsc, const int* bt, const int* ppos, const int* q_start,
-    const int* q_len, float* out, int kind, int B, int Lq, int H, int Hkv,
-    int Dh, int BS, int MB, int causal, int window, float scale,
-    void* stream) {
-  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_start, q_len, out,
-         B, Lq, H, Hkv, Dh, BS, MB, causal, window, scale};
+    const int* q_len, float* out, float* part_o, float* part_ml, int kind,
+    int B, int Lq, int H, int Hkv, int Dh, int BS, int MB, int causal,
+    int window, int nsplit, int split_len, float scale, void* stream) {
+  Args a{q, kp, vp, ksc, vsc, bt, ppos, q_start, q_len, out, part_o, part_ml,
+         B, Lq, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len, scale};
   return dispatch(kind, true, a, stream);
 }

@@ -10,6 +10,11 @@ launch the kernels on CUDA tensors and nothing else; ``*_ref`` and
 ``*_quant_ref`` are the plain versions (dequantize, gather each row's
 pages, then naive attention), mirroring ``repro/kernels/ref.py``.  The
 dispatching wrappers with launch counts are in ``kernels/ops.py``.
+
+Each row's table is split across blocks (``decode_plan``,
+``prefill_plan``): a split walks a contiguous run of table entries and the
+splits merge by their log-sum-exp.  The plan depends on shapes only, so a
+wrapper never reads a device tensor on the host.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from repro_torch.core.quant import (KV_DTYPES, dequantize_kv, kv_quant_kind,
                                     kv_store_dtype)
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import TILES, padded_head_dim
 from repro_torch.nn.attention import attention_core, make_attention_mask
 
 # page storage dtype -> the kernels' storage-kind argument, the index of its
@@ -48,6 +54,45 @@ def storage_kind(k_pages, v_pages, k_scales=None, v_scales=None) -> int:
                              f"on {k_pages.device}, got {s.dtype} "
                              f"{tuple(s.shape)} on {s.device}")
     return STORAGE_KINDS[dt]
+
+
+# ----------------------------------------------------------- split plan
+
+SMS = 132             # an H100's SMs
+DECODE_TILE = 16      # slots a decode stage (kDecodeTile in the source)
+MAX_HEADS = 8         # query heads a decode block (kMaxHeads)
+
+
+def splits(blocks: int, per_sm: int, max_blocks: int, block_size: int,
+           tile: int) -> tuple[int, int]:
+    """(number of splits, table entries per split) of a row's
+    ``max_blocks`` entries, where ``blocks`` blocks serve a split each:
+    enough splits for ~``per_sm`` blocks an SM, each split at least one
+    tile of ``tile`` slots (or the whole row) and none empty."""
+    want = max(1, -(-SMS * per_sm // blocks))
+    per = max(-(-max_blocks // min(max_blocks, want)), -(-tile // block_size))
+    per = min(per, max_blocks)
+    return -(-max_blocks // per), per
+
+
+def decode_plan(batch: int, heads: int, kv_heads: int, max_blocks: int,
+                block_size: int) -> tuple[int, int]:
+    """The decode kernel's split: blocks of (row, KV head, group of at most
+    ``MAX_HEADS`` query heads), two an SM."""
+    groups = -(-(heads // kv_heads) // MAX_HEADS)
+    return splits(batch * kv_heads * groups, 2, max_blocks, block_size,
+                  DECODE_TILE)
+
+
+def prefill_plan(batch: int, lq: int, heads: int, kv_heads: int,
+                 head_dim: int, max_blocks: int,
+                 block_size: int) -> tuple[int, int]:
+    """The chunk kernel's split: blocks of (row, KV head, tile of the G * Lq
+    query rows), as many an SM as the flash tile shape allows (``TILES``)."""
+    bk, per_sm, bq = TILES[padded_head_dim(head_dim)]
+    tiles = -(-(heads // kv_heads * lq) // bq)
+    return splits(batch * kv_heads * tiles, per_sm, max_blocks, block_size,
+                  bk)
 
 
 # --------------------------------------------------------- plain versions
@@ -154,9 +199,11 @@ def _checked(q, k_pages, v_pages, k_scales, v_scales, block_tables,
     if kp.data_ptr() % 16 or vp.data_ptr() % 16:
         raise ValueError("pages must start on a 16-byte boundary (the "
                          "kernels load four elements at a time)")
+    q = q.contiguous()
+    q = q if q.data_ptr() % 16 == 0 else q.clone()   # 16-byte q loads
     scales = [None if s is None else s.contiguous()
               for s in (k_scales, v_scales)]
-    return kind, [q.contiguous(), kp, vp], scales, ints
+    return kind, [q, kp, vp], scales, ints
 
 
 def _ptr(x):
@@ -170,22 +217,39 @@ def _window(window) -> int:
     return 0 if window is None else int(window)
 
 
+def _partials(nsplit, rows, dh, dev):
+    """The split kernels' unnormalised outputs (nsplit, rows, dh) and their
+    (max, sum) pairs (nsplit, rows, 2), in one allocation; none for one
+    split."""
+    if nsplit == 1:
+        return None, None
+    scratch = torch.empty(nsplit * rows * (dh + 2), device=dev)
+    return scratch[:nsplit * rows * dh], scratch[nsplit * rows * dh:]
+
+
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, page_pos,
                          q_pos, *, k_scales=None, v_scales=None, window=None,
                          causal=True):
-    """Launch ``paged_decode_kernel`` for the pages' storage kind;
-    arguments as ``paged_attention_ref`` (int8/fp8 pages: with their
-    scales, as ``paged_attention_quant_ref``)."""
+    """Launch ``paged_decode_kernel`` for the pages' storage kind (and,
+    with more than one split, ``paged_combine_kernel``); arguments as
+    ``paged_attention_ref`` (int8/fp8 pages: with their scales, as
+    ``paged_attention_quant_ref``)."""
     kind, (q, kp, vp), (ks, vs), (bt, pp, qp) = _checked(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, page_pos,
         q_pos)
-    b, _, h, dh = q.shape
+    b, lq, h, dh = q.shape
+    if lq != 1:
+        raise ValueError(f"q {tuple(q.shape)}: decode takes one query a row")
+    _, bs, hkv, _ = kp.shape
+    mb = bt.shape[1]
+    nsplit, per = decode_plan(b, h, hkv, mb, bs)
     out = torch.empty_like(q)
+    part_o, part_ml = _partials(nsplit, b * h, dh, q.device)
     err = build.load("paged_attention").paged_attention_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
-        bt.data_ptr(), pp.data_ptr(), qp.data_ptr(), out.data_ptr(), kind,
-        b, h, kp.shape[2], dh, kp.shape[1], bt.shape[1], int(causal),
-        _window(window), float(dh ** -0.5),
+        bt.data_ptr(), pp.data_ptr(), qp.data_ptr(), out.data_ptr(),
+        _ptr(part_o), _ptr(part_ml), kind, b, h, hkv, dh, bs, mb,
+        int(causal), _window(window), nsplit, per, float(dh ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_kernel")
     return out
@@ -194,20 +258,24 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, page_pos,
 def paged_prefill_attention_cuda(q, k_pages, v_pages, block_tables,
                                  page_pos, q_start, q_len, *, k_scales=None,
                                  v_scales=None, window=None, causal=True):
-    """Launch ``paged_prefill_kernel`` for the pages' storage kind;
-    arguments as ``paged_prefill_attention_ref`` (int8/fp8 pages: with
-    their scales)."""
+    """Launch ``paged_chunk_kernel`` for the pages' storage kind (and, with
+    more than one split, ``paged_combine_kernel``); arguments as
+    ``paged_prefill_attention_ref`` (int8/fp8 pages: with their scales)."""
     kind, (q, kp, vp), (ks, vs), (bt, pp, qs, ql) = _checked(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, page_pos,
         q_start, q_len)
     b, lq, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    mb = bt.shape[1]
+    nsplit, per = prefill_plan(b, lq, h, hkv, dh, mb, bs)
     out = torch.empty_like(q)
+    part_o, part_ml = _partials(nsplit, b * lq * h, dh, q.device)
     err = build.load("paged_attention").paged_attention_prefill(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
         bt.data_ptr(), pp.data_ptr(), qs.data_ptr(), ql.data_ptr(),
-        out.data_ptr(), kind, b, lq, h, kp.shape[2], dh, kp.shape[1],
-        bt.shape[1], int(causal),
-        _window(window), float(dh ** -0.5),
+        out.data_ptr(), _ptr(part_o), _ptr(part_ml), kind, b, lq, h, hkv,
+        dh, bs, mb, int(causal), _window(window), nsplit, per,
+        float(dh ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_prefill_kernel")
+    build.check(err, "paged_chunk_kernel")
     return out

@@ -105,8 +105,34 @@ PREFILL_CASES = {
 }
 
 
+# the card tests' cases besides those above: the split page walk with
+# several splits, block sizes 4 and 16, head_dim 256 over one KV head
+# (gemma-2b's heads), 16 query heads over one KV head (two blocks of
+# heads in the decode kernel), head_dim 32 with a key tile of 64 slots
+# over pages of 4, and queries that see no slot (a window past the row's
+# context)
+CARD_DECODE_CASES = {
+    **DECODE_CASES,
+    "bs4_splits": (4, 12, 2, 32, 4, 32, 70, [117, 100, 37, -1],
+                   [116, 99, 36, -1], None),
+    "bs16_splits": (3, 12, 2, 64, 16, 8, 24, [117, 60, 5], [116, 59, 4],
+                    None),
+    "dh256_one_kv": (2, 8, 1, 256, 16, 8, 20, [117, 30], [116, 29], None),
+    "g16_head_groups": (2, 16, 1, 32, 8, 4, 10, [29, 13], [28, 12], None),
+    "window_blind": (3, 8, 2, 16, 4, 8, 24, [20, 12, 30], [40, 11, 29], 8),
+}
+CARD_PREFILL_CASES = {
+    **PREFILL_CASES,
+    "chunk32_bs4": (1, 32, 12, 2, 128, 4, 32, 40, [96], [64], [32]),
+    "bs16_splits_dh64": (2, 8, 12, 2, 64, 16, 8, 20, [48, 100], [40, 92],
+                         [8, 8]),
+    "dh256_one_kv": (1, 16, 8, 1, 256, 16, 8, 12, [80], [64], [16]),
+    "dh32_bs4": (2, 5, 4, 2, 32, 4, 16, 40, [50, 23], [45, 18], [5, 3]),
+}
+
+
 def _decode_inputs(case, seed=0):
-    b, h, hkv, dh, bs, mb, p, lens, q_pos, window = DECODE_CASES[case]
+    b, h, hkv, dh, bs, mb, p, lens, q_pos, window = CARD_DECODE_CASES[case]
     rng = np.random.default_rng(seed)
     kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
                                   max_blocks=mb, hkv=hkv, dh=dh)
@@ -115,7 +141,7 @@ def _decode_inputs(case, seed=0):
 
 
 def _prefill_inputs(case, seed=0):
-    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql = PREFILL_CASES[case]
+    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql = CARD_PREFILL_CASES[case]
     rng = np.random.default_rng(seed)
     kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
                                   max_blocks=mb, hkv=hkv, dh=dh)
@@ -459,7 +485,7 @@ def test_wrappers_check_page_storage():
 # ------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("case", sorted(CARD_DECODE_CASES))
 def test_paged_attention_kernel_on_card(cuda, case):
     args, window = _decode_inputs(case)
     t = _torch(args, cuda)
@@ -469,12 +495,50 @@ def test_paged_attention_kernel_on_card(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("case", sorted(CARD_PREFILL_CASES))
 def test_paged_prefill_kernel_on_card(cuda, case):
     t = _torch(_prefill_inputs(case), cuda)
     torch.testing.assert_close(ops.paged_prefill_attention(*t),
                                ref.paged_prefill_attention_ref(*t),
                                **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 8])
+def test_paged_prefill_window_on_card(cuda, window):
+    """A window, and a chunk past the row's context, so that some queries
+    see no slot and return the uniform mean of V over every gathered
+    slot."""
+    rng = np.random.default_rng(3)
+    kp, vp, bt, ppos = build_pool(rng, [20, 40], num_blocks=24,
+                                  block_size=4, max_blocks=12, hkv=2, dh=64)
+    q = rng.standard_normal((2, 8, 12, 64), np.float32)
+    t = _torch((q, kp, vp, bt, ppos, np.asarray([40, 30], np.int32),
+                np.asarray([8, 6], np.int32)), cuda)
+    torch.testing.assert_close(
+        ops.paged_prefill_attention(*t, window=window),
+        ref.paged_prefill_attention_ref(*t, window=window), **ATT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_kernels_are_bitwise_repeatable_on_card(cuda, kind):
+    """The splits merge in a fixed order with no atomics: two calls give
+    the same bits, at the main path's widths and at BS 4."""
+    for dcase, pcase in [("bs16_splits", "chunk32_bs4"),
+                         ("bs4_splits", "bs16_splits_dh64")]:
+        (q, kp, vp, *rest), window = _decode_inputs(dcase)
+        ks, vs, sc = _store(kind, kp, vp, cuda)
+        t = _torch((q, *rest), cuda)
+        a, b = (ops.paged_attention(t[0], ks, vs, *t[1:], window=window,
+                                    **sc) for _ in range(2))
+        assert torch.equal(a, b)
+        q, kp, vp, *rest = _prefill_inputs(pcase)
+        ks, vs, sc = _store(kind, kp, vp, cuda)
+        t = _torch((q, *rest), cuda)
+        a, b = (ops.paged_prefill_attention(t[0], ks, vs, *t[1:], **sc)
+                for _ in range(2))
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -564,7 +628,7 @@ def test_paged_kernels_full_width_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("case", sorted(CARD_DECODE_CASES))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
 def test_quantized_paged_attention_kernel_on_card(cuda, kind, case):
     (q, kp, vp, bt, ppos, qp), window = _decode_inputs(case)
@@ -579,7 +643,7 @@ def test_quantized_paged_attention_kernel_on_card(cuda, kind, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("case", sorted(CARD_PREFILL_CASES))
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
 def test_quantized_paged_prefill_kernel_on_card(cuda, kind, case):
     q, kp, vp, *rest = _prefill_inputs(case)
