@@ -21,11 +21,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 at whisper-small's two shapes and at gemma-2b's heads (Dh
                 256, 8 over 1 KV head); the demux with its LN entry at
                 rwkv6-7b's width (decode and a 32-token chunk); the RWKV6
-                recurrence at decode, 100, 109 and 128 tokens, head dim
-                32, strong and weak decay, against its chunkwise plain
-                version and the sequential oracle (elementwise, the
-                reference suite's tolerance), and two halves chained
-                through the state against one pass; the mux-combine entry
+                recurrence at decode, 7, 100, 109, 128 and 300 tokens,
+                head dims 16, 32, 64 and 128, strong and weak decay,
+                against its chunkwise plain version and the sequential
+                oracle (elementwise, the reference suite's tolerance), bit
+                for bit over two calls, and two halves chained through the
+                state against one pass; flash-decode with q_pos in a device
+                tensor (bit for bit the int's result), captured in a CUDA
+                graph and replayed at new positions, at 16 query heads over
+                one KV head and head dim 256, and bit for bit over two
+                calls; the mux-combine entry
                 at whisper-small's encoder entry and a qwen2-1.5b prefill
                 entry, in fp32 and bf16, and at odd N, T and D;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
@@ -533,6 +538,52 @@ def phase_kernels(torch, timer):
                 "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
         record("decode_attention", case, (got - want).abs().max().item(),
                ATT_TOL, timing)
+        if i == 0:
+            decode_main = (q, kc, vc, pos, kw, got)
+    # the main shape again: q_pos in a device tensor (bit for bit the int's
+    # result), repeats bit for bit, and a CUDA graph of the launch replayed
+    # after the position, the ring's slot positions and q are overwritten
+    xrng = np.random.default_rng(19)     # the other cases keep their draws
+    q, kc, vc, pos, kw, got = decode_main
+    qp = torch.tensor(kw["q_pos"], dtype=torch.int32, device=dev)
+    need(torch.equal(kdec.decode_attention_cuda(q, kc, vc, pos, q_pos=qp),
+                     got) and torch.equal(kdec.decode_attention_cuda(
+                         q, kc, vc, pos, **kw), got),
+         "decode_attention: q_pos as a tensor or a repeat changed the bits")
+    q, pos = q.clone(), pos.clone()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kdec.decode_attention_cuda(q, kc, vc, pos, q_pos=qp)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        gout = kdec.decode_attention_cuda(q, kc, vc, pos, q_pos=qp)
+    err = 0.0
+    for written in (130, 140):
+        q.copy_(t(xrng.standard_normal(q.shape, np.float32)))
+        pos.copy_(ring_pos(124, written))
+        qp.fill_(written - 1)
+        graph.replay()
+        err = max(err, (gout - ref.decode_attention_ref(
+            q, kc, vc, pos, q_pos=written - 1)).abs().max().item())
+    record("decode_attention", "graph replay, q_pos in memory", err,
+           ATT_TOL)
+    # 16 query heads over one KV head at head dim 256 (the kernel's limits)
+    for case, written, q_pos, window in [("limits: G=16, Dh 256", 100, 99,
+                                          None),
+                                         ("limits: G=16, Dh 256, blind", 90,
+                                          200, 3)]:
+        q = t(xrng.standard_normal((2, 1, 16, 256), np.float32))
+        kc = t(xrng.standard_normal((2, 90, 1, 256), np.float32))
+        vc = t(xrng.standard_normal((2, 90, 1, 256), np.float32))
+        pos = ring_pos(90, written)
+        kw = dict(q_pos=q_pos, window=window)
+        got = kdec.decode_attention_cuda(q, kc, vc, pos, **kw)
+        need(torch.equal(kdec.decode_attention_cuda(q, kc, vc, pos, **kw),
+                         got), "decode_attention: a repeat changed the bits")
+        record("decode_attention", case, (got - ref.decode_attention_ref(
+            q, kc, vc, pos, **kw)).abs().max().item(), ATT_TOL)
 
     # -- flash attention over fresh K/V --------------------------------------
     flash_cases = [
@@ -611,6 +662,8 @@ def phase_kernels(torch, timer):
     kw = dict(q_pos=0, causal=False)
     got = kdec.decode_attention_cuda(q, kc, vc, frames, **kw)
     want = ref.decode_attention_ref(q, kc, vc, frames, **kw)
+    need(torch.equal(kdec.decode_attention_cuda(q, kc, vc, frames, **kw),
+                     got), "decode_attention: a repeat changed the bits")
     nb, fl, work = dense_bound(q, kc, every[None])
     nb += 1500 * 4                                        # slot positions
     bms, by = bound(nb, fl)
@@ -712,13 +765,20 @@ def phase_kernels(torch, timer):
         ("main: prefill L=100", 4, 100, 64, 64, 100, None),
         ("main: prefill L=109", 4, 109, 64, 64, 109, None),
         ("main: L=128 chunks of 32", 4, 128, 64, 64, 32, None),
+        ("edge: L=7", 4, 7, 64, 64, 7, None),
+        ("edge: L=300 chunks of 100", 2, 300, 64, 64, 100, None),
+        ("edge: hd=16", 4, 100, 256, 16, 100, None),
         ("edge: hd=32", 4, 100, 128, 32, 100, None),
+        ("edge: hd=128", 4, 100, 32, 128, 100, None),
         ("edge: strong decay -5", 4, 100, 64, 64, 100, -5.0),
         ("edge: weak decay -1e-3", 4, 100, 64, 64, 100, -1e-3),
     ]
     for i, (case, b, l, h, hd, chunk, logw) in enumerate(rwkv_cases):
         a = rwkv_inputs(b, l, h, hd, logw)
         got = krw.rwkv6_cuda(*a)
+        again = krw.rwkv6_cuda(*a)
+        need(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+             f"rwkv6_chunked [{case}]: a repeat changed the bits")
         err, share = rwkv_err(got, krw.rwkv_chunked(*a, chunk))
         err_o, share_o = rwkv_err(got, krw.rwkv6_ref(*a))
         print(f"  {'rwkv6_chunked':<24} {case:<30} vs sequential oracle: "

@@ -98,9 +98,9 @@ SIGNATURES = {
         "demux_rsa_forward": [_P] * 17 + [_I] * 9 + [_P],
     },
     "decode_attention": {
-        # q, k, v, slot_pos, part_acc, part_ml, out; B, C, H, Hkv, Dh,
-        # q_pos, causal, window, nsplit, split_len; scale; stream
-        "decode_attention_forward": [_P] * 7 + [_I] * 10 + [_F, _P],
+        # q, k, v, slot_pos, q_pos_ptr, out; B, C, H, Hkv, Dh, q_pos,
+        # causal, window, nsplit, split_len; scale; stream
+        "decode_attention_forward": [_P] * 6 + [_I] * 10 + [_F, _P],
     },
     "flash_attention": {
         # q, k, v, out, part_o, part_ml; B, Lq, Lk, H, Hkv, Dh, causal,

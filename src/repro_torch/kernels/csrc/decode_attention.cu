@@ -2,60 +2,82 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
-// (decode_attention, _kernel): decode_split_kernel + decode_combine_kernel.
+// (decode_attention, _kernel): decode_kernel, one launch.
 //
 // Layouts (as in the reference, read in place): q (B, 1, H, Dh) fp32;
 // k, v (B, C, Hkv, Dh) fp32, the ring cache itself (the Pallas wrapper's
 // (B, Hkv, C, Dh) transposed copy is not made: a slot's head row is
 // addressed with stride Hkv * Dh); slot_pos (C,) int32, the absolute
-// position each slot holds (-1 = empty; not monotone once the ring wraps);
-// q_pos a plain int argument, so no position specialises the kernel.
-//
-// Design.  The cache axis is split: block (row, KV head, split) walks its
-// split's slots in tiles of kTile.  Each tile's K and V rows go to shared
-// memory once for the G = H / Hkv query heads of that KV head (GQA never
-// repeats K/V), scores and an online softmax run in fp32, and the
-// accumulator stays in registers (one head dimension per thread).  With
-// one split the block writes the normalised output; with several it
-// writes its (acc, m, l) and decode_combine_kernel merges the splits per
-// (row, head) by their log-sum-exp.  The split count is chosen by the
-// wrapper (kernels/decode_attention.py) to give ~2 blocks per SM, since
-// B * Hkv alone is 8 at the main path's width.  The mask value is the
-// finite -2**30 of the reference, not -inf: a query that sees no slot
-// returns the uniform mean of V over all C slots, as the plain version
-// does, instead of NaN.
+// position each slot holds (-1 = empty; not monotone once the ring wraps).
+// The query's position is an int argument or, when q_pos_ptr is given, an
+// int32 in device memory read by the kernel: nothing about a position
+// reaches the host, so a captured launch replays at whatever position the
+// tensor holds.
 //
 // Bound.  One query per (row, head) reads each visible slot's K and V row
 // once per KV head: ~2 * Dh * 4 bytes per (row, KV head, slot) against
 // 4 * Dh * G flops, ~3 flops per byte at G = 6, so bytes bound it.  At the
-// main path's shape (B = 4, C = 124) that is ~1 MB, a fraction of a
-// microsecond at 3.35 TB/s: in practice the launch latency and the
-// combine pass bound it.
-#include <cuda_runtime.h>
+// main path's shape (B = 4, C = 124, 2 KV heads of 128) that is ~1 MB, a
+// fraction of a microsecond at 3.35 TB/s: what bounds it there is latency
+// (the launch and the dependent loads of one short walk).  At whisper's
+// cross-attention decode (C = 1500, 12 KV heads of 64) it is 37 MB, 11 us.
+//
+// Design (after paged_attention.cu's decode kernel, without the table).
+//  * Split walk.  Block (row, KV head, group of at most kMaxHeads query
+//    heads, split) walks a contiguous run of split_len slots; the plan
+//    (kernels/decode_attention.py ``plan``) depends on shapes only and
+//    trades the number of splits against the tiles each walks.
+//  * One warp per query head.  K/V go to shared memory once for the group,
+//    so GQA never repeats K/V.  Each lane holds Dh / 32 elements of the
+//    pre-scaled q; a slot's score is a shuffle-reduced dot product, and the
+//    online softmax (log2 units) and the accumulator live in registers.
+//  * A cp.async ring of kStages kTile-slot tiles, the slots' positions
+//    riding in the same stage: the next tiles are in flight while one is
+//    consumed, one barrier a tile.
+//  * One launch, merged on chip.  With several splits the nsplit blocks of
+//    a (row, KV head, group) form a thread block cluster (Hopper; up to 16
+//    blocks).  Each keeps its unnormalised (acc, m, l) in its shared
+//    memory; after a cluster barrier the cluster's first block reads every
+//    split's partial through distributed shared memory and merges them by
+//    their log-sum-exp in split order, so repeats are bit-identical.  No
+//    partial goes to device memory, and no counter or other state outlives
+//    the launch, so a captured launch replays as it ran.
+//  * Masked queries.  The mask value is the finite -2**30 of the
+//    reference: a query that sees no slot returns the uniform mean of V
+//    over all C slots, as the plain version does.  No slot is skipped, so
+//    each split yields (m = -2**30, l = its slot count, acc = its V sum)
+//    for such a query and the merge gives the mean.  Slots past a split's
+//    run (a tile's ragged end) are zero-filled and weigh exactly 0.
+#include <cooperative_groups.h>
+
+#include "attn_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 16;        // cache slots per shared-memory tile
-constexpr int kMaxG = 16;        // query heads per KV head
-constexpr int kMaxDpt = 2;       // head dims per thread: Dh <= 256
-constexpr float kNegInf = -1073741824.0f;   // -2**30, as the reference
+constexpr int kTile = 16;        // cache slots a stage
+constexpr int kStages = 3;       // stages of the cp.async ring
+constexpr int kMaxHeads = 8;     // query heads (warps) a block
+constexpr int kMaxSplits = 16;   // blocks a cluster (non-portable above 8)
 
 struct Args {
   const float* q;
   const float* k;
   const float* v;
   const int* slot_pos;
-  float* part_acc;     // (B, H, nsplit, Dh); nsplit == 1: unused
-  float* part_ml;      // (B, H, nsplit, 2) running max and sum
-  float* out;          // (B, H, Dh)
+  const int* q_pos_ptr;  // nullable: the query position in device memory
+  float* out;            // (B, H, Dh)
   int B, C, H, Hkv, Dh, q_pos, causal, window, nsplit, split_len;
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// 4 bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -63,176 +85,249 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_bytes(int G, int Dh) {
-  const int ldk = Dh + 4;
-  return sizeof(float) * (size_t)(G * ldk + kTile * ldk + kTile * Dh +
-                                  G * kTile + 3 * G);
+// floats of one stage: K and V rows of kTile slots, then their positions
+__host__ __device__ constexpr int stage_floats(int dh) {
+  return 2 * kTile * dh + kTile;
 }
 
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
-  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// dynamic shared memory: the ring, then each warp's partial (acc of Dh
+// floats, m, l, padded to a multiple of 4)
+__host__ __device__ constexpr int smem_floats(int dh, int warps) {
+  return kStages * stage_floats(dh) + warps * (dh + 4);
+}
+
+// Issue the copies of tile it of the split's run (slots [s_begin, s_begin +
+// nslots)) into its stage: K/V rows by 16-byte cp.async, positions by
+// 4-byte ones; past the run, zeros.  One commit group a call, empty for a
+// tile past the run, so the ring's group count stays uniform.
+__device__ __forceinline__ void stage_tile(const Args& a, float* base, int b,
+                                           int kvh, int s_begin, int nslots,
+                                           int ntiles, int it) {
+  const int d4 = a.Dh / 4, s0 = it * kTile;
+  if (it < ntiles) {
+    float* sk = base + (it % kStages) * stage_floats(a.Dh);
+    float* sv = sk + kTile * a.Dh;
+    int* sp = reinterpret_cast<int*>(sv + kTile * a.Dh);
+    // (row, 16-byte chunk) pairs, stepped without a division each
+    const int dr = blockDim.x / d4, dc = blockDim.x % d4;
+    int r = threadIdx.x / d4, c = threadIdx.x % d4;
+    for (; r < kTile; r += dr, c += dc) {
+      if (c >= d4) {
+        c -= d4;
+        if (++r >= kTile) break;
+      }
+      const bool ok = s0 + r < nslots;
+      const size_t off =
+          (((size_t)b * a.C + s_begin + (ok ? s0 + r : 0)) * a.Hkv + kvh) *
+              a.Dh + 4 * c;
+      cp_async16(sk + r * a.Dh + 4 * c, a.k + off, ok);
+      cp_async16(sv + r * a.Dh + 4 * c, a.v + off, ok);
+    }
+    for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
+      const bool ok = s0 + j < nslots;
+      cp_async4(sp + j, a.slot_pos + s_begin + (ok ? s0 + j : 0), ok);
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
+  constexpr int NT = kTile;
   const int G = a.H / a.Hkv;
-  const int ldk = a.Dh + 4;      // padded row stride: fewer bank conflicts
+  const int groups = gridDim.y / a.Hkv, hg = blockDim.x / 32;
+  const int b = blockIdx.x, kvh = blockIdx.y / groups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = (blockIdx.y % groups) * hg + warp;
+  const bool active = g < G;
+  const int head = kvh * G + min(g, G - 1);
   const int d4 = a.Dh / 4;
-  const int s_begin = split * a.split_len;
-  const int s_end = min(a.C, s_begin + a.split_len);
+  const int s_begin = blockIdx.z * a.split_len;
+  const int nslots = min(a.C - s_begin, a.split_len);
+  const int ntiles = (nslots + NT - 1) / NT;
 
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // G x ldk, pre-scaled q
-  float* sk = sq + G * ldk;                     // kTile x ldk
-  float* sv = sk + kTile * ldk;                 // kTile x Dh
-  float* sp = sv + kTile * a.Dh;                // G x kTile scores / probs
-  float* sm = sp + G * kTile;                   // running max
-  float* sl = sm + G;                           // running sum
-  float* salpha = sl + G;                       // per-tile rescale
-  __shared__ int spos[kTile];
+  float* base = reinterpret_cast<float*>(smem4);
+  for (int it = 0; it < kStages - 1; ++it)
+    stage_tile(a, base, b, kvh, s_begin, nslots, ntiles, it);
 
-  for (int i = tid; i < G * d4; i += kThreads) {
-    const int g = i / d4, c = i % d4;
-    float4 x = reinterpret_cast<const float4*>(
-        a.q + ((size_t)b * a.H + kvh * G + g) * a.Dh)[c];
-    x.x *= a.scale; x.y *= a.scale; x.z *= a.scale; x.w *= a.scale;
-    reinterpret_cast<float4*>(sq + g * ldk)[c] = x;
-  }
-  if (tid < G) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
-
-  float acc[kMaxG][kMaxDpt];
+  // this lane's 4-element groups c = lane, lane + 32 of the pre-scaled q
+  float4 qv[2], acc[2];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) acc[g][j] = 0.f;
-
-  for (int s0 = s_begin; s0 < s_end; s0 += kTile) {
-    const int n = min(kTile, s_end - s0);
-    __syncthreads();             // previous tile fully consumed
-    for (int i = tid; i < n * d4; i += kThreads) {
-      const int s = i / d4, c = i % d4;
-      const size_t off = (((size_t)b * a.C + s0 + s) * a.Hkv + kvh) * a.Dh;
-      reinterpret_cast<float4*>(sk + s * ldk)[c] =
-          reinterpret_cast<const float4*>(a.k + off)[c];
-      reinterpret_cast<float4*>(sv + s * a.Dh)[c] =
-          reinterpret_cast<const float4*>(a.v + off)[c];
+  for (int i = 0; i < 2; ++i) {
+    const int c = lane + 32 * i;
+    qv[i] = acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d4) {
+      qv[i] = reinterpret_cast<const float4*>(
+          a.q + ((size_t)b * a.H + head) * a.Dh)[c];
+      qv[i].x *= a.scale; qv[i].y *= a.scale;
+      qv[i].z *= a.scale; qv[i].w *= a.scale;
     }
-    if (tid < n) spos[tid] = a.slot_pos[s0 + tid];
-    __syncthreads();
+  }
+  const int qp = a.q_pos_ptr != nullptr ? *a.q_pos_ptr : a.q_pos;
+  float m_run = -INFINITY, l_run = 0.f;
 
-    // scores: one (query head, slot) dot product per thread
-    for (int p = tid; p < G * n; p += kThreads) {
-      const int g = p / n, s = p % n;
-      const float4* qr = reinterpret_cast<const float4*>(sq + g * ldk);
-      const float4* kr = reinterpret_cast<const float4*>(sk + s * ldk);
-      float dot = 0.f;
-      for (int c = 0; c < d4; ++c) {
-        const float4 x = qr[c], y = kr[c];
-        dot += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile it landed; tile it - 1's stage is free
+    stage_tile(a, base, b, kvh, s_begin, nslots, ntiles, it + kStages - 1);
+    if (!active) continue;
+    const float* sk = base + (it % kStages) * stage_floats(a.Dh);
+    const float* sv = sk + NT * a.Dh;
+    const int* sp = reinterpret_cast<const int*>(sv + NT * a.Dh);
+
+    float s[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;
+        if (c < d4) {
+          const float4 k4 = reinterpret_cast<const float4*>(sk + j * a.Dh)[c];
+          part += qv[i].x * k4.x + qv[i].y * k4.y + qv[i].z * k4.z +
+                  qv[i].w * k4.w;
+        }
       }
-      const int pos = spos[s];
+      s[j] = part;
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int pos = sp[j];
       bool ok = pos >= 0;
-      if (a.causal) ok = ok && pos <= a.q_pos;
-      if (a.window > 0) ok = ok && pos > a.q_pos - a.window;
-      sp[g * kTile + s] = ok ? dot : kNegInf;
+      if (a.causal) ok = ok && pos <= qp;
+      if (a.window > 0) ok = ok && pos > qp - a.window;
+      const float sc = warp_sum(s[j]);
+      s[j] = it * NT + j >= nslots ? -INFINITY : (ok ? sc : kNegMask) * kLog2e;
+      mx = fmaxf(mx, s[j]);
     }
-    __syncthreads();
-
-    // online softmax: one warp per query head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float sc = lane < n ? sp[g * kTile + lane] : kNegInf;
-      const float m_prev = sm[g];
-      const float m_new = fmaxf(m_prev, warp_max(sc));
-      const float e = lane < n ? expf(sc - m_new) : 0.f;
-      if (lane < n) sp[g * kTile + lane] = e;
-      const float sum = warp_sum(e);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sl[g] = sl[g] * alpha + sum;
-        sm[g] = m_new;
-        salpha[g] = alpha;
-      }
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f(m_run - m_new);
+    m_run = m_new;
+    l_run *= alpha;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc[i].x *= alpha; acc[i].y *= alpha;
+      acc[i].z *= alpha; acc[i].w *= alpha;
     }
-    __syncthreads();
-
 #pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) {
-      const int d = tid + j * kThreads;
-      if (d >= a.Dh) continue;
+    for (int j = 0; j < NT; ++j) {
+      const float p = exp2f(s[j] - m_new);
+      l_run += p;
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
-        float v = acc[g][j] * salpha[g];
-        for (int s = 0; s < n; ++s) v += sp[g * kTile + s] * sv[s * a.Dh + d];
-        acc[g][j] = v;
+      for (int i = 0; i < 2; ++i) {
+        const int c = lane + 32 * i;
+        if (c < d4) {
+          const float4 v4 = reinterpret_cast<const float4*>(sv + j * a.Dh)[c];
+          acc[i].x += p * v4.x; acc[i].y += p * v4.y;
+          acc[i].z += p * v4.z; acc[i].w += p * v4.w;
+        }
       }
     }
   }
 
+  float* out = a.out + ((size_t)b * a.H + head) * a.Dh;
+  if (a.nsplit == 1) {
+    if (!active) return;
+    const float inv = 1.f / l_run;
 #pragma unroll
-  for (int j = 0; j < kMaxDpt; ++j) {
-    const int d = tid + j * kThreads;
-    if (d >= a.Dh) continue;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      const size_t bh = (size_t)b * a.H + kvh * G + g;
-      if (a.nsplit == 1)
-        a.out[bh * a.Dh + d] = acc[g][j] / fmaxf(sl[g], 1e-30f);
-      else
-        a.part_acc[(bh * a.nsplit + split) * a.Dh + d] = acc[g][j];
+    for (int i = 0; i < 2; ++i) {
+      const int c = lane + 32 * i;
+      if (c < d4)
+        reinterpret_cast<float4*>(out)[c] = make_float4(
+            acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
     }
+    return;
   }
-  if (a.nsplit > 1 && tid < G) {
-    const size_t bh = (size_t)b * a.H + kvh * G + tid;
-    a.part_ml[(bh * a.nsplit + split) * 2] = sm[tid];
-    a.part_ml[(bh * a.nsplit + split) * 2 + 1] = sl[tid];
-  }
-}
 
-// one block per (row, head): merge the splits by their log-sum-exp
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(Args a) {
-  const size_t bh = blockIdx.x;
-  const float* ml = a.part_ml + bh * a.nsplit * 2;
-  float m = kNegInf;
-  for (int s = 0; s < a.nsplit; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) l += ml[2 * s + 1] * expf(ml[2 * s] - m);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < a.Dh; d += kThreads) {
-    float o = 0.f;
+  // several splits: this block's partial to shared memory, then the
+  // cluster's first block merges every split's, in split order
+  float* mine = base + kStages * stage_floats(a.Dh) + warp * (a.Dh + 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (lane + 32 * i < d4)
+      reinterpret_cast<float4*>(mine)[lane + 32 * i] = acc[i];
+  if (lane == 0) {
+    mine[a.Dh] = m_run;
+    mine[a.Dh + 1] = l_run;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();        // every split's partial written
+  if (cluster.block_rank() == 0 && active) {
+    float m = -INFINITY;
     for (int s = 0; s < a.nsplit; ++s)
-      o += a.part_acc[(bh * a.nsplit + s) * a.Dh + d] * expf(ml[2 * s] - m);
-    a.out[bh * a.Dh + d] = o * inv;
+      m = fmaxf(m, cluster.map_shared_rank(mine, s)[a.Dh]);
+    float l = 0.f;
+    for (int s = 0; s < a.nsplit; ++s) {
+      const float* p = cluster.map_shared_rank(mine, s);
+      l += p[a.Dh + 1] * exp2f(p[a.Dh] - m);
+    }
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= d4) continue;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < a.nsplit; ++s) {
+        const float* p = cluster.map_shared_rank(mine, s);
+        const float w = exp2f(p[a.Dh] - m);
+        const float4 x = reinterpret_cast<const float4*>(p)[c];
+        o.x += x.x * w; o.y += x.y * w; o.z += x.z * w; o.w += x.w * w;
+      }
+      reinterpret_cast<float4*>(out)[c] =
+          make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+    }
   }
+  cluster.sync();        // no block leaves while its partial is read
 }
 
 }  // namespace
 
+// Split s walks slots [s * split_len, min(C, (s + 1) * split_len)); with
+// nsplit > 1 (at most 16) the splits of a (row, KV head, group) run as one
+// thread block cluster.  Pointers 16-byte aligned; q_pos_ptr may be null
+// (then q_pos is read).
 extern "C" int decode_attention_forward(
     const float* q, const float* k, const float* v, const int* slot_pos,
-    float* part_acc, float* part_ml, float* out, int B, int C, int H,
-    int Hkv, int Dh, int q_pos, int causal, int window, int nsplit,
-    int split_len, float scale, void* stream) {
-  if (Dh % 4 || Dh > kThreads * kMaxDpt || H % Hkv || H / Hkv > kMaxG ||
-      C < 1 || nsplit < 1 || split_len < 1 ||
+    const int* q_pos_ptr, float* out, int B, int C, int H, int Hkv, int Dh,
+    int q_pos, int causal, int window, int nsplit, int split_len,
+    float scale, void* stream) {
+  if (Dh % 4 || Dh < 4 || Dh > 256 || H % Hkv || H / Hkv > 2 * kMaxHeads ||
+      C < 1 || nsplit < 1 || nsplit > kMaxSplits || split_len < 1 ||
       (long long)nsplit * split_len < C ||
-      (long long)(nsplit - 1) * split_len >= C ||
-      (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      (long long)(nsplit - 1) * split_len >= C)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, slot_pos, part_acc, part_ml, out,
-         B, C, H, Hkv, Dh, q_pos, causal, window, nsplit, split_len, scale};
-  const size_t smem = smem_bytes(H / Hkv, Dh);
-  if (smem > 48 * 1024) {
+  const Args a{q, k, v, slot_pos, q_pos_ptr, out, B, C, H, Hkv, Dh, q_pos,
+               causal, window, nsplit, split_len, scale};
+  const int G = H / Hkv;
+  const int groups = (G + kMaxHeads - 1) / kMaxHeads;
+  const int hg = (G + groups - 1) / groups;
+  const int smem = smem_floats(Dh, hg) * (int)sizeof(float);
+  static int allowed = 48 * 1024;    // dynamic shared memory allowed so far
+  if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
+    allowed = smem;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_split_kernel<<<dim3(B, Hkv, nsplit), kThreads, smem, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || nsplit == 1) return (int)e;
-  decode_combine_kernel<<<B * H, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  static bool wide = false;          // clusters above 8 blocks: once
+  if (nsplit > 8 && !wide) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    wide = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, Hkv * groups, nsplit);
+  cfg.blockDim = dim3(32 * hg);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = nsplit;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_kernel, a);
 }

@@ -15,98 +15,268 @@
 // Bound.  Bytes: r, k, v, logw and out once each plus the state read and
 // written, 16*L*H*hd + 8*H*hd^2 bytes per row, against ~5*hd^2 flops per
 // token and head: under 1.5 flops per byte at hd = 64, far below the fp32
-// rate, so the card's memory rate bounds it.  In practice the bound is
-// latency: one block walks its row's L tokens in order.
+// rate, so the card's memory rate bounds it.  In practice a prefill is
+// bound by issue: each token of each (row, head) takes 3 * hd^2 fp32
+// instructions on the CUDA cores (below) and the tokens run in order; a
+// decode step is bound by moving the state.
 //
-// Design.  One block per (row, head), B*H blocks (256 for rwkv6-7b at 4
-// rows), 4*hd threads.  The state lives in registers for the whole
-// sequence: thread (col, q) holds S[q + 4i][col] for i < hd/4, so each
-// token's output column is four partial dot products summed by two warp
-// shuffles, and the state update needs no synchronisation.  Tokens are
-// staged TT at a time into shared memory with 16-byte loads (exp(logw)
-// taken there); the scan over a staged tile reads shared memory only, so
-// the only barriers are at tile boundaries.  The per-token form is the
-// definition (the sequential oracle ``rwkv6_ref``): it takes any L with no
-// chunk rule, and its decay is one exp per token and channel, never a
-// difference of cumulative sums, which loses digits as the sums grow and
-// overflows exp() past ~88 nats of decay.
+// Design.
+//  * Column split.  Column j of S and out[:, j] depend on r, k, w, u and
+//    v[:, j] only, so a (row, head) splits exactly over HD / CB blocks of
+//    CB columns, with no merge.  Cfg sets CB per head dim: hd 128 runs 2
+//    blocks of 64 columns; hd 64 runs one block of all 64, which measured
+//    faster on the card than 2 blocks of 32 (a split stages r, k and w
+//    and runs the staging pass once per block, and 256 blocks of 4 warps
+//    already fill the SMs at rwkv6-7b's 4 rows).
+//  * The state lives in registers for the whole sequence.  Thread (cg,
+//    rg) holds a KPT x CPT tile of S: rows rg * KPT + [0, KPT), columns
+//    CPT * cg + [0, CPT) of the block's CB.  It reads its rows' r, k and w
+//    as 16-byte shared loads and its columns of v likewise: 3 * KPT / 4 +
+//    CPT / 4 loads for 3 * KPT * CPT operations a token (the per-column
+//    layout before took ~49 scalar loads for 64).  Each row group's KPT
+//    floats are padded by 4, so the row groups of a warp fall on distinct
+//    banks.
+//  * Three instructions an element.  The bonus (r_t * u) . k_t is one
+//    scalar a token, summed in the staging pass, so a thread's token is
+//    acc += r_i S_ij (one FMA) and S_ij = S_ij w_i + k_i v_j (a multiply
+//    and an FMA).  The threads' partial sums go to shared memory, and at
+//    the tile's end out = sum over row groups (in order) + bonus * v.
+//    The token loop is unrolled by two, so two tokens' loads and
+//    arithmetic interleave.
+//  * Double-buffered staging.  Tokens come TT at a time through a
+//    two-stage cp.async ring: tile t + 1 lands while tile t is scanned.
+//    The staging pass of a landed tile takes exp(logw) in place and the
+//    tile's bonuses.  The state moves with 16-byte coalesced loads and
+//    stores.
+// The per-token form is the definition (the sequential oracle
+// ``rwkv6_ref``): it takes any L with no chunk rule, and its decay is one
+// exp per token and channel, never a difference of cumulative sums, which
+// loses digits as the sums grow and overflows exp() past ~88 nats of
+// decay.
 #include <cuda_runtime.h>
+
+#include "tf32.cuh"     // cp_async16 / commit / wait
 
 namespace {
 
+// per head dim: columns a block (CB), row groups (RG), columns a thread
+// (CPT), tokens a stage (TT); rows a thread KPT = HD / RG (kernels/rwkv6.py
+// PLAN)
+template <int HD> struct Cfg;
+template <> struct Cfg<16> { static constexpr int CB = 16, RG = 4, CPT = 4, TT = 8; };
+template <> struct Cfg<32> { static constexpr int CB = 32, RG = 4, CPT = 4, TT = 8; };
+template <> struct Cfg<64> { static constexpr int CB = 64, RG = 8, CPT = 4, TT = 16; };
+template <> struct Cfg<128> { static constexpr int CB = 64, RG = 16, CPT = 4, TT = 8; };
+
+template <int HD> struct Shape {
+  static constexpr int CB = Cfg<HD>::CB, RG = Cfg<HD>::RG, KPT = HD / RG;
+  static constexpr int CPT = Cfg<HD>::CPT, C4 = CPT / 4, TT = Cfg<HD>::TT;
+  static constexpr int NQ = CB / 4;              // column quads a block
+  static constexpr int NC = CB / CPT;            // column groups a block
+  static constexpr int kThreads = NC * RG;
+  static constexpr int RS = RG * (KPT + 4);      // padded (r, k, w) token row
+  static constexpr int SF = TT * (3 * RS + CB);  // floats a stage
+  // two stages, the partial sums (TT x RG x CB), the bonuses, u
+  static constexpr int kSmem = 4 * (2 * SF + TT * RG * CB + TT + HD);
+  static_assert(KPT % 4 == 0 && CPT % 4 == 0 && HD % CB == 0 &&
+                CB % CPT == 0 && kThreads >= TT, "shape");
+};
+
+struct Args {
+  const float* r;
+  const float* k;
+  const float* v;
+  const float* logw;
+  const float* u;
+  const float* s0;
+  float* out;
+  float* sT;
+  int L, H;
+};
+
+// element e of a token's (r, k, w) row in the padded layout
+template <int KPT>
+__device__ __forceinline__ int padded(int e) {
+  return (e / KPT) * (KPT + 4) + e % KPT;
+}
+
+// Issue the copies of tokens [t0, t0 + TT) into stage st: r, k, logw whole
+// (padded rows), v's CB columns from c0; past L, zeros.
 template <int HD>
-__global__ void __launch_bounds__(4 * HD) rwkv6_scan(
-    const float* __restrict__ r, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ logw,
-    const float* __restrict__ u, const float* __restrict__ s0,
-    float* __restrict__ out, float* __restrict__ sT, int L, int H) {
-  constexpr int kThreads = 4 * HD;
-  constexpr int KPT = HD / 4;         // state rows per thread
-  constexpr int TT = 2048 / HD;       // tokens per staged tile (8 KB each)
-  constexpr int V4 = HD / 4;          // float4s per token row
-  __shared__ __align__(16) float sr[TT][HD];
-  __shared__ __align__(16) float sk[TT][HD];
-  __shared__ __align__(16) float sv[TT][HD];
-  __shared__ __align__(16) float sw[TT][HD];
-  __shared__ __align__(16) float so[TT][HD];
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int col = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const float* s_in = s0 + (size_t)bh * HD * HD;
-  float s[KPT], uk[KPT];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    s[i] = s_in[(q + 4 * i) * HD + col];
-    uk[i] = u[h * HD + q + 4 * i];
+__device__ __forceinline__ void stage_tile(const Args& a, float* st, int b,
+                                           int h, int c0, int t0) {
+  using S = Shape<HD>;
+  constexpr int H4 = HD / 4, TT = S::TT;
+  for (int i = threadIdx.x; i < TT * H4; i += S::kThreads) {
+    const int t = i / H4, c = 4 * (i % H4);
+    const bool ok = t0 + t < a.L;
+    const size_t off =
+        ((size_t)(b * a.L + (ok ? t0 + t : 0)) * a.H + h) * HD + c;
+    float* dst = st + t * S::RS + padded<S::KPT>(c);
+    cp_async16(dst, a.r + off, ok);
+    cp_async16(dst + TT * S::RS, a.k + off, ok);
+    cp_async16(dst + 2 * TT * S::RS, a.logw + off, ok);
   }
-
-  for (int t0 = 0; t0 < L; t0 += TT) {
-    const int n = min(TT, L - t0);
-    for (int i = threadIdx.x; i < n * V4; i += kThreads) {
-      const int t = i / V4, c = (i % V4) * 4;
-      const size_t off = ((size_t)(b * L + t0 + t) * H + h) * HD + c;
-      *reinterpret_cast<float4*>(&sr[t][c]) = *reinterpret_cast<const float4*>(r + off);
-      *reinterpret_cast<float4*>(&sk[t][c]) = *reinterpret_cast<const float4*>(k + off);
-      *reinterpret_cast<float4*>(&sv[t][c]) = *reinterpret_cast<const float4*>(v + off);
-      float4 w = *reinterpret_cast<const float4*>(logw + off);
-      w.x = expf(w.x);
-      w.y = expf(w.y);
-      w.z = expf(w.z);
-      w.w = expf(w.w);
-      *reinterpret_cast<float4*>(&sw[t][c]) = w;
-    }
-    __syncthreads();                  // tile staged
-    for (int t = 0; t < n; ++t) {
-      const float vc = sv[t][col];
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int kk = q + 4 * i;     // four neighbouring rows per warp: no bank conflict
-        const float kv = sk[t][kk] * vc;
-        acc += sr[t][kk] * (s[i] + uk[i] * kv);
-        s[i] = s[i] * sw[t][kk] + kv;
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (q == 0) so[t][col] = acc;
-    }
-    __syncthreads();                  // tile scanned: so[] complete, staging free
-    for (int i = threadIdx.x; i < n * V4; i += kThreads) {
-      const int t = i / V4, c = (i % V4) * 4;
-      const size_t off = ((size_t)(b * L + t0 + t) * H + h) * HD + c;
-      *reinterpret_cast<float4*>(out + off) = *reinterpret_cast<const float4*>(&so[t][c]);
-    }
+  for (int i = threadIdx.x; i < TT * S::NQ; i += S::kThreads) {
+    const int t = i / S::NQ, c = 4 * (i % S::NQ);
+    const bool ok = t0 + t < a.L;
+    const size_t off =
+        ((size_t)(b * a.L + (ok ? t0 + t : 0)) * a.H + h) * HD + c0 + c;
+    cp_async16(st + 3 * TT * S::RS + t * S::CB + c, a.v + off, ok);
   }
-  float* s_out = sT + (size_t)bh * HD * HD;
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) s_out[(q + 4 * i) * HD + col] = s[i];
+  cp_async_commit();
 }
 
 template <int HD>
-int launch(const float* r, const float* k, const float* v, const float* logw,
-           const float* u, const float* s0, float* out, float* sT, int B,
-           int L, int H, cudaStream_t st) {
-  rwkv6_scan<HD><<<B * H, 4 * HD, 0, st>>>(r, k, v, logw, u, s0, out, sT, L, H);
+__global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
+  using S = Shape<HD>;
+  constexpr int CB = S::CB, RG = S::RG, KPT = S::KPT, NQ = S::NQ;
+  constexpr int CPT = S::CPT, C4 = S::C4, NC = S::NC, TT = S::TT;
+  constexpr int RS = S::RS, SF = S::SF, NT = S::kThreads;
+  constexpr int TPT = NT / TT;          // threads a token's bonus
+  constexpr int EPT = HD / TPT;         // elements each sums
+  constexpr unsigned kMask = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
+  static_assert(EPT % 4 == 0 && TPT <= 32, "bonus split");
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  float* part = stages + 2 * SF;                 // TT x RG x CB
+  float* bonus = part + TT * RG * CB;            // TT
+  float* su = bonus + TT;                        // HD
+
+  const int cs = HD / CB;
+  const int bh = blockIdx.x / cs, c0 = (blockIdx.x % cs) * CB;
+  const int b = bh / a.H, h = bh % a.H;
+  const int tid = threadIdx.x, cg = tid % NC, rg = tid / NC;
+  const int ntiles = (a.L + TT - 1) / TT;
+  stage_tile<HD>(a, stages, b, h, c0, 0);
+
+  for (int i = tid; i < HD; i += NT) su[i] = a.u[h * HD + i];
+  float4 s[KPT][C4];
+  const float* s_in = a.s0 + ((size_t)bh * HD + rg * KPT) * HD + c0 + CPT * cg;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int j = 0; j < C4; ++j)
+      s[i][j] = reinterpret_cast<const float4*>(s_in + (size_t)i * HD)[j];
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int t0 = j * TT, n = min(TT, a.L - t0);
+    cp_async_wait<0>();
+    __syncthreads();     // tile j landed; stage j + 1 and the partials free
+    if (j + 1 < ntiles)
+      stage_tile<HD>(a, stages + ((j + 1) & 1) * SF, b, h, c0, t0 + TT);
+    float* sr = stages + (j & 1) * SF;
+    float* sk = sr + TT * RS;
+    float* sw = sk + TT * RS;
+    const float* sv = sw + TT * RS;
+
+    // staging pass: w = exp(logw) in place; bonus_t = (r_t * u) . k_t
+    for (int i = tid; i < TT * (HD / 4); i += NT) {
+      float4* w = reinterpret_cast<float4*>(
+          sw + (i / (HD / 4)) * RS + padded<KPT>(4 * (i % (HD / 4))));
+      float4 x = *w;
+      x.x = expf(x.x); x.y = expf(x.y); x.z = expf(x.z); x.w = expf(x.w);
+      *w = x;
+    }
+    {
+      const int t = tid / TPT, e0 = (tid % TPT) * EPT;
+      float acc = 0.f;
+#pragma unroll
+      for (int e = e0; e < e0 + EPT; e += 4) {
+        const int p = t * RS + padded<KPT>(e);
+        const float4 r4 = *reinterpret_cast<const float4*>(sr + p);
+        const float4 k4 = *reinterpret_cast<const float4*>(sk + p);
+        const float4 u4 = *reinterpret_cast<const float4*>(su + e);
+        acc += r4.x * u4.x * k4.x + r4.y * u4.y * k4.y + r4.z * u4.z * k4.z +
+               r4.w * u4.w * k4.w;
+      }
+#pragma unroll
+      for (int o = 1; o < TPT; o <<= 1)
+        acc += __shfl_xor_sync(kMask, acc, o);
+      if (tid % TPT == 0) bonus[t] = acc;
+    }
+    __syncthreads();     // w and the bonuses ready
+
+    // the scan: rows rg * KPT + [0, KPT), columns CPT * cg + [0, CPT)
+    const float* rrow = sr + rg * (KPT + 4);
+    const float* krow = sk + rg * (KPT + 4);
+    const float* wrow = sw + rg * (KPT + 4);
+#pragma unroll 2
+    for (int t = 0; t < n; ++t) {
+      float4 vv[C4], acc[C4];
+#pragma unroll
+      for (int j = 0; j < C4; ++j) {
+        vv[j] = reinterpret_cast<const float4*>(sv + t * CB + CPT * cg)[j];
+        acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i4 = 0; i4 < KPT / 4; ++i4) {
+        const float4 r4 = *reinterpret_cast<const float4*>(rrow + t * RS + 4 * i4);
+        const float4 k4 = *reinterpret_cast<const float4*>(krow + t * RS + 4 * i4);
+        const float4 w4 = *reinterpret_cast<const float4*>(wrow + t * RS + 4 * i4);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int j = 0; j < C4; ++j) {
+            float4& x = s[4 * i4 + e][j];
+            acc[j].x = fmaf(rr[e], x.x, acc[j].x);
+            acc[j].y = fmaf(rr[e], x.y, acc[j].y);
+            acc[j].z = fmaf(rr[e], x.z, acc[j].z);
+            acc[j].w = fmaf(rr[e], x.w, acc[j].w);
+            x.x = fmaf(x.x, ww[e], kk[e] * vv[j].x);
+            x.y = fmaf(x.y, ww[e], kk[e] * vv[j].y);
+            x.z = fmaf(x.z, ww[e], kk[e] * vv[j].z);
+            x.w = fmaf(x.w, ww[e], kk[e] * vv[j].w);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < C4; ++j)
+        reinterpret_cast<float4*>(part + (t * RG + rg) * CB + CPT * cg)[j] =
+            acc[j];
+    }
+    __syncthreads();     // the tile's partial sums complete
+
+    // out = the row groups' partials, in order, + bonus * v
+    for (int i = tid; i < n * NQ; i += NT) {
+      const int t = i / NQ, c = 4 * (i % NQ);
+      float4 o = *reinterpret_cast<const float4*>(part + t * RG * CB + c);
+#pragma unroll
+      for (int g = 1; g < RG; ++g) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            part + (t * RG + g) * CB + c);
+        o.x += p.x; o.y += p.y; o.z += p.z; o.w += p.w;
+      }
+      const float4 vv = *reinterpret_cast<const float4*>(sv + t * CB + c);
+      const float bt = bonus[t];
+      o.x = fmaf(bt, vv.x, o.x); o.y = fmaf(bt, vv.y, o.y);
+      o.z = fmaf(bt, vv.z, o.z); o.w = fmaf(bt, vv.w, o.w);
+      *reinterpret_cast<float4*>(
+          a.out + ((size_t)(b * a.L + t0 + t) * a.H + h) * HD + c0 + c) = o;
+    }
+  }
+  float* s_out = a.sT + ((size_t)bh * HD + rg * KPT) * HD + c0 + CPT * cg;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int j = 0; j < C4; ++j)
+      reinterpret_cast<float4*>(s_out + (size_t)i * HD)[j] = s[i][j];
+}
+
+template <int HD>
+int launch(const Args& a, int B, cudaStream_t st) {
+  using S = Shape<HD>;
+  static bool allowed = false;       // above 48 KB: once a process
+  if (S::kSmem > 48 * 1024 && !allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rwkv6_scan<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
+  }
+  rwkv6_scan<HD><<<B * a.H * (HD / S::CB), S::kThreads, S::kSmem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -118,12 +288,14 @@ extern "C" int rwkv6_forward(const float* r, const float* k, const float* v,
                              const float* logw, const float* u,
                              const float* s0, float* out, float* sT, int B,
                              int L, int H, int HD, void* stream) {
+  if (L < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const Args a{r, k, v, logw, u, s0, out, sT, L, H};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (HD) {
-    case 16: return launch<16>(r, k, v, logw, u, s0, out, sT, B, L, H, st);
-    case 32: return launch<32>(r, k, v, logw, u, s0, out, sT, B, L, H, st);
-    case 64: return launch<64>(r, k, v, logw, u, s0, out, sT, B, L, H, st);
-    case 128: return launch<128>(r, k, v, logw, u, s0, out, sT, B, L, H, st);
+    case 16: return launch<16>(a, B, st);
+    case 32: return launch<32>(a, B, st);
+    case 64: return launch<64>(a, B, st);
+    case 128: return launch<128>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

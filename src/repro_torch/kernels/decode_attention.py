@@ -4,11 +4,19 @@
 Counterpart of ``repro/kernels/decode_attention.py`` (``decode_attention``).
 One query per row attends over the cache's C slots; ``slot_pos`` (C,)
 holds the absolute position each slot stores (-1 = empty) and masks
-validity, causality and the window against ``q_pos``, a plain int.
-``decode_attention_cuda`` launches the kernel on CUDA tensors and nothing
-else; ``decode_attention_ref`` is the plain version (naive attention with
+validity, causality and the window against ``q_pos``: an int, or a 0-d
+integer tensor on q's device, which the kernel reads where it lies (no
+wrapper reads a device tensor on the host, so a captured launch replays
+at whatever position the tensor holds).  ``decode_attention_cuda``
+launches the kernel on CUDA tensors and nothing else;
+``decode_attention_ref`` is the plain version (naive attention with
 slot-position masks, mirroring ``repro/kernels/ref.py``).  The counted
 dispatching wrapper is ``kernels.ops.decode_attention``.
+
+The cache axis is split across blocks by ``plan``, from shapes only; the
+splits of each (row, KV head, head group) run as one thread block
+cluster, whose first block merges them in split order through
+distributed shared memory, in the same launch.
 """
 from __future__ import annotations
 
@@ -17,35 +25,64 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.nn.attention import attention_core, make_attention_mask
 
-TILE = 16             # slots per shared-memory tile (kTile in the source)
-TARGET_BLOCKS = 264   # ~2 blocks per SM of an H100 (132 SMs)
+TILE = 16           # slots a shared-memory stage (kTile in the source)
+MAX_HEADS = 8       # query heads (warps) a block (kMaxHeads)
+SMS = 132           # an H100's SMs
+WARPS_PER_SM = 16   # warps the split aims to put on each SM
+MAX_SPLITS = 16     # blocks a cluster (kMaxSplits); 8 above head_dim 128
 
 
-def decode_attention_ref(q, k_cache, v_cache, slot_pos, *, q_pos: int,
+def _q_pos_rows(q_pos, device):
+    """q_pos as a (1,) long tensor on ``device`` (no host read)."""
+    if isinstance(q_pos, torch.Tensor):
+        return q_pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), q_pos, dtype=torch.long, device=device)
+
+
+def decode_attention_ref(q, k_cache, v_cache, slot_pos, *, q_pos,
                          window=None, causal=True):
     """q (B, 1, H, Dh); k_cache / v_cache (B, C, Hkv, Dh); slot_pos (C,)
-    int (-1 = empty); q_pos int.  Returns (B, 1, H, Dh)."""
-    qp = torch.full((1,), q_pos, dtype=torch.long, device=q.device)
+    int (-1 = empty); q_pos an int or a 0-d integer tensor.  Returns
+    (B, 1, H, Dh)."""
     pos = slot_pos.long()
-    mask = make_attention_mask(qp, pos, causal=causal, window=window,
+    mask = make_attention_mask(_q_pos_rows(q_pos, q.device), pos,
+                               causal=causal, window=window,
                                kv_valid=pos >= 0)[None]
     return attention_core(q, k_cache, v_cache, mask=mask)
 
 
-def splits(batch: int, n_kv: int, capacity: int) -> tuple[int, int]:
-    """(number of splits, slots per split) of the cache axis: enough
-    blocks for ~2 per SM, each split a whole number of tiles and none
-    empty."""
+def plan(batch: int, heads: int, kv_heads: int, capacity: int,
+         head_dim: int) -> tuple[int, int]:
+    """(number of splits, slots per split) of the cache axis: blocks of
+    (row, KV head, group of at most ``MAX_HEADS`` query heads) and split,
+    one warp per query head, enough splits for ~``WARPS_PER_SM`` warps on
+    each SM, at most one cluster of them (``MAX_SPLITS``, 8 past head_dim
+    128, whose blocks hold more shared memory), each split a whole number
+    of tiles and none empty.  Shapes only.  Measured on the card, one-tile
+    splits beat longer walks at the ring decode shape (the ring then has
+    nothing to overlap, but twice the blocks are in flight), and 16
+    splits of 6 tiles beat fewer, longer ones at whisper's C = 1500."""
+    g = heads // kv_heads
+    groups = -(-g // MAX_HEADS)
+    warps = batch * kv_heads * groups * -(-g // groups)
     tiles = -(-capacity // TILE)
-    want = max(1, -(-TARGET_BLOCKS // (batch * n_kv)))
-    per = -(-tiles // min(tiles, want)) * TILE
+    want = max(1, -(-SMS * WARPS_PER_SM // warps))
+    top = MAX_SPLITS if head_dim <= 128 else MAX_SPLITS // 2
+    n = max(1, min(want, top, tiles))
+    per = -(-tiles // n) * TILE
     return -(-capacity // per), per
 
 
-def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos: int,
+def _aligned(x):
+    """Contiguous, with the 16-byte alignment the kernel's copies need."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos,
                           window=None, causal=True):
-    """Launch the split kernel (and, with more than one split, the
-    combine kernel); arguments as ``decode_attention_ref``."""
+    """Launch ``decode_kernel``; arguments as ``decode_attention_ref``, a
+    tensor ``q_pos`` on q's device."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the decode attention kernel runs on CUDA "
@@ -62,26 +99,31 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos: int,
         raise ValueError(f"shapes q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
                          f"slot_pos {tuple(slot_pos.shape)}")
-    if dh % 4 or dh > 256 or h // hkv > 16:
+    if dh % 4 or dh > 256 or h // hkv > 2 * MAX_HEADS:
         raise ValueError(f"head_dim {dh}, {h // hkv} query heads per KV "
                          "head: the kernel takes head_dim a multiple of 4 "
                          "up to 256 and at most 16 query heads per KV head")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    q, kc, vc = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
-    sp = slot_pos.to(device=dev, dtype=torch.int32).contiguous()
-    nsplit, per = splits(b, hkv, c)
+    qp_t, qp = None, 0
+    if isinstance(q_pos, torch.Tensor):
+        if (q_pos.ndim or q_pos.device != dev or q_pos.dtype == torch.bool
+                or q_pos.dtype.is_floating_point or q_pos.dtype.is_complex):
+            raise ValueError(f"q_pos: need an int or a 0-d integer tensor "
+                             f"on {dev}, got {q_pos.dtype} "
+                             f"{tuple(q_pos.shape)} on {q_pos.device}")
+        qp_t = q_pos.to(torch.int32)
+    else:
+        qp = int(q_pos)
+    q, kc, vc = map(_aligned, (q, k_cache, v_cache))
+    sp = _aligned(slot_pos.to(device=dev, dtype=torch.int32))
+    nsplit, per = plan(b, h, hkv, c, dh)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if nsplit > 1:
-        part_acc = torch.empty((b, h, nsplit, dh), device=dev)
-        part_ml = torch.empty((b, h, nsplit, 2), device=dev)
     err = build.load("decode_attention").decode_attention_forward(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), sp.data_ptr(),
-        None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), out.data_ptr(),
-        b, c, h, hkv, dh, int(q_pos), int(causal),
-        0 if window is None else int(window), nsplit, per,
-        float(dh ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "decode_split_kernel")
+        None if qp_t is None else qp_t.data_ptr(), out.data_ptr(), b, c, h,
+        hkv, dh, qp, int(causal), 0 if window is None else int(window),
+        nsplit, per, float(dh ** -0.5),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "decode_kernel")
     return out

@@ -116,10 +116,12 @@ def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
     return out.reshape(out.shape[0], *lead, h.shape[-1])
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, *, q_pos: int,
+def decode_attention(q, k_cache, v_cache, slot_pos, *, q_pos,
                      window=None, causal: bool = True):
     """Flash-decode over a contiguous ring cache: q (B, 1, H, Dh); cache
-    (B, C, Hkv, Dh); slot_pos (C,) (-1 = empty); q_pos an int."""
+    (B, C, Hkv, Dh); slot_pos (C,) (-1 = empty); q_pos an int or a 0-d
+    integer tensor on q's device (the kernel reads it there, so a
+    captured call replays at the position the tensor holds)."""
     decode_attention.calls += 1
     if _on_cpu(q):
         return _dec.decode_attention_ref(q, k_cache, v_cache, slot_pos,

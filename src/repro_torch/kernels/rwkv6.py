@@ -25,7 +25,8 @@ kernel) and of the function the reference's model path runs in its place,
     (``repro/kernels/ref.py`` ``rwkv6_ref``).
   * ``rwkv6_cuda`` — launches the kernel on CUDA tensors and nothing
     else: a per-token scan with the state in registers, any L (no chunk
-    rule); see the source.
+    rule), a head's value columns split over blocks where ``PLAN`` says
+    so; see the source.
 
 The counted dispatching wrapper is ``kernels.ops.rwkv6_chunked``.
 """
@@ -36,6 +37,12 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
+# head dim -> (value columns a block, row groups, columns a thread, tokens
+# a staged tile): a head's hd columns split over hd / columns blocks, each
+# thread holding hd / row groups state rows of its columns (Cfg in the
+# source)
+PLAN = {16: (16, 4, 4, 8), 32: (32, 4, 4, 8), 64: (64, 8, 4, 16),
+        128: (64, 16, 4, 8)}
 
 
 def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,

@@ -29,12 +29,19 @@ softmax as the kernel's) stays within the card tests' tolerance of an
 fp64 reference at whisper's, qwen2's and gemma's head dims, where one
 plain TF32 product does not.
 
+Flash-decode's split walk: the plan (shapes only) and a CPU model of the
+kernel's walk of each split in tiles and its in-order merge, held to the
+plain version and the Pallas kernel over the cases above and a cache
+split several times; ``q_pos`` as a 0-d tensor in the plain version.
+
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card at these shapes, ragged and fully masked ones
 included, at qwen2-1.5b's widths, at whisper-small's two attention shapes
 (the second splits the key axis), at gemma-2b's heads (Dh 256, one KV
 head), at head dims that pad to the mma depth, and bit for bit over two
-calls.  The card's machine has no JAX, so
+calls; flash-decode with ``q_pos`` as a device tensor, captured in a CUDA
+graph and replayed at new positions, at 16 query heads over one KV head
+and head dim 256, and at whisper's cross-attention decode.  The card's machine has no JAX, so
 the reference is imported inside the CPU tests only (``_reference``):
 ``pytest --noconftest -m cuda`` runs there.
 """
@@ -219,14 +226,154 @@ def test_wrappers_dispatch_and_count_on_cpu():
     assert not any(ops.counts("launches").values())
 
 
+# (batch, heads, kv heads, capacity, head_dim): chip_smoke.py phase 3's
+# ring decode and whisper's cross-attention decode, recurrentgemma's 16
+# heads over one, gemma-2b's 8 over 1, and small edges
+PLAN_SHAPES = [(4, 12, 2, 124, 128), (4, 12, 12, 1500, 64),
+               (1, 16, 1, 90, 256), (4, 8, 1, 4096, 256), (1, 1, 1, 5, 8),
+               (2, 8, 8, 4096, 128), (4, 12, 2, 16, 128), (1, 2, 2, 100, 16),
+               (64, 32, 8, 4096, 128)]
+
+
 def test_decode_splits_cover_the_cache():
-    """The split policy: whole tiles, no empty split, ~2 blocks per SM."""
-    from repro_torch.kernels.decode_attention import TILE, splits
-    for b, hkv, c in [(4, 2, 124), (1, 1, 5), (2, 8, 4096), (4, 2, 16)]:
-        n, per = splits(b, hkv, c)
+    """The split plan: whole tiles, each slot in exactly one split, none
+    empty, at most one cluster of splits (8 past head_dim 128); the main
+    path's shape and whisper's as chosen by measurement on the card."""
+    from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, plan
+    for b, h, hkv, c, dh in PLAN_SHAPES:
+        n, per = plan(b, h, hkv, c, dh)
         assert per % TILE == 0 and n * per >= c > (n - 1) * per
-        assert b * hkv * n <= max(264, b * hkv)
-    assert splits(4, 2, 124) == (8, 16)
+        assert n <= (MAX_SPLITS if dh <= 128 else MAX_SPLITS // 2)
+    assert plan(4, 12, 2, 124, 128) == (8, 16)     # 8 splits of one tile
+    assert plan(4, 12, 12, 1500, 64) == (16, 96)   # 16 splits of 6 tiles
+    assert plan(4, 8, 1, 4096, 256)[0] == 8
+    assert plan(64, 32, 8, 4096, 128)[0] <= 2      # enough rows fill it
+
+
+def test_decode_plan_depends_on_shapes_only():
+    """The plan takes integers, never a tensor, and the launcher takes
+    q_pos as it comes (an int or a device tensor): no wrapper reads a
+    device tensor on the host, so a captured launch can replay."""
+    import inspect
+
+    from repro_torch.kernels import decode_attention as kd
+    params = inspect.signature(kd.plan).parameters.values()
+    assert all(p.annotation in (int, "int") for p in params)
+    src = inspect.getsource(kd.decode_attention_cuda)
+    assert "plan(b, h, hkv, c, dh)" in src
+    assert ".item()" not in src and ".cpu()" not in src
+    assert ".tolist()" not in src
+
+
+NEG = -2.0 ** 30                       # the reference's finite mask value
+LOG2E = 1.4426950408889634
+
+
+def decode_split_model(q, k, v, slot_pos, q_pos, *, plan, tile,
+                       window=None, causal=True):
+    """The decode kernel's arithmetic: split s walks slots [s * per,
+    min(C, (s + 1) * per)) in tiles of ``tile`` with an online softmax in
+    log2 units (masked slots at the finite mask value, slots past the run
+    at -inf); the splits merge by their log-sum-exp in split order.
+    q (B, 1, H, Dh); k, v (B, C, Hkv, Dh); slot_pos (C,)."""
+    nsplit, per = plan
+    b_n, _, h, dh = q.shape
+    c, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qs = q[:, 0] * dh ** -0.5                              # (B, H, Dh)
+    kk = k.repeat_interleave(g, 2)                         # (B, C, H, Dh)
+    vv = v.repeat_interleave(g, 2)
+    pos = slot_pos.long()
+    ok = pos >= 0
+    if causal:
+        ok = ok & (pos <= q_pos)
+    if window is not None:
+        ok = ok & (pos > q_pos - window)
+    parts = []
+    for s in range(nsplit):
+        lo, hi = s * per, min(c, (s + 1) * per)
+        m = torch.full((b_n, h), -torch.inf)
+        l = torch.zeros((b_n, h))
+        acc = torch.zeros((b_n, h, dh))
+        for t0 in range(lo, lo + -(-(hi - lo) // tile) * tile, tile):
+            idx = torch.arange(t0, t0 + tile)
+            inside = idx < hi
+            idx = idx.clamp(max=c - 1)
+            sc = torch.einsum("bhd,bnhd->bhn", qs, kk[:, idx])
+            x = torch.where(ok[idx], sc, NEG) * LOG2E
+            x = torch.where(inside, x, -torch.inf)
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp2(x - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhn,bnhd->bhd", p,
+                                                        vv[:, idx])
+            m = m_new
+        parts.append((m, l, acc))
+    m_all = torch.stack([p[0] for p in parts]).amax(0)
+    l_all = sum(p[1] * torch.exp2(p[0] - m_all) for p in parts)
+    o = sum(p[2] * torch.exp2(p[0] - m_all)[..., None] for p in parts)
+    return (o / l_all[..., None])[:, None]
+
+
+# DECODE_CASES with the card's plan, with one-tile splits, and a cache of
+# 300 slots whose plan gives several splits of several tiles
+SPLIT_CASES = [(case, "plan") for case in sorted(DECODE_CASES)] + [
+    (case, "one_tile") for case in sorted(DECODE_CASES)] + [
+    ("long", "plan"), ("long_window", "plan")]
+LONG_CASES = {
+    # 330 positions into a 300-slot ring, window 40, block_k 20
+    "long": (300, ring_positions(300, 330), 329, None, True, 20),
+    "long_window": (300, ring_positions(300, 330), 329, 40, True, 20),
+}
+
+
+@pytest.mark.parametrize("case,how", SPLIT_CASES,
+                         ids=[f"{c}-{h}" for c, h in SPLIT_CASES])
+def test_decode_split_model_matches_plain_and_pallas(case, how):
+    """The split walk and in-order merge give the plain version and the
+    Pallas kernel (interpret) within ATT_TOL: a wrapped ring, empty slots,
+    a window, bidirectional, a query that sees no slot (the mean of V over
+    every slot), and several splits of several tiles."""
+    from repro_torch.kernels import decode_attention as kd
+    R = _reference()
+    cases = {**DECODE_CASES, **LONG_CASES}
+    c, pos, q_pos, window, causal, block_k = cases[case]
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 1, 6, 16), np.float32)
+    k = rng.standard_normal((2, c, 2, 16), np.float32)
+    v = rng.standard_normal((2, c, 2, 16), np.float32)
+    args, kw = (q, k, v, pos), dict(q_pos=q_pos, window=window,
+                                    causal=causal)
+    t = _torch(args)
+    plan = (kd.plan(2, 6, 2, c, 16) if how == "plan"
+            else (-(-c // kd.TILE), kd.TILE))
+    if case == "long":
+        assert plan[0] > 1 and plan[1] > kd.TILE
+    got = decode_split_model(*t, q_pos, plan=plan, tile=kd.TILE,
+                             window=window, causal=causal)
+    torch.testing.assert_close(got, ref.decode_attention_ref(*t, **kw),
+                               **ATT_TOL)
+    want = R.ops.decode_attention(*map(R.jnp.asarray, args), block_k=block_k,
+                                  interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_takes_q_pos_as_a_tensor(case, dtype):
+    """q_pos as a 0-d integer tensor gives the Pallas kernel's result at
+    the same int, and the plain version's at the int exactly."""
+    R = _reference()
+    args, kw = _decode_inputs(case, 4, 2)
+    want = R.ops.decode_attention(*map(R.jnp.asarray, args),
+                                 block_k=DECODE_CASES[case][-1],
+                                 interpret=True, **kw)
+    t = _torch(args)
+    got = ref.decode_attention_ref(
+        *t, **{**kw, "q_pos": torch.tensor(kw["q_pos"], dtype=dtype)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
+    assert torch.equal(got, ref.decode_attention_ref(*t, **kw))
 
 
 # ------------------------------------------ the kernel's TF32 arithmetic
@@ -470,6 +617,91 @@ def test_dense_kernels_full_width_on_card(cuda):
                                    **ATT_TOL)
 
 
+def _ring_inputs(cuda, rng, b, c, h, hkv, dh, written):
+    def r(*s):
+        return torch.as_tensor(rng.standard_normal(s, np.float32),
+                               device=cuda)
+    pos = torch.as_tensor(ring_positions(c, written), device=cuda)
+    return r(b, 1, h, dh), r(b, c, hkv, dh), r(b, c, hkv, dh), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_decode_attention_q_pos_tensor_on_card(cuda, dtype):
+    """q_pos as a 0-d device tensor gives the int's result bit for bit,
+    over one split and several (the main path's shape), with a window."""
+    rng = np.random.default_rng(11)
+    for c, written, q_pos, window in [(124, 117, 116, None),
+                                      (124, 140, 139, 50), (20, 20, 19, 5)]:
+        q, k, v, pos = _ring_inputs(cuda, rng, 4, c, 12, 2, 128, written)
+        got = ops.decode_attention(q, k, v, pos, q_pos=q_pos, window=window)
+        qp = torch.tensor(q_pos, dtype=dtype, device=cuda)
+        assert torch.equal(ops.decode_attention(q, k, v, pos, q_pos=qp,
+                                                window=window), got)
+        torch.testing.assert_close(
+            got, ref.decode_attention_ref(q, k, v, pos, q_pos=qp,
+                                          window=window), **ATT_TOL)
+
+
+@pytest.mark.cuda
+def test_decode_attention_replays_under_graph_capture_on_card(cuda):
+    """A ring decode captured in a CUDA graph with q_pos in a device
+    tensor: after the position tensor, the ring's slot positions and the
+    query are overwritten in place, a replay matches the plain version at
+    the new position (the split counters reset themselves, so replays
+    repeat)."""
+    rng = np.random.default_rng(12)
+    q, k, v, pos = _ring_inputs(cuda, rng, 4, 124, 12, 2, 128, 117)
+    qp = torch.tensor(116, dtype=torch.int32, device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(2):                     # warm up off the graph
+            ops.decode_attention(q, k, v, pos, q_pos=qp)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, pos, q_pos=qp)
+    for written in (117, 130, 140):
+        q.copy_(torch.as_tensor(rng.standard_normal(q.shape, np.float32),
+                                device=cuda))
+        pos.copy_(torch.as_tensor(ring_positions(124, written), device=cuda))
+        qp.fill_(written - 1)
+        graph.replay()
+        want = ref.decode_attention_ref(q, k, v, pos, q_pos=written - 1)
+        torch.testing.assert_close(out, want, **ATT_TOL)
+        first = out.clone()
+        graph.replay()
+        assert torch.equal(out, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,hkv,dh,written,q_pos,causal", [
+    (4, 124, 12, 2, 128, 117, 116, True),       # the ring decode, 4 splits
+    (4, 1500, 12, 12, 64, 1500, 0, False),      # whisper's cross decode
+    (2, 90, 16, 1, 256, 100, 99, True),         # G = 16, Dh = 256
+    (2, 37, 16, 1, 256, 37, 80, True),          # ... a query that sees none
+], ids=["ring", "whisper_cross", "g16_dh256", "g16_dh256_blind"])
+def test_decode_attention_limits_and_repeats_on_card(cuda, b, c, h, hkv, dh,
+                                                     written, q_pos, causal):
+    """The main shape, whisper's cross-attention decode (several splits of
+    several tiles), the limits of 16 query heads over one KV head and head
+    dim 256; within ATT_TOL of the plain version and bit for bit over two
+    calls, whichever block merges the splits."""
+    rng = np.random.default_rng(dh + c)
+    q, k, v, pos = _ring_inputs(cuda, rng, b, c, h, hkv, dh, written)
+    if not causal:
+        pos = torch.arange(c, dtype=torch.int32, device=cuda)
+    window = 3 if q_pos > written else None
+    kw = dict(q_pos=q_pos, causal=causal, window=window)
+    got = ops.decode_attention(q, k, v, pos, **kw)
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, pos,
+                                                             **kw),
+                               **ATT_TOL)
+    for _ in range(3):
+        assert torch.equal(ops.decode_attention(q, k, v, pos, **kw), got)
+
+
 @pytest.mark.cuda
 def test_dense_kernels_reject_other_dtypes_on_card(cuda):
     q = torch.zeros(1, 4, 4, 16, device=cuda, dtype=torch.bfloat16)
@@ -479,6 +711,11 @@ def test_dense_kernels_reject_other_dtypes_on_card(cuda):
     pos = torch.arange(4, device=cuda, dtype=torch.int32)
     with pytest.raises(ValueError, match="fp32"):
         ops.decode_attention(q[:, :1], k, k, pos, q_pos=3)
+    qf, kf = q[:, :1].float(), k.float()
+    for bad in (torch.tensor(3.0, device=cuda), torch.tensor([3], device=cuda),
+                torch.tensor(3)):
+        with pytest.raises(ValueError, match="q_pos"):
+            ops.decode_attention(qf, kf, kf, pos, q_pos=bad)
 
 
 def _dense_inputs(cuda, rng, lq, lk, h, hkv, dh, b=2):

@@ -36,9 +36,10 @@ demux at T 32 and 40 (two row jobs) at d 1536, without its exit
 LayerNorm, with its LN entry at rwkv6-7b's width, and bit for bit over
 two calls; the RWKV6 kernel against the chunkwise plain version
 (the reference's chunk rule) and the sequential oracle at the reference
-suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, one
-100-token chunk, chunks of 32, head dims 16 / 32 / 128, strong and weak
-decay, and two halves chained through the state.  The card's machine
+suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, L of 7,
+100, 109, 128 and 300, head dims 16 / 32 / 64 / 128, strong and weak
+decay, two halves chained through the state, and bit for bit over two
+calls.  The card's machine
 has no JAX, so the reference is imported inside the CPU tests only:
 ``pytest -m cuda`` runs there.
 """
@@ -709,6 +710,10 @@ RWKV_CASES = {
     "hd128": (1, 20, 2, 128, 20, None),
     "strong_decay": (2, 64, 4, 64, 32, -5.0),
     "weak_decay": (2, 100, 4, 64, 100, -1e-3),
+    "L7": (2, 7, 4, 64, 7, None),
+    "L109": (1, 109, 4, 64, 109, None),
+    "L300_chunks_of_100": (1, 300, 2, 64, 100, None),
+    "hd128_L100": (1, 100, 2, 128, 100, None),
 }
 
 
@@ -739,6 +744,17 @@ def test_rwkv6_kernel_state_chaining_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_rwkv6_kernel_is_bitwise_repeatable_on_card(cuda, hd):
+    """Each output and state element is summed in a fixed order (the row
+    groups' partials in order): two calls give the same bits."""
+    a = _torch(_rwkv_inputs(2, 37, 2, hd), cuda)
+    o1, s1 = ops.rwkv6_chunked(*a, chunk=37)
+    o2, s2 = ops.rwkv6_chunked(*a, chunk=37)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["rms", "ln"])
 def test_demux_rsa_without_exit_ln_on_card(cuda, entry):
     """No exit LayerNorm (the third launch writes y + b2), at d 1536."""
@@ -762,3 +778,19 @@ def test_demux_rsa_is_bitwise_repeatable_on_card(cuda, t, d, f, entry):
     nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
           for k, v in norms.items()}
     assert torch.equal(ops.demux_rsa(*a, **nm), ops.demux_rsa(*a, **nm))
+
+
+def test_kernel_sweep_variants_apply_to_the_sources():
+    """Every variant ``repro_torch.launch.kernel_sweep`` times is the
+    shipped source with text that is really there replaced, and its
+    plans cover the cache as the kernel requires."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import kernel_sweep as ks
+    for name, (src, subs) in ks.VARIANTS.items():
+        text = (build.CSRC / f"{src}.cu").read_text()
+        assert src in build.SOURCES
+        for old, new in subs:
+            assert text.count(old) == 1 and old != new, name
+    for shape, c in (("ring", 124), ("whisper", 1500)):
+        for n, per in ks.DECODE_PLANS[shape]:
+            assert n * per >= c > (n - 1) * per and per % 16 == 0
