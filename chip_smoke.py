@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-                nvcc per source, in parallel) and the Triton kernel;
+                nvcc per source, in parallel; the port has no Triton);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's full-width shapes and at edge shapes,
                 with kernel / plain / library-yardstick times (cold L2)
@@ -30,9 +30,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 tensor (bit for bit the int's result), captured in a CUDA
                 graph and replayed at new positions, at 16 query heads over
                 one KV head and head dim 256, and bit for bit over two
-                calls; the mux-combine entry
-                at whisper-small's encoder entry and a qwen2-1.5b prefill
-                entry, in fp32 and bf16, and at odd N, T and D;
+                calls; the fused embed + mux entry at qwen2-1.5b's decode
+                and chunk, rwkv6-7b's and whisper-small's decoder widths,
+                and with a bf16 table and output (within one bf16
+                half-ulp of the plain version's fp32 sum); the mux-combine
+                entry at whisper-small's encoder entry, a qwen2-1.5b and
+                an rwkv6-7b prefill entry, in fp32 and bf16, and at odd N,
+                T and D; and the timer's floor, a one-element ``add_``
+                timed the same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -76,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 once per step); then kernel path against plain path:
                 logits of the prefill and of one decode step from
                 identical caches within 2e-3, greedy tokens identical.
-The kernels' JSON line lists every kernel of phases 3-7.  The last two
+The kernels' JSON line lists every kernel of phases 3-7 and the timer
+floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
@@ -215,7 +221,8 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
 
 
 def phase_kernels(torch, timer):
-    """Phase 3.  Returns {kernel: summary} for the JSON line."""
+    """Phase 3.  Returns {kernel: summary, "floor_ms": the timer floor}
+    for the JSON line."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import demux_rsa as kd
@@ -299,6 +306,10 @@ def phase_kernels(torch, timer):
 
     # -- paged decode attention --------------------------------------------
     print("phase 3: kernels against their plain versions", flush=True)
+    one = torch.zeros(1, device=dev)
+    out["floor_ms"] = timer(lambda: one.add_(1.0))
+    print(f"  timer floor (a one-element add_, same flush and spin): "
+          f"{out['floor_ms']:.5f} ms", flush=True)
     decode_cases = [
         ("main: B=4 rows, ctx 100-117", [117, 108, 101, 100],
          [116, 107, 100, 99], 8, 33),
@@ -364,37 +375,61 @@ def phase_kernels(torch, timer):
                (got - want).abs().max().item(), ATT_TOL, timing)
 
     # -- fused embed + mux entry -------------------------------------------
-    emb = t(rng.standard_normal((151936, 1536), np.float32) * 0.02)
-    v = t(rng.standard_normal((2, 1536), np.float32))
-    for i, (case, tt) in enumerate([("main: decode T=4", 4),
-                                    ("main: chunk T=32", 32)]):
-        tok = t(rng.integers(0, 151936, (2, tt)).astype(np.int32))
-        got = km.mux_embed_combine_cuda(tok, emb, v)
-        want = ref.mux_embed_ref(tok, emb, v)
-        timing = None
-        if i == 0:
-            nb = 2 * tt * 1536 * 4 + v.numel() * 4 + tok.numel() * 4 \
-                + tt * 1536 * 4
-            bms, by = bound(nb, 2 * 2 * tt * 1536)
-            tl = tok.long()
-            timing = {
-                "ms": timer(lambda: km.mux_embed_combine_cuda(tok, emb, v)),
-                "plain_ms": timer(lambda: ref.mux_embed_ref(tok, emb, v)),
-                "library_ms": timer(lambda: torch.einsum(
-                    "ntd,nd->td", F.embedding(tl, emb), v) * 0.5),
-                "bound_ms": bms, "bound_by": by, "bytes": nb,
-                "flops": 2 * 2 * tt * 1536}
-        record("mux_embed_combine", case, (got - want).abs().max().item(),
-               MUX_TOL, timing)
+    bf = torch.bfloat16
+    tables = {}
+    embed_cases = [
+        # (case, vocab, D, T, table / key / output dtype); all timed, the
+        # first is the JSON's
+        ("main: qwen2 decode T=4", 151936, 1536, 4, torch.float32),
+        ("main: qwen2 chunk T=32", 151936, 1536, 32, torch.float32),
+        ("main: rwkv6-7b decode T=4", 65536, 4096, 4, torch.float32),
+        ("main: whisper dec T=4", 51865, 768, 4, torch.float32),
+        ("bf16: qwen2 decode T=4", 151936, 1536, 4, bf),
+    ]
+    for case, vocab, d, tt, dt in embed_cases:
+        if (vocab, d) not in tables:
+            tables[vocab, d] = t(rng.standard_normal((vocab, d), np.float32)
+                                 * 0.02)
+        emb = tables[vocab, d].to(dt)
+        v = t(rng.standard_normal((2, d), np.float32)).to(dt)
+        tok = t(rng.integers(0, vocab, (2, tt)).astype(np.int32))
+        got = km.mux_embed_combine_cuda(tok, emb, v, out_dtype=dt)
+        sum32 = ref.mux_embed_ref(tok, emb, v)
+        need(got.dtype == dt and got.shape == (tt, d),
+             f"mux_embed_combine [{case}]: {got.dtype} {tuple(got.shape)}")
+        elt = emb.element_size()
+        nb = (2 * tt * d + v.numel() + tt * d) * elt + tok.numel() * 4
+        bms, by = bound(nb, 2 * 2 * tt * d)
+        tl = tok.long()
+        timing = {
+            "ms": timer(lambda: km.mux_embed_combine_cuda(tok, emb, v,
+                                                          out_dtype=dt)),
+            "plain_ms": timer(lambda: ref.mux_embed_ref(tok, emb, v,
+                                                        out_dtype=dt)),
+            "library_ms": timer(lambda: torch.einsum(
+                "ntd,nd->td", F.embedding(tl, emb), v) * 0.5),
+            "bound_ms": bms, "bound_by": by, "bytes": nb,
+            "flops": 2 * 2 * tt * d}
+        err = (got.float() - sum32).abs()
+        if dt == torch.float32:
+            record("mux_embed_combine", case, err.max().item(), MUX_TOL,
+                   timing)
+        else:       # both round the fp32 sum once: within half a bf16 ulp
+            record("mux_embed_combine[bf16]", case, err.max().item(),
+                   "bf16 half-ulp rel + 1e-5", timing,
+                   share=(err / (BF16_REL * sum32.abs() + MUX_TOL))
+                   .max().item())
+    del tables, emb
 
     # -- Gaussian mux-combine of precomputed embeddings ------------------
     from repro_torch.kernels import mux_combine as kc
     crng = np.random.default_rng(16)     # the other cases keep their draws
     combine_cases = [
-        # (case, N, T, D, dtype); the first three are timed
+        # (case, N, T, D, dtype); the first four are timed
         ("main: whisper enc N=2 T=6000", 2, 6000, 768, "fp32"),
         ("main: qwen2 prefill T=400", 2, 400, 1536, "fp32"),
         ("bf16: whisper enc T=6000", 2, 6000, 768, "bf16"),
+        ("main: rwkv6-7b prefill T=436", 2, 436, 4096, "fp32"),
         ("edge: N=5 T=100 D=96", 5, 100, 96, "fp32"),
         ("edge: N=10 T=33 D=200 bf16", 10, 33, 200, "bf16"),
         ("edge: N=1 T=7 D=5", 1, 7, 5, "fp32"),
@@ -409,7 +444,7 @@ def phase_kernels(torch, timer):
         need(got.dtype == dtype and got.shape == (tt, d),
              f"mux_combine [{case}]: {got.dtype} {tuple(got.shape)}")
         timing = None
-        if i < 3:
+        if i < 4:
             nb = (n * tt * d + n * d + tt * d) * x.element_size()
             fl = 2 * n * tt * d
             bms, by = bound(nb, fl)
@@ -947,7 +982,7 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.core import MuxSpec
-        from repro_torch.kernels import build, mux_combine, mux_embed
+        from repro_torch.kernels import build
         from repro_torch.models import TransformerLM, param_count
         from repro_torch.serve import engine
     except ImportError as e:
@@ -967,16 +1002,9 @@ def main() -> int:
 
     # 2. build
     b = build.build_all()
-    t0 = time.perf_counter()
-    mux_embed.mux_embed_combine_cuda(
-        torch.zeros((2, 1), dtype=torch.int32, device="cuda"),
-        torch.zeros((4, 8), device="cuda"), torch.zeros((2, 8), device="cuda"))
-    mux_combine.mux_combine_cuda(torch.zeros((2, 1, 8), device="cuda"),
-                                 torch.zeros((2, 8), device="cuda"))
-    torch.cuda.synchronize()
-    print(f"phase 2: nvcc build {b['seconds']:.1f} s (parallel), Triton "
-          f"compile {time.perf_counter() - t0:.1f} s; into {build.build_dir()}",
-          flush=True)
+    print(f"phase 2: nvcc build {b['seconds']:.1f} s (parallel, "
+          f"{len(build.SOURCES)} sources, no Triton); into "
+          f"{build.build_dir()}", flush=True)
     for line in b["log"].splitlines():
         if any(w in line for w in ("registers", "spill", "Function properties",
                                    "==")):
@@ -1048,8 +1076,9 @@ def main() -> int:
     whisper = phase_whisper(torch, mux, rows, prompt_len, new_tokens)
 
     # summary
+    entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
-        "mux_embed_combine": ("triton", "src/repro_torch/kernels/mux_embed.py",
+        "mux_embed_combine": ("cuda", entry_src,
                               "src/repro/kernels/mux_embed.py:68"),
         "demux_rsa": ("cuda", "src/repro_torch/kernels/csrc/demux_rsa.cu",
                       "src/repro/kernels/demux_rsa.py:135"),
@@ -1065,7 +1094,7 @@ def main() -> int:
     meta["demux_rsa[ln]"] = ("cuda",
                              "src/repro_torch/kernels/csrc/demux_rsa.cu",
                              "src/repro/kernels/demux_rsa.py:135")
-    meta["mux_combine"] = ("triton", "src/repro_torch/kernels/mux_combine.py",
+    meta["mux_combine"] = ("cuda", entry_src,
                            "src/repro/kernels/mux_combine.py:35")
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     for kind in KINDS:
@@ -1095,13 +1124,13 @@ def main() -> int:
             "launches": launches, "max_abs_err": s["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": tm["library_ms"]})
+            "library_ms": tm["library_ms"], "floor_ms": summary["floor_ms"]})
         need(launches > 0, f"{kname} was never launched on the main path")
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} max_abs_err="
         f"{k['max_abs_err']:.3e} ms={k['ms']:.4f}" for k in rows_json))
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows_json}))
+    print(json.dumps({"kernels": rows_json, "floor_ms": summary["floor_ms"]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,7 +19,7 @@ class GaussianMux:
 
     @staticmethod
     def apply(p, x, *, use_kernel: bool = False):
-        """use_kernel: through ``kernels.ops.mux_combine`` (the Triton
+        """use_kernel: through ``kernels.ops.mux_combine`` (the CUDA
         kernel on CUDA tensors, its plain version on the CPU) over the
         (N, B*L, D) view; else the einsum."""
         v = p["v"].to(x.dtype)

@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD = REPO / "build" / "repro_torch"
 SOURCES = ("paged_attention", "demux_rsa", "decode_attention",
-           "flash_attention", "rwkv6")
+           "flash_attention", "rwkv6", "mux_entry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,6 +110,14 @@ SIGNATURES = {
     "rwkv6": {
         # r, k, v, logw, u, s0, out, sT; B, L, H, hd; stream
         "rwkv6_forward": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "mux_entry": {
+        # tok, emb, v, out; N, T, D, cols, threads, vec, emb_bf16, v_bf16,
+        # out_bf16; coef; stream
+        "mux_embed_forward": [_P] * 4 + [_I] * 9 + [_F, _P],
+        # x, v, out; N, T, D, cols, rows, slices, grid, threads, vec,
+        # x_bf16, v_bf16; coef; stream
+        "mux_combine_forward": [_P] * 3 + [_I] * 11 + [_F, _P],
     },
 }
 

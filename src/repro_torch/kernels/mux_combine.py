@@ -1,32 +1,56 @@
-"""Gaussian mux-combine over precomputed embeddings: the Triton kernel and
-its plain PyTorch version.
+"""Gaussian mux-combine over precomputed embeddings: the CUDA kernel
+(``csrc/mux_entry.cu``, ``mux_combine_kernel``) and its plain PyTorch
+version.
 
     out[t] = (1 / N) * sum_i x[i, t] ⊙ v[i]
 
-Replaces the Pallas TPU kernel ``repro/kernels/mux_combine.py``
-(``mux_combine``): x (N, T, D) and v (N, D) in fp32 or bf16, the sum over
-N kept in fp32, a (T, D) output in x's dtype.  Bound: bytes — x read
-once, v once, the output written once; two flops per element of x and no
-reuse across tiles, so nothing for shared memory or the tensor cores to
-do.  Design: one Triton program per (BLOCK_T x BLOCK_D) output tile; it
-loads the tile's N slices of x and N rows of v with masked vector loads,
-accumulates in fp32 registers and stores the tile once, so x is read in
-one pass and no (N, T, D) product is written.  Any N >= 1 (a constexpr:
-one compile per N), and T, D need not be multiples of a tile.  Triton is
-imported, and the kernel compiled, at first launch.
+Counterpart of ``repro/kernels/mux_combine.py`` (``mux_combine``): x
+(N, T, D) and v (N, D) in fp32 or bf16, the sum over N kept in fp32, a
+(T, D) output in x's dtype.  ``plan`` sets the kernel's tiles and grid
+from shapes only.  The counted dispatching wrapper is
+``kernels.ops.mux_combine``.
 """
 from __future__ import annotations
 
-import functools
-import os
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
-BLOCK_T = 16
-BLOCK_D = 256
 DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 256           # threads a block, at most
+UNROLL = {4: 2, 2: 2}   # rows a thread at once by element size: the
+                        # source's kUnroll (fp32) and kUnrollBf16
+
+
+class Plan(NamedTuple):
+    cols: int       # columns a tile: D, or a D-slice (a multiple of 8)
+    rows: int       # rows of T a tile
+    slices: int     # ceil(D / cols)
+    grid: int       # blocks: slices x tiles
+    threads: int    # threads a block
+    vector: bool    # 16-byte chunks of x a thread; else per-thread scalar
+                    # loads
+
+
+def plan(n: int, t: int, d: int, elt: int, aligned: bool = True) -> Plan:
+    """The kernel's tiles for x (n, t, d) of ``elt``-byte elements: one
+    block a tile.  D-slices whose row is at most THREADS 16-byte chunks,
+    a thread a chunk of UNROLL[elt] rows of the tile at once.  The vector
+    branch needs d % 8 == 0 and 16-byte aligned tensors (``aligned``);
+    else a block takes a tile of whole rows by per-thread scalar loads."""
+    if not (aligned and d % 8 == 0):
+        rows = max(1, min(t, 4 * THREADS // d))
+        return Plan(d, rows, 1, -(-t // rows), THREADS, False)
+    slices = -(-d * elt // (16 * THREADS))
+    cols = 8 * -(-d // (8 * slices))
+    slices = -(-d // cols)
+    chunks = -(-cols * elt // 16)
+    groups = THREADS // chunks
+    rows = groups * UNROLL[elt]
+    return Plan(cols, rows, slices, slices * -(-t // rows), groups * chunks,
+                True)
 
 
 def mux_combine_ref(x, v):
@@ -36,37 +60,9 @@ def mux_combine_ref(x, v):
     return out.to(x.dtype)
 
 
-@functools.cache
-def _triton_kernel():
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(build.BUILD / "triton-cache"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def mux_combine_kernel(x_ptr, v_ptr, out_ptr, T, D,
-                           N: tl.constexpr, BT: tl.constexpr,
-                           BD: tl.constexpr):
-        rows = tl.program_id(0) * BT + tl.arange(0, BT)
-        cols = tl.program_id(1) * BD + tl.arange(0, BD)
-        rm, cm = rows < T, cols < D
-        m = rm[:, None] & cm[None, :]
-        r64 = rows.to(tl.int64)          # element offsets pass 2**31
-        acc = tl.zeros([BT, BD], dtype=tl.float32)
-        for i in tl.static_range(N):
-            w = tl.load(v_ptr + i * D + cols, mask=cm, other=0.0)
-            xi = tl.load(x_ptr + (r64 + i * T)[:, None] * D + cols[None, :],
-                         mask=m, other=0.0)
-            acc += xi.to(tl.float32) * w.to(tl.float32)[None, :]
-        tl.store(out_ptr + r64[:, None] * D + cols[None, :],
-                 (acc / N).to(out_ptr.dtype.element_ty), mask=m)
-
-    return triton, mux_combine_kernel
-
-
 def mux_combine_cuda(x, v):
-    """Launch the Triton kernel; arguments as ``mux_combine_ref`` (x and v
-    fp32 or bf16, on one CUDA device)."""
+    """Launch ``mux_combine_kernel``; arguments as ``mux_combine_ref`` (x
+    and v fp32 or bf16, on one CUDA device)."""
     if x.device.type != "cuda":
         raise ValueError(f"the mux-combine kernel runs on CUDA tensors, got "
                          f"{x.device}")
@@ -82,7 +78,13 @@ def mux_combine_cuda(x, v):
                          f" on {x.device}")
     x, v = x.contiguous(), v.contiguous()
     out = torch.empty((t, d), device=x.device, dtype=x.dtype)
-    triton, kernel = _triton_kernel()
-    kernel[(triton.cdiv(t, BLOCK_T), triton.cdiv(d, BLOCK_D))](
-        x, v, out, t, d, N=n, BT=BLOCK_T, BD=BLOCK_D, num_warps=4)
+    aligned = all(a.data_ptr() % 16 == 0 for a in (x, v, out))
+    p = plan(n, t, d, x.element_size(), aligned)
+    bf = torch.bfloat16
+    err = build.load("mux_entry").mux_combine_forward(
+        x.data_ptr(), v.data_ptr(), out.data_ptr(), n, t, d, p.cols, p.rows,
+        p.slices, p.grid, p.threads, int(p.vector), int(x.dtype == bf),
+        int(v.dtype == bf), 1.0 / n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "mux_combine_kernel")
     return out

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import collections
 
+import torch
+
 from repro_torch.core.quant import KV_DTYPES
 
 from repro_torch.kernels import decode_attention as _dec
@@ -33,13 +35,17 @@ def _launched(wrapper, pages):
     wrapper.by_storage[KV_DTYPES[_paged.STORAGE_KINDS[pages.dtype]]] += 1
 
 
-def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0):
+def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0,
+                      out_dtype=torch.float32):
     """Fused embed + embedding scale + Gaussian mux-combine:
-    tokens (N, T), emb (V, D), v (N, D) -> (T, D)."""
+    tokens (N, T), emb (V, D), v (N, D) fp32 or bf16 -> (T, D) in
+    ``out_dtype`` (fp32 or bf16)."""
     mux_embed_combine.calls += 1
     if _on_cpu(emb):
-        return _mux.mux_embed_ref(tokens, emb, v, scale=scale)
-    out = _mux.mux_embed_combine_cuda(tokens, emb, v, scale=scale)
+        return _mux.mux_embed_ref(tokens, emb, v, scale=scale,
+                                  out_dtype=out_dtype)
+    out = _mux.mux_embed_combine_cuda(tokens, emb, v, scale=scale,
+                                      out_dtype=out_dtype)
     mux_embed_combine.launches += 1
     return out
 

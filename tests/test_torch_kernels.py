@@ -26,12 +26,21 @@ int8/fp8, its relative-rounding analogue for bf16).
 The mux-combine entry (``mux_combine_ref``) is held to the Pallas
 ``mux_combine`` in interpret mode at the reference suite's shapes and
 tolerance (``tests/test_kernels.py`` test_mux_combine: fp32 2e-5, bf16
-5e-2, where both sides round the bf16 output once).
+5e-2, where both sides round the bf16 output once); the fused entry
+(``mux_embed_ref``) to the Pallas ``mux_embed_combine`` in fp32 and with
+a bf16 table, keys and ``out_dtype``.  The two entry kernels' plans
+(``csrc/mux_entry.cu``) are checked on shapes alone: every element
+covered once, shared memory inside 227 KB, whole 16-byte words or the
+per-thread branch.
 
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
 widths, for every storage kind; the mux-combine kernel in fp32 and bf16
-at odd T and D, at N 1 to 10, and at whisper-small's encoder entry; the
+at odd T and D, at N 1 to 10, and at whisper-small's encoder entry and
+the qwen2-1.5b and rwkv6-7b prefill entries; the fused entry at its
+phase-3 shapes with fp32 and bf16 tables, keys and outputs, bit for bit
+over two calls and replayed from a CUDA graph after its token ids are
+overwritten; the
 demux at T 32 and 40 (two row jobs) at d 1536, without its exit
 LayerNorm, with its LN entry at rwkv6-7b's width, and bit for bit over
 two calls; the RWKV6 kernel against the chunkwise plain version
@@ -221,16 +230,41 @@ def test_mux_combine_plain_matches_pallas(n, t, d, dtype):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("n,t,scale", [(2, 4, 1.0), (2, 32, 1.0),
-                                       (4, 7, 8.0), (1, 3, 1.0)])
-def test_mux_embed_plain_matches_pallas(n, t, scale):
+@pytest.mark.parametrize("n,t,scale,dtype", [(2, 4, 1.0, "fp32"),
+                                             (2, 32, 1.0, "fp32"),
+                                             (4, 7, 8.0, "fp32"),
+                                             (1, 3, 1.0, "fp32"),
+                                             (2, 4, 1.0, "bf16"),
+                                             (4, 7, 8.0, "bf16")])
+def test_mux_embed_plain_matches_pallas(n, t, scale, dtype):
+    """fp32: within 1e-5.  bf16 (bf16 table and keys, ``out_dtype``
+    bf16): the same bf16 inputs on both sides, and each side's output
+    within one bf16 half-ulp (relative) of the Pallas kernel's fp32 sum,
+    since both round that sum once."""
     jops, jnp = _pallas()
     args = _mux_inputs(n, t)
-    want = jops.mux_embed_combine(*map(jnp.asarray, args), scale=scale,
-                                  block_d=16, interpret=True)
-    got = ref.mux_embed_ref(*_torch(args), scale=scale)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               atol=1e-5, rtol=1e-5)
+    if dtype == "fp32":
+        want = jops.mux_embed_combine(*map(jnp.asarray, args), scale=scale,
+                                      block_d=16, interpret=True)
+        got = ref.mux_embed_ref(*_torch(args), scale=scale)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+        return
+    tok, emb, v = _torch(args)
+    emb, v = emb.to(torch.bfloat16), v.to(torch.bfloat16)
+    jargs = (jnp.asarray(tok.numpy()),
+             jnp.asarray(emb.float().numpy()).astype(jnp.bfloat16),
+             jnp.asarray(v.float().numpy()).astype(jnp.bfloat16))
+    sum32, want = (np.asarray(jops.mux_embed_combine(
+        *jargs, scale=scale, block_d=16, out_dtype=od,
+        interpret=True).astype(jnp.float32))
+        for od in (jnp.float32, jnp.bfloat16))
+    got = ref.mux_embed_ref(tok, emb, v, scale=scale,
+                            out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (t, 48)
+    bound = BF16_REL * np.abs(sum32) + 1e-6
+    assert (np.abs(got.float().numpy() - sum32) <= bound).all()
+    assert (np.abs(want - sum32) <= bound).all()
 
 
 def _demux_inputs(t, n=2, d=64, f=128, seed=0, entry="rms"):
@@ -545,7 +579,8 @@ def test_paged_kernels_are_bitwise_repeatable_on_card(cuda, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,d", [(2, 64, 128), (5, 100, 96), (10, 33, 200),
                                    (1, 7, 5), (3, 17, 257),
-                                   (2, 6000, 768), (2, 400, 1536)])
+                                   (2, 6000, 768), (2, 400, 1536),
+                                   (2, 436, 4096), (10, 64, 4096)])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_mux_combine_kernel_on_card(cuda, n, t, d, dtype):
     """The kernel against its plain version in the working dtype: fp32
@@ -561,14 +596,158 @@ def test_mux_combine_kernel_on_card(cuda, n, t, d, dtype):
                                atol=tol, rtol=tol)
 
 
+# (N, T, vocab, D): phase 3's shapes (qwen2-1.5b decode and chunk,
+# rwkv6-7b, whisper's decoder), narrow and odd widths (D % 8 != 0 takes
+# the per-thread branch), N up to 10
+EMBED_CARD_CASES = [(2, 4, 97, 48), (2, 4, 151936, 1536),
+                    (2, 32, 151936, 1536), (2, 4, 65536, 4096),
+                    (2, 4, 51865, 768), (3, 5, 1000, 600), (1, 7, 97, 5),
+                    (10, 3, 50, 12), (10, 9, 300, 4096)]
+# (emb, v, out) dtypes
+EMBED_DTYPES = {"fp32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
+                "fp32 emb, bf16 v and out": (torch.float32, torch.bfloat16,
+                                             torch.bfloat16)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,vocab,d", [(2, 4, 97, 48), (2, 32, 151936, 1536),
-                                         (3, 5, 1000, 600)])
-def test_mux_embed_kernel_on_card(cuda, n, t, vocab, d):
-    a = _torch(_mux_inputs(n, t, vocab=vocab, d=d), cuda)
-    torch.testing.assert_close(ops.mux_embed_combine(*a, scale=2.0),
-                               ref.mux_embed_ref(*a, scale=2.0),
+@pytest.mark.parametrize("n,t,vocab,d", EMBED_CARD_CASES)
+@pytest.mark.parametrize("dtypes", sorted(EMBED_DTYPES))
+def test_mux_embed_kernel_on_card(cuda, n, t, vocab, d, dtypes):
+    """The kernel against its plain version: fp32 within 1e-5; a bf16
+    output within one bf16 half-ulp (relative) of the plain version's
+    fp32 sum, which both round once.  The wrapper launches it once."""
+    et, vt, ot = EMBED_DTYPES[dtypes]
+    tok, emb, v = _torch(_mux_inputs(n, t, vocab=vocab, d=d), cuda)
+    emb, v = emb.to(et), v.to(vt)
+    ops.reset_counts()
+    got = ops.mux_embed_combine(tok, emb, v, scale=2.0, out_dtype=ot)
+    assert ops.mux_embed_combine.launches == 1
+    assert got.dtype == ot and got.shape == (t, d)
+    sum32 = ref.mux_embed_ref(tok, emb, v, scale=2.0)
+    if ot == torch.float32:
+        torch.testing.assert_close(got, sum32, atol=1e-5, rtol=1e-5)
+    else:
+        err = (got.float() - sum32).abs()
+        assert (err <= BF16_REL * sum32.abs() + 1e-5).all()
+
+
+@pytest.mark.cuda
+def test_mux_entry_kernels_are_bitwise_repeatable_on_card(cuda):
+    """Each output element is one thread's sum in a fixed order: two calls
+    give the same bits, for both entry kernels."""
+    a = _torch(_mux_inputs(2, 32, vocab=151936, d=1536), cuda)
+    assert torch.equal(ops.mux_embed_combine(*a), ops.mux_embed_combine(*a))
+    x, v = (t.to(cuda) for t in _combine_inputs(2, 6000, 768))
+    assert torch.equal(ops.mux_combine(x, v), ops.mux_combine(x, v))
+
+
+@pytest.mark.cuda
+def test_mux_embed_replays_in_a_cuda_graph_on_card(cuda):
+    """One launch captured in a CUDA graph reads the token ids where they
+    lie: replayed after the ids are overwritten, it gives the new ids'
+    rows (the plan reads shapes only, the kernel keeps no state)."""
+    tok, emb, v = _torch(_mux_inputs(2, 4, vocab=151936, d=1536), cuda)
+    new = torch.as_tensor(_mux_inputs(2, 4, vocab=151936, d=1536, seed=1)[0],
+                          device=cuda)
+    ops.mux_embed_combine(tok, emb, v, scale=2.0)      # build and warm up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ops.mux_embed_combine(tok, emb, v, scale=2.0)
+    tok.copy_(new)
+    g.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.mux_embed_ref(new, emb, v, scale=2.0),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("n", [1, 2, 5, 10])
+def test_mux_embed_plan_covers_each_row_once(n, elt):
+    """The entry kernel's D-slices (one block each) cover a token's row
+    once; the vector branch is taken exactly where d % 8 == 0 and the
+    tensors are aligned, and then every slice is whole 16-byte words; a
+    block fits in 256 threads, enough for one 16-byte word a thread; at
+    T=4 the real widths take at least 2 slices a token."""
+    from repro_torch.kernels import mux_embed as km
+    for t in (1, 4, 32, 400):
+        for d in (5, 12, 48, 257, 600, 768, 1536, 2048, 3072, 4096):
+            for aligned in (True, False):
+                p = km.plan(n, t, d, elt, aligned)
+                slices = -(-d // p.cols)
+                starts = [s * p.cols for s in range(slices)]
+                widths = [min(p.cols, d - c0) for c0 in starts]
+                assert sum(widths) == d and min(widths) > 0
+                assert p.vector == (aligned and d % 8 == 0)
+                assert p.threads <= 256
+                assert p.threads % 32 == 0 and p.cols <= d
+                if p.vector:
+                    assert all(c0 * elt % 16 == 0 and w * elt % 16 == 0
+                               for c0, w in zip(starts, widths))
+                    assert 16 * p.threads >= p.cols * elt
+                if t == 4 and d >= 512:
+                    assert slices >= 2
+
+
+def _combine_tiles(p, t, d):
+    """The tiles ``mux_combine_kernel`` takes under plan ``p``, as the
+    source computes them: block (x, y) of the grid (tiles, slices) takes
+    row tile x of D-slice y (the per-thread branch: one slice).  Yields
+    (rows, columns) ranges and the block."""
+    tiles = p.grid // p.slices
+    assert tiles == -(-t // p.rows)
+    for x in range(tiles):
+        for y in range(p.slices):
+            t0, c0 = x * p.rows, y * p.cols
+            yield (t0, min(t0 + p.rows, t)), (c0, min(c0 + p.cols, d)), (x, y)
+
+
+def _direct_rows_once(p, elt):
+    """The vector branch's block (chunks, groups): thread row ty takes rows
+    r0 + u * groups of its tile, r0 = ty, ty + groups * U, ..., U rows at
+    once (``combine_direct``); every row of a full tile exactly once."""
+    from repro_torch.kernels import mux_combine as kc
+    groups = p.threads // -(-p.cols * elt // 16)
+    unroll = kc.UNROLL[elt]
+    rows = [r0 + u * groups for ty in range(groups)
+            for r0 in range(ty, p.rows, groups * unroll)
+            for u in range(min(unroll, -(-(p.rows - r0) // groups)))]
+    assert sorted(rows) == list(range(p.rows))
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("n", [1, 2, 5, 10])
+def test_mux_combine_plan_covers_each_element_once(n, elt):
+    """The combine kernel's grid covers every (t, d) element exactly once
+    with one tile a block, for N up to 10 and D up to 4096 (no shape is
+    refused); in the vector branch every tile row is whole 16-byte words
+    and a block holds a thread for each of them, else the per-thread
+    branch is taken."""
+    from repro_torch.kernels import mux_combine as kc
+    for t in (1, 7, 33, 400, 436, 6000):
+        for d in (5, 96, 200, 257, 768, 1536, 4096):
+            for aligned in (True, False):
+                p = kc.plan(n, t, d, elt, aligned=aligned)
+                assert p.vector == (aligned and d % 8 == 0)
+                assert p.grid % p.slices == 0 and p.cols <= d
+                assert p.slices == -(-d // p.cols)
+                assert 1 <= p.threads <= 256
+                if p.vector:                 # a thread a chunk of a row
+                    assert p.threads % -(-p.cols * elt // 16) == 0
+                seen = np.zeros((t, p.slices), np.int32)
+                blocks = set()
+                for (t0, t1), (c0, c1), b in _combine_tiles(p, t, d):
+                    seen[t0:t1, c0 // p.cols] += 1
+                    blocks.add(b)
+                    if p.vector:
+                        assert (c1 - c0) * elt % 16 == 0
+                        assert c0 * elt % 16 == 0
+                assert (seen == 1).all() and len(blocks) == p.grid
+                if p.vector:
+                    _direct_rows_once(p, elt)
+    # whisper's encoder entry: whole rows of D, several rows a tile
+    p = kc.plan(2, 6000, 768, 4)
+    assert p.slices == 1 and p.rows > 1
 
 
 def test_demux_plan_streams_each_weight_once():
@@ -794,3 +973,21 @@ def test_kernel_sweep_variants_apply_to_the_sources():
     for shape, c in (("ring", 124), ("whisper", 1500)):
         for n, per in ks.DECODE_PLANS[shape]:
             assert n * per >= c > (n - 1) * per and per % 16 == 0
+    assert {name.split()[0] for name in ks.VARIANTS} == set(ks.KERNELS)
+    for cols in ks.EMBED_COLS:           # whole 16-byte words of d 1536
+        assert cols % 8 == 0 and cols <= 1536
+    from repro_torch.kernels import mux_combine as kc
+    shipped = next(n for n in ks.VARIANTS if n.startswith("mux")
+                   and "shipped" in n)
+    assert ks.mux_unroll(shipped) == kc.UNROLL      # the source's constants
+    for t, d, elt in ((6000, 768, 4), (400, 1536, 4), (6000, 768, 2),
+                      (436, 4096, 4)):
+        assert ks.combine_tiling(t, d, elt, kc.UNROLL[elt]) == kc.plan(
+            2, t, d, elt)
+        for name in (n for n in ks.VARIANTS if n.startswith("mux")):
+            for chunks, threads in ks.COMBINE_TILINGS:
+                p = ks.combine_tiling(t, d, elt, ks.mux_unroll(name)[elt],
+                                      chunks, threads)
+                assert p.threads <= threads and p.rows >= 1
+                assert p.slices == -(-d // p.cols) and p.cols % 8 == 0
+                assert p.threads % -(-p.cols * elt // 16) == 0
