@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's full-width shapes and at edge shapes,
                 with kernel / plain / library-yardstick times (cold L2)
-                and the least time the card could take (bound: bytes at
-                the HBM rate, or fp32 operations at the faster of the
+                and the least time the card could take (bound: the bytes
+                this data needs at the HBM rate — the fused entry reads
+                each distinct table row once —, or fp32 operations at the faster of the
                 CUDA cores and the 3xTF32 tensor-core route); the two
                 paged kernels also over bf16, int8 and fp8 pages, held
                 against the dequantize-then-attend plain version and,
@@ -36,8 +37,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 half-ulp of the plain version's fp32 sum); the mux-combine
                 entry at whisper-small's encoder entry, a qwen2-1.5b and
                 an rwkv6-7b prefill entry, in fp32 and bf16, and at odd N,
-                T and D; and the timer's floor, a one-element ``add_``
-                timed the same way, beside every kernel time;
+                T and D; phase 8's shapes, each its own row and bit for
+                bit over two calls: the fused entry at T 10240 over vocab
+                30522, the mux-combine entry at (2, 10240, 768),
+                bidirectional flash attention over 80 rows of 128 and of
+                130 tokens (12 heads of 64), the demux with its LN entry
+                at d 768, F 1536 over T 10240 at N=2 and T 2048 at N=10;
+                and the timer's floor, a one-element ``add_`` timed the
+                same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -80,8 +87,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 decoder layer per decode step, the fused entry and exit
                 once per step); then kernel path against plain path:
                 logits of the prefill and of one decode step from
-                identical caches within 2e-3, greedy tokens identical.
-The kernels' JSON line lists every kernel of phases 3-7 and the timer
+                identical caches within 2e-3, greedy tokens identical;
+  8. bert     — the whisper-small weights freed, full-width mux-bert-base
+                (12 layers, d 768, 12 heads of 64, d_ff 3072, vocab
+                30522, 512 positions; random seeded weights with the
+                ELECTRA head, a classifier and a token head,
+                ``attn_impl='flash'``), 160 instances of 128 seeded
+                tokens held fixed so N shrinks the backbone batch (160,
+                80, 32, 16 rows at N = 1, 2, 5, 10): for N=1, each (mux,
+                demux) pair at N=2 and the Gaussian / RSA pair at N 5 and
+                10, one ``hidden`` with exact launch counts (flash
+                attention once a layer; the fused entry and exit for
+                Gaussian / RSA, ``mux_combine`` for Gaussian / prefix, the
+                fused exit alone for contextual / RSA, neither for
+                contextual / prefix); at N > 1 the MLM, RTD, classifier
+                and token heads on the kernel path against the plain path
+                within 2e-3 and the MLM argmax identical at 0.999 or more;
+                then instances per second of ``mlm_logits`` on the kernel
+                path at N = 1, 2, 5, 10 (p50 of 5 calls after a warm one)
+                and their ratios to N=1 beside the card's name and power
+                limit (no claim rests on them), then one more N=2 call
+                under ``torch.profiler``: its device busy time, idle
+                share and device time by kernel group (matmuls, demux,
+                flash, entry, other).
+The kernels' JSON line lists every kernel of phases 3-8 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -192,6 +221,15 @@ def bound(nbytes, flops):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
+def embed_bytes(tok, d, elt):
+    """The bytes the fused entry must move: each distinct table row once
+    (a repeated token's row is read once), the N keys, the (T, D) output
+    in ``elt``-byte elements and the int32 tokens."""
+    n = tok.shape[0]
+    return ((tok.unique().numel() + n + tok.shape[1]) * d * elt
+            + tok.numel() * 4)
+
+
 def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
     """The work paged attention needs on this data (no window): K/V of the
     valid slots of each row's pages only (``elem`` bytes per element, and
@@ -218,6 +256,28 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
               + (2 * valid * hkv * 4 if scaled else 0))
     return nbytes, 4 * pairs * h * dh, (f"{valid} valid slots, {pairs} "
                                         "query-slot pairs")
+
+
+def dense_bound(q, k, vis):
+    """Least work of attention over fresh K/V: q and the output once, K/V
+    of the keys some query sees once per KV head, 4 * Dh flops per (query
+    head, visible pair); ``vis`` (Lq, Lk) bool."""
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    keys = int(vis.any(0).sum())
+    pairs = int(vis.sum())
+    nb = 2 * q.numel() * 4 + 2 * b * keys * hkv * dh * 4
+    fl = 4 * b * h * dh * pairs
+    return nb, fl, (f"{keys} keys read, {pairs} query-key pairs per "
+                    "(row, head)")
+
+
+def sdpa_dense(q, k, v, mask):
+    """Library yardstick: SDPA over the same K/V (GQA, boolean mask)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
 
 
 def phase_kernels(torch, timer):
@@ -398,7 +458,7 @@ def phase_kernels(torch, timer):
         need(got.dtype == dt and got.shape == (tt, d),
              f"mux_embed_combine [{case}]: {got.dtype} {tuple(got.shape)}")
         elt = emb.element_size()
-        nb = (2 * tt * d + v.numel() + tt * d) * elt + tok.numel() * 4
+        nb = embed_bytes(tok, d, elt)
         bms, by = bound(nb, 2 * 2 * tt * d)
         tl = tok.long()
         timing = {
@@ -409,7 +469,9 @@ def phase_kernels(torch, timer):
             "library_ms": timer(lambda: torch.einsum(
                 "ntd,nd->td", F.embedding(tl, emb), v) * 0.5),
             "bound_ms": bms, "bound_by": by, "bytes": nb,
-            "flops": 2 * 2 * tt * d}
+            "flops": 2 * 2 * tt * d,
+            "work": f"{tok.unique().numel()} distinct table rows of "
+                    f"{tok.numel()} gathers"}
         err = (got.float() - sum32).abs()
         if dt == torch.float32:
             record("mux_embed_combine", case, err.max().item(), MUX_TOL,
@@ -519,25 +581,6 @@ def phase_kernels(torch, timer):
         if window is not None:
             m = m & (k_pos[None, :] > q_pos[:, None] - window)
         return m
-
-    def dense_bound(q, k, vis):
-        """Least work: q and the output once, K/V of the keys some query
-        sees once per KV head, 4 * Dh flops per (query head, visible
-        pair)."""
-        b, _, h, dh = q.shape
-        hkv = k.shape[2]
-        keys = int(vis.any(0).sum())
-        pairs = int(vis.sum())
-        nb = 2 * q.numel() * 4 + 2 * b * keys * hkv * dh * 4
-        fl = 4 * b * h * dh * pairs
-        return nb, fl, (f"{keys} keys read, {pairs} query-key pairs per "
-                        "(row, head)")
-
-    def sdpa_dense(q, k, v, mask):
-        """Library yardstick: SDPA over the same K/V (GQA, boolean mask)."""
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
 
     decode_dense_cases = [
         # (case, C, written, q_pos, window, causal)
@@ -956,8 +999,115 @@ def phase_kernels(torch, timer):
                           "bound_ms": bms, "bound_by": by, "bytes": nb,
                           "flops": fl}
             record(name, case, err, ATT_TOL, timing)
+
+    bert_kernels(torch, timer, record)
     torch.cuda.synchronize()
     return out
+
+
+def bert_kernels(torch, timer, record):
+    """Phase 3 at phase 8's shapes (mux-bert-base: 160 instances of 128
+    tokens, d 768, 12 heads of 64, vocab 30522, demux hidden 1536): the
+    four kernels of that path against their plain versions, each shape
+    timed and recorded as its own row (``BERT_ROWS``)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import demux_rsa as kd
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import mux_combine as kc
+    from repro_torch.kernels import mux_embed as km
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)      # the other cases keep their draws
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * s)
+                               .astype(np.float32), device=dev)
+
+    def timed(kernel, plain, library, nb, fl, **extra):
+        bms, by = bound(nb, fl)
+        return {"ms": timer(kernel), "plain_ms": timer(plain),
+                "library_ms": timer(library), "bound_ms": bms,
+                "bound_by": by, "bytes": nb, "flops": fl, **extra}
+
+    # the entry of (gaussian, rsa) at N=2: 80 rows of 128 tokens
+    tt, d, vocab = 10240, 768, 30522
+    emb, v = r(vocab, d, s=0.02), r(2, d)
+    tok = torch.as_tensor(rng.integers(0, vocab, (2, tt)).astype(np.int32),
+                          device=dev)
+    tl = tok.long()
+    got = km.mux_embed_combine_cuda(tok, emb, v)
+    need(torch.equal(got, km.mux_embed_combine_cuda(tok, emb, v)),
+         "mux_embed_combine [bert]: a repeat changed the bits")
+    record("mux_embed_combine[bert]", "bert: N=2 T=10240 V 30522",
+           (got - ref.mux_embed_ref(tok, emb, v)).abs().max().item(), MUX_TOL,
+           timed(lambda: km.mux_embed_combine_cuda(tok, emb, v),
+                 lambda: ref.mux_embed_ref(tok, emb, v),
+                 lambda: torch.einsum("ntd,nd->td", F.embedding(tl, emb), v)
+                 * 0.5, embed_bytes(tok, d, 4), 4 * tt * d,
+                 work=f"{tok.unique().numel()} distinct table rows of "
+                 f"{tok.numel()} gathers"))
+    del emb
+    # the entry of (gaussian, prefix) at N=2: embeddings given
+    x = r(2, tt, d)
+    got = kc.mux_combine_cuda(x, v)
+    need(torch.equal(got, kc.mux_combine_cuda(x, v)),
+         "mux_combine [bert]: a repeat changed the bits")
+    record("mux_combine[bert]", "bert: (2, 10240, 768)",
+           (got - ref.mux_combine_ref(x, v)).abs().max().item(),
+           COMBINE_TOL["fp32"],
+           timed(lambda: kc.mux_combine_cuda(x, v),
+                 lambda: ref.mux_combine_ref(x, v),
+                 lambda: torch.einsum("ntd,nd->td", x, v) / 2,
+                 (3 * tt * d + 2 * d) * 4, 4 * tt * d))
+    del x
+    # bidirectional attention over the row and over the prefix demux's row
+    for name, lq in (("flash_attention[bert L=128]", 128),
+                     ("flash_attention[bert L=130]", 130)):
+        q, k, vv = r(80, lq, 12, 64), r(80, lq, 12, 64), r(80, lq, 12, 64)
+        got = kfl.flash_attention_cuda(q, k, vv, causal=False)
+        need(torch.equal(got, kfl.flash_attention_cuda(q, k, vv,
+                                                       causal=False)),
+             f"{name}: a repeat changed the bits")
+        vis = torch.ones(lq, lq, dtype=torch.bool, device=dev)
+        nb, fl, work = dense_bound(q, k, vis)
+        record(name, f"bert: B=80, L={lq} bidir.",
+               (got - ref.flash_attention_ref(q, k, vv, causal=False)).abs()
+               .max().item(), ATT_TOL,
+               timed(lambda: kfl.flash_attention_cuda(q, k, vv, causal=False),
+                     lambda: ref.flash_attention_ref(q, k, vv, causal=False),
+                     lambda: sdpa_dense(q, k, vv, vis), nb, fl, work=work))
+    del q, k, vv
+    # the fused exit with the LN entry over a whole encoder batch
+    f = 2 * d
+    for name, tt, n in (("demux_rsa[ln, bert N=2]", 10240, 2),
+                        ("demux_rsa[ln, bert N=10]", 2048, 10)):
+        w = (r(n, d), r(d, f, s=0.02), r(d, f, s=0.02), r(f, s=0.02),
+             r(f, d, s=0.02), r(d, s=0.02))
+        norms = {"entry_kind": "ln", "entry_scale": 1.0 + r(d, s=0.1),
+                 "entry_bias": r(d, s=0.1), "exit_scale": 1.0 + r(d, s=0.1),
+                 "exit_bias": r(d, s=0.1)}
+        h = r(tt, d) + 2.0                 # a residual stream with an offset
+        got = kd.demux_rsa_cuda(h, *w, **norms)
+        need(torch.equal(got, kd.demux_rsa_cuda(h, *w, **norms)),
+             f"{name}: a repeat changed the bits")
+
+        def library():
+            hn = F.layer_norm(h, (d,), norms["entry_scale"],
+                              norms["entry_bias"], eps=1e-6)
+            z = F.gelu(torch.matmul(hn, w[1])[None]
+                       + (w[0] @ w[2] + w[3])[:, None], approximate="tanh")
+            return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                norms["exit_scale"], norms["exit_bias"],
+                                eps=1e-6)
+        nb = (3 * d * f + tt * d + n * d + f + 5 * d) * 4 + n * tt * d * 4
+        fl = 2 * tt * d * f + 2 * n * tt * f * d + 2 * n * d * f
+        record(name, f"bert: T={tt} N={n} d 768 F 1536",
+               (got - ref.demux_rsa_fused_ref(h, *w, **norms)).abs().max()
+               .item(), DEMUX_TOL,
+               timed(lambda: kd.demux_rsa_cuda(h, *w, **norms),
+                     lambda: ref.demux_rsa_fused_ref(h, *w, **norms), library,
+                     nb, fl))
 
 
 def serve_trace(cfg, n_req=8, prompt_len=100, new_tokens=16, seed=0):
@@ -1075,6 +1225,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = phase_whisper(torch, mux, rows, prompt_len, new_tokens)
 
+    # 8. mux-bert-base, full width; the whisper-small weights were phase
+    # 7's own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert = phase_bert(torch)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -1096,6 +1252,8 @@ def main() -> int:
                              "src/repro/kernels/demux_rsa.py:135")
     meta["mux_combine"] = ("cuda", entry_src,
                            "src/repro/kernels/mux_combine.py:35")
+    for kname, (wrapper, _) in BERT_ROWS.items():
+        meta[kname] = meta[wrapper]
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     for kind in KINDS:
         sfx = "" if kind == "fp32" else f"[{kind}]"
@@ -1109,7 +1267,10 @@ def main() -> int:
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if base in ("paged_attention", "paged_prefill_attention"):
+        if kname in BERT_ROWS:            # one hidden call of phase 8's arm
+            wrapper, arm = BERT_ROWS[kname]
+            launches = bert[arm][wrapper]
+        elif base in ("paged_attention", "paged_prefill_attention"):
             launches = runs[kind]["by_storage"][base][kind]
         elif base in ("decode_attention", "flash_attention"):
             launches = dense["ring"]["launches"][base]     # the CLI default
@@ -1650,6 +1811,168 @@ def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
           flush=True)
     need(same == total, "whisper: the kernel path's greedy tokens differ "
          "from the plain path's")
+
+
+BERT_INSTANCES, BERT_LEN = 160, 128      # instances held fixed, tokens each
+# phase 8's arms: (N, mux kind, demux kind)
+BERT_ARMS = [(2, "gaussian", "rsa"), (2, "gaussian", "prefix"),
+             (2, "contextual", "rsa"), (2, "contextual", "prefix"),
+             (5, "gaussian", "rsa"), (10, "gaussian", "rsa")]
+# launches of one ``hidden`` call on the kernel path (12 layers, flash), as
+# the reference gates the fused entry and exit
+# (repro/models/transformer.py:114-117, 215-216)
+BERT_LAUNCHES = {"gaussian": {"rsa": {"mux_embed_combine": 1, "demux_rsa": 1},
+                              "prefix": {"mux_combine": 1}},
+                 "contextual": {"rsa": {"demux_rsa": 1}, "prefix": {}}}
+# device time of the profiled N=2 call by kernel name (lower case)
+BERT_GROUPS = {"matmul": ("gemm", "cutlass", "xmma"), "demux_rsa": ("demux",),
+               "flash_attention": ("flash",), "mux entry": ("mux_",)}
+ARGMAX_SHARE = 0.999        # mlm argmax identical, kernel vs plain path
+# phase 3's rows at phase 8's shapes: the wrapper and the arm whose
+# ``hidden`` launch counts the JSON reports
+BERT_ROWS = {
+    "mux_embed_combine[bert]": ("mux_embed_combine", (2, "gaussian", "rsa")),
+    "mux_combine[bert]": ("mux_combine", (2, "gaussian", "prefix")),
+    "flash_attention[bert L=128]": ("flash_attention",
+                                    (2, "gaussian", "rsa")),
+    "flash_attention[bert L=130]": ("flash_attention",
+                                    (2, "gaussian", "prefix")),
+    "demux_rsa[ln, bert N=2]": ("demux_rsa", (2, "gaussian", "rsa")),
+    "demux_rsa[ln, bert N=10]": ("demux_rsa", (10, "gaussian", "rsa")),
+}
+
+
+def phase_bert(torch):
+    """Phase 8: full-width mux-bert-base (seeded weights, ELECTRA head, a
+    classifier and a token head, ``attn_impl='flash'``) on the paper's
+    throughput mechanism: 160 instances of 128 tokens held fixed, so N
+    shrinks the backbone batch.  For each arm, one ``hidden`` call with the
+    launch counts set to 0 just before and read just after (exact), then
+    the four heads on the kernel path against the plain path (naive
+    attention, plain entry and exit); then instances per second of
+    ``mlm_logits`` on the kernel path at N = 1, 2, 5 and 10.  Returns
+    {arm: launches}."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxEngine, MuxSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile_step
+    from repro_torch.models import MuxBERT, param_count
+    cfg = get_config("mux-bert-base").replace(attn_impl="flash")
+    plain_cfg = cfg.replace(attn_impl="naive")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    base = MuxBERT.init(gen, cfg, electra=True)
+    base["cls"] = MuxBERT.init_classifier(gen, cfg, 3)
+    base["tok"] = MuxBERT.init_token_classifier(gen, cfg, 9)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(base))
+    print(f"phase 8: mux-bert-base full width, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.max_seq_len} positions, "
+          f"{n_params / 1e6:.1f} M params ({param_count(cfg) / 1e6:.1f} M "
+          f"backbone) in {time.perf_counter() - t0:.1f} s; "
+          f"{BERT_INSTANCES} instances of {BERT_LEN} tokens", flush=True)
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (BERT_INSTANCES, BERT_LEN)), device="cuda")
+
+    def arm(n, mux_kind="gaussian", demux_kind="rsa"):
+        """The model at N with its own mux engine (N=1: none)."""
+        spec = MuxSpec(n=n, mux_kind=mux_kind, demux_kind=demux_kind)
+        p = dict(base, backbone=dict(base["backbone"]))
+        if spec.enabled:
+            p["backbone"]["mux_engine"] = MuxEngine.init(gen, spec,
+                                                         cfg.d_model)
+        return p, spec
+
+    launches = {}
+    for key in [(1, "gaussian", "rsa")] + BERT_ARMS:
+        n, mux_kind, demux_kind = key
+        p, spec = arm(*key)
+        ops.reset_counts()
+        h = MuxBERT.hidden(p, cfg, toks, mux=spec)
+        torch.cuda.synchronize()
+        got = ops.counts("launches")
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = cfg.n_layers
+        if spec.enabled:
+            want.update(BERT_LAUNCHES[mux_kind][demux_kind])
+        name = f"N={n}" if n == 1 else f"N={n} ({mux_kind}, {demux_kind})"
+        need(got == want, f"bert {name}: launch counts per hidden {got} != "
+             f"required {want}")
+        need(h.shape == (BERT_INSTANCES, BERT_LEN, cfg.d_model)
+             and bool(torch.isfinite(h).all()),
+             f"bert {name}: hidden {tuple(h.shape)} or not finite")
+        launches[key] = got
+        del h
+        if n > 1:
+            compare_bert_heads(p, cfg, plain_cfg, spec, toks, name)
+    print("  bert launches per hidden: " + "; ".join(
+        f"N={k[0]} {k[1]}/{k[2]}: " + ", ".join(
+            f"{w} {c}" for w, c in v.items() if c)
+        for k, v in launches.items()), flush=True)
+
+    rates, p50 = {}, {}
+    for n in (1, 2, 5, 10):
+        p, spec = arm(n)
+        MuxBERT.mlm_logits(p, cfg, toks, mux=spec)          # warm
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            MuxBERT.mlm_logits(p, cfg, toks, mux=spec)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        p50[n] = statistics.median(times)
+        rates[n] = BERT_INSTANCES / p50[n]
+        print(f"  bert mlm_logits kernel path N={n}: backbone batch "
+              f"{BERT_INSTANCES // n} x {BERT_LEN}, p50 "
+              f"{statistics.median(times) * 1e3:.3f} ms of 5 "
+              f"({', '.join(f'{x * 1e3:.3f}' for x in times)}): "
+              f"{rates[n]:.1f} instances/s", flush=True)
+    print("  bert throughput vs N=1 (instances/s ratio, mlm_logits kernel "
+          "path): " + ", ".join(f"N={n} {rates[n] / rates[1]:.3f}x"
+                                for n in (2, 5, 10))
+          + f"; {smi_line()}", flush=True)
+    # where the N=2 call's time goes: one more call under torch.profiler,
+    # its idle share against the p50 above
+    p, spec = arm(2)
+    trace, prof_wall = profile_step.profile_calls(
+        lambda: MuxBERT.mlm_logits(p, cfg, toks, mux=spec), 1)
+    profile_step.summarize("  bert mlm_logits kernel path N=2, profiled",
+                           trace, 1, p50[2], prof_wall, 8, BERT_GROUPS)
+    return launches
+
+
+def compare_bert_heads(p, cfg, plain_cfg, spec, toks, name):
+    """Phase 8, kernel path (the arm's entry and exit kernels, flash
+    attention) against plain path (plain entry and exit, naive attention)
+    on the four heads, within LOGIT_TOL; the mlm argmax identical at
+    ARGMAX_SHARE or more."""
+    import torch
+    from repro_torch.models import MuxBERT
+    errs = {}
+    for head in ("mlm_logits", "rtd_logits", "classify", "classify_tokens"):
+        fn = getattr(MuxBERT, head)
+        args = (p, p["cls"] if head == "classify" else p["tok"]) \
+            if head.startswith("classify") else (p,)
+        k = fn(*args, cfg, toks, mux=spec, use_kernels=True)
+        pl = fn(*args, plain_cfg, toks, mux=spec, use_kernels=False)
+        need(bool(torch.isfinite(k).all() and torch.isfinite(pl).all()),
+             f"bert {name} {head}: not finite")
+        errs[head] = (k - pl).abs().max().item()
+        if head == "mlm_logits":
+            share = (k.argmax(-1) == pl.argmax(-1)).float().mean().item()
+            top = k.abs().max().item()
+        del k, pl
+    print(f"  bert {name}: max_abs_err kernel vs plain path "
+          + ", ".join(f"{h} {e:.3e}" for h, e in errs.items())
+          + f" (tol {LOGIT_TOL:g}); mlm argmax identical {share:.5f} (need "
+          f">= {ARGMAX_SHARE}); |mlm logits| max {top:.3f}", flush=True)
+    need(all(e <= LOGIT_TOL for e in errs.values()),
+         f"bert {name}: kernel path disagrees with the plain path")
+    need(share >= ARGMAX_SHARE, f"bert {name}: mlm argmax identical at "
+         f"{share} < {ARGMAX_SHARE}")
 
 
 def _leaves(tree):

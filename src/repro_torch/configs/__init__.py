@@ -1,3 +1,4 @@
-from repro_torch.configs.registry import ARCHS, get_config, model_kind
+from repro_torch.configs.registry import (ARCHS, PAPER_MODELS, get_config,
+                                          model_kind)
 
-__all__ = ["ARCHS", "get_config", "model_kind"]
+__all__ = ["ARCHS", "PAPER_MODELS", "get_config", "model_kind"]

@@ -4,7 +4,11 @@
 pytree, given with numpy leaves (``jax.tree.map(np.asarray, params)``),
 into the port's param tree; ``params_to_reference`` goes back.  An
 ``EncDecLM`` tree (``encoder``, ``decoder``, ``enc_mux``) converts stack
-by stack, the encoder under ``cfg.encoder``.  The
+by stack, the encoder under ``cfg.encoder``; a ``MuxBERT`` tree
+(``backbone``, ``mlm``, ``rtd`` where present, and any head dicts kept
+beside them) converts its backbone as a ``TransformerLM`` tree and every
+other subtree leaf for leaf.  A ``mux_engine`` subtree (Gaussian or
+contextual mux, RSA or prefix demux) crosses leaf for leaf.  The
 reference groups layers into periods of ``cfg.block_pattern`` and stacks
 each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
@@ -42,6 +46,10 @@ def params_from_reference(tree, cfg, *, device):
     def tensor(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
+    if "backbone" in tree:
+        return {k: (params_from_reference(v, cfg, device=device)
+                    if k == "backbone" else _map(tensor, v))
+                for k, v in tree.items()}
     if "encoder" in tree:
         out = {"encoder": params_from_reference(tree["encoder"], cfg.encoder,
                                                 device=device),
@@ -78,6 +86,10 @@ def params_to_reference(params, cfg):
     def arr(t):
         return t.detach().cpu().numpy()
 
+    if "backbone" in params:
+        return {k: (params_to_reference(v, cfg) if k == "backbone"
+                    else _map(arr, v))
+                for k, v in params.items()}
     if "encoder" in params:
         out = {"encoder": params_to_reference(params["encoder"], cfg.encoder),
                "decoder": params_to_reference(params["decoder"], cfg)}

@@ -43,7 +43,11 @@ def _busy_us(intervals):
     return total
 
 
-def _summarize(label, trace, steps, wall_s, prof_wall_s, top):
+def summarize(label, trace, steps, wall_s, prof_wall_s, top, groups=None):
+    """Print per-step host wall time, device busy time, the idle share and
+    the kernel count of ``trace``, then ``groups`` (a name: substrings map;
+    a kernel falls in the first group one of whose substrings its lower-case
+    name holds, else in "other") and the ``top`` kernels by device time."""
     evs = [e for e in trace["traceEvents"]
            if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
     if not evs:
@@ -58,11 +62,20 @@ def _summarize(label, trace, steps, wall_s, prof_wall_s, top):
           f"({prof_wall_s * 1e3 / steps:.3f} under the profiler), device "
           f"busy {busy / steps / 1e3:.3f} ms/step, idle share "
           f"{1 - busy / wall_us:.3f}, {n_kernels / steps:.0f} kernels/step")
+    if groups:
+        by_group = collections.Counter()
+        for name, us in by_name.items():
+            low = name.lower()
+            by_group[next((g for g, subs in groups.items()
+                           if any(s in low for s in subs)), "other")] += us
+        print("  by group: " + ", ".join(
+            f"{g} {us / steps / 1e3:.3f} ms ({us / busy:.1%})"
+            for g, us in by_group.most_common()))
     for name, us in by_name.most_common(top):
         print(f"  {us / steps:10.1f} us/step  {us / busy:6.1%}  {name[:90]}")
 
 
-def _wall(fn, steps):
+def wall_time(fn, steps):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -71,7 +84,9 @@ def _wall(fn, steps):
     return time.perf_counter() - t0
 
 
-def _profile(fn, steps):
+def profile_calls(fn, steps):
+    """Run ``fn`` ``steps`` times under ``torch.profiler`` (CPU + CUDA),
+    ending in a synchronize.  Returns (Chrome trace as a dict, wall s)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -147,9 +162,9 @@ def main(argv=None):
     for label, fn in (("decode step", decode), ("prefill chunk (32)", chunk)):
         for _ in range(2):
             fn()
-        wall = _wall(fn, args.steps)
-        trace, prof_wall = _profile(fn, args.steps)
-        _summarize(label, trace, args.steps, wall, prof_wall, args.top)
+        wall = wall_time(fn, args.steps)
+        trace, prof_wall = profile_calls(fn, args.steps)
+        summarize(label, trace, args.steps, wall, prof_wall, args.top)
     return 0
 
 

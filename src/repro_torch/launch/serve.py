@@ -19,8 +19,9 @@ Architectures: ``--arch qwen2-1.5b`` (default), ``--arch rwkv6-7b``
 (RWKV6, on the ring arm and in fill-drain: the reference's paged arm
 fails on RWKV, so ``--cache paged`` with it is an error) and ``--arch
 whisper-small`` (encoder-decoder, fill-drain only, as the reference; its
-frame embeddings are zeros, as the reference CLI's).  Runs on ``cuda``
-unless ``--device cpu``; weights come from a seeded init.
+frame embeddings are zeros, as the reference CLI's); the paper's
+encoders (``mux-bert-*``, ``mux-electra-base``) are an error.  Runs on
+``cuda`` unless ``--device cpu``; weights come from a seeded init.
 ``--use-kernels`` (default) runs the kernel path, ``--no-use-kernels``
 the plain model path.
 ``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and fp8
@@ -356,6 +357,9 @@ def main(argv=None):
         kind = model_kind(args.arch)
     except NotImplementedError as e:
         ap.error(str(e))
+    if kind == "bert":
+        ap.error(f"--arch {args.arch}: the paper's encoders have no decode "
+                 "loop to serve; run them through models.bert.MuxBERT")
     if kind != "lm" and args.continuous:
         ap.error(f"--continuous with {args.arch}: continuous serving "
                  "supports decoder-only LM families, as the reference's "

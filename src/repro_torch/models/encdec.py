@@ -5,15 +5,17 @@ caller hands in precomputed frame embeddings (N*B, frames, D_enc).
 The encoder is a bidirectional ``TransformerLM`` over frames, run without
 a cache; the decoder a causal ``TransformerLM`` of cross-attention blocks
 (``models.blocks.apply_xattn``).  Multiplexing: the encoder muxes the N
-frame streams with its own Gaussian mux (``enc_mux``), the decoder muxes
-the N token streams; cross-attention runs in the multiplexed domain, and
-one demux after the decoder recovers the N logit streams.
+frame streams with its own mux (``enc_mux``, of the spec's kind), the
+decoder muxes the N token streams; cross-attention runs in the
+multiplexed domain, and one demux after the decoder recovers the N logit
+streams.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import GaussianMux, MuxEngine, MuxSpec
+from repro_torch.core import MuxEngine, MuxSpec
+from repro_torch.core.mux import init_mux
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import TransformerLM
 
@@ -30,8 +32,8 @@ class EncDecLM:
         params = {"encoder": TransformerLM.init(generator, cfg.encoder),
                   "decoder": TransformerLM.init(generator, cfg, mux)}
         if mux.enabled:
-            params["enc_mux"] = {"mux": GaussianMux.init(
-                generator, mux.n, cfg.encoder.d_model)}
+            params["enc_mux"] = {"mux": init_mux(generator, mux,
+                                                 cfg.encoder.d_model)}
         return params
 
     @staticmethod

@@ -1,5 +1,6 @@
-"""TransformerLM — the decoder-only backbone with data multiplexing
-(counterpart of ``repro.models.transformer``).
+"""TransformerLM — the backbone with data multiplexing (counterpart of
+``repro.models.transformer``): decoder-only LMs, whisper's two stacks and
+MUX-BERT's encoder.
 
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
@@ -10,9 +11,9 @@ blocks or cross-attention decoder blocks (``models.blocks`` dispatches on
 prefill, decode at one shared position) or a paged cache (blocking or
 chunked prefill, decode at per-row positions) with fp32, bf16, int8 or
 fp8 pages; an RWKV layer's cache is its recurrent state on either
-layout.  ``cache=None`` is the no-cache forward (whisper's encoder).
-Positions are RoPE, learned (``params["pos_emb"]``, added after the
-entry) or none.  Embeddings are tied, or untied with
+layout.  ``cache=None`` is the no-cache forward (whisper's encoder,
+MUX-BERT).  Positions are RoPE, learned (``params["pos_emb"]``, added
+after the entry) or none.  Embeddings are tied, or untied with
 ``params["lm_head"]``; ``embeds=`` replaces the token embedding with
 precomputed (N*B, L, D) embeddings (a frontend stub's frames).
 """
@@ -118,19 +119,29 @@ class TransformerLM:
         chunk attention, the RWKV6 recurrence), the mux-combine kernel of
         the plain entry and, with ``fuse_io``, the fused entry and exit
         instead (default; their plain versions on CPU tensors), False for
-        the plain model path.  fuse_io=False keeps the plain entry and
-        exit, as a blocking prefill runs them; ``embeds`` always takes the
-        plain entry.  demux=False returns the backbone's normed hidden
-        without the demux (an encoder).  The attention of a blocking
-        forward follows ``cfg.attn_impl`` ('auto': chunked above 2048
-        tokens, else naive; 'flash' launches the flash kernel).  Returns
-        dict(logits | hidden)."""
+        the plain model path.  As in the reference, the fused entry
+        (gather + embedding scale + mux combine) runs for the Gaussian mux
+        without the prefix demux, and the fused exit (final norm + demux
+        + demux LN) for the RSA demux whatever the mux kind; the other
+        kinds take the plain entry (the contextual mux always plain, the
+        Gaussian through the mux-combine kernel) or the plain exit.
+        fuse_io=False keeps the plain entry and exit, as a blocking
+        prefill runs them; ``embeds`` always takes the plain entry.  The
+        prefix demux's N prefix positions lead the backbone's row, and
+        learned positions cover them.  demux=False returns the backbone's
+        normed hidden without the demux (an encoder).  The attention of a
+        blocking forward follows ``cfg.attn_impl`` ('auto': chunked above
+        2048 tokens, else naive; 'flash' launches the flash kernel).
+        Returns dict(logits | hidden)."""
         _check_supported(cfg, mux)
         d = cfg.d_model
         dev = params["embed"]["table"].device
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0
-        fused = use_kernels and fuse_io and mux.enabled and embeds is None
-        if fused:
+        fused = (use_kernels and fuse_io and mux.enabled
+                 and "mux_engine" in params)
+        fuse_entry = (fused and embeds is None and mux.mux_kind == "gaussian"
+                      and mux.demux_kind != "prefix")
+        if fuse_entry:
             # fused entry: gather + embedding scale + mux combine, one kernel
             tokens = torch.as_tensor(tokens, device=dev)
             nb, l_in = tokens.shape
@@ -182,7 +193,7 @@ class TransformerLM:
                             None if cache is None else cache["layers"][i])
 
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
-        if fused and demux:
+        if fused and demux and mux.demux_kind == "rsa":
             # fused exit: final norm + RSA demux + demux LN, one kernel
             x = MuxEngine.separate_fused(
                 params["mux_engine"], mux, x, final_norm=params["final_norm"],

@@ -37,7 +37,8 @@ split several times; ``q_pos`` as a 0-d tensor in the plain version.
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card at these shapes, ragged and fully masked ones
 included, at qwen2-1.5b's widths, at whisper-small's two attention shapes
-(the second splits the key axis), at gemma-2b's heads (Dh 256, one KV
+(the second splits the key axis), at mux-bert-base's (80 rows of 128
+and of 130 tokens, bidirectional), at gemma-2b's heads (Dh 256, one KV
 head), at head dims that pad to the mma depth, and bit for bit over two
 calls; flash-decode with ``q_pos`` as a device tensor, captured in a CUDA
 graph and replayed at new positions, at 16 query heads over one KV head
@@ -734,6 +735,20 @@ def test_flash_attention_whisper_shapes_on_card(cuda, lq, kw):
     of 64, bit for bit over two calls."""
     q, k, v = _dense_inputs(cuda, np.random.default_rng(3), lq, 1500, 12,
                             12, 64)
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got, ref.flash_attention_ref(q, k, v, causal=False), **ATT_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [128, 130], ids=["row", "prefix_row"])
+def test_flash_attention_bert_shapes_on_card(cuda, l):
+    """mux-bert-base's encoder attention: 80 rows, bidirectional, 12 heads
+    of 64, over 128 tokens and over the prefix demux's 2 + 128, bit for
+    bit over two calls."""
+    q, k, v = _dense_inputs(cuda, np.random.default_rng(l), l, l, 12, 12,
+                            64, b=80)
     got = ops.flash_attention(q, k, v, causal=False)
     torch.testing.assert_close(
         got, ref.flash_attention_ref(q, k, v, causal=False), **ATT_TOL)

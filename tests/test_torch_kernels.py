@@ -36,14 +36,15 @@ per-thread branch.
 CUDA (marked ``cuda``, skipped without a card): each kernel against its
 plain version on the card, at these shapes and at the full qwen2-1.5b
 widths, for every storage kind; the mux-combine kernel in fp32 and bf16
-at odd T and D, at N 1 to 10, and at whisper-small's encoder entry and
-the qwen2-1.5b and rwkv6-7b prefill entries; the fused entry at its
-phase-3 shapes with fp32 and bf16 tables, keys and outputs, bit for bit
-over two calls and replayed from a CUDA graph after its token ids are
-overwritten; the
-demux at T 32 and 40 (two row jobs) at d 1536, without its exit
-LayerNorm, with its LN entry at rwkv6-7b's width, and bit for bit over
-two calls; the RWKV6 kernel against the chunkwise plain version
+at odd T and D, at N 1 to 10, and at whisper-small's encoder entry,
+the qwen2-1.5b and rwkv6-7b prefill entries and mux-bert-base's entry
+(2, 10240, 768); the fused entry at its phase-3 shapes (mux-bert-base's
+T 10240 over vocab 30522 among them) with fp32 and bf16 tables, keys and
+outputs, bit for bit over two calls and replayed from a CUDA graph after
+its token ids are overwritten; the demux at T 32 and 40 (two row jobs)
+at d 1536, without its exit LayerNorm, with its LN entry at rwkv6-7b's
+width and at mux-bert-base's exit (T 10240 at N=2, T 2048 at N=10), and
+bit for bit over two calls; the RWKV6 kernel against the chunkwise plain version
 (the reference's chunk rule) and the sequential oracle at the reference
 suite's kernel tolerance (atol 5e-4, rtol 1e-3), over decode, L of 7,
 100, 109, 128 and 300, head dims 16 / 32 / 64 / 128, strong and weak
@@ -580,7 +581,8 @@ def test_paged_kernels_are_bitwise_repeatable_on_card(cuda, kind):
 @pytest.mark.parametrize("n,t,d", [(2, 64, 128), (5, 100, 96), (10, 33, 200),
                                    (1, 7, 5), (3, 17, 257),
                                    (2, 6000, 768), (2, 400, 1536),
-                                   (2, 436, 4096), (10, 64, 4096)])
+                                   (2, 436, 4096), (10, 64, 4096),
+                                   (2, 10240, 768)])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_mux_combine_kernel_on_card(cuda, n, t, d, dtype):
     """The kernel against its plain version in the working dtype: fp32
@@ -597,12 +599,14 @@ def test_mux_combine_kernel_on_card(cuda, n, t, d, dtype):
 
 
 # (N, T, vocab, D): phase 3's shapes (qwen2-1.5b decode and chunk,
-# rwkv6-7b, whisper's decoder), narrow and odd widths (D % 8 != 0 takes
-# the per-thread branch), N up to 10
+# rwkv6-7b, whisper's decoder, mux-bert-base's entry of 80 rows of 128
+# tokens), narrow and odd widths (D % 8 != 0 takes the per-thread
+# branch), N up to 10
 EMBED_CARD_CASES = [(2, 4, 97, 48), (2, 4, 151936, 1536),
                     (2, 32, 151936, 1536), (2, 4, 65536, 4096),
-                    (2, 4, 51865, 768), (3, 5, 1000, 600), (1, 7, 97, 5),
-                    (10, 3, 50, 12), (10, 9, 300, 4096)]
+                    (2, 4, 51865, 768), (2, 10240, 30522, 768),
+                    (3, 5, 1000, 600), (1, 7, 97, 5), (10, 3, 50, 12),
+                    (10, 9, 300, 4096)]
 # (emb, v, out) dtypes
 EMBED_DTYPES = {"fp32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
                 "fp32 emb, bf16 v and out": (torch.float32, torch.bfloat16,
@@ -634,11 +638,15 @@ def test_mux_embed_kernel_on_card(cuda, n, t, vocab, d, dtypes):
 @pytest.mark.cuda
 def test_mux_entry_kernels_are_bitwise_repeatable_on_card(cuda):
     """Each output element is one thread's sum in a fixed order: two calls
-    give the same bits, for both entry kernels."""
-    a = _torch(_mux_inputs(2, 32, vocab=151936, d=1536), cuda)
-    assert torch.equal(ops.mux_embed_combine(*a), ops.mux_embed_combine(*a))
-    x, v = (t.to(cuda) for t in _combine_inputs(2, 6000, 768))
-    assert torch.equal(ops.mux_combine(x, v), ops.mux_combine(x, v))
+    give the same bits, for both entry kernels, at the serving shapes and
+    at mux-bert-base's (T 10240, d 768, vocab 30522)."""
+    for t, vocab, d in ((32, 151936, 1536), (10240, 30522, 768)):
+        a = _torch(_mux_inputs(2, t, vocab=vocab, d=d), cuda)
+        assert torch.equal(ops.mux_embed_combine(*a),
+                           ops.mux_embed_combine(*a))
+    for t in (6000, 10240):
+        x, v = (a.to(cuda) for a in _combine_inputs(2, t, 768))
+        assert torch.equal(ops.mux_combine(x, v), ops.mux_combine(x, v))
 
 
 @pytest.mark.cuda
@@ -931,6 +939,23 @@ def test_rwkv6_kernel_is_bitwise_repeatable_on_card(cuda, hd):
     o1, s1 = ops.rwkv6_chunked(*a, chunk=37)
     o2, s2 = ops.rwkv6_chunked(*a, chunk=37)
     assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(10240, 2), (2048, 10)])
+def test_demux_rsa_bert_shapes_on_card(cuda, t, n):
+    """mux-bert-base's exit (the LN entry, d 768, F 1536) over a whole
+    encoder batch: 80 rows of 128 tokens at N=2, 16 at N=10 (hundreds of
+    row jobs a column tile), against the plain version and bit for bit
+    over two calls."""
+    args, norms = _demux_inputs(t, n=n, d=768, f=1536, entry="ln")
+    a = _torch(args, cuda)
+    nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
+          for k, v in norms.items()}
+    got = ops.demux_rsa(*a, **nm)
+    torch.testing.assert_close(got, ref.demux_rsa_fused_ref(*a, **nm),
+                               atol=1e-3, rtol=1e-3)
+    assert torch.equal(got, ops.demux_rsa(*a, **nm))
 
 
 @pytest.mark.cuda
