@@ -43,8 +43,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 bidirectional flash attention over 80 rows of 128 and of
                 130 tokens (12 heads of 64), the demux with its LN entry
                 at d 768, F 1536 over T 10240 at N=2 and T 2048 at N=10;
-                and the timer's floor, a one-element ``add_`` timed the
-                same way, beside every kernel time;
+                phase 9's shapes, each its own row, read from the
+                configs: both paged kernels at h2o-danube-1.8b's heads
+                (head_dim 80 in the 128 instantiation, 32 over 8) over
+                its long request, whose 4096-token window cuts the
+                context, on the four page storages, and at gemma-7b's
+                (MHA at head_dim 256), the fused entry at vocab 256000, d
+                3072 scaled by sqrt(d), the demux with its RMS entry at d
+                3072, F 6144 (T 4 and 32); and the timer's floor, a
+                one-element ``add_`` timed the same way, beside every
+                kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -109,8 +117,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 limit (no claim rests on them), then one more N=2 call
                 under ``torch.profiler``: its device busy time, idle
                 share and device time by kernel group (matmuls, demux,
-                flash, entry, other).
-The kernels' JSON line lists every kernel of phases 3-8 and the timer
+                flash, entry, other);
+  9. dense    — the mux-bert-base weights freed, full-width gemma-2b,
+                h2o-danube-1.8b and gemma-7b (seeded random weights,
+                one at a time, each freed before the next) serve the
+                phase-4 trace paged chunked: every request complete,
+                launch counts exact per step, the pool's bytes per token
+                on the card equal to ``ServeConfig.kv_bytes_per_token``;
+                then kernel path against plain path (one chunk and one
+                decode step from identical caches within 2e-3, greedy
+                tokens identical).  h2o-danube-1.8b also serves on bf16,
+                int8 and fp8 pages, and one 4200-token request past its
+                window on both paths (greedy identical, the last chunk's
+                and a decode step's logits within 2e-3, each path timed);
+                gemma-2b also serves the ring arm and paged blocking
+                prefill with ``attn_impl='flash'`` (launch counts exact,
+                as phase 4b), and a pool under the worst case
+                (``PRESSURE_BLOCKS``): every request complete, admission
+                rollbacks and preemptions counted (each at least once),
+                the pool drained with its invariants held, greedy
+                agreement with the worst-case pool printed; the phase
+                prints ``torch.cuda.max_memory_allocated``.
+The kernels' JSON line lists every kernel of phases 3-9 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -230,12 +258,14 @@ def embed_bytes(tok, d, elt):
             + tok.numel() * 4)
 
 
-def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
-    """The work paged attention needs on this data (no window): K/V of the
-    valid slots of each row's pages only (``elem`` bytes per element, and
-    with ``scaled`` pages one fp32 K and one fp32 V scale per valid (slot,
-    KV head)), and QK + PV products only for the (query, slot) pairs that
-    pass the validity and causal mask.  q (B, Lq, H, Dh); bt (B, MB);
+def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False,
+                     window=None):
+    """The work paged attention needs on this data: K/V of the valid slots
+    of each row's pages that some query of the row sees (all of them
+    without a window; ``elem`` bytes per element, and with ``scaled``
+    pages one fp32 K and one fp32 V scale per such (slot, KV head)), and
+    QK + PV products only for the (query, slot) pairs that pass the
+    validity, causal and window mask.  q (B, Lq, H, Dh); bt (B, MB);
     pp (P, BS); q_pos_rows (B, Lq): each query's position, -1 for a
     masked query.  Returns (bytes, flops, a note with both counts)."""
     bt, pp = bt.cpu().numpy(), pp.cpu().numpy()
@@ -247,10 +277,16 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False):
         pages = bt[b][bt[b] >= 0]
         pos = pp[pages].ravel()
         pos = pos[pos >= 0]
+        qps = [qp for qp in q_pos_rows[b] if qp >= 0]
+        if window is not None and qps:
+            pos = pos[pos > min(qps) - window]
         n_pages += len(pages)
         valid += len(pos)
-        pairs += sum(int((pos <= qp).sum()) for qp in q_pos_rows[b]
-                     if qp >= 0)
+        for qp in qps:
+            seen = pos <= qp
+            if window is not None:
+                seen &= pos > qp - window
+            pairs += int(seen.sum())
     nbytes = (2 * valid * hkv * dh * elem + 2 * q.numel() * 4
               + bt.size * 4 + n_pages * bs * 4
               + (2 * valid * hkv * 4 if scaled else 0))
@@ -340,7 +376,7 @@ def phase_kernels(torch, timer):
              f"max_abs_err {err} > {tol}")
 
     def sdpa(q, k_pages, v_pages, bt, pp, qpos_rows, k_scales=None,
-             v_scales=None):
+             v_scales=None, window=None):
         """Library yardstick: gather the rows' pages (and scales), dequant
         to fp32, then SDPA (K/V repeated to H heads, boolean mask)."""
         b, lq, h, dh = q.shape
@@ -361,6 +397,8 @@ def phase_kernels(torch, timer):
         k = k.repeat_interleave(g, 2).transpose(1, 2)
         v = v.repeat_interleave(g, 2).transpose(1, 2)
         mask = (pos[:, None, :] >= 0) & (pos[:, None, :] <= qpos_rows[..., None])
+        if window is not None:
+            mask = mask & (pos[:, None, :] > qpos_rows[..., None] - window)
         return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
                                               attn_mask=mask[:, None])
 
@@ -1000,6 +1038,155 @@ def phase_kernels(torch, timer):
                           "flops": fl}
             record(name, case, err, ATT_TOL, timing)
 
+    # -- phase 9's shapes, each its own row (``DENSE_ROWS``), the shapes
+    # read from the configs: h2o-danube-1.8b's heads (head_dim 80 in the
+    # 128 instantiation, 32 over 8) over its long request, whose window
+    # cuts the context (a decode row at its last position and a 32-token
+    # chunk past the window), over the four page storages; gemma-7b's (MHA
+    # at head_dim 256) at phase 4's decode rows and chunk
+    from repro_torch.configs import get_config
+    h2o, g7 = get_config("h2o-danube-1.8b"), get_config("gemma-7b")
+    ctx = LONG_PROMPT + LONG_NEW - 1          # the long row's last decode
+    mb_long = -(-(LONG_PROMPT + LONG_NEW + 8) // 16)
+    chunk0 = (LONG_PROMPT - 1) // 32 * 32 - 32    # a full chunk past it
+    paged_rows = [
+        # (tag, cfg, storages, decode (lens, q_pos, MB),
+        #  chunk (lens, q_start, q_len, MB))
+        ("h2o", h2o, KINDS, ([ctx], [ctx - 1], mb_long),
+         ([chunk0 + 32], [chunk0], [32], mb_long)),
+        ("gemma-7b", g7, ("fp32",), ([117, 108, 101, 100],
+                                     [116, 107, 100, 99], 8),
+         ([96], [64], [32], 8)),
+    ]
+    for tag, cfg, kinds, (lens, qpos, mb), (clens, qs, ql, cmb) in \
+            paged_rows:
+        h, hkv, dh, window = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              cfg.window)
+        for kind in kinds:
+            sfx = "" if kind == "fp32" else f", {kind}"
+            for wrapper, (ls, (args, lq, rows_mb)) in (
+                    ("paged_attention", (lens, (qpos, 1, mb))),
+                    ("paged_prefill_attention", (clens, ((qs, ql), 32,
+                                                         cmb)))):
+                k_p, v_p, bt, pp = pool(ls, P=sum(-(-n // 16) for n in ls)
+                                        + 1, MB=rows_mb, hkv=hkv, dh=dh)
+                q = t(rng.standard_normal((len(ls), lq, h, dh), np.float32))
+                kq, vq, sc = (k_p, v_p, {}) if kind == "fp32" else store(
+                    kind, k_p, v_p)
+                if wrapper == "paged_attention":
+                    qp = t(np.asarray(args, np.int32))
+                    vecs = (qp,)
+                    qrows = qp[:, None]
+                    masked = qp[:, None] < 0
+                    cuda_fn, plain_ref = (kp.paged_attention_cuda,
+                                          ref.paged_attention_ref)
+                    quant_ref = ref.paged_attention_quant_ref
+                else:
+                    qs_t, ql_t = (t(np.asarray(x, np.int32)) for x in args)
+                    vecs = (qs_t, ql_t)
+                    li = torch.arange(lq, device=dev)[None]
+                    qrows = qs_t[:, None] + li
+                    masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)
+                    cuda_fn, plain_ref = (kp.paged_prefill_attention_cuda,
+                                          ref.paged_prefill_attention_ref)
+                    quant_ref = ref.paged_prefill_attention_quant_ref
+
+                def kernel():
+                    return cuda_fn(q, kq, vq, bt, pp, *vecs, window=window,
+                                   **sc)
+
+                def plain():
+                    if sc:
+                        return quant_ref(q, kq, vq, sc["k_scales"],
+                                         sc["v_scales"], bt, pp, *vecs,
+                                         window=window)
+                    return plain_ref(q, kq, vq, bt, pp, *vecs,
+                                     window=window)
+                got = kernel()
+                err = (got - plain()).abs().max().item()
+                name = f"{wrapper}[{tag}{sfx}]"
+                case = (f"{tag}: {h} over {hkv} of {dh}, window {window}, "
+                        f"MB {rows_mb}")
+                if sc or kind == "bf16":
+                    pristine = plain_ref(q, k_p, v_p, bt, pp, *vecs,
+                                         window=window)
+                    oracle(name, kind, case, (got - pristine)[~masked].abs()
+                           .max().item(), storage_bound(
+                               q[~masked], kind, k_p, v_p, sc) + ATT_TOL)
+                nb, fl, work = attn_bytes_flops(
+                    q, bt, pp, torch.where(masked, -1, qrows), hkv, dh,
+                    elem=kq.element_size(), scaled=bool(sc), window=window)
+                bms, by = bound(nb, fl)
+                timing = {"work": work, "ms": timer(kernel),
+                          "plain_ms": timer(plain),
+                          "library_ms": timer(lambda: sdpa(
+                              q, kq, vq, bt, pp, qrows, window=window,
+                              **sc)),
+                          "bound_ms": bms, "bound_by": by, "bytes": nb,
+                          "flops": fl}
+                record(name, case, err, ATT_TOL, timing)
+    del k_p, v_p, kq, vq
+
+    # gemma-7b's fused entry (vocab 256000, d 3072, scaled by sqrt(d)) at
+    # a decode step and a chunk, and its fused exit (RMS entry, d 3072, F
+    # 6144) at both
+    d, vocab = g7.d_model, g7.vocab_size
+    scale = d ** 0.5
+    emb = t(rng.standard_normal((vocab, d), np.float32) * 0.02)
+    v = t(rng.standard_normal((2, d), np.float32))
+    for tt in (4, 32):
+        tok = t(rng.integers(0, vocab, (2, tt)).astype(np.int32))
+        tl = tok.long()
+        got = km.mux_embed_combine_cuda(tok, emb, v, scale=scale)
+        nb = embed_bytes(tok, d, 4)
+        bms, by = bound(nb, 3 * 2 * tt * d)
+        timing = {
+            "ms": timer(lambda: km.mux_embed_combine_cuda(tok, emb, v,
+                                                          scale=scale)),
+            "plain_ms": timer(lambda: ref.mux_embed_ref(tok, emb, v,
+                                                        scale=scale)),
+            "library_ms": timer(lambda: torch.einsum(
+                "ntd,nd->td", F.embedding(tl, emb) * scale, v) * 0.5),
+            "bound_ms": bms, "bound_by": by, "bytes": nb,
+            "flops": 3 * 2 * tt * d,
+            "work": f"{tok.unique().numel()} distinct table rows of "
+                    f"{tok.numel()} gathers"}
+        record("mux_embed_combine[gemma-7b]", f"gemma-7b: T={tt} V {vocab} "
+               f"d {d}", (got - ref.mux_embed_ref(tok, emb, v, scale=scale))
+               .abs().max().item(), MUX_TOL, timing)
+    del emb
+    f, n = 2 * d, 2
+    w = (r(n, d), r(d, f, s=0.02), r(d, f, s=0.02), r(f, s=0.02),
+         r(f, d, s=0.02), r(d, s=0.02))
+    norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+             "exit_scale": 1.0 + r(d, s=0.1), "exit_bias": r(d, s=0.1)}
+    for tt in (4, 32):
+        h = r(tt, d)
+        got = kd.demux_rsa_cuda(h, *w, **norms)
+        want = ref.demux_rsa_fused_ref(h, *w, **norms)
+        nb = (2 * d * f + tt * d + n * d + d * f + f + 4 * d) * 4 \
+            + n * tt * d * 4
+        fl = 2 * tt * d * f + 2 * n * tt * f * d + 2 * n * d * f
+        bms, by = bound(nb, fl)
+
+        def library():
+            hn = h * torch.rsqrt(h.square().mean(-1, keepdim=True) + 1e-6)
+            hn = hn * (1 + norms["entry_scale"])
+            z = F.gelu(torch.matmul(hn, w[1])[None]
+                       + (w[0] @ w[2] + w[3])[:, None], approximate="tanh")
+            return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                norms["exit_scale"], norms["exit_bias"],
+                                eps=1e-6)
+        timing = {
+            "ms": timer(lambda: kd.demux_rsa_cuda(h, *w, **norms)),
+            "plain_ms": timer(lambda: ref.demux_rsa_fused_ref(h, *w,
+                                                              **norms)),
+            "library_ms": timer(library),
+            "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+        record("demux_rsa[gemma-7b]", f"gemma-7b: T={tt} d {d} F {f}",
+               (got - want).abs().max().item(), DEMUX_TOL, timing)
+    del w
+
     bert_kernels(torch, timer, record)
     torch.cuda.synchronize()
     return out
@@ -1231,6 +1418,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert = phase_bert(torch)
 
+    # 9. gemma-2b, h2o-danube-1.8b and gemma-7b, full width; the
+    # mux-bert-base weights were phase 8's own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_runs = phase_dense(torch, mux, rows, prompt_len, new_tokens)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -1261,6 +1454,8 @@ def main() -> int:
             "cuda", paged_src, "src/repro/kernels/paged_attention.py:162")
         meta[f"paged_prefill_attention{sfx}"] = (
             "cuda", paged_src, "src/repro/kernels/paged_attention.py:297")
+    for kname, (wrapper, _, _) in DENSE_ROWS.items():
+        meta[kname] = meta[wrapper]
     rows_json = []
     for kname, (route, src, repl) in meta.items():
         s = summary[kname]
@@ -1270,6 +1465,9 @@ def main() -> int:
         if kname in BERT_ROWS:            # one hidden call of phase 8's arm
             wrapper, arm = BERT_ROWS[kname]
             launches = bert[arm][wrapper]
+        elif kname in DENSE_ROWS:         # phase 9's run of that arch
+            wrapper, arch, kind = DENSE_ROWS[kname]
+            launches = dense_runs[arch][kind]["launches"][wrapper]
         elif base in ("paged_attention", "paged_prefill_attention"):
             launches = runs[kind]["by_storage"][base][kind]
         elif base in ("decode_attention", "flash_attention"):
@@ -1299,15 +1497,40 @@ def main() -> int:
     return 0
 
 
-def serve_once(params, sc, rows, trace, new_tokens):
-    """Phase 4 for one page storage: the launch counts set to 0 just
-    before the run and read just after, and every check of the path.
-    Returns what phases 5 and 6 read."""
+def paged_launches(launches, n_layers, dsteps, chunks):
+    """The launches paged chunked serving requires: each paged kernel once
+    a layer per decode step or chunk, the fused entry and exit once a
+    step or chunk, nothing else."""
+    want = dict.fromkeys(launches, 0)
+    want.update({"paged_attention": n_layers * dsteps,
+                 "paged_prefill_attention": n_layers * chunks,
+                 "mux_embed_combine": dsteps + chunks,
+                 "demux_rsa": dsteps + chunks})
+    return want
+
+
+def pool_bytes_per_token(runtime) -> float:
+    """The bytes the runtime's page pool holds on the card (payload,
+    scales and slot positions of every layer) over its token slots."""
+    held = sum(x.numel() * x.element_size() for c in runtime.cache["layers"]
+               for k, x in c.items() if k in ("kp", "vp", "ksc", "vsc",
+                                              "ppos"))
+    return held / (runtime.pool.num_blocks * runtime.pool.block_size)
+
+
+def serve_once(params, sc, rows, trace, new_tokens, ref_bytes=True,
+               label=""):
+    """Phase 4 (or 9) for one page storage: the launch counts set to 0
+    just before the run and read just after, and every check of the path;
+    the pool's bytes per token on the card equal to
+    ``ServeConfig.kv_bytes_per_token`` and, with ``ref_bytes`` (qwen2-1.5b),
+    to the reference's figures.  Returns what phases 5, 6 and 9 read."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve.telemetry import Telemetry
     cfg, kind = sc.cfg, sc.kv_dtype
+    kind = f"{label}{kind}"
     tele = Telemetry()
     ops.reset_counts()
     stats = run_continuous(params, sc, rows, trace, chunk=32,
@@ -1321,23 +1544,25 @@ def serve_once(params, sc, rows, trace, new_tokens):
          "completed")
     need(all(len(r.output) == new_tokens for r in stats["completed"]),
          f"{kind}: a request stopped short of its new tokens")
-    want = dict.fromkeys(launches, 0)
-    want.update({"paged_attention": cfg.n_layers * dsteps,
-                 "paged_prefill_attention": cfg.n_layers * chunks,
-                 "mux_embed_combine": dsteps + chunks,
-                 "demux_rsa": dsteps + chunks})
+    want = paged_launches(launches, cfg.n_layers, dsteps, chunks)
     need(launches == want, f"{kind}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {chunks} prefill chunks)")
-    need(by_storage == {k: {kind: v} for k, v in want.items()
+    need(by_storage == {k: {sc.kv_dtype: v} for k, v in want.items()
                         if k in by_storage},
          f"{kind}: paged launches by storage {by_storage}")
     need(set(stats["trace_counts"]) == {"decode", "prefill_4", "prefill_32"},
          f"{kind}: step signatures {stats['trace_counts']}")
-    need(stats["kv_bytes_per_token"] == KV_BYTES_PER_TOKEN[kind]
-         and stats["pool_bytes"] == POOL_BYTES[kind],
-         f"{kind}: {stats['kv_bytes_per_token']} bytes per token, pool "
-         f"{stats['pool_bytes']} bytes; the reference's figures are "
-         f"{KV_BYTES_PER_TOKEN[kind]} and {POOL_BYTES[kind]}")
+    held = pool_bytes_per_token(stats["runtime"])
+    need(held == sc.kv_bytes_per_token() == stats["kv_bytes_per_token"],
+         f"{kind}: the pool holds {held} bytes per token on the card; "
+         f"ServeConfig.kv_bytes_per_token says {sc.kv_bytes_per_token()}")
+    if ref_bytes:
+        need(stats["kv_bytes_per_token"] == KV_BYTES_PER_TOKEN[sc.kv_dtype]
+             and stats["pool_bytes"] == POOL_BYTES[sc.kv_dtype],
+             f"{kind}: {stats['kv_bytes_per_token']} bytes per token, pool "
+             f"{stats['pool_bytes']} bytes; the reference's figures are "
+             f"{KV_BYTES_PER_TOKEN[sc.kv_dtype]} and "
+             f"{POOL_BYTES[sc.kv_dtype]}")
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
@@ -1350,33 +1575,39 @@ def serve_once(params, sc, rows, trace, new_tokens):
           f"{tok_s:.2f} tok/s; decode step p50 {decode_ms:.3f} ms over "
           f"{dsteps} steps; prefill chunk p50 {chunk_ms:.3f} ms over "
           f"{chunks} chunks; pool {stats['pool_bytes']} bytes, "
-          f"{stats['kv_bytes_per_token']} bytes per token; launches "
-          f"{launches}", flush=True)
+          f"{held:g} bytes per token on the card (kv_bytes_per_token "
+          f"{sc.kv_bytes_per_token()}); launches {launches}", flush=True)
     return {"outputs": {r.uid: r.output for r in stats["completed"]},
-            "launches": launches, "by_storage": by_storage}
+            "launches": launches, "by_storage": by_storage,
+            "decode_ms": decode_ms, "chunk_ms": chunk_ms, "tok_s": tok_s}
 
 
-def compare_paths(params, sc, rows, trace, prompt_len, kernel_run):
-    """Phase 5 for one page storage: kernel path against plain path on
-    one chunk and one decode step from identical caches, then the share
-    of identical greedy tokens over the phase-4 trace."""
+def clone_pages(c):
+    """A copy of a paged cache (every layer's pages and the shared block
+    table)."""
+    layers = [{k: v.clone() for k, v in lc.items()} for lc in c["layers"]]
+    bt = c["bt"].clone()
+    for lc in layers:
+        lc["bt"] = bt
+    return {"layers": layers, "bt": bt}
+
+
+def compare_paths(params, sc, rows, trace, prompt_len, kernel_run,
+                  identical=False, label=""):
+    """Phase 5 (or 9) for one page storage: kernel path against plain path
+    on one chunk and one decode step from identical caches, then the
+    share of identical greedy tokens over the phase-4 trace, which must be
+    1 with ``identical``."""
     import torch
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve import engine
-    kind = sc.kv_dtype
+    kind = f"{label}{sc.kv_dtype}"
     cache = engine.init_cache(sc, 2 * rows, device="cuda")
     pool = engine.make_pool(sc, 2 * rows)
     pool.allocate(0, prompt_len)
     engine.set_block_tables(cache, pool.table_array(range(rows)))
     toks = torch.as_tensor(trace[0][1][:32], device="cuda").repeat(2, 1)
-
-    def clone(c):
-        layers = [{k: v.clone() for k, v in lc.items()} for lc in c["layers"]]
-        bt = c["bt"].clone()
-        for lc in layers:
-            lc["bt"] = bt
-        return {"layers": layers, "bt": bt}
-    plain_cache = clone(cache)
+    plain_cache = clone_pages(cache)
     lk, _ = engine.prefill_chunk(params, sc, cache, toks, rows=[0], start=0,
                                  length=32, use_kernels=True)
     lp, _ = engine.prefill_chunk(params, sc, plain_cache, toks, rows=[0],
@@ -1410,7 +1641,7 @@ def compare_paths(params, sc, rows, trace, prompt_len, kernel_run):
               f"the chunk logits by {effect:.3e}", flush=True)
         need(levels <= 1, f"{kind}: the paths' stored payloads differ by "
              f"{levels} levels")
-    plain_cache = clone(cache)
+    plain_cache = clone_pages(cache)
     dtok = torch.as_tensor([[int(lk[0].argmax())]] * (2 * rows),
                            device="cuda")
     pos = torch.as_tensor([32, -1, -1, -1], device="cuda")
@@ -1435,9 +1666,11 @@ def compare_paths(params, sc, rows, trace, prompt_len, kernel_run):
           f"{same}/{total} ({same / total:.3f}); plain path "
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
+    need(same == total or not identical, f"{kind} pages: the kernel path's "
+         "greedy tokens differ from the plain path's")
 
 
-def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode):
+def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label=""):
     """Phase 4b for one mode: the continuous ring arm, paged serving with
     blocking prefill, or fill-drain, on the phase-4 trace, with the launch
     counts set to 0 just before the run and read just after.  Every
@@ -1484,7 +1717,7 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode):
             spans.setdefault(ev[1], []).append(ev[3] / 1e3)
     pre = spans["prefill_chunk" if layout == "paged" else "prefill"]
     tok_s = stats["generated_tokens"] / stats["wall"]
-    print(f"  {mode}: served {len(stats['completed'])} requests, "
+    print(f"  {label}{mode}: served {len(stats['completed'])} requests, "
           f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
           f"{tok_s:.2f} tok/s; decode step p50 "
           f"{statistics.median(spans['decode']):.3f} ms over {dsteps} "
@@ -1973,6 +2206,236 @@ def compare_bert_heads(p, cfg, plain_cfg, spec, toks, name):
          f"bert {name}: kernel path disagrees with the plain path")
     need(share >= ARGMAX_SHARE, f"bert {name}: mlm argmax identical at "
          f"{share} < {ARGMAX_SHARE}")
+
+
+# phase 9: the dense LMs of the registry beyond qwen2-1.5b, gemma-7b last
+# (its fp32 weights take ~34 GB)
+DENSE_ARCHS = ("gemma-2b", "h2o-danube-1.8b", "gemma-7b")
+# h2o-danube-1.8b's long request: a prompt past its 4096-token window
+LONG_PROMPT, LONG_NEW = 4200, 8
+# gemma-2b's pressure arm: 22 allocatable blocks of the worst case's 32 (4
+# rows of 8): three 100-token rows fit, a fourth admission rolls back, and
+# the rows' growth past 112 tokens preempts
+PRESSURE_BLOCKS = 23
+# phase 3's rows at phase 9's shapes: the wrapper, the architecture and
+# the page storage whose phase-9 launch counts the JSON reports
+DENSE_ROWS = {
+    **{f"{w}[h2o{'' if k == 'fp32' else ', ' + k}]":
+       (w, "h2o-danube-1.8b", k)
+       for w in ("paged_attention", "paged_prefill_attention")
+       for k in KINDS},
+    "paged_attention[gemma-7b]": ("paged_attention", "gemma-7b", "fp32"),
+    "paged_prefill_attention[gemma-7b]": ("paged_prefill_attention",
+                                          "gemma-7b", "fp32"),
+    "mux_embed_combine[gemma-7b]": ("mux_embed_combine", "gemma-7b",
+                                    "fp32"),
+    "demux_rsa[gemma-7b]": ("demux_rsa", "gemma-7b", "fp32"),
+}
+
+
+def phase_dense(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 9: gemma-2b, h2o-danube-1.8b and gemma-7b at full width from
+    seeded random weights, one at a time (each freed before the next),
+    the phase-4 trace paged chunked (chunk 32, block 16) with exact launch
+    counts per step and the pool's bytes per token on the card against
+    ``ServeConfig.kv_bytes_per_token``, then the kernel path against the
+    plain path (one chunk and one decode step from identical caches within
+    2e-3, greedy tokens identical).  h2o-danube-1.8b also serves on bf16,
+    int8 and fp8 pages, and its long request crosses its window;
+    gemma-2b also serves the ring arm and paged blocking prefill with the
+    flash prefill, and an undersized pool.  Returns {arch: {run: result}}.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, param_count
+    from repro_torch.serve import engine
+    torch.cuda.reset_peak_memory_stats()
+    print("phase 9: gemma-2b, h2o-danube-1.8b, gemma-7b full width",
+          flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = TransformerLM.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(params))
+        print(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim}"
+              f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+              f"{cfg.window}; {n_params / 1e9:.3f} B params "
+              f"({param_count(cfg) / 1e9:.3f} B backbone) in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+              flush=True)
+        trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+        label = f"{arch} "
+        runs = {}
+        for kind in KINDS if arch == "h2o-danube-1.8b" else ("fp32",):
+            sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                                    capacity=prompt_len + new_tokens + 8,
+                                    cache_layout="paged", block_size=16,
+                                    kv_dtype=kind)
+            runs[kind] = serve_once(params, sc, rows, trace, new_tokens,
+                                    ref_bytes=False, label=label)
+        sc = dataclasses.replace(sc, kv_dtype="fp32")
+        compare_paths(params, sc, rows, trace, prompt_len, runs["fp32"],
+                      identical=True, label=label)
+        if arch == "gemma-2b":
+            cfg_flash = cfg.replace(attn_impl="flash")
+            for mode in ("ring", "blocking"):
+                runs[mode] = serve_dense(params, cfg_flash, mux, rows, trace,
+                                         new_tokens, mode, label=label)
+            runs["pressure"] = serve_pressure(params, sc, rows, trace,
+                                              new_tokens, runs["fp32"])
+        if arch == "h2o-danube-1.8b":
+            runs["long"] = serve_long(params, cfg, mux)
+        out[arch] = runs
+        del params
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+def serve_pressure(params, sc_full, rows, trace, new_tokens, full_run):
+    """Phase 9, gemma-2b's undersized pool (``PRESSURE_BLOCKS`` of the
+    worst case's ``sc_full.pool_blocks``): every request completes with
+    its full ``new_tokens``, admissions roll back and decoding rows are
+    preempted (each at least once), the launch counts are exact per chunk
+    and decode step, and the pool drains clean.  Greedy agreement with the
+    worst-case pool's run is printed, not asserted: a preempted row is
+    prefilled again, through the chunk kernel where it had decoded, so a
+    near-tie may flip (token identity is asserted on the CPU against the
+    reference, tests/test_torch_fuzz.py)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve.telemetry import Telemetry
+    sc = dataclasses.replace(sc_full, num_blocks=PRESSURE_BLOCKS)
+    worst = sc_full.pool_blocks(max(sc.mux.n, 1) * rows)
+    need(PRESSURE_BLOCKS < worst, f"pressure: {PRESSURE_BLOCKS} blocks is "
+         f"not under the worst case's {worst}")
+    tele = Telemetry()
+    ops.reset_counts()
+    stats = run_continuous(params, sc, rows, trace, chunk=32,
+                           telemetry=tele, device="cuda",
+                           on_prefill=lambda *_: torch.cuda.synchronize())
+    launches = ops.counts("launches")
+    dsteps, chunks = stats["decode_steps"], stats["prefill_events"]
+    need(len(stats["completed"]) == len(trace)
+         and all(len(r.output) == new_tokens for r in stats["completed"]),
+         "pressure: a request did not complete with its new tokens")
+    want = paged_launches(launches, sc.cfg.n_layers, dsteps, chunks)
+    need(launches == want, f"pressure: launch counts {launches} != "
+         f"required {want} ({dsteps} decode steps, {chunks} chunks)")
+    pool = stats["runtime"].pool
+    need(pool.num_blocks == PRESSURE_BLOCKS and pool.n_used_blocks == 0,
+         f"pressure: pool of {pool.num_blocks} blocks, "
+         f"{pool.n_used_blocks} still used")
+    pool.check_invariants()
+    rollbacks = tele.registry.value("admit_rollbacks")
+    preempts = tele.registry.value("preempts")
+    need(rollbacks >= 1 and preempts >= 1, f"pressure: {rollbacks} "
+         f"admission rollbacks and {preempts} preemptions; each path must "
+         "run")
+    full = full_run["outputs"]
+    got = {r.uid: r.output for r in stats["completed"]}
+    same = sum(a == b for u in got for a, b in zip(got[u], full[u]))
+    total = sum(len(v) for v in got.values())
+    print(f"  gemma-2b pressure: pool {PRESSURE_BLOCKS} of {worst} blocks; "
+          f"{rollbacks} admission rollbacks, {preempts} preemptions; "
+          f"{chunks} prefill chunks and {dsteps} decode steps (worst-case "
+          f"pool: see above); pool drained, invariants hold; greedy tokens "
+          f"identical to the worst-case pool's run {same}/{total} "
+          f"({same / total:.3f}); "
+          f"{stats['generated_tokens'] / stats['wall']:.2f} tok/s; launches "
+          f"{launches}", flush=True)
+    return {"launches": launches, "rollbacks": rollbacks,
+            "preempts": preempts}
+
+
+def serve_long(params, cfg, mux):
+    """Phase 9, h2o-danube-1.8b's long request: one prompt of
+    ``LONG_PROMPT`` tokens (past the 4096-token window) and ``LONG_NEW``
+    new tokens, paged chunked on one row on the kernel path (exact launch
+    counts) and on the plain path: greedy tokens identical; the logits of
+    the last chunk and of a decode step from identical caches (both past
+    the window) within 2e-3; each path's time printed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    need(cfg.window is not None and LONG_PROMPT > cfg.window,
+         f"h2o long request: {LONG_PROMPT} tokens do not cross the window "
+         f"{cfg.window}")
+    prompt = np.random.default_rng(9).integers(4, cfg.vocab_size,
+                                               LONG_PROMPT)
+    trace = [(0, prompt, LONG_NEW)]
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=LONG_PROMPT + LONG_NEW + 8,
+                            cache_layout="paged", block_size=16,
+                            kv_dtype="fp32")
+    runs = {}
+    for use_kernels in (True, False):
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_continuous(params, sc, 1, trace, chunk=32,
+                               use_kernels=use_kernels, device="cuda")
+        torch.cuda.synchronize()
+        runs[use_kernels] = (stats, time.perf_counter() - t0,
+                             ops.counts("launches"))
+    stats, wall, launches = runs[True]
+    dsteps, chunks = stats["decode_steps"], stats["prefill_events"]
+    want = paged_launches(launches, cfg.n_layers, dsteps, chunks)
+    need(launches == want, f"h2o long: launch counts {launches} != "
+         f"required {want}")
+    ko = stats["completed"][0].output
+    po = runs[False][0]["completed"][0].output
+    need(len(ko) == LONG_NEW and ko == po, f"h2o long: greedy tokens kernel "
+         f"{ko} vs plain {po}")
+    # the last chunk and one decode step from identical caches
+    cache = engine.init_cache(sc, max(mux.n, 1), device="cuda")
+    pool = engine.make_pool(sc, max(mux.n, 1))
+    pool.allocate(0, LONG_PROMPT + 1)
+    engine.set_block_tables(cache, pool.table_array(range(1)))
+    toks = torch.as_tensor(prompt, device="cuda").repeat(max(mux.n, 1), 1)
+    last = (LONG_PROMPT - 1) // 32 * 32
+    for start in range(0, last, 32):
+        engine.prefill_chunk(params, sc, cache, toks[:, start:start + 32],
+                             rows=[0], start=start, length=32)
+    errs = []
+    plain_cache = clone_pages(cache)
+    lk, _ = engine.prefill_chunk(params, sc, cache, toks[:, last:],
+                                 rows=[0], start=last,
+                                 length=LONG_PROMPT - last)
+    lp, _ = engine.prefill_chunk(params, sc, plain_cache, toks[:, last:],
+                                 rows=[0], start=last,
+                                 length=LONG_PROMPT - last,
+                                 use_kernels=False)
+    errs.append((lk - lp).abs().max().item())
+    plain_cache = clone_pages(cache)
+    dtok = lk.argmax(-1)[:, None]
+    pos = torch.as_tensor([LONG_PROMPT], device="cuda")
+    dk, _ = engine.decode_step(params, sc, cache, dtok, pos)
+    dp, _ = engine.decode_step(params, sc, plain_cache, dtok, pos,
+                               use_kernels=False)
+    errs.append((dk - dp).abs().max().item())
+    print(f"  h2o-danube-1.8b long request: {LONG_PROMPT}-token prompt "
+          f"(window {cfg.window}), {LONG_NEW} new tokens, {chunks} chunks "
+          f"and {dsteps} decode steps on one row: kernel path {wall:.3f} s, "
+          f"plain path {runs[False][1]:.3f} s; greedy tokens identical "
+          f"{LONG_NEW}/{LONG_NEW}; logits max_abs_err kernel vs plain path "
+          f"from identical caches: last chunk {errs[0]:.3e}, decode at "
+          f"{LONG_PROMPT} {errs[1]:.3e} (tol {LOGIT_TOL:g}); launches "
+          f"{launches}", flush=True)
+    need(max(errs) <= LOGIT_TOL, "h2o long: kernel path disagrees with the "
+         "plain path")
+    return {"launches": launches, "wall": wall}
 
 
 def _leaves(tree):

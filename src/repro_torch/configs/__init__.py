@@ -1,3 +1,7 @@
+"""Model configurations of the port: the served architectures
+(``ARCHS``: qwen2-1.5b, gemma-2b, gemma-7b, h2o-danube-1.8b, rwkv6-7b,
+whisper-small), each with the reference's full and reduced config, and
+the paper's encoders (``PAPER_MODELS``)."""
 from repro_torch.configs.registry import (ARCHS, PAPER_MODELS, get_config,
                                           model_kind)
 

@@ -15,12 +15,14 @@ Three modes, as in the reference:
     python -m repro_torch.launch.serve --continuous --cache paged \
         --no-reduced --mux-n 2 --requests 8 --new-tokens 16
 
-Architectures: ``--arch qwen2-1.5b`` (default), ``--arch rwkv6-7b``
-(RWKV6, on the ring arm and in fill-drain: the reference's paged arm
-fails on RWKV, so ``--cache paged`` with it is an error) and ``--arch
-whisper-small`` (encoder-decoder, fill-drain only, as the reference; its
-frame embeddings are zeros, as the reference CLI's); the paper's
-encoders (``mux-bert-*``, ``mux-electra-base``) are an error.  Runs on
+Architectures: the dense LMs ``--arch qwen2-1.5b`` (default),
+``gemma-2b``, ``gemma-7b`` and ``h2o-danube-1.8b`` (every arm),
+``--arch rwkv6-7b`` (RWKV6, on the ring arm and in fill-drain: the
+reference's paged arm fails on RWKV, so ``--cache paged`` with it is an
+error) and ``--arch whisper-small`` (encoder-decoder, fill-drain only,
+as the reference; its frame embeddings are zeros, as the reference
+CLI's); the paper's encoders (``mux-bert-*``, ``mux-electra-base``) are
+an error.  Runs on
 ``cuda`` unless ``--device cpu``; weights come from a seeded init.
 ``--use-kernels`` (default) runs the kernel path, ``--no-use-kernels``
 the plain model path.

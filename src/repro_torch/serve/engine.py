@@ -57,14 +57,19 @@ class ServeConfig:
     only, as the reference).  kv_dtype (paged only): page storage —
     'fp32' | 'bf16' | 'int8' | 'fp8' (any ``core.quant.resolve_kv_dtype``
     spelling); None keeps the serve dtype, fp32.  int8 and fp8 pages
-    carry per-(slot, head) fp32 scales.  The reference's 'vlm' kind and
-    its ``dtype``, ``num_blocks`` and ``n_shards`` fields are fixed to
-    fp32, the worst case and 1 in the port so far."""
+    carry per-(slot, head) fp32 scales.  num_blocks (paged only): the
+    pool's size in blocks, the trash block included; None sizes it for
+    the worst case, every row at capacity.  A smaller pool makes the
+    runtime roll admissions back and preempt decoding rows
+    (``serve.runtime``).  The reference's 'vlm' kind and its ``dtype``
+    and ``n_shards`` fields are fixed to fp32 and 1 in the port so
+    far."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
     cache_layout: str = "ring"      # ring | paged
     block_size: int = 16            # paged: tokens per block
+    num_blocks: int | None = None   # paged: pool size (default: worst case)
     kv_dtype: str | None = None     # paged: page storage
     kind: str = "lm"                # lm | encdec
 
@@ -76,6 +81,8 @@ class ServeConfig:
             raise ValueError(f"unknown cache layout {self.cache_layout!r}")
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
+        if self.num_blocks is not None and self.num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved)")
         quantlib.resolve_kv_dtype(self.kv_dtype)
 
     @property
@@ -114,7 +121,10 @@ class ServeConfig:
                 * self.kv_bytes_per_token())
 
     def pool_blocks(self, global_batch: int) -> int:
-        """Worst case (every row at capacity) plus the trash block."""
+        """Pool size: ``num_blocks`` when set, else the worst case (every
+        row at capacity) plus the trash block."""
+        if self.num_blocks is not None:
+            return self.num_blocks
         b = backbone_batch(global_batch, self.mux)
         return b * self.max_blocks_per_seq + 1
 

@@ -677,23 +677,28 @@ def test_decode_attention_replays_under_graph_capture_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,h,hkv,dh,written,q_pos,causal", [
-    (4, 124, 12, 2, 128, 117, 116, True),       # the ring decode, 4 splits
-    (4, 1500, 12, 12, 64, 1500, 0, False),      # whisper's cross decode
-    (2, 90, 16, 1, 256, 100, 99, True),         # G = 16, Dh = 256
-    (2, 37, 16, 1, 256, 37, 80, True),          # ... a query that sees none
-], ids=["ring", "whisper_cross", "g16_dh256", "g16_dh256_blind"])
+@pytest.mark.parametrize("b,c,h,hkv,dh,written,q_pos,causal,window", [
+    (4, 124, 12, 2, 128, 117, 116, True, None),   # the ring decode, 4 splits
+    (4, 1500, 12, 12, 64, 1500, 0, False, None),  # whisper's cross decode
+    (2, 90, 16, 1, 256, 100, 99, True, None),     # G = 16, Dh = 256
+    (2, 37, 16, 1, 256, 37, 80, True, 3),         # ... a query that sees none
+    (4, 124, 32, 8, 80, 160, 159, True, 40),      # h2o-danube: Dh 80, window
+    (4, 124, 16, 16, 256, 117, 116, True, None),  # gemma-7b: MHA at Dh 256
+], ids=["ring", "whisper_cross", "g16_dh256", "g16_dh256_blind",
+        "h2o_dh80_window", "gemma7b_mha_dh256"])
 def test_decode_attention_limits_and_repeats_on_card(cuda, b, c, h, hkv, dh,
-                                                     written, q_pos, causal):
+                                                     written, q_pos, causal,
+                                                     window):
     """The main shape, whisper's cross-attention decode (several splits of
     several tiles), the limits of 16 query heads over one KV head and head
-    dim 256; within ATT_TOL of the plain version and bit for bit over two
-    calls, whichever block merges the splits."""
+    dim 256, h2o-danube-1.8b's heads (32 over 8 of 80) over a wrapped ring
+    with a window, and gemma-7b's (16 over 16 of 256); within ATT_TOL of
+    the plain version and bit for bit over two calls, whichever block
+    merges the splits."""
     rng = np.random.default_rng(dh + c)
     q, k, v, pos = _ring_inputs(cuda, rng, b, c, h, hkv, dh, written)
     if not causal:
         pos = torch.arange(c, dtype=torch.int32, device=cuda)
-    window = 3 if q_pos > written else None
     kw = dict(q_pos=q_pos, causal=causal, window=window)
     got = ops.decode_attention(q, k, v, pos, **kw)
     torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, pos,
@@ -756,20 +761,23 @@ def test_flash_attention_bert_shapes_on_card(cuda, l):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,dh,kw", [
-    (116, 116, 256, {}),                              # gemma-2b's heads
-    (9, 37, 256, dict(q_offset=28)),
-    (70, 70, 12, {}),                                 # Dh padded to 32
-    (100, 130, 20, dict(causal=False, logit_softcap=5.0)),
-    (96, 96, 128, dict(window=17)),                   # windowed
-    (80, 37, 128, dict(q_offset=36, window=3)),       # fully masked rows
+@pytest.mark.parametrize("lq,lk,dh,h,hkv,kw", [
+    (116, 116, 256, 8, 1, {}),                        # gemma-2b's heads
+    (9, 37, 256, 8, 1, dict(q_offset=28)),
+    (70, 70, 12, 4, 2, {}),                           # Dh padded to 32
+    (100, 130, 20, 4, 2, dict(causal=False, logit_softcap=5.0)),
+    (96, 96, 128, 4, 2, dict(window=17)),             # windowed
+    (80, 37, 128, 4, 2, dict(q_offset=36, window=3)),  # fully masked rows
+    (300, 300, 80, 32, 8, dict(window=64)),           # h2o-danube's heads
+    (116, 116, 256, 16, 16, {}),                      # gemma-7b's heads
 ], ids=["gemma_causal", "gemma_offset", "dh12", "dh20_softcap", "window",
-        "fully_masked"])
-def test_flash_attention_head_dims_on_card(cuda, lq, lk, dh, kw):
-    """Dh 256 over one KV head (8 heads), the head dims that pad to the mma
-    depth, and a windowed and a fully masked case with Lq >= 64 (several
-    warps of a block), bit for bit over two calls."""
-    h, hkv = (8, 1) if dh == 256 else (4, 2)
+        "fully_masked", "h2o_dh80_window", "gemma7b_mha_dh256"])
+def test_flash_attention_head_dims_on_card(cuda, lq, lk, dh, h, hkv, kw):
+    """Dh 256 over one KV head (8 heads) and over 16 (gemma-7b's MHA), the
+    head dims that pad to the mma depth (h2o-danube-1.8b's 80 in the 128
+    instantiation, 32 heads over 8, windowed), and a windowed and a fully
+    masked case with Lq >= 64 (several warps of a block), bit for bit over
+    two calls."""
     q, k, v = _dense_inputs(cuda, np.random.default_rng(dh), lq, lk, h, hkv,
                             dh)
     got = ops.flash_attention(q, k, v, **kw)

@@ -1,0 +1,300 @@
+"""The differential churn fuzz of ``tests/test_serve_fuzz.py``, its
+single-runtime cases, holding the port to the JAX reference on the CPU.
+
+Schedules come from the reference fuzz's own rule and sizes
+(``tests/test_serve_fuzz.py`` ``_schedule``: 2-4 requests from one
+integer seed, arrivals in the first 10 steps, prompts of 1-12 tokens,
+1-5 new tokens, everything inside a capacity of 20) and are served by
+reduced qwen2-1.5b, 2 backbone rows, pages of 4 tokens, the
+port's weights carried over from the reference's init
+(``repro_torch.interop``).  Seeded, parametrised cases only: no
+Hypothesis, so no example database.
+
+  * churn      — the port's paged-chunked, paged-blocking and solo
+                 ``greedy_generate`` streams agree and equal the
+                 reference's paged-chunked arm; the ring arm completes
+                 every request with 1..max_new tokens (its grid rebuild
+                 shifts heterogeneous rows, DESIGN.md §ring) and equals
+                 the reference's ring arm;
+  * aligned    — simultaneous equal-length arrivals: every arm of the
+                 port, the ring included, equals the reference's;
+  * pressure   — a pool of 8 blocks (7 allocatable, under 2 rows x 5
+                 blocks): admissions roll back and decoding rows are
+                 preempted; at N 1 and 2, chunked and blocking, tokens,
+                 prefill events, decode steps and the ``admit_rollbacks``
+                 / ``preempts`` counters equal the reference's run with
+                 the same pool, and the sweep reaches both paths;
+  * quantized  — int8 and fp8 pages on the kernel path (reference: the
+                 fused-dequant Pallas kernels in interpret mode; port: the
+                 wrappers' plain versions) against bf16 pages: the same
+                 step signatures, the port's quantized arm equal to the
+                 reference's, and at most ``MAX_FLIPS`` streams of the
+                 sweep diverging from bf16.  The reference's bar (99% of
+                 ~10 tokens) fails on one near-tie flip (ROADMAP §3); a
+                 flip changes every later token of its stream, so the
+                 bar here counts diverging streams, not tokens.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as ref_config
+from repro.core import MuxSpec as RefMux
+from repro.launch.serve import run_continuous as ref_run_continuous
+from repro.models import TransformerLM as RefLM
+from repro.serve import ServeConfig as RefServeConfig
+from repro.serve.telemetry import Telemetry as RefTelemetry
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.core import MuxSpec
+from repro_torch.launch import serve as cli
+from repro_torch.serve import engine
+from repro_torch.serve.telemetry import Telemetry
+from test_serve_fuzz import BLOCK, CAPACITY, ROWS, _schedule
+
+torch.set_num_threads(2)
+
+KEY = jax.random.PRNGKey(0)
+PRESSURE_BLOCKS = 8    # 7 allocatable < 2 rows x 5 blocks; one row fits
+# streams of the quantized sweep (2 seeds x ~3 requests per storage) that
+# may diverge from the bf16 arm: one near-tie flip each
+MAX_FLIPS = 1
+
+
+@pytest.fixture(scope="module")
+def models():
+    """n -> (reference cfg, reference params, port cfg, port params)."""
+    out = {}
+    cfg_r = ref_config("qwen2-1.5b", reduced=True)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    for n in (1, 2):
+        ref = RefLM.init(KEY, cfg_r, RefMux(n=n))
+        port = interop.params_from_reference(jax.tree.map(np.asarray, ref),
+                                              cfg, device="cpu")
+        out[n] = (cfg_r, ref, cfg, port)
+    return out
+
+
+def _sc(cfg, n=1, layout="paged", **kw):
+    return engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=CAPACITY,
+                              cache_layout=layout, block_size=BLOCK, **kw)
+
+
+def _sc_ref(cfg_r, n=1, layout="paged", **kw):
+    return RefServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
+                          capacity=CAPACITY, dtype=jnp.float32,
+                          cache_layout=layout, block_size=BLOCK, **kw)
+
+
+def _tokens(stats, arrivals):
+    out = {r.uid: (tuple(int(t) for t in r.prompt), [int(t) for t in r.output])
+           for r in stats["completed"]}
+    assert len(out) == len(arrivals), "arm dropped requests"
+    return out
+
+
+def _copy(arrivals):
+    return [(t, p.copy(), m) for t, p, m in arrivals]
+
+
+def _port_arm(port, sc, arrivals, **kw):
+    """Serve the schedule on the port; returns (uid -> (prompt, output),
+    stats), the pool drained clean."""
+    stats = cli.run_continuous(port, sc, ROWS, _copy(arrivals), device="cpu",
+                               **kw)
+    out = _tokens(stats, arrivals)
+    if sc.cache_layout == "paged":
+        pool = stats["runtime"].pool
+        assert pool.n_used_blocks == 0
+        pool.check_invariants()
+    return out, stats
+
+
+def _ref_arm(ref, sc_r, arrivals, **kw):
+    stats = ref_run_continuous(ref, sc_r, ROWS, _copy(arrivals), **kw)
+    out = _tokens(stats, arrivals)
+    if "pool" in stats:
+        assert stats["pool"].n_used_blocks == 0
+        stats["pool"].check_invariants()
+    return out, stats
+
+
+def _solo_greedy(port, sc, arrivals, got):
+    """Each stream equals its solo ``greedy_generate`` (N=1)."""
+    for uid, (_, prompt, max_new) in enumerate(arrivals):
+        want = engine.greedy_generate(port, sc, torch.as_tensor(prompt)[None],
+                                      steps=max_new)[0]
+        assert got[uid][1] == want.tolist(), uid
+
+
+def _check_paged_arms(models, arrivals):
+    """The port's paged-chunked == paged-blocking == solo greedy == the
+    reference's paged-chunked arm.  Returns the port's chunked streams."""
+    cfg_r, ref, cfg, port = models[1]
+    chunked, _ = _port_arm(port, _sc(cfg), arrivals, chunk=4,
+                           use_kernels=False)
+    blocking, _ = _port_arm(port, _sc(cfg), arrivals,
+                            prefill_mode="blocking", use_kernels=False)
+    want, _ = _ref_arm(ref, _sc_ref(cfg_r), arrivals, chunk=4)
+    assert chunked == blocking == want
+    _solo_greedy(port, _sc(cfg), arrivals, chunked)
+    return chunked
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fuzz_churn(models, seed):
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, seed)
+    paged = _check_paged_arms(models, arrivals)
+    for uid, (_, _, max_new) in enumerate(arrivals):
+        assert len(paged[uid][1]) == max_new
+    ring, _ = _port_arm(port, _sc(cfg, layout="ring"), arrivals,
+                        use_kernels=False)
+    for uid, (_, _, max_new) in enumerate(arrivals):
+        assert 1 <= len(ring[uid][1]) <= max_new
+    want, _ = _ref_arm(ref, _sc_ref(cfg_r, layout="ring"), arrivals)
+    assert ring == want
+
+
+def test_fuzz_aligned(models):
+    """Aligned schedule: every arm of the port, the ring's included, and
+    both packages' rings, token-identical per request."""
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, 2, aligned=True)
+    paged = _check_paged_arms(models, arrivals)
+    ring, _ = _port_arm(port, _sc(cfg, layout="ring"), arrivals,
+                        use_kernels=False)
+    want, _ = _ref_arm(ref, _sc_ref(cfg_r, layout="ring"), arrivals)
+    assert ring == want == paged
+
+
+def _counters(reg, names, **labels):
+    return {k: reg.value(k, **labels) for k in names}
+
+
+PRESSURE_COUNTERS = ("admit_rollbacks", "preempts")
+# the reference's deterministic seed (3: no contention at 8 blocks) and
+# three seeds of the same rule whose schedules roll admissions back and
+# preempt at N 1 and 2 (79, 82, 249)
+PRESSURE_SEEDS = (3, 79, 82, 249)
+_pressure_seen = {}
+
+
+def _pressure_case(models, seed, n, mode):
+    """One undersized-pool run on both packages: the port's tokens,
+    prefill events, decode steps, step signatures and rollback /
+    preemption counts equal the reference's.  Returns the counts."""
+    cfg_r, ref, cfg, port = models[n]
+    arrivals = _schedule(cfg, seed, n_req=3)
+    kw = (dict(chunk=4) if mode == "chunked"
+          else dict(prefill_mode="blocking"))
+    tele, tele_r = Telemetry(), RefTelemetry()
+    got, stats = _port_arm(port, _sc(cfg, n, num_blocks=PRESSURE_BLOCKS),
+                           arrivals, use_kernels=False, telemetry=tele, **kw)
+    want, stats_r = _ref_arm(ref, _sc_ref(cfg_r, n,
+                                          num_blocks=PRESSURE_BLOCKS),
+                             arrivals, telemetry=tele_r, **kw)
+    assert stats["runtime"].pool.num_blocks == PRESSURE_BLOCKS
+    assert got == want
+    for k in ("prefill_events", "prefill_tokens", "decode_steps",
+              "prefill_log", "trace_counts"):
+        assert stats[k] == stats_r[k], k
+    counts = _counters(tele.registry, PRESSURE_COUNTERS)
+    assert counts == _counters(tele_r.registry, PRESSURE_COUNTERS, lane=0,
+                               shard=0)
+    if n == 1:
+        _solo_greedy(port, _sc(cfg, num_blocks=PRESSURE_BLOCKS), arrivals,
+                     got)
+    return counts
+
+
+@pytest.mark.parametrize("mode", ["chunked", "blocking"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("seed", PRESSURE_SEEDS)
+def test_fuzz_pool_pressure(models, seed, n, mode):
+    _pressure_seen[seed, n, mode] = _pressure_case(models, seed, n, mode)
+
+
+def test_fuzz_pool_pressure_reaches_rollback_and_preemption(models):
+    """The pressure sweep runs both paths: at least one case rolls an
+    admission back and at least one preempts a decoding row (cases this
+    process has not run yet are run here)."""
+    totals = dict.fromkeys(PRESSURE_COUNTERS, 0)
+    for seed in PRESSURE_SEEDS:
+        for n in (1, 2):
+            for mode in ("chunked", "blocking"):
+                key = seed, n, mode
+                if key not in _pressure_seen:
+                    _pressure_seen[key] = _pressure_case(models, *key)
+                for k, v in _pressure_seen[key].items():
+                    totals[k] += v
+    assert totals["admit_rollbacks"] >= 1 and totals["preempts"] >= 1, totals
+
+
+QUANT_SEEDS = (0, 1)
+_quant_flips = {}
+
+
+def _quantized_case(models, seed, kv_dtype):
+    """bf16 and ``kv_dtype`` pages on the kernel path, one schedule:
+    the same step signatures, the port's quantized arm equal to the
+    reference's.  Returns the streams that diverge from bf16."""
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, seed)
+    base, base_stats = _port_arm(port, _sc(cfg, kv_dtype="bf16"), arrivals,
+                                 chunk=4, use_kernels=True)
+    quant, stats = _port_arm(port, _sc(cfg, kv_dtype=kv_dtype), arrivals,
+                             chunk=4, use_kernels=True)
+    assert stats["trace_counts"] == base_stats["trace_counts"]
+    want, stats_r = _ref_arm(ref, _sc_ref(cfg_r, kv_dtype=kv_dtype),
+                             arrivals, chunk=4, use_kernels=True)
+    assert quant == want
+    assert stats["trace_counts"] == stats_r["trace_counts"]
+    flips = 0
+    for uid, (prompt, out) in base.items():
+        q_prompt, q_out = quant[uid]
+        assert q_prompt == prompt and len(q_out) == len(out)
+        flips += int(q_out != out)
+    return flips
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("seed", QUANT_SEEDS)
+def test_fuzz_quantized_kv(models, seed, kv_dtype):
+    _quant_flips[seed, kv_dtype] = _quantized_case(models, seed, kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_fuzz_quantized_kv_agreement(models, kv_dtype):
+    """Over the sweep, at most ``MAX_FLIPS`` streams diverge from the
+    bf16 arm (cases this process has not run yet are run here)."""
+    flips = 0
+    for seed in QUANT_SEEDS:
+        key = seed, kv_dtype
+        if key not in _quant_flips:
+            _quant_flips[key] = _quantized_case(models, *key)
+        flips += _quant_flips[key]
+    assert flips <= MAX_FLIPS, f"{kv_dtype}: {flips} streams diverged"
+
+
+def test_num_blocks_sizes_the_pool_as_the_reference(models):
+    """``ServeConfig.num_blocks``: the pool, the device pages and the byte
+    accounting follow it as the reference's do; None is the worst case;
+    a pool under 2 blocks is refused."""
+    cfg_r, _, cfg, _ = models[1]
+    for nb in (None, 2, PRESSURE_BLOCKS, 40):
+        for kv in (None, "int8"):
+            sc = _sc(cfg, num_blocks=nb, kv_dtype=kv)
+            sc_r = _sc_ref(cfg_r, num_blocks=nb, kv_dtype=kv)
+            assert sc.pool_blocks(ROWS) == sc_r.pool_blocks(ROWS)
+            assert sc.pool_bytes(ROWS) == sc_r.pool_bytes(ROWS)
+            assert engine.make_pool(sc, ROWS).num_blocks == \
+                sc_r.pool_blocks(ROWS)
+            pages = engine.init_cache(sc, ROWS, device="cpu")["layers"][0]
+            assert pages["kp"].shape[0] == sc_r.pool_blocks(ROWS)
+    assert _sc(cfg).pool_blocks(ROWS) == ROWS * 5 + 1
+    with pytest.raises(ValueError, match="need >= 2 blocks"):
+        _sc(cfg, num_blocks=1)

@@ -120,8 +120,11 @@ PREFILL_CASES = {
 # several splits, block sizes 4 and 16, head_dim 256 over one KV head
 # (gemma-2b's heads), 16 query heads over one KV head (two blocks of
 # heads in the decode kernel), head_dim 32 with a key tile of 64 slots
-# over pages of 4, and queries that see no slot (a window past the row's
-# context)
+# over pages of 4, queries that see no slot (a window past the row's
+# context), h2o-danube-1.8b's heads (head_dim 80 in the 128 instantiation,
+# 32 over 8 KV heads) with a window that cuts the context and skips whole
+# pages, and gemma-7b's (MHA at head_dim 256, 16 over 16); a prefill case
+# may end in its window
 CARD_DECODE_CASES = {
     **DECODE_CASES,
     "bs4_splits": (4, 12, 2, 32, 4, 32, 70, [117, 100, 37, -1],
@@ -131,6 +134,9 @@ CARD_DECODE_CASES = {
     "dh256_one_kv": (2, 8, 1, 256, 16, 8, 20, [117, 30], [116, 29], None),
     "g16_head_groups": (2, 16, 1, 32, 8, 4, 10, [29, 13], [28, 12], None),
     "window_blind": (3, 8, 2, 16, 4, 8, 24, [20, 12, 30], [40, 11, 29], 8),
+    "dh80_g4_window": (3, 32, 8, 80, 16, 8, 16, [117, 60, 5], [116, 59, 4],
+                       40),
+    "dh256_mha16": (2, 16, 16, 256, 16, 8, 20, [117, 30], [116, 29], None),
 }
 CARD_PREFILL_CASES = {
     **PREFILL_CASES,
@@ -139,7 +145,16 @@ CARD_PREFILL_CASES = {
                          [8, 8]),
     "dh256_one_kv": (1, 16, 8, 1, 256, 16, 8, 12, [80], [64], [16]),
     "dh32_bs4": (2, 5, 4, 2, 32, 4, 16, 40, [50, 23], [45, 18], [5, 3]),
+    "dh80_g4_window": (2, 16, 32, 8, 80, 16, 8, 20, [80, 48], [64, 40],
+                       [16, 8], 24),
+    "dh256_mha16": (1, 16, 16, 16, 256, 16, 8, 12, [80], [64], [16]),
 }
+
+
+def _prefill_window(case):
+    """The window of a card prefill case (None: no window)."""
+    spec = CARD_PREFILL_CASES[case]
+    return spec[11] if len(spec) > 11 else None
 
 
 def _decode_inputs(case, seed=0):
@@ -152,7 +167,8 @@ def _decode_inputs(case, seed=0):
 
 
 def _prefill_inputs(case, seed=0):
-    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql = CARD_PREFILL_CASES[case]
+    spec = CARD_PREFILL_CASES[case][:11]
+    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql = spec
     rng = np.random.default_rng(seed)
     kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
                                   max_blocks=mb, hkv=hkv, dh=dh)
@@ -534,9 +550,10 @@ def test_paged_attention_kernel_on_card(cuda, case):
 @pytest.mark.parametrize("case", sorted(CARD_PREFILL_CASES))
 def test_paged_prefill_kernel_on_card(cuda, case):
     t = _torch(_prefill_inputs(case), cuda)
-    torch.testing.assert_close(ops.paged_prefill_attention(*t),
-                               ref.paged_prefill_attention_ref(*t),
-                               **ATT_TOL)
+    window = _prefill_window(case)
+    torch.testing.assert_close(ops.paged_prefill_attention(*t, window=window),
+                               ref.paged_prefill_attention_ref(
+                                   *t, window=window), **ATT_TOL)
 
 
 @pytest.mark.cuda
@@ -835,12 +852,16 @@ def test_quantized_paged_attention_kernel_on_card(cuda, kind, case):
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
 def test_quantized_paged_prefill_kernel_on_card(cuda, kind, case):
     q, kp, vp, *rest = _prefill_inputs(case)
+    window = _prefill_window(case)
     ks, vs, sc = _store(kind, kp, vp, cuda)
     t = _torch((q, *rest), cuda)
-    got = ops.paged_prefill_attention(t[0], ks, vs, *t[1:], **sc)
+    got = ops.paged_prefill_attention(t[0], ks, vs, *t[1:], window=window,
+                                      **sc)
     want = (ref.paged_prefill_attention_quant_ref(
-                t[0], ks, vs, sc["k_scales"], sc["v_scales"], *t[1:])
-            if sc else ref.paged_prefill_attention_ref(t[0], ks, vs, *t[1:]))
+                t[0], ks, vs, sc["k_scales"], sc["v_scales"], *t[1:],
+                window=window)
+            if sc else ref.paged_prefill_attention_ref(t[0], ks, vs, *t[1:],
+                                                       window=window))
     torch.testing.assert_close(got, want, **ATT_TOL)
 
 

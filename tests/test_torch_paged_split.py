@@ -7,11 +7,13 @@ online softmax in log2 units, and the splits merge by their log-sum-exp in
 split order.  The kernels run only on the card; here a torch model of that
 arithmetic (``split_model``) is held to the plain versions over the edge
 cases of ``tests/test_torch_kernels.py`` (-1 entries, an inactive row,
-bucket padding, single-block rows, Lq = 7, a window, and a query that sees
-no slot), within the attention tolerance ``ATT_TOL`` (fp32 on both sides,
-summation order only).  A query that sees no slot returns the uniform mean
-of V over all MB * BS gathered slots, -1 entries read as page 0.  The
-chunk kernel's products take the 3xTF32 split; its CPU model
+bucket padding, single-block rows, Lq = 7, a window, a query that sees
+no slot, and h2o-danube-1.8b's head_dim 80 with a window that skips
+whole pages and whole splits), within the attention tolerance
+``ATT_TOL`` (fp32 on both sides, summation order only).  A query that
+sees no slot returns the uniform mean of V over all MB * BS gathered
+slots, -1 entries read as page 0.  The chunk kernel's products take the
+3xTF32 split; its CPU model
 (``_split_mm`` of ``tests/test_torch_dense_attention.py``) over
 page-gathered K/V keeps fp32's accuracy where one TF32 product does not.
 """
@@ -27,8 +29,8 @@ from repro_torch.kernels.flash_attention import TILES, padded_head_dim
 from test_torch_dense_attention import _split_mm
 from test_torch_kernels import (ATT_TOL, CARD_DECODE_CASES,
                                 CARD_PREFILL_CASES, STORE_KINDS,
-                                _decode_inputs, _prefill_inputs, _store,
-                                build_pool)
+                                _decode_inputs, _prefill_inputs,
+                                _prefill_window, _store, build_pool)
 
 torch.set_num_threads(2)
 
@@ -123,7 +125,8 @@ def _prefill_plan(q, pages, bt):
 # (what, batch, lq, heads, kv heads, head_dim, MB, BS): chip_smoke.py phase
 # 3's shapes, phase 4's (4 rows at capacity 124 in blocks of 16: MB 8; a
 # 32-token chunk and a 4-token bucket of one row), the CLI's block size 4
-# at the same capacity, gemma-2b's heads, and small edges
+# at the same capacity, gemma-2b's, gemma-7b's and h2o-danube-1.8b's heads,
+# h2o's 4200-token request (MB 263), and small edges
 PLAN_SHAPES = [
     ("decode", 4, 1, 12, 2, 128, 8, 16),
     ("prefill", 1, 32, 12, 2, 128, 8, 16),
@@ -134,6 +137,12 @@ PLAN_SHAPES = [
     ("prefill", 4, 4, 12, 2, 128, 31, 4),
     ("decode", 2, 1, 8, 1, 256, 8, 16),
     ("prefill", 1, 16, 8, 1, 256, 8, 16),
+    ("decode", 4, 1, 16, 16, 256, 8, 16),
+    ("prefill", 1, 32, 16, 16, 256, 8, 16),
+    ("decode", 4, 1, 32, 8, 80, 8, 16),
+    ("prefill", 1, 32, 32, 8, 80, 8, 16),
+    ("decode", 4, 1, 32, 8, 80, 263, 16),
+    ("prefill", 1, 32, 32, 8, 80, 263, 16),
     ("decode", 3, 1, 16, 1, 64, 1, 8),
     ("prefill", 2, 7, 4, 2, 8, 4, 8),
     ("decode", 64, 1, 32, 8, 128, 256, 16),
@@ -201,12 +210,49 @@ def test_decode_split_model_matches_plain(case):
 def test_prefill_split_model_matches_plain(case, passes):
     """In fp32 and in the chunk kernel's 3xTF32 products."""
     q, k, v, bt, pp, qs, ql = map(torch.as_tensor, _prefill_inputs(case))
+    window = _prefill_window(case)
     plan = _prefill_plan(q, k, bt)
     got = split_model(q, k, v, bt, pp, _prefill_q_pos(qs, ql, q.shape[1]),
                       plan=plan, tile=TILES[padded_head_dim(q.shape[-1])][0],
-                      passes=passes)
-    want = ref.paged_prefill_attention_ref(q, k, v, bt, pp, qs, ql)
+                      window=window, passes=passes)
+    want = ref.paged_prefill_attention_ref(q, k, v, bt, pp, qs, ql,
+                                           window=window)
     torch.testing.assert_close(got, want, **ATT_TOL)
+
+
+@pytest.mark.parametrize("what", ["decode", "prefill"])
+def test_window_past_whole_splits_matches_plain(what):
+    """h2o-danube-1.8b's heads (32 over 8 of 80) over a long row of pages
+    of 16 whose window (48) ends before most of it: the splits over the
+    early pages see no slot (m = the mask value), yet the merge weighs them
+    exactly 0 beside the splits that see the window, as the plain version
+    does; in the chunk kernel's 3xTF32 products too."""
+    rng = np.random.default_rng(80)
+    ctx, window = 300, 48
+    k, v, bt, pp = map(torch.as_tensor, build_pool(
+        rng, [ctx, 120], num_blocks=40, block_size=16, max_blocks=19, hkv=8,
+        dh=80))
+    lq = 1 if what == "decode" else 16
+    q = torch.as_tensor(rng.standard_normal((2, lq, 32, 80), np.float32))
+    if what == "decode":
+        qp = torch.tensor([ctx - 1, 119], dtype=torch.int32)
+        plan, tile = _decode_plan(q, k, bt), kp.DECODE_TILE
+        q_pos = qp.long()[:, None]
+        want = ref.paged_attention_ref(q, k, v, bt, pp, qp, window=window)
+    else:
+        qs, ql = torch.tensor([ctx - lq, 120 - lq]), torch.tensor([lq, lq])
+        plan, tile = _prefill_plan(q, k, bt), TILES[128][0]
+        q_pos = _prefill_q_pos(qs, ql, lq)
+        want = ref.paged_prefill_attention_ref(q, k, v, bt, pp, qs, ql,
+                                               window=window)
+    nsplit, per = plan
+    # some split of row 0 lies wholly before every query's window
+    first_seen = (ctx - lq - window + 1) // 16
+    assert nsplit > 1 and per <= first_seen
+    for passes in ((None, 3) if what == "prefill" else (None,)):
+        got = split_model(q, k, v, bt, pp, q_pos, plan=plan, tile=tile,
+                          window=window, passes=passes)
+        torch.testing.assert_close(got, want, **ATT_TOL)
 
 
 @pytest.mark.parametrize("kind", STORE_KINDS)

@@ -163,21 +163,17 @@ def test_greedy_generate_token_identical(layout):
     assert got.tolist() == np.asarray(want).tolist()
 
 
-def test_fill_drain_token_identical():
-    """Fill-drain over the ring, the reference CLI's loop against the
-    port's ``fill_drain``: 3 requests in a grid of 4 slots (one
-    duplicate, its logits averaged), then one more batch."""
-    ref, port, sc_r, sc = _pair(2, "ring", 20)
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(4, 512, 6).astype(np.int32) for _ in range(5)]
-    batcher = RefBatcher(n_mux=2, backbone_batch=2)
+def ref_fill_drain(ref, sc_r, rows, prompts, new_tokens):
+    """The reference CLI's fill-drain loop (``repro/launch/serve.py``
+    ``_fill_drain``), greedy: each request's tokens, in batch order."""
+    batcher = RefBatcher(n_mux=sc_r.mux.n, backbone_batch=rows)
     for p in prompts:
-        batcher.submit(p, max_new=4)
-    want = []
+        batcher.submit(p, max_new=new_tokens)
+    out = []
     while True:
         slots, owners = batcher.next_batch()
         if slots is None:
-            break
+            return out
         uniq = list({id(s): s for s in slots}.values())
         toks = jnp.stack([jnp.asarray(s.prompt) for s in slots])
         cache = ref_engine.init_cache(sc_r, toks.shape[0])
@@ -185,15 +181,24 @@ def test_fill_drain_token_identical():
         tok = jnp.argmax(RefBatcher.combine_logits(logits, owners,
                                                    len(uniq)), -1)
         outs = [tok]
-        for t in range(3):
-            lg, cache = ref_engine.decode_step(ref, sc_r, cache,
-                                               tok[jnp.asarray(owners)][:,
-                                                                        None],
-                                               6 + t)
+        for t in range(new_tokens - 1):
+            lg, cache = ref_engine.decode_step(
+                ref, sc_r, cache, tok[jnp.asarray(owners)][:, None],
+                toks.shape[1] + t)
             tok = jnp.argmax(RefBatcher.combine_logits(lg[:, 0], owners,
                                                        len(uniq)), -1)
             outs.append(tok)
-        want += [[int(o[j]) for o in outs] for j in range(len(uniq))]
+        out += [[int(o[j]) for o in outs] for j in range(len(uniq))]
+
+
+def test_fill_drain_token_identical():
+    """Fill-drain over the ring, the reference CLI's loop against the
+    port's ``fill_drain``: 3 requests in a grid of 4 slots (one
+    duplicate, its logits averaged), then one more batch."""
+    ref, port, sc_r, sc = _pair(2, "ring", 20)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(4, 512, 6).astype(np.int32) for _ in range(5)]
+    want = ref_fill_drain(ref, sc_r, 2, prompts, 4)
     got = cli.fill_drain(port, sc, 2, prompts, 4, device="cpu")
     assert [r.output for r in got["completed"]] == want
     assert (got["prefill_events"], got["decode_steps"]) == (2, 6)
