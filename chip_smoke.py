@@ -50,9 +50,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 context, on the four page storages, and at gemma-7b's
                 (MHA at head_dim 256), the fused entry at vocab 256000, d
                 3072 scaled by sqrt(d), the demux with its RMS entry at d
-                3072, F 6144 (T 4 and 32); and the timer's floor, a
-                one-element ``add_`` timed the same way, beside every
-                kernel time;
+                3072, F 6144 (T 4 and 32); the bf16 rows (the
+                reference's compute dtype) at phase 10's shapes: both
+                paged kernels with a bf16 q at phase 4's decode rows and
+                32-token chunk (qwen2-1.5b's heads over bf16, int8 and
+                fp8 pages, gemma-2b's over bf16 pages), the ring decode
+                in bf16 at B 4, C 124 and the demux exit in bf16 (RMS
+                entry, F = 2 * d, T 4 and 32) at both models' heads and
+                widths, each within one bf16 ulp of its row's
+                largest value of its plain version (the demux two), bit
+                for bit over two calls where a repeat is checked, and
+                timed beside the library call in bf16; and the timer's
+                floor, a one-element ``add_`` timed the same way, beside
+                every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -137,14 +147,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 rollbacks and preemptions counted (each at least once),
                 the pool drained with its invariants held, greedy
                 agreement with the worst-case pool printed; the phase
-                prints ``torch.cuda.max_memory_allocated``.
-The kernels' JSON line lists every kernel of phases 3-9 and the timer
+                prints ``torch.cuda.max_memory_allocated``;
+  10. bf16    — phase 9's weights freed, full-width qwen2-1.5b and then
+                gemma-2b (seeded random weights) serve the phase-4 trace
+                at ``ServeConfig.dtype=torch.bfloat16``, the default:
+                qwen2-1.5b paged chunked on default (bf16), fp32, int8
+                and fp8 pages, paged blocking and the ring arm; gemma-2b
+                paged chunked and on the ring arm.  Every request
+                complete, launch counts exact, the pool's bytes per token
+                on the card equal to ``ServeConfig.kv_bytes_per_token``
+                (the reference's figures for qwen2-1.5b); from identical
+                caches a chunk's and a decode step's logits (the ring: a
+                decode step's) on the kernel path against the same model
+                with the wrappers at their plain versions (the kernels'
+                rounding points), within ``BF16_LOGIT_ULPS`` bf16 ulps of
+                |logits| max; greedy agreement of the kernel path with
+                those plain versions, the plain model path and phase 4's
+                fp32 run printed, and the near ties behind them (top-2
+                logit gaps, teacher-forced over the prompts); one
+                call of each bf16 kernel under ``torch.profiler`` shows
+                only its own source's bf16 kernels (no cast); decode and
+                chunk p50, tok/s, ``torch.cuda.max_memory_allocated`` and
+                the card's name and power limit.
+The kernels' JSON line lists every kernel of phases 3-10 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -160,6 +192,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_S = 67e12        # H100 SXM fp32 outside the tensor cores
 TF32_FLOP_S = 495e12       # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_S = 989e12       # H100 SXM bf16 tensor cores, dense
 # fp32-exact products on the tensor cores take three TF32 products (the
 # flash kernel's split), so fp32 work can run at TF32_FLOP_S / 3
 FP32_EXACT_FLOP_S = max(FP32_FLOP_S, TF32_FLOP_S / 3)
@@ -177,6 +210,14 @@ LOGIT_TOL = 2e-3           # 28 fp32 layers, two summation orders
 RWKV_TOL = {"atol": 5e-4, "rtol": 1e-3}
 RWKV_TOL_TEXT = "atol 5e-4 + rtol 1e-3 * |want|"
 BF16_REL = 2.0 ** -8       # bf16 half-ulp relative rounding error
+BF16_ULP = 2.0 ** -7       # one bf16 ulp, relative
+# phase 10: the bf16 kernel path against the same model with the wrappers at
+# their plain versions (the kernels' rounding points), in bf16 ulps of the
+# logits' largest magnitude.  The two differ by the kernels' fp32 summation
+# order alone, which 18-28 bf16 layers amplify: 1.8-3.0 ulps over the twelve
+# chunk and decode readings on an H100 (PERF.md §6), where the plain model
+# path's own rounding points read 3.1-8.1 ulps and fp32 compute 2.8-8.6
+BF16_LOGIT_ULPS = 4
 KINDS = ("fp32", "bf16", "int8", "fp8")       # page storage
 # the reference's ServeConfig figures for full-width qwen2-1.5b, N=2, 4 rows
 # at capacity 124 in blocks of 16 (33 blocks with the trash block)
@@ -242,10 +283,13 @@ class Timer:
         return total / iters
 
 
-def bound(nbytes, flops):
-    """The least time the card could take: bytes over the HBM rate, or fp32
-    operations over the faster of the CUDA cores and the 3xTF32 route."""
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_EXACT_FLOP_S
+def bound(nbytes, flops, bf16_flops=0):
+    """The least time the card could take: bytes over the HBM rate, or the
+    operations: ``flops`` fp32 ones over the faster of the CUDA cores and
+    the 3xTF32 route, and ``bf16_flops`` of products whose operands are
+    all exact in bf16 over the bf16 tensor cores' rate."""
+    t_b = nbytes / HBM_BYTES_S
+    t_f = flops / FP32_EXACT_FLOP_S + bf16_flops / BF16_FLOP_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -260,7 +304,8 @@ def embed_bytes(tok, d, elt):
 
 def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False,
                      window=None):
-    """The work paged attention needs on this data: K/V of the valid slots
+    """The work paged attention needs on this data: q and the output in
+    q's dtype, K/V of the valid slots
     of each row's pages that some query of the row sees (all of them
     without a window; ``elem`` bytes per element, and with ``scaled``
     pages one fp32 K and one fp32 V scale per such (slot, KV head)), and
@@ -287,7 +332,7 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False,
             if window is not None:
                 seen &= pos > qp - window
             pairs += int(seen.sum())
-    nbytes = (2 * valid * hkv * dh * elem + 2 * q.numel() * 4
+    nbytes = (2 * valid * hkv * dh * elem + 2 * q.numel() * q.element_size()
               + bt.size * 4 + n_pages * bs * 4
               + (2 * valid * hkv * 4 if scaled else 0))
     return nbytes, 4 * pairs * h * dh, (f"{valid} valid slots, {pairs} "
@@ -296,13 +341,13 @@ def attn_bytes_flops(q, bt, pp, q_pos_rows, hkv, dh, elem=4, scaled=False,
 
 def dense_bound(q, k, vis):
     """Least work of attention over fresh K/V: q and the output once, K/V
-    of the keys some query sees once per KV head, 4 * Dh flops per (query
-    head, visible pair); ``vis`` (Lq, Lk) bool."""
+    of the keys some query sees once per KV head (all in q's dtype), 4 *
+    Dh flops per (query head, visible pair); ``vis`` (Lq, Lk) bool."""
     b, _, h, dh = q.shape
     hkv = k.shape[2]
     keys = int(vis.any(0).sum())
     pairs = int(vis.sum())
-    nb = 2 * q.numel() * 4 + 2 * b * keys * hkv * dh * 4
+    nb = (2 * q.numel() + 2 * b * keys * hkv * dh) * q.element_size()
     fl = 4 * b * h * dh * pairs
     return nb, fl, (f"{keys} keys read, {pairs} query-key pairs per "
                     "(row, head)")
@@ -378,7 +423,8 @@ def phase_kernels(torch, timer):
     def sdpa(q, k_pages, v_pages, bt, pp, qpos_rows, k_scales=None,
              v_scales=None, window=None):
         """Library yardstick: gather the rows' pages (and scales), dequant
-        to fp32, then SDPA (K/V repeated to H heads, boolean mask)."""
+        to fp32, then SDPA in q's dtype (K/V repeated to H heads, boolean
+        mask)."""
         b, lq, h, dh = q.shape
         btc = bt.long().clamp(min=0)
 
@@ -390,8 +436,8 @@ def phase_kernels(torch, timer):
         if k_scales is not None:
             k = k * rows(k_scales)[..., None]
             v = v * rows(v_scales)[..., None]
-        k = k.reshape(b, -1, *k_pages.shape[2:])
-        v = v.reshape(b, -1, *v_pages.shape[2:])
+        k = k.reshape(b, -1, *k_pages.shape[2:]).to(q.dtype)
+        v = v.reshape(b, -1, *v_pages.shape[2:]).to(q.dtype)
         pos = torch.where(bt[..., None] >= 0, pp[btc], -1).reshape(b, -1)
         g = h // k.shape[2]
         k = k.repeat_interleave(g, 2).transpose(1, 2)
@@ -1187,9 +1233,203 @@ def phase_kernels(torch, timer):
                (got - want).abs().max().item(), DEMUX_TOL, timing)
     del w
 
+    bf16_kernels(torch, timer, record, pool, sdpa, store, ring_pos, visible,
+                 decode_cases[0], prefill_cases[0])
     bert_kernels(torch, timer, record)
     torch.cuda.synchronize()
     return out
+
+
+def bf16_share(got, want, ulps):
+    """(max |got - want|, the largest share of the bf16 tolerance used):
+    both bf16, within ``ulps`` bf16 ulps of each row's largest |want|."""
+    import torch
+    need(got.dtype == want.dtype == torch.bfloat16,
+         f"bf16 outputs expected, got {got.dtype} / {want.dtype}")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = ulps * BF16_ULP * w.abs().amax(-1, keepdim=True)
+    return err.max().item(), (err / tol.clamp(min=1e-30)).max().item()
+
+
+# phase 3's bf16 rows, by phase 10's architecture: the name's tag and the
+# page storages its paged rows cover (those phase 10 serves it on)
+BF16_SHAPES = (("qwen2-1.5b", "", KINDS[1:]), ("gemma-2b", "gemma-2b, ",
+                                              ("bf16",)))
+
+
+def bf16_kernels(torch, timer, record, pool, sdpa, store, ring_pos, visible,
+                 decode_case, prefill_case):
+    """Phase 3's bf16 rows (the reference's compute dtype) at phase 10's
+    shapes, read from the configs: qwen2-1.5b's heads (12 over 2 of 128)
+    and gemma-2b's (8 over 1 of 256) with a bf16 q in the paged kernels
+    at phase 4's decode rows and 32-token chunk (qwen2-1.5b over bf16,
+    int8 and fp8 pages, gemma-2b over bf16 pages), the ring decode at B 4,
+    C 124 and the demux exit with the RMS entry at d_model and F = 2 *
+    d_model for T 4 and 32, each against its plain version (widened to
+    fp32, rounded where the Pallas kernel rounds) within one bf16 ulp of
+    each row's largest value (two for the demux, whose later sums move
+    when an earlier one rounds the other way), and timed beside the
+    library call in bf16.  The bounds price the products whose operands
+    are all exact in bf16 (QK^T of a bf16 q over bf16, int8 or fp8 K; the
+    demux's k @ W1k) at the bf16 tensor-core rate and the rest (P.V with
+    an fp32 P, the demux's products of fp32 activations) at the fp32-exact
+    one."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import demux_rsa as kd
+    from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rng = np.random.default_rng(29)     # phase 3's other rows keep theirs
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    def bq(*shape):
+        return t(rng.standard_normal(shape, np.float32)).to(bf)
+
+    def r(*shape, s=1.0):
+        return t((rng.standard_normal(shape) * s).astype(np.float32))
+
+    case, lens, qpos, mb, p = decode_case
+    pcase, plens, qs, ql, lq, pmb, pp_ = prefill_case
+    for arch, tag, kinds in BF16_SHAPES:
+        cfg = get_config(arch)
+        h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        heads = f"{arch}: {h} over {hkv} of {dh}"
+        for kind in kinds:
+            k_p, v_p, bt, pp = pool(lens, P=p, MB=mb, hkv=hkv, dh=dh)
+            kq, vq, sc = store(kind, k_p, v_p)
+            q = bq(len(lens), 1, h, dh)
+            qp = t(np.asarray(qpos, np.int32))
+
+            def kernel():
+                return kp.paged_attention_cuda(q, kq, vq, bt, pp, qp, **sc)
+
+            def plain():
+                if sc:
+                    return ref.paged_attention_quant_ref(
+                        q, kq, vq, sc["k_scales"], sc["v_scales"], bt, pp,
+                        qp)
+                return ref.paged_attention_ref(q, kq, vq, bt, pp, qp)
+            err, share = bf16_share(kernel(), plain(), 1)
+            nb, fl, work = attn_bytes_flops(q, bt, pp, qp[:, None], hkv, dh,
+                                            elem=kq.element_size(),
+                                            scaled=bool(sc))
+            bms, by = bound(nb, fl // 2, fl // 2)
+            record(f"paged_attention[{tag}bf16 q, {kind}]",
+                   f"{case}; {heads}", err, "1 bf16 ulp of the row max", {
+                       "work": work, "ms": timer(kernel),
+                       "plain_ms": timer(plain),
+                       "library_ms": timer(lambda: sdpa(q, kq, vq, bt, pp,
+                                                        qp[:, None], **sc)),
+                       "bound_ms": bms, "bound_by": by, "bytes": nb,
+                       "flops": fl}, share=share)
+
+            k_p, v_p, bt, pp = pool(plens, P=pp_, MB=pmb, hkv=hkv, dh=dh)
+            kq, vq, sc = store(kind, k_p, v_p)
+            q = bq(len(plens), lq, h, dh)
+            qs_t = t(np.asarray(qs, np.int32))
+            ql_t = t(np.asarray(ql, np.int32))
+
+            def kernel():
+                return kp.paged_prefill_attention_cuda(q, kq, vq, bt, pp,
+                                                       qs_t, ql_t, **sc)
+
+            def plain():
+                if sc:
+                    return ref.paged_prefill_attention_quant_ref(
+                        q, kq, vq, sc["k_scales"], sc["v_scales"], bt, pp,
+                        qs_t, ql_t)
+                return ref.paged_prefill_attention_ref(q, kq, vq, bt, pp,
+                                                       qs_t, ql_t)
+            err, share = bf16_share(kernel(), plain(), 1)
+            li = torch.arange(lq, device=dev)[None]
+            qrows = qs_t[:, None] + li
+            masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)
+            nb, fl, work = attn_bytes_flops(
+                q, bt, pp, torch.where(masked, -1, qrows), hkv, dh,
+                elem=kq.element_size(), scaled=bool(sc))
+            bms, by = bound(nb, fl // 2, fl // 2)
+            record(f"paged_prefill_attention[{tag}bf16 q, {kind}]",
+                   f"{pcase}; {heads}", err, "1 bf16 ulp of the row max", {
+                       "work": work, "ms": timer(kernel),
+                       "plain_ms": timer(plain),
+                       "library_ms": timer(lambda: sdpa(q, kq, vq, bt, pp,
+                                                        qrows, **sc)),
+                       "bound_ms": bms, "bound_by": by, "bytes": nb,
+                       "flops": fl}, share=share)
+
+        # the ring decode: q, K, V and the output in bf16
+        c, written, q_pos = 124, 117, 116
+        q, kc, vc = bq(4, 1, h, dh), bq(4, c, hkv, dh), bq(4, c, hkv, dh)
+        pos = ring_pos(c, written)
+        kw = dict(q_pos=q_pos)
+        got = kdec.decode_attention_cuda(q, kc, vc, pos, **kw)
+        err, share = bf16_share(got, ref.decode_attention_ref(
+            q, kc, vc, pos, **kw), 1)
+        need(torch.equal(kdec.decode_attention_cuda(q, kc, vc, pos, **kw),
+                         got),
+             f"decode_attention[{tag}bf16]: a repeat changed the bits")
+        vis = visible(torch.full((1,), q_pos, device=dev), pos.long(), True,
+                      None, pos >= 0)
+        nb, fl, work = dense_bound(q, kc, vis)
+        nb += c * 4
+        bms, by = bound(nb, fl // 2, fl // 2)
+        record(f"decode_attention[{tag}bf16]",
+               f"main: B=4, C=124 at 116; {heads}", err,
+               "1 bf16 ulp of the row max", {
+                   "work": work,
+                   "ms": timer(lambda: kdec.decode_attention_cuda(
+                       q, kc, vc, pos, **kw)),
+                   "plain_ms": timer(lambda: ref.decode_attention_ref(
+                       q, kc, vc, pos, **kw)),
+                   "library_ms": timer(lambda: sdpa_dense(q, kc, vc, vis)),
+                   "bound_ms": bms, "bound_by": by, "bytes": nb,
+                   "flops": fl}, share=share)
+
+        # the demux exit: h, keys, weights and output bf16, norm params fp32
+        d, n = cfg.d_model, 2
+        f = 2 * d                       # MuxSpec's default demux_hidden
+        w = tuple(x.to(bf) for x in (r(n, d), r(d, f, s=0.02),
+                                     r(d, f, s=0.02), r(f, s=0.02),
+                                     r(f, d, s=0.02), r(d, s=0.02)))
+        norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+                 "exit_scale": 1.0 + r(d, s=0.1), "exit_bias": r(d, s=0.1)}
+        for dcase, tt in (("main: decode T=4", 4), ("main: chunk T=32", 32)):
+            x = r(tt, d).to(bf)
+            got = kd.demux_rsa_cuda(x, *w, **norms)
+            err, share = bf16_share(got, ref.demux_rsa_fused_ref(
+                x, *w, **norms), 2)
+            need(torch.equal(kd.demux_rsa_cuda(x, *w, **norms), got),
+                 f"demux_rsa[{tag}bf16]: a repeat changed the bits")
+            nb = ((3 * d * f + f + d + n * d + tt * d + n * tt * d) * 2
+                  + 3 * d * 4)
+            fl = 2 * tt * d * f + 2 * n * tt * f * d      # fp32 activations
+            bms, by = bound(nb, fl, 2 * n * d * f)        # + k @ W1k
+
+            def library():
+                hn = x.float() * torch.rsqrt(x.float().square().mean(
+                    -1, keepdim=True) + 1e-6) * (1 + norms["entry_scale"])
+                z = F.gelu(torch.matmul(hn.to(bf), w[1])[None]
+                           + (w[0] @ w[2] + w[3])[:, None],
+                           approximate="tanh")
+                return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                    norms["exit_scale"].to(bf),
+                                    norms["exit_bias"].to(bf), eps=1e-6)
+            record(f"demux_rsa[{tag}bf16]", f"{dcase}; {arch}: d {d} F {f}",
+                   err, "2 bf16 ulps of the row max", {
+                       "ms": timer(lambda: kd.demux_rsa_cuda(x, *w,
+                                                             **norms)),
+                       "plain_ms": timer(lambda: ref.demux_rsa_fused_ref(
+                           x, *w, **norms)),
+                       "library_ms": timer(library),
+                       "bound_ms": bms, "bound_by": by, "bytes": nb,
+                       "flops": fl + 2 * n * d * f}, share=share)
 
 
 def bert_kernels(torch, timer, record):
@@ -1328,6 +1568,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--profile-bf16-kernels"]:    # phase 10's child
+        build.build_all()
+        profile_bf16_kernels(torch)
+        return 0
     t_start = time.perf_counter()
 
     # 1. device
@@ -1366,7 +1610,7 @@ def main() -> int:
     trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
     runs = {}
     for kind in KINDS:
-        sc = engine.ServeConfig(cfg=cfg, mux=mux,
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                                 capacity=prompt_len + new_tokens + 8,
                                 cache_layout="paged", block_size=16,
                                 kv_dtype=kind)
@@ -1390,7 +1634,7 @@ def main() -> int:
     # 5. kernel path against plain path
     print("phase 5: kernel path against plain path", flush=True)
     for kind in ("fp32", "int8"):
-        sc = engine.ServeConfig(cfg=cfg, mux=mux,
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                                 capacity=prompt_len + new_tokens + 8,
                                 cache_layout="paged", block_size=16,
                                 kv_dtype=kind)
@@ -1424,6 +1668,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_runs = phase_dense(torch, mux, rows, prompt_len, new_tokens)
 
+    # 10. qwen2-1.5b and gemma-2b in bf16, ServeConfig.dtype's default;
+    # phase 9's weights were its own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_runs = phase_bf16(torch, mux, rows, prompt_len, new_tokens, runs)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -1456,13 +1706,21 @@ def main() -> int:
             "cuda", paged_src, "src/repro/kernels/paged_attention.py:297")
     for kname, (wrapper, _, _) in DENSE_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, (wrapper, _, _) in BF16_ROWS.items():
+        meta[kname] = meta[wrapper]
     rows_json = []
     for kname, (route, src, repl) in meta.items():
         s = summary[kname]
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in BERT_ROWS:            # one hidden call of phase 8's arm
+        if kname in BF16_ROWS:            # phase 10's run of that arch
+            wrapper, arch, run = BF16_ROWS[kname]
+            got = bf16_runs[arch][run]
+            launches = (got["by_storage"][wrapper][run]
+                        if wrapper.startswith("paged") else
+                        got["launches"][wrapper])
+        elif kname in BERT_ROWS:          # one hidden call of phase 8's arm
             wrapper, arm = BERT_ROWS[kname]
             launches = bert[arm][wrapper]
         elif kname in DENSE_ROWS:         # phase 9's run of that arch
@@ -1509,6 +1767,14 @@ def paged_launches(launches, n_layers, dsteps, chunks):
     return want
 
 
+def storage_name(sc) -> str:
+    """The page storage of ``sc``: 'fp32', 'bf16', 'int8' or 'fp8' (its
+    ``kv_dtype``, or the compute dtype's when that is None)."""
+    import torch
+    return sc.kv_quant or ("bf16" if sc.page_dtype == torch.bfloat16
+                           else "fp32")
+
+
 def pool_bytes_per_token(runtime) -> float:
     """The bytes the runtime's page pool holds on the card (payload,
     scales and slot positions of every layer) over its token slots."""
@@ -1529,8 +1795,8 @@ def serve_once(params, sc, rows, trace, new_tokens, ref_bytes=True,
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve.telemetry import Telemetry
-    cfg, kind = sc.cfg, sc.kv_dtype
-    kind = f"{label}{kind}"
+    cfg, store = sc.cfg, storage_name(sc)
+    kind = f"{label}{store}"
     tele = Telemetry()
     ops.reset_counts()
     stats = run_continuous(params, sc, rows, trace, chunk=32,
@@ -1547,7 +1813,7 @@ def serve_once(params, sc, rows, trace, new_tokens, ref_bytes=True,
     want = paged_launches(launches, cfg.n_layers, dsteps, chunks)
     need(launches == want, f"{kind}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {chunks} prefill chunks)")
-    need(by_storage == {k: {sc.kv_dtype: v} for k, v in want.items()
+    need(by_storage == {k: {store: v} for k, v in want.items()
                         if k in by_storage},
          f"{kind}: paged launches by storage {by_storage}")
     need(set(stats["trace_counts"]) == {"decode", "prefill_4", "prefill_32"},
@@ -1557,12 +1823,11 @@ def serve_once(params, sc, rows, trace, new_tokens, ref_bytes=True,
          f"{kind}: the pool holds {held} bytes per token on the card; "
          f"ServeConfig.kv_bytes_per_token says {sc.kv_bytes_per_token()}")
     if ref_bytes:
-        need(stats["kv_bytes_per_token"] == KV_BYTES_PER_TOKEN[sc.kv_dtype]
-             and stats["pool_bytes"] == POOL_BYTES[sc.kv_dtype],
+        need(stats["kv_bytes_per_token"] == KV_BYTES_PER_TOKEN[store]
+             and stats["pool_bytes"] == POOL_BYTES[store],
              f"{kind}: {stats['kv_bytes_per_token']} bytes per token, pool "
              f"{stats['pool_bytes']} bytes; the reference's figures are "
-             f"{KV_BYTES_PER_TOKEN[sc.kv_dtype]} and "
-             f"{POOL_BYTES[sc.kv_dtype]}")
+             f"{KV_BYTES_PER_TOKEN[store]} and {POOL_BYTES[store]}")
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
@@ -1670,21 +1935,24 @@ def compare_paths(params, sc, rows, trace, prompt_len, kernel_run,
          "greedy tokens differ from the plain path's")
 
 
-def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label=""):
-    """Phase 4b for one mode: the continuous ring arm, paged serving with
-    blocking prefill, or fill-drain, on the phase-4 trace, with the launch
-    counts set to 0 just before the run and read just after.  Every
-    prefill is blocking and runs flash_attention once per layer; a ring
-    decode step runs decode_attention once per layer, a paged one
+def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
+                dtype=None):
+    """Phase 4b (or 10) for one mode: the continuous ring arm, paged
+    serving with blocking prefill, or fill-drain, on the phase-4 trace in
+    ``dtype`` (fp32 by default), with the launch counts set to 0 just
+    before the run and read just after.  Every prefill is blocking and,
+    under ``attn_impl='flash'``, runs flash_attention once per layer; a
+    ring decode step runs decode_attention once per layer, a paged one
     paged_attention; each decode step runs the fused entry and exit, each
-    prefill the mux-combine kernel of its unfused entry."""
+    prefill the mux-combine kernel of its unfused entry.  A paged pool's
+    bytes per token on the card equal ``ServeConfig.kv_bytes_per_token``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
     from repro_torch.serve import engine
     from repro_torch.serve.telemetry import Telemetry
     layout = "paged" if mode == "blocking" else "ring"
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=dtype or torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
                             cache_layout=layout, block_size=16)
     tele = Telemetry()
@@ -1705,12 +1973,18 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label=""):
          f"{mode}: a request stopped short of its new tokens")
     attn = "paged_attention" if layout == "paged" else "decode_attention"
     want = dict.fromkeys(launches, 0)
+    flash = cfg.attn_impl == "flash"
     want.update({attn: cfg.n_layers * dsteps,
-                 "flash_attention": cfg.n_layers * events,
+                 "flash_attention": cfg.n_layers * events * flash,
                  "mux_embed_combine": dsteps, "demux_rsa": dsteps,
                  "mux_combine": events})
     need(launches == want, f"{mode}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {events} prefill events)")
+    if layout == "paged":
+        held = pool_bytes_per_token(stats["runtime"])
+        need(held == sc.kv_bytes_per_token() == stats["kv_bytes_per_token"],
+             f"{mode}: the pool holds {held} bytes per token on the card; "
+             f"ServeConfig.kv_bytes_per_token says {sc.kv_bytes_per_token()}")
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
@@ -1735,7 +2009,7 @@ def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
     import torch
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve import engine
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8)
     import numpy as np
     sc_naive = dataclasses.replace(sc, cfg=cfg.replace(attn_impl="naive"))
@@ -1813,7 +2087,7 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
     from repro_torch.launch.serve import fill_drain, run_continuous
     from repro_torch.serve import engine
     from repro_torch.serve.telemetry import Telemetry
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8)
     tele = Telemetry()
     ops.reset_counts()
@@ -1864,7 +2138,7 @@ def compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
     import torch
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve import engine
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8)
     nb = max(mux.n, 1) * rows
     toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
@@ -1943,11 +2217,12 @@ def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
     cross-attention of each layer); a decode step runs decode_attention
     for the self- and the cross-attention of each layer, and the fused
     entry and exit; nothing else launches."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain
     from repro_torch.serve import engine
     from repro_torch.serve.telemetry import Telemetry
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
                             kind="encdec")
     tele = Telemetry()
@@ -1997,7 +2272,7 @@ def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
     import torch
     from repro_torch.launch.serve import fill_drain
     from repro_torch.serve import engine
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
                             kind="encdec")
     naive = cfg.replace(attn_impl="naive",
@@ -2274,7 +2549,7 @@ def phase_dense(torch, mux, rows, prompt_len, new_tokens):
         label = f"{arch} "
         runs = {}
         for kind in KINDS if arch == "h2o-danube-1.8b" else ("fp32",):
-            sc = engine.ServeConfig(cfg=cfg, mux=mux,
+            sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                                     capacity=prompt_len + new_tokens + 8,
                                     cache_layout="paged", block_size=16,
                                     kv_dtype=kind)
@@ -2375,7 +2650,7 @@ def serve_long(params, cfg, mux):
     prompt = np.random.default_rng(9).integers(4, cfg.vocab_size,
                                                LONG_PROMPT)
     trace = [(0, prompt, LONG_NEW)]
-    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=LONG_PROMPT + LONG_NEW + 8,
                             cache_layout="paged", block_size=16,
                             kv_dtype="fp32")
@@ -2436,6 +2711,350 @@ def serve_long(params, cfg, mux):
     need(max(errs) <= LOGIT_TOL, "h2o long: kernel path disagrees with the "
          "plain path")
     return {"launches": launches, "wall": wall}
+
+
+# phase 10: the reference's bf16 compute dtype (ServeConfig.dtype's default)
+BF16_ARCHS = ("qwen2-1.5b", "gemma-2b")
+# phase 3's bf16 rows: the wrapper, and the phase-10 architecture and run
+# (the page storage, or the ring arm) whose launches the JSON reports
+BF16_ROWS = {
+    **{f"{w}[{tag}bf16 q, {k}]": (w, arch, k)
+       for arch, tag, kinds in BF16_SHAPES for k in kinds
+       for w in ("paged_attention", "paged_prefill_attention")},
+    **{f"decode_attention[{tag}bf16]": ("decode_attention", arch, "ring")
+       for arch, tag, _ in BF16_SHAPES},
+    **{f"demux_rsa[{tag}bf16]": ("demux_rsa", arch, "bf16")
+       for arch, tag, _ in BF16_SHAPES},
+}
+# one wrapper call of each bf16 kernel under the profiler: the kernels it
+# may launch (its own source's), by name
+BF16_OWN = {"paged_attention": ("paged_decode_kernel", "paged_combine_kernel"),
+            "paged_prefill_attention": ("paged_chunk_kernel",
+                                        "paged_combine_kernel"),
+            "decode_attention": ("decode_kernel",),
+            "demux_rsa": ("demux_hidden_kernel", "demux_out_kernel",
+                          "demux_exit_kernel")}
+
+
+def agreement(a, b):
+    """(positions where two runs' greedy tokens agree, all positions)."""
+    same = sum(x == y for u in a for x, y in zip(a[u], b[u]))
+    return same, sum(len(v) for v in a.values())
+
+
+@contextlib.contextmanager
+def kernels_as_plain():
+    """The kernel path with every wrapper of ``kernels.ops`` taking its CPU
+    branch, its kernel's plain version, on the card's tensors: the
+    kernels' own rounding points without their launches (phase 10's
+    yardstick; the launch counts do not move)."""
+    from repro_torch.kernels import ops
+    on_cpu = ops._on_cpu
+    ops._on_cpu = lambda x: True
+    try:
+        yield
+    finally:
+        ops._on_cpu = on_cpu
+
+
+def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32):
+    """Phase 10's gate on one set of logits (fp32 copies): the kernel path
+    against the same model with the wrappers at their plain versions
+    (``kernels_as_plain``), within ``BF16_LOGIT_ULPS`` bf16 ulps of the
+    kernel path's |logits| max.  Also prints what the plain model path
+    (``attention_core``'s and the oracle's rounding points) and fp32
+    compute read against the kernel path, and whether the argmax moved."""
+    err = (kernel - plain).abs().max().item()
+    tol = BF16_LOGIT_ULPS * BF16_ULP * kernel.abs().max().item()
+    am = kernel.argmax(-1)
+    print(f"  {kind}: {what} logits, kernel path vs its plain versions "
+          f"from identical caches {err:.3e} (tol {tol:.3e}, "
+          f"{BF16_LOGIT_ULPS} bf16 ulps of |logits| max "
+          f"{kernel.abs().max().item():.3f}); vs the plain model path "
+          f"{(kernel - model_plain).abs().max().item():.3e}; vs fp32 compute "
+          f"{(kernel - fp32).abs().max().item():.3e}; argmax moved in "
+          f"{int((am != plain.argmax(-1)).sum())} / "
+          f"{int((am != model_plain.argmax(-1)).sum())} / "
+          f"{int((am != fp32.argmax(-1)).sum())} of {am.numel()} rows",
+          flush=True)
+    need(err <= tol, f"{kind}: the bf16 kernel path's {what} logits differ "
+         f"from its plain versions' by {err} > {tol}")
+
+
+def bf16_vs_plain(params, sc, rows, trace, prompt_len, label):
+    """Phase 10 for one page storage: from identical caches, one 32-token
+    chunk's and then one decode step's logits on the kernel path against
+    the same path with the wrappers at their plain versions
+    (``bf16_logit_check``); the plain model path and fp32 compute on the
+    same tokens and page storage are printed beside them."""
+    import torch
+    from repro_torch.serve import engine
+    store = storage_name(sc)
+    kind = f"{label}{store} pages"
+    toks = torch.as_tensor(trace[0][1][:32], device="cuda").repeat(2, 1)
+    dtok = torch.full((2 * rows, 1), int(trace[0][1][32]), device="cuda")
+    pos = torch.as_tensor([32, -1, -1, -1], device="cuda")
+    act = torch.as_tensor([0, rows], device="cuda")      # row 0's streams
+
+    def fresh(s_):
+        cache = engine.init_cache(s_, 2 * rows, device="cuda")
+        pool = engine.make_pool(s_, 2 * rows)
+        pool.allocate(0, prompt_len)
+        engine.set_block_tables(cache, pool.table_array(range(rows)))
+        return cache
+
+    def chunk(s_, cache, uk=True):
+        lc, _ = engine.prefill_chunk(params, s_, cache, toks, rows=[0],
+                                     start=0, length=32, use_kernels=uk)
+        return lc.float()
+
+    def step(s_, cache, uk=True):
+        ld, _ = engine.decode_step(params, s_, cache, dtok, pos,
+                                   use_kernels=uk)
+        return ld[act].float()
+
+    def three(fn, cache):
+        """The kernel path on ``cache``, its plain versions and the plain
+        model path each on a copy of it as it was."""
+        twins = clone_pages(cache), clone_pages(cache)
+        got = fn(sc, cache)
+        with kernels_as_plain():
+            plain = fn(sc, twins[0])
+        return got, plain, fn(sc, twins[1], False)
+    sc32 = dataclasses.replace(sc, dtype=torch.float32, kv_dtype=store)
+    c32 = fresh(sc32)
+    cache = fresh(sc)
+    bf16_logit_check(kind, "chunk", *three(chunk, cache), chunk(sc32, c32))
+    bf16_logit_check(kind, "decode", *three(step, cache), step(sc32, c32))
+
+
+def bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens, label):
+    """Phase 10 for the ring: a blocking prefill into a bf16 ring, then
+    one decode step held as ``bf16_vs_plain`` holds the pages (fp32
+    compute steps from its own fp32 prefill)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    pos = toks.shape[1]
+
+    def prefilled(dtype):
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=dtype,
+                                capacity=len(trace[0][1]) + new_tokens + 8)
+        cache = engine.init_cache(sc, nb, device="cuda")
+        logits, _ = engine.prefill(params, sc, cache, toks)
+        return sc, cache, logits
+
+    def twin():
+        c = engine.init_cache(sc, nb, device="cuda")
+        for a, b in zip(cache["layers"], c["layers"]):
+            for key in ("k", "v", "pos"):
+                b[key].copy_(a[key])
+            b["idx"] = a["idx"]
+        return c
+    sc, cache, logits = prefilled(torch.bfloat16)
+    dtok = logits.argmax(-1)[:, None]
+    twins = twin(), twin()
+    got = engine.decode_step(params, sc, cache, dtok, pos)[0]
+    with kernels_as_plain():
+        plain = engine.decode_step(params, sc, twins[0], dtok, pos)[0]
+    model_plain = engine.decode_step(params, sc, twins[1], dtok, pos,
+                                     use_kernels=False)[0]
+    sc32, cache32, _ = prefilled(torch.float32)
+    fp32 = engine.decode_step(params, sc32, cache32, dtok, pos)[0]
+    bf16_logit_check(f"{label}ring", "decode", got.float(), plain.float(),
+                     model_plain.float(), fp32)
+
+
+def near_ties(params, cfg, mux, rows, trace, label):
+    """The witness to phase 10's greedy agreements: teacher-forced over
+    the trace's first N * rows prompts (no cache), each position's gap
+    between the bf16 kernel path's two largest logits against what fp32
+    compute moves that position's logits (max over the vocabulary), and
+    how often the argmax moves under fp32 compute and under the kernels'
+    plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.models import TransformerLM
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:mux.n * rows]]),
+                           device="cuda")
+
+    def logits(dtype):
+        with torch.no_grad():
+            out = TransformerLM.apply(params, cfg, toks, mux=mux,
+                                      dtype=dtype)["logits"]
+        return out.reshape(-1, out.shape[-1])
+    got = logits(torch.bfloat16)
+    with kernels_as_plain():
+        am_plain = logits(torch.bfloat16).argmax(-1)
+    top2 = got.topk(2, -1).values.float()
+    gap = top2[:, 0] - top2[:, 1]
+    am = got.argmax(-1)
+    got = got.float()
+    f32 = logits(torch.float32)
+    moved = (got - f32).abs().amax(-1)
+    am32 = f32.argmax(-1)
+    del got, f32
+    print(f"  {label}near ties, teacher-forced over {gap.numel()} prompt "
+          f"positions: top-2 logit gap median {gap.median().item():.4f}, "
+          f"below 0.1 at {(gap < 0.1).float().mean().item():.3f} of them; "
+          f"fp32 compute moves a position's logits by "
+          f"{moved.median().item():.4f} (median of the max over the "
+          f"vocabulary), more than its gap at "
+          f"{(gap < moved).float().mean().item():.3f}; argmax moved at "
+          f"{(am != am32).float().mean().item():.3f} (fp32 compute) and "
+          f"{(am != am_plain).float().mean().item():.3f} (the kernels' plain "
+          f"versions)", flush=True)
+
+
+def profile_bf16_kernels(torch):
+    """One wrapper call of each bf16 kernel under torch.profiler (after a
+    warm-up call): only its own source's kernels may appear, as their
+    bf16 instantiations, and no cast or copy, so the kernel itself reads
+    the 16-bit operands and writes the 16-bit output.  Run in a process
+    of its own (``--profile-bf16-kernels``): on the card, after phases
+    3-9 in one process, the traces of such short windows held the calls'
+    CUDA runtime events but not always their kernels, where a fresh
+    process's held every one."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_step import profile_calls
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(31)
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * s).astype(
+            np.float32), device=dev)
+
+    def ints(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+    bt = torch.arange(1, 33, dtype=torch.int32, device=dev).reshape(4, 8)
+    pp = torch.arange(33 * 16, dtype=torch.int32, device=dev).reshape(
+        33, 16) % 128
+    kpg, vpg = r(33, 16, 2, 128).to(bf), r(33, 16, 2, 128).to(bf)
+    q1, qc = r(4, 1, 12, 128).to(bf), r(1, 32, 12, 128).to(bf)
+    kr, vr = r(4, 124, 2, 128).to(bf), r(4, 124, 2, 128).to(bf)
+    rpos = torch.arange(124, dtype=torch.int32, device=dev)
+    d, f = 1536, 3072
+    h = r(4, d).to(bf)
+    w = [x.to(bf) for x in (r(2, d), r(d, f, s=0.02), r(d, f, s=0.02),
+                            r(f, s=0.02), r(f, d, s=0.02), r(d, s=0.02))]
+    norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+             "exit_scale": 1.0 + r(d, s=0.1), "exit_bias": r(d, s=0.1)}
+    qp, qs, ql = ints(116, 107, 100, 99), ints(64), ints(32)
+    calls = {
+        "paged_attention": lambda: ops.paged_attention(q1, kpg, vpg, bt, pp,
+                                                       qp),
+        "paged_prefill_attention": lambda: ops.paged_prefill_attention(
+            qc, kpg, vpg, bt[:1], pp, qs, ql),
+        "decode_attention": lambda: ops.decode_attention(q1, kr, vr, rpos,
+                                                         q_pos=116),
+        "demux_rsa": lambda: ops.demux_rsa(h, *w, **norms),
+    }
+    for wrapper, fn in calls.items():
+        need(fn().dtype == bf, f"{wrapper}: bf16 output expected")
+        trace, _ = profile_calls(fn, 1)
+        names = [e["name"] for e in trace["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset")]
+        print(f"  profiled {wrapper}(bf16): {len(names)} device "
+              f"activities: {sorted(set(names))}", flush=True)
+        need(names, f"{wrapper}(bf16): the profiler recorded no device "
+             "activity")
+        need(all(any(k in n for k in BF16_OWN[wrapper]) and "bfloat16" in n
+                 for n in names),
+             f"{wrapper}(bf16) launched something besides its own bf16 "
+             f"kernels: {names}")
+
+
+def phase_bf16(torch, mux, rows, prompt_len, new_tokens, fp32_runs):
+    """Phase 10: full-width qwen2-1.5b and gemma-2b at
+    ``ServeConfig.dtype=torch.bfloat16`` (the default) on the phase-4
+    trace.  qwen2-1.5b: paged chunked on default (bf16), fp32, int8 and
+    fp8 pages, paged blocking and the ring arm; gemma-2b (MQA 8 over 1 of
+    256, an embedding scale bf16 rounds to 45.25): paged chunked and the
+    ring arm.  Each arm with exact launch counts and, on pages, the pool's
+    bytes per token on the card; the kernel path against its plain
+    versions from identical caches (``bf16_vs_plain``); greedy agreement
+    of the kernel path with its plain versions, the plain model path and
+    phase 4's fp32 run, and the near ties behind them (``near_ties``);
+    one profiled call of each bf16 kernel.  Returns each architecture's
+    runs by page storage and arm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models import TransformerLM
+    from repro_torch.serve import engine
+    torch.cuda.reset_peak_memory_stats()
+    print(f"phase 10: qwen2-1.5b and gemma-2b full width in bf16; "
+          f"{smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in BF16_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        params = TransformerLM.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+        trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+        label = f"{arch} bf16 "
+        qwen = arch == "qwen2-1.5b"
+        runs = {}
+        for kv in (None, "fp32", "int8", "fp8") if qwen else (None,):
+            sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                                    capacity=prompt_len + new_tokens + 8,
+                                    cache_layout="paged", block_size=16,
+                                    kv_dtype=kv)
+            need(sc.dtype == torch.bfloat16, f"default dtype {sc.dtype}")
+            store = storage_name(sc)
+            runs[store] = serve_once(params, sc, rows, trace, new_tokens,
+                                     ref_bytes=qwen, label=label)
+            bf16_vs_plain(params, sc, rows, trace, prompt_len, label)
+            if qwen:                # phase 4: fp32 compute, same storage
+                same, total = agreement(runs[store]["outputs"],
+                                        fp32_runs[store]["outputs"])
+                print(f"  {label}{store} pages: greedy tokens identical to "
+                      f"the fp32-compute run on {store} pages (phase 4): "
+                      f"{same}/{total} ({same / total:.3f})", flush=True)
+        sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                                capacity=prompt_len + new_tokens + 8,
+                                cache_layout="paged", block_size=16)
+        with kernels_as_plain():
+            plain = run_continuous(params, sc, rows, trace, chunk=32,
+                                   device="cuda")
+        model_plain = run_continuous(params, sc, rows, trace, chunk=32,
+                                     use_kernels=False, device="cuda")
+        for what, run in (("its plain versions", plain),
+                          ("the plain model path", model_plain)):
+            same, total = agreement(runs["bf16"]["outputs"], {
+                r.uid: r.output for r in run["completed"]})
+            print(f"  {label}bf16 pages: greedy tokens identical, kernel "
+                  f"path vs {what}: {same}/{total} ({same / total:.3f}); "
+                  f"{run['generated_tokens'] / run['wall']:.2f} tok/s",
+                  flush=True)
+        near_ties(params, cfg, mux, rows, trace, label)
+        modes = ("blocking", "ring") if qwen else ("ring",)
+        for mode in modes:
+            runs[mode] = serve_dense(params, cfg, mux, rows, trace,
+                                     new_tokens, mode, label=label,
+                                     dtype=torch.bfloat16)
+        bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens, label)
+        out[arch] = runs
+        if qwen:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--profile-bf16-kernels"], capture_output=True, text=True,
+                timeout=600)
+            print(proc.stdout, end="", flush=True)
+            need(proc.returncode == 0, "the bf16 kernels' profile failed:\n"
+                 + proc.stderr[-3000:])
+        del params, plain, model_plain
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{smi_line()}", flush=True)
+    return out
 
 
 def _leaves(tree):

@@ -85,22 +85,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
         # q, kp, vp, ksc, vsc, bt, ppos, q_pos, out, part_o, part_ml; kind,
-        # B, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len; scale;
-        # stream
-        "paged_attention_decode": [_P] * 11 + [_I] * 11 + [_F, _P],
-        # ... q_start, q_len, out, part_o, part_ml; kind, B, Lq, H, ...
-        "paged_attention_prefill": [_P] * 12 + [_I] * 12 + [_F, _P],
+        # q_bf16, B, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len;
+        # scale; stream
+        "paged_attention_decode": [_P] * 11 + [_I] * 12 + [_F, _P],
+        # ... q_start, q_len, out, part_o, part_ml; kind, q_bf16, B, Lq, ...
+        "paged_attention_prefill": [_P] * 12 + [_I] * 13 + [_F, _P],
     },
     "demux_rsa": {
         # h, k, entry_scale, entry_bias, w1h, w1k, b1, w2, b2, exit_scale,
         # exit_bias, zp, st, g, yp, out, counter; entry_kind, T, N, D, F,
-        # s1, len1, s2, len2; stream
-        "demux_rsa_forward": [_P] * 17 + [_I] * 9 + [_P],
+        # s1, len1, s2, len2, bf16; stream
+        "demux_rsa_forward": [_P] * 17 + [_I] * 10 + [_P],
     },
     "decode_attention": {
         # q, k, v, slot_pos, q_pos_ptr, out; B, C, H, Hkv, Dh, q_pos,
-        # causal, window, nsplit, split_len; scale; stream
-        "decode_attention_forward": [_P] * 6 + [_I] * 10 + [_F, _P],
+        # causal, window, nsplit, split_len, bf16; scale; stream
+        "decode_attention_forward": [_P] * 6 + [_I] * 11 + [_F, _P],
     },
     "flash_attention": {
         # q, k, v, out, part_o, part_ml; B, Lq, Lk, H, Hkv, Dh, causal,

@@ -13,9 +13,18 @@
 // through loaders k(key, dim) -> float, so a kernel can widen and scale
 // stored page elements as it reads them.  Scores are in log2 units.
 #pragma once
+#include <cuda_bf16.h>
+
 #include "tf32.cuh"
 
 namespace {
+
+// an fp32 result stored as the output's type (bf16: rounded to nearest even,
+// as PyTorch's and JAX's casts)
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 constexpr float kNegMask = -1073741824.0f;     // -2**30, as the reference
 constexpr float kLog2e = 1.4426950408889634f;
@@ -147,9 +156,10 @@ __device__ __forceinline__ void tile_pv(float (&o)[MT][DT][4],
 // One warp merges the nsplit partials of one output row by their
 // log-sum-exp, in split order (deterministic, no atomics): part_o
 // (nsplit, nrows, Dh) unnormalised, part_ml (nsplit, nrows, 2) the running
-// max (log2 units) and sum.
+// max (log2 units) and sum; out in fp32 or bf16 (rounded once).
+template <class TO>
 __device__ __forceinline__ void merge_splits(const float* part_o,
-                                             const float* part_ml, float* out,
+                                             const float* part_ml, TO* out,
                                              size_t nrows, size_t row, int Dh,
                                              int nsplit, int lane) {
   float m = -INFINITY;
@@ -165,7 +175,7 @@ __device__ __forceinline__ void merge_splits(const float* part_o,
     for (int s = 0; s < nsplit; ++s)
       acc += part_o[(s * nrows + row) * Dh + d] *
              exp2f(part_ml[2 * (s * nrows + row)] - m);
-    out[row * Dh + d] = acc * inv;
+    store1(out + row * Dh + d, acc * inv);
   }
 }
 

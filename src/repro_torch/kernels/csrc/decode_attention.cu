@@ -4,18 +4,22 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py
 // (decode_attention, _kernel): decode_kernel, one launch.
 //
-// Layouts (as in the reference, read in place): q (B, 1, H, Dh) fp32;
-// k, v (B, C, Hkv, Dh) fp32, the ring cache itself (the Pallas wrapper's
+// Layouts (as in the reference, read in place): q (B, 1, H, Dh);
+// k, v (B, C, Hkv, Dh), the ring cache itself (the Pallas wrapper's
 // (B, Hkv, C, Dh) transposed copy is not made: a slot's head row is
 // addressed with stride Hkv * Dh); slot_pos (C,) int32, the absolute
 // position each slot holds (-1 = empty; not monotone once the ring wraps).
 // The query's position is an int argument or, when q_pos_ptr is given, an
 // int32 in device memory read by the kernel: nothing about a position
 // reaches the host, so a captured launch replays at whatever position the
-// tensor holds.
+// tensor holds.  q, k, v and the output are all fp32 or all bf16 (the
+// compute dtype): as the Pallas kernel, bf16 elements are widened to fp32
+// as they are read, everything is computed in fp32, and the output is
+// rounded to bf16 once.  A 16-byte copy carries 4 fp32 or 8 bf16 values.
 //
 // Bound.  One query per (row, head) reads each visible slot's K and V row
-// once per KV head: ~2 * Dh * 4 bytes per (row, KV head, slot) against
+// once per KV head: ~2 * Dh * E bytes (E = 4, or 2 in bf16) per (row, KV
+// head, slot) against
 // 4 * Dh * G flops, ~3 flops per byte at G = 6, so bytes bound it.  At the
 // main path's shape (B = 4, C = 124, 2 KV heads of 128) that is ~1 MB, a
 // fraction of a microsecond at 3.35 TB/s: what bounds it there is latency
@@ -62,12 +66,12 @@ constexpr int kMaxHeads = 8;     // query heads (warps) a block
 constexpr int kMaxSplits = 16;   // blocks a cluster (non-portable above 8)
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;         // q, k, v and out: float, or bf16
+  const void* k;
+  const void* v;
   const int* slot_pos;
   const int* q_pos_ptr;  // nullable: the query position in device memory
-  float* out;            // (B, H, Dh)
+  void* out;             // (B, H, Dh)
   int B, C, H, Hkv, Dh, q_pos, causal, window, nsplit, split_len;
   float scale;
 };
@@ -85,43 +89,71 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// floats of one stage: K and V rows of kTile slots, then their positions
-__host__ __device__ constexpr int stage_floats(int dh) {
-  return 2 * kTile * dh + kTile;
+// four consecutive elements (16- or 8-byte aligned) as fp32, exactly, and
+// four fp32 values stored as the element type (bf16: rounded once)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const unsigned*>(&lo),
+      *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// bytes of one stage: K and V rows of kTile slots (elements of esize
+// bytes), then their positions
+__host__ __device__ constexpr int stage_bytes(int dh, int esize) {
+  return 2 * kTile * dh * esize + kTile * 4;
 }
 
 // dynamic shared memory: the ring, then each warp's partial (acc of Dh
 // floats, m, l, padded to a multiple of 4)
-__host__ __device__ constexpr int smem_floats(int dh, int warps) {
-  return kStages * stage_floats(dh) + warps * (dh + 4);
+__host__ __device__ constexpr int smem_bytes(int dh, int esize, int warps) {
+  return kStages * stage_bytes(dh, esize) + warps * (dh + 4) * 4;
 }
 
 // Issue the copies of tile it of the split's run (slots [s_begin, s_begin +
 // nslots)) into its stage: K/V rows by 16-byte cp.async, positions by
 // 4-byte ones; past the run, zeros.  One commit group a call, empty for a
 // tile past the run, so the ring's group count stays uniform.
-__device__ __forceinline__ void stage_tile(const Args& a, float* base, int b,
+template <typename T>
+__device__ __forceinline__ void stage_tile(const Args& a, char* base, int b,
                                            int kvh, int s_begin, int nslots,
                                            int ntiles, int it) {
-  const int d4 = a.Dh / 4, s0 = it * kTile;
+  constexpr int E = 16 / sizeof(T);              // elements a 16-byte copy
+  const int dc16 = a.Dh / E, s0 = it * kTile;
   if (it < ntiles) {
-    float* sk = base + (it % kStages) * stage_floats(a.Dh);
-    float* sv = sk + kTile * a.Dh;
+    T* sk = reinterpret_cast<T*>(base +
+                                 (it % kStages) * stage_bytes(a.Dh, sizeof(T)));
+    T* sv = sk + kTile * a.Dh;
     int* sp = reinterpret_cast<int*>(sv + kTile * a.Dh);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
     // (row, 16-byte chunk) pairs, stepped without a division each
-    const int dr = blockDim.x / d4, dc = blockDim.x % d4;
-    int r = threadIdx.x / d4, c = threadIdx.x % d4;
+    const int dr = blockDim.x / dc16, dc = blockDim.x % dc16;
+    int r = threadIdx.x / dc16, c = threadIdx.x % dc16;
     for (; r < kTile; r += dr, c += dc) {
-      if (c >= d4) {
-        c -= d4;
+      if (c >= dc16) {
+        c -= dc16;
         if (++r >= kTile) break;
       }
       const bool ok = s0 + r < nslots;
       const size_t off =
           (((size_t)b * a.C + s_begin + (ok ? s0 + r : 0)) * a.Hkv + kvh) *
-              a.Dh + 4 * c;
-      cp_async16(sk + r * a.Dh + 4 * c, a.k + off, ok);
-      cp_async16(sv + r * a.Dh + 4 * c, a.v + off, ok);
+              a.Dh + E * c;
+      cp_async16(sk + r * a.Dh + E * c, k + off, ok);
+      cp_async16(sv + r * a.Dh + E * c, v + off, ok);
     }
     for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
       const bool ok = s0 + j < nslots;
@@ -131,6 +163,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, float* base, int b,
   cp_async_commit();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
   constexpr int NT = kTile;
   const int G = a.H / a.Hkv;
@@ -145,10 +178,11 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
   const int nslots = min(a.C - s_begin, a.split_len);
   const int ntiles = (nslots + NT - 1) / NT;
 
+  const int sb = stage_bytes(a.Dh, sizeof(T));
   extern __shared__ float4 smem4[];
-  float* base = reinterpret_cast<float*>(smem4);
+  char* base = reinterpret_cast<char*>(smem4);
   for (int it = 0; it < kStages - 1; ++it)
-    stage_tile(a, base, b, kvh, s_begin, nslots, ntiles, it);
+    stage_tile<T>(a, base, b, kvh, s_begin, nslots, ntiles, it);
 
   // this lane's 4-element groups c = lane, lane + 32 of the pre-scaled q
   float4 qv[2], acc[2];
@@ -157,8 +191,8 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
     const int c = lane + 32 * i;
     qv[i] = acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c < d4) {
-      qv[i] = reinterpret_cast<const float4*>(
-          a.q + ((size_t)b * a.H + head) * a.Dh)[c];
+      qv[i] = load4(static_cast<const T*>(a.q) +
+                    ((size_t)b * a.H + head) * a.Dh + 4 * c);
       qv[i].x *= a.scale; qv[i].y *= a.scale;
       qv[i].z *= a.scale; qv[i].w *= a.scale;
     }
@@ -169,10 +203,10 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<kStages - 2>();
     __syncthreads();     // tile it landed; tile it - 1's stage is free
-    stage_tile(a, base, b, kvh, s_begin, nslots, ntiles, it + kStages - 1);
+    stage_tile<T>(a, base, b, kvh, s_begin, nslots, ntiles, it + kStages - 1);
     if (!active) continue;
-    const float* sk = base + (it % kStages) * stage_floats(a.Dh);
-    const float* sv = sk + NT * a.Dh;
+    const T* sk = reinterpret_cast<const T*>(base + (it % kStages) * sb);
+    const T* sv = sk + NT * a.Dh;
     const int* sp = reinterpret_cast<const int*>(sv + NT * a.Dh);
 
     float s[NT];
@@ -183,7 +217,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
       for (int i = 0; i < 2; ++i) {
         const int c = lane + 32 * i;
         if (c < d4) {
-          const float4 k4 = reinterpret_cast<const float4*>(sk + j * a.Dh)[c];
+          const float4 k4 = load4(sk + j * a.Dh + 4 * c);
           part += qv[i].x * k4.x + qv[i].y * k4.y + qv[i].z * k4.z +
                   qv[i].w * k4.w;
         }
@@ -218,7 +252,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
       for (int i = 0; i < 2; ++i) {
         const int c = lane + 32 * i;
         if (c < d4) {
-          const float4 v4 = reinterpret_cast<const float4*>(sv + j * a.Dh)[c];
+          const float4 v4 = load4(sv + j * a.Dh + 4 * c);
           acc[i].x += p * v4.x; acc[i].y += p * v4.y;
           acc[i].z += p * v4.z; acc[i].w += p * v4.w;
         }
@@ -226,7 +260,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
     }
   }
 
-  float* out = a.out + ((size_t)b * a.H + head) * a.Dh;
+  T* out = static_cast<T*>(a.out) + ((size_t)b * a.H + head) * a.Dh;
   if (a.nsplit == 1) {
     if (!active) return;
     const float inv = 1.f / l_run;
@@ -234,15 +268,16 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
     for (int i = 0; i < 2; ++i) {
       const int c = lane + 32 * i;
       if (c < d4)
-        reinterpret_cast<float4*>(out)[c] = make_float4(
-            acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
+        store4(out + 4 * c, make_float4(acc[i].x * inv, acc[i].y * inv,
+                                        acc[i].z * inv, acc[i].w * inv));
     }
     return;
   }
 
   // several splits: this block's partial to shared memory, then the
   // cluster's first block merges every split's, in split order
-  float* mine = base + kStages * stage_floats(a.Dh) + warp * (a.Dh + 4);
+  float* mine =
+      reinterpret_cast<float*>(base + kStages * sb) + warp * (a.Dh + 4);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     if (lane + 32 * i < d4)
@@ -274,60 +309,70 @@ __global__ void __launch_bounds__(32 * kMaxHeads) decode_kernel(Args a) {
         const float4 x = reinterpret_cast<const float4*>(p)[c];
         o.x += x.x * w; o.y += x.y * w; o.z += x.z * w; o.w += x.w * w;
       }
-      reinterpret_cast<float4*>(out)[c] =
-          make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+      store4(out + 4 * c,
+             make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
     }
   }
   cluster.sync();        // no block leaves while its partial is read
+}
+
+// Launch decode_kernel<T> as one cluster of nsplit blocks per (row, KV
+// head, head group); the attributes are set once a kernel and process.
+template <typename T>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.Hkv;
+  const int groups = (G + kMaxHeads - 1) / kMaxHeads;
+  const int hg = (G + groups - 1) / groups;
+  const int smem = smem_bytes(a.Dh, sizeof(T), hg);
+  static int allowed = 48 * 1024;    // dynamic shared memory allowed so far
+  if (smem > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  static bool wide = false;          // clusters above 8 blocks: once
+  if (a.nsplit > 8 && !wide) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    wide = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B, a.Hkv * groups, a.nsplit);
+  cfg.blockDim = dim3(32 * hg);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = a.nsplit;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_kernel<T>, a);
 }
 
 }  // namespace
 
 // Split s walks slots [s * split_len, min(C, (s + 1) * split_len)); with
 // nsplit > 1 (at most 16) the splits of a (row, KV head, group) run as one
-// thread block cluster.  Pointers 16-byte aligned; q_pos_ptr may be null
-// (then q_pos is read).
+// thread block cluster.  q, k, v and out fp32 (bf16 = 0; Dh a multiple of
+// 4) or bf16 (bf16 = 1; Dh a multiple of 8).  Pointers 16-byte aligned;
+// q_pos_ptr may be null (then q_pos is read).
 extern "C" int decode_attention_forward(
-    const float* q, const float* k, const float* v, const int* slot_pos,
-    const int* q_pos_ptr, float* out, int B, int C, int H, int Hkv, int Dh,
-    int q_pos, int causal, int window, int nsplit, int split_len,
+    const void* q, const void* k, const void* v, const int* slot_pos,
+    const int* q_pos_ptr, void* out, int B, int C, int H, int Hkv, int Dh,
+    int q_pos, int causal, int window, int nsplit, int split_len, int bf16,
     float scale, void* stream) {
-  if (Dh % 4 || Dh < 4 || Dh > 256 || H % Hkv || H / Hkv > 2 * kMaxHeads ||
-      C < 1 || nsplit < 1 || nsplit > kMaxSplits || split_len < 1 ||
+  if (Dh % (bf16 ? 8 : 4) || Dh < 4 || Dh > 256 || H % Hkv ||
+      H / Hkv > 2 * kMaxHeads || C < 1 || nsplit < 1 ||
+      nsplit > kMaxSplits || split_len < 1 ||
       (long long)nsplit * split_len < C ||
-      (long long)(nsplit - 1) * split_len >= C)
+      (long long)(nsplit - 1) * split_len >= C || (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, slot_pos, q_pos_ptr, out, B, C, H, Hkv, Dh, q_pos,
                causal, window, nsplit, split_len, scale};
-  const int G = H / Hkv;
-  const int groups = (G + kMaxHeads - 1) / kMaxHeads;
-  const int hg = (G + groups - 1) / groups;
-  const int smem = smem_floats(Dh, hg) * (int)sizeof(float);
-  static int allowed = 48 * 1024;    // dynamic shared memory allowed so far
-  if (smem > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed = smem;
-  }
-  static bool wide = false;          // clusters above 8 blocks: once
-  if (nsplit > 8 && !wide) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    wide = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B, Hkv * groups, nsplit);
-  cfg.blockDim = dim3(32 * hg);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = nsplit;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, decode_kernel, a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st));
 }

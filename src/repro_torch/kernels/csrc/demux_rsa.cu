@@ -10,10 +10,20 @@
 // the first launch beside W1h.
 //
 // Layouts: h (T, D); k (N, D); W1h, W1k (D, F); b1 (F,); W2 (F, D);
-// b2 (D,); out (N, T, D).  All fp32, D and F multiples of 4.
+// b2 (D,); out (N, T, D).  These are all fp32 (D and F multiples of 4) or
+// all bf16 (multiples of 8); the entry and exit norm params are fp32.
+//
+// bf16 rounds where the Pallas kernel rounds (its block_f = 512): kb =
+// bf16(bf16(k @ W1k) + b1), as the reference computes kb outside its
+// kernel in bf16; the entry norm, both products and GELU in fp32; the
+// output rounded to bf16 after + b2 with the first 512-column F tile's
+// product and after each further tile's, in tile order; the exit LayerNorm
+// in fp32 on that, rounded once.  A 16-byte copy of a weight chunk carries
+// 8 bf16 values instead of 4 fp32 ones, halving the bytes streamed.
 //
 // Bound.  Bytes: the three weight matrices, 3*D*F*4 = 56.6 MB at
-// qwen2-1.5b's width (F = 2D; 403 MB at rwkv6-7b's D = 4096), against
+// qwen2-1.5b's width in fp32, 28.3 MB in bf16 (F = 2D; 403 MB at rwkv6-7b's
+// D = 4096), against
 // ~2*D*F*(T*(1 + N) + N) flops: ~2 flops a byte at a decode step
 // (T = 4), ~16 at a 32-token chunk, near the CUDA cores' fp32 balance
 // (~20) but far below that of the 3xTF32 tensor-core route (~49).  So
@@ -51,12 +61,19 @@
 //     rows of g streamed through the ring beside it (so S2 is not forced
 //     up by shared memory) -> S2 partials; the last block of a D tile adds
 //     them in slice order + b2 (into out, or for the exit LayerNorm into
-//     the first partial slice).  While N*T <= 64 W2 is read from HBM once.
+//     the first partial slice); in bf16 the slices are whole parts of the
+//     512-column F tiles (the wrapper's plan), summed in fp32 within a tile
+//     and rounded at each tile's end.  While N*T <= 64 W2 is read from HBM
+//     once.
 //  3. demux_exit_kernel (exit LayerNorm only), one block per output row.
 // The split counts S1, S2 (the wrapper's plan, kernels/demux_rsa.py) give
 // ~2 blocks an SM in one wave with partial sums under a quarter of the
 // weight bytes; results do not depend on which block arrives last, so
 // they are deterministic.
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "tf32.cuh"
 
 namespace {
@@ -73,26 +90,27 @@ constexpr int kRPT = 8;          // rows per thread in the CUDA-core stream
 constexpr int kLDW = kCB + 8;    // W stage row stride: conflict-free mma loads
 constexpr int kLDX = kKC + 4;    // streamed X stage row stride
 constexpr int kExitThreads = 256;
+constexpr int kFTile = 512;      // bf16: the output rounds every kFTile of F
 // entry norm kinds (the wrapper's entry_kind None / 'rms' / 'ln')
 constexpr int kEntryRms = 1, kEntryLn = 2;      // 0: no entry norm
 
 struct Args {
-  const float* h;
-  const float* k;
+  const void* h;             // h, k, the weights, b1, b2, out: float or bf16
+  const void* k;
   const float* entry_scale;
   const float* entry_bias;
-  const float* w1h;
-  const float* w1k;
-  const float* b1;
-  const float* w2;
-  const float* b2;
+  const void* w1h;
+  const void* w1k;
+  const void* b1;
+  const void* w2;
+  const void* b2;
   const float* exit_scale;   // nullptr: no exit LayerNorm
   const float* exit_bias;
   float* zp;      // (S1, T + naff + N, F) partial sums of the first product
   float* st;      // (F tiles, S1, T, 2) per-slice row statistics
   float* g;       // (N, T, F)
   float* yp;      // (S2, N*T, D)
-  float* out;     // (N, T, D)
+  void* out;      // (N, T, D)
   int* counter;   // (F tiles,) zero between calls
   int entry_kind, T, N, D, F, s1, len1, s2, len2;
 };
@@ -101,6 +119,48 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   // jax.nn.gelu(approximate=True)
   return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x)))));
 }
+
+// elements as fp32 (exactly): one, or four (16- or 8-byte aligned)
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// fp32 values stored as the output type (bf16: rounded to nearest even)
+__device__ __forceinline__ void st1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void st4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const unsigned*>(&lo),
+      *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// each component rounded to bf16 and back
+__device__ __forceinline__ float4 round_bf16(float4 x) {
+  return make_float4(__bfloat162float(__float2bfloat16_rn(x.x)),
+                     __bfloat162float(__float2bfloat16_rn(x.y)),
+                     __bfloat162float(__float2bfloat16_rn(x.z)),
+                     __bfloat162float(__float2bfloat16_rn(x.w)));
+}
+
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
@@ -133,6 +193,48 @@ __device__ void stage_rows(float* sx, int R, int len, int d_lo, int d_end,
   cp_async_commit();
 }
 
+// eight bf16 values (16-byte aligned) as fp32, exactly
+__device__ __forceinline__ void widen8(const __nv_bfloat16* p, float4& lo,
+                                       float4& hi) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.z));
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.w));
+  lo = make_float4(a.x, a.y, b.x, b.y);
+  hi = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// The same from rows of bf16 (or mixed) elements, widened to fp32 as they
+// are loaded: load8(r, d, lo, hi) reads row r's 8 elements at depth d.
+// Each thread issues four 16-byte loads before it stores any, so their
+// latencies overlap.  One (empty) commit group, so the ring's group count
+// is that of stage_rows.
+template <class Load8>
+__device__ void stage_rows_widened(float* sx, int R, int len, int d_lo,
+                                   int d_end, Load8 load8) {
+  constexpr int U = 4;
+  const int ch = len / 8, ldx = len + 4, n = R * ch;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * kThreads) {
+    float4 v[U][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads, d = d_lo + 8 * (i % ch);
+      v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n && d < d_end) load8(i / ch, d, v[u][0], v[u][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= n) break;
+      float* dst = sx + (i / ch) * ldx + 8 * (i % ch);
+      *reinterpret_cast<float4*>(dst) = v[u][0];
+      *reinterpret_cast<float4*>(dst + 4) = v[u][1];
+    }
+  }
+  cp_async_commit();
+}
+
 // Rows [0, R) of x[r][d0 .. d0 + kKC) (zero past d_end) into a ring
 // stage's X tile, row stride kLDX.  Part of the chunk's commit group.
 template <class RowPtr>
@@ -146,14 +248,16 @@ __device__ void load_x(float* sx, int R, int d0, int d_end, RowPtr row_ptr) {
 }
 
 // W[d][c0 .. c0 + kCB) for depth rows d0 .. d0 + kKC (zero past d_end or
-// ncol) into a ring stage's W tile, row stride kLDW.
-__device__ void load_w(float* sw, const float* w, int ncol, int c0, int d0,
+// ncol) into a ring stage's W tile of elements as stored, row stride kLDW
+// elements; 16-byte copies of 4 fp32 or 8 bf16 values.
+template <typename T>
+__device__ void load_w(T* sw, const T* w, int ncol, int c0, int d0,
                        int d_end) {
-  constexpr int ch = kCB / 4;
+  constexpr int E = 16 / sizeof(T), ch = kCB / E;
   for (int i = threadIdx.x; i < kKC * ch; i += kThreads) {
-    const int r = i / ch, c = i % ch, d = d0 + r, col = c0 + 4 * c;
+    const int r = i / ch, c = i % ch, d = d0 + r, col = c0 + E * c;
     const bool ok = d < d_end && col < ncol;
-    cp_async16(sw + r * kLDW + 4 * c,
+    cp_async16(sw + r * kLDW + E * c,
                w + (ok ? (size_t)d * ncol + col : 0), ok);
   }
 }
@@ -196,11 +300,11 @@ __device__ void stream_fma(int R, int ldx, int nch, XS xs, WS ws,
   for (int i = 0; i < kRPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   ring_loop(nch, issue, [&](int c) {
     if (!active) return;
-    const float* sw = ws(c) + 4 * cg;
+    const auto* sw = ws(c) + 4 * cg;
     const float* xb = xs(c);
 #pragma unroll 8
     for (int kk = kg; kk < kKC; kk += KG) {
-      const float4 wv = *reinterpret_cast<const float4*>(sw + kk * kLDW);
+      const float4 wv = ld4(sw + kk * kLDW);
 #pragma unroll
       for (int i = 0; i < kRPT; ++i) {
         const float x = xb[xoff[i] + kk];
@@ -258,7 +362,7 @@ __device__ void stream_mma(int R, int ldx, int nch, XS xs, WS ws,
   ring_loop(nch, issue, [&](int c) {
     if (!active) return;
     const float* x = xs(c) + t;
-    const float* w = ws(c) + t * kLDW + n0 + g;
+    const auto* w = ws(c) + t * kLDW + n0 + g;
 #pragma unroll
     for (int ks = 0; ks < kKC / 8; ++ks) {
       uint32_t ah[4], al[4];
@@ -269,8 +373,8 @@ __device__ void stream_mma(int R, int ldx, int nch, XS xs, WS ws,
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         uint32_t bh[2], bl[2];
-        split(w[8 * ks * kLDW + 8 * j], bh[0], bl[0]);
-        split(w[(8 * ks + 4) * kLDW + 8 * j], bh[1], bl[1]);
+        split(to_f(w[8 * ks * kLDW + 8 * j]), bh[0], bl[0]);
+        split(to_f(w[(8 * ks + 4) * kLDW + 8 * j]), bh[1], bl[1]);
         mma3(acc[j], ah, al, bh, bl);
       }
     }
@@ -315,6 +419,7 @@ __device__ bool last_to_arrive(int* counter, int expected) {
   return last;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_hidden_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* sring = reinterpret_cast<float*>(smem4);     // kStages x kKC x kLDW
@@ -327,23 +432,38 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_hidden_kernel(Args
   const int rv = a.T + naff + a.N;                    // rows of zp
   float* zp = a.zp + (size_t)s * rv * a.F + f0;
   const int ldx = a.len1 + 4, nch = (d_end - d_lo + kKC - 1) / kKC;
-  const float* w = job < hjobs ? a.w1h : a.w1k;
+  const T* w = static_cast<const T*>(job < hjobs ? a.w1h : a.w1k);
+  auto wtile = [&](int c) {       // a stage's W tile, as stored
+    return reinterpret_cast<T*>(sring + (c % kStages) * kKC * kLDW);
+  };
   auto issue = [&](int c) {       // W chunks; the rows are staged whole
-    if (c < nch)
-      load_w(sring + (c % kStages) * kKC * kLDW, w, a.F, f0,
-             d_lo + c * kKC, d_end);
+    if (c < nch) load_w(wtile(c), w, a.F, f0, d_lo + c * kKC, d_end);
     cp_async_commit();
   };
   auto xs = [&](int c) { return sx + c * kKC; };
-  auto ws = [&](int c) { return sring + (c % kStages) * kKC * kLDW; };
+  auto ws = [&](int c) { return static_cast<const T*>(wtile(c)); };
+  const T* hv = static_cast<const T*>(a.h);
+  const T* kv = static_cast<const T*>(a.k);
 
   if (job < hjobs) {          // rows of h (+ the LN affine rows) x W1h
     const int t0 = job * kRowsH, rows = min(kRowsH, a.T - t0);
     const int aff = job == 0 ? naff : 0, R = rows + aff;
-    stage_rows(sx, R, a.len1, d_lo, d_end, [&](int r) {
-      return r < rows ? a.h + (size_t)(t0 + r) * a.D
-                      : (r == rows ? a.entry_scale : a.entry_bias);
-    });
+    if constexpr (kBf16<T>)
+      stage_rows_widened(sx, R, a.len1, d_lo, d_end,
+                         [&](int r, int d, float4& lo, float4& hi) {
+        if (r < rows) {
+          widen8(hv + (size_t)(t0 + r) * a.D + d, lo, hi);
+        } else {                        // the LN entry's affine rows, fp32
+          const float* p = (r == rows ? a.entry_scale : a.entry_bias) + d;
+          lo = ld4(p);
+          hi = ld4(p + 4);
+        }
+      });
+    else
+      stage_rows(sx, R, a.len1, d_lo, d_end, [&](int r) {
+        return r < rows ? hv + (size_t)(t0 + r) * a.D
+                        : (r == rows ? a.entry_scale : a.entry_bias);
+      });
     for (int c = 0; c < kStages - 1; ++c) issue(c);
     cp_async_wait<kStages - 1>();
     __syncthreads();
@@ -377,8 +497,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_hidden_kernel(Args
     });
   } else {                    // rows of k x W1k
     const int n0 = (job - hjobs) * kRowsH, R = min(kRowsH, a.N - n0);
-    stage_rows(sx, R, a.len1, d_lo, d_end,
-               [&](int r) { return a.k + (size_t)(n0 + r) * a.D; });
+    if constexpr (kBf16<T>)
+      stage_rows_widened(sx, R, a.len1, d_lo, d_end,
+                         [&](int r, int d, float4& lo, float4& hi) {
+        widen8(kv + (size_t)(n0 + r) * a.D + d, lo, hi);
+      });
+    else
+      stage_rows(sx, R, a.len1, d_lo, d_end,
+                 [&](int r) { return kv + (size_t)(n0 + r) * a.D; });
     for (int c = 0; c < kStages - 1; ++c) issue(c);
     stream(R, ldx, nch, xs, ws, issue, sring, a.F, f0, [&](int r) {
       return zp + (size_t)(a.T + naff + n0 + r) * a.F;
@@ -401,10 +527,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_hidden_kernel(Args
     for (int i = tid; i < nn * C4; i += kThreads) {
       const int n = n0 + i / C4, c = 4 * (i % C4);
       if (c >= ncol) continue;
-      float4 v = *reinterpret_cast<const float4*>(a.b1 + f0 + c);
+      const float4 b1 = ld4(static_cast<const T*>(a.b1) + f0 + c);
+      float4 v = kBf16<T> ? make_float4(0.f, 0.f, 0.f, 0.f) : b1;
 #pragma unroll 8
       for (int q = 0; q < a.s1; ++q)
         add4(v, ldcg4(zs + q * slab + (size_t)(a.T + naff + n) * a.F + c));
+      if constexpr (kBf16<T>) {     // kb = bf16(bf16(k @ W1k) + b1)
+        v = round_bf16(v);
+        add4(v, b1);
+        v = round_bf16(v);
+      }
       skb[i] = v;
     }
     for (int t0 = 0; t0 < a.T; t0 += kRowsH) {
@@ -469,6 +601,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_hidden_kernel(Args
   if (tid == 0) a.counter[ft] = 0;     // ready for the next call
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_out_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* sring = reinterpret_cast<float*>(smem4);     // stages: W, then g
@@ -481,14 +614,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_out_kernel(Args a)
   auto issue = [&](int c) {       // a chunk of W2 and of the rows of g
     if (c < nch) {
       float* st = sring + (c % kStages) * stage;
-      load_w(st, a.w2, a.D, d0, f_lo + c * kKC, f_end);
+      load_w(reinterpret_cast<T*>(st), static_cast<const T*>(a.w2), a.D, d0,
+             f_lo + c * kKC, f_end);
       load_x(st + kKC * kLDW, R, f_lo + c * kKC, f_end,
              [&](int r) { return a.g + (size_t)(r0 + r) * a.F; });
     }
     cp_async_commit();
   };
-  auto ws = [&](int c) { return sring + (c % kStages) * stage; };
-  auto xs = [&](int c) { return ws(c) + kKC * kLDW; };
+  // a stage: W2's tile as stored, in the room of an fp32 tile, then g's
+  auto ws = [&](int c) {
+    return reinterpret_cast<const T*>(sring + (c % kStages) * stage);
+  };
+  auto xs = [&](int c) {
+    return sring + (c % kStages) * stage + kKC * kLDW;
+  };
   for (int c = 0; c < kStages - 1; ++c) issue(c);
   float* yp = a.yp + (size_t)s * NT * a.D + d0;
   stream(R, kLDX, nch, xs, ws, issue, sring, a.D, d0,
@@ -496,21 +635,42 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) demux_out_kernel(Args a)
 
   // the last block of this D tile to arrive adds the S2 partials in slice
   // order + b2: into slice 0 of yp (each element read, then written by one
-  // thread) for the exit LayerNorm, or into out
+  // thread) for the exit LayerNorm, or into out.  bf16: summed in fp32
+  // within each kFTile-column F tile, the running output rounded to bf16
+  // at each tile's end, in tile order
   int* counter = a.counter + (a.F + kCB - 1) / kCB + dt;
   if (!last_to_arrive(counter, a.s2 * gridDim.z)) return;
   const int ncol = min(kCB, a.D - d0);
-  float* y = a.exit_scale ? a.yp : a.out;
   constexpr int C4 = kCB / 4;
 #pragma unroll 2
   for (int i = tid; i < NT * C4; i += kThreads) {
     const int r = i / C4, c = 4 * (i % C4);
     if (c >= ncol) continue;
     const float* p = a.yp + (size_t)r * a.D + d0 + c;
-    float4 v = *reinterpret_cast<const float4*>(a.b2 + d0 + c);
+    float4 v = ld4(static_cast<const T*>(a.b2) + d0 + c);
+    if constexpr (kBf16<T>) {
+      float4 tile = make_float4(0.f, 0.f, 0.f, 0.f);
+      int ft = 0;
+      for (int q = 0; q < a.s2; ++q) {
+        if (q * a.len2 / kFTile != ft) {      // tile ft ends: round
+          add4(v, tile);
+          v = round_bf16(v);
+          tile = make_float4(0.f, 0.f, 0.f, 0.f);
+          ft = q * a.len2 / kFTile;
+        }
+        add4(tile, ldcg4(p + (size_t)q * NT * a.D));
+      }
+      add4(v, tile);
+      v = round_bf16(v);
+    } else {
 #pragma unroll 8
-    for (int q = 0; q < a.s2; ++q) add4(v, ldcg4(p + (size_t)q * NT * a.D));
-    *reinterpret_cast<float4*>(y + (size_t)r * a.D + d0 + c) = v;
+      for (int q = 0; q < a.s2; ++q) add4(v, ldcg4(p + (size_t)q * NT * a.D));
+    }
+    const size_t o = (size_t)r * a.D + d0 + c;
+    if (a.exit_scale)
+      st4(a.yp + o, v);
+    else
+      st4(static_cast<T*>(a.out) + o, v);
   }
   if (tid == 0) *counter = 0;          // ready for the next call
 }
@@ -527,6 +687,7 @@ __device__ float block_sum(float v, float* red) {
 }
 
 // one block per output row: the exit LayerNorm of y (slice 0 of yp)
+template <typename T>
 __global__ void __launch_bounds__(kExitThreads) demux_exit_kernel(Args a) {
   __shared__ float red[kExitThreads / 32];
   extern __shared__ float row[];            // D floats
@@ -544,8 +705,8 @@ __global__ void __launch_bounds__(kExitThreads) demux_exit_kernel(Args a) {
   }
   const float inv = rsqrtf(block_sum(s, red) / a.D + 1e-6f);
   for (int d = threadIdx.x; d < a.D; d += kExitThreads)
-    a.out[(size_t)blockIdx.x * a.D + d] =
-        (row[d] - mu) * inv * a.exit_scale[d] + a.exit_bias[d];
+    st1(static_cast<T*>(a.out) + (size_t)blockIdx.x * a.D + d,
+        (row[d] - mu) * inv * a.exit_scale[d] + a.exit_bias[d]);
 }
 
 // the first product: the W ring and the staged rows' slice; the second:
@@ -566,22 +727,55 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
              : cudaSuccess;
 }
 
+template <typename T>
+cudaError_t launch(const Args& a, cudaStream_t sm) {
+  const int hjobs = (a.T + kRowsH - 1) / kRowsH;
+  const int kjobs = (a.N + kRowsH - 1) / kRowsH;
+  const int rows1 = max(min(a.T, kRowsH) + (a.entry_kind == kEntryLn ? 2 : 0),
+                        min(a.N, kRowsH));
+  const size_t smem1 = hidden_smem(rows1, a.len1);
+  cudaError_t e = set_smem((const void*)demux_hidden_kernel<T>, smem1);
+  if (e != cudaSuccess) return e;
+  demux_hidden_kernel<T><<<dim3((a.F + kCB - 1) / kCB, a.s1, hjobs + kjobs),
+                           kThreads, smem1, sm>>>(a);
+  const int NT = a.N * a.T;
+  const size_t smem2 = out_smem(min(NT, kRowsG));
+  if ((e = cudaGetLastError()) != cudaSuccess ||
+      (e = set_smem((const void*)demux_out_kernel<T>, smem2)) != cudaSuccess)
+    return e;
+  demux_out_kernel<T><<<dim3((a.D + kCB - 1) / kCB, a.s2,
+                             (NT + kRowsG - 1) / kRowsG),
+                        kThreads, smem2, sm>>>(a);
+  const size_t smem3 = sizeof(float) * (size_t)a.D;
+  if ((e = cudaGetLastError()) != cudaSuccess || !a.exit_scale ||
+      (e = set_smem((const void*)demux_exit_kernel<T>, smem3)) != cudaSuccess)
+    return e;
+  demux_exit_kernel<T><<<NT, kExitThreads, smem3, sm>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // entry_kind: 0 none, 1 RMSNorm (entry_scale), 2 LayerNorm (entry_scale,
 // entry_bias).  exit_scale / exit_bias: demux LayerNorm, or nullptr for
-// none.  The plan (s1, len1, s2, len2) and the scratch sizes are the
-// wrapper's (kernels/demux_rsa.py ``plan``): zp holds s1*(T+naff+N)*F
-// floats (naff = 2 for the LN entry, else 0), st ceil(F/64)*s1*T*2, g
-// N*T*F, yp s2*N*T*D; counter ceil(F/64) + ceil(D/64) ints, zero.
+// none.  bf16: 0 for fp32 h, k, weights, b1, b2 and out (D, F multiples of
+// 4), 1 for bf16 (multiples of 8; len2 divides kFTile, so no slice of F
+// straddles a rounding tile).  The plan (s1, len1, s2, len2) and the
+// scratch sizes are the wrapper's (kernels/demux_rsa.py ``plan``): zp
+// holds s1*(T+naff+N)*F floats (naff = 2 for the LN entry, else 0), st
+// ceil(F/64)*s1*T*2, g N*T*F, yp s2*N*T*D; counter ceil(F/64) +
+// ceil(D/64) ints, zero.
 extern "C" int demux_rsa_forward(
-    const float* h, const float* k, const float* entry_scale,
-    const float* entry_bias, const float* w1h, const float* w1k,
-    const float* b1, const float* w2, const float* b2,
+    const void* h, const void* k, const float* entry_scale,
+    const float* entry_bias, const void* w1h, const void* w1k,
+    const void* b1, const void* w2, const void* b2,
     const float* exit_scale, const float* exit_bias, float* zp, float* st,
-    float* g, float* yp, float* out, int* counter, int entry_kind, int T,
-    int N, int D, int F, int s1, int len1, int s2, int len2, void* cstream) {
-  if (D % 4 || F % 4 || T < 1 || N < 1 ||
+    float* g, float* yp, void* out, int* counter, int entry_kind, int T,
+    int N, int D, int F, int s1, int len1, int s2, int len2, int bf16,
+    void* cstream) {
+  const int vec = bf16 ? 8 : 4;
+  if (D % vec || F % vec || T < 1 || N < 1 || (bf16 != 0 && bf16 != 1) ||
+      (bf16 && kFTile % len2) ||
       s1 < 1 || s1 > kMaxSplit || len1 % kKC || (long long)s1 * len1 < D ||
       (long long)(s1 - 1) * len1 >= D || s2 < 1 || len2 % kKC ||
       (long long)s2 * len2 < F || (long long)(s2 - 1) * len2 >= F ||
@@ -592,25 +786,5 @@ extern "C" int demux_rsa_forward(
          exit_bias, zp, st, g, yp, out, counter, entry_kind, T, N, D, F,
          s1, len1, s2, len2};
   cudaStream_t sm = static_cast<cudaStream_t>(cstream);
-  const int hjobs = (T + kRowsH - 1) / kRowsH, kjobs = (N + kRowsH - 1) / kRowsH;
-  const int rows1 = max(min(T, kRowsH) + (entry_kind == kEntryLn ? 2 : 0),
-                        min(N, kRowsH));
-  const size_t smem1 = hidden_smem(rows1, len1);
-  cudaError_t e = set_smem((const void*)demux_hidden_kernel, smem1);
-  if (e != cudaSuccess) return (int)e;
-  demux_hidden_kernel<<<dim3((F + kCB - 1) / kCB, s1, hjobs + kjobs),
-                        kThreads, smem1, sm>>>(a);
-  const int NT = N * T;
-  const size_t smem2 = out_smem(min(NT, kRowsG));
-  if ((e = cudaGetLastError()) != cudaSuccess ||
-      (e = set_smem((const void*)demux_out_kernel, smem2)) != cudaSuccess)
-    return (int)e;
-  demux_out_kernel<<<dim3((D + kCB - 1) / kCB, s2, (NT + kRowsG - 1) / kRowsG),
-                     kThreads, smem2, sm>>>(a);
-  const size_t smem3 = sizeof(float) * (size_t)D;
-  if ((e = cudaGetLastError()) != cudaSuccess || !exit_scale ||
-      (e = set_smem((const void*)demux_exit_kernel, smem3)) != cudaSuccess)
-    return (int)e;
-  demux_exit_kernel<<<NT, kExitThreads, smem3, sm>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch<__nv_bfloat16>(a, sm) : launch<float>(a, sm));
 }

@@ -7,12 +7,15 @@
 //       -> paged_chunk_kernel on the tensor cores (3xTF32)
 // and, where a row's table is split, paged_combine_kernel for both.
 //
-// Layouts (as in the reference): q (B, Lq, H, Dh) fp32; pages (P, BS, Hkv,
+// Layouts (as in the reference): q (B, Lq, H, Dh) and the output of the
+// same shape in fp32 or bf16 (the query type); pages (P, BS, Hkv,
 // Dh) stored as fp32, bf16, int8 or fp8 e4m3 (the storage kind); for int8
 // and fp8 pages, fp32 scales ksc / vsc (P, BS, Hkv), one per (slot, KV
 // head); block tables (B, MB) int32 (-1 = unallocated); page_pos (P, BS)
 // int32 (-1 = empty slot); decode q_pos (B,) (-1 = inactive row); prefill
-// q_start / q_len (B,).
+// q_start / q_len (B,).  As the Pallas kernels, a bf16 q is widened to fp32
+// as it is loaded; scores, softmax, P V and the split partials stay fp32,
+// and the output is rounded to bf16 once, where it is written.
 //
 // Bound.  Each page a row references is read once per KV head: ~2 * slots *
 // Dh * E bytes (E = 4, 2, 1, 1 for fp32, bf16, int8, fp8; int8 / fp8 add
@@ -90,7 +93,7 @@ constexpr int kChunkThreads = 32 * kChunkWarps;
 constexpr int kMaxSmem = 232448;    // an H100 block's shared memory
 
 struct Args {
-  const float* q;
+  const void* q;        // query type: float or bf16
   const void* kp;       // page storage: float, bf16, int8 or e4m3
   const void* vp;
   const float* ksc;     // int8 / fp8: (P, BS, Hkv) scales; else nullptr
@@ -99,7 +102,7 @@ struct Args {
   const int* ppos;
   const int* q_start;   // decode: q_pos
   const int* q_len;     // decode: nullptr (one valid query per row)
-  float* out;
+  void* out;            // query type
   float* part_o;        // (nsplit, B, Lq, H, Dh) unnormalised; nsplit == 1: unused
   float* part_ml;       // (nsplit, B, Lq, H, 2) running max (log2 units), sum
   int B, Lq, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len;
@@ -118,11 +121,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 // four consecutive stored elements (8- or 4-byte aligned) -> fp32, exact
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ float4 widen4(uint2 u) {    // four bf16 values
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 __device__ __forceinline__ float4 widen4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
@@ -130,6 +135,28 @@ __device__ __forceinline__ float4 widen4(const int8_t* p) {
 }
 __device__ __forceinline__ float4 widen4(const __nv_fp8_e4m3* p) {
   return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
+}
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// four fp32 values stored as the output type (16- or 8-byte aligned), and
+// two (8- or 4-byte aligned); bf16 rounds to nearest even
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const unsigned*>(&lo),
+      *reinterpret_cast<const unsigned*>(&hi));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // N bytes global -> shared (N = 4, 8, 16), zero-filled when !valid
@@ -274,7 +301,7 @@ __device__ __forceinline__ int load_run(const Args& a, int b, int* spage) {
 
 // -------------------------------------------------------------- decode
 
-template <typename T>
+template <typename TQ, typename T>
 __global__ void __launch_bounds__(32 * kMaxHeads) paged_decode_kernel(Args a) {
   constexpr int NT = kDecodeTile;
   const int G = a.H / a.Hkv;
@@ -303,8 +330,8 @@ __global__ void __launch_bounds__(32 * kMaxHeads) paged_decode_kernel(Args a) {
     const int c = lane + 32 * i;
     qv[i] = acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c < d4) {
-      qv[i] = reinterpret_cast<const float4*>(
-          a.q + ((size_t)b * a.H + head) * a.Dh)[c];
+      qv[i] = widen4(static_cast<const TQ*>(a.q) +
+                     ((size_t)b * a.H + head) * a.Dh + 4 * c);
       qv[i].x *= a.scale; qv[i].y *= a.scale;
       qv[i].z *= a.scale; qv[i].w *= a.scale;
     }
@@ -389,14 +416,16 @@ __global__ void __launch_bounds__(32 * kMaxHeads) paged_decode_kernel(Args a) {
   const size_t nrows = (size_t)a.B * a.H, row = (size_t)b * a.H + head;
   const bool part = a.nsplit > 1;
   const float inv = part ? 1.f : 1.f / l_run;
-  float* dst = part ? a.part_o + (blockIdx.z * nrows + row) * a.Dh
-                    : a.out + row * a.Dh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int c = lane + 32 * i;
-    if (c < d4)
-      reinterpret_cast<float4*>(dst)[c] = make_float4(
-          acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
+    if (c >= d4) continue;
+    const float4 o = make_float4(acc[i].x * inv, acc[i].y * inv,
+                                 acc[i].z * inv, acc[i].w * inv);
+    if (part)
+      store4(a.part_o + (blockIdx.z * nrows + row) * a.Dh + 4 * c, o);
+    else
+      store4(static_cast<TQ*>(a.out) + row * a.Dh + 4 * c, o);
   }
   if (part && lane == 0) {
     a.part_ml[2 * (blockIdx.z * nrows + row)] = m_run;
@@ -420,7 +449,7 @@ constexpr int chunk_smem(int split_len) {
          (kQuantized<T> ? 2 * Cfg<D>::BK * (D + 4) * 4 : 0) + 4 * split_len;
 }
 
-template <typename T, int D>
+template <typename TQ, typename T, int D>
 __global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
     paged_chunk_kernel(Args a) {
   constexpr int BK = Cfg<D>::BK, MT = Cfg<D>::MT, LD = D + 4;
@@ -445,14 +474,42 @@ __global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
   const int dq = a.Dh / 4;
   pdl_enter();
 
-  // Q: tile row r is query (li, g') = divmod(q0 + r, G), head kvh * G + g'
-  for (int i = tid; i < BQ * dq; i += kChunkThreads) {
-    const int r = i / dq, c = i % dq, gr = q0 + r;
-    const bool ok = gr < nq;
-    const int li = ok ? gr / G : 0, head = kvh * G + (ok ? gr % G : 0);
-    cp_async16(sqh + r * LD + 4 * c,
-               a.q + (((size_t)b * a.Lq + li) * a.H + head) * a.Dh + 4 * c,
-               ok);
+  // Q: tile row r is query (li, g') = divmod(q0 + r, G), head kvh * G + g'.
+  // fp32 rows by cp.async; bf16 rows by 16-byte loads of 8 values, every
+  // load of a thread issued before any is widened (their latencies
+  // overlap), zeros for the padded columns [Dh, D)
+  if constexpr (std::is_same<TQ, float>::value) {
+    for (int i = tid; i < BQ * dq; i += kChunkThreads) {
+      const int r = i / dq, c = i % dq, gr = q0 + r;
+      const bool ok = gr < nq;
+      const int li = ok ? gr / G : 0, head = kvh * G + (ok ? gr % G : 0);
+      cp_async16(sqh + r * LD + 4 * c,
+                 static_cast<const float*>(a.q) +
+                     (((size_t)b * a.Lq + li) * a.H + head) * a.Dh + 4 * c,
+                 ok);
+    }
+  } else {
+    constexpr int C8 = D / 8, PER = BQ * C8 / kChunkThreads;
+    static_assert(BQ * C8 % kChunkThreads == 0, "whole rounds of Q loads");
+    uint4 raw[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * kChunkThreads, c = i % C8, gr = q0 + i / C8;
+      const bool ok = gr < nq && 8 * c < a.Dh;
+      const int li = ok ? gr / G : 0, head = kvh * G + (ok ? gr % G : 0);
+      raw[k] = ok ? *reinterpret_cast<const uint4*>(
+                        static_cast<const TQ*>(a.q) +
+                        (((size_t)b * a.Lq + li) * a.H + head) * a.Dh + 8 * c)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * kChunkThreads;
+      float* dst = sqh + (i / C8) * LD + 8 * (i % C8);
+      *reinterpret_cast<float4*>(dst) = widen4(make_uint2(raw[k].x, raw[k].y));
+      *reinterpret_cast<float4*>(dst + 4) =
+          widen4(make_uint2(raw[k].z, raw[k].w));
+    }
   }
   cp_async_commit();
   // zero the padded head-dim columns [Dh, D) of Q and of every stored K/V
@@ -476,7 +533,8 @@ __global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
   stage_tile<T>(a, spage, kvh, 0, BK, nslots, ROWB, stage_at(stages, BK, ROWB));
   cp_async_commit();
 
-  // Q: scale, then split once into hi and lo
+  // Q: scale, then split once into hi and lo (a bf16 q's scaled value is
+  // not always a TF32 value, so the split stays for both query types)
   cp_async_wait<1>();
   __syncthreads();
   for (int i = tid; i < BQ * D; i += kChunkThreads) {
@@ -564,14 +622,17 @@ __global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
       if (gr >= nq) continue;
       const size_t row = ((size_t)b * a.Lq + gr / G) * a.H + kvh * G + gr % G;
       const float inv = part ? 1.f : 1.f / l;
-      float* orow = part ? a.part_o + (blockIdx.z * nrows + row) * a.Dh
-                         : a.out + row * a.Dh;
+      float* prow = a.part_o + (blockIdx.z * nrows + row) * a.Dh;
+      TQ* orow = static_cast<TQ*>(a.out) + row * a.Dh;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
         const int d = 8 * n + 2 * t;
         if (d >= a.Dh) break;
-        *reinterpret_cast<float2*>(orow + d) =
-            make_float2(o[m][n][2 * hf] * inv, o[m][n][2 * hf + 1] * inv);
+        const float x = o[m][n][2 * hf] * inv, y = o[m][n][2 * hf + 1] * inv;
+        if (part)
+          store2(prow + d, x, y);
+        else
+          store2(orow + d, x, y);
       }
       if (part && t == 0) {
         a.part_ml[2 * (blockIdx.z * nrows + row)] = m_run[m][hf];
@@ -582,13 +643,14 @@ __global__ void __launch_bounds__(kChunkThreads, Cfg<D>::kMinBlocks)
 }
 
 // one warp per (row, query, head): merge the splits in split order
+template <typename TQ>
 __global__ void __launch_bounds__(128) paged_combine_kernel(Args a) {
   pdl_enter();
   const size_t nrows = (size_t)a.B * a.Lq * a.H;
   const size_t row = (size_t)blockIdx.x * 4 + threadIdx.x / 32;
   if (row >= nrows) return;
-  merge_splits(a.part_o, a.part_ml, a.out, nrows, row, a.Dh, a.nsplit,
-               threadIdx.x % 32);
+  merge_splits(a.part_o, a.part_ml, static_cast<TQ*>(a.out), nrows, row,
+               a.Dh, a.nsplit, threadIdx.x % 32);
 }
 
 // ------------------------------------------------------------- launch
@@ -622,7 +684,7 @@ cudaError_t allow_smem(int smem) {
   return e;
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch_decode(const Args& a, cudaStream_t st) {
   const int G = a.H / a.Hkv;
   const int groups = (G + kMaxHeads - 1) / kMaxHeads;
@@ -631,38 +693,52 @@ cudaError_t launch_decode(const Args& a, cudaStream_t st) {
                    (kNarrow<T> ? 2 * kDecodeTile * a.Dh * 4 : 0) +
                    4 * a.split_len;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem<paged_decode_kernel<T>>(smem);
+  cudaError_t e = allow_smem<paged_decode_kernel<TQ, T>>(smem);
   if (e != cudaSuccess) return e;
-  return launch_pdl(paged_decode_kernel<T>,
+  return launch_pdl(paged_decode_kernel<TQ, T>,
                     dim3(a.B, a.Hkv * groups, a.nsplit), 32 * hg, smem, st,
                     a);
 }
 
-template <typename T, int D>
+template <typename TQ, typename T, int D>
 cudaError_t launch_chunk(const Args& a, cudaStream_t st) {
   const int smem = chunk_smem<T, D>(a.split_len);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem<paged_chunk_kernel<T, D>>(smem);
+  cudaError_t e = allow_smem<paged_chunk_kernel<TQ, T, D>>(smem);
   if (e != cudaSuccess) return e;
   constexpr int BQ = 16 * kChunkWarps * Cfg<D>::MT;
   const int nq = a.H / a.Hkv * a.Lq;
-  return launch_pdl(paged_chunk_kernel<T, D>,
+  return launch_pdl(paged_chunk_kernel<TQ, T, D>,
                     dim3((nq + BQ - 1) / BQ, a.B * a.Hkv, a.nsplit),
                     kChunkThreads, smem, st, a);
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch_kind(bool prefill, const Args& a, cudaStream_t st) {
-  if (!prefill) return launch_decode<T>(a, st);
-  return a.Dh <= 32 ? launch_chunk<T, 32>(a, st)
-         : a.Dh <= 64 ? launch_chunk<T, 64>(a, st)
-         : a.Dh <= 128 ? launch_chunk<T, 128>(a, st)
-                       : launch_chunk<T, 256>(a, st);
+  if (!prefill) return launch_decode<TQ, T>(a, st);
+  return a.Dh <= 32 ? launch_chunk<TQ, T, 32>(a, st)
+         : a.Dh <= 64 ? launch_chunk<TQ, T, 64>(a, st)
+         : a.Dh <= 128 ? launch_chunk<TQ, T, 128>(a, st)
+                       : launch_chunk<TQ, T, 256>(a, st);
+}
+
+template <typename TQ>
+cudaError_t launch_storage(int kind, bool prefill, const Args& a,
+                           cudaStream_t st) {
+  switch (kind) {
+    case 0: return launch_kind<TQ, float>(prefill, a, st);
+    case 1: return launch_kind<TQ, __nv_bfloat16>(prefill, a, st);
+    case 2: return launch_kind<TQ, int8_t>(prefill, a, st);
+    case 3: return launch_kind<TQ, __nv_fp8_e4m3>(prefill, a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // storage kind: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3 (kernels/paged_attention.py
-// STORAGE_KINDS); int8 and fp8 need both scale arrays, the others none
-int dispatch(int kind, bool prefill, const Args& a, void* stream) {
+// STORAGE_KINDS); int8 and fp8 need both scale arrays, the others none.
+// q_bf16: the query and output type, 0 fp32, 1 bf16.
+int dispatch(int kind, int q_bf16, bool prefill, const Args& a,
+             void* stream) {
   const bool quant = kind == 2 || kind == 3;
   // Dh % 4 == 0 keeps every four-element load aligned for every kind
   if (quant != (a.ksc != nullptr) || quant != (a.vsc != nullptr) ||
@@ -672,43 +748,44 @@ int dispatch(int kind, bool prefill, const Args& a, void* stream) {
       (long long)(a.nsplit - 1) * a.split_len >= a.MB ||
       (a.nsplit > 1 && (a.part_o == nullptr || a.part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // a bf16 q loads 8 values (16 bytes) at a time
+  if ((q_bf16 != 0 && q_bf16 != 1) || (q_bf16 && a.Dh % 8))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (kind) {
-    case 0: e = launch_kind<float>(prefill, a, st); break;
-    case 1: e = launch_kind<__nv_bfloat16>(prefill, a, st); break;
-    case 2: e = launch_kind<int8_t>(prefill, a, st); break;
-    case 3: e = launch_kind<__nv_fp8_e4m3>(prefill, a, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t e =
+      q_bf16 ? launch_storage<__nv_bfloat16>(kind, prefill, a, st)
+             : launch_storage<float>(kind, prefill, a, st);
   if (e != cudaSuccess || a.nsplit == 1) return (int)e;
   const size_t nrows = (size_t)a.B * a.Lq * a.H;
-  return (int)launch_pdl(paged_combine_kernel,
+  return (int)launch_pdl(q_bf16 ? paged_combine_kernel<__nv_bfloat16>
+                                : paged_combine_kernel<float>,
                          dim3((unsigned)((nrows + 3) / 4)), 128, 0, st, a);
 }
 
 }  // namespace
 
 // nsplit > 1: part_o holds nsplit*B*Lq*H*Dh floats, part_ml nsplit*B*Lq*H*2;
-// split s walks table entries [s * split_len, min(MB, (s + 1) * split_len))
+// split s walks table entries [s * split_len, min(MB, (s + 1) * split_len)).
+// q and out are fp32 (q_bf16 = 0) or bf16 (1).
 extern "C" int paged_attention_decode(
-    const float* q, const void* kp, const void* vp, const float* ksc,
+    const void* q, const void* kp, const void* vp, const float* ksc,
     const float* vsc, const int* bt, const int* ppos, const int* q_pos,
-    float* out, float* part_o, float* part_ml, int kind, int B, int H,
-    int Hkv, int Dh, int BS, int MB, int causal, int window, int nsplit,
-    int split_len, float scale, void* stream) {
+    void* out, float* part_o, float* part_ml, int kind, int q_bf16, int B,
+    int H, int Hkv, int Dh, int BS, int MB, int causal, int window,
+    int nsplit, int split_len, float scale, void* stream) {
   Args a{q, kp, vp, ksc, vsc, bt, ppos, q_pos, nullptr, out, part_o, part_ml,
          B, 1, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len, scale};
-  return dispatch(kind, false, a, stream);
+  return dispatch(kind, q_bf16, false, a, stream);
 }
 
 extern "C" int paged_attention_prefill(
-    const float* q, const void* kp, const void* vp, const float* ksc,
+    const void* q, const void* kp, const void* vp, const float* ksc,
     const float* vsc, const int* bt, const int* ppos, const int* q_start,
-    const int* q_len, float* out, float* part_o, float* part_ml, int kind,
-    int B, int Lq, int H, int Hkv, int Dh, int BS, int MB, int causal,
-    int window, int nsplit, int split_len, float scale, void* stream) {
+    const int* q_len, void* out, float* part_o, float* part_ml, int kind,
+    int q_bf16, int B, int Lq, int H, int Hkv, int Dh, int BS, int MB,
+    int causal, int window, int nsplit, int split_len, float scale,
+    void* stream) {
   Args a{q, kp, vp, ksc, vsc, bt, ppos, q_start, q_len, out, part_o, part_ml,
          B, Lq, H, Hkv, Dh, BS, MB, causal, window, nsplit, split_len, scale};
-  return dispatch(kind, true, a, stream);
+  return dispatch(kind, q_bf16, true, a, stream);
 }

@@ -10,7 +10,9 @@ wrapper reads a device tensor on the host, so a captured launch replays
 at whatever position the tensor holds).  ``decode_attention_cuda``
 launches the kernel on CUDA tensors and nothing else;
 ``decode_attention_ref`` is the plain version (naive attention with
-slot-position masks, mirroring ``repro/kernels/ref.py``).  The counted
+slot-position masks, mirroring ``repro/kernels/ref.py``).  q, the cache
+and the output are all fp32 or all bf16; as the Pallas kernel, bf16 is
+widened to fp32 on load and the output rounded once.  The counted
 dispatching wrapper is ``kernels.ops.decode_attention``.
 
 The cache axis is split across blocks by ``plan``, from shapes only; the
@@ -30,6 +32,7 @@ MAX_HEADS = 8       # query heads (warps) a block (kMaxHeads)
 SMS = 132           # an H100's SMs
 WARPS_PER_SM = 16   # warps the split aims to put on each SM
 MAX_SPLITS = 16     # blocks a cluster (kMaxSplits); 8 above head_dim 128
+DTYPES = (torch.float32, torch.bfloat16)    # q, K, V and the output
 
 
 def _q_pos_rows(q_pos, device):
@@ -41,14 +44,17 @@ def _q_pos_rows(q_pos, device):
 
 def decode_attention_ref(q, k_cache, v_cache, slot_pos, *, q_pos,
                          window=None, causal=True):
-    """q (B, 1, H, Dh); k_cache / v_cache (B, C, Hkv, Dh); slot_pos (C,)
-    int (-1 = empty); q_pos an int or a 0-d integer tensor.  Returns
+    """q (B, 1, H, Dh); k_cache / v_cache (B, C, Hkv, Dh); all fp32 or
+    all bf16; slot_pos (C,) int (-1 = empty); q_pos an int or a 0-d
+    integer tensor.  As the Pallas kernel: q, K and V widened to fp32,
+    attention in fp32, the output rounded once to q's dtype.  Returns
     (B, 1, H, Dh)."""
     pos = slot_pos.long()
     mask = make_attention_mask(_q_pos_rows(q_pos, q.device), pos,
                                causal=causal, window=window,
                                kv_valid=pos >= 0)[None]
-    return attention_core(q, k_cache, v_cache, mask=mask)
+    return attention_core(q.float(), k_cache.float(), v_cache.float(),
+                          mask=mask).to(q.dtype)
 
 
 def plan(batch: int, heads: int, kv_heads: int, capacity: int,
@@ -88,9 +94,9 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos,
         raise ValueError(f"the decode attention kernel runs on CUDA "
                          f"tensors, got {dev}")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != torch.float32 or x.device != dev:
-            raise ValueError(f"{name}: need fp32 on {dev}, got {x.dtype} "
-                             f"on {x.device}")
+        if x.dtype not in DTYPES or x.dtype != q.dtype or x.device != dev:
+            raise ValueError(f"{name}: need q's dtype, fp32 or bf16, on "
+                             f"{dev}, got {x.dtype} on {x.device}")
     b, lq, h, dh = q.shape
     c, hkv = k_cache.shape[1], k_cache.shape[2]
     if (lq != 1 or k_cache.shape != (b, c, hkv, dh)
@@ -99,10 +105,12 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos,
         raise ValueError(f"shapes q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
                          f"slot_pos {tuple(slot_pos.shape)}")
-    if dh % 4 or dh > 256 or h // hkv > 2 * MAX_HEADS:
+    vec = 16 // q.element_size()          # elements a 16-byte copy moves
+    if dh % vec or dh > 256 or h // hkv > 2 * MAX_HEADS:
         raise ValueError(f"head_dim {dh}, {h // hkv} query heads per KV "
-                         "head: the kernel takes head_dim a multiple of 4 "
-                         "up to 256 and at most 16 query heads per KV head")
+                         f"head: the kernel takes head_dim a multiple of "
+                         f"{vec} ({q.dtype}) up to 256 and at most 16 query "
+                         "heads per KV head")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     qp_t, qp = None, 0
@@ -123,7 +131,7 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, *, q_pos,
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), sp.data_ptr(),
         None if qp_t is None else qp_t.data_ptr(), out.data_ptr(), b, c, h,
         hkv, dh, qp, int(causal), 0 if window is None else int(window),
-        nsplit, per, float(dh ** -0.5),
+        nsplit, per, int(q.dtype == torch.bfloat16), float(dh ** -0.5),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "decode_kernel")
     return out

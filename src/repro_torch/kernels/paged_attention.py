@@ -5,11 +5,14 @@ Counterpart of ``repro/kernels/paged_attention.py`` (``paged_attention``
 and ``paged_prefill_attention``).  Pages are stored as fp32, bf16, int8 or
 fp8 e4m3; int8 and fp8 pages come with per-(slot, head) fp32 scales
 ``k_scales``/``v_scales`` of shape (P, BS, Hkv), and the kernels fuse the
-dequant (``payload.float() * scale``) into each page load.  ``*_cuda``
-launch the kernels on CUDA tensors and nothing else; ``*_ref`` and
-``*_quant_ref`` are the plain versions (dequantize, gather each row's
-pages, then naive attention), mirroring ``repro/kernels/ref.py``.  The
-dispatching wrappers with launch counts are in ``kernels/ops.py``.
+dequant (``payload.float() * scale``) into each page load.  q, and the
+output, are fp32 or bf16 (the compute dtype): as the Pallas kernels, the
+kernels widen a bf16 q to fp32, compute in fp32 and round the output
+once.  ``*_cuda`` launch the kernels on CUDA tensors and nothing else;
+``*_ref`` and ``*_quant_ref`` are the plain versions (dequantize, gather
+each row's pages, then naive attention), mirroring
+``repro/kernels/ref.py``.  The dispatching wrappers with launch counts
+are in ``kernels/ops.py``.
 
 Each row's table is split across blocks (``decode_plan``,
 ``prefill_plan``): a split walks a contiguous run of table entries and the
@@ -29,6 +32,8 @@ from repro_torch.nn.attention import attention_core, make_attention_mask
 # page storage dtype -> the kernels' storage-kind argument, the index of its
 # name in KV_DTYPES: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3
 STORAGE_KINDS = {kv_store_dtype(k): i for i, k in enumerate(KV_DTYPES)}
+# query (and output) dtype -> the kernels' q_bf16 argument
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def storage_kind(k_pages, v_pages, k_scales=None, v_scales=None) -> int:
@@ -98,8 +103,8 @@ def prefill_plan(batch: int, lq: int, heads: int, kv_heads: int,
 # --------------------------------------------------------- plain versions
 
 def _gather(k_pages, v_pages, block_tables, page_pos):
-    """Rows' pages gathered contiguous; bf16 pages upcast to fp32
-    (exactly), as the reference's fp32 x bf16 promotion does."""
+    """Rows' pages gathered contiguous and widened to fp32 (exactly), as
+    the Pallas kernels widen each page they load."""
     bt = block_tables.long()
     b = bt.shape[0]
     btc = bt.clamp(min=0)
@@ -109,17 +114,24 @@ def _gather(k_pages, v_pages, block_tables, page_pos):
     return k, v, pos
 
 
+def _widened_attention(q, k, v, mask):
+    """The Pallas kernels' arithmetic: q widened to fp32 (a bf16 q
+    exactly), scores, softmax and P V in fp32 over the fp32 K/V, the
+    output rounded once to q's dtype."""
+    return attention_core(q.float(), k, v, mask=mask).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, page_pos, q_pos,
                         *, window=None, causal=True):
-    """q (B, 1, H, Dh); pages (P, BS, Hkv, Dh); block_tables (B, MB)
-    (-1 = unallocated); page_pos (P, BS) (-1 = empty); q_pos (B,)
-    (-1 = inactive row).  Returns (B, 1, H, Dh)."""
+    """q (B, 1, H, Dh) fp32 or bf16; pages (P, BS, Hkv, Dh); block_tables
+    (B, MB) (-1 = unallocated); page_pos (P, BS) (-1 = empty); q_pos (B,)
+    (-1 = inactive row).  Returns (B, 1, H, Dh) in q's dtype."""
     k, v, pos = _gather(k_pages, v_pages, block_tables, page_pos)
     q_pos = q_pos.long()
     mask = make_attention_mask(q_pos[:, None], pos, causal=causal,
                                window=window, kv_valid=pos >= 0)
     mask = mask & (q_pos >= 0)[:, None, None]
-    return attention_core(q, k, v, mask=mask)
+    return _widened_attention(q, k, v, mask)
 
 
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
@@ -138,7 +150,7 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
     mask = make_attention_mask(q_pos, pos, causal=causal, window=window,
                                kv_valid=pos >= 0)
     mask = mask & (q_pos >= 0)[..., None]
-    return attention_core(q, k, v, mask=mask)
+    return _widened_attention(q, k, v, mask)
 
 
 def paged_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
@@ -172,8 +184,8 @@ def _checked(q, k_pages, v_pages, k_scales, v_scales, block_tables,
     if dev.type != "cuda":
         raise ValueError(f"the paged attention kernel runs on CUDA tensors, "
                          f"got {dev}")
-    if q.dtype != torch.float32:
-        raise ValueError(f"q: need fp32, got {q.dtype}")
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"q: need fp32 or bf16, got {q.dtype}")
     if k_pages.device != dev or v_pages.device != dev:
         raise ValueError(f"pages on {k_pages.device} / {v_pages.device}, "
                          f"q on {dev}")
@@ -183,9 +195,10 @@ def _checked(q, k_pages, v_pages, k_scales, v_scales, block_tables,
     if v_pages.shape != k_pages.shape or dh2 != dh or h % hkv:
         raise ValueError(f"shapes q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
-    if dh % 4 or dh > 256:
-        raise ValueError(f"head_dim {dh}: the kernel takes multiples of 4 "
-                         "up to 256")
+    vec = 8 if q.dtype == torch.bfloat16 else 4   # elements a q load
+    if dh % vec or dh > 256:
+        raise ValueError(f"head_dim {dh}: the kernel takes multiples of "
+                         f"{vec} up to 256 ({q.dtype} q)")
     if block_tables.shape[0] != b or tuple(page_pos.shape) != (p, bs):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"page_pos {tuple(page_pos.shape)} do not match")
@@ -248,8 +261,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, page_pos,
     err = build.load("paged_attention").paged_attention_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
         bt.data_ptr(), pp.data_ptr(), qp.data_ptr(), out.data_ptr(),
-        _ptr(part_o), _ptr(part_ml), kind, b, h, hkv, dh, bs, mb,
-        int(causal), _window(window), nsplit, per, float(dh ** -0.5),
+        _ptr(part_o), _ptr(part_ml), kind, Q_DTYPES[q.dtype], b, h, hkv, dh,
+        bs, mb, int(causal), _window(window), nsplit, per, float(dh ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_kernel")
     return out
@@ -273,8 +286,8 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, block_tables,
     err = build.load("paged_attention").paged_attention_prefill(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
         bt.data_ptr(), pp.data_ptr(), qs.data_ptr(), ql.data_ptr(),
-        out.data_ptr(), _ptr(part_o), _ptr(part_ml), kind, b, lq, h, hkv,
-        dh, bs, mb, int(causal), _window(window), nsplit, per,
+        out.data_ptr(), _ptr(part_o), _ptr(part_ml), kind, Q_DTYPES[q.dtype],
+        b, lq, h, hkv, dh, bs, mb, int(causal), _window(window), nsplit, per,
         float(dh ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_chunk_kernel")

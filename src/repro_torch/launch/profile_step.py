@@ -1,7 +1,7 @@
 """Where the time of one serve step goes, on the card.
 
     python -m repro_torch.launch.profile_step [--no-use-kernels]
-        [--kv-dtype fp32|bf16|int8|fp8]
+        [--dtype fp32|bf16] [--kv-dtype fp32|bf16|int8|fp8]
 
 Builds full-width qwen2-1.5b (random seeded weights) at mux N=2 with 4
 backbone rows holding ~100-token contexts, then runs ``torch.profiler``
@@ -11,8 +11,11 @@ trace it reports, per step: host wall time, device busy time (the union
 of kernel, memcpy and memset intervals), the device's idle share, the
 number of kernels launched, and the device time by kernel name.  The
 idle share is taken against the wall time of the same steps run without
-the profiler.  ``--kv-dtype`` sets the page storage (default fp32).
-Needs a GPU.
+the profiler, and the device time and kernel count by group
+(``STEP_GROUPS``: paged attention, demux, mux entry, casts and copies —
+a bf16 step's per-op weight casts — and matmuls).  ``--dtype`` sets the
+compute dtype (default fp32), ``--kv-dtype`` the page storage (default:
+the compute dtype).  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -32,6 +35,14 @@ from repro_torch.serve import engine
 from repro_torch.serve.runtime import resolve_device
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# kernel groups of a serve step (lower-case name substrings); "casts and
+# copies" holds the per-op weight casts of a bf16 step (a copy kernel each)
+STEP_GROUPS = {"paged attention": ("paged_",), "demux": ("demux_",),
+               "mux entry": ("mux_embed", "mux_combine"),
+               "casts and copies": ("copy",),
+               "matmul": ("gemm", "gemv", "cutlass", "sm90_", "cublas",
+                          "nvjet")}
 
 
 def _busy_us(intervals):
@@ -63,13 +74,16 @@ def summarize(label, trace, steps, wall_s, prof_wall_s, top, groups=None):
           f"busy {busy / steps / 1e3:.3f} ms/step, idle share "
           f"{1 - busy / wall_us:.3f}, {n_kernels / steps:.0f} kernels/step")
     if groups:
-        by_group = collections.Counter()
-        for name, us in by_name.items():
-            low = name.lower()
-            by_group[next((g for g, subs in groups.items()
-                           if any(s in low for s in subs)), "other")] += us
+        by_group, n_group = collections.Counter(), collections.Counter()
+        for e in evs:
+            low = e["name"].lower()
+            g = next((g for g, subs in groups.items()
+                      if any(s in low for s in subs)), "other")
+            by_group[g] += e["dur"]
+            n_group[g] += e["cat"] == "kernel"
         print("  by group: " + ", ".join(
-            f"{g} {us / steps / 1e3:.3f} ms ({us / busy:.1%})"
+            f"{g} {us / steps / 1e3:.3f} ms ({us / busy:.1%}, "
+            f"{n_group[g] / steps:.0f} kernels)"
             for g, us in by_group.most_common()))
     for name, us in by_name.most_common(top):
         print(f"  {us / steps:10.1f} us/step  {us / busy:6.1%}  {name[:90]}")
@@ -112,9 +126,13 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True, help="kernel path (default) or plain path")
+    ap.add_argument("--dtype", default="fp32", choices=sorted(DTYPES),
+                    help="compute dtype (ServeConfig.dtype; default fp32, "
+                         "as the CLI serves)")
     ap.add_argument("--kv-dtype", default=None,
                     choices=["fp32", "bf16", "int8", "fp8"],
-                    help="KV-page storage dtype (default fp32)")
+                    help="KV-page storage dtype (default: the compute "
+                         "dtype)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_config("qwen2-1.5b")
@@ -123,8 +141,8 @@ def main(argv=None):
                                 cfg, mux)
     rows, ctx = 4, 96
     sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=124,
-                            cache_layout="paged", block_size=16,
-                            kv_dtype=args.kv_dtype)
+                            dtype=DTYPES[args.dtype], cache_layout="paged",
+                            block_size=16, kv_dtype=args.kv_dtype)
     cache = engine.init_cache(sc, mux.n * rows, device=dev)
     pool = engine.make_pool(sc, mux.n * rows)
     for r in range(rows):
@@ -157,14 +175,15 @@ def main(argv=None):
 
     path = "kernel" if args.use_kernels else "plain"
     print(f"qwen2-1.5b full width, N=2, {rows} rows at context {ctx}, "
-          f"{sc.page_dtype} pages, {path} path, "
+          f"{sc.dtype} compute, {sc.page_dtype} pages, {path} path, "
           f"{torch.cuda.get_device_name(dev)}")
     for label, fn in (("decode step", decode), ("prefill chunk (32)", chunk)):
         for _ in range(2):
             fn()
         wall = wall_time(fn, args.steps)
         trace, prof_wall = profile_calls(fn, args.steps)
-        summarize(label, trace, args.steps, wall, prof_wall, args.top)
+        summarize(label, trace, args.steps, wall, prof_wall, args.top,
+                  STEP_GROUPS)
     return 0
 
 

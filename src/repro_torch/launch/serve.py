@@ -377,7 +377,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = EncDecLM if kind == "encdec" else TransformerLM
     params = model.init(gen, cfg, mux)
-    sc = ServeConfig(cfg=cfg, mux=mux,
+    # fp32, as the reference's CLI serves (repro/launch/serve.py:906-911)
+    sc = ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                      capacity=args.prompt_len + args.new_tokens + 8,
                      cache_layout=args.cache if args.continuous else "ring",
                      block_size=args.block_size, kv_dtype=args.kv_dtype,

@@ -9,11 +9,12 @@ run without a cache, and its heads:
   * token classification: logits per position.
 
 Every head reads ``hidden``, the demuxed (N*B, L, D) hidden state, and
-computes in fp32.  ``use_kernels`` (default True) runs the backbone's
-kernel path: the fused Gaussian entry or the mux-combine kernel, the flash
-kernel under ``attn_impl='flash'``, the fused RSA exit (their plain
-versions on CPU tensors); False runs the plain model path.  The heads
-themselves are plain matmuls.
+computes in fp32, the backbone too (bf16 waits for the flash kernel in
+bf16, ROADMAP §1 item 21).  ``use_kernels`` (default True) runs the
+backbone's kernel path: the fused Gaussian entry or the mux-combine
+kernel, the flash kernel under ``attn_impl='flash'``, the fused RSA exit
+(their plain versions on CPU tensors); False runs the plain model path.
+The heads themselves are plain matmuls.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ class MuxBERT:
                use_kernels: bool = True):
         """tokens (N*B, L) -> the demuxed hidden state (N*B, L, D)."""
         return TransformerLM.apply(params["backbone"], cfg, tokens, mux=mux,
-                                   logits_out=False,
+                                   dtype=torch.float32, logits_out=False,
                                    use_kernels=use_kernels)["hidden"]
 
     @staticmethod

@@ -221,12 +221,15 @@ def _paged_attention(q, cfg, window, cache, bt, posm, kernels, *, chunked):
         return kops.paged_attention(q, cache["kp"], cache["vp"], bt,
                                     cache["ppos"], posm[:, 0], window=window,
                                     causal=cfg.causal, **scale_kw)
-    kc, vc, kvpos = paged_view(cache, bt)             # fp32, dequantized
+    kc, vc, kvpos = paged_view(cache, bt)     # as stored, or dequantized
     mask = make_attention_mask(posm, kvpos, causal=cfg.causal,
                                window=window, kv_valid=kvpos >= 0)
     mask = mask & (posm >= 0)[..., None]
+    # fp32 or dequantized pages under a bf16 q promote the output to fp32;
+    # it returns in q's dtype, as the kernels write it (the reference's
+    # plain path fails there instead, ROADMAP §3)
     return attention_core(q, kc, vc, mask=mask,
-                          logit_softcap=cfg.logit_softcap)
+                          logit_softcap=cfg.logit_softcap).to(q.dtype)
 
 
 def _fresh_attention(q, k, v, cfg, window, ctx):

@@ -8,7 +8,8 @@ a cache; the decoder a causal ``TransformerLM`` of cross-attention blocks
 frame streams with its own mux (``enc_mux``, of the spec's kind), the
 decoder muxes the N token streams; cross-attention runs in the
 multiplexed domain, and one demux after the decoder recovers the N logit
-streams.
+streams.  Both stacks compute in fp32: bf16 waits for the flash kernel in
+bf16 (ROADMAP §1 item 21).
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ class EncDecLM:
             x = MuxEngine.combine(params["enc_mux"], mux, x,
                                   use_kernels=use_kernels)
         return TransformerLM.apply(params["encoder"], cfg.encoder, embeds=x,
-                                   logits_out=False, use_kernels=use_kernels,
+                                   dtype=torch.float32, logits_out=False,
+                                   use_kernels=use_kernels,
                                    demux=False)["hidden"]
 
     @staticmethod
@@ -69,7 +71,8 @@ class EncDecLM:
             ectx["enc_out"] = enc_out
         return TransformerLM.apply(
             params["decoder"], cfg, dec_tokens, mux=mux, cache=cache,
-            q_offset=q_offset, logits_out=logits_out, use_kernels=use_kernels,
+            q_offset=q_offset, dtype=torch.float32, logits_out=logits_out,
+            use_kernels=use_kernels,
             fuse_io=fuse_io, extra_ctx=ectx)
 
     @staticmethod

@@ -30,7 +30,30 @@ from repro_torch.models.blocks import (BLOCKS, apply_block, init_block,
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import (Embedding, LayerNorm, Linear, RMSNorm,
                             rope_frequencies)
-from repro_torch.nn.layers import normal
+from repro_torch.nn.layers import normal, rounded
+
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(cfg: ModelConfig, dtype):
+    """Raise unless the port computes ``cfg`` in ``dtype``: fp32 always;
+    bf16 (the reference's serve default) for attention models whose
+    blocking attention is not the flash kernel, which, like the RWKV6
+    kernel, takes fp32 operands only so far (ROADMAP §1 item 21)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"compute dtype {dtype}: the port computes in "
+                         f"{DTYPES}")
+    if dtype == torch.float32:
+        return
+    if "rwkv" in cfg.pattern_layers:
+        raise NotImplementedError(
+            f"RWKV blocks compute in fp32 so far (got {dtype}): the "
+            "rwkv6_chunked kernel in bf16 is ROADMAP §1 item 21")
+    if cfg.attn_impl == "flash":
+        raise NotImplementedError(
+            f"attn_impl='flash' computes in fp32 so far (got {dtype}): the "
+            "flash_attention kernel in bf16 is ROADMAP §1 item 21")
 
 
 def _check_supported(cfg: ModelConfig, mux: MuxSpec):
@@ -107,19 +130,23 @@ class TransformerLM:
     @staticmethod
     def apply(params, cfg: ModelConfig, tokens=None, *, embeds=None,
               mux: MuxSpec = MuxSpec(), cache=None, q_offset=0,
-              logits_out: bool = True, use_kernels: bool = True,
+              dtype=torch.bfloat16, logits_out: bool = True,
+              use_kernels: bool = True,
               fuse_io: bool = True, demux: bool = True,
               extra_ctx: dict | None = None):
         """tokens (N*B, L) int (mux-major instance order), or ``embeds``
         (N*B, L, D) precomputed embeddings instead.  q_offset: an int
         start position, or on a paged cache a (B,) vector of per-row
         positions (-1 = inactive row).  The cache is updated in place;
-        None runs the no-cache forward.  Computes in fp32, as the
-        reference serves.  use_kernels: the layers' kernels (decode and
-        chunk attention, the RWKV6 recurrence), the mux-combine kernel of
-        the plain entry and, with ``fuse_io``, the fused entry and exit
-        instead (default; their plain versions on CPU tensors), False for
-        the plain model path.  As in the reference, the fused entry
+        None runs the no-cache forward.  dtype: the compute dtype, bf16 by
+        default as in the reference, or fp32 (``check_dtype``): the
+        embeddings enter in it, every layer casts its weights to it per op
+        and the norms compute in fp32 and round to it, so the hidden state,
+        the attention operands and the logits are in it.  use_kernels: the
+        layers' kernels (decode and chunk attention, the RWKV6
+        recurrence), the mux-combine kernel of the plain entry and, with
+        ``fuse_io``, the fused entry and exit instead (default; their
+        plain versions on CPU tensors), False for the plain model path.  As in the reference, the fused entry
         (gather + embedding scale + mux combine) runs for the Gaussian mux
         without the prefix demux, and the fused exit (final norm + demux
         + demux LN) for the RSA demux whatever the mux kind; the other
@@ -134,6 +161,7 @@ class TransformerLM:
         2048 tokens, else naive; 'flash' launches the flash kernel).
         Returns dict(logits | hidden)."""
         _check_supported(cfg, mux)
+        check_dtype(cfg, dtype)
         d = cfg.d_model
         dev = params["embed"]["table"].device
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0
@@ -149,16 +177,19 @@ class TransformerLM:
             x = kops.mux_embed_combine(
                 tokens.clamp(min=0).reshape(mux.n, bb * l_in),
                 params["embed"]["table"], params["mux_engine"]["mux"]["v"],
-                scale=scale)
+                scale=scale, out_dtype=dtype)
             x = x.reshape(bb, l_in, d)
         else:
             if embeds is None:
                 x = Embedding.apply(params["embed"],
-                                    torch.as_tensor(tokens, device=dev))
+                                    torch.as_tensor(tokens, device=dev),
+                                    dtype=dtype)
             else:
-                x = torch.as_tensor(embeds, device=dev).float()
+                x = torch.as_tensor(embeds, device=dev).to(dtype)
             if cfg.embedding_scale:
-                x = x * scale
+                # the scale rounded to the dtype first, as the reference's
+                # jnp.asarray(sqrt(d), dtype): 45.25 for d 2048 in bf16
+                x = x * rounded(scale, dtype)
             x = MuxEngine.combine(params.get("mux_engine", {}), mux, x,
                                   use_kernels=use_kernels)
         b, l, _ = x.shape
@@ -183,7 +214,7 @@ class TransformerLM:
             ctx["sin"], ctx["cos"] = ((sin, cos) if per_row
                                       else (sin[None], cos[None]))
         elif cfg.positions == "learned":
-            pe = params["pos_emb"][pos]
+            pe = params["pos_emb"][pos].to(dtype)
             x = x + (pe if per_row else pe[None])
         if extra_ctx:
             ctx.update(extra_ctx)

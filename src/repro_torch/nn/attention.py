@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.nn.layers import rounded
+
 # large but finite: a fully masked row softmaxes to the uniform mean of V
 # instead of NaN (the kernels use the same value)
 NEG_INF = -2.0 ** 30
@@ -37,21 +39,33 @@ def make_attention_mask(q_pos, kv_pos, *, causal: bool = True,
     return mask
 
 
+def _promoted(a, b):
+    """a and b in their promoted dtype: JAX promotes a bf16 operand
+    against fp32 (bf16 queries over fp32 or dequantized pages), where
+    PyTorch's einsum raises."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 def attention_core(q, k, v, *, mask=None,
                    logit_softcap: float | None = None):
     """Naive attention with an fp32 softmax; mask (.., Lq, Lk) broadcasts
-    over heads.  Returns (B, Lq, H, Dh) in q.dtype."""
+    over heads.  The scores are rounded to the promoted dtype of q and K
+    before the softmax, P to q's dtype before P V, as in the reference.
+    Returns (B, Lq, H, Dh) in the promoted dtype of q and V (q's dtype
+    unless fp32 K/V meet a bf16 q)."""
     b, lq, h, dh = q.shape
     n_kv = k.shape[2]
-    qg = (q * dh ** -0.5).reshape(b, lq, n_kv, h // n_kv, dh)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    qg = (q * rounded(dh ** -0.5, q.dtype)).reshape(b, lq, n_kv, h // n_kv,
+                                                    dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", *_promoted(qg, k)).float()
     if logit_softcap is not None:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     if mask is not None:
         m = mask[:, None, None] if mask.ndim == 3 else mask
         logits = logits.masked_fill(~m, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    out = torch.einsum("bkgqs,bskd->bqkgd", *_promoted(w, v))
     return out.reshape(b, lq, h, dh)
 
 
@@ -67,7 +81,7 @@ def chunked_attention_core(q, k, v, *, causal: bool = True,
     lk, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
     dev = q.device
-    qg = (q * dh ** -0.5).reshape(b, lq, n_kv, g, dh)
+    qg = (q * rounded(dh ** -0.5, q.dtype)).reshape(b, lq, n_kv, g, dh)
     q_pos = q_offset + torch.arange(lq, device=dev)
     m_i = torch.full((b, n_kv, g, lq), NEG_INF, dtype=torch.float32,
                      device=dev)

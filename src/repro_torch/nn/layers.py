@@ -8,6 +8,14 @@ from __future__ import annotations
 import torch
 
 
+def rounded(x: float, dtype) -> float:
+    """The Python scalar ``x`` rounded to ``dtype``: a tensor times it
+    then multiplies by the value the reference's scalar takes in that
+    dtype (a weakly typed scalar, or ``jnp.asarray(x, dtype)``), where
+    PyTorch would apply ``x`` at fp32 precision to a bf16 tensor."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
 def normal(generator, shape, stddev: float):
     return torch.randn(shape, generator=generator,
                        device=generator.device) * stddev
@@ -43,7 +51,7 @@ class Embedding:
 
     @staticmethod
     def apply(p, ids, dtype=torch.float32):
-        return p["table"].to(dtype)[ids]
+        return p["table"][ids].to(dtype)
 
     @staticmethod
     def attend(p, x):

@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import MuxSpec
 from repro_torch.core import quant as quantlib
 from repro_torch.models import EncDecLM, TransformerLM
+from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import KVPool, blocks_for
 
@@ -54,19 +55,25 @@ class ServeConfig:
     tokens (``cache_layout``, 'ring' by default as in the reference).
 
     kind: 'lm' (decoder-only, the default) or 'encdec' (whisper; ring
-    only, as the reference).  kv_dtype (paged only): page storage —
-    'fp32' | 'bf16' | 'int8' | 'fp8' (any ``core.quant.resolve_kv_dtype``
-    spelling); None keeps the serve dtype, fp32.  int8 and fp8 pages
-    carry per-(slot, head) fp32 scales.  num_blocks (paged only): the
-    pool's size in blocks, the trash block included; None sizes it for
-    the worst case, every row at capacity.  A smaller pool makes the
-    runtime roll admissions back and preempt decoding rows
-    (``serve.runtime``).  The reference's 'vlm' kind and its ``dtype``
-    and ``n_shards`` fields are fixed to fp32 and 1 in the port so
-    far."""
+    only, as the reference).  dtype: the compute dtype the model runs in
+    (``TransformerLM.apply(dtype=)``), bf16 by default as in the
+    reference, or fp32; the ring and any recurrent state are stored in
+    it.  bf16 covers decoder-only attention models: an encoder-decoder
+    model, RWKV blocks and ``attn_impl='flash'`` raise
+    ``NotImplementedError`` under it until their kernels take bf16
+    (ROADMAP §1 item 21).  kv_dtype (paged only): page storage — 'fp32' |
+    'bf16' | 'int8' | 'fp8' (any ``core.quant.resolve_kv_dtype``
+    spelling); None stores pages in ``dtype``.  int8 and fp8 pages carry
+    per-(slot, head) fp32 scales.  num_blocks (paged only): the pool's
+    size in blocks, the trash block included; None sizes it for the
+    worst case, every row at capacity.  A smaller pool makes the runtime
+    roll admissions back and preempt decoding rows (``serve.runtime``).
+    The reference's 'vlm' kind and its ``n_shards`` field are later
+    slices (``n_shards`` is 1)."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
+    dtype: torch.dtype = torch.bfloat16
     cache_layout: str = "ring"      # ring | paged
     block_size: int = 16            # paged: tokens per block
     num_blocks: int | None = None   # paged: pool size (default: worst case)
@@ -84,6 +91,12 @@ class ServeConfig:
         if self.num_blocks is not None and self.num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
         quantlib.resolve_kv_dtype(self.kv_dtype)
+        if self.kind == "encdec" and self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"an encoder-decoder model serves in fp32 so far: pass "
+                f"dtype=torch.float32 (got {self.dtype}; bf16 waits for the "
+                f"flash_attention kernel in bf16, ROADMAP §1 item 21)")
+        check_dtype(self.cfg, self.dtype)
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -98,9 +111,12 @@ class ServeConfig:
 
     @property
     def page_dtype(self) -> torch.dtype:
-        """Storage dtype of the KV pages under this config."""
+        """Storage dtype of the KV pages under this config: ``dtype``
+        unless ``kv_dtype`` says otherwise."""
         kind = quantlib.resolve_kv_dtype(self.kv_dtype)
-        return quantlib.kv_store_dtype(kind or "fp32")
+        if kind is None:
+            return self.dtype
+        return quantlib.kv_store_dtype(kind)
 
     def kv_bytes_per_token(self) -> int:
         """Pool bytes one token occupies across all attention layers
@@ -137,10 +153,11 @@ def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
 
 
 def init_cache(sc: ServeConfig, global_batch: int, *, device):
-    """The cache for ``global_batch`` streams on ``device``: a fp32 ring,
-    or pages stored as ``sc.kv_dtype`` says; RWKV layers hold their
-    recurrent state on either layout, cross-attention layers their
-    cross-K/V beside a ring."""
+    """The cache for ``global_batch`` streams on ``device``: a ring in
+    ``sc.dtype``, or pages stored as ``sc.page_dtype`` says; RWKV layers
+    hold their recurrent state on either layout (token shifts in
+    ``sc.dtype``), cross-attention layers their cross-K/V beside a
+    ring."""
     b = backbone_batch(global_batch, sc.mux)
     if sc.kind == "encdec":
         if sc.cache_layout == "paged":
@@ -148,10 +165,13 @@ def init_cache(sc: ServeConfig, global_batch: int, *, device):
                 "paged cache layout: decoder-only LM families")
         return EncDecLM.init_cache(sc.cfg, b, sc.capacity, device=device)
     if sc.cache_layout == "ring":
-        return TransformerLM.init_cache(sc.cfg, b, sc.capacity,
-                                        torch.float32, device=device)
+        return TransformerLM.init_cache(sc.cfg, b, sc.capacity, sc.dtype,
+                                        device=device)
+    # a quantized pool takes its storage from kv_quant; the dtype then
+    # types only non-attention state, which stays floating-point
+    dt = sc.dtype if sc.kv_quant is not None else sc.page_dtype
     return TransformerLM.init_cache(
-        sc.cfg, b, sc.capacity, sc.page_dtype, layout="paged",
+        sc.cfg, b, sc.capacity, dt, layout="paged",
         block_size=sc.block_size, num_blocks=sc.pool_blocks(global_batch),
         kv_quant=sc.kv_quant, device=device)
 
@@ -204,7 +224,7 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
                              "embeddings (extra=)")
         logits = EncDecLM.apply(params, sc.cfg, tokens, extra, **kw)["logits"]
     else:
-        logits = TransformerLM.apply(params, sc.cfg, tokens,
+        logits = TransformerLM.apply(params, sc.cfg, tokens, dtype=sc.dtype,
                                      **kw)["logits"]
     return logits[:, -1], cache
 
@@ -229,7 +249,8 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
     ctx = {"rows": torch.as_tensor(rows, device=dev).long(),
            "chunked": True, "q_end": start + length}
     h = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux, cache=cache,
-                            q_offset=start, logits_out=False,
+                            q_offset=start, dtype=sc.dtype,
+                            logits_out=False,
                             use_kernels=use_kernels,
                             extra_ctx=ctx)["hidden"]          # (NB, C, D)
     if length.ndim:          # per-row lengths, mux-major instance order
@@ -249,9 +270,11 @@ def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
     (logits (N*B, 1, V), cache)."""
     if sc.cache_layout == "ring" and isinstance(pos, torch.Tensor):
         raise TypeError("the ring cache decodes at one int position")
-    model = EncDecLM if sc.kind == "encdec" else TransformerLM
-    out = model.apply(params, sc.cfg, tokens, mux=sc.mux, cache=cache,
-                      q_offset=pos, use_kernels=use_kernels)
+    kw = dict(mux=sc.mux, cache=cache, q_offset=pos, use_kernels=use_kernels)
+    if sc.kind == "encdec":
+        out = EncDecLM.apply(params, sc.cfg, tokens, **kw)
+    else:
+        out = TransformerLM.apply(params, sc.cfg, tokens, dtype=sc.dtype, **kw)
     return out["logits"], cache
 
 

@@ -199,10 +199,11 @@ def init_pages(num_blocks: int, block_size: int, n_kv_heads: int,
 def paged_write(cache, k, v, positions, block_tables=None):
     """Scatter L new KV entries per row into their pages, in place.
 
-    k, v: (B, L, Hkv, Dh) fp32; positions: (B, L) absolute positions,
-    entries < 0 (padding, inactive rows) go to the trash block and stay
-    masked.  block_tables overrides ``cache['bt']`` (a row subset).  Rows
-    own disjoint blocks, so scatters never collide across rows.
+    k, v: (B, L, Hkv, Dh) in the compute dtype; positions: (B, L)
+    absolute positions, entries < 0 (padding, inactive rows) go to the
+    trash block and stay masked.  block_tables overrides ``cache['bt']``
+    (a row subset).  Rows own disjoint blocks, so scatters never collide
+    across rows.
     Quantized caches (``ksc`` present) quantize at write time, per
     (slot, head) vector; bf16 pages store the rounded cast.  Returns
     ``cache``."""
@@ -232,11 +233,12 @@ def paged_write(cache, k, v, positions, block_tables=None):
 
 
 def paged_view(cache, block_tables=None):
-    """Each row's pages gathered into a contiguous fp32 (B, MB*BS, Hkv, Dh)
+    """Each row's pages gathered into a contiguous (B, MB*BS, Hkv, Dh)
     view plus per-row slot positions (B, MB*BS), -1 for empty or
-    unallocated.  Quantized pages are dequantized and bf16 pages upcast
-    (exactly), so the plain attention path computes in fp32 as the
-    reference's promotion does; the kernels read the pages in place."""
+    unallocated.  fp32 and bf16 pages come as stored, quantized pages
+    dequantized to fp32, as the reference's ``paged_view``; the plain
+    attention path promotes them against q as JAX does.  The kernels read
+    the pages in place."""
     bt = (cache["bt"] if block_tables is None else block_tables).long()
     b = bt.shape[0]
     btc = bt.clamp(min=0)
@@ -245,8 +247,6 @@ def paged_view(cache, block_tables=None):
     if "ksc" in cache:
         k = quantlib.dequantize_kv(k, cache["ksc"][btc])
         v = quantlib.dequantize_kv(v, cache["vsc"][btc])
-    else:
-        k, v = k.float(), v.float()
     pos = torch.where(bt[..., None] >= 0, cache["ppos"][btc], -1)
     return (k.reshape(b, -1, *k.shape[3:]), v.reshape(b, -1, *v.shape[3:]),
             pos.reshape(b, -1))

@@ -59,7 +59,8 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to serve on "
                            "the CPU with the kernels' plain versions")
     if dev.type == "cuda":
-        # the reference serves in full fp32; TF32 would keep ~3 digits
+        # fp32 matmuls in full fp32, as the reference's; TF32 would keep
+        # ~3 digits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev

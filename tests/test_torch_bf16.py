@@ -1,0 +1,535 @@
+"""The port in the reference's bf16 compute dtype against the JAX
+reference, on the CPU.
+
+``ServeConfig.dtype`` defaults to bf16, as the reference's
+(``repro/serve/engine.py:52``), and reaches the model as
+``TransformerLM.apply(dtype=)``.  Inputs come from numpy seeds; the
+reference runs as its own tests run it (Pallas in interpret mode on its
+kernel path).
+
+(a) The kernels' plain versions in bf16 against the Pallas kernels in
+    bf16: paged decode and chunk over the four page storages, windowed
+    and causal, with queries that see no slot; ``decode_attention``;
+    ``demux_rsa`` with the RMS, LN and no entry norm, with and without the
+    exit LayerNorm, at F 1100 (three 512-wide F tiles, the last padded)
+    and F 512.  The plain versions round where the Pallas kernels round
+    (not where ``attention_core`` or ``kernels/ref.py`` do), so they agree
+    bit for bit but for an element whose fp32 sums, taken in another
+    order, round to the other neighbour: ``ULP_BOUND`` (one bf16 ulp of
+    the row's largest value: a flip before the demux's exit LayerNorm
+    moves a small normalised output by more than its own ulp) on every
+    element, and at most ``MAX_FLIPS`` of the elements off at all
+    (measured: 0 in 39 of the 43 cases, at most 4 of 384 elements).
+(b) ``page_dtype`` / ``kv_bytes_per_token`` / ``pool_bytes`` equal the
+    reference's under bf16 for every ``kv_dtype``; bf16 K/V written into
+    each page storage bit for bit the reference's; greedy sampling of
+    bf16 logits the reference's, ties included.
+(c) Reduced qwen2-1.5b and gemma-2b logits (gemma-2b at d_model 96,
+    whose embedding scale sqrt(96) = 9.798 rounds to 9.8125 in bf16),
+    teacher-forced with the same tokens on both sides: paged chunks and a
+    decode step on both paths, ring decode steps on both paths, blocking
+    prefill naive and chunked.  Tolerance ``LOGIT_TOL``, with its reason.
+(d) Greedy serving on the paged chunked, paged blocking and ring arms:
+    the port's bf16 tokens agree with the reference's bf16 tokens at
+    least as often as the reference's bf16 tokens agree with its own
+    fp32 run of the trace.
+(e) encdec, RWKV and ``attn_impl='flash'`` raise ``NotImplementedError``
+    under bf16; the reference's plain path under bf16 fails on int8 pages
+    (ROADMAP §3) where the port's runs.
+
+The card tests of the bf16 kernels are in ``tests/test_torch_kernels.py``
+and ``tests/test_torch_dense_attention.py`` (``-m cuda``).
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as ref_config
+from repro.core import MuxSpec as RefMux
+from repro.kernels import ops as jops
+from repro.kernels.demux_rsa import demux_rsa as pallas_demux_rsa
+from repro.launch.serve import run_continuous as ref_run_continuous
+from repro.models import TransformerLM as RefLM
+from repro.serve import engine as ref_engine
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.core import MuxSpec
+from repro_torch.core import quant as tq
+from repro_torch.kernels import ops
+from repro_torch.launch import serve as cli
+from repro_torch.models import TransformerLM
+from repro_torch.serve import engine
+
+from test_torch_kernels import (CARD_DECODE_CASES, PREFILL_CASES,
+                                STORE_KINDS, _decode_inputs, _store,
+                                _to_jax, build_pool)
+
+torch.set_num_threads(2)
+
+BF = torch.bfloat16
+ULP_BOUND = 2.0 ** -7     # |got - want| <= this * the row's max |want|
+MAX_FLIPS = 0.02          # share of the elements that may differ at all
+
+
+def _assert_bf16_close(got, want):
+    """bf16 ``got`` (torch) against bf16 ``want`` (JAX): within one bf16
+    ulp everywhere, identical but for a few elements."""
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.dtype == BF and g.shape == w.shape
+    d = np.abs(g - w)
+    bound = ULP_BOUND * np.abs(w).max(-1, keepdims=True)
+    assert (d <= bound).all(), f"max {d.max()} over the 1-ulp bound"
+    assert (d > 0).mean() <= MAX_FLIPS, f"{(d > 0).sum()} of {d.size} differ"
+
+
+# ------------------------------------------------------------ (a) kernels
+
+DECODE = ["hetero_inactive", "window", "window_blind"]
+# (B, Lq, H, Hkv, Dh, BS, MB, P, lens, q_start, q_len) + window: the
+# reference suite's edge cases, and one whose window cuts the context
+PREFILL = {**{k: (*PREFILL_CASES[k], None) for k in
+              ("block_boundary", "non_pow2_padded", "inactive_row")},
+           "window": (2, 4, 4, 2, 8, 4, 6, 16, [16, 12], [12, 8], [4, 4], 6)}
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+@pytest.mark.parametrize("case", DECODE)
+def test_paged_attention_bf16_plain_matches_pallas(kind, case):
+    (q, kp, vp, bt, ppos, qpos), window = _decode_inputs(case)
+    k, v, skw = _store(kind, kp, vp)
+    qb = torch.as_tensor(q).to(BF)
+    want = jops.paged_attention(
+        _to_jax(qb), _to_jax(k), _to_jax(v), jnp.asarray(bt),
+        jnp.asarray(ppos), jnp.asarray(qpos), window=window, interpret=True,
+        **{n: _to_jax(s) for n, s in skw.items()})
+    got = ops.paged_attention(qb, k, v, torch.as_tensor(bt),
+                              torch.as_tensor(ppos), torch.as_tensor(qpos),
+                              window=window, **skw)
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("kind", STORE_KINDS)
+@pytest.mark.parametrize("case", sorted(PREFILL))
+def test_paged_prefill_bf16_plain_matches_pallas(kind, case):
+    b, lq, h, hkv, dh, bs, mb, p, lens, qs, ql, window = PREFILL[case]
+    rng = np.random.default_rng(0)
+    kp, vp, bt, ppos = build_pool(rng, lens, num_blocks=p, block_size=bs,
+                                  max_blocks=mb, hkv=hkv, dh=dh)
+    k, v, skw = _store(kind, kp, vp)
+    qb = torch.as_tensor(rng.standard_normal((b, lq, h, dh),
+                                             np.float32)).to(BF)
+    qs, ql = np.asarray(qs, np.int32), np.asarray(ql, np.int32)
+    want = jops.paged_prefill_attention(
+        _to_jax(qb), _to_jax(k), _to_jax(v), jnp.asarray(bt),
+        jnp.asarray(ppos), jnp.asarray(qs), jnp.asarray(ql), window=window,
+        interpret=True, **{n: _to_jax(s) for n, s in skw.items()})
+    got = ops.paged_prefill_attention(
+        qb, k, v, torch.as_tensor(bt), torch.as_tensor(ppos),
+        torch.as_tensor(qs), torch.as_tensor(ql), window=window, **skw)
+    _assert_bf16_close(got, want)
+
+
+# (B, C, H, Hkv, Dh, slot positions, q_pos, window): a wrapped ring, a
+# window, a window that leaves the query no slot
+DECODE_RING = {
+    "wrapped": (3, 12, 8, 2, 16, list(range(12, 20)) + list(range(8, 12)),
+                19, None),
+    "window": (2, 10, 4, 1, 32, list(range(10)), 9, 4),
+    "blind": (2, 10, 6, 2, 16, list(range(6)) + [-1] * 4, 20, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_RING))
+def test_decode_attention_bf16_plain_matches_pallas(case):
+    b, c, h, hkv, dh, pos, qp, window = DECODE_RING[case]
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s, np.float32)).to(BF)
+               for s in ((b, 1, h, dh), (b, c, hkv, dh), (b, c, hkv, dh)))
+    sp = np.asarray(pos, np.int32)
+    want = jops.decode_attention(_to_jax(q), _to_jax(k), _to_jax(v),
+                                 jnp.asarray(sp), q_pos=qp, window=window,
+                                 interpret=True)
+    got = ops.decode_attention(q, k, v, torch.as_tensor(sp), q_pos=qp,
+                               window=window)
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("f", [1100, 512])
+@pytest.mark.parametrize("exit_ln", [True, False])
+@pytest.mark.parametrize("entry", ["rms", "ln", None])
+def test_demux_rsa_bf16_plain_matches_pallas(entry, exit_ln, f):
+    """The kernel's rounding points (the port's ``demux_rsa_fused_ref``
+    in bf16); the reference's oracle ``kernels/ref.py::demux_rsa_fused_ref``
+    rounds elsewhere and differs from the kernel by up to a bf16 ulp."""
+    t, n, d = 4, 2, 64
+    rng = np.random.default_rng(2)
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    h = r(t, d) + (3.0 if entry == "ln" else 0.0)
+    args = [h, r(n, d), r(d, f, s=0.05), r(d, f, s=0.05), r(f, s=0.1),
+            r(f, d, s=0.05), r(d, s=0.1)]
+    norms = {}
+    if entry:
+        norms.update(entry_kind=entry, entry_scale=r(d, s=0.1))
+    if entry == "ln":
+        norms["entry_bias"] = r(d, s=0.1)
+    if exit_ln:
+        norms.update(exit_scale=r(d, s=0.1) + 1.0, exit_bias=r(d, s=0.1))
+    tb = [torch.as_tensor(a).to(BF) for a in args]      # fp32 norm params
+    want = pallas_demux_rsa(
+        *map(_to_jax, tb), interpret=True,
+        **{k: x if isinstance(x, str) else jnp.asarray(x)
+           for k, x in norms.items()})
+    got = ops.demux_rsa(*tb, **{k: x if isinstance(x, str)
+                                else torch.as_tensor(x)
+                                for k, x in norms.items()})
+    _assert_bf16_close(got, want)
+
+
+# ------------------------------------------------------ (b) byte accounting
+
+@pytest.mark.parametrize("kv_dtype", [None, *tq.KV_DTYPES])
+def test_bf16_byte_accounting_equals_reference(kv_dtype):
+    """Pages default to the compute dtype: bf16, 28784 bytes a token at
+    full-width qwen2-1.5b; gemma-2b's too."""
+    for arch in ("qwen2-1.5b", "gemma-2b"):
+        for reduced in (False, True):
+            _accounting(arch, reduced, kv_dtype)
+
+
+def _accounting(arch, reduced, kv_dtype):
+    sc = engine.ServeConfig(cfg=get_config(arch, reduced=reduced),
+                            mux=MuxSpec(n=2), capacity=124,
+                            cache_layout="paged", block_size=16,
+                            kv_dtype=kv_dtype)
+    sc_r = ref_engine.ServeConfig(
+        cfg=ref_config(arch, reduced=reduced), kind="lm", mux=RefMux(n=2),
+        capacity=124, cache_layout="paged", block_size=16,
+        kv_dtype=kv_dtype)
+    assert sc.dtype == BF and sc_r.dtype == jnp.bfloat16
+    assert sc.page_dtype.itemsize == jnp.dtype(sc_r.page_dtype).itemsize
+    assert sc.kv_quant == sc_r.kv_quant
+    assert sc.kv_bytes_per_token() == sc_r.kv_bytes_per_token()
+    assert sc.pool_bytes(8) == sc_r.pool_bytes(8)
+    cache = engine.init_cache(sc, 8, device="meta")
+    assert cache["layers"][0]["kp"].dtype == sc.page_dtype
+    held = sum(x.numel() * x.element_size() for lc in cache["layers"]
+               for key, x in lc.items() if key != "bt")
+    assert held == sc.pool_bytes(8)
+    if kv_dtype in (None, "bf16"):
+        assert sc.page_dtype == BF
+    if arch == "qwen2-1.5b" and not reduced and kv_dtype in (None, "bf16"):
+        assert sc.kv_bytes_per_token() == 28 * (2 * 2 * 128 * 2 + 4) \
+            == 28784
+    ring = engine.init_cache(dataclasses.replace(sc, cache_layout="ring"), 8,
+                             device="meta")
+    assert ring["layers"][0]["k"].dtype == BF
+
+
+@pytest.mark.parametrize("kind", tq.KV_DTYPES)
+def test_paged_write_of_bf16_kv_bit_equal_reference(kind):
+    """bf16 K/V (the compute dtype's) written into fp32, bf16, int8 and fp8
+    pages: payloads, scales and slot positions bit for bit the
+    reference's (int8 / fp8 quantize from the bf16 values widened to
+    fp32, as the reference's ``quantize_kv``)."""
+    from repro.core import quant as rq
+    from repro.serve import kvpool as ref_kvpool
+    from repro_torch.serve import kvpool
+    rng = np.random.default_rng(12)
+    quant = kind if kind in tq.KV_QUANT_KINDS else None
+    ref = ref_kvpool.init_pages(6, 4, 2, 8, rq.kv_store_dtype(kind),
+                                quant=quant)
+    port = kvpool.init_pages(6, 4, 2, 8, tq.kv_store_dtype(kind), quant,
+                             device="cpu")
+    bt = np.asarray([[1, 3, -1], [2, 4, 5]], np.int32)
+    ref["bt"], port["bt"] = jnp.asarray(bt), torch.from_numpy(bt)
+    pos = np.asarray([[0, 1, 2, 3, 4, -1], [0, 1, 2, 3, 4, 5]], np.int32)
+    k, v = (torch.as_tensor(rng.standard_normal((2, 6, 2, 8)) * 3,
+                            dtype=torch.float32).to(BF) for _ in range(2))
+    ref = ref_kvpool.paged_write(ref, _to_jax(k), _to_jax(v),
+                                 jnp.asarray(pos))
+    kvpool.paged_write(port, k, v, torch.from_numpy(pos))
+    carried = interop.pages_from_reference(ref, device="cpu")
+    for key in ("kp", "vp", "ksc", "vsc", "ppos"):
+        if key not in port:
+            continue
+        a, b = port[key][1:], carried[key][1:]
+        assert a.dtype == b.dtype, key
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+            a.element_size()]
+        assert torch.equal(a.view(view), b.view(view)), key
+
+
+def test_greedy_takes_the_first_of_tied_bf16_logits():
+    """Greedy sampling over bf16 logits: the argmax, the first index of
+    tied maxima, as the reference's ``jnp.argmax``; temperature sampling
+    widens to fp32 first."""
+    from repro.serve import sampling as ref_sampling
+    from repro_torch.serve import sampling
+    logits = torch.tensor([[0.5, 1.0, 1.0, -2.0], [3.0, 3.0, 3.0, 3.0],
+                           [-1.0, -0.5, -0.5, -0.25]]).to(BF)
+    want = np.asarray(ref_sampling.greedy(_to_jax(logits)))
+    got = sampling.greedy(logits)
+    assert got.tolist() == want.tolist() == [1, 0, 3]
+    out = sampling.sample(logits, np.asarray([0.0, 0.7, 0.0]),
+                          np.asarray([0, 2, 0]), np.asarray([1.0] * 3),
+                          np.asarray([0, 1, 2]), np.asarray([0, 0, 0]))
+    assert out[0].item() == 1 and out[2].item() == 3 and out[1].item() < 4
+
+
+# ------------------------------------------------------- (c) logits
+
+# Teacher-forced logits, bf16 on both sides: PyTorch rounds every eager op
+# to bf16 where XLA may fuse an elementwise chain in fp32 and round once,
+# so the two hidden states part by a bf16 ulp here and there; the logits
+# (magnitude < 1) measured at most 5.5e-3 apart over these cases, under
+# one bf16 ulp at 1 (2**-7 = 7.8e-3).  LOGIT_TOL is twice that measure.
+LOGIT_TOL = dict(atol=1e-2, rtol=0)
+# reduced gemma-2b at d_model 96, where sqrt(d) rounds in bf16
+DENSE = [("qwen2-1.5b", None), ("gemma-2b", 96)]
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch, n, d_model=None, seed=0):
+    """(reference config, port config, reference params, port params);
+    cached: no test changes them."""
+    cfg_r, cfg = ref_config(arch, reduced=True), get_config(arch,
+                                                            reduced=True)
+    if d_model:
+        cfg_r, cfg = cfg_r.replace(d_model=d_model), cfg.replace(
+            d_model=d_model)
+    ref = jax.tree.map(np.asarray, RefLM.init(jax.random.PRNGKey(seed),
+                                              cfg_r, RefMux(n=n)))
+    return cfg_r, cfg, ref, interop.params_from_reference(ref, cfg,
+                                                          device="cpu")
+
+
+def _close(got, want):
+    assert got.dtype == BF
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("arch,d_model", DENSE)
+def test_paged_bf16_logits_match_reference(arch, d_model, use_kernels):
+    """Three chunks and a decode step over default (bf16) pages, N=2."""
+    n, rows = 2, 3
+    cfg_r, cfg, ref, port = _models(arch, n, d_model)
+    sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
+                                  capacity=40, cache_layout="paged",
+                                  block_size=4)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=40,
+                            cache_layout="paged", block_size=4)
+    cache_r, cache = ref_engine.init_cache(sc_r, n * rows), \
+        engine.init_cache(sc, n * rows, device="cpu")
+    assert cache["layers"][0]["kp"].dtype == BF
+    pool = ref_engine.make_pool(sc_r, n * rows)
+    pool.allocate(0, 30)
+    pool.allocate(1, 21)
+    tables = pool.table_array(range(rows))
+    cache_r = ref_engine.set_block_tables(cache_r, tables)
+    engine.set_block_tables(cache, tables)
+    rng = np.random.default_rng(n)
+    for row, start, length in [(0, 0, 6), (0, 6, 8), (1, 0, 5)]:
+        toks = rng.integers(4, 512, size=(n, 8)).astype(np.int32)
+        want, cache_r = ref_engine.prefill_chunk(
+            ref, sc_r, cache_r, jnp.asarray(toks), rows=jnp.asarray([row]),
+            start=start, length=length, use_kernels=use_kernels)
+        got, _ = engine.prefill_chunk(port, sc, cache, torch.as_tensor(toks),
+                                      rows=[row], start=start, length=length,
+                                      use_kernels=use_kernels)
+        _close(got, want)
+    toks = rng.integers(4, 512, size=(n * rows, 1)).astype(np.int32)
+    pos = np.asarray([14, 5, -1], np.int32)
+    want, _ = ref_engine.decode_step(ref, sc_r, cache_r, jnp.asarray(toks),
+                                     jnp.asarray(pos),
+                                     use_kernels=use_kernels)
+    got, _ = engine.decode_step(port, sc, cache, torch.as_tensor(toks),
+                                torch.as_tensor(pos), use_kernels=use_kernels)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+@pytest.mark.parametrize("arch,d_model", DENSE)
+def test_ring_bf16_logits_match_reference(arch, d_model, impl):
+    """A blocking prefill (naive or chunked attention, the plain path on
+    both sides) into a bf16 ring, then decode steps on the plain and the
+    kernel path, N=2."""
+    n = 2
+    cfg_r, cfg, ref, port = _models(arch, n, d_model)
+    cfg_r, cfg = cfg_r.replace(attn_impl=impl), cfg.replace(attn_impl=impl)
+    sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
+                                  capacity=16)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=16)
+    toks = np.random.default_rng(4).integers(4, 512, (2 * n, 13)).astype(
+        np.int32)
+    cache_r = ref_engine.init_cache(sc_r, 2 * n)
+    cache = engine.init_cache(sc, 2 * n, device="cpu")
+    assert cache["layers"][0]["k"].dtype == BF
+    want, cache_r = ref_engine.prefill(ref, sc_r, cache_r,
+                                       jnp.asarray(toks[:, :10]))
+    got, _ = engine.prefill(port, sc, cache, torch.as_tensor(toks[:, :10]))
+    _close(got, want)
+    for t in range(10, 13):
+        uk = t % 2 == 1
+        want, cache_r = ref_engine.decode_step(
+            ref, sc_r, cache_r, jnp.asarray(toks[:, t:t + 1]), t,
+            use_kernels=uk)
+        got, _ = engine.decode_step(port, sc, cache,
+                                    torch.as_tensor(toks[:, t:t + 1]), t,
+                                    use_kernels=uk)
+        _close(got, want)
+
+
+def test_embedding_scale_rounds_to_the_dtype():
+    """sqrt(d) is applied as its bf16 value, as the reference's
+    ``jnp.asarray(sqrt(d), dtype)``: 9.8125 at d 96 (the reduced gemma-2b
+    of the logits tests above), 45.25 at gemma-2b's 2048, 55.5 at
+    gemma-7b's 3072; exact at the reduced d 64."""
+    from repro_torch.nn.layers import rounded
+    assert [rounded(d ** 0.5, BF) for d in (96, 2048, 3072, 64)] == \
+        [9.8125, 45.25, 55.5, 8.0]
+    assert [float(jnp.asarray(d ** 0.5, jnp.bfloat16))
+            for d in (96, 2048, 3072, 64)] == [9.8125, 45.25, 55.5, 8.0]
+    assert rounded(d_fp := 128 ** -0.5, torch.float32) == float(
+        np.float32(d_fp))
+
+
+# ------------------------------------------------------- (d) greedy serving
+
+def _churn(n_req=5, seed=0):
+    rng = np.random.default_rng(seed)
+    lens, news, steps = [13, 1, 20, 8, 11], [6, 4, 3, 7, 5], [0, 0, 1, 3, 4]
+    return [(s, rng.integers(4, 512, size=(k,)).tolist(), m)
+            for s, k, m in zip(steps, lens[:n_req], news[:n_req])]
+
+
+def _tokens(stats):
+    return {r.uid: list(r.output) for r in stats["completed"]}
+
+
+def _agreement(a, b):
+    """Positions where two runs' greedy tokens agree, and all positions."""
+    same = sum(x == y for uid in a for x, y in zip(a[uid], b[uid]))
+    return same, sum(len(v) for v in a.values())
+
+
+# The reference's own agreement between its bf16 and its fp32 greedy run
+# of each trace below (positions agreeing, all positions), measured with
+# the reference alone: the floor the port's bf16 run is held to against
+# the reference's bf16 run.  ROADMAP records 46 of 48 on another trace.
+REF_BF16_VS_FP32 = {
+    ("qwen2-1.5b", "paged-chunked"): (20, 20),
+    ("qwen2-1.5b", "paged-blocking"): (20, 20),
+    ("qwen2-1.5b", "ring"): (13, 13),
+    ("gemma-2b", "paged-chunked"): (18, 20),
+    ("gemma-2b", "paged-blocking"): (18, 20),
+    ("gemma-2b", "ring"): (13, 13),
+}
+
+
+@pytest.mark.parametrize("arm", ["paged-chunked", "paged-blocking", "ring"])
+@pytest.mark.parametrize("arch,d_model", DENSE)
+def test_bf16_greedy_agreement_with_reference(arch, d_model, arm):
+    """The port's bf16 greedy tokens on a churn trace, N=2, agree with the
+    reference's bf16 tokens at least as often as the reference's bf16
+    tokens agree with its own fp32 run (``REF_BF16_VS_FP32``; measured,
+    the port: every token but one of gemma-2b's paged arms, 19 of 20)."""
+    n, rows = 2, 2
+    layout = "ring" if arm == "ring" else "paged"
+    cfg_r, cfg, ref, port = _models(arch, n, d_model, seed=3)
+    kw = dict(capacity=48 if layout == "paged" else 24, cache_layout=layout,
+              block_size=4)
+    sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
+                                  **kw)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), **kw)
+    run_kw = {}
+    if layout == "paged":
+        run_kw = dict(chunk=8, prefill_mode=arm.split("-")[1])
+    arrivals = _churn(n_req=4 if layout == "paged" else 3)
+    want = _tokens(ref_run_continuous(ref, sc_r, rows, arrivals, **run_kw))
+    got = _tokens(cli.run_continuous(port, sc, rows, arrivals,
+                                     use_kernels=False, device="cpu",
+                                     **run_kw))
+    assert got.keys() == want.keys()
+    floor, total = REF_BF16_VS_FP32[arch, arm]
+    same, n_tok = _agreement(got, want)
+    assert n_tok == total and same >= floor, (same, floor, total)
+
+
+# ------------------------------------------------------- (e) refusals
+
+def test_bf16_refuses_what_waits_for_the_next_slice():
+    mux = MuxSpec(n=2)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        engine.ServeConfig(cfg=get_config("whisper-small", reduced=True),
+                           mux=mux, capacity=16, kind="encdec")
+    with pytest.raises(NotImplementedError, match="RWKV.*item 21"):
+        engine.ServeConfig(cfg=get_config("rwkv6-7b", reduced=True), mux=mux,
+                           capacity=16)
+    flash = get_config("qwen2-1.5b", reduced=True).replace(attn_impl="flash")
+    with pytest.raises(NotImplementedError, match="flash.*item 21"):
+        engine.ServeConfig(cfg=flash, mux=mux, capacity=16)
+    params = TransformerLM.init(torch.Generator().manual_seed(0), flash, mux)
+    with pytest.raises(NotImplementedError, match="flash.*item 21"):
+        TransformerLM.apply(params, flash, torch.zeros((2, 4),
+                                                       dtype=torch.long),
+                            mux=mux)
+    with pytest.raises(ValueError, match="compute dtype"):
+        engine.ServeConfig(cfg=flash, mux=mux, capacity=16,
+                           dtype=torch.float16)
+    for cfg, kind in ((flash, "lm"),
+                      (get_config("whisper-small", reduced=True), "encdec"),
+                      (get_config("rwkv6-7b", reduced=True), "lm")):
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=16, kind=kind,
+                                dtype=torch.float32)
+        assert sc.page_dtype == torch.float32
+
+
+def test_reference_bf16_plain_path_fails_on_fp32_pages():
+    """The reference's plain path under bf16 over fp32 (or dequantized)
+    pages: its attention promotes to fp32 and ``lax.scan`` refuses the
+    layer's fp32 residual (ROADMAP §3).  The port's plain path returns
+    the attention in the compute dtype, as the kernels write it, and
+    stays within ``LOGIT_TOL`` of the reference's kernel path there."""
+    n = 2
+    cfg_r, cfg, ref, port = _models("qwen2-1.5b", n)
+    kw = dict(capacity=24, cache_layout="paged", block_size=4,
+              kv_dtype="int8")
+    sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=n),
+                                  **kw)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), **kw)
+    toks = np.random.default_rng(6).integers(4, 512, (n, 8)).astype(
+        np.int32)
+
+    def caches():
+        pool = ref_engine.make_pool(sc_r, n)
+        pool.allocate(0, 8)
+        tables = pool.table_array(range(1))
+        cache = engine.init_cache(sc, n, device="cpu")
+        engine.set_block_tables(cache, tables)
+        return ref_engine.set_block_tables(ref_engine.init_cache(sc_r, n),
+                                           tables), cache
+    cache_r, cache = caches()
+    with pytest.raises(TypeError, match="carry"):
+        ref_engine.prefill_chunk(ref, sc_r, cache_r, jnp.asarray(toks),
+                                 rows=jnp.asarray([0]), start=0, length=8,
+                                 use_kernels=False)
+    cache_r, _ = caches()
+    want, _ = ref_engine.prefill_chunk(ref, sc_r, cache_r, jnp.asarray(toks),
+                                       rows=jnp.asarray([0]), start=0,
+                                       length=8, use_kernels=True)
+    got, _ = engine.prefill_chunk(port, sc, cache, torch.as_tensor(toks),
+                                  rows=[0], start=0, length=8,
+                                  use_kernels=False)
+    _close(got, want)

@@ -480,7 +480,8 @@ def test_ring_decode_logits_match_reference(use_kernels):
                         cache=cache_r, dtype=jnp.float32)
     cache = TransformerLM.init_cache(cfg, 2, 12, device="cpu")
     out = TransformerLM.apply(port, cfg, torch.as_tensor(toks[:, :10]),
-                              mux=mux, cache=cache, use_kernels=False)
+                              mux=mux, cache=cache, dtype=torch.float32,
+                              use_kernels=False)
     np.testing.assert_allclose(out["logits"].numpy(),
                                np.asarray(out_r["logits"]), **TOL)
     cache_r = out_r["cache"]
@@ -495,6 +496,7 @@ def test_ring_decode_logits_match_reference(use_kernels):
             got = TransformerLM.apply(port, cfg, torch.as_tensor(toks[:, t:
                                                                       t + 1]),
                                       mux=mux, cache=c, q_offset=t,
+                                      dtype=torch.float32,
                                       use_kernels=use_kernels)
             np.testing.assert_allclose(got["logits"].numpy(),
                                        np.asarray(want["logits"]), **TOL)
@@ -527,7 +529,8 @@ def test_blocking_prefill_logits_match_reference(impl, layout):
                                   capacity=24, dtype=jnp.float32,
                                   cache_layout=layout, block_size=4)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=24,
-                            cache_layout=layout, block_size=4)
+                            dtype=torch.float32, cache_layout=layout,
+                            block_size=4)
     cache_r = ref_engine.init_cache(sc_r, 2 * n)
     cache = engine.init_cache(sc, 2 * n, device="cpu")
     kw = {}
@@ -676,8 +679,8 @@ def test_decode_attention_replays_under_graph_capture_on_card(cuda):
         assert torch.equal(out, first)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,c,h,hkv,dh,written,q_pos,causal,window", [
+DECODE_CARD_SHAPES = dict(argnames="b,c,h,hkv,dh,written,q_pos,causal,window",
+                          argvalues=[
     (4, 124, 12, 2, 128, 117, 116, True, None),   # the ring decode, 4 splits
     (4, 1500, 12, 12, 64, 1500, 0, False, None),  # whisper's cross decode
     (2, 90, 16, 1, 256, 100, 99, True, None),     # G = 16, Dh = 256
@@ -686,6 +689,10 @@ def test_decode_attention_replays_under_graph_capture_on_card(cuda):
     (4, 124, 16, 16, 256, 117, 116, True, None),  # gemma-7b: MHA at Dh 256
 ], ids=["ring", "whisper_cross", "g16_dh256", "g16_dh256_blind",
         "h2o_dh80_window", "gemma7b_mha_dh256"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(**DECODE_CARD_SHAPES)
 def test_decode_attention_limits_and_repeats_on_card(cuda, b, c, h, hkv, dh,
                                                      written, q_pos, causal,
                                                      window):
@@ -709,14 +716,71 @@ def test_decode_attention_limits_and_repeats_on_card(cuda, b, c, h, hkv, dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(**DECODE_CARD_SHAPES)
+def test_decode_attention_bf16_on_card(cuda, b, c, h, hkv, dh, written,
+                                       q_pos, causal, window):
+    """bf16 q and ring (the compute dtype's): the kernel against its plain
+    version (widened, fp32 attention, one rounding) within a bf16 ulp of
+    each row's largest value, and bit for bit over repeats."""
+    rng = np.random.default_rng(dh + c)
+    q, k, v, pos = (x.to(torch.bfloat16) if x.is_floating_point() else x
+                    for x in _ring_inputs(cuda, rng, b, c, h, hkv, dh,
+                                          written))
+    if not causal:
+        pos = torch.arange(c, dtype=torch.int32, device=cuda)
+    kw = dict(q_pos=q_pos, causal=causal, window=window)
+    got = ops.decode_attention(q, k, v, pos, **kw)
+    want = ref.decode_attention_ref(q, k, v, pos, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2.0 ** -7 * want.float().abs().amax(
+        -1, keepdim=True)).all()), err.max().item()
+    for _ in range(2):
+        assert torch.equal(ops.decode_attention(q, k, v, pos, **kw), got)
+
+
+@pytest.mark.cuda
+def test_decode_attention_bf16_replays_under_graph_capture_on_card(cuda):
+    """The bf16 ring decode captured in a CUDA graph, q_pos in a device
+    tensor: replays after q, the slot positions and q_pos are overwritten
+    equal an eager call at the new position, bit for bit."""
+    rng = np.random.default_rng(13)
+    q, k, v, pos = (x.to(torch.bfloat16) if x.is_floating_point() else x
+                    for x in _ring_inputs(cuda, rng, 4, 124, 12, 2, 128,
+                                          117))
+    qp = torch.tensor(116, dtype=torch.int32, device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(2):
+            ops.decode_attention(q, k, v, pos, q_pos=qp)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, pos, q_pos=qp)
+    for written in (117, 130, 140):
+        q.copy_(torch.as_tensor(rng.standard_normal(q.shape, np.float32),
+                                device=cuda).to(torch.bfloat16))
+        pos.copy_(torch.as_tensor(ring_positions(124, written), device=cuda))
+        qp.fill_(written - 1)
+        graph.replay()
+        assert torch.equal(out, ops.decode_attention(q, k, v, pos,
+                                                     q_pos=written - 1))
+
+
+@pytest.mark.cuda
 def test_dense_kernels_reject_other_dtypes_on_card(cuda):
     q = torch.zeros(1, 4, 4, 16, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 2, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="fp32"):
         ops.flash_attention(q, k, k)
     pos = torch.arange(4, device=cuda, dtype=torch.int32)
-    with pytest.raises(ValueError, match="fp32"):
-        ops.decode_attention(q[:, :1], k, k, pos, q_pos=3)
+    # decode_attention takes fp32 or bf16, one dtype for q and the cache
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.decode_attention(q[:, :1].half(), k.half(), k.half(), pos,
+                             q_pos=3)
+    with pytest.raises(ValueError, match="q's dtype"):
+        ops.decode_attention(q[:, :1], k.float(), k.float(), pos, q_pos=3)
     qf, kf = q[:, :1].float(), k.float()
     for bad in (torch.tensor(3.0, device=cuda), torch.tensor([3], device=cuda),
                 torch.tensor(3)):

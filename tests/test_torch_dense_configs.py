@@ -112,7 +112,8 @@ def _paged_steps(arch, use_kernels):
     kw = dict(capacity=40, cache_layout="paged", block_size=4)
     sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=N),
                                   dtype=jnp.float32, **kw)
-    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), **kw)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), dtype=torch.float32,
+                            **kw)
     rows = 3
     cache_r = ref_engine.init_cache(sc_r, N * rows)
     cache = engine.init_cache(sc, N * rows, device="cpu")
@@ -166,7 +167,8 @@ def test_blocking_prefill_and_ring_decode_match_reference(arch, impl,
     cfg_r, ref, cfg, port = _ref_params(arch, impl=impl)
     sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=N),
                                   capacity=24, dtype=jnp.float32)
-    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), capacity=24)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), capacity=24,
+                            dtype=torch.float32)
     toks = np.random.default_rng(2).integers(4, 512, (2 * N, 20)).astype(
         np.int32)
     cache_r = ref_engine.init_cache(sc_r, 2 * N)
@@ -210,7 +212,8 @@ def test_greedy_arms_token_identical(arch, arm):
     kw = dict(capacity=40, cache_layout=layout, block_size=4)
     sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="lm", mux=RefMux(n=N),
                                   dtype=jnp.float32, **kw)
-    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), **kw)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=N), dtype=torch.float32,
+                            **kw)
     if arm == "fill-drain":
         rng = np.random.default_rng(5)
         prompts = [rng.integers(4, 512, 12).astype(np.int32)

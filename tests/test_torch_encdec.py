@@ -62,7 +62,7 @@ def _pair(n=2, impl="auto", capacity=20):
     sc_r = ref_engine.ServeConfig(cfg=cfg_r, kind="encdec", mux=RefMux(n=n),
                                   capacity=capacity, dtype=jnp.float32)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=capacity,
-                            kind="encdec")
+                            dtype=torch.float32, kind="encdec")
     return ref, port, sc_r, sc
 
 
@@ -278,7 +278,8 @@ def test_paged_layout_and_continuous_serving_refused():
     with pytest.raises(NotImplementedError):
         ref_engine.init_cache(sc_pr, 4)
     sc_p = engine.ServeConfig(cfg=sc.cfg, mux=sc.mux, capacity=20,
-                              cache_layout="paged", kind="encdec")
+                              dtype=torch.float32, cache_layout="paged",
+                              kind="encdec")
     with pytest.raises(NotImplementedError, match="decoder-only"):
         engine.init_cache(sc_p, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="decoder-only"):

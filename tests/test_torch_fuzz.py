@@ -80,7 +80,8 @@ def models():
 
 def _sc(cfg, n=1, layout="paged", **kw):
     return engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=CAPACITY,
-                              cache_layout=layout, block_size=BLOCK, **kw)
+                              dtype=torch.float32, cache_layout=layout,
+                              block_size=BLOCK, **kw)
 
 
 def _sc_ref(cfg_r, n=1, layout="paged", **kw):

@@ -59,6 +59,8 @@ import torch
 
 from repro_torch.core import quant as tq
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.demux_rsa import F_TILE
+from repro_torch.kernels.demux_rsa import plan as demux_plan
 
 torch.set_num_threads(2)
 
@@ -1003,6 +1005,139 @@ def test_demux_rsa_is_bitwise_repeatable_on_card(cuda, t, d, f, entry):
     nm = {k: v if isinstance(v, str) else torch.as_tensor(v, device=cuda)
           for k, v in norms.items()}
     assert torch.equal(ops.demux_rsa(*a, **nm), ops.demux_rsa(*a, **nm))
+
+
+# ------------------------------------------------- bf16 (the compute dtype)
+
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
+
+
+def assert_bf16_close(got, want, ulps=1):
+    """Two bf16 results that round fp32 sums taken in different orders:
+    within ``ulps`` bf16 ulps of each row's largest value (a flip at a
+    rounding point moves a row's later values by at most that)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    bound = ulps * BF16_ULP * w.abs().amax(-1, keepdim=True)
+    err = (g - w).abs()
+    assert bool((err <= bound).all()), \
+        f"max {err.max().item()} over {ulps} ulp(s) of the row max"
+
+
+def _bf16_paged(case, kind, cuda, prefill):
+    """A card case's inputs with a bf16 q and pages stored as ``kind``."""
+    if prefill:
+        q, kp, vp, *rest = _prefill_inputs(case)
+        window = _prefill_window(case)
+    else:
+        (q, kp, vp, *rest), window = _decode_inputs(case)
+    ks, vs, sc = _store(kind, kp, vp, cuda)
+    qb = torch.as_tensor(q, device=cuda).to(torch.bfloat16)
+    return qb, ks, vs, _torch(rest, cuda), sc, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_DECODE_CASES))
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_attention_bf16_q_on_card(cuda, kind, case):
+    """bf16 q (and output) over every page storage: the kernel against its
+    plain version (q widened, fp32 attention, one rounding), within a bf16
+    ulp, and bit for bit over two calls."""
+    q, ks, vs, rest, sc, window = _bf16_paged(case, kind, cuda, False)
+    got = ops.paged_attention(q, ks, vs, *rest, window=window, **sc)
+    want = (ref.paged_attention_quant_ref(
+        q, ks, vs, sc["k_scales"], sc["v_scales"], *rest, window=window)
+        if sc else ref.paged_attention_ref(q, ks, vs, *rest, window=window))
+    assert_bf16_close(got, want)
+    assert torch.equal(ops.paged_attention(q, ks, vs, *rest, window=window,
+                                           **sc), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_PREFILL_CASES))
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_prefill_bf16_q_on_card(cuda, kind, case):
+    q, ks, vs, rest, sc, window = _bf16_paged(case, kind, cuda, True)
+    got = ops.paged_prefill_attention(q, ks, vs, *rest, window=window, **sc)
+    want = (ref.paged_prefill_attention_quant_ref(
+        q, ks, vs, sc["k_scales"], sc["v_scales"], *rest, window=window)
+        if sc else ref.paged_prefill_attention_ref(q, ks, vs, *rest,
+                                                   window=window))
+    assert_bf16_close(got, want)
+    assert torch.equal(ops.paged_prefill_attention(q, ks, vs, *rest,
+                                                   window=window, **sc), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STORE_KINDS)
+def test_paged_kernels_bf16_full_width_on_card(cuda, kind):
+    """qwen2-1.5b widths in bf16: decode rows and a 32-token chunk."""
+    rng = np.random.default_rng(1)
+    kp, vp, bt, ppos = build_pool(rng, [117, 100, 37, -1], num_blocks=33,
+                                  block_size=16, max_blocks=8, hkv=2, dh=128)
+    ks, vs, sc = _store(kind, kp, vp, cuda)
+    q = torch.as_tensor(rng.standard_normal((4, 1, 12, 128), np.float32),
+                        device=cuda).to(torch.bfloat16)
+    t = _torch((bt, ppos, np.asarray([116, 99, 36, -1], np.int32)), cuda)
+    assert_bf16_close(ops.paged_attention(q, ks, vs, *t, **sc),
+                      ref.paged_attention_quant_ref(
+                          q, ks, vs, sc["k_scales"], sc["v_scales"], *t)
+                      if sc else ref.paged_attention_ref(q, ks, vs, *t))
+    qc = torch.as_tensor(rng.standard_normal((1, 32, 12, 128), np.float32),
+                         device=cuda).to(torch.bfloat16)
+    t = _torch((bt[:1], ppos, np.asarray([64], np.int32),
+                np.asarray([32], np.int32)), cuda)
+    assert_bf16_close(ops.paged_prefill_attention(qc, ks, vs, *t, **sc),
+                      ref.paged_prefill_attention_quant_ref(
+                          qc, ks, vs, sc["k_scales"], sc["v_scales"], *t)
+                      if sc else ref.paged_prefill_attention_ref(qc, ks, vs,
+                                                                 *t))
+
+
+def _bf16_demux(t, d, f, entry, exit_ln=True, cuda=None):
+    args, norms = _demux_inputs(t, d=d, f=f, entry=entry)
+    a = [torch.as_tensor(x, device=cuda).to(torch.bfloat16) for x in args]
+    nm = {k: v if v is None or isinstance(v, str)
+          else torch.as_tensor(v, device=cuda) for k, v in norms.items()}
+    if not exit_ln:
+        nm.pop("exit_scale"), nm.pop("exit_bias")
+    return a, nm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,f,entry,exit_ln", [
+    (4, 1536, 3072, "rms", True), (32, 1536, 3072, "rms", True),
+    (40, 1536, 3072, "rms", True), (5, 64, 1104, "rms", True),
+    (4, 1536, 3072, "rms", False), (4, 4096, 8192, "ln", True),
+    (32, 768, 1536, None, True)])
+def test_demux_rsa_bf16_on_card(cuda, t, d, f, entry, exit_ln):
+    """bf16 h, keys and weights (fp32 norm params) at qwen2-1.5b's exit
+    (T 4 and 32, two row jobs at 40, without the exit LayerNorm), F not a
+    multiple of the 512-column rounding tile, the LN entry at rwkv6-7b's
+    width, no entry: the kernel against ``demux_rsa_fused_ref`` (the
+    Pallas kernel's rounding points), within two bf16 ulps of the row's
+    largest value (a sum flipped at a rounding point moves later sums),
+    and bit for bit over two calls."""
+    a, nm = _bf16_demux(t, d, f, entry, exit_ln, cuda)
+    got = ops.demux_rsa(*a, **nm)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, t, d)
+    assert_bf16_close(got, ref.demux_rsa_fused_ref(*a, **nm), ulps=2)
+    assert torch.equal(ops.demux_rsa(*a, **nm), got)
+
+
+@pytest.mark.parametrize("t,n,d,f", [(4, 2, 1536, 3072), (32, 2, 1536, 3072),
+                                     (10240, 2, 768, 1536), (4, 2, 64, 1104),
+                                     (4, 2, 4096, 8192), (2048, 10, 768, 64)])
+def test_demux_plan_bf16_slices_lie_in_rounding_tiles(t, n, d, f):
+    """In bf16 the second product's slices of F are powers of two that
+    divide the 512-column tile the output rounds after, cover F once and
+    stay at most 64; the first product's split is fp32's."""
+    p, p32 = demux_plan(t, n, d, f, bf16=True), demux_plan(t, n, d, f)
+    assert F_TILE % p["len2"] == 0 and p["len2"] % 32 == 0
+    assert (p["s2"] - 1) * p["len2"] < f <= p["s2"] * p["len2"] <= f + 511
+    assert p["s2"] <= 64 and p["yp"] == p["s2"] * n * t * d
+    assert {k: p[k] for k in ("s1", "len1", "zp", "st", "g")} == \
+        {k: p32[k] for k in ("s1", "len1", "zp", "st", "g")}
 
 
 def test_kernel_sweep_variants_apply_to_the_sources():

@@ -121,7 +121,8 @@ def _setup(n, kv_dtype=None):
                                   cache_layout="paged", block_size=4,
                                   kv_dtype=kv_dtype)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=40,
-                            cache_layout="paged", block_size=4,
+                            dtype=torch.float32, cache_layout="paged",
+                            block_size=4,
                             kv_dtype=kv_dtype)
     rows = 3
     cache_r = ref_engine.init_cache(sc_r, n * rows)

@@ -143,12 +143,16 @@ def test_paged_write_and_view_bit_equal_reference(kind):
                                       _bits(carried[key][1:]), err_msg=key)
     kr, vr, pr = ref_kvpool.paged_view(ref)
     kt, vt, pt = kvpool.paged_view(port)
-    assert kt.dtype == vt.dtype == torch.float32
+    # the view's dtype is the reference's: bf16 pages as stored, fp32 and
+    # dequantized pages fp32
+    want = torch.bfloat16 if kind == "bf16" else torch.float32
+    assert kt.dtype == vt.dtype == want
+    assert np.dtype(kr.dtype).itemsize == want.itemsize
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pr))
     live = pt.numpy() >= 0
-    np.testing.assert_array_equal(kt.numpy()[live],
+    np.testing.assert_array_equal(kt.float().numpy()[live],
                                   np.asarray(kr, np.float32)[live])
-    np.testing.assert_array_equal(vt.numpy()[live],
+    np.testing.assert_array_equal(vt.float().numpy()[live],
                                   np.asarray(vr, np.float32)[live])
 
 
@@ -159,6 +163,7 @@ def test_byte_accounting_equals_reference(kind):
     for reduced in (False, True):
         sc = engine.ServeConfig(cfg=get_config("qwen2-1.5b", reduced=reduced),
                                 mux=MuxSpec(n=2), capacity=124,
+                                dtype=torch.float32,
                                 cache_layout="paged", block_size=16,
                                 kv_dtype=kind)
         sc_r = RefServeConfig(cfg=ref_config("qwen2-1.5b", reduced=reduced),
@@ -178,7 +183,7 @@ def test_byte_accounting_equals_reference(kind):
     full = {None: 57456, "fp32": 57456, "bf16": 28784, "int8": 14896,
             "fp8": 14896}[kind]
     sc = engine.ServeConfig(cfg=get_config("qwen2-1.5b"), mux=MuxSpec(n=2),
-                            capacity=124, kv_dtype=kind)
+                            capacity=124, dtype=torch.float32, kv_dtype=kind)
     assert sc.kv_bytes_per_token() == full
     assert sc.pool_bytes(8) == 33 * 16 * full
 

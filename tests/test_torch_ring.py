@@ -55,7 +55,8 @@ def _pair(n, layout, capacity, impl="auto"):
                                   capacity=capacity, dtype=jnp.float32,
                                   cache_layout=layout, block_size=4)
     sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), capacity=capacity,
-                            cache_layout=layout, block_size=4)
+                            dtype=torch.float32, cache_layout=layout,
+                            block_size=4)
     return ref, port, sc_r, sc
 
 

@@ -54,7 +54,7 @@ def _pair(n, kv_dtype=None):
                           capacity=CAPACITY, dtype=jnp.float32,
                           cache_layout="paged", block_size=4,
                           kv_dtype=kv_dtype)
-    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n),
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=n), dtype=torch.float32,
                             capacity=CAPACITY, cache_layout="paged",
                             block_size=4, kv_dtype=kv_dtype)
     return ref, port, sc_r, sc
