@@ -60,9 +60,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 widths, each within one bf16 ulp of its row's
                 largest value of its plain version (the demux two), bit
                 for bit over two calls where a repeat is checked, and
-                timed beside the library call in bf16; and the timer's
-                floor, a one-element ``add_`` timed the same way, beside
-                every kernel time;
+                timed beside the library call in bf16; the bf16 rows of
+                phases 6-8's shapes (``BF16_REST_ROWS``): flash attention
+                at whisper-small's encoder and cross-attention (whose
+                keys split over blocks), qwen2-1.5b's causal L 116,
+                gemma-2b's and h2o-danube-1.8b's heads and mux-bert-base's
+                80 rows of 128 and 130, the RWKV6 recurrence at
+                rwkv6-7b's decode and 100-token prefill, head dims 16 and
+                128 and over two halves chained through the state
+                (``out`` within the fp32 tolerance plus one bf16 ulp of
+                the row max, the fp32 state within it), flash-decode at
+                whisper's cross decode, and the LN-entry demux at
+                rwkv6-7b's, whisper-small's and mux-bert-base's exits;
+                and the timer's floor, a one-element ``add_`` timed the
+                same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
                 random seeded weights), mux N=2, chunked prefill, once
                 per page storage (fp32, bf16, int8, fp8) on one trace;
@@ -93,7 +104,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 per prefill); then kernel path against plain path: logits
                 of one prefill and of one decode step from identical
                 states within 2e-3, and the ring arm's greedy tokens
-                identical;
+                identical; then the same weights in bf16
+                (``ServeConfig.dtype``'s default) through both arms with
+                exact launch counts, the prefill's and a decode step's
+                logits from identical states against the same model with
+                the wrappers at their plain versions within
+                ``BF16_LOGIT_ULPS`` bf16 ulps of |logits| max, greedy
+                agreement with the fp32 run and with those plain
+                versions printed;
   7. whisper  — the rwkv6-7b weights freed, full-width whisper-small (12
                 encoder and 12 decoder layers, d 768, random seeded
                 weights, ``attn_impl='flash'``) serves the same trace in
@@ -106,6 +124,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 once per step); then kernel path against plain path:
                 logits of the prefill and of one decode step from
                 identical caches within 2e-3, greedy tokens identical;
+                then the same weights in bf16, the reference's default,
+                held as phase 6's bf16 pass holds rwkv6-7b (launch counts
+                exact, logits within ``BF16_LOGIT_ULPS``, greedy
+                agreement printed);
   8. bert     — the whisper-small weights freed, full-width mux-bert-base
                 (12 layers, d 768, 12 heads of 64, d_ff 3072, vocab
                 30522, 512 positions; random seeded weights with the
@@ -127,7 +149,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 limit (no claim rests on them), then one more N=2 call
                 under ``torch.profiler``: its device busy time, idle
                 share and device time by kernel group (matmuls, demux,
-                flash, entry, other);
+                flash, entry, other); then ``dtype=torch.bfloat16``: one
+                N=2 Gaussian / RSA ``hidden`` with exact launch counts,
+                the four heads against the wrappers' plain versions
+                within ``BF16_LOGIT_ULPS`` (the MLM argmax agreement
+                printed), and instances per second at N = 1, 2, 5, 10
+                beside fp32's;
   9. dense    — the mux-bert-base weights freed, full-width gemma-2b,
                 h2o-danube-1.8b and gemma-7b (seeded random weights,
                 one at a time, each freed before the next) serve the
@@ -165,8 +192,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 those plain versions, the plain model path and phase 4's
                 fp32 run printed, and the near ties behind them (top-2
                 logit gaps, teacher-forced over the prompts); one
-                call of each bf16 kernel under ``torch.profiler`` shows
-                only its own source's bf16 kernels (no cast); decode and
+                call of each bf16 kernel (flash attention and RWKV6 too)
+                under ``torch.profiler`` shows only its own source's bf16
+                kernels (no cast); decode and
                 chunk p50, tok/s, ``torch.cuda.max_memory_allocated`` and
                 the card's name and power limit.
 The kernels' JSON line lists every kernel of phases 3-10 and the timer
@@ -209,6 +237,8 @@ LOGIT_TOL = 2e-3           # 28 fp32 layers, two summation orders
 # difference of cumulative sums, the kernel one exp per token
 RWKV_TOL = {"atol": 5e-4, "rtol": 1e-3}
 RWKV_TOL_TEXT = "atol 5e-4 + rtol 1e-3 * |want|"
+RWKV_BF16_TEXT = ("out: that + 1 bf16 ulp of the row max; sT: "
+                  + RWKV_TOL_TEXT)
 BF16_REL = 2.0 ** -8       # bf16 half-ulp relative rounding error
 BF16_ULP = 2.0 ** -7       # one bf16 ulp, relative
 # phase 10: the bf16 kernel path against the same model with the wrappers at
@@ -1235,6 +1265,7 @@ def phase_kernels(torch, timer):
 
     bf16_kernels(torch, timer, record, pool, sdpa, store, ring_pos, visible,
                  decode_cases[0], prefill_cases[0])
+    bf16_rest_kernels(torch, timer, record, visible)
     bert_kernels(torch, timer, record)
     torch.cuda.synchronize()
     return out
@@ -1430,6 +1461,230 @@ def bf16_kernels(torch, timer, record, pool, sdpa, store, ring_pos, visible,
                        "library_ms": timer(library),
                        "bound_ms": bms, "bound_by": by, "bytes": nb,
                        "flops": fl + 2 * n * d * f}, share=share)
+
+
+def bf16_rest_kernels(torch, timer, record, visible):
+    """Phase 3's bf16 rows of the flash and RWKV6 kernels and of the
+    encdec, RWKV and MUX-BERT exits, at the shapes phases 6-8 serve in
+    bf16 (``BF16_REST_ROWS``): ``flash_attention`` at whisper-small's
+    encoder (bidirectional L 1500, 12 heads of 64) and cross-attention (Lq
+    100 over 1500, whose keys split over blocks), qwen2-1.5b's causal L
+    116, gemma-2b's heads (Dh 256, 8 over 1), h2o-danube-1.8b's (Dh 80, 32
+    over 8, a window of 64 over L 300) and mux-bert-base's 80 rows of 128
+    and of 130; ``rwkv6_chunked`` at rwkv6-7b's decode and a 100-token
+    prefill (64 heads of 64), at head dims 16 and 128, and over two halves
+    chained through the state; ``decode_attention`` at whisper's cross
+    decode (C 1500, bidirectional); the demux with its LN entry at
+    rwkv6-7b's, whisper-small's and mux-bert-base's exits.  Each against
+    its plain version (widened to fp32, rounded where the Pallas kernel
+    rounds) within one bf16 ulp of each row's largest value (the demux
+    two; RWKV6's below), bit for bit over two
+    calls, timed beside its plain version and the library call in bf16
+    (RWKV6's bf16 ``out`` within ``RWKV_TOL`` plus that ulp: its fp32
+    forms, chunkwise and per token, part within ``RWKV_TOL`` before each
+    rounds).  The bounds price QK^T of bf16 operands at the bf16 tensor-core rate
+    and P.V (an fp32 P) at the fp32-exact one; the recurrence runs on the
+    CUDA cores in fp32."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import demux_rsa as kd
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6 as krw
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rng = np.random.default_rng(37)     # phase 3's other rows keep theirs
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * s).astype(
+            np.float32), device=dev)
+
+    def bq(*shape):
+        return r(*shape).to(bf)
+
+    def timed(kernel, plain, library, nb, fl, bf16_fl=0, work=None):
+        bms, by = bound(nb, fl, bf16_fl)
+        return {**({"work": work} if work else {}), "ms": timer(kernel),
+                "plain_ms": timer(plain), "library_ms": timer(library),
+                "bound_ms": bms, "bound_by": by, "bytes": nb,
+                "flops": fl + bf16_fl}
+
+    wh, q2, g2, h2o = (get_config(a) for a in (
+        "whisper-small", "qwen2-1.5b", "gemma-2b", "h2o-danube-1.8b"))
+    bert = get_config("mux-bert-base")
+    enc = wh.encoder
+    flash_rows = [
+        # (row, case, B, Lq, Lk, H, Hkv, Dh, kwargs)
+        ("flash_attention[bf16]",
+         f"main: whisper enc L={enc.frontend_len} bidir.", 4,
+         enc.frontend_len, enc.frontend_len, enc.n_heads, enc.n_kv_heads,
+         enc.head_dim, dict(causal=False)),
+        ("flash_attention[bf16]",
+         f"whisper cross: Lq 100 x {enc.frontend_len}, split", 4, 100,
+         enc.frontend_len, wh.n_heads, wh.n_kv_heads, wh.head_dim,
+         dict(causal=False)),
+        ("flash_attention[bf16]", "qwen2-1.5b: causal L=116", 4, 116, 116,
+         q2.n_heads, q2.n_kv_heads, q2.head_dim, {}),
+        ("flash_attention[bf16]", "gemma-2b heads: Dh 256, 8 over 1", 4,
+         116, 116, g2.n_heads, g2.n_kv_heads, g2.head_dim, {}),
+        ("flash_attention[bf16]", "h2o heads: Dh 80, 32 over 8, window 64",
+         2, 300, 300, h2o.n_heads, h2o.n_kv_heads, h2o.head_dim,
+         dict(window=64)),
+        ("flash_attention[bf16, bert]", "main: bert B=80, L=128 bidir.",
+         BERT_INSTANCES // 2, BERT_LEN, BERT_LEN, bert.n_heads,
+         bert.n_kv_heads, bert.head_dim, dict(causal=False)),
+        ("flash_attention[bf16, bert]", "bert B=80, L=130 (prefix) bidir.",
+         BERT_INSTANCES // 2, BERT_LEN + 2, BERT_LEN + 2, bert.n_heads,
+         bert.n_kv_heads, bert.head_dim, dict(causal=False)),
+    ]
+    for row, case, b, lq, lk, h, hkv, dh, kw in flash_rows:
+        q, k, v = bq(b, lq, h, dh), bq(b, lk, hkv, dh), bq(b, lk, hkv, dh)
+        if "split" in case:
+            need(kfl.splits(b, lq, lk, h, dh)[0] > 1,
+                 f"{row} [{case}]: the keys do not split")
+        got = kfl.flash_attention_cuda(q, k, v, **kw)
+        need(torch.equal(kfl.flash_attention_cuda(q, k, v, **kw), got),
+             f"{row} [{case}]: a repeat changed the bits")
+        err, share = bf16_share(got, ref.flash_attention_ref(q, k, v, **kw),
+                                1)
+        vis = visible(torch.arange(lq, device=dev),
+                      torch.arange(lk, device=dev), kw.get("causal", True),
+                      kw.get("window"), torch.ones(lk, dtype=torch.bool,
+                                                   device=dev))
+        nb, fl, work = dense_bound(q, k, vis)
+        record(row, f"{case}; {b} rows", err, "1 bf16 ulp of the row max",
+               timed(lambda: kfl.flash_attention_cuda(q, k, v, **kw),
+                     lambda: ref.flash_attention_ref(q, k, v, **kw),
+                     lambda: sdpa_dense(q, k, v, vis), nb, fl // 2, fl // 2,
+                     work), share=share)
+    del q, k, v
+
+    # the ring decode over whisper's cross-K/V: q, K, V and the output bf16
+    q = bq(4, 1, wh.n_heads, wh.head_dim)
+    kc, vc = (bq(4, enc.frontend_len, wh.n_kv_heads, wh.head_dim)
+              for _ in range(2))
+    frames = torch.arange(enc.frontend_len, dtype=torch.int32, device=dev)
+    kw = dict(q_pos=0, causal=False)
+    got = kdec.decode_attention_cuda(q, kc, vc, frames, **kw)
+    need(torch.equal(kdec.decode_attention_cuda(q, kc, vc, frames, **kw),
+                     got), "decode_attention[bf16, whisper]: a repeat "
+         "changed the bits")
+    err, share = bf16_share(got, ref.decode_attention_ref(q, kc, vc, frames,
+                                                          **kw), 1)
+    every = torch.ones(enc.frontend_len, dtype=torch.bool, device=dev)
+    nb, fl, work = dense_bound(q, kc, every[None])
+    nb += enc.frontend_len * 4                            # slot positions
+    record("decode_attention[bf16, whisper]",
+           f"main: cross C={enc.frontend_len} bidir.",
+           err, "1 bf16 ulp of the row max",
+           timed(lambda: kdec.decode_attention_cuda(q, kc, vc, frames, **kw),
+                 lambda: ref.decode_attention_ref(q, kc, vc, frames, **kw),
+                 lambda: sdpa_dense(q, kc, vc, every[None]), nb, fl // 2,
+                 fl // 2, work), share=share)
+    del kc, vc
+
+    # the RWKV6 recurrence: bf16 r, k, v and out; fp32 logw, u and state
+    def rwkv_inputs(b, l, h, hd):
+        shape = (b, l, h, hd)
+        return (bq(*shape), r(*shape, s=0.5).to(bf), bq(*shape),
+                -torch.exp(r(*shape, s=0.5)), r(h, hd, s=0.1),
+                r(b, h, hd, hd, s=0.1))
+
+    def rwkv_check(got, want):
+        """(max abs error, the largest share used): out within RWKV_TOL
+        plus one bf16 ulp of the row max (the fp32 forms part within
+        RWKV_TOL, then each rounds once), sT within RWKV_TOL."""
+        err = share = 0.0
+        for g, w_, ulp in ((got[0].float(), want[0].float(), BF16_ULP),
+                           (got[1], want[1], 0.0)):
+            diff = (g - w_).abs()
+            tol = (RWKV_TOL["atol"] + RWKV_TOL["rtol"] * w_.abs()
+                   + ulp * w_.abs().amax(-1, keepdim=True))
+            err = max(err, diff.max().item())
+            share = max(share, (diff / tol).max().item())
+        need(got[0].dtype == want[0].dtype == bf
+             and got[1].dtype == want[1].dtype == torch.float32,
+             "rwkv6_chunked[bf16]: bf16 out and fp32 sT expected")
+        return err, share
+    heads = get_config("rwkv6-7b").rwkv_heads
+    hd64 = get_config("rwkv6-7b").d_model // heads
+    for case, b, l, h, hd in [("main: decode L=1", 4, 1, heads, hd64),
+                              ("main: prefill L=100", 4, 100, heads, hd64),
+                              ("edge: hd=16", 4, 100, 256, 16),
+                              ("edge: hd=128", 4, 100, 32, 128)]:
+        a = rwkv_inputs(b, l, h, hd)
+        got = krw.rwkv6_cuda(*a)
+        again = krw.rwkv6_cuda(*a)
+        need(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+             f"rwkv6_chunked[bf16] [{case}]: a repeat changed the bits")
+        err_o, share_o = rwkv_check(got, krw.rwkv6_ref(*a))
+        print(f"  {'rwkv6_chunked[bf16]':<24} {case:<30} vs sequential "
+              f"oracle: max_abs_err {err_o:.3e} ({share_o:.3f} of the bound)",
+              flush=True)
+        need(share_o <= 1.0, f"rwkv6_chunked[bf16] [{case}] disagrees with "
+             "the sequential oracle")
+        err, share = rwkv_check(got, krw.rwkv_chunked(*a, l))
+        # r, k, v and out in bf16; logw, u and the state in and out fp32
+        nb = (4 * b * l * h * hd * 2 + b * l * h * hd * 4 + h * hd * 4
+              + 2 * b * h * hd * hd * 4)
+        fl = b * l * h * (5 * hd * hd + 5 * hd)
+        bms, by = bound(nb, fl)
+        record("rwkv6_chunked[bf16]", f"{case}; {h} heads of {hd}", err,
+               RWKV_BF16_TEXT, {
+                   "ms": timer(lambda: krw.rwkv6_cuda(*a)),
+                   "plain_ms": timer(lambda: krw.rwkv_chunked(*a, l)),
+                   "library_ms": None,   # no single PyTorch call computes it
+                   "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl},
+               share=share)
+    a = rwkv_inputs(4, 100, heads, hd64)
+    whole = krw.rwkv6_cuda(*a)
+    o1, s1 = krw.rwkv6_cuda(*(x[:, :50] for x in a[:4]), a[4], a[5])
+    o2, s2 = krw.rwkv6_cuda(*(x[:, 50:] for x in a[:4]), a[4], s1)
+    err, share = rwkv_check((torch.cat([o1, o2], 1), s2), whole)
+    record("rwkv6_chunked[bf16]", "edge: halves chained by sT", err,
+           RWKV_BF16_TEXT, share=share)
+    del a, whole
+
+    # the demux exit with its LN entry: h, keys, weights and output bf16,
+    # norm params fp32
+    exits = [("demux_rsa[ln, bf16]", "main: rwkv6-7b decode T=4",
+              get_config("rwkv6-7b").d_model, 4, 2),
+             ("demux_rsa[ln, bf16, whisper]", "main: whisper decode T=4",
+              wh.d_model, 4, 2),
+             ("demux_rsa[ln, bf16, bert N=2]", "main: bert T=10240",
+              bert.d_model, BERT_INSTANCES // 2 * BERT_LEN, 2)]
+    for row, case, d, tt, n in exits:
+        f = 2 * d                       # MuxSpec's default demux_hidden
+        w = tuple(x.to(bf) for x in (r(n, d), r(d, f, s=0.02),
+                                     r(d, f, s=0.02), r(f, s=0.02),
+                                     r(f, d, s=0.02), r(d, s=0.02)))
+        norms = {"entry_kind": "ln", "entry_scale": 1.0 + r(d, s=0.1),
+                 "entry_bias": r(d, s=0.1), "exit_scale": 1.0 + r(d, s=0.1),
+                 "exit_bias": r(d, s=0.1)}
+        x = (r(tt, d) + 2.0).to(bf)       # a residual stream with an offset
+        got = kd.demux_rsa_cuda(x, *w, **norms)
+        need(torch.equal(kd.demux_rsa_cuda(x, *w, **norms), got),
+             f"{row}: a repeat changed the bits")
+        err, share = bf16_share(got, ref.demux_rsa_fused_ref(x, *w, **norms),
+                                2)
+        nb = (3 * d * f + f + d + n * d + tt * d + n * tt * d) * 2 + 4 * d * 4
+        fl = 2 * tt * d * f + 2 * n * tt * f * d          # fp32 activations
+
+        def library():
+            hn = F.layer_norm(x.float(), (d,), norms["entry_scale"],
+                              norms["entry_bias"], eps=1e-6).to(bf)
+            z = F.gelu(torch.matmul(hn, w[1])[None]
+                       + (w[0] @ w[2] + w[3])[:, None], approximate="tanh")
+            return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                norms["exit_scale"].to(bf),
+                                norms["exit_bias"].to(bf), eps=1e-6)
+        record(row, f"{case}; d {d} F {f} N {n}", err,
+               "2 bf16 ulps of the row max",
+               timed(lambda: kd.demux_rsa_cuda(x, *w, **norms),
+                     lambda: ref.demux_rsa_fused_ref(x, *w, **norms),
+                     library, nb, fl, 2 * n * d * f), share=share)
 
 
 def bert_kernels(torch, timer, record):
@@ -1708,13 +1963,20 @@ def main() -> int:
         meta[kname] = meta[wrapper]
     for kname, (wrapper, _, _) in BF16_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, (wrapper, _) in BF16_REST_ROWS.items():
+        meta[kname] = meta[wrapper]
+    rest_runs = {"rwkv": rwkv["ring, bf16"]["launches"],
+                 "whisper": whisper["bf16"]["launches"], "bert": bert["bf16"]}
     rows_json = []
     for kname, (route, src, repl) in meta.items():
         s = summary[kname]
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in BF16_ROWS:            # phase 10's run of that arch
+        if kname in BF16_REST_ROWS:       # phases 6-8's bf16 runs
+            wrapper, run = BF16_REST_ROWS[kname]
+            launches = rest_runs[run][wrapper]
+        elif kname in BF16_ROWS:          # phase 10's run of that arch
             wrapper, arch, run = BF16_ROWS[kname]
             got = bf16_runs[arch][run]
             launches = (got["by_storage"][wrapper][run]
@@ -1733,7 +1995,7 @@ def main() -> int:
         elif kname in ("rwkv6_chunked", "demux_rsa[ln]"):
             launches = rwkv["ring"]["launches"][base]
         elif kname == "mux_combine":      # the encoder's and decoder's entry
-            launches = whisper["launches"][base]
+            launches = whisper["fp32"]["launches"][base]
         else:                   # the entry and exit run on every path
             launches = runs["fp32"]["launches"][base]
         rows_json.append({
@@ -2072,23 +2334,35 @@ def phase_rwkv(torch, mux, rows, prompt_len, new_tokens):
             for mode in ("ring", "fill-drain")}
     compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens,
                        runs["ring"])
+    # the same weights at ServeConfig.dtype's default, bf16
+    bf = torch.bfloat16
+    for mode in ("ring", "fill-drain"):
+        runs[f"{mode}, bf16"] = serve_rwkv(params, cfg, mux, rows, trace,
+                                           new_tokens, mode, dtype=bf)
+        print(f"  rwkv {mode}, bf16: greedy agreement with the fp32 run "
+              "%d/%d" % agreement(runs[f"{mode}, bf16"]["outputs"],
+                                  runs[mode]["outputs"]), flush=True)
+    bf16_rwkv_vs_plain(params, cfg, mux, rows, trace, new_tokens,
+                       runs["ring, bf16"])
     return runs
 
 
-def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
-    """Phase 6 for one mode, the launch counts set to 0 just before the
-    run and read just after.  Every forward (blocking prefill or decode
-    step) runs rwkv6_chunked once per layer; each decode step runs the
-    fused entry and exit (demux_rsa with the LN entry), the prefill the
-    plain ones, as in the reference, its entry through mux_combine;
-    nothing else launches."""
+def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode,
+               dtype=None):
+    """Phase 6 for one mode in ``dtype`` (fp32 by default), the launch
+    counts set to 0 just before the run and read just after.  Every
+    forward (blocking prefill or decode step) runs rwkv6_chunked once per
+    layer; each decode step runs the fused entry and exit (demux_rsa with
+    the LN entry), the prefill the plain ones, as in the reference, its
+    entry through mux_combine; nothing else launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
     from repro_torch.serve import engine
     from repro_torch.serve.telemetry import Telemetry
-    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=dtype or torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8)
+    mode_name = mode if sc.dtype == torch.float32 else f"{mode}, bf16"
     tele = Telemetry()
     ops.reset_counts()
     if mode == "fill-drain":
@@ -2101,15 +2375,15 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
     launches = ops.counts("launches")
     dsteps, events = stats["decode_steps"], stats["prefill_events"]
     need(len(stats["completed"]) == len(trace),
-         f"rwkv {mode}: {len(stats['completed'])} of {len(trace)} requests "
+         f"rwkv {mode_name}: {len(stats['completed'])} of {len(trace)} requests "
          "completed")
     need(all(len(r.output) == new_tokens for r in stats["completed"]),
-         f"rwkv {mode}: a request stopped short of its new tokens")
+         f"rwkv {mode_name}: a request stopped short of its new tokens")
     want = dict.fromkeys(launches, 0)
     want.update({"rwkv6_chunked": cfg.n_layers * (dsteps + events),
                  "mux_embed_combine": dsteps, "demux_rsa": dsteps,
                  "mux_combine": events})
-    need(launches == want, f"rwkv {mode}: launch counts {launches} != "
+    need(launches == want, f"rwkv {mode_name}: launch counts {launches} != "
          f"required {want} ({dsteps} decode steps, {events} prefills)")
     spans = {}
     for ev in tele.tracer.events:
@@ -2118,7 +2392,7 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
     lens = ([g for _, g in stats["prefill_log"]] if mode == "ring"
             else [len(trace[0][1])])
     tok_s = stats["generated_tokens"] / stats["wall"]
-    print(f"  rwkv {mode}: served {len(stats['completed'])} requests, "
+    print(f"  rwkv {mode_name}: served {len(stats['completed'])} requests, "
           f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
           f"{tok_s:.2f} tok/s; decode step p50 "
           f"{statistics.median(spans['decode']):.3f} ms over {dsteps} "
@@ -2127,6 +2401,50 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode):
           f"{launches}", flush=True)
     return {"outputs": {r.uid: r.output for r in stats["completed"]},
             "launches": launches}
+
+
+def bf16_rwkv_vs_plain(params, cfg, mux, rows, trace, new_tokens,
+                       ring_run):
+    """Phase 6 in bf16: from identical (zero) states, one blocking prefill
+    of the grid and then one decode step from identical states, the
+    kernel path against the same model with the wrappers at their plain
+    versions (``bf16_logit_check``, the plain model path printed beside);
+    the ring arm's greedy agreement with those plain versions printed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8)
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    caches = [engine.init_cache(sc, nb, device="cuda") for _ in range(3)]
+    lk = engine.prefill(params, sc, caches[0], toks, use_kernels=True)[0]
+    with kernels_as_plain():
+        lp = engine.prefill(params, sc, caches[1], toks, use_kernels=True)[0]
+    lm = engine.prefill(params, sc, caches[2], toks, use_kernels=False)[0]
+    bf16_logit_check("rwkv, bf16", "prefill", lk.float(), lp.float(),
+                     lm.float())
+    for c in caches[1:]:
+        for a, b in zip(caches[0]["layers"], c["layers"]):
+            for key in a:
+                b[key].copy_(a[key])
+    dtok = lk.argmax(-1)[:, None]
+    dk = engine.decode_step(params, sc, caches[0], dtok, toks.shape[1])[0]
+    with kernels_as_plain():
+        dp = engine.decode_step(params, sc, caches[1], dtok,
+                                toks.shape[1])[0]
+    dm = engine.decode_step(params, sc, caches[2], dtok, toks.shape[1],
+                            use_kernels=False)[0]
+    bf16_logit_check("rwkv, bf16", "decode", dk.float(), dp.float(),
+                     dm.float())
+    with kernels_as_plain():
+        plain = run_continuous(params, sc, rows, trace, device="cuda")
+    print("  rwkv ring, bf16: greedy agreement of the kernel path with its "
+          "plain versions %d/%d" % agreement(
+              ring_run["outputs"],
+              {r.uid: r.output for r in plain["completed"]}), flush=True)
 
 
 def compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
@@ -2206,12 +2524,20 @@ def phase_whisper(torch, mux, rows, prompt_len, new_tokens):
     run = serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens)
     compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
                           run)
-    return run
+    # the same weights in the reference's default compute dtype, bf16
+    run_bf16 = serve_whisper(params, cfg, mux, rows, trace, frames,
+                             new_tokens, dtype=torch.bfloat16)
+    print("  whisper, bf16: greedy agreement with the fp32 run %d/%d"
+          % agreement(run_bf16["outputs"], run["outputs"]), flush=True)
+    bf16_whisper_vs_plain(params, cfg, mux, rows, trace, frames, new_tokens,
+                          run_bf16)
+    return {"fp32": run, "bf16": run_bf16}
 
 
-def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
-    """Phase 7 on the kernel path, the launch counts set to 0 just before
-    the run and read just after.  A prefill runs the encoder (its entry
+def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens,
+                  dtype=None):
+    """Phase 7 on the kernel path in ``dtype`` (fp32 by default), the
+    launch counts set to 0 just before the run and read just after.  A prefill runs the encoder (its entry
     through mux_combine, flash_attention once per layer) and the decoder
     (its entry through mux_combine, flash_attention for the self- and the
     cross-attention of each layer); a decode step runs decode_attention
@@ -2222,9 +2548,10 @@ def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
     from repro_torch.launch.serve import fill_drain
     from repro_torch.serve import engine
     from repro_torch.serve.telemetry import Telemetry
-    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=dtype or torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
                             kind="encdec")
+    label = "whisper" if sc.dtype == torch.float32 else "whisper, bf16"
     tele = Telemetry()
     ops.reset_counts()
     stats = fill_drain(params, sc, rows, [a[1] for a in trace], new_tokens,
@@ -2232,24 +2559,24 @@ def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
     launches = ops.counts("launches")
     dsteps, events = stats["decode_steps"], stats["prefill_events"]
     need(len(stats["completed"]) == len(trace),
-         f"whisper: {len(stats['completed'])} of {len(trace)} requests "
+         f"{label}: {len(stats['completed'])} of {len(trace)} requests "
          "completed")
     need(all(len(r.output) == new_tokens for r in stats["completed"]),
-         "whisper: a request stopped short of its new tokens")
+         f"{label}: a request stopped short of its new tokens")
     want = dict.fromkeys(launches, 0)
     want.update({
         "mux_combine": 2 * events,
         "flash_attention": (cfg.encoder.n_layers + 2 * cfg.n_layers) * events,
         "decode_attention": 2 * cfg.n_layers * dsteps,
         "mux_embed_combine": dsteps, "demux_rsa": dsteps})
-    need(launches == want, f"whisper: launch counts {launches} != required "
+    need(launches == want, f"{label}: launch counts {launches} != required "
          f"{want} ({dsteps} decode steps, {events} prefills)")
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
             spans.setdefault(ev[1], []).append(ev[3] / 1e3)
     tok_s = stats["generated_tokens"] / stats["wall"]
-    print(f"  whisper fill-drain: served {len(stats['completed'])} requests, "
+    print(f"  {label} fill-drain: served {len(stats['completed'])} requests, "
           f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s: "
           f"{tok_s:.2f} tok/s; decode step p50 "
           f"{statistics.median(spans['decode']):.3f} ms over {dsteps} steps;"
@@ -2259,6 +2586,56 @@ def serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens):
           flush=True)
     return {"outputs": {r.uid: r.output for r in stats["completed"]},
             "launches": launches}
+
+
+def bf16_whisper_vs_plain(params, cfg, mux, rows, trace, frames, new_tokens,
+                          run):
+    """Phase 7 in bf16: the prefill's logits (encoder and decoder) and one
+    decode step's from identical caches, the kernel path against the same
+    model with the wrappers at their plain versions
+    (``bf16_logit_check``, the plain model path printed beside); the
+    greedy agreement of the run with those plain versions printed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import fill_drain
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux,
+                            capacity=len(trace[0][1]) + new_tokens + 8,
+                            kind="encdec")
+    nb = max(mux.n, 1) * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    extra = torch.as_tensor(frames[:nb], device="cuda")
+    caches = [engine.init_cache(sc, nb, device="cuda") for _ in range(3)]
+    lk = engine.prefill(params, sc, caches[0], toks, extra=extra,
+                        use_kernels=True)[0]
+    with kernels_as_plain():
+        lp = engine.prefill(params, sc, caches[1], toks, extra=extra,
+                            use_kernels=True)[0]
+    lm = engine.prefill(params, sc, caches[2], toks, extra=extra,
+                        use_kernels=False)[0]
+    bf16_logit_check("whisper, bf16", "prefill", lk.float(), lp.float(),
+                     lm.float())
+    for c in caches[1:]:
+        for a, b in zip(caches[0]["layers"], c["layers"]):
+            for key in ("k", "v", "pos", "xk", "xv"):
+                b[key] = a[key].clone()
+    dtok = lk.argmax(-1)[:, None]
+    dk = engine.decode_step(params, sc, caches[0], dtok, toks.shape[1])[0]
+    with kernels_as_plain():
+        dp = engine.decode_step(params, sc, caches[1], dtok,
+                                toks.shape[1])[0]
+    dm = engine.decode_step(params, sc, caches[2], dtok, toks.shape[1],
+                            use_kernels=False)[0]
+    bf16_logit_check("whisper, bf16", "decode", dk.float(), dp.float(),
+                     dm.float())
+    with kernels_as_plain():
+        plain = fill_drain(params, sc, rows, [a[1] for a in trace],
+                           new_tokens, frames=frames, device="cuda")
+    print("  whisper, bf16: greedy agreement of the kernel path with its "
+          "plain versions %d/%d" % agreement(
+              run["outputs"], {r.uid: r.output for r in plain["completed"]}),
+          flush=True)
 
 
 def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
@@ -2449,7 +2826,73 @@ def phase_bert(torch):
         lambda: MuxBERT.mlm_logits(p, cfg, toks, mux=spec), 1)
     profile_step.summarize("  bert mlm_logits kernel path N=2, profiled",
                            trace, 1, p50[2], prof_wall, 8, BERT_GROUPS)
+    launches["bf16"] = bert_bf16(torch, arm, cfg, toks, rates)
     return launches
+
+
+def bert_bf16(torch, arm, cfg, toks, fp32_rates):
+    """Phase 8 in bf16 (``dtype=torch.bfloat16``): one ``hidden`` at N=2
+    with the Gaussian mux and the RSA demux, its launch counts exact; the
+    four heads on the kernel path against the same model with the wrappers
+    at their plain versions (``bf16_logit_check``, the plain model path
+    printed beside) and the MLM argmax agreement printed; then instances
+    per second of ``mlm_logits`` at N = 1, 2, 5, 10 beside fp32's.
+    Returns the ``hidden`` call's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import MuxBERT
+    bf = torch.bfloat16
+    p, spec = arm(2)
+    ops.reset_counts()
+    h = MuxBERT.hidden(p, cfg, toks, mux=spec, dtype=bf)
+    torch.cuda.synchronize()
+    got = ops.counts("launches")
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = cfg.n_layers
+    want.update(BERT_LAUNCHES["gaussian"]["rsa"])
+    need(got == want, f"bert N=2 bf16: launch counts per hidden {got} != "
+         f"required {want}")
+    need(h.dtype == bf and h.shape == (BERT_INSTANCES, BERT_LEN, cfg.d_model)
+         and bool(torch.isfinite(h.float()).all()),
+         f"bert N=2 bf16: hidden {h.dtype} {tuple(h.shape)} or not finite")
+    del h
+    plain_cfg = cfg.replace(attn_impl="naive")
+    for head in ("mlm_logits", "rtd_logits", "classify", "classify_tokens"):
+        fn = getattr(MuxBERT, head)
+        args = (p, p["cls"] if head == "classify" else p["tok"]) \
+            if head.startswith("classify") else (p,)
+        k = fn(*args, cfg, toks, mux=spec, dtype=bf).float()
+        with kernels_as_plain():
+            pl = fn(*args, cfg, toks, mux=spec, dtype=bf).float()
+        m = fn(*args, plain_cfg, toks, mux=spec, dtype=bf,
+               use_kernels=False).float()
+        bf16_logit_check("bert N=2, bf16", head, k, pl, m)
+        if head == "mlm_logits":
+            same = (k.argmax(-1) == pl.argmax(-1)).float().mean().item()
+            print("  bert N=2, bf16: mlm argmax identical to the plain "
+                  f"versions' {same:.5f}", flush=True)
+        del k, pl, m
+    rates = {}
+    for n in (1, 2, 5, 10):
+        p, spec = arm(n)
+        MuxBERT.mlm_logits(p, cfg, toks, mux=spec, dtype=bf)      # warm
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            MuxBERT.mlm_logits(p, cfg, toks, mux=spec, dtype=bf)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        rates[n] = BERT_INSTANCES / statistics.median(times)
+        print(f"  bert mlm_logits kernel path N={n}, bf16: p50 "
+              f"{statistics.median(times) * 1e3:.3f} ms of 5: "
+              f"{rates[n]:.1f} instances/s (fp32 {fp32_rates[n]:.1f})",
+              flush=True)
+    print("  bert throughput, bf16 vs N=1: " + ", ".join(
+        f"N={n} {rates[n] / rates[1]:.3f}x" for n in (2, 5, 10))
+        + f"; bf16 vs fp32 at N: " + ", ".join(
+            f"N={n} {rates[n] / fp32_rates[n]:.3f}x" for n in (1, 2, 5, 10))
+        + f"; {smi_line()}", flush=True)
+    return got
 
 
 def compare_bert_heads(p, cfg, plain_cfg, spec, toks, name):
@@ -2726,6 +3169,18 @@ BF16_ROWS = {
     **{f"demux_rsa[{tag}bf16]": ("demux_rsa", arch, "bf16")
        for arch, tag, _ in BF16_SHAPES},
 }
+# phase 3's bf16 rows at phases 6-8's shapes: the wrapper and the bf16 run
+# whose launches the JSON reports (rwkv6-7b's ring arm, whisper-small's
+# fill-drain, one mux-bert-base ``hidden`` at N=2)
+BF16_REST_ROWS = {
+    "flash_attention[bf16]": ("flash_attention", "whisper"),
+    "flash_attention[bf16, bert]": ("flash_attention", "bert"),
+    "decode_attention[bf16, whisper]": ("decode_attention", "whisper"),
+    "rwkv6_chunked[bf16]": ("rwkv6_chunked", "rwkv"),
+    "demux_rsa[ln, bf16]": ("demux_rsa", "rwkv"),
+    "demux_rsa[ln, bf16, whisper]": ("demux_rsa", "whisper"),
+    "demux_rsa[ln, bf16, bert N=2]": ("demux_rsa", "bert"),
+}
 # one wrapper call of each bf16 kernel under the profiler: the kernels it
 # may launch (its own source's), by name
 BF16_OWN = {"paged_attention": ("paged_decode_kernel", "paged_combine_kernel"),
@@ -2733,7 +3188,10 @@ BF16_OWN = {"paged_attention": ("paged_decode_kernel", "paged_combine_kernel"),
                                         "paged_combine_kernel"),
             "decode_attention": ("decode_kernel",),
             "demux_rsa": ("demux_hidden_kernel", "demux_out_kernel",
-                          "demux_exit_kernel")}
+                          "demux_exit_kernel"),
+            "flash_attention": ("flash_attention_kernel",
+                                "flash_combine_kernel"),
+            "rwkv6_chunked": ("rwkv6_scan",)}
 
 
 def agreement(a, b):
@@ -2757,26 +3215,28 @@ def kernels_as_plain():
         ops._on_cpu = on_cpu
 
 
-def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32):
-    """Phase 10's gate on one set of logits (fp32 copies): the kernel path
-    against the same model with the wrappers at their plain versions
-    (``kernels_as_plain``), within ``BF16_LOGIT_ULPS`` bf16 ulps of the
-    kernel path's |logits| max.  Also prints what the plain model path
-    (``attention_core``'s and the oracle's rounding points) and fp32
-    compute read against the kernel path, and whether the argmax moved."""
+def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32=None):
+    """Phase 10's gate on one set of logits (fp32 copies; phases 6-8 use
+    it too): the kernel path against the same model with the wrappers at
+    their plain versions (``kernels_as_plain``), within
+    ``BF16_LOGIT_ULPS`` bf16 ulps of the kernel path's |logits| max.  Also
+    prints what the plain model path (``attention_core``'s and the
+    oracle's rounding points) and, where given, fp32 compute read against
+    the kernel path, and whether the argmax moved."""
     err = (kernel - plain).abs().max().item()
     tol = BF16_LOGIT_ULPS * BF16_ULP * kernel.abs().max().item()
     am = kernel.argmax(-1)
+    others = [model_plain] + ([] if fp32 is None else [fp32])
     print(f"  {kind}: {what} logits, kernel path vs its plain versions "
           f"from identical caches {err:.3e} (tol {tol:.3e}, "
           f"{BF16_LOGIT_ULPS} bf16 ulps of |logits| max "
           f"{kernel.abs().max().item():.3f}); vs the plain model path "
-          f"{(kernel - model_plain).abs().max().item():.3e}; vs fp32 compute "
-          f"{(kernel - fp32).abs().max().item():.3e}; argmax moved in "
-          f"{int((am != plain.argmax(-1)).sum())} / "
-          f"{int((am != model_plain.argmax(-1)).sum())} / "
-          f"{int((am != fp32.argmax(-1)).sum())} of {am.numel()} rows",
-          flush=True)
+          f"{(kernel - model_plain).abs().max().item():.3e}"
+          + ("" if fp32 is None else
+             f"; vs fp32 compute {(kernel - fp32).abs().max().item():.3e}")
+          + "; argmax moved in " + " / ".join(
+              str(int((am != x.argmax(-1)).sum())) for x in [plain] + others)
+          + f" of {am.numel()} rows", flush=True)
     need(err <= tol, f"{kind}: the bf16 kernel path's {what} logits differ "
          f"from its plain versions' by {err} > {tol}")
 
@@ -2944,6 +3404,10 @@ def profile_bf16_kernels(torch):
     norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
              "exit_scale": 1.0 + r(d, s=0.1), "exit_bias": r(d, s=0.1)}
     qp, qs, ql = ints(116, 107, 100, 99), ints(64), ints(32)
+    fq, fk = r(4, 100, 12, 64).to(bf), r(4, 1500, 12, 64).to(bf)
+    rw = [r(4, 100, 64, 64).to(bf) for _ in range(3)] + [
+        -torch.exp(r(4, 100, 64, 64, s=0.5)), r(64, 64, s=0.1),
+        r(4, 64, 64, 64, s=0.1)]
     calls = {
         "paged_attention": lambda: ops.paged_attention(q1, kpg, vpg, bt, pp,
                                                        qp),
@@ -2952,13 +3416,22 @@ def profile_bf16_kernels(torch):
         "decode_attention": lambda: ops.decode_attention(q1, kr, vr, rpos,
                                                          q_pos=116),
         "demux_rsa": lambda: ops.demux_rsa(h, *w, **norms),
+        "flash_attention": lambda: ops.flash_attention(fq, fk, fk,
+                                                       causal=False),
+        "rwkv6_chunked": lambda: ops.rwkv6_chunked(*rw, chunk=100)[0],
     }
     for wrapper, fn in calls.items():
         need(fn().dtype == bf, f"{wrapper}: bf16 output expected")
-        trace, _ = profile_calls(fn, 1)
-        names = [e["name"] for e in trace["traceEvents"]
-                 if e.get("ph") == "X" and e.get("cat") in
-                 ("kernel", "gpu_memcpy", "gpu_memset")]
+        # a single call's window now and then records no device activity
+        # at all, even in this fresh process (PERF.md §7): up to three
+        # windows, the first that records any is checked
+        for _ in range(3):
+            trace, _ = profile_calls(fn, 1)
+            names = [e["name"] for e in trace["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") in
+                     ("kernel", "gpu_memcpy", "gpu_memset")]
+            if names:
+                break
         print(f"  profiled {wrapper}(bf16): {len(names)} device "
               f"activities: {sorted(set(names))}", flush=True)
         need(names, f"{wrapper}(bf16): the profiler recorded no device "

@@ -104,12 +104,13 @@ SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, out, part_o, part_ml; B, Lq, Lk, H, Hkv, Dh, causal,
-        # window, q_offset, nsplit, split_tiles; softcap, scale; stream
-        "flash_attention_forward": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
+        # window, q_offset, nsplit, split_tiles, bf16; softcap, scale;
+        # stream
+        "flash_attention_forward": [_P] * 6 + [_I] * 12 + [_F, _F, _P],
     },
     "rwkv6": {
-        # r, k, v, logw, u, s0, out, sT; B, L, H, hd; stream
-        "rwkv6_forward": [_P] * 8 + [_I] * 4 + [_P],
+        # r, k, v, logw, u, s0, out, sT; B, L, H, hd, bf16; stream
+        "rwkv6_forward": [_P] * 8 + [_I] * 5 + [_P],
     },
     "mux_entry": {
         # tok, emb, v, out; N, T, D, cols, threads, vec, emb_bf16, v_bf16,

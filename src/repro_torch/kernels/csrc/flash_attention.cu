@@ -5,8 +5,12 @@
 // (flash_attention, _kernel): flash_attention_kernel, and
 // flash_combine_kernel when the key axis is split.
 //
-// Layouts (as in the reference, read in place): q (B, Lq, H, Dh) fp32;
-// k, v (B, Lk, Hkv, Dh) fp32; out (B, Lq, H, Dh).  Query i sits at
+// Layouts (as in the reference, read in place): q (B, Lq, H, Dh); k, v
+// (B, Lk, Hkv, Dh); out (B, Lq, H, Dh); all fp32 or all bf16 (one
+// instantiation each).  As the Pallas kernel, bf16 operands are widened to
+// fp32 (exactly), the attention runs in fp32 and the output is rounded to
+// bf16 once, where it is written; a split's partial stays fp32 and only
+// the combine rounds.  Query i sits at
 // position q_offset + i, key j at position j.  Mask, as the reference:
 // key j < Lk, and j <= q (causal), j > q - window (window > 0); the
 // softcap tanh(s / c) * c applies to the scaled logit before the mask.
@@ -47,8 +51,13 @@
 //    product therefore reads V rows 2t and 2t+1 for k-slots t and t+4 (a
 //    permutation of the summation order, no shuffle).
 //  * K/V tiles of BK keys stream through a two-stage cp.async ring: tile
-//    i+1 is in flight while tile i is consumed.  Shared rows are padded to
-//    Dh + 4 floats, so every fragment load is free of bank conflicts.
+//    i+1 is in flight while tile i is consumed.  Shared rows are padded by
+//    16 bytes (D + 4 floats, D + 8 bf16), so every fragment load is free of
+//    bank conflicts.  bf16 tiles are stored as loaded (half the bytes) and
+//    the fragment loads widen each element (a shift), as the paged chunk
+//    kernel reads bf16 pages; Q, loaded once a block, is widened into the
+//    fp32 tile by plain 16-byte loads.  A widened bf16 value is exact in
+//    TF32 (its lo part is 0), so the split products stay exact.
 //  * The head dim is padded to the mma depth: D = 32, 64, 128 or 256 (one
 //    instantiation each) with zero columns in shared memory; BK = 64, 32,
 //    16, 16, so that two blocks fit an SM up to D = 128 and D = 256 fits
@@ -64,6 +73,8 @@
 //    unnormalised (acc, m, l) and flash_combine_kernel merges them in
 //    split order by their log-sum-exp (deterministic, no atomics), as
 //    decode_attention.cu merges its splits.
+#include <type_traits>
+
 #include "attn_tile.cuh"
 
 namespace {
@@ -72,33 +83,43 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
+  const void* q;    // q, k, v and out: float or bf16 (the kernel's T)
+  const void* k;
+  const void* v;
+  void* out;
   float* part_o;    // (nsplit, B, Lq, H, Dh) unnormalised; nsplit == 1: unused
   float* part_ml;   // (nsplit, B, Lq, H, 2) running max (log2 units), sum
   int B, Lq, Lk, H, Hkv, Dh, causal, window, q_offset, nsplit, split_tiles;
   float scale, softcap;     // softcap <= 0: none
 };
 
-template <int D>
+// K / V row stride in elements of T: 16 bytes of padding
+template <typename T, int D>
+constexpr int kLds = D + 16 / (int)sizeof(T);
+
+template <int D, typename T>
 constexpr size_t smem_bytes() {
-  // Q hi + Q lo (BQ rows each), two stages of K and V (BK rows each)
-  return sizeof(float) *
-         (size_t)(2 * 16 * kWarps * Cfg<D>::MT + 4 * Cfg<D>::BK) * (D + 4);
+  // Q hi + Q lo (BQ rows of fp32 each), two stages of K and V (BK rows of
+  // T each)
+  return sizeof(float) * (size_t)(2 * 16 * kWarps * Cfg<D>::MT) * (D + 4) +
+         sizeof(T) * (size_t)(4 * Cfg<D>::BK) * kLds<T, D>;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
     flash_attention_kernel(Args a) {
   constexpr int BK = Cfg<D>::BK, MT = Cfg<D>::MT, LD = D + 4;
+  constexpr int LDS = kLds<T, D>, VEC = 16 / (int)sizeof(T);
   constexpr int BQ = 16 * kWarps * MT;     // query rows a block
   constexpr int NT = BK / 8, DT = D / 8;   // key groups, head-dim groups
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* sqh = reinterpret_cast<float*>(smem4);   // BQ x LD, tf32 hi
   float* sql = sqh + BQ * LD;                     // BQ x LD, tf32 lo
-  float* skv = sql + BQ * LD;                     // stages of K then V
+  T* skv = reinterpret_cast<T*>(sql + BQ * LD);   // stages of K then V
+  const T* gq = static_cast<const T*>(a.q);
+  const T* gk = static_cast<const T*>(a.k);
+  const T* gv = static_cast<const T*>(a.v);
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y;
   const int b = blockIdx.z / a.nsplit, split_id = blockIdx.z % a.nsplit;
@@ -106,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
   const int g = lane >> 2, t = lane & 3;
   const int kvh = h / (a.H / a.Hkv);
   const int rows = min(BQ, a.Lq - q0);
-  const int dq = a.Dh / 4;                        // 16-byte chunks a row
+  const int dq = a.Dh / VEC;                      // 16-byte chunks a row
   const size_t nrows = (size_t)a.B * a.Lq * a.H;
 
   // key tiles the block's queries can see: [kt_lo, kt_hi]; every tile when
@@ -149,41 +170,76 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
   }
 
   // zero the padded head-dim columns [Dh, D) of every row (no copy writes
-  // them; Q's zeros make K's harmless, V's only reach unstored columns)
+  // them; Q's zeros make K's harmless, V's only reach unstored columns);
+  // a bf16 Q's are written by its loads below
   if (a.Dh < D) {
     const int pc = (D - a.Dh) / 4;
-    for (int i = tid; i < (2 * BQ + 4 * BK) * pc; i += kThreads)
-      reinterpret_cast<float4*>(sqh + (i / pc) * LD + a.Dh)[i % pc] =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (kF32)
+      for (int i = tid; i < 2 * BQ * pc; i += kThreads)
+        reinterpret_cast<float4*>(sqh + (i / pc) * LD + a.Dh)[i % pc] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    const int pk = (D - a.Dh) / VEC;
+    for (int i = tid; i < 4 * BK * pk; i += kThreads)
+      reinterpret_cast<uint4*>(skv + (i / pk) * LDS + a.Dh)[i % pk] =
+          make_uint4(0u, 0u, 0u, 0u);
   }
 
-  for (int i = tid; i < BQ * dq; i += kThreads) {
-    const int r = i / dq, c = i % dq;
-    const bool ok = q0 + r < a.Lq;
-    cp_async16(sqh + r * LD + 4 * c,
-               a.q + (((size_t)b * a.Lq + (ok ? q0 + r : 0)) * a.H + h) *
-                         a.Dh + 4 * c, ok);
+  // Q: fp32 rows by cp.async; bf16 rows by 16-byte loads of 8 values, every
+  // load of a thread issued before any is widened (their latencies overlap)
+  if constexpr (kF32) {
+    for (int i = tid; i < BQ * dq; i += kThreads) {
+      const int r = i / dq, c = i % dq;
+      const bool ok = q0 + r < a.Lq;
+      cp_async16(sqh + r * LD + 4 * c,
+                 gq + (((size_t)b * a.Lq + (ok ? q0 + r : 0)) * a.H + h) *
+                          a.Dh + 4 * c, ok);
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   auto load_kv = [&](int kt, int stage) {
-    float* sk = skv + stage * 2 * BK * LD;
-    float* sv = sk + BK * LD;
+    T* sk = skv + stage * 2 * BK * LDS;
+    T* sv = sk + BK * LDS;
     const int k0 = kt * BK;
     for (int i = tid; i < BK * dq; i += kThreads) {
       const int r = i / dq, c = i % dq;
       const bool ok = k0 + r < a.Lk;
       const size_t off =
           (((size_t)b * a.Lk + (ok ? k0 + r : 0)) * a.Hkv + kvh) * a.Dh +
-          4 * c;
-      cp_async16(sk + r * LD + 4 * c, a.k + off, ok);
-      cp_async16(sv + r * LD + 4 * c, a.v + off, ok);
+          VEC * c;
+      cp_async16(sk + r * LDS + VEC * c, gk + off, ok);
+      cp_async16(sv + r * LDS + VEC * c, gv + off, ok);
     }
     cp_async_commit();
   };
   load_kv(kt_begin, 0);
 
-  // Q: scale, then split once into hi and lo
+  if constexpr (!kF32) {
+    constexpr int C8 = D / 8, PER = BQ * C8 / kThreads;
+    static_assert(BQ * C8 % kThreads == 0, "whole rounds of Q loads");
+    uint4 raw[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * kThreads, r = i / C8, c = i % C8;
+      const bool ok = q0 + r < a.Lq && 8 * c < a.Dh;
+      raw[j] = ok ? *reinterpret_cast<const uint4*>(
+                        gq + (((size_t)b * a.Lq + q0 + r) * a.H + h) * a.Dh +
+                        8 * c)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * kThreads;
+      float* dst = sqh + (i / C8) * LD + 8 * (i % C8);
+      *reinterpret_cast<float4*>(dst) = widen4(make_uint2(raw[j].x, raw[j].y));
+      *reinterpret_cast<float4*>(dst + 4) =
+          widen4(make_uint2(raw[j].z, raw[j].w));
+    }
+  }
+
+  // Q: scale, then split once into hi and lo (a bf16 q's scaled value is
+  // not always a TF32 value, so the split stays for both types); bf16
+  // committed one group only, so the wait returns at once
   cp_async_wait<1>();
   __syncthreads();
   for (int i = tid; i < BQ * D; i += kThreads) {
@@ -217,13 +273,13 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sk = skv + (it & 1) * 2 * BK * LD;
-    const float* sv = sk + BK * LD;
+    const T* sk = skv + (it & 1) * 2 * BK * LDS;
+    const T* sv = sk + BK * LDS;
 
     // S = Q K^T
     float s[MT][NT][4];
     tile_scores<MT, NT, DT, LD>(
-        s, qh, ql, [&](int r, int c) { return sk[r * LD + c]; });
+        s, qh, ql, [&](int r, int c) { return to_float(sk[r * LDS + c]); });
 
     // softcap, mask (log2 units), online softmax, O += P V
     const int k0 = kt * BK;
@@ -243,12 +299,11 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
           s[m][j][e] = kp >= a.Lk ? -INFINITY : (ok ? x : kNegMask) * kLog2e;
         }
     tile_softmax(s, o, m_run, l_run);
-    tile_pv(o, s, [&](int r, int c) { return sv[r * LD + c]; });
+    tile_pv(o, s, [&](int r, int c) { return to_float(sv[r * LDS + c]); });
     __syncthreads();          // the stage is free for the copy after next
   }
 
   const bool part = a.nsplit > 1;
-  float* dst = part ? a.part_o + (size_t)split_id * nrows * a.Dh : a.out;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -259,13 +314,18 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
       const int row = q0 + r0 + 16 * m + 8 * hf + g;
       if (row >= a.Lq) continue;
       const float inv = part ? 1.f : 1.f / l;
-      float* orow = dst + (((size_t)b * a.Lq + row) * a.H + h) * a.Dh;
+      const size_t ro = (((size_t)b * a.Lq + row) * a.H + h) * a.Dh;
+      float* prow = a.part_o + (size_t)split_id * nrows * a.Dh + ro;
+      T* orow = static_cast<T*>(a.out) + ro;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
         const int d = 8 * n + 2 * t;
         if (d >= a.Dh) break;
-        *reinterpret_cast<float2*>(orow + d) =
-            make_float2(o[m][n][2 * hf] * inv, o[m][n][2 * hf + 1] * inv);
+        const float x = o[m][n][2 * hf] * inv, y = o[m][n][2 * hf + 1] * inv;
+        if (part)
+          store2(prow + d, x, y);
+        else
+          store2(orow + d, x, y);
       }
       if (part && t == 0) {
         const size_t i = (size_t)split_id * nrows +
@@ -278,13 +338,14 @@ __global__ void __launch_bounds__(kThreads, Cfg<D>::kMinBlocks)
 }
 
 // one warp per (row, query, head): merge the splits by their log-sum-exp,
-// in split order
+// in split order, and round once to the output type
+template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_combine_kernel(Args a) {
   const size_t nrows = (size_t)a.B * a.Lq * a.H;
   const size_t row = (size_t)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= nrows) return;
-  merge_splits(a.part_o, a.part_ml, a.out, nrows, row, a.Dh, a.nsplit,
-               threadIdx.x % 32);
+  merge_splits(a.part_o, a.part_ml, static_cast<T*>(a.out), nrows, row,
+               a.Dh, a.nsplit, threadIdx.x % 32);
 }
 
 // keys per K tile at head_dim Dh (kernels/flash_attention.py TILES)
@@ -293,34 +354,49 @@ int block_k(int Dh) {
          : Dh <= 128 ? Cfg<128>::BK : Cfg<256>::BK;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, T>();
   static bool sized = false;      // the attribute is set once a process
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
+        flash_attention_kernel<D, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     sized = true;
   }
   constexpr int BQ = 16 * kWarps * Cfg<D>::MT;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B * a.nsplit);
-  flash_attention_kernel<D><<<grid, kThreads, smem, st>>>(a);
+  flash_attention_kernel<D, T><<<grid, kThreads, smem, st>>>(a);
+  if (a.nsplit > 1) {
+    const size_t nrows = (size_t)a.B * a.Lq * a.H;
+    flash_combine_kernel<T><<<(unsigned)((nrows + kWarps - 1) / kWarps),
+                              kThreads, 0, st>>>(a);
+  }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dh(const Args& a, cudaStream_t st) {
+  return a.Dh <= 32 ? launch<32, T>(a, st) : a.Dh <= 64 ? launch<64, T>(a, st)
+         : a.Dh <= 128 ? launch<128, T>(a, st) : launch<256, T>(a, st);
 }
 
 }  // namespace
 
-// nsplit > 1: part_o holds nsplit*B*Lq*H*Dh floats, part_ml nsplit*B*Lq*H*2
+// q, k, v and out fp32 (bf16 = 0) or bf16 (1), rows 16-byte aligned (Dh a
+// multiple of 4, or of 8 in bf16); nsplit > 1: part_o holds
+// nsplit*B*Lq*H*Dh floats, part_ml nsplit*B*Lq*H*2
 extern "C" int flash_attention_forward(
-    const float* q, const float* k, const float* v, float* out,
-    float* part_o, float* part_ml, int B, int Lq, int Lk, int H, int Hkv,
-    int Dh, int causal, int window, int q_offset, int nsplit,
-    int split_tiles, float softcap, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, float* part_o,
+    float* part_ml, int B, int Lq, int Lk, int H, int Hkv, int Dh, int causal,
+    int window, int q_offset, int nsplit, int split_tiles, int bf16,
+    float softcap, float scale, void* stream) {
   const int bk = block_k(Dh);
   const int tiles = (Lk + bk - 1) / bk;
-  if (Dh % 4 || Dh < 4 || Dh > 256 || H % Hkv || Lq < 1 || Lk < 1 ||
+  const int vec = bf16 ? 8 : 4;
+  if ((bf16 != 0 && bf16 != 1) || Dh % vec || Dh < vec || Dh > 256 ||
+      H % Hkv || Lq < 1 || Lk < 1 ||
       q_offset < 0 || nsplit < 1 || split_tiles < 1 ||
       (long long)nsplit * split_tiles < tiles ||
       (long long)(nsplit - 1) * split_tiles >= tiles ||
@@ -329,11 +405,6 @@ extern "C" int flash_attention_forward(
   Args a{q, k, v, out, part_o, part_ml, B, Lq, Lk, H, Hkv, Dh, causal,
          window, q_offset, nsplit, split_tiles, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = Dh <= 32 ? launch<32>(a, st) : Dh <= 64 ? launch<64>(a, st)
-                  : Dh <= 128 ? launch<128>(a, st) : launch<256>(a, st);
-  if (e != cudaSuccess || nsplit == 1) return (int)e;
-  const size_t nrows = (size_t)B * Lq * H;
-  flash_combine_kernel<<<(unsigned)((nrows + kWarps - 1) / kWarps), kThreads,
-                         0, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch_dh<__nv_bfloat16>(a, st)
+                    : launch_dh<float>(a, st));
 }

@@ -115,17 +115,8 @@ constexpr bool kQuantized =
 template <typename T>
 constexpr bool kNarrow = !std::is_same<T, float>::value;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // four consecutive stored elements (8- or 4-byte aligned) -> fp32, exact
-__device__ __forceinline__ float4 widen4(uint2 u) {    // four bf16 values
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+// (four bf16 values in a uint2: attn_tile.cuh)
 __device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
   return widen4(*reinterpret_cast<const uint2*>(p));
 }
@@ -140,8 +131,8 @@ __device__ __forceinline__ float4 widen4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// four fp32 values stored as the output type (16- or 8-byte aligned), and
-// two (8- or 4-byte aligned); bf16 rounds to nearest even
+// four fp32 values stored as the output type (16- or 8-byte aligned; two:
+// store2 in attn_tile.cuh); bf16 rounds to nearest even
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
@@ -151,12 +142,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   *reinterpret_cast<uint2*>(p) = make_uint2(
       *reinterpret_cast<const unsigned*>(&lo),
       *reinterpret_cast<const unsigned*>(&hi));
-}
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // N bytes global -> shared (N = 4, 8, 16), zero-filled when !valid

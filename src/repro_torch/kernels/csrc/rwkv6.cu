@@ -3,8 +3,12 @@
 //   out_t = r_t S_{t-1} + ((r_t * u) . k_t) v_t
 //   S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
 //
-// over r, k, v, logw (B, L, H, hd) fp32, u (H, hd), the carried state
-// s0 (B, H, hd, hd) -> out (B, L, H, hd), sT (B, H, hd, hd).
+// over r, k, v, logw (B, L, H, hd), u (H, hd), the carried state s0
+// (B, H, hd, hd) -> out (B, L, H, hd), sT (B, H, hd, hd).  r, k, v and out
+// are fp32 or bf16 (one instantiation each); logw, u, s0 and sT are fp32.
+// As the Pallas kernel, bf16 r, k and v are widened to fp32 (exactly), the
+// recurrence runs in fp32 and out is rounded to bf16 once, where it is
+// written; the state stays fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6.py
 // (rwkv6_chunked / _kernel), which walks chunks of c tokens in a
@@ -48,12 +52,20 @@
 //    The staging pass of a landed tile takes exp(logw) in place and the
 //    tile's bonuses.  The state moves with 16-byte coalesced loads and
 //    stores.
+//  * bf16 operands.  cp.async copies bytes and cannot widen, so bf16 rows
+//    of r, k and v land as loaded in a raw stage of their own (half the
+//    bytes of fp32), and the staging pass widens them into the fp32 tile
+//    the scan reads (one more barrier a tile); logw lands in fp32 as
+//    before.  The scan itself is the fp32 one.
 // The per-token form is the definition (the sequential oracle
 // ``rwkv6_ref``): it takes any L with no chunk rule, and its decay is one
 // exp per token and channel, never a difference of cumulative sums, which
 // loses digits as the sums grow and overflows exp() past ~88 nats of
 // decay.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "tf32.cuh"     // cp_async16 / commit / wait
 
@@ -68,7 +80,8 @@ template <> struct Cfg<32> { static constexpr int CB = 32, RG = 4, CPT = 4, TT =
 template <> struct Cfg<64> { static constexpr int CB = 64, RG = 8, CPT = 4, TT = 16; };
 template <> struct Cfg<128> { static constexpr int CB = 64, RG = 16, CPT = 4, TT = 8; };
 
-template <int HD> struct Shape {
+// T: the type of r, k, v and out (float or bf16)
+template <int HD, typename T> struct Shape {
   static constexpr int CB = Cfg<HD>::CB, RG = Cfg<HD>::RG, KPT = HD / RG;
   static constexpr int CPT = Cfg<HD>::CPT, C4 = CPT / 4, TT = Cfg<HD>::TT;
   static constexpr int NQ = CB / 4;              // column quads a block
@@ -76,23 +89,48 @@ template <int HD> struct Shape {
   static constexpr int kThreads = NC * RG;
   static constexpr int RS = RG * (KPT + 4);      // padded (r, k, w) token row
   static constexpr int SF = TT * (3 * RS + CB);  // floats a stage
-  // two stages, the partial sums (TT x RG x CB), the bonuses, u
-  static constexpr int kSmem = 4 * (2 * SF + TT * RG * CB + TT + HD);
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // bf16 a raw stage: r and k rows (HD each) and v's CB columns, as loaded
+  static constexpr int SR = kF32 ? 0 : TT * (2 * HD + CB);
+  // two stages, the partial sums (TT x RG x CB), the bonuses, u; bf16: two
+  // raw stages
+  static constexpr int kSmem =
+      4 * (2 * SF + TT * RG * CB + TT + HD) + 2 * (int)sizeof(T) * SR;
   static_assert(KPT % 4 == 0 && CPT % 4 == 0 && HD % CB == 0 &&
                 CB % CPT == 0 && kThreads >= TT, "shape");
 };
 
 struct Args {
-  const float* r;
-  const float* k;
-  const float* v;
+  const void* r;        // r, k, v, out: float or bf16 (the kernel's T)
+  const void* k;
+  const void* v;
   const float* logw;
   const float* u;
   const float* s0;
-  float* out;
+  void* out;
   float* sT;
   int L, H;
 };
+
+// four fp32 values stored as T (bf16: rounded to nearest even)
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const unsigned*>(&lo),
+      *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// four consecutive bf16 values (8-byte aligned) widened to fp32, exactly
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 // element e of a token's (r, k, w) row in the padded layout
 template <int KPT>
@@ -101,35 +139,49 @@ __device__ __forceinline__ int padded(int e) {
 }
 
 // Issue the copies of tokens [t0, t0 + TT) into stage st: r, k, logw whole
-// (padded rows), v's CB columns from c0; past L, zeros.
-template <int HD>
-__device__ __forceinline__ void stage_tile(const Args& a, float* st, int b,
-                                           int h, int c0, int t0) {
-  using S = Shape<HD>;
+// (padded rows), v's CB columns from c0; past L, zeros.  bf16 r, k and v
+// go to the raw stage raw as loaded (rows of HD, HD and CB values).
+template <int HD, typename T>
+__device__ __forceinline__ void stage_tile(const Args& a, float* st, T* raw,
+                                           int b, int h, int c0, int t0) {
+  using S = Shape<HD, T>;
   constexpr int H4 = HD / 4, TT = S::TT;
+  const T* r = static_cast<const T*>(a.r);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
   for (int i = threadIdx.x; i < TT * H4; i += S::kThreads) {
     const int t = i / H4, c = 4 * (i % H4);
     const bool ok = t0 + t < a.L;
     const size_t off =
         ((size_t)(b * a.L + (ok ? t0 + t : 0)) * a.H + h) * HD + c;
     float* dst = st + t * S::RS + padded<S::KPT>(c);
-    cp_async16(dst, a.r + off, ok);
-    cp_async16(dst + TT * S::RS, a.k + off, ok);
+    if constexpr (S::kF32) {
+      cp_async16(dst, r + off, ok);
+      cp_async16(dst + TT * S::RS, k + off, ok);
+    } else if (c % 8 == 0) {     // 16 bytes: eight bf16 values
+      cp_async16(raw + t * HD + c, r + off, ok);
+      cp_async16(raw + (TT + t) * HD + c, k + off, ok);
+    }
     cp_async16(dst + 2 * TT * S::RS, a.logw + off, ok);
   }
-  for (int i = threadIdx.x; i < TT * S::NQ; i += S::kThreads) {
-    const int t = i / S::NQ, c = 4 * (i % S::NQ);
+  constexpr int VQ = S::kF32 ? S::NQ : S::CB / 8;   // 16-byte copies a row
+  constexpr int VE = 16 / (int)sizeof(T);
+  for (int i = threadIdx.x; i < TT * VQ; i += S::kThreads) {
+    const int t = i / VQ, c = VE * (i % VQ);
     const bool ok = t0 + t < a.L;
     const size_t off =
         ((size_t)(b * a.L + (ok ? t0 + t : 0)) * a.H + h) * HD + c0 + c;
-    cp_async16(st + 3 * TT * S::RS + t * S::CB + c, a.v + off, ok);
+    if constexpr (S::kF32)
+      cp_async16(st + 3 * TT * S::RS + t * S::CB + c, v + off, ok);
+    else
+      cp_async16(raw + 2 * TT * HD + t * S::CB + c, v + off, ok);
   }
   cp_async_commit();
 }
 
-template <int HD>
-__global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
-  using S = Shape<HD>;
+template <int HD, typename T>
+__global__ void __launch_bounds__(Shape<HD, T>::kThreads) rwkv6_scan(Args a) {
+  using S = Shape<HD, T>;
   constexpr int CB = S::CB, RG = S::RG, KPT = S::KPT, NQ = S::NQ;
   constexpr int CPT = S::CPT, C4 = S::C4, NC = S::NC, TT = S::TT;
   constexpr int RS = S::RS, SF = S::SF, NT = S::kThreads;
@@ -142,13 +194,14 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
   float* part = stages + 2 * SF;                 // TT x RG x CB
   float* bonus = part + TT * RG * CB;            // TT
   float* su = bonus + TT;                        // HD
+  T* raws = reinterpret_cast<T*>(su + HD);       // bf16: two raw stages
 
   const int cs = HD / CB;
   const int bh = blockIdx.x / cs, c0 = (blockIdx.x % cs) * CB;
   const int b = bh / a.H, h = bh % a.H;
   const int tid = threadIdx.x, cg = tid % NC, rg = tid / NC;
   const int ntiles = (a.L + TT - 1) / TT;
-  stage_tile<HD>(a, stages, b, h, c0, 0);
+  stage_tile<HD, T>(a, stages, raws, b, h, c0, 0);
 
   for (int i = tid; i < HD; i += NT) su[i] = a.u[h * HD + i];
   float4 s[KPT][C4];
@@ -164,19 +217,35 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
     cp_async_wait<0>();
     __syncthreads();     // tile j landed; stage j + 1 and the partials free
     if (j + 1 < ntiles)
-      stage_tile<HD>(a, stages + ((j + 1) & 1) * SF, b, h, c0, t0 + TT);
+      stage_tile<HD, T>(a, stages + ((j + 1) & 1) * SF,
+                        raws + ((j + 1) & 1) * S::SR, b, h, c0, t0 + TT);
     float* sr = stages + (j & 1) * SF;
     float* sk = sr + TT * RS;
     float* sw = sk + TT * RS;
-    const float* sv = sw + TT * RS;
+    float* sv = sw + TT * RS;
 
-    // staging pass: w = exp(logw) in place; bonus_t = (r_t * u) . k_t
+    // staging pass: w = exp(logw) in place (bf16: r, k and v widened into
+    // the fp32 tile first); bonus_t = (r_t * u) . k_t
+    const T* raw = raws + (j & 1) * S::SR;
     for (int i = tid; i < TT * (HD / 4); i += NT) {
-      float4* w = reinterpret_cast<float4*>(
-          sw + (i / (HD / 4)) * RS + padded<KPT>(4 * (i % (HD / 4))));
+      const int t = i / (HD / 4), e = 4 * (i % (HD / 4));
+      const int p = t * RS + padded<KPT>(e);
+      float4* w = reinterpret_cast<float4*>(sw + p);
       float4 x = *w;
       x.x = expf(x.x); x.y = expf(x.y); x.z = expf(x.z); x.w = expf(x.w);
       *w = x;
+      if constexpr (!S::kF32) {
+        *reinterpret_cast<float4*>(sr + p) = widen4(raw + t * HD + e);
+        *reinterpret_cast<float4*>(sk + p) = widen4(raw + (TT + t) * HD + e);
+      }
+    }
+    if constexpr (!S::kF32) {
+      for (int i = tid; i < TT * NQ; i += NT) {
+        const int t = i / NQ, c = 4 * (i % NQ);
+        *reinterpret_cast<float4*>(sv + t * CB + c) =
+            widen4(raw + 2 * TT * HD + t * CB + c);
+      }
+      __syncthreads();   // the widened r and k ready for the bonuses
     }
     {
       const int t = tid / TPT, e0 = (tid % TPT) * EPT;
@@ -253,8 +322,9 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
       const float bt = bonus[t];
       o.x = fmaf(bt, vv.x, o.x); o.y = fmaf(bt, vv.y, o.y);
       o.z = fmaf(bt, vv.z, o.z); o.w = fmaf(bt, vv.w, o.w);
-      *reinterpret_cast<float4*>(
-          a.out + ((size_t)(b * a.L + t0 + t) * a.H + h) * HD + c0 + c) = o;
+      store4(static_cast<T*>(a.out) +
+                 ((size_t)(b * a.L + t0 + t) * a.H + h) * HD + c0 + c,
+             o);
     }
   }
   float* s_out = a.sT + ((size_t)bh * HD + rg * KPT) * HD + c0 + CPT * cg;
@@ -265,37 +335,46 @@ __global__ void __launch_bounds__(Shape<HD>::kThreads) rwkv6_scan(Args a) {
       reinterpret_cast<float4*>(s_out + (size_t)i * HD)[j] = s[i][j];
 }
 
-template <int HD>
+template <int HD, typename T>
 int launch(const Args& a, int B, cudaStream_t st) {
-  using S = Shape<HD>;
+  using S = Shape<HD, T>;
   static bool allowed = false;       // above 48 KB: once a process
   if (S::kSmem > 48 * 1024 && !allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        rwkv6_scan<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rwkv6_scan<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         S::kSmem);
     if (e != cudaSuccess) return (int)e;
     allowed = true;
   }
-  rwkv6_scan<HD><<<B * a.H * (HD / S::CB), S::kThreads, S::kSmem, st>>>(a);
+  rwkv6_scan<HD, T>
+      <<<B * a.H * (HD / S::CB), S::kThreads, S::kSmem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd(const Args& a, int B, int HD, cudaStream_t st) {
+  switch (HD) {
+    case 16: return launch<16, T>(a, B, st);
+    case 32: return launch<32, T>(a, B, st);
+    case 64: return launch<64, T>(a, B, st);
+    case 128: return launch<128, T>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// All pointers 16-byte aligned and contiguous; HD one of 16, 32, 64, 128
-// (else returns cudaErrorInvalidValue); L >= 1.
-extern "C" int rwkv6_forward(const float* r, const float* k, const float* v,
+// All pointers 16-byte aligned and contiguous; r, k, v and out fp32
+// (bf16 = 0) or bf16 (1); HD one of 16, 32, 64, 128 (else returns
+// cudaErrorInvalidValue); L >= 1.
+extern "C" int rwkv6_forward(const void* r, const void* k, const void* v,
                              const float* logw, const float* u,
-                             const float* s0, float* out, float* sT, int B,
-                             int L, int H, int HD, void* stream) {
-  if (L < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+                             const float* s0, void* out, float* sT, int B,
+                             int L, int H, int HD, int bf16, void* stream) {
+  if (L < 1 || B < 1 || H < 1 || (bf16 != 0 && bf16 != 1))
+    return (int)cudaErrorInvalidValue;
   const Args a{r, k, v, logw, u, s0, out, sT, L, H};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (HD) {
-    case 16: return launch<16>(a, B, st);
-    case 32: return launch<32>(a, B, st);
-    case 64: return launch<64>(a, B, st);
-    case 128: return launch<128>(a, B, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_hd<__nv_bfloat16>(a, B, HD, st)
+              : launch_hd<float>(a, B, HD, st);
 }

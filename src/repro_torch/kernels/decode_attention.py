@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.nn.attention import attention_core, make_attention_mask
+from repro_torch.nn.attention import make_attention_mask, widened_attention
 
 TILE = 16           # slots a shared-memory stage (kTile in the source)
 MAX_HEADS = 8       # query heads (warps) a block (kMaxHeads)
@@ -53,8 +53,7 @@ def decode_attention_ref(q, k_cache, v_cache, slot_pos, *, q_pos,
     mask = make_attention_mask(_q_pos_rows(q_pos, q.device), pos,
                                causal=causal, window=window,
                                kv_valid=pos >= 0)[None]
-    return attention_core(q.float(), k_cache.float(), v_cache.float(),
-                          mask=mask).to(q.dtype)
+    return widened_attention(q, k_cache, v_cache, mask=mask)
 
 
 def plan(batch: int, heads: int, kv_heads: int, capacity: int,

@@ -142,8 +142,9 @@ def decode_attention(q, k_cache, v_cache, slot_pos, *, q_pos,
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0, logit_softcap=None):
-    """Attention over fresh K/V: q (B, Lq, H, Dh); k, v (B, Lk, Hkv, Dh);
-    queries at q_offset + arange(Lq), keys at arange(Lk)."""
+    """Attention over fresh K/V: q (B, Lq, H, Dh); k, v (B, Lk, Hkv, Dh),
+    all fp32 or all bf16; queries at q_offset + arange(Lq), keys at
+    arange(Lk).  Returns q's dtype."""
     flash_attention.calls += 1
     if _on_cpu(q):
         return _flash.flash_attention_ref(q, k, v, causal=causal,
@@ -157,8 +158,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 
 def rwkv6_chunked(r, k, v, logw, u, s0, *, chunk: int):
-    """The RWKV6 recurrence: r, k, v, logw (B, L, H, hd) fp32, u (H, hd),
-    s0 (B, H, hd, hd) -> (out, sT).  ``chunk`` is the plain version's
+    """The RWKV6 recurrence: r, k, v (B, L, H, hd) fp32 or bf16, logw
+    (B, L, H, hd), u (H, hd), s0 (B, H, hd, hd) fp32 -> (out in r's dtype,
+    sT fp32).  ``chunk`` is the plain version's
     (chunkwise, the reference's rule); the kernel scans token by token
     and takes any L."""
     rwkv6_chunked.calls += 1

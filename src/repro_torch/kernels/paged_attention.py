@@ -27,7 +27,7 @@ from repro_torch.core.quant import (KV_DTYPES, dequantize_kv, kv_quant_kind,
                                     kv_store_dtype)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import TILES, padded_head_dim
-from repro_torch.nn.attention import attention_core, make_attention_mask
+from repro_torch.nn.attention import make_attention_mask, widened_attention
 
 # page storage dtype -> the kernels' storage-kind argument, the index of its
 # name in KV_DTYPES: 0 fp32, 1 bf16, 2 int8, 3 fp8 e4m3
@@ -114,13 +114,6 @@ def _gather(k_pages, v_pages, block_tables, page_pos):
     return k, v, pos
 
 
-def _widened_attention(q, k, v, mask):
-    """The Pallas kernels' arithmetic: q widened to fp32 (a bf16 q
-    exactly), scores, softmax and P V in fp32 over the fp32 K/V, the
-    output rounded once to q's dtype."""
-    return attention_core(q.float(), k, v, mask=mask).to(q.dtype)
-
-
 def paged_attention_ref(q, k_pages, v_pages, block_tables, page_pos, q_pos,
                         *, window=None, causal=True):
     """q (B, 1, H, Dh) fp32 or bf16; pages (P, BS, Hkv, Dh); block_tables
@@ -131,7 +124,7 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, page_pos, q_pos,
     mask = make_attention_mask(q_pos[:, None], pos, causal=causal,
                                window=window, kv_valid=pos >= 0)
     mask = mask & (q_pos >= 0)[:, None, None]
-    return _widened_attention(q, k, v, mask)
+    return widened_attention(q, k, v, mask=mask)
 
 
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
@@ -150,7 +143,7 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
     mask = make_attention_mask(q_pos, pos, causal=causal, window=window,
                                kv_valid=pos >= 0)
     mask = mask & (q_pos >= 0)[..., None]
-    return _widened_attention(q, k, v, mask)
+    return widened_attention(q, k, v, mask=mask)
 
 
 def paged_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,

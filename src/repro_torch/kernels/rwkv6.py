@@ -5,7 +5,11 @@ its plain PyTorch versions.
     S_t   = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
 
 over r, k, v, logw (B, L, H, hd), u (H, hd) and the carried state s0
-(B, H, hd, hd); returns out (B, L, H, hd) and the final state sT.
+(B, H, hd, hd); returns out (B, L, H, hd) and the final state sT.  r, k
+and v are fp32 or bf16 (one dtype); logw, u, s0 and sT are fp32; out is
+in r's dtype.  As the Pallas kernel (and the reference's model path at
+its default ``rwkv_intra_dtype='f32'``), bf16 r, k and v are widened to
+fp32, the recurrence runs in fp32 and out is rounded once.
 
 Counterpart of ``repro/kernels/rwkv6.py`` (``rwkv6_chunked``, the Pallas
 kernel) and of the function the reference's model path runs in its place,
@@ -36,6 +40,8 @@ import torch
 
 from repro_torch.kernels import build
 
+DTYPES = (torch.float32, torch.bfloat16)    # r, k, v and out
+
 HEAD_DIMS = (16, 32, 64, 128)      # the kernel's instantiations
 # head dim -> (value columns a block, row groups, columns a thread, tokens
 # a staged tile): a head's hd columns split over hd / columns blocks, each
@@ -49,7 +55,11 @@ def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
                  intra_dtype=torch.float32):
     """Chunkwise-parallel recurrence in chunks of ``chunk`` tokens (L a
     multiple of it).  The (c, c, hd) pairwise decay and the intra-chunk
-    products run in ``intra_dtype`` (fp32 or bf16), as the reference's."""
+    products run in ``intra_dtype`` (fp32 or bf16), as the reference's;
+    bf16 r, k and v are widened first (the reference promotes them where
+    they meet fp32) and out comes back in r's dtype."""
+    dt = r.dtype
+    r, k, v = r.float(), k.float(), v.float()
     b, l, h, hd = r.shape
     if l % chunk:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}")
@@ -80,12 +90,15 @@ def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
              + torch.einsum("bhck,bhcv->bhkv", k_scaled, vj))
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, l, h, hd)
-    return out, s
+    return out.to(dt), s
 
 
 def rwkv6_ref(r, k, v, logw, u, s0):
-    """The sequential per-token recurrence (the definition).  Returns
-    (out (B, L, H, hd), sT (B, H, hd, hd))."""
+    """The sequential per-token recurrence (the definition), widened and
+    rounded as ``rwkv_chunked``.  Returns (out (B, L, H, hd) in r's dtype,
+    sT (B, H, hd, hd) fp32)."""
+    dt = r.dtype
+    r, k, v = r.float(), k.float(), v.float()
     w = torch.exp(logw)
     s, outs = s0, []
     for t in range(r.shape[1]):
@@ -94,7 +107,7 @@ def rwkv6_ref(r, k, v, logw, u, s0):
                     + torch.einsum("bhk,bhk->bh", rt * u[None], kt)[..., None]
                     * vt)
         s = wt[..., None] * s + kt[..., None] * vt[:, :, None, :]
-    return torch.stack(outs, 1), s
+    return torch.stack(outs, 1).to(dt), s
 
 
 def _aligned(x):
@@ -105,16 +118,23 @@ def _aligned(x):
 
 
 def rwkv6_cuda(r, k, v, logw, u, s0):
-    """Launch ``rwkv6_scan``; arguments as ``rwkv6_ref``, fp32 CUDA
-    tensors, hd one of ``HEAD_DIMS``, any L >= 1."""
+    """Launch ``rwkv6_scan``; arguments as ``rwkv6_ref``, CUDA tensors
+    (r, k and v fp32 or bf16, one dtype; logw, u and s0 fp32), hd one of
+    ``HEAD_DIMS``, any L >= 1."""
+    for name, x in (("r", r), ("k", k), ("v", v)):
+        if x.dtype not in DTYPES or x.dtype != r.dtype:
+            raise ValueError(f"{name}: need r's dtype, fp32 or bf16, got "
+                             f"{x.dtype} (r {r.dtype})")
+    for name, x in (("logw", logw), ("u", u), ("s0", s0)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: need fp32, got {x.dtype}")
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"the rwkv6 kernel runs on CUDA tensors, got {dev}")
-    for name, x in (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
+    for name, x in (("k", k), ("v", v), ("logw", logw), ("u", u),
                     ("s0", s0)):
-        if x.dtype != torch.float32 or x.device != dev:
-            raise ValueError(f"{name}: need fp32 on {dev}, got {x.dtype} on "
-                             f"{x.device}")
+        if x.device != dev:
+            raise ValueError(f"{name}: need {dev}, got {x.device}")
     b, l, h, hd = r.shape
     if (k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape
             or u.shape != (h, hd) or s0.shape != (b, h, hd, hd) or l < 1):
@@ -129,6 +149,7 @@ def rwkv6_cuda(r, k, v, logw, u, s0):
     err = build.load("rwkv6").rwkv6_forward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_t.data_ptr(), b, l, h,
-        hd, torch.cuda.current_stream(dev).cuda_stream)
+        hd, int(r.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "rwkv6_scan")
     return out, s_t

@@ -9,11 +9,13 @@ run without a cache, and its heads:
   * token classification: logits per position.
 
 Every head reads ``hidden``, the demuxed (N*B, L, D) hidden state, and
-computes in fp32, the backbone too (bf16 waits for the flash kernel in
-bf16, ROADMAP §1 item 21).  ``use_kernels`` (default True) runs the
-backbone's kernel path: the fused Gaussian entry or the mux-combine
-kernel, the flash kernel under ``attn_impl='flash'``, the fused RSA exit
-(their plain versions on CPU tensors); False runs the plain model path.
+computes in ``dtype``, the backbone too: fp32 by default, as the
+reference's, or bf16 (the weights cast per op, the norms in fp32 rounded
+to it, the MLM bias cast to the logits' dtype).  ``use_kernels``
+(default True) runs the backbone's kernel path: the fused Gaussian entry
+or the mux-combine kernel, the flash kernel under ``attn_impl='flash'``,
+the fused RSA exit (their plain versions on CPU tensors); False runs the
+plain model path.
 The heads themselves are plain matmuls.
 """
 from __future__ import annotations
@@ -65,28 +67,32 @@ class MuxBERT:
 
     @staticmethod
     def hidden(params, cfg: ModelConfig, tokens, *, mux: MuxSpec = MuxSpec(),
-               use_kernels: bool = True):
-        """tokens (N*B, L) -> the demuxed hidden state (N*B, L, D)."""
+               dtype=torch.float32, use_kernels: bool = True):
+        """tokens (N*B, L) -> the demuxed hidden state (N*B, L, D) in
+        ``dtype``."""
         return TransformerLM.apply(params["backbone"], cfg, tokens, mux=mux,
-                                   dtype=torch.float32, logits_out=False,
+                                   dtype=dtype, logits_out=False,
                                    use_kernels=use_kernels)["hidden"]
 
     @staticmethod
     def mlm_logits(params, cfg: ModelConfig, tokens, *,
-                   mux: MuxSpec = MuxSpec(), use_kernels: bool = True):
+                   mux: MuxSpec = MuxSpec(), dtype=torch.float32,
+                   use_kernels: bool = True):
         """(N*B, L, V) masked-LM logits."""
-        h = MuxBERT.hidden(params, cfg, tokens, mux=mux,
+        h = MuxBERT.hidden(params, cfg, tokens, mux=mux, dtype=dtype,
                            use_kernels=use_kernels)
         m = params["mlm"]
         t = LayerNorm.apply(m["ln"], gelu_tanh(Linear.apply(m["transform"],
                                                              h)))
-        return Embedding.attend(params["backbone"]["embed"], t) + m["bias"]
+        logits = Embedding.attend(params["backbone"]["embed"], t)
+        return logits + m["bias"].to(logits.dtype)
 
     @staticmethod
     def rtd_logits(params, cfg: ModelConfig, tokens, *,
-                   mux: MuxSpec = MuxSpec(), use_kernels: bool = True):
+                   mux: MuxSpec = MuxSpec(), dtype=torch.float32,
+                   use_kernels: bool = True):
         """ELECTRA replaced-token detection: (N*B, L) binary logits."""
-        h = MuxBERT.hidden(params, cfg, tokens, mux=mux,
+        h = MuxBERT.hidden(params, cfg, tokens, mux=mux, dtype=dtype,
                            use_kernels=use_kernels)
         t = gelu_tanh(Linear.apply(params["rtd"]["dense"], h))
         return Linear.apply(params["rtd"]["out"], t)[..., 0]
@@ -100,9 +106,10 @@ class MuxBERT:
 
     @staticmethod
     def classify(params, head, cfg: ModelConfig, tokens, *,
-                 mux: MuxSpec = MuxSpec(), use_kernels: bool = True):
+                 mux: MuxSpec = MuxSpec(), dtype=torch.float32,
+                 use_kernels: bool = True):
         """(N*B, n_classes) logits from the tanh pooler on position 0."""
-        h = MuxBERT.hidden(params, cfg, tokens, mux=mux,
+        h = MuxBERT.hidden(params, cfg, tokens, mux=mux, dtype=dtype,
                            use_kernels=use_kernels)
         cls = torch.tanh(Linear.apply(head["pool"], h[:, 0]))
         return Linear.apply(head["out"], cls)
@@ -114,8 +121,9 @@ class MuxBERT:
 
     @staticmethod
     def classify_tokens(params, head, cfg: ModelConfig, tokens, *,
-                        mux: MuxSpec = MuxSpec(), use_kernels: bool = True):
+                        mux: MuxSpec = MuxSpec(), dtype=torch.float32,
+                        use_kernels: bool = True):
         """(N*B, L, n_tags) logits per position."""
-        h = MuxBERT.hidden(params, cfg, tokens, mux=mux,
+        h = MuxBERT.hidden(params, cfg, tokens, mux=mux, dtype=dtype,
                            use_kernels=use_kernels)
         return Linear.apply(head["out"], h)

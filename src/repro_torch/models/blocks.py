@@ -53,15 +53,14 @@ The MoE and RG-LRU branches are later slices.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.rwkv6 import rwkv_chunked
 from repro_torch.nn import (ACTIVATIONS, LayerNorm, Linear, RMSNorm,
                             apply_rope, attention_core, make_attention_mask,
                             multi_head_attention)
-from repro_torch.nn.activations import squared_relu
-from repro_torch.nn.layers import normal
+from repro_torch.nn.activations import silu, squared_relu
+from repro_torch.nn.layers import normal, rounded
 from repro_torch.serve.kvpool import init_pages, paged_view, paged_write
 
 
@@ -313,20 +312,27 @@ def apply_rwkv(p, cfg, blk, x, ctx, cache):
     h = _norm(cfg).apply(p["ln1"], x)
 
     hs = _token_shift(h, cache["shift_tm"] if cache else None)
-    mu = p["mu"]
+    # the mixing vectors in the compute dtype, as the reference casts them
+    # (a bf16 tensor times an fp32 one would compute in fp32 here)
+    mu = p["mu"].to(h.dtype)
     hr, hk, hv, hg = (h + (hs - h) * mu[i] for i in range(4))
 
     r = Linear.apply(p["w_r"], hr)                  # (B, L, H, hd)
     k = Linear.apply(p["w_k"], hk)
     v = Linear.apply(p["w_v"], hv)
-    g = F.silu(Linear.apply(p["w_g"], hg))          # (B, L, D)
+    g = silu(Linear.apply(p["w_g"], hg))            # (B, L, D)
 
-    dec = p["dec_w0"] + torch.tanh(h @ p["dec_a"]) @ p["dec_b"]
+    # the decay LoRA in fp32 from h widened, as the reference's
+    dec = p["dec_w0"].float() + torch.tanh(
+        h.float() @ p["dec_a"].float()) @ p["dec_b"].float()
     logw = -torch.exp(dec).reshape(b, l, nh, hd)    # log decay < 0
 
     s0 = cache["s"] if cache else torch.zeros((b, nh, hd, hd),
                                               device=x.device)
-    # the reference's chunk rule (blocks.py rwkv_chunked's caller)
+    # the reference's chunk rule (blocks.py rwkv_chunked's caller).  r, k
+    # and v go in the compute dtype: the kernel and its plain versions widen
+    # them to fp32 and round out once, as the reference widens them before
+    # its fp32 recurrence and rounds out to x's dtype
     chunk = min(l, cfg.rwkv_chunk if l % cfg.rwkv_chunk == 0 else l)
     intra = (torch.bfloat16 if cfg.rwkv_intra_dtype == "bf16"
              else torch.float32)
@@ -335,27 +341,34 @@ def apply_rwkv(p, cfg, blk, x, ctx, cache):
             raise NotImplementedError(
                 "rwkv_intra_dtype='bf16' runs on the plain path only "
                 "(use_kernels=False): the kernel computes in fp32")
-        out, s_t = kops.rwkv6_chunked(r, k, v, logw, p["u"], s0, chunk=chunk)
+        out, s_t = kops.rwkv6_chunked(r, k, v, logw, p["u"].float(), s0,
+                                      chunk=chunk)
     else:
-        out, s_t = rwkv_chunked(r, k, v, logw, p["u"], s0, chunk,
+        out, s_t = rwkv_chunked(r, k, v, logw, p["u"].float(), s0, chunk,
                                 intra_dtype=intra)
+    out = out.to(x.dtype)
     if cache:
         cache["s"] = s_t
         cache["shift_tm"].copy_(h[:, -1])
 
-    # per-head groupnorm, then gate and project
+    # per-head groupnorm, then gate and project.  As the reference's: the
+    # mean and variance of the (bf16) out reduce in fp32 and return in its
+    # dtype, the normalisation computes in it, the fp32 scale and bias
+    # promote the result to fp32, and it meets g in x's dtype
     o = out.reshape(b, l, nh, hd)
-    o = (o - o.mean(-1, keepdim=True)) * torch.rsqrt(
-        o.var(-1, unbiased=False, keepdim=True) + 1e-5)
-    o = o.reshape(b, l, d) * p["gn_scale"] + p["gn_bias"]
-    x = x + Linear.apply(p["w_o"], o * g)
+    o32 = o.float()
+    mean = o32.mean(-1, keepdim=True).to(o.dtype)
+    var = o32.var(-1, unbiased=False, keepdim=True).to(o.dtype)
+    o = (o - mean) * torch.rsqrt(var + rounded(1e-5, o.dtype))
+    o = o.reshape(b, l, d) * p["gn_scale"].float() + p["gn_bias"].float()
+    x = x + Linear.apply(p["w_o"], o.to(x.dtype) * g)
 
     # channel mix with token shift
     h2 = _norm(cfg).apply(p["ln2"], x)
     h2s = _token_shift(h2, cache["shift_cm"] if cache else None)
     if cache:
         cache["shift_cm"].copy_(h2[:, -1])
-    hk2 = h2 + (h2s - h2) * p["mu_cm"]
+    hk2 = h2 + (h2s - h2) * p["mu_cm"].to(h2.dtype)
     kk = squared_relu(Linear.apply(p["cm_k"], hk2))
     return x + Linear.apply(p["cm_v"], kk)
 

@@ -8,8 +8,8 @@ a cache; the decoder a causal ``TransformerLM`` of cross-attention blocks
 frame streams with its own mux (``enc_mux``, of the spec's kind), the
 decoder muxes the N token streams; cross-attention runs in the
 multiplexed domain, and one demux after the decoder recovers the N logit
-streams.  Both stacks compute in fp32: bf16 waits for the flash kernel in
-bf16 (ROADMAP §1 item 21).
+streams.  Both stacks compute in ``dtype``, bf16 by default as the
+reference's ``encode`` / ``apply`` / ``init_cache``, or fp32.
 """
 from __future__ import annotations
 
@@ -39,47 +39,50 @@ class EncDecLM:
 
     @staticmethod
     def encode(params, cfg: ModelConfig, enc_embeds, *,
-               mux: MuxSpec = MuxSpec(), use_kernels: bool = True):
+               mux: MuxSpec = MuxSpec(), dtype=torch.bfloat16,
+               use_kernels: bool = True):
         """enc_embeds (N*B, frames, D_enc) -> the muxed encoder hidden
-        (B, frames, D_enc).  use_kernels: the mux-combine kernel of the
-        encoder's entry and the layers' kernels (the attention follows
-        ``cfg.encoder.attn_impl``)."""
+        (B, frames, D_enc) in ``dtype``: the frames are cast to it before
+        the mux, as the reference's.  use_kernels: the mux-combine kernel
+        of the encoder's entry and the layers' kernels (the attention
+        follows ``cfg.encoder.attn_impl``)."""
         dev = params["encoder"]["embed"]["table"].device
-        x = torch.as_tensor(enc_embeds, device=dev).float()
+        x = torch.as_tensor(enc_embeds, device=dev).to(dtype)
         if mux.enabled:
             x = MuxEngine.combine(params["enc_mux"], mux, x,
                                   use_kernels=use_kernels)
         return TransformerLM.apply(params["encoder"], cfg.encoder, embeds=x,
-                                   dtype=torch.float32, logits_out=False,
+                                   dtype=dtype, logits_out=False,
                                    use_kernels=use_kernels,
                                    demux=False)["hidden"]
 
     @staticmethod
     def apply(params, cfg: ModelConfig, dec_tokens, enc_embeds=None, *,
               enc_out=None, mux: MuxSpec = MuxSpec(), cache=None,
-              q_offset=0, logits_out: bool = True, use_kernels: bool = True,
-              fuse_io: bool = True, extra_ctx=None):
+              q_offset=0, dtype=torch.bfloat16, logits_out: bool = True,
+              use_kernels: bool = True, fuse_io: bool = True, extra_ctx=None):
         """A full forward or a prefill: pass ``enc_embeds`` (runs the
         encoder) or ``enc_out``; a decode step: pass the cache, whose
         cross-K/V the prefill filled (the encoder does not run again).
-        Other arguments as ``TransformerLM.apply``."""
+        Both stacks compute in ``dtype``.  Other arguments as
+        ``TransformerLM.apply``."""
         if enc_out is None and enc_embeds is not None:
             enc_out = EncDecLM.encode(params, cfg, enc_embeds, mux=mux,
-                                      use_kernels=use_kernels)
+                                      dtype=dtype, use_kernels=use_kernels)
         ectx = dict(extra_ctx or {})
         if enc_out is not None:
             ectx["enc_out"] = enc_out
         return TransformerLM.apply(
             params["decoder"], cfg, dec_tokens, mux=mux, cache=cache,
-            q_offset=q_offset, dtype=torch.float32, logits_out=logits_out,
+            q_offset=q_offset, dtype=dtype, logits_out=logits_out,
             use_kernels=use_kernels,
             fuse_io=fuse_io, extra_ctx=ectx)
 
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-                   dtype=torch.float32, *, device):
-        """The decoder's ring cache for ``batch`` backbone rows: per layer
-        a self-attention ring and the cross-K/V of
+                   dtype=torch.bfloat16, *, device):
+        """The decoder's ring cache for ``batch`` backbone rows in
+        ``dtype``: per layer a self-attention ring and the cross-K/V of
         ``cfg.encoder.frontend_len`` frames."""
         return TransformerLM.init_cache(cfg, batch, capacity, dtype,
                                         device=device)

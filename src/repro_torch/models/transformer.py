@@ -36,24 +36,13 @@ from repro_torch.nn.layers import normal, rounded
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_dtype(cfg: ModelConfig, dtype):
-    """Raise unless the port computes ``cfg`` in ``dtype``: fp32 always;
-    bf16 (the reference's serve default) for attention models whose
-    blocking attention is not the flash kernel, which, like the RWKV6
-    kernel, takes fp32 operands only so far (ROADMAP §1 item 21)."""
+def check_dtype(dtype):
+    """Raise unless ``dtype`` is a compute dtype of the port: fp32, or bf16
+    (the reference's serve default), for every block kind and attention
+    implementation."""
     if dtype not in DTYPES:
         raise ValueError(f"compute dtype {dtype}: the port computes in "
                          f"{DTYPES}")
-    if dtype == torch.float32:
-        return
-    if "rwkv" in cfg.pattern_layers:
-        raise NotImplementedError(
-            f"RWKV blocks compute in fp32 so far (got {dtype}): the "
-            "rwkv6_chunked kernel in bf16 is ROADMAP §1 item 21")
-    if cfg.attn_impl == "flash":
-        raise NotImplementedError(
-            f"attn_impl='flash' computes in fp32 so far (got {dtype}): the "
-            "flash_attention kernel in bf16 is ROADMAP §1 item 21")
 
 
 def _check_supported(cfg: ModelConfig, mux: MuxSpec):
@@ -161,7 +150,7 @@ class TransformerLM:
         2048 tokens, else naive; 'flash' launches the flash kernel).
         Returns dict(logits | hidden)."""
         _check_supported(cfg, mux)
-        check_dtype(cfg, dtype)
+        check_dtype(dtype)
         d = cfg.d_model
         dev = params["embed"]["table"].device
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0

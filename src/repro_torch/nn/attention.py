@@ -69,6 +69,16 @@ def attention_core(q, k, v, *, mask=None,
     return out.reshape(b, lq, h, dh)
 
 
+def widened_attention(q, k, v, *, mask=None,
+                      logit_softcap: float | None = None):
+    """The attention kernels' arithmetic (the Pallas kernels' and the
+    port's): q, K and V widened to fp32 (a bf16 value exactly), scores,
+    softmax and P V in fp32, the output rounded once to q's dtype, where
+    ``attention_core`` rounds the scores and P to a bf16 q's dtype."""
+    return attention_core(q.float(), k.float(), v.float(), mask=mask,
+                          logit_softcap=logit_softcap).to(q.dtype)
+
+
 def chunked_attention_core(q, k, v, *, causal: bool = True,
                            window: int | None = None, q_offset: int = 0,
                            chunk_size: int = 512,

@@ -56,12 +56,11 @@ class ServeConfig:
 
     kind: 'lm' (decoder-only, the default) or 'encdec' (whisper; ring
     only, as the reference).  dtype: the compute dtype the model runs in
-    (``TransformerLM.apply(dtype=)``), bf16 by default as in the
-    reference, or fp32; the ring and any recurrent state are stored in
-    it.  bf16 covers decoder-only attention models: an encoder-decoder
-    model, RWKV blocks and ``attn_impl='flash'`` raise
-    ``NotImplementedError`` under it until their kernels take bf16
-    (ROADMAP §1 item 21).  kv_dtype (paged only): page storage — 'fp32' |
+    (``TransformerLM.apply`` / ``EncDecLM.apply(dtype=)``), bf16 by
+    default as in the reference, or fp32, for every model kind, block kind
+    and attention implementation; the ring, the cross-K/V and an RWKV
+    layer's token shifts are stored in it (its matrix state is fp32).
+    kv_dtype (paged only): page storage — 'fp32' |
     'bf16' | 'int8' | 'fp8' (any ``core.quant.resolve_kv_dtype``
     spelling); None stores pages in ``dtype``.  int8 and fp8 pages carry
     per-(slot, head) fp32 scales.  num_blocks (paged only): the pool's
@@ -91,12 +90,7 @@ class ServeConfig:
         if self.num_blocks is not None and self.num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
         quantlib.resolve_kv_dtype(self.kv_dtype)
-        if self.kind == "encdec" and self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"an encoder-decoder model serves in fp32 so far: pass "
-                f"dtype=torch.float32 (got {self.dtype}; bf16 waits for the "
-                f"flash_attention kernel in bf16, ROADMAP §1 item 21)")
-        check_dtype(self.cfg, self.dtype)
+        check_dtype(self.dtype)
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -163,7 +157,8 @@ def init_cache(sc: ServeConfig, global_batch: int, *, device):
         if sc.cache_layout == "paged":
             raise NotImplementedError(
                 "paged cache layout: decoder-only LM families")
-        return EncDecLM.init_cache(sc.cfg, b, sc.capacity, device=device)
+        return EncDecLM.init_cache(sc.cfg, b, sc.capacity, sc.dtype,
+                                   device=device)
     if sc.cache_layout == "ring":
         return TransformerLM.init_cache(sc.cfg, b, sc.capacity, sc.dtype,
                                         device=device)
@@ -216,16 +211,15 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
         if sc.cache_layout != "paged":
             raise ValueError("rows= requires the paged cache layout")
         ctx["rows"] = torch.as_tensor(rows, device=cache["bt"].device).long()
-    kw = dict(mux=sc.mux, cache=cache, use_kernels=use_kernels,
-              fuse_io=False, extra_ctx=ctx)
+    kw = dict(mux=sc.mux, cache=cache, dtype=sc.dtype,
+              use_kernels=use_kernels, fuse_io=False, extra_ctx=ctx)
     if sc.kind == "encdec":
         if extra is None:
             raise ValueError("an encoder-decoder prefill needs the frame "
                              "embeddings (extra=)")
         logits = EncDecLM.apply(params, sc.cfg, tokens, extra, **kw)["logits"]
     else:
-        logits = TransformerLM.apply(params, sc.cfg, tokens, dtype=sc.dtype,
-                                     **kw)["logits"]
+        logits = TransformerLM.apply(params, sc.cfg, tokens, **kw)["logits"]
     return logits[:, -1], cache
 
 
@@ -270,11 +264,10 @@ def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
     (logits (N*B, 1, V), cache)."""
     if sc.cache_layout == "ring" and isinstance(pos, torch.Tensor):
         raise TypeError("the ring cache decodes at one int position")
-    kw = dict(mux=sc.mux, cache=cache, q_offset=pos, use_kernels=use_kernels)
-    if sc.kind == "encdec":
-        out = EncDecLM.apply(params, sc.cfg, tokens, **kw)
-    else:
-        out = TransformerLM.apply(params, sc.cfg, tokens, dtype=sc.dtype, **kw)
+    kw = dict(mux=sc.mux, cache=cache, q_offset=pos, dtype=sc.dtype,
+              use_kernels=use_kernels)
+    model = EncDecLM if sc.kind == "encdec" else TransformerLM
+    out = model.apply(params, sc.cfg, tokens, **kw)
     return out["logits"], cache
 
 

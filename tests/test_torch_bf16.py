@@ -33,9 +33,10 @@ kernel path).
     the port's bf16 tokens agree with the reference's bf16 tokens at
     least as often as the reference's bf16 tokens agree with its own
     fp32 run of the trace.
-(e) encdec, RWKV and ``attn_impl='flash'`` raise ``NotImplementedError``
-    under bf16; the reference's plain path under bf16 fails on int8 pages
-    (ROADMAP §3) where the port's runs.
+(e) encdec, RWKV and ``attn_impl='flash'`` take the default bf16 (their
+    numerics are ``tests/test_torch_bf16_rest.py``'s), fp16 and the RWKV
+    bf16 intra dtype under use_kernels raise; the reference's plain path
+    under bf16 fails on int8 pages (ROADMAP §3) where the port's runs.
 
 The card tests of the bf16 kernels are in ``tests/test_torch_kernels.py``
 and ``tests/test_torch_dense_attention.py`` (``-m cuda``).
@@ -467,33 +468,41 @@ def test_bf16_greedy_agreement_with_reference(arch, d_model, arm):
     assert n_tok == total and same >= floor, (same, floor, total)
 
 
-# ------------------------------------------------------- (e) refusals
+# ------------------------------------------------------- (e) the default dtype
 
 def test_bf16_refuses_what_waits_for_the_next_slice():
+    """Every model kind, block kind and attention implementation takes the
+    default bf16: whisper-small (kind 'encdec'), rwkv6-7b and a flash
+    config construct, and the flash config's ``TransformerLM.apply`` runs
+    in bf16 on the CPU; fp16 is still no compute dtype, and the bf16 intra
+    dtype of the RWKV recurrence still runs on the plain path only."""
     mux = MuxSpec(n=2)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        engine.ServeConfig(cfg=get_config("whisper-small", reduced=True),
-                           mux=mux, capacity=16, kind="encdec")
-    with pytest.raises(NotImplementedError, match="RWKV.*item 21"):
-        engine.ServeConfig(cfg=get_config("rwkv6-7b", reduced=True), mux=mux,
-                           capacity=16)
     flash = get_config("qwen2-1.5b", reduced=True).replace(attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="flash.*item 21"):
-        engine.ServeConfig(cfg=flash, mux=mux, capacity=16)
-    params = TransformerLM.init(torch.Generator().manual_seed(0), flash, mux)
-    with pytest.raises(NotImplementedError, match="flash.*item 21"):
-        TransformerLM.apply(params, flash, torch.zeros((2, 4),
-                                                       dtype=torch.long),
-                            mux=mux)
-    with pytest.raises(ValueError, match="compute dtype"):
-        engine.ServeConfig(cfg=flash, mux=mux, capacity=16,
-                           dtype=torch.float16)
     for cfg, kind in ((flash, "lm"),
                       (get_config("whisper-small", reduced=True), "encdec"),
                       (get_config("rwkv6-7b", reduced=True), "lm")):
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=16, kind=kind)
+        assert sc.dtype == BF and sc.page_dtype == BF
         sc = engine.ServeConfig(cfg=cfg, mux=mux, capacity=16, kind=kind,
                                 dtype=torch.float32)
         assert sc.page_dtype == torch.float32
+    params = TransformerLM.init(torch.Generator().manual_seed(0), flash, mux)
+    ops.reset_counts()
+    out = TransformerLM.apply(params, flash, torch.zeros((2, 4),
+                                                         dtype=torch.long),
+                              mux=mux)["logits"]
+    assert out.dtype == BF and out.shape == (2, 4, flash.vocab_size)
+    assert torch.isfinite(out.float()).all()
+    assert ops.flash_attention.calls == flash.n_layers
+    with pytest.raises(ValueError, match="compute dtype"):
+        engine.ServeConfig(cfg=flash, mux=mux, capacity=16,
+                           dtype=torch.float16)
+    rwkv = get_config("rwkv6-7b", reduced=True).replace(
+        rwkv_intra_dtype="bf16")
+    p = TransformerLM.init(torch.Generator().manual_seed(0), rwkv, mux)
+    with pytest.raises(NotImplementedError, match="plain path"):
+        TransformerLM.apply(p, rwkv, torch.zeros((2, 4), dtype=torch.long),
+                            mux=mux, use_kernels=True)
 
 
 def test_reference_bf16_plain_path_fails_on_fp32_pages():

@@ -772,8 +772,14 @@ def test_decode_attention_bf16_replays_under_graph_capture_on_card(cuda):
 def test_dense_kernels_reject_other_dtypes_on_card(cuda):
     q = torch.zeros(1, 4, 4, 16, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 2, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="fp32"):
-        ops.flash_attention(q, k, k)
+    # flash_attention takes fp32 or bf16, one dtype for q, k and v, and a
+    # bf16 head_dim in whole 16-byte rows
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="q's dtype"):
+        ops.flash_attention(q, k.float(), k.float())
+    with pytest.raises(ValueError, match="head_dim 12"):
+        ops.flash_attention(q[..., :12], k[..., :12], k[..., :12])
     pos = torch.arange(4, device=cuda, dtype=torch.int32)
     # decode_attention takes fp32 or bf16, one dtype for q and the cache
     with pytest.raises(ValueError, match="fp32 or bf16"):

@@ -122,7 +122,8 @@ def test_encode_matches_reference(impl):
                             dtype=jnp.float32)
     for use_kernels in (False, True):
         got = EncDecLM.encode(port, sc.cfg, torch.as_tensor(frames),
-                              mux=MuxSpec(n=2), use_kernels=use_kernels)
+                              mux=MuxSpec(n=2), dtype=torch.float32,
+                              use_kernels=use_kernels)
         assert got.shape == (2, sc.cfg.encoder.frontend_len, 64)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -139,6 +140,7 @@ def test_full_forward_logits_match_reference(impl, use_kernels):
                            dtype=jnp.float32)["logits"]
     got = EncDecLM.apply(port, sc.cfg, torch.as_tensor(toks),
                          torch.as_tensor(frames), mux=MuxSpec(n=2),
+                         dtype=torch.float32,
                          use_kernels=use_kernels)["logits"]
     assert got.shape == (4, 12, sc.cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

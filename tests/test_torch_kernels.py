@@ -1172,3 +1172,106 @@ def test_kernel_sweep_variants_apply_to_the_sources():
                 assert p.threads <= threads and p.rows >= 1
                 assert p.slices == -(-d // p.cols) and p.cols % 8 == 0
                 assert p.threads % -(-p.cols * elt // 16) == 0
+
+
+# ------------------------------------ flash attention and RWKV6 in bf16
+
+# (B, Lq, Lk, H, Hkv, Dh) and keyword arguments: the main path's shapes
+# (qwen2-1.5b's causal prefill, whisper's encoder and cross-attention,
+# gemma-2b's and h2o-danube-1.8b's heads, mux-bert-base's 80 rows) and
+# the edges (a query offset, a softcap, a split of the keys over blocks)
+FLASH_BF16_CASES = {
+    "qwen2_causal_116": (2, 116, 116, 12, 2, 128, {}),
+    "whisper_encoder": (2, 1500, 1500, 12, 12, 64, dict(causal=False)),
+    "whisper_cross": (2, 100, 1500, 12, 12, 64, dict(causal=False)),
+    "gemma_dh256": (2, 116, 116, 8, 1, 256, {}),
+    "h2o_dh80_window": (2, 300, 300, 32, 8, 80, dict(window=64)),
+    "bert_80x130": (80, 130, 130, 12, 12, 64, dict(causal=False)),
+    "offset_softcap": (1, 9, 37, 4, 2, 32, dict(q_offset=28,
+                                                 logit_softcap=5.0)),
+    "split_keys": (1, 16, 4096, 4, 4, 64, dict(causal=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_BF16_CASES))
+def test_flash_attention_bf16_on_card(cuda, case):
+    """bf16 q, K and V: the kernel against its plain version (widened to
+    fp32, one rounding) within one bf16 ulp of the row's largest value,
+    bit for bit over two calls; ``split_keys`` runs the split and the
+    combine (which alone rounds)."""
+    from repro_torch.kernels import flash_attention as kfl
+    b, lq, lk, h, hkv, dh, kw = FLASH_BF16_CASES[case]
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s, np.float32),
+                               device=cuda).to(torch.bfloat16)
+               for s in ((b, lq, h, dh), (b, lk, hkv, dh), (b, lk, hkv, dh)))
+    if case == "split_keys":
+        assert kfl.splits(b, lq, lk, h, dh)[0] > 1
+    got = ops.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_bf16_close(got, ref.flash_attention_ref(q, k, v, **kw))
+    assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,l", [(16, 40), (32, 37), (64, 1), (64, 100),
+                                  (128, 20)])
+def test_rwkv6_bf16_on_card(cuda, hd, l):
+    """bf16 r, k and v (fp32 logw, u, s0): ``out`` in bf16 against the
+    sequential oracle (the kernel's form) within one bf16 ulp of the row's
+    largest value and against the chunkwise plain version within
+    ``RWKV_TOL`` plus that ulp (the two fp32 forms part within
+    ``RWKV_TOL`` before each rounds), ``sT`` in fp32 within ``RWKV_TOL``,
+    bit for bit over two calls, and two halves chained through the state
+    as one pass."""
+    a = _torch(_rwkv_inputs(2, l, 4, hd), cuda)
+    a = [x.to(torch.bfloat16) for x in a[:3]] + a[3:]
+    out, s_t = ops.rwkv6_chunked(*a, chunk=l)
+    assert out.dtype == torch.bfloat16 and s_t.dtype == torch.float32
+    oracle, chunked = ref.rwkv6_ref(*a), ref.rwkv_chunked(*a, l)
+    assert_bf16_close(out, oracle[0])
+    w = chunked[0].float()
+    tol = (RWKV_TOL["atol"] + RWKV_TOL["rtol"] * w.abs()
+           + BF16_ULP * w.abs().amax(-1, keepdim=True))
+    assert bool(((out.float() - w).abs() <= tol).all())
+    for want in (oracle, chunked):
+        torch.testing.assert_close(s_t, want[1], **RWKV_TOL)
+    again = ops.rwkv6_chunked(*a, chunk=l)
+    assert torch.equal(out, again[0]) and torch.equal(s_t, again[1])
+    if l > 1:
+        m = l // 2
+        o1, s1 = ops.rwkv6_chunked(*(x[:, :m] for x in a[:4]), a[4], a[5],
+                                   chunk=m)
+        o2, s2 = ops.rwkv6_chunked(*(x[:, m:] for x in a[:4]), a[4], s1,
+                                   chunk=l - m)
+        assert_bf16_close(torch.cat([o1, o2], 1), out)
+        torch.testing.assert_close(s2, s_t, atol=1e-4, rtol=0)
+
+
+def test_bf16_launchers_reject_mixed_and_other_dtypes():
+    """The flash and RWKV6 launchers take fp32 or bf16 operands of one
+    dtype (RWKV6's logw, u and s0 fp32): mixed dtypes and fp16 raise
+    before the device is looked at, so the refusal shows on the CPU."""
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import rwkv6
+    q = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16)
+    k = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q's dtype"):
+        kfl.flash_attention_cuda(q, k.float(), k.float())
+    with pytest.raises(ValueError, match="q's dtype"):
+        kfl.flash_attention_cuda(q, k, k.float())
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        kfl.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        kfl.flash_attention_cuda(q, k, k)
+    a = _torch(_rwkv_inputs(1, 3, 2, 16))
+    bf = [x.to(torch.bfloat16) for x in a[:3]]
+    with pytest.raises(ValueError, match="r's dtype"):
+        rwkv6.rwkv6_cuda(bf[0], a[1], a[2], *a[3:])
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        rwkv6.rwkv6_cuda(*(x.half() for x in a[:3]), *a[3:])
+    with pytest.raises(ValueError, match="logw: need fp32"):
+        rwkv6.rwkv6_cuda(*bf, a[3].to(torch.bfloat16), *a[4:])
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6.rwkv6_cuda(*bf, *a[3:])
