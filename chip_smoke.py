@@ -196,7 +196,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 under ``torch.profiler`` shows only its own source's bf16
                 kernels (no cast); decode and
                 chunk p50, tok/s, ``torch.cuda.max_memory_allocated`` and
-                the card's name and power limit.
+                the card's name and power limit;
+  11. lanes   — phase 10's weights freed, full-width qwen2-1.5b in fp32,
+                one backbone shared by reference across mux widths
+                (phase 4's N=2 weights; N=1 without the mux and demux,
+                N=4 with its own): (a) width lanes at N = 1, 2, 4, 4 rows
+                each, paged chunked, on a seeded trace of 24 requests
+                with SLO classes latency / balanced / throughput 1 : 1 :
+                1 — every request complete, each lane's step signatures
+                one decode plus one per bucket, launches per lane exact
+                (at N=1 no entry or exit), each lane token-identical to a
+                fixed-width run of its routed sub-schedule; then under a
+                block budget of ``BUDGET_SHARE`` of the lanes' ceilings:
+                quota rebalanced, every pool drained, the N=1 lane's
+                tokens unchanged; routing counters and per-lane stats
+                printed; (b) disaggregated: a prefill-only and a
+                decode-only lane at N=2 on fp32 and int8 pages — phase
+                4's tokens, no decode on the prefill lane and no prefill
+                on the decode lane (launches per lane exact), handoffs
+                counted on both sides, every migrated page (payload,
+                scales, positions) ``torch.equal`` to its source taken
+                just before the move; the handoff's host p50 and one
+                row's page copy on the device beside its byte bound;
+                (c) phase 4's trace with ``Telemetry(snapshot_every=4,
+                annotate=True)`` and without: tokens and launches per
+                step identical, the metrics JSON, ``.prom`` and Chrome
+                trace written and parsed back (engine_step spans = engine
+                steps, pid = lane), one profiled step showing the
+                ``record_function`` ranges, the host wall of both runs.
 The kernels' JSON line lists every kernel of phases 3-10 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
@@ -1929,6 +1956,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_runs = phase_bf16(torch, mux, rows, prompt_len, new_tokens, runs)
 
+    # 11. width lanes, disaggregated serving and the telemetry outputs,
+    # qwen2-1.5b in fp32; phase 10's weights were its own and are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lanes(torch, rows, prompt_len, new_tokens, runs)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -3054,8 +3087,8 @@ def serve_pressure(params, sc_full, rows, trace, new_tokens, full_run):
          f"pressure: pool of {pool.num_blocks} blocks, "
          f"{pool.n_used_blocks} still used")
     pool.check_invariants()
-    rollbacks = tele.registry.value("admit_rollbacks")
-    preempts = tele.registry.value("preempts")
+    rollbacks = tele.registry.value("admit_rollbacks", lane=0, shard=0)
+    preempts = tele.registry.value("preempts", lane=0, shard=0)
     need(rollbacks >= 1 and preempts >= 1, f"pressure: {rollbacks} "
          f"admission rollbacks and {preempts} preemptions; each path must "
          "run")
@@ -3528,6 +3561,400 @@ def phase_bf16(torch, mux, rows, prompt_len, new_tokens, fp32_runs):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{smi_line()}", flush=True)
     return out
+
+
+# phase 11: width lanes, disaggregated prefill / decode and the telemetry
+# outputs, full-width qwen2-1.5b in fp32
+LANE_WIDTHS = (1, 2, 4)
+MAIN_PATH = ("mux_embed_combine", "paged_attention", "paged_prefill_attention",
+             "demux_rsa")
+LANE_REQUESTS = 24
+BUDGET_SHARE = 0.8          # of the lanes' summed device ceilings
+SLO_MIX = ("latency", "balanced", "throughput")     # weights 1, 1, 1
+
+
+@contextlib.contextmanager
+def launches_by_step():
+    """Record each ``ServeRuntime.step``'s kernel launches: yields the list
+    of (lane, {wrapper: launches}) per step, in step order.  A handoff
+    runs between steps and launches no kernel wrapper."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import runtime
+    log, orig = [], runtime.ServeRuntime.step
+
+    def step(self):
+        before = ops.counts("launches")
+        orig(self)
+        after = ops.counts("launches")
+        log.append((self.lane, {k: after[k] - before[k] for k in after}))
+
+    runtime.ServeRuntime.step = step
+    try:
+        yield log
+    finally:
+        runtime.ServeRuntime.step = orig
+
+
+def _page_bits(x):
+    import torch
+    return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+
+@contextlib.contextmanager
+def checked_handoffs():
+    """Wrap ``ServeRuntime.handoff_to``: the source row's pages of every
+    layer are copied just before the move, and after it the destination
+    row's pages must equal that copy ``torch.equal``-wise (payload, scales
+    and positions).  Yields the list of (blocks, bytes) per handoff; the
+    copies and comparisons sit outside the runtime's ``handoff`` span."""
+    import torch
+    from repro_torch.serve import runtime
+    moves, orig = [], runtime.ServeRuntime.handoff_to
+
+    def handoff_to(self, dst, j, dst_row):
+        bt = self.pool.block_table(j)
+        src = torch.as_tensor(bt[bt >= 0], dtype=torch.long,
+                              device=self.device)
+        taken = [{k: x.index_select(0, src) for k, x in c.items()
+                  if k != "bt"} for c in self.cache["layers"]]
+        before = self.stats["migrated_bytes"]
+        plan = orig(self, dst, j, dst_row)
+        if plan is None:
+            return plan
+        bt = dst.pool.block_table(dst_row)
+        dsts = torch.as_tensor(bt[bt >= 0], dtype=torch.long,
+                               device=self.device)
+        need(dsts.numel() == src.numel(), "handoff: block counts differ")
+        for layer, (c, want) in enumerate(zip(dst.cache["layers"], taken)):
+            for k, x in want.items():
+                need(torch.equal(_page_bits(c[k].index_select(0, dsts)),
+                                 _page_bits(x)),
+                     f"handoff: layer {layer} {k} pages differ from their "
+                     "source after the move")
+        need(bool((self.cache["bt"][j] == -1).all()),
+             "handoff: the source row still addresses pages")
+        moves.append((src.numel(), self.stats["migrated_bytes"] - before))
+        return plan
+
+    runtime.ServeRuntime.handoff_to = handoff_to
+    try:
+        yield moves
+    finally:
+        runtime.ServeRuntime.handoff_to = orig
+
+
+def lane_launches(n_layers, n_mux, dsteps, chunks, role="both"):
+    """The launches one lane requires: each paged kernel once a layer per
+    decode step or chunk, the fused entry and exit once a step or chunk
+    when N > 1 (at N = 1 neither runs, as in the reference)."""
+    muxed = n_mux > 1
+    return {"paged_attention": n_layers * dsteps,
+            "paged_prefill_attention": n_layers * chunks,
+            "mux_embed_combine": (dsteps + chunks) * muxed,
+            "demux_rsa": (dsteps + chunks) * muxed}
+
+
+def _sum_launches(log, lane):
+    got = {}
+    for ln, d in log:
+        if ln == lane:
+            for k, v in d.items():
+                got[k] = got.get(k, 0) + v
+    return {k: v for k, v in got.items() if v}
+
+
+def _span_ms(tele, name, pid):
+    return [ev[3] / 1e3 for ev in tele.tracer.events
+            if ev[0] == "X" and ev[1] == name and ev[4] == pid]
+
+
+def lane_trace(cfg, prompt_len, new_tokens):
+    """Phase 4's trace shape (pairs every 2 steps) at ``LANE_REQUESTS``
+    requests, each with a seeded SLO class (weights 1, 1, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [(*a, None, str(rng.choice(SLO_MIX)))
+            for a in serve_trace(cfg, n_req=LANE_REQUESTS,
+                                 prompt_len=prompt_len,
+                                 new_tokens=new_tokens)]
+
+
+def phase_lanes(torch, rows, prompt_len, new_tokens, fp32_runs):
+    """Phase 11: full-width qwen2-1.5b in fp32, one backbone shared by
+    reference across mux widths (phase 4's N=2 weights; N=1 drops its mux
+    and demux, N=4 has its own), served (a) as width lanes at N = 1, 2, 4,
+    (b) disaggregated (a prefill lane handing rows to a decode lane, N=2,
+    fp32 and int8 pages) and (c) with the telemetry outputs on and off."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxEngine, MuxSpec
+    from repro_torch.models import TransformerLM
+    from repro_torch.serve import engine
+    torch.cuda.reset_peak_memory_stats()
+    print(f"phase 11: width lanes, disaggregated serving and telemetry, "
+          f"qwen2-1.5b full width in fp32; {smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    p2 = TransformerLM.init(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, MuxSpec(n=2))      # phase 4's weights
+    backbone = {k: v for k, v in p2.items() if k != "mux_engine"}
+    params = {1: backbone, 2: p2,
+              4: {**backbone, "mux_engine": MuxEngine.init(
+                  torch.Generator(device="cuda").manual_seed(4),
+                  MuxSpec(n=4), cfg.d_model)}}
+    base = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=1), dtype=torch.float32,
+                              capacity=prompt_len + new_tokens + 8,
+                              cache_layout="paged", block_size=16)
+    lanes_phase(torch, cfg, params, base, rows, prompt_len, new_tokens)
+    disagg_phase(torch, cfg, params[2], base, rows, prompt_len, new_tokens,
+                 fp32_runs)
+    telemetry_phase(torch, cfg, params[2], base, rows, prompt_len,
+                    new_tokens, tempfile)
+    del params, p2, backbone
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{smi_line()}", flush=True)
+
+
+def _check_lanes(kind, stats, trace, new_tokens, n_layers, log):
+    """Every request complete, pools drained, step signatures one decode
+    plus one per bucket per width, launches per lane exact."""
+    need(len(stats["completed"]) == len(trace)
+         and all(len(r.output) == new_tokens for r in stats["completed"]),
+         f"{kind}: a request did not complete with its new tokens")
+    for pool in stats["pools"]:
+        need(pool.n_used_blocks == 0, f"{kind}: a pool did not drain")
+        pool.check_invariants()
+    for ls in stats["lanes"]:
+        lane, n = ls["lane"], ls["n_mux"]
+        sigs = ls["trace_counts"]
+        if ls["completed"]:
+            need(sigs == {"decode": 1, "prefill_4": 1, "prefill_32": 1},
+                 f"{kind}: lane {lane} step signatures {sigs}")
+        want = {k: v for k, v in lane_launches(
+            n_layers, n, ls["decode_steps"], ls["prefill_events"]).items()
+            if v}
+        got = _sum_launches(log, lane)
+        need(got == want, f"{kind}: lane {lane} (N={n}) launches {got} != "
+             f"required {want}")
+
+
+def lanes_phase(torch, cfg, params, base, rows, prompt_len, new_tokens):
+    """(a) Lanes at N = 1, 2, 4, 4 rows each: without a budget every
+    lane's routed sub-schedule replays token for token through a
+    fixed-width run at its N; under a budget of ``BUDGET_SHARE`` of the
+    ceilings ``rebalance`` moves quota, every request completes and the
+    N=1 lane's requests keep their tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    trace = lane_trace(cfg, prompt_len, new_tokens)
+    ceilings = sum(engine.lane_config(base, w).pool_blocks(rows * w) - 1
+                   for w in LANE_WIDTHS)
+    budget = int(BUDGET_SHARE * ceilings)
+    runs = {}
+    for kind, pool_budget in (("lanes", None), ("lanes+budget", budget)):
+        tele = Telemetry()
+        ops.reset_counts()
+        with launches_by_step() as log:
+            stats = run_continuous(params, base, rows, trace, chunk=32,
+                                   lanes=LANE_WIDTHS, pool_budget=pool_budget,
+                                   telemetry=tele, device="cuda")
+        torch.cuda.synchronize()
+        _check_lanes(kind, stats, trace, new_tokens, cfg.n_layers, log)
+        total = ops.counts("launches")
+        need(all(total[k] > 0 for k in MAIN_PATH),
+             f"{kind}: a main-path kernel never launched: {total}")
+        rc = stats["routing"]
+        print(f"  {kind} (budget {pool_budget} of {ceilings} blocks): served "
+              f"{len(stats['completed'])} requests, "
+              f"{stats['generated_tokens']} tokens in {stats['wall']:.3f} s "
+              f"({stats['generated_tokens'] / stats['wall']:.2f} tok/s); "
+              f"routing {rc}", flush=True)
+        for ls, lst in zip(stats["lanes"], stats["lane_stats"]):
+            dec = _span_ms(tele, "decode", ls["lane"])
+            chunk = _span_ms(tele, "prefill_chunk", ls["lane"])
+            print(f"    lane {ls['lane']} N={ls['n_mux']}: "
+                  f"{len(ls['completed'])} requests, {lst['tokens']} tokens, "
+                  f"{ls['decode_steps']} decode steps (p50 "
+                  f"{statistics.median(dec) if dec else 0:.3f} ms), "
+                  f"{ls['prefill_events']} chunks (p50 "
+                  f"{statistics.median(chunk) if chunk else 0:.3f} ms); "
+                  f"TTFT-SLO attainment {lst['slo_attainment']:.2f}, "
+                  f"goodput {lst['goodput_tok_s']:.2f} tok/s; launches "
+                  f"{_sum_launches(log, ls['lane'])}", flush=True)
+        runs[kind] = stats
+    need(runs["lanes+budget"]["routing"]["rebalanced_blocks"] > 0,
+         "lanes+budget: rebalance moved no quota")
+    # (a) replay: each lane's routed sub-schedule at its own width
+    for ls in runs["lanes"]["lanes"]:
+        routed = sorted(ls["completed"], key=lambda r: r.uid)
+        if not routed:
+            continue
+        n = ls["n_mux"]
+        sub = [(r.routed_step, r.prompt, r.max_new) for r in routed]
+        fixed = run_continuous(params[n], engine.lane_config(base, n), rows,
+                               sub, chunk=32, device="cuda")
+        got = sorted(fixed["completed"], key=lambda r: r.uid)
+        need([r.output for r in got] == [r.output for r in routed],
+             f"lanes: lane {ls['lane']} (N={n}) diverged from its "
+             "fixed-width replay")
+        print(f"    lane {ls['lane']} N={n}: {len(routed)} requests "
+              "token-identical to a fixed-width run of its routed "
+              "sub-schedule", flush=True)
+    # under the budget, quota rollbacks may regroup N > 1 lanes; one
+    # stream a row at N=1 keeps its tokens wherever it is admitted
+    plain = {r.uid: r for r in runs["lanes"]["completed"]}
+    same = total = 0
+    for r in runs["lanes+budget"]["completed"]:
+        p = plain[r.uid]
+        total += len(r.output)
+        same += sum(a == b for a, b in zip(r.output, p.output))
+        if r.lane == p.lane == 0:
+            need(r.output == p.output, f"lanes+budget: N=1 request {r.uid} "
+                 "changed its tokens under the budget")
+    print(f"    lanes+budget: greedy tokens identical to the unbudgeted "
+          f"run {same}/{total} ({same / total:.3f})", flush=True)
+
+
+def disagg_phase(torch, cfg, params, base, rows, prompt_len, new_tokens,
+                 fp32_runs):
+    """(b) A prefill-only and a decode-only lane at N=2, 4 rows each, on
+    fp32 and int8 pages: phase 4's tokens, no decode on the prefill lane,
+    no prefill on the decode lane, every migrated page equal to its source,
+    handoffs counted on both sides; the handoff's host time and the
+    device time of one row's page copy beside the byte bound."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    from repro_torch.serve.router import LaneSpec
+    from repro_torch.serve.telemetry import Telemetry
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    lanes = (LaneSpec(n_mux=2, rows=rows, chunk=32, role="prefill"),
+             LaneSpec(n_mux=2, rows=rows, chunk=32, role="decode"))
+    for kv in ("fp32", "int8"):
+        kind = f"disagg {kv} pages"
+        sc = dataclasses.replace(base, kv_dtype=kv)
+        tele = Telemetry()
+        ops.reset_counts()
+        with launches_by_step() as log, checked_handoffs() as moves:
+            stats = run_continuous({2: params}, sc, rows, trace, chunk=32,
+                                   lanes=lanes, telemetry=tele,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        got = {r.uid: r.output for r in stats["completed"]}
+        need(got == fp32_runs[kv]["outputs"], f"{kind}: tokens differ from "
+             f"phase 4's single-lane run on {kv} pages")
+        pre, dec = stats["lanes"]
+        rec = stats["recovery"]
+        need(pre["decode_steps"] == 0 and dec["prefill_events"] == 0,
+             f"{kind}: prefill lane decoded {pre['decode_steps']} steps, "
+             f"decode lane prefilled {dec['prefill_events']} chunks")
+        need(rec["handoffs"] == pre["handoffs_out"] == dec["handoffs_in"]
+             == len(moves) > 0, f"{kind}: handoffs {rec['handoffs']}, out "
+             f"{pre['handoffs_out']}, in {dec['handoffs_in']}, checked "
+             f"{len(moves)}")
+        need(rec["migrated_kv_bytes"] == pre["migrated_bytes"]
+             == sum(b for _, b in moves), f"{kind}: migrated bytes")
+        for ls, role_steps in ((pre, (0, pre["prefill_events"])),
+                               (dec, (dec["decode_steps"], 0))):
+            want = {k: v for k, v in lane_launches(
+                cfg.n_layers, 2, *role_steps).items() if v}
+            got_l = _sum_launches(log, ls["lane"])
+            need(got_l == want, f"{kind}: lane {ls['lane']} "
+                 f"({ls['role']}) launches {got_l} != required {want}")
+        for pool in stats["pools"]:
+            need(pool.n_used_blocks == 0, f"{kind}: a pool did not drain")
+            pool.check_invariants()
+        hs = sorted(ev[3] / 1e3 for ev in tele.tracer.events
+                    if ev[0] == "X" and ev[1] == "handoff")
+        blocks, nbytes = moves[0]
+        src_rt, dst_rt = stats["runtimes"]
+        si = torch.arange(1, blocks + 1, device="cuda")
+        di = torch.arange(blocks + 1, 2 * blocks + 1, device="cuda")
+        copy_ms = Timer(torch)(lambda: engine.copy_cache_pages(
+            src_rt.cache, dst_rt.cache, si, di))
+        bound_ms = 2 * nbytes / HBM_BYTES_S * 1e3
+        print(f"  {kind}: {len(got)} requests token-identical to phase 4; "
+              f"{rec['handoffs']} handoffs ({rec['handoff_streams']} "
+              f"streams), every migrated page equal to its source; "
+              f"{nbytes} bytes ({blocks} blocks) a handoff; handoff_s p50 "
+              f"{statistics.median(hs):.3f} ms host; one row's page copy "
+              f"{copy_ms:.4f} ms on the device against a byte bound of "
+              f"{bound_ms:.4f} ms (read + write at 3.35 TB/s); lanes "
+              f"{[_sum_launches(log, ls['lane']) for ls in (pre, dec)]}",
+              flush=True)
+
+
+def telemetry_phase(torch, cfg, params, base, rows, prompt_len, new_tokens,
+                    tempfile):
+    """(c) Phase 4's trace with ``Telemetry(snapshot_every=4,
+    annotate=True)`` and with telemetry off: the same tokens and the same
+    launches step by step; the metrics JSON, the Prometheus text and the
+    Chrome trace written and parsed back; one profiled step shows the
+    ``record_function`` ranges."""
+    import dataclasses
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.runtime import ServeRuntime
+    from repro_torch.serve.telemetry import Telemetry
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    sc = dataclasses.replace(base, mux=dataclasses.replace(base.mux, n=2))
+    runs = {}
+    for on in (True, False):
+        tele = Telemetry(snapshot_every=4, annotate=True) if on else None
+        with launches_by_step() as log:
+            stats = run_continuous(params, sc, rows, trace, chunk=32,
+                                   telemetry=tele, device="cuda")
+        torch.cuda.synchronize()
+        runs[on] = (stats, log, tele)
+    (on, log_on, tele), (off, log_off, _) = runs[True], runs[False]
+    need({r.uid: r.output for r in on["completed"]}
+         == {r.uid: r.output for r in off["completed"]},
+         "telemetry: tokens differ with telemetry on")
+    need([d for _, d in log_on] == [d for _, d in log_off],
+         "telemetry: launches per step differ with telemetry on")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "metrics.json"
+        prom = tele.write_metrics(path)
+        tele.write_trace(pathlib.Path(tmp) / "trace.json")
+        doc = json.loads(path.read_text())
+        text = prom.read_text()
+        chrome = json.loads((pathlib.Path(tmp) / "trace.json").read_text())
+    steps = on["runtime"].engine_steps
+    need([s["step"] for s in doc["snapshots"]] == list(range(4, steps + 1, 4)),
+         f"telemetry: snapshots at {[s['step'] for s in doc['snapshots']]}")
+    samples = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+               for ln in text.splitlines() if not ln.startswith("#")}
+    need(samples['repro_tokens_generated{lane="0"}']
+         == on["generated_tokens"], "telemetry: .prom tokens_generated")
+    spans = [e for e in chrome["traceEvents"]
+             if e["ph"] == "X" and e["name"] == "engine_step"]
+    need(len(spans) == steps and {e["pid"] for e in spans} == {0},
+         f"telemetry: {len(spans)} engine_step spans over {steps} steps")
+    need(any(e["ph"] == "M" and e["pid"] == 0 for e in chrome["traceEvents"]),
+         "telemetry: no process_name row for lane 0")
+    rt = ServeRuntime(params, sc, rows, chunk=32, device="cuda",
+                      telemetry=Telemetry(annotate=True))
+    rt.submit(Request(uid=0, prompt=list(trace[0][1]), max_new=2))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        rt.step()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    need({"engine_step", "admit", "prefill_chunk"} <= names,
+         f"telemetry: record_function ranges missing from the profile: "
+         f"{sorted(n for n in names if not n.startswith('aten'))[:20]}")
+    print(f"  telemetry: tokens and launches per step identical on and off; "
+          f"{len(doc['snapshots'])} snapshots, {len(samples)} Prometheus "
+          f"samples, {len(chrome['traceEvents'])} trace events "
+          f"({len(spans)} engine_step spans = engine steps, pid = lane 0); "
+          f"profiled step ranges {sorted(names & {'engine_step', 'admit', 'prefill_chunk', 'decode'})}; "
+          f"host wall {on['wall']:.3f} s on, {off['wall']:.3f} s off",
+          flush=True)
 
 
 def _leaves(tree):

@@ -27,10 +27,26 @@ an error.  Runs on
 ``--use-kernels`` (default) runs the kernel path, ``--no-use-kernels``
 the plain model path.
 ``--kv-dtype fp32|bf16|int8|fp8`` sets the page storage (int8 and fp8
-pages carry per-slot scales; the kernels fuse the dequant).  The
-reference's other modes (lanes, recovery, mesh, telemetry output) are
-later slices: their flags are rejected with an error that names the
-slice.
+pages carry per-slot scales; the kernels fuse the dequant).
+
+Width lanes (``--lanes 1,2,4``): one paged runtime per mux width, each
+request routed to a lane by its SLO class (``--slo-mix``) and live lane
+load, optionally under a shared block budget (``--pool-budget``) that the
+router rebalances; ``--drain-lane STEP:WIDTH`` / ``--add-lane
+STEP:WIDTH[:ROWS]`` resize the lane set under traffic.  Disaggregated
+serving (``--disagg --prefill-lanes 2 --decode-lanes 2``): prefill-only
+lanes hand finished rows, KV pages and all, to same-width decode-only
+lanes; ``--route goodput`` orders lanes by published goodput.
+
+    python -m repro_torch.launch.serve --continuous --cache paged \
+        --lanes 1,2 --slo-mix latency=1,throughput=1 --requests 8
+
+Telemetry: ``--metrics-out PATH`` writes the metrics JSON and a
+Prometheus ``.prom`` beside it, ``--trace-out PATH`` the Chrome trace
+(one track per lane), ``--metrics-interval K`` snapshots the registry
+every K steps, ``--trace-annotate`` adds ``torch.profiler`` ranges.
+Shards, kill-shard, restarts and the mesh are later slices: their flags
+are rejected with an error that names the slice.
 """
 from __future__ import annotations
 
@@ -47,22 +63,217 @@ from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.serve import sampling
 from repro_torch.serve.batcher import MuxBatcher, Request
 from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
-                                      prefill)
+                                      lane_config, prefill)
+from repro_torch.serve.recovery import RecoverySupervisor
+from repro_torch.serve.router import LaneRouter, LaneSpec, SLO_CLASSES
 from repro_torch.serve.runtime import (PAD_ID, ServeRuntime, grid_sampling,
                                        params_to, resolve_device)
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.serve.telemetry import NULL_TELEMETRY
+from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
+
+_ITEM_11 = ("shards, kill-shard, restarts and straggler fencing, ROADMAP §1 "
+            "item 11")
+
+
+def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
+                step, chunk, prefill_mode, on_prefill, use_kernels,
+                telemetry, device):
+    """Apply one resize event to the lane set: ``drain_lane`` starts
+    removing the lane at a width (its streams finish in place, its queue
+    re-routes), ``add_lane`` brings up a fresh runtime at a new width
+    under traffic."""
+    op = ev["op"]
+    if op == "kill_shard":
+        raise NotImplementedError(f"kill_shard: {_ITEM_11}")
+    if op == "drain_lane":
+        width = ev["width"]
+        lane = next((rt.lane for rt in router.runtimes
+                     if rt.n_mux == width), None)
+        if lane is None:
+            raise ValueError(f"drain_lane: no lane at width {width}")
+        sup.drain_lane(router, lane, step=step)
+    elif op == "add_lane":
+        width = ev["width"]
+        if width not in params_by_width:
+            raise ValueError(f"add_lane: no params for width {width}")
+        lane_id = 1 + max(rt.lane for rt in
+                          router.runtimes + router.retired)
+        rt = ServeRuntime(
+            params_by_width[width], lane_config(sc, width),
+            ev.get("rows", backbone_rows),
+            chunk=None if prefill_mode == "blocking"
+            else ev.get("chunk", chunk),
+            on_prefill=on_prefill, use_kernels=use_kernels, device=device,
+            lane=lane_id, telemetry=telemetry)
+        sup.add_lane(router, rt)
+    else:
+        raise ValueError(f"unknown serve event op {op!r}")
+
+
+def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
+               arrivals, lanes, *, on_prefill, chunk, prefill_mode,
+               use_kernels, pool_budget, spill_queue, telemetry, events,
+               route, device):
+    """Width-lane serve loop: one ``ServeRuntime`` per lane at its mux
+    width, ``LaneRouter`` admitting each arrival by SLO class and live
+    load, every lane stepping once per loop iteration (narrowest first).
+    Each lane keeps the single-width guarantees lane-locally: its streams
+    equal a fixed-width run at its N fed the same sub-schedule, its step
+    signatures are one decode plus one per bucket (``check_compile_once``
+    before returning), and its backpressure stays in its own pool.
+
+    Disaggregated roles: after every step each prefill lane's finished
+    rows migrate (pages and the sampled next token, no re-prefill) to a
+    free row of a same-width decode lane from
+    ``router.handoff_targets``; requests a decode lane bounced back into
+    its queue (preemption) go through the router to a prefill lane."""
+    specs = [s if isinstance(s, LaneSpec)
+             else LaneSpec(n_mux=int(s), rows=backbone_rows, chunk=chunk)
+             for s in lanes]
+    runtimes = []
+    for idx, spec in enumerate(specs):
+        if spec.n_mux not in params_by_width:
+            raise ValueError(
+                f"lanes mode needs params per width: missing width "
+                f"{spec.n_mux} in {sorted(params_by_width)}")
+        runtimes.append(ServeRuntime(
+            params_by_width[spec.n_mux], lane_config(sc, spec.n_mux),
+            spec.rows,
+            chunk=None if prefill_mode == "blocking" else spec.chunk,
+            on_prefill=on_prefill, use_kernels=use_kernels, device=device,
+            lane=idx, telemetry=telemetry, role=spec.role))
+    disagg = any(rt.role != "both" for rt in runtimes)
+    for rt in runtimes:
+        # a prefill lane with nowhere to hand off would park its finished
+        # rows forever
+        if rt.role == "prefill" and not any(
+                d.role != "prefill" and d.n_mux == rt.n_mux
+                for d in runtimes):
+            raise ValueError(
+                f"prefill lane at width {rt.n_mux} has no same-width "
+                f"decode-capable lane to hand off to")
+    router = LaneRouter(runtimes, budget=pool_budget,
+                        spill_queue=spill_queue, telemetry=telemetry,
+                        mode=route)
+    sup = RecoverySupervisor()
+    pending = collections.deque(
+        sorted(events or [], key=lambda e: e["step"]))
+    arrivals = collections.deque(sorted(arrivals, key=lambda a: a[0]))
+    uid, step = 0, 0
+    t0 = time.time()
+    while (arrivals or pending
+           or any(rt.has_work() for rt in router.runtimes)):
+        while pending and pending[0]["step"] <= step:
+            _lane_event(pending.popleft(), router, sup, params_by_width, sc,
+                        backbone_rows, step=step, chunk=chunk,
+                        prefill_mode=prefill_mode, on_prefill=on_prefill,
+                        use_kernels=use_kernels, telemetry=telemetry,
+                        device=device)
+        if disagg:
+            # requests a decode lane bounced back cannot prefill there
+            for rt in router.runtimes:
+                if rt.role != "decode":
+                    continue
+                while rt.sched.queue:
+                    r = rt.sched.queue.popleft()
+                    i = router.route(r)
+                    r.routed_step = step
+                    router.runtimes[i].submit(r)
+        while arrivals and arrivals[0][0] <= step:
+            a = arrivals.popleft()
+            r = Request(uid=uid, prompt=list(a[1]), max_new=a[2],
+                        sampling=a[3] if len(a) > 3 else None,
+                        slo=a[4] if len(a) > 4 else None)
+            uid += 1
+            i = router.route(r)
+            r.routed_step = step
+            router.runtimes[i].submit(r)
+        router.rebalance()
+        # narrow lanes first: the latency lane admits before wider lanes
+        # draw on freshly rebalanced quota
+        for rt in sorted(router.runtimes, key=lambda rt: rt.n_mux):
+            rt.step()
+        if disagg:
+            # handoff pass: each prefill lane's finished rows go to a free
+            # row of a same-width decode lane; with none free the row
+            # parks and retries next step (backpressure, not an error)
+            for rt in router.runtimes:
+                if rt.role != "prefill":
+                    continue
+                for j in rt.handoff_ready():
+                    for i in router.handoff_targets(rt.n_mux):
+                        dst = router.runtimes[i]
+                        rows = dst.free_rows()
+                        if not rows:
+                            continue
+                        before = rt.stats["migrated_bytes"]
+                        plan = rt.handoff_to(dst, j, rows[0])
+                        if plan is not None:
+                            sup.note_handoff(
+                                plan, rt.stats["migrated_bytes"] - before)
+                            break
+        sup.note_step()
+        sup.pop_drained(router)
+        step += 1
+        telemetry.maybe_snapshot(step)
+    # retired (drained) lanes keep their runtimes, so the step-signature
+    # and stats contracts cover every lane that ever served
+    all_lanes = sorted(router.runtimes + router.retired,
+                       key=lambda rt: rt.lane)
+    for rt in all_lanes:
+        rt.check_compile_once()
+    wall = time.time() - t0
+    completed = [r for rt in all_lanes for r in rt.stats["completed"]]
+    return {
+        "lane_stats": router.lane_stats(wall=wall),
+        "lanes": [rt.stats for rt in all_lanes],
+        "runtimes": all_lanes,
+        "widths": [rt.n_mux for rt in all_lanes],
+        "pools": [rt.pool for rt in all_lanes],
+        "routing": router.counters,
+        "completed": completed,
+        "wall": wall,
+        "generated_tokens": sum(len(r.output) for r in completed),
+        "prefill_mode": all_lanes[0].stats["prefill_mode"],
+        "recovery": sup.stats,
+        # sums over lanes for counters, concatenations for per-step traces
+        "prefill_tokens": sum(rt.stats["prefill_tokens"]
+                              for rt in all_lanes),
+        "prefill_compute_tokens": sum(rt.stats["prefill_compute_tokens"]
+                                      for rt in all_lanes),
+        "prefill_events": sum(rt.stats["prefill_events"]
+                              for rt in all_lanes),
+        "decode_steps": sum(rt.stats["decode_steps"] for rt in all_lanes),
+        "slot_util": [u for rt in all_lanes for u in rt.stats["slot_util"]],
+        "cache_util": [u for rt in all_lanes
+                       for u in rt.stats["cache_util"]],
+    }
 
 
 def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                    *, on_prefill=None, chunk: int = 32,
                    prefill_mode: str = "chunked", use_kernels: bool = True,
-                   telemetry=None, device=None):
+                   telemetry=None, device=None, lanes=None, pool_budget=None,
+                   spill_queue=None, events=None, route: str = "load"):
     """Continuous-batching serve loop for both cache layouts.
 
-    arrivals: iterable of (step, prompt_tokens, max_new[, SamplingParams]).
-    Each loop iteration admits what it can, then decodes one token over
-    the grid.  device defaults to ``cuda`` and raises without a card.
+    arrivals: iterable of (step, prompt_tokens, max_new[, SamplingParams
+    [, slo_class]]).  Each loop iteration admits what it can, then
+    decodes one token over the grid.  device defaults to ``cuda`` and
+    raises without a card.  telemetry: a ``serve.telemetry.Telemetry``
+    (metrics, the span trace and ``maybe_snapshot`` once a step); it
+    changes neither tokens nor launches.
+
+    lanes: width-lane serving (paged only): mux widths or
+    ``serve.router.LaneSpec`` s (``role='prefill'`` / ``'decode'`` for
+    disaggregated serving).  ``params`` is then {width: params} and ``sc``
+    the base config (``engine.lane_config`` derives each lane's);
+    pool_budget / spill_queue / route ('load' | 'goodput') go to the
+    ``LaneRouter``; events: resize dicts ``{"step": K, "op": "drain_lane"
+    | "add_lane", "width": W[, "rows": R]}`` applied before step K's
+    admissions.  The stats then hold per-lane ``lanes`` / ``runtimes`` /
+    ``pools`` / ``lane_stats``, the router's ``routing`` counters, the
+    supervisor's ``recovery`` dict and sums over lanes.
 
     paged: one ``ServeRuntime``; a joining row's prompt advances one
     chunk per engine step (``prefill_mode='chunked'``) or is prefilled
@@ -92,6 +303,20 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
         raise ValueError(f"prefill_mode must be chunked|blocking, got "
                          f"{prefill_mode!r}")
     telemetry = NULL_TELEMETRY if telemetry is None else telemetry
+    if lanes is not None:
+        if sc.cache_layout != "paged":
+            raise ValueError(
+                "width-lane serving requires the paged cache layout")
+        return _run_lanes(params, sc, backbone_rows, arrivals, lanes,
+                          on_prefill=on_prefill, chunk=chunk,
+                          prefill_mode=prefill_mode, use_kernels=use_kernels,
+                          pool_budget=pool_budget, spill_queue=spill_queue,
+                          telemetry=telemetry, events=events, route=route,
+                          device=device)
+    if events:
+        raise NotImplementedError(
+            f"single-runtime events ({sorted({e['op'] for e in events})}): "
+            f"{_ITEM_11}")
     arrivals = collections.deque(sorted(arrivals, key=lambda a: a[0]))
     uid = 0
 
@@ -114,6 +339,7 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
             pop_arrivals(step, rt.submit)
             rt.step()
             step += 1
+            telemetry.maybe_snapshot(step)
         rt.check_compile_once()
         stats = rt.stats
         stats["runtime"] = rt
@@ -194,6 +420,7 @@ def _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals, *,
                                        / sc.capacity if sched.n_active
                                        else 0.0)
         step += 1
+        telemetry.maybe_snapshot(step)
     return stats
 
 
@@ -277,26 +504,12 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
 
 # flag -> where its mode stands in ROADMAP §1 (the reference still runs it)
 _LATER = {
-    "--lanes": "width lanes, ROADMAP §1 item 10",
-    "--lane-rows": "width lanes, ROADMAP §1 item 10",
-    "--slo-mix": "width lanes, ROADMAP §1 item 10",
-    "--pool-budget": "width lanes, ROADMAP §1 item 10",
-    "--route": "width lanes, ROADMAP §1 item 10",
-    "--disagg": "disaggregation, ROADMAP §1 item 10",
-    "--prefill-lanes": "disaggregation, ROADMAP §1 item 10",
-    "--decode-lanes": "disaggregation, ROADMAP §1 item 10",
-    "--shards": "recovery, ROADMAP §1 item 11",
+    "--shards": "logical shards, ROADMAP §1 item 11",
     "--kill-shard": "recovery, ROADMAP §1 item 11",
-    "--drain-lane": "recovery, ROADMAP §1 item 11",
-    "--add-lane": "recovery, ROADMAP §1 item 11",
     "--restart-step": "recovery, ROADMAP §1 item 11",
     "--ckpt-dir": "recovery, ROADMAP §1 item 11",
     "--fence-stragglers": "recovery, ROADMAP §1 item 11",
     "--mesh": "sharding, ROADMAP §1 item 12",
-    "--metrics-out": "the telemetry CLI, ROADMAP §1 item 8",
-    "--trace-out": "the telemetry CLI, ROADMAP §1 item 8",
-    "--metrics-interval": "the telemetry CLI, ROADMAP §1 item 8",
-    "--trace-annotate": "the telemetry CLI, ROADMAP §1 item 8",
 }
 
 
@@ -320,6 +533,53 @@ def _parser():
     ap.add_argument("--prefill", choices=("chunked", "blocking"),
                     default="chunked")
     ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--lanes", default=None, metavar="N1,N2,...",
+                    help="width-lane serving: one paged runtime per mux "
+                         "width, requests routed by SLO class and live "
+                         "load; requires --continuous --cache paged")
+    ap.add_argument("--lane-rows", default=None, metavar="R1,R2,...",
+                    help="backbone rows per lane (default: "
+                         "--backbone-batch for every lane)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: prefill-only lanes hand "
+                         "finished rows (KV pages) to same-width "
+                         "decode-only lanes (--prefill-lanes, "
+                         "--decode-lanes)")
+    ap.add_argument("--prefill-lanes", default=None, metavar="N1,N2,...",
+                    help="--disagg: mux widths of the prefill-only lanes")
+    ap.add_argument("--decode-lanes", default=None, metavar="N1,N2,...",
+                    help="--disagg: mux widths of the decode-only lanes")
+    ap.add_argument("--route", choices=("load", "goodput"), default="load",
+                    help="lane routing signal: live load (default) or "
+                         "published goodput (TTFT-SLO attainment x tok/s)")
+    ap.add_argument("--slo-mix", default="balanced=1",
+                    help="SLO-class mix of the trace, e.g. "
+                         "latency=0.25,balanced=0.5,throughput=0.25")
+    ap.add_argument("--pool-budget", type=int, default=None,
+                    help="lanes: global KV block budget split into "
+                         "per-lane quotas, rebalanced toward queued lanes")
+    ap.add_argument("--drain-lane", action="append", default=None,
+                    metavar="STEP:WIDTH",
+                    help="live resize (repeatable, needs --lanes): at step "
+                         "STEP start draining the lane at WIDTH")
+    ap.add_argument("--add-lane", action="append", default=None,
+                    metavar="STEP:WIDTH[:ROWS]",
+                    help="live resize (repeatable, needs --lanes): at step "
+                         "STEP add a lane at WIDTH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="continuous: write telemetry metrics as JSON "
+                         "(lane/shard labels, periodic snapshots) to PATH "
+                         "and a Prometheus text dump beside it (.prom)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="continuous: write the step-span timeline as "
+                         "Chrome trace-event JSON (open in Perfetto)")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    metavar="STEPS",
+                    help="snapshot the metrics every K engine steps into "
+                         "the --metrics-out JSON (0 = final totals only)")
+    ap.add_argument("--trace-annotate", action="store_true",
+                    help="also wrap traced spans in "
+                         "torch.profiler.record_function ranges")
     ap.add_argument("--arrival-every", type=int, default=2)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -343,6 +603,125 @@ def _parser():
     return ap
 
 
+def _parse_slo_mix(ap, spec: str):
+    """'latency=0.25,balanced=0.5,throughput=0.25' as normalized class
+    weights."""
+    mix = {}
+    for part in spec.split(","):
+        k, eq, v = part.partition("=")
+        k = k.strip()
+        if k not in SLO_CLASSES or not eq:
+            ap.error(f"--slo-mix: expected CLASS=WEIGHT with CLASS in "
+                     f"{SLO_CLASSES}, got {part!r}")
+        try:
+            mix[k] = float(v)
+        except ValueError:
+            ap.error(f"--slo-mix: bad weight in {part!r}")
+    total = sum(mix.values())
+    if total <= 0:
+        ap.error("--slo-mix weights must sum to > 0")
+    return {k: v / total for k, v in mix.items()}
+
+
+def _lane_args(ap, args):
+    """The lane specs and resize events the flags ask for, with the
+    reference CLI's refusals as argparse errors.  Returns (lanes or None,
+    events, widths whose params the run needs)."""
+    def ints(spec, flag, sep, want):
+        try:
+            vals = [int(x) for x in spec.split(sep)]
+        except ValueError:
+            vals = []
+        if len(vals) not in want:
+            ap.error(f"{flag} expects {sep.join(['N'] * min(want))} "
+                     f"(got {spec!r})")
+        return vals
+
+    events, add_widths = [], []
+    for spec in args.drain_lane or []:
+        s, w = ints(spec, "--drain-lane", ":", (2,))
+        events.append({"step": s, "op": "drain_lane", "width": w})
+    for spec in args.add_lane or []:
+        v = ints(spec, "--add-lane", ":", (2, 3))
+        ev = {"step": v[0], "op": "add_lane", "width": v[1]}
+        if len(v) == 3:
+            ev["rows"] = v[2]
+        events.append(ev)
+        add_widths.append(v[1])
+    if events and not (args.continuous and args.cache == "paged"):
+        ap.error("resize flags (--drain-lane/--add-lane) require "
+                 "--continuous --cache paged")
+    if events and args.lanes is None:
+        ap.error("--drain-lane/--add-lane require --lanes")
+    if args.disagg:
+        if args.lanes is not None:
+            ap.error("--disagg replaces --lanes "
+                     "(use --prefill-lanes/--decode-lanes)")
+        if not (args.prefill_lanes and args.decode_lanes):
+            ap.error("--disagg requires --prefill-lanes and --decode-lanes")
+        if args.prefill == "blocking":
+            ap.error("--disagg requires chunked prefill "
+                     "(drop --prefill blocking)")
+    elif args.prefill_lanes or args.decode_lanes:
+        ap.error("--prefill-lanes/--decode-lanes require --disagg")
+    if args.lanes is None and not args.disagg:
+        if args.route == "goodput":
+            ap.error("--route goodput requires --lanes or --disagg")
+        return None, events, set()
+    if not (args.continuous and args.cache == "paged"):
+        ap.error("--lanes/--disagg require --continuous --cache paged")
+    widths_of = lambda spec, flag: ints(spec, flag, ",", range(1, 64))
+    if args.disagg:
+        pw = widths_of(args.prefill_lanes, "--prefill-lanes")
+        dw = widths_of(args.decode_lanes, "--decode-lanes")
+        missing = sorted(set(pw) - set(dw))
+        if missing:
+            ap.error(f"--disagg: prefill widths {missing} have no "
+                     f"same-width decode lane")
+        widths, roles = pw + dw, ["prefill"] * len(pw) + ["decode"] * len(dw)
+    else:
+        widths = widths_of(args.lanes, "--lanes")
+        roles = ["both"] * len(widths)
+    rows = ([int(x) for x in args.lane_rows.split(",")] if args.lane_rows
+            else [args.backbone_batch] * len(widths))
+    if len(rows) != len(widths):
+        ap.error(f"--lane-rows gives {len(rows)} entries for "
+                 f"{len(widths)} lanes")
+    lanes = [LaneSpec(n_mux=w, rows=r, chunk=args.chunk, role=ro)
+             for w, r, ro in zip(widths, rows, roles)]
+    return lanes, events, set(widths) | set(add_widths)
+
+
+def _print_lanes(args, stats):
+    """The per-lane, routing, handoff and goodput lines of a lanes run."""
+    for ls in stats["lanes"]:
+        toks = sum(len(r.output) for r in ls["completed"])
+        lu = float(np.mean(ls["slot_util"])) if ls["slot_util"] else 0.0
+        sigs = ", ".join(f"{k}×{v}"
+                         for k, v in sorted(ls["trace_counts"].items()))
+        print(f"  lane{ls['lane']} N={ls['n_mux']} rows={ls['rows']}: "
+              f"{len(ls['completed'])} requests, {toks} tokens, slot util "
+              f"{lu:.2f}; step signatures [{sigs}]")
+    rc = stats["routing"]
+    routed = ", ".join(f"{k}={v}" for k, v in rc["routed"].items())
+    print(f"routing[{args.route}]: {routed}; demotions={rc['demotions']}, "
+          f"promotions={rc['promotions']}, "
+          f"rebalanced={rc['rebalanced_blocks']} blocks")
+    rec = stats["recovery"]
+    if args.disagg:
+        print(f"disagg: {rec['handoffs']} handoffs "
+              f"({rec['handoff_streams']} streams, "
+              f"{rec['migrated_kv_bytes']} KV bytes migrated, "
+              f"zero re-prefill)")
+    if args.drain_lane or args.add_lane:
+        print(f"resize: {rec['lane_drains']} drains / {rec['lane_adds']} "
+              f"adds ({rec['lanes_retired']} lanes retired)")
+    for ls in stats["lane_stats"]:
+        print(f"  lane{ls['lane']} N={ls['n_mux']}: goodput "
+              f"{ls['goodput_tok_s']:.1f} tok/s (TTFT-SLO attainment "
+              f"{ls['slo_attainment']:.2f} × {ls['tok_s']:.1f} tok/s)")
+
+
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
@@ -354,6 +733,10 @@ def main(argv=None):
         ap.error("--kv-dtype requires --continuous --cache paged")
     if args.block_size < 1:
         ap.error(f"--block-size must be >= 1, got {args.block_size}")
+    lanes, events, lane_widths = _lane_args(ap, args)
+    slo_mix = _parse_slo_mix(ap, args.slo_mix) if lanes else None
+    if (args.metrics_out or args.trace_out) and not args.continuous:
+        ap.error("--metrics-out/--trace-out require --continuous")
     try:
         cfg = get_config(args.arch, reduced=args.reduced)
         kind = model_kind(args.arch)
@@ -374,9 +757,16 @@ def main(argv=None):
                  "fill-drain")
     dev = resolve_device(args.device)
     mux = MuxSpec(n=args.mux_n)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = EncDecLM if kind == "encdec" else TransformerLM
-    params = model.init(gen, cfg, mux)
+    if lanes:
+        # one model per mux width (MUX-PLMs are width-specific), widths
+        # that join later through --add-lane included
+        params = {w: model.init(torch.Generator(device=dev).manual_seed(
+            args.seed * 1000 + w), cfg, MuxSpec(n=w))
+            for w in sorted(lane_widths)}
+    else:
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            args.seed), cfg, mux)
     # fp32, as the reference's CLI serves (repro/launch/serve.py:906-911)
     sc = ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                      capacity=args.prompt_len + args.new_tokens + 8,
@@ -384,16 +774,19 @@ def main(argv=None):
                      block_size=args.block_size, kv_dtype=args.kv_dtype,
                      kind=kind)
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(4, cfg.vocab_size, size=(args.prompt_len,))
-               for _ in range(args.requests)]
-    samplings = [None] * args.requests
-    if args.temperature > 0:
-        samplings = [sampling.SamplingParams(
-            temperature=args.temperature, top_k=args.top_k,
-            top_p=args.top_p, seed=i) for i in range(args.requests)]
+    sampled = args.temperature > 0
+
+    def sp(i):
+        return (sampling.SamplingParams(temperature=args.temperature,
+                                        top_k=args.top_k, top_p=args.top_p,
+                                        seed=i) if sampled else None)
+
     if not args.continuous:
+        prompts = [rng.integers(4, cfg.vocab_size, size=(args.prompt_len,))
+                   for _ in range(args.requests)]
         stats = fill_drain(params, sc, args.backbone_batch, prompts,
-                           args.new_tokens, samplings=samplings,
+                           args.new_tokens,
+                           samplings=[sp(i) for i in range(args.requests)],
                            use_kernels=args.use_kernels, device=dev)
         served, dt = len(stats["completed"]), stats["wall"]
         print(f"served {served} requests x {args.new_tokens} tokens in "
@@ -401,28 +794,61 @@ def main(argv=None):
               f"{args.backbone_batch}; throughput "
               f"{served * args.new_tokens / dt:.1f} tok/s)")
         return 0
-    arrivals = [(i * args.arrival_every, p, args.new_tokens, sp)
-                for i, (p, sp) in enumerate(zip(prompts, samplings))]
+    telemetry = None
+    if args.metrics_out or args.trace_out:
+        telemetry = Telemetry(snapshot_every=args.metrics_interval,
+                              annotate=args.trace_annotate)
+    # the reference CLI's draws: each request's prompt, then (lanes) its
+    # SLO class, so both CLIs serve the same trace
+    arrivals = []
+    for i in range(args.requests):
+        arr = (i * args.arrival_every,
+               rng.integers(4, cfg.vocab_size, size=(args.prompt_len,)),
+               args.new_tokens, sp(i))
+        if lanes:
+            classes = sorted(slo_mix)
+            arr += (str(rng.choice(classes,
+                                   p=[slo_mix[c] for c in classes])),)
+        arrivals.append(arr)
     stats = run_continuous(params, sc, args.backbone_batch, arrivals,
                            chunk=args.chunk, prefill_mode=args.prefill,
-                           use_kernels=args.use_kernels, device=dev)
+                           use_kernels=args.use_kernels, device=dev,
+                           lanes=lanes, pool_budget=args.pool_budget,
+                           telemetry=telemetry, events=events or None,
+                           route=args.route)
     util = float(np.mean(stats["slot_util"])) if stats["slot_util"] else 0.0
     mode = (f"paged/{stats['prefill_mode']}" if sc.cache_layout == "paged"
             else "ring")
+    width = f"mux N={mux.n}"
+    if lanes:
+        desc = (f"P:{args.prefill_lanes}>D:{args.decode_lanes}"
+                if args.disagg else args.lanes)
+        mode += f"/disagg[{desc}]" if args.disagg else f"/lanes[{desc}]"
+        width = f"widths {desc}"
     print(f"continuous[{mode}/{dev.type}] served "
           f"{len(stats['completed'])} requests "
           f"({stats['generated_tokens']} tokens) in {stats['wall']:.1f}s  "
-          f"(mux N={mux.n}, rows {args.backbone_batch}; "
+          f"({width}, rows {args.backbone_batch}; "
           f"{stats['generated_tokens'] / stats['wall']:.1f} tok/s, "
           f"prefill {stats['prefill_tokens']} backbone tokens "
           f"({stats['prefill_compute_tokens']} padded) in "
           f"{stats['prefill_events']} events, slot util {util:.2f})")
-    if sc.cache_layout == "paged":
+    if lanes:
+        _print_lanes(args, stats)
+    elif sc.cache_layout == "paged":
         print(f"kv pages {sc.page_dtype}: pool {stats['pool_bytes']} bytes, "
               f"{stats['kv_bytes_per_token']} bytes per token")
         compiled = ", ".join(f"{k}×{v}" for k, v in
                              sorted(stats["trace_counts"].items()))
         print(f"step signatures: {compiled}")
+    if telemetry is not None:
+        if args.metrics_out:
+            prom = telemetry.write_metrics(args.metrics_out)
+            print(f"metrics written to {args.metrics_out} (+ {prom})")
+        if args.trace_out:
+            telemetry.write_trace(args.trace_out)
+            print(f"trace written to {args.trace_out} "
+                  f"(open at https://ui.perfetto.dev)")
     return 0
 
 

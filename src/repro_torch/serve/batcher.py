@@ -21,7 +21,12 @@ class Request:
     (``time.time()``): ``t_submit`` entered the queue (kept across
     preemption), ``t_admit`` placed into the grid, ``t_first`` first
     generated token on the host (TTFT = t_first - t_submit), ``t_done``
-    retired (TPOT = (t_done - t_first) / (len(output) - 1))."""
+    retired (TPOT = (t_done - t_first) / (len(output) - 1)).
+
+    Width-lane serving (``serve.router``): ``slo`` is the declared SLO
+    class (latency | balanced | throughput | None, balanced), ``lane`` the
+    lane the router chose, ``routed_step`` the engine step at which the
+    request entered that lane's queue (a lane's replay point)."""
     uid: int
     prompt: object                  # token list / array
     max_new: int = 16
@@ -32,6 +37,9 @@ class Request:
     t_admit: float = None
     t_first: float = None
     t_done: float = None
+    slo: str = None
+    lane: int = None
+    routed_step: int = None
 
 
 @dataclass

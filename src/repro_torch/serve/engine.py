@@ -27,6 +27,7 @@ return the cache for symmetry with the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,7 +38,7 @@ from repro_torch.core import quant as quantlib
 from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve.kvpool import KVPool, blocks_for
+from repro_torch.serve.kvpool import KVPool, blocks_for, copy_pages
 
 
 def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
@@ -139,6 +140,18 @@ class ServeConfig:
         return b * self.max_blocks_per_seq + 1
 
 
+def lane_config(sc: ServeConfig, n_mux: int) -> ServeConfig:
+    """One serving lane's ``ServeConfig`` from a base config (width-lane
+    serving): the same model, capacity, dtype and pages, only the mux
+    width changes.  ``num_blocks`` is reset to None so each lane sizes
+    its own pool from its own row count (a router's global budget then
+    caps live usage through per-lane quotas)."""
+    if n_mux < 1:
+        raise ValueError(f"lane mux width must be >= 1, got {n_mux}")
+    return dataclasses.replace(
+        sc, mux=dataclasses.replace(sc.mux, n=n_mux), num_blocks=None)
+
+
 def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
     """Host allocator matching ``init_cache(sc, global_batch)``."""
     return KVPool(num_blocks=sc.pool_blocks(global_batch),
@@ -191,6 +204,27 @@ def reset_blocks(cache, block_ids):
     for c in cache["layers"]:
         c["ppos"][idx] = -1
     return cache
+
+
+def copy_cache_pages(src_cache, dst_cache, src_ids, dst_ids):
+    """Migrate whole pool pages between two paged caches (disaggregated
+    serving), in place: pages ``src_ids`` of every layer of ``src_cache``
+    land in slots ``dst_ids`` of the same layer of ``dst_cache`` —
+    payload, quant scales and position entries (``kvpool.copy_pages``
+    per layer); the ids are int lists or device tensors.  The caches must
+    share layers, page shape and storage; the block tables are the
+    caller's to install.  Returns ``dst_cache``."""
+    if len(src_ids) != len(dst_ids):
+        raise ValueError("page migration needs equal-length id lists")
+    if len(src_ids) == 0:
+        return dst_cache
+    dev = dst_cache["bt"].device
+    si = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
+    di = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
+    for s, d in zip(src_cache["layers"], dst_cache["layers"], strict=True):
+        if "ppos" in d:
+            copy_pages(s, d, si, di)
+    return dst_cache
 
 
 def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,

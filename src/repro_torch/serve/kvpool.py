@@ -7,6 +7,8 @@
                    streams sharing the row's muxed KV).
   * page ops     — per attention layer, ``(num_blocks, block_size, Hkv,
                    Dh)`` K/V pages plus a per-slot absolute position map;
+                   ``copy_pages`` moves whole pages between two layer
+                   caches (disaggregated serving's KV migration);
                    ``paged_write`` scatters new entries IN PLACE (the
                    reference's functional ``.at[].set`` becomes an
                    in-place ``index_put_``; int8/fp8 pages quantize at
@@ -49,10 +51,19 @@ def blocks_for(num_tokens: int, block_size: int) -> int:
 @dataclass
 class KVPool:
     """Host-side block allocator with per-client block tables.
-    ``num_blocks`` includes the reserved trash block 0."""
+    ``num_blocks`` includes the reserved trash block 0.
+
+    quota: optional soft cap on *live* blocks, below the device capacity.
+    The device pages stay sized at ``num_blocks``; the quota only gates
+    the host allocator.  Width-lane serving splits one global block
+    budget into per-lane quotas this way, and ``serve.router.LaneRouter``
+    moves *unused* quota between lanes.  A quota below the current usage
+    is legal: nothing is reclaimed, new allocations are refused until
+    rows drain."""
     num_blocks: int
     block_size: int
     max_blocks_per_seq: int
+    quota: int | None = None
     _free: list = field(init=False, repr=False)
     _tables: dict = field(default_factory=dict, init=False, repr=False)
     _lens: dict = field(default_factory=dict, init=False, repr=False)
@@ -62,6 +73,8 @@ class KVPool:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
         if self.block_size < 1 or self.max_blocks_per_seq < 1:
             raise ValueError("block_size / max_blocks_per_seq must be >= 1")
+        if self.quota is not None and self.quota < 0:
+            raise ValueError(f"quota must be >= 0, got {self.quota}")
         # LIFO free list over ids 1..num_blocks-1 (0 = trash)
         self._free = list(range(self.num_blocks - 1, 0, -1))
 
@@ -73,6 +86,31 @@ class KVPool:
     def n_used_blocks(self) -> int:
         return (self.num_blocks - 1) - len(self._free)
 
+    @property
+    def headroom(self) -> int:
+        """Blocks still allocatable: the free list, capped by the quota."""
+        if self.quota is None:
+            return len(self._free)
+        return max(0, min(len(self._free), self.quota - self.n_used_blocks))
+
+    @property
+    def ceiling(self) -> int:
+        """Device-side allocatable blocks (total minus the trash block)."""
+        return self.num_blocks - 1
+
+    def set_quota(self, quota: int | None):
+        """Install a new soft cap (None = uncapped), effective at the next
+        allocation; live blocks above a shrunken quota stay live."""
+        if quota is not None and quota < 0:
+            raise ValueError(f"quota must be >= 0, got {quota}")
+        self.quota = quota
+
+    def has(self, cid) -> bool:
+        return cid in self._tables
+
+    def num_tokens(self, cid) -> int:
+        return self._lens[cid]
+
     def used_tokens(self) -> int:
         return sum(self._lens.values())
 
@@ -81,14 +119,20 @@ class KVPool:
         return self.used_tokens() / ((self.num_blocks - 1) * self.block_size)
 
     def occupancy_stats(self) -> list:
-        """One entry (this unsharded pool): live/free blocks and the
-        occupied fraction; telemetry publishes them as gauges."""
+        """One entry (this unsharded pool): live / free blocks, the
+        quota-capped headroom, the quota and the occupied fraction of the
+        allocatable blocks; telemetry publishes them as gauges."""
         return [{"used": self.n_used_blocks, "free": self.n_free_blocks,
+                 "headroom": self.headroom, "quota": self.quota,
                  "occupancy": self.n_used_blocks / (self.num_blocks - 1)}]
 
     def _take(self, n: int):
         if n > len(self._free):
             raise PoolExhausted(f"need {n} blocks, {len(self._free)} free")
+        if self.quota is not None and self.n_used_blocks + n > self.quota:
+            raise PoolExhausted(
+                f"need {n} blocks, quota {self.quota} with "
+                f"{self.n_used_blocks} in use")
         return [self._free.pop() for _ in range(n)]
 
     def allocate(self, cid, num_tokens: int = 0):
@@ -131,6 +175,29 @@ class KVPool:
         self._free.extend(reversed(self._tables.pop(cid)))
         del self._lens[cid]
 
+    def migrate_rows(self, cid, dst, dst_cid=None):
+        """Move client ``cid`` out of this pool into ``dst`` (registered
+        there as ``dst_cid``, default the same id): allocate the same block
+        count in ``dst``, release the source blocks and return
+        ``(src_blocks, dst_blocks)``, equal-length id lists for the device
+        page copy (``engine.copy_cache_pages``).
+
+        Atomic: the destination allocates through its normal allocator
+        (quota and per-sequence cap apply), and on ``PoolExhausted``
+        neither pool has changed."""
+        if cid not in self._tables:
+            raise PoolError(f"client {cid!r} not allocated")
+        if dst_cid is None:
+            dst_cid = cid
+        if dst is self and dst_cid == cid:
+            raise PoolError(f"client {cid!r}: migration onto itself")
+        dst_blocks = dst.allocate(dst_cid, self._lens[cid])
+        src_blocks = list(self._tables[cid])
+        assert len(dst_blocks) == len(src_blocks), \
+            "source table not minimal — allocator invariant broken"
+        self.free(cid)
+        return src_blocks, dst_blocks
+
     def block_table(self, cid) -> np.ndarray:
         """(max_blocks_per_seq,) int32, -1-padded."""
         if cid not in self._tables:
@@ -150,12 +217,16 @@ class KVPool:
         return out
 
     def check_invariants(self):
-        """Test hook: no block owned twice, free list disjoint."""
+        """Test hook: no block owned twice, free list disjoint, every
+        table minimal-or-larger and under the per-sequence cap."""
         owned = [b for blks in self._tables.values() for b in blks]
         assert len(owned) == len(set(owned)), "block owned by two clients"
         assert not (set(owned) & set(self._free)), "owned block on free list"
         assert TRASH_BLOCK not in owned and TRASH_BLOCK not in self._free
         assert len(owned) + len(self._free) == self.num_blocks - 1
+        for cid, blks in self._tables.items():
+            assert len(blks) >= blocks_for(self._lens[cid], self.block_size)
+            assert len(blks) <= self.max_blocks_per_seq
 
 
 # ---------------------------------------------------------------- device
@@ -230,6 +301,38 @@ def paged_write(cache, k, v, positions, block_tables=None):
     _bits(cache["vp"]).index_put_(idx, _bits(vq))
     cache["ppos"].index_put_(idx, stored.to(torch.int32))
     return cache
+
+
+PAGE_KEYS = ("kp", "vp", "ksc", "vsc", "ppos")
+
+
+def copy_pages(src, dst, src_ids, dst_ids):
+    """Copy whole pages between two layer caches, in place: pages
+    ``src_ids`` of ``src`` land in slots ``dst_ids`` of ``dst``.  Moves the
+    payload (``kp`` / ``vp``, fp8 as its bytes), the quant scales when
+    present (``ksc`` / ``vsc``) and the per-slot position map (``ppos``,
+    whose -1 entries keep a partly filled tail page masked), bit for bit.
+    An ``index_select`` then an ``index_copy_`` per tensor, on the pages'
+    device (the ids go there once; no value comes back to the host).
+    ``src`` and ``dst`` may be the same dict.  Page dtypes must match:
+    migration never re-quantizes.  Returns ``dst``."""
+    if len(src_ids) != len(dst_ids):
+        raise ValueError(
+            f"page copy needs equal id lists, got {len(src_ids)} -> "
+            f"{len(dst_ids)}")
+    if len(src_ids) == 0:
+        return dst
+    if src["kp"].dtype != dst["kp"].dtype or ("ksc" in src) != ("ksc" in dst):
+        raise ValueError("source/destination page dtypes differ — "
+                         "cannot migrate pages across kv_dtype")
+    dev = dst["kp"].device
+    si = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
+    di = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
+    for key in PAGE_KEYS:
+        if key in dst:
+            _bits(dst[key]).index_copy_(
+                0, di, _bits(src[key]).index_select(0, si))
+    return dst
 
 
 def paged_view(cache, block_tables=None):

@@ -1,6 +1,6 @@
 """Serve runtime: chunked or blocking prefill interleaved with decode, one
-device (counterpart of ``repro.serve.runtime``; mesh, shards, lanes,
-handoff and kill-shard are later slices).
+device (counterpart of ``repro.serve.runtime``; mesh, shards and
+kill-shard are later slices, ROADMAP §1 items 11-12).
 
 ``ServeRuntime`` executes the scheduler's plans against the paged cache:
 
@@ -20,6 +20,14 @@ counted the first time it runs, and ``check_compile_once`` asserts that
 only the declared signatures ever ran.  Blocking prefill is eager in the
 reference and declares no signature here either.  Every step updates the cache in
 place.
+
+Width lanes and disaggregation: a runtime is one serving lane (``lane``,
+its own scheduler, pool and step signatures) and has a ``role`` —
+``both`` (prefill and decode interleaved), ``prefill`` (admissions and
+chunks only; finished rows park until ``handoff_to`` migrates their
+pages into a decode lane) or ``decode`` (decode only; rows arrive by
+``handoff_to``).  ``load()`` is the snapshot ``serve.router.LaneRouter``
+routes on.
 """
 from __future__ import annotations
 
@@ -29,10 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch.serve import sampling
-from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
-                                      make_pool, prefill, prefill_chunk,
-                                      reset_blocks, set_block_tables)
+from repro_torch.serve.engine import (ServeConfig, copy_cache_pages,
+                                      decode_step, init_cache, make_pool,
+                                      prefill, prefill_chunk, reset_blocks,
+                                      set_block_tables)
 from repro_torch.serve.kvpool import PoolExhausted
+from repro_torch.serve.router import LaneLoad
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.telemetry import NULL_TELEMETRY
 
@@ -104,14 +114,28 @@ class ServeRuntime:
     ``kernels.ops`` launch them on CUDA and use their plain versions on
     the CPU); False runs the plain model path.  device: defaults to
     ``cuda`` and raises without a card.  telemetry: a
-    ``serve.telemetry.Telemetry`` (None = disabled).
+    ``serve.telemetry.Telemetry`` (None = disabled); its spans, counters
+    and gauges carry ``lane`` (and ``shard``, 0 on one device) labels.
+    lane: the serving-lane id (tags plans, stats, telemetry and
+    ``load()``).  role: 'both' | 'prefill' | 'decode' (module docstring);
+    a prefill lane needs chunked prefill.  ``stats`` also counts
+    ``handoffs_out``, ``handoffs_in`` and ``migrated_bytes``.  Params on
+    the device already are used as they are, so lanes may share a
+    backbone's tensors.
     """
 
     def __init__(self, params, sc: ServeConfig, backbone_rows: int, *,
                  chunk: int | None = 32, on_prefill=None,
-                 use_kernels: bool = True, device=None, telemetry=None):
+                 use_kernels: bool = True, device=None, telemetry=None,
+                 lane: int = 0, role: str = "both"):
         if sc.cache_layout != "paged":
             raise ValueError("ServeRuntime requires cache_layout='paged'")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be both|prefill|decode, got {role!r}")
+        if role == "prefill" and chunk is None:
+            # a prefill-only lane exists to overlap chunk cadence with a
+            # sibling decode lane; blocking prefill would defeat it
+            raise ValueError("a prefill-role lane requires chunked prefill")
         if sc.kind != "lm":
             raise NotImplementedError(
                 "continuous serving supports decoder-only LM families")
@@ -140,10 +164,16 @@ class ServeRuntime:
         self.buckets = chunk_buckets(chunk) if chunk is not None else []
         self.on_prefill = on_prefill
         self.use_kernels = use_kernels
+        self.lane = lane
+        self.role = role
         self.tele = telemetry if telemetry is not None else NULL_TELEMETRY
+        if self.tele.enabled:
+            tag = f" [{role}]" if role != "both" else ""
+            self.tele.tracer.process_name(
+                lane, f"lane {lane} (N={self.n_mux}){tag}")
         self.sched = ContinuousScheduler(n_mux=self.n_mux,
                                          backbone_batch=backbone_rows,
-                                         max_len=sc.capacity,
+                                         max_len=sc.capacity, lane=lane,
                                          telemetry=self.tele)
         self.pool = make_pool(sc, self.nb)
         self.cache = init_cache(sc, self.nb, device=self.device)
@@ -156,8 +186,12 @@ class ServeRuntime:
         self.stats = {"prefill_tokens": 0, "prefill_events": 0,
                       "prefill_compute_tokens": 0, "decode_steps": 0,
                       "prefill_log": [], "slot_util": [], "cache_util": [],
-                      "completed": self.sched.completed,
+                      "completed": self.sched.completed, "pool": self.pool,
                       "trace_counts": self.trace_counts,
+                      "n_mux": self.n_mux, "rows": backbone_rows,
+                      "lane": lane, "role": role,
+                      "handoffs_out": 0, "handoffs_in": 0,
+                      "migrated_bytes": 0,
                       "pool_bytes": sc.pool_bytes(self.nb),
                       "kv_bytes_per_token": sc.kv_bytes_per_token(),
                       "prefill_mode": ("chunked" if chunk is not None
@@ -168,8 +202,8 @@ class ServeRuntime:
         if key not in self.trace_counts:
             self.trace_counts[key] = 1
             if self.tele.enabled:
-                self.tele.inc("compiles", program=key)
-                self.tele.instant("compile", program=key)
+                self.tele.inc("compiles", lane=self.lane, program=key)
+                self.tele.instant("compile", lane=self.lane, program=key)
 
     def check_compile_once(self):
         """Assert that only the declared step signatures ran: one decode
@@ -202,28 +236,127 @@ class ServeRuntime:
     def has_work(self) -> bool:
         return bool(self.sched.queue) or self.sched.n_active > 0
 
+    def load(self) -> LaneLoad:
+        """Live-load snapshot for lane routing: slot use, admission-queue
+        depth and quota-capped pool headroom, tagged with the lane."""
+        return LaneLoad(lane=self.lane, n_mux=self.n_mux,
+                        slots=self.n_mux * self.nrows,
+                        active=self.sched.n_active,
+                        queue_depth=self.sched.queue_depth,
+                        headroom_blocks=self.pool.headroom,
+                        mid_prefill=len(self.sched.prefill_progress))
+
+    # -- disaggregated handoff --------------------------------------------
+    def handoff_ready(self):
+        """Rows whose prompt is prefilled and whose streams are live: what
+        a prefill lane offers for handoff (their first tokens are
+        recorded, so a decode lane continues them with no re-prefill)."""
+        return [j for j in sorted(self.row_len)
+                if j not in self.sched.prefill_progress
+                and self.sched.row_active(j)]
+
+    def free_rows(self):
+        """Rows that can take a handoff: empty and holding no blocks."""
+        return [j for j in range(self.nrows)
+                if not self.sched.row_active(j) and j not in self.row_len
+                and j not in self.sched.prefill_progress]
+
+    def handoff_to(self, dst, j: int, dst_row: int):
+        """Migrate row ``j``'s finished-prefill mux group into runtime
+        ``dst`` at ``dst_row``: the pool accounting moves
+        (``KVPool.migrate_rows``), the pages follow on the device
+        (``copy_cache_pages``: payload, scales and positions, bit for
+        bit), both block tables are reinstalled and the streams' slots
+        and host token state transfer.  Returns the executed
+        ``HandoffPlan``, or None when ``dst``'s pool cannot take the row
+        now (nothing changed; retry later).  The lanes must share the
+        mux width and the page geometry and storage."""
+        if dst is self:
+            raise ValueError("handoff requires a distinct destination lane")
+        if dst.n_mux != self.n_mux:
+            raise ValueError(
+                f"handoff across widths (N={self.n_mux} -> {dst.n_mux}): "
+                "a muxed row cannot change composition")
+        if (dst.sc.block_size != self.sc.block_size
+                or dst.sc.kv_dtype != self.sc.kv_dtype
+                or dst.sc.capacity != self.sc.capacity):
+            raise ValueError("handoff lanes must share page geometry "
+                             "(block_size / capacity / kv_dtype)")
+        plan = self.sched.plan_handoff(j, dst.lane, dst_row,
+                                       self.pool.num_tokens(j))
+        try:
+            src_blocks, dst_blocks = self.pool.migrate_rows(j, dst.pool,
+                                                            dst_row)
+        except PoolExhausted:
+            if self.tele.enabled:
+                self.tele.inc("handoff_deferrals", lane=self.lane,
+                              dst_lane=dst.lane)
+            return None
+        nbytes = (len(src_blocks) * self.sc.block_size
+                  * self.sc.kv_bytes_per_token())
+        with self.tele.span("handoff", lane=self.lane, dst_lane=dst.lane,
+                            metric="handoff_s", row=j, dst_row=dst_row,
+                            tokens=plan.tokens, blocks=len(src_blocks),
+                            bytes=nbytes):
+            copy_cache_pages(self.cache, dst.cache, src_blocks, dst_blocks)
+            self._install_tables()
+            dst._install_tables()
+            slots = self.sched.retire_handoff(plan)
+            dst.sched.admit_handoff(plan, slots)
+            dst.row_len[dst_row] = self.row_len.pop(j)
+            dst.row_tokens[dst_row] = self.row_tokens.pop(j)
+            dst.next_tok[:, dst_row] = self.next_tok[:, j]
+            self.next_tok[:, j] = PAD_ID
+        self.stats["handoffs_out"] += 1
+        self.stats["migrated_bytes"] += nbytes
+        dst.stats["handoffs_in"] += 1
+        if self.tele.enabled:
+            self.tele.inc("handoffs", lane=self.lane, dst_lane=dst.lane)
+            self.tele.inc("migration_bytes", nbytes, lane=self.lane,
+                          dst_lane=dst.lane)
+            self.tele.instant("handoff", lane=self.lane, dst_lane=dst.lane,
+                              row=j, dst_row=dst_row, tokens=plan.tokens,
+                              streams=len(plan.uids))
+        return plan
+
     def step(self):
         """One engine step: admissions, one chunk per mid-prefill row,
-        one decode over the grid, frees."""
-        with self.tele.span("engine_step", metric="step_latency_s"):
-            self._exec_admissions()
-            for plan in self.sched.plan_chunks(self.chunk):
-                with self.tele.span("prefill_chunk",
-                                    metric="prefill_chunk_s", row=plan.row,
-                                    start=plan.start, length=plan.length,
-                                    last=plan.last):
-                    self._exec_chunk(plan)
-            self._exec_frees()         # e.g. max_new=1 done at prefill
-            rows = [j for j in self.sched.plan_decode().rows
-                    if j in self.row_len]
-            if rows:
-                self._exec_decode(rows)
-                self._exec_frees()
+        one decode over the grid, frees.  A prefill lane runs the first
+        two and the frees (its finished rows park for a handoff); a
+        decode lane only decodes and frees (rows arrive by handoff, and
+        streams preempted there are re-routed by the serve loop)."""
+        with self.tele.span("engine_step", lane=self.lane,
+                            metric="step_latency_s"):
+            if self.role != "decode":
+                self._exec_admissions()
+                for plan in self.sched.plan_chunks(self.chunk):
+                    with self.tele.span("prefill_chunk", lane=self.lane,
+                                        metric="prefill_chunk_s",
+                                        row=plan.row, start=plan.start,
+                                        length=plan.length, last=plan.last):
+                        self._exec_chunk(plan)
+                self._exec_frees()     # e.g. max_new=1 done at prefill
+            if self.role != "prefill":
+                rows = [j for j in self.sched.plan_decode().rows
+                        if j in self.row_len]
+                if rows:
+                    self._exec_decode(rows)
+                    self._exec_frees()
         self.engine_steps += 1
         if self.tele.enabled:
-            st = self.pool.occupancy_stats()[0]
-            self.tele.gauge("pool_occupancy", st["occupancy"])
-            self.tele.gauge("pool_free_blocks", st["free"])
+            self._record_pool_gauges()
+
+    def _record_pool_gauges(self):
+        """Publish pool occupancy, headroom and quota, keyed (lane,
+        shard); host allocator state only."""
+        for s, st in enumerate(self.pool.occupancy_stats()):
+            self.tele.gauge("pool_occupancy", st["occupancy"],
+                            lane=self.lane, shard=s)
+            self.tele.gauge("pool_headroom_blocks", st["headroom"],
+                            lane=self.lane, shard=s)
+            if st["quota"] is not None:
+                self.tele.gauge("pool_quota_blocks", st["quota"],
+                                lane=self.lane, shard=s)
 
     def _install_tables(self):
         set_block_tables(self.cache, self.pool.table_array(range(self.nrows)))
@@ -231,25 +364,35 @@ class ServeRuntime:
     def _exec_admissions(self):
         admitted = False
         for plan in self.sched.plan_admissions(PAD_ID):
-            try:
-                blocks = self.pool.allocate(plan.row, plan.total)
-            except PoolExhausted:
-                # backpressure: roll the group back, retry after drains
-                self.sched.cancel_admit(plan)
-                if self.tele.enabled:
-                    self.tele.inc("admit_rollbacks")
-                if self.pool.n_used_blocks == 0:
-                    raise PoolExhausted(
-                        f"request group of {plan.total} tokens cannot fit "
-                        f"an empty pool (num_blocks={self.pool.num_blocks}, "
-                        f"block_size={self.pool.block_size})")
-                continue
-            self.row_len[plan.row] = plan.total
-            self.row_tokens[plan.row] = np.asarray(plan.tokens, np.int32)
-            reset_blocks(self.cache, blocks)
-            admitted = True
+            with self.tele.span("admit", lane=self.lane, shard=plan.shard,
+                                row=plan.row, tokens=plan.total):
+                admitted |= self._exec_admit(plan)
         if admitted:
             self._install_tables()
+
+    def _exec_admit(self, plan) -> bool:
+        try:
+            blocks = self.pool.allocate(plan.row, plan.total)
+        except PoolExhausted:
+            # backpressure: roll the group back, retry after drains
+            self.sched.cancel_admit(plan)
+            if self.tele.enabled:
+                self.tele.inc("admit_rollbacks", lane=self.lane,
+                              shard=plan.shard)
+                self.tele.instant("cancel", lane=self.lane,
+                                  shard=plan.shard, row=plan.row,
+                                  tokens=plan.total)
+            if self.pool.n_used_blocks == 0:
+                raise PoolExhausted(
+                    f"request group of {plan.total} tokens cannot fit "
+                    f"an empty pool (num_blocks={self.pool.num_blocks}, "
+                    f"block_size={self.pool.block_size}, quota "
+                    f"{self.pool.quota})")
+            return False
+        self.row_len[plan.row] = plan.total
+        self.row_tokens[plan.row] = np.asarray(plan.tokens, np.int32)
+        reset_blocks(self.cache, blocks)
+        return True
 
     def _bucket(self, n: int) -> int:
         return next((b for b in self.buckets if b >= n), self.buckets[-1])
@@ -319,7 +462,8 @@ class ServeRuntime:
             del self.row_len[j]
             del self.row_tokens[j]
             if self.tele.enabled:
-                self.tele.inc("preempts")
+                self.tele.inc("preempts", lane=self.lane, shard=0)
+                self.tele.instant("preempt", lane=self.lane, shard=0, row=j)
         reset_blocks(self.cache, fresh)
         if fresh or preempt:
             self._install_tables()
@@ -331,7 +475,8 @@ class ServeRuntime:
             self.next_tok.reshape(-1, 1).astype(np.int64)).to(self.device)
         arr, steps = grid_sampling(self.sched)
         self._first_run("decode")
-        with self.tele.span("decode", metric="decode_step_s", rows=len(rows)):
+        with self.tele.span("decode", lane=self.lane, metric="decode_step_s",
+                            rows=len(rows)):
             logits, _ = decode_step(self.params, self.sc, self.cache,
                                     toks_in,
                                     torch.from_numpy(pos_vec).to(self.device),
@@ -353,3 +498,6 @@ class ServeRuntime:
                 self.pool.free(plan.row)
                 del self.row_len[plan.row]
                 del self.row_tokens[plan.row]
+                if self.tele.enabled:
+                    self.tele.instant("free", lane=self.lane, shard=0,
+                                      row=plan.row)

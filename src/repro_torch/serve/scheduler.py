@@ -1,6 +1,5 @@
-"""Continuous batching policy (host-side copy of the parts of
-``repro.serve.scheduler`` that the single-device paged runtime and the
-ring arm use; shards, lanes and handoffs are later slices).
+"""Continuous batching policy (host-side copy of ``repro.serve.scheduler``
+for one device; shards are a later slice, ROADMAP §1 item 11).
 
 ``ContinuousScheduler`` keeps an N_mux × B grid of stream slots: slot
 (i, j) is mux stream i of backbone row j.  Paged admission is row-level:
@@ -11,7 +10,13 @@ and reports the rows that changed: the ring arm then re-prefills the
 whole grid.  The scheduler emits typed plans — ``AdmitPlan``,
 ``PrefillChunkPlan``, ``DecodePlan``, ``FreePlan`` — that
 ``serve.runtime.ServeRuntime`` executes; allocation failures come back
-through ``cancel_admit`` and ``preempt_row``.
+through ``cancel_admit`` and ``preempt_row``.  Every plan carries the
+scheduler's ``lane`` (width-lane serving: one scheduler, runtime and pool
+per lane, so no plan crosses lanes).  Disaggregated serving moves a
+finished-prefill row whole into a decode lane: ``plan_handoff`` emits a
+``HandoffPlan``, ``retire_handoff`` detaches the row's slots on the
+source and ``admit_handoff`` installs them on the destination, which
+never prefills the row again.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ class AdmitPlan:
     placed: tuple                 # ((slot, request), ...)
     tokens: np.ndarray            # (N_mux, total) padded current sequences
     total: int
+    shard: int = 0                # owning data shard (0: one device)
+    lane: int = 0                 # owning serving lane
 
 
 @dataclass(frozen=True)
@@ -51,18 +58,38 @@ class PrefillChunkPlan:
     start: int
     length: int
     last: bool
+    lane: int = 0
 
 
 @dataclass(frozen=True)
 class DecodePlan:
     """Rows that decode one token this step: active, not mid-prefill."""
     rows: tuple
+    lane: int = 0
+
+
+@dataclass(frozen=True)
+class HandoffPlan:
+    """Move a finished-prefill mux group, whole, from its prefill lane
+    (``lane``, row ``row``) into a decode lane (``dst_lane``, row
+    ``dst_row``).  Mux combine is nonlinear through the backbone, so a
+    row's muxed KV belongs to the exact streams that prefilled it: a
+    handoff relocates the row (same width) and never splits or re-mixes
+    it.  ``tokens`` KV tokens migrate with the row; ``uids`` are the
+    streams riding it."""
+    row: int
+    dst_row: int
+    lane: int = 0
+    dst_lane: int = 0
+    tokens: int = 0
+    uids: tuple = ()
 
 
 @dataclass(frozen=True)
 class FreePlan:
     """A drained row whose blocks the runtime returns to the pool."""
     row: int
+    lane: int = 0
 
 
 @dataclass
@@ -70,6 +97,7 @@ class ContinuousScheduler:
     n_mux: int
     backbone_batch: int
     max_len: int
+    lane: int = 0                 # serving lane: tags plans and telemetry
     telemetry: object = None
     queue: collections.deque = field(default_factory=collections.deque)
     slots: list = field(init=False)
@@ -96,7 +124,8 @@ class ContinuousScheduler:
     def _stamp_admit(self, r):
         r.t_admit = now = time.time()
         if self.telemetry.enabled and r.t_submit is not None:
-            self.telemetry.observe("queue_wait_s", now - r.t_submit)
+            self.telemetry.observe("queue_wait_s", now - r.t_submit,
+                                   lane=self.lane)
 
     def admit(self):
         """Place queued requests into free slots, row by row.  Returns the
@@ -148,7 +177,8 @@ class ContinuousScheduler:
             tokens = self.row_prompts(j, pad_id)
             self.prefill_progress[j] = [0, tokens.shape[1]]
             plans.append(AdmitPlan(row=j, placed=tuple(placed),
-                                   tokens=tokens, total=tokens.shape[1]))
+                                   tokens=tokens, total=tokens.shape[1],
+                                   lane=self.lane))
         return plans
 
     def cancel_admit(self, plan: AdmitPlan):
@@ -168,7 +198,8 @@ class ContinuousScheduler:
             n = total - filled if chunk is None else min(chunk,
                                                         total - filled)
             plans.append(PrefillChunkPlan(row=j, start=filled, length=n,
-                                          last=filled + n >= total))
+                                          last=filled + n >= total,
+                                          lane=self.lane))
         return plans
 
     def chunk_done(self, row: int, n: int) -> bool:
@@ -183,11 +214,57 @@ class ContinuousScheduler:
     def plan_decode(self):
         return DecodePlan(rows=tuple(
             j for j in range(self.backbone_batch)
-            if j not in self.prefill_progress and self.row_active(j)))
+            if j not in self.prefill_progress and self.row_active(j)),
+            lane=self.lane)
 
     def plan_frees(self):
-        return [FreePlan(row=j) for j in range(self.backbone_batch)
+        return [FreePlan(row=j, lane=self.lane)
+                for j in range(self.backbone_batch)
                 if j not in self.prefill_progress and not self.row_active(j)]
+
+    # -- handoff (disaggregated serving) ----------------------------------
+    def plan_handoff(self, j: int, dst_lane: int, dst_row: int,
+                     tokens: int) -> HandoffPlan:
+        """A HandoffPlan for row ``j``, which must be live with its
+        prefill complete; ``tokens`` is its KV length (pool knowledge)."""
+        if j in self.prefill_progress:
+            raise ValueError(f"row {j} is mid-prefill — not handoff-ready")
+        if not self.row_active(j):
+            raise ValueError(f"row {j} has no live streams")
+        uids = tuple(s.request.uid for s in self.slots[j]
+                     if s.request is not None)
+        return HandoffPlan(row=j, dst_row=dst_row, lane=self.lane,
+                           dst_lane=dst_lane, tokens=tokens, uids=uids)
+
+    def retire_handoff(self, plan: HandoffPlan) -> list:
+        """Source side: detach row ``plan.row``'s slots without requeueing
+        or retiring their streams, and return them for
+        ``admit_handoff``."""
+        slots = self.slots[plan.row]
+        self.slots[plan.row] = [StreamSlot() for _ in range(self.n_mux)]
+        return slots
+
+    def admit_handoff(self, plan: HandoffPlan, slots: list):
+        """Destination side: install a migrated row's slots at
+        ``plan.dst_row``.  The row joins the decode grid directly: no
+        ``prefill_progress`` entry is made, so no chunk is ever planned
+        for it (zero re-prefill by construction)."""
+        if any(s.request is not None for s in self.slots[plan.dst_row]):
+            raise ValueError(f"row {plan.dst_row} is occupied")
+        if plan.dst_row in self.prefill_progress:
+            raise ValueError(f"row {plan.dst_row} is mid-prefill")
+        if len(slots) != self.n_mux:
+            raise ValueError(
+                f"handoff carries {len(slots)} slots into an N={self.n_mux} "
+                "lane — handoffs must preserve the mux width")
+        self.slots[plan.dst_row] = slots
+        for s in slots:
+            if s.request is not None:
+                s.request.lane = self.lane
+        if self.telemetry.enabled:
+            self.telemetry.inc("handoff_streams",
+                               sum(s.request is not None for s in slots),
+                               lane=self.lane)
 
     def preempt_row(self, j: int):
         """Requeue row j's live requests at the head of the queue (prompt +
@@ -221,7 +298,7 @@ class ContinuousScheduler:
         if r.t_first is None:
             r.t_first = now
             if tele.enabled and r.t_submit is not None:
-                tele.observe("ttft_s", now - r.t_submit)
+                tele.observe("ttft_s", now - r.t_submit, lane=self.lane)
         s.pos += 1
         if len(r.output) < r.max_new and s.pos < self.max_len:
             return 0
@@ -230,10 +307,11 @@ class ContinuousScheduler:
         self.completed.append(r)
         self.slots[j][i] = StreamSlot()
         if tele.enabled:
-            tele.inc("requests_completed")
+            tele.inc("requests_completed", lane=self.lane)
             if len(r.output) > 1 and now > r.t_first:
                 tele.observe("tpot_s",
-                             (now - r.t_first) / (len(r.output) - 1))
+                             (now - r.t_first) / (len(r.output) - 1),
+                             lane=self.lane)
         return 1
 
     def record_tokens(self, tokens, now: float | None = None):
@@ -247,7 +325,8 @@ class ContinuousScheduler:
                       for i in range(self.n_mux)
                       for j in range(self.backbone_batch))
         if self.telemetry.enabled:
-            self.telemetry.inc("tokens_generated", self.n_active + retired)
+            self.telemetry.inc("tokens_generated", self.n_active + retired,
+                               lane=self.lane)
         return retired
 
     def record_row_tokens(self, j: int, tokens, now: float | None = None):
@@ -259,9 +338,15 @@ class ContinuousScheduler:
         retired = sum(self._record_slot(j, i, tokens[i], now)
                       for i in range(self.n_mux))
         if self.telemetry.enabled:
-            self.telemetry.inc("tokens_generated", before)
+            self.telemetry.inc("tokens_generated", before, lane=self.lane)
         return retired
 
     def utilization(self) -> float:
-        """Occupied fraction of the N_mux × B slot grid."""
+        """Occupied fraction of the N_mux × B slot grid (a mid-prefill
+        row's streams count from admission on)."""
         return self.n_active / (self.n_mux * self.backbone_batch)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for admission (submitted, not yet placed)."""
+        return len(self.queue)

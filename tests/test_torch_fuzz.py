@@ -32,7 +32,26 @@ Hypothesis, so no example database.
                  sweep diverging from bf16.  The reference's bar (99% of
                  ~10 tokens) fails on one near-tie flip (ROADMAP §3); a
                  flip changes every later token of its stream, so the
-                 bar here counts diverging streams, not tokens.
+                 bar here counts diverging streams, not tokens;
+  * telemetry  — paged-chunked with a live ``Telemetry`` (snapshots every
+                 2 steps) against the same run without: identical tokens
+                 and step signatures, the registry agreeing with the
+                 runtime's stats, and with the reference's instrumented
+                 run (counters, snapshot steps);
+  * lanes      — SLO-routed lanes at widths 1, 4 and 8: each lane's routed
+                 sub-schedule replayed through a fixed-width run at its N
+                 gives the same tokens, one decode and one signature per
+                 bucket per width; lane resize (a drain at step 3, a lane
+                 added at step 6) the same across the resize;
+  * disagg     — a prefill-only and a decode-only lane at width 1: the
+                 single-lane chunked arm's tokens, 0 decode steps on the
+                 prefill lane and 0 prefill events on the decode lane, one
+                 handoff per stream that outlives its first token; also
+                 under ``pool_budget=20`` and with goodput routing.
+                 Every lanes and disagg arm equals the reference's run of
+                 the same arm: tokens, lane and routed step per request,
+                 routing counters, ``handoffs`` / ``handoff_streams`` /
+                 ``migrated_kv_bytes`` and each lane's step signatures.
 """
 import numpy as np
 import pytest
@@ -46,14 +65,16 @@ from repro.core import MuxSpec as RefMux
 from repro.launch.serve import run_continuous as ref_run_continuous
 from repro.models import TransformerLM as RefLM
 from repro.serve import ServeConfig as RefServeConfig
+from repro.serve.router import LaneSpec as RefLaneSpec
 from repro.serve.telemetry import Telemetry as RefTelemetry
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.core import MuxSpec
 from repro_torch.launch import serve as cli
 from repro_torch.serve import engine
+from repro_torch.serve.router import SLO_CLASSES, LaneSpec
 from repro_torch.serve.telemetry import Telemetry
-from test_serve_fuzz import BLOCK, CAPACITY, ROWS, _schedule
+from test_serve_fuzz import BLOCK, CAPACITY, LANE_WIDTHS, ROWS, _schedule
 
 torch.set_num_threads(2)
 
@@ -203,7 +224,7 @@ def _pressure_case(models, seed, n, mode):
     for k in ("prefill_events", "prefill_tokens", "decode_steps",
               "prefill_log", "trace_counts"):
         assert stats[k] == stats_r[k], k
-    counts = _counters(tele.registry, PRESSURE_COUNTERS)
+    counts = _counters(tele.registry, PRESSURE_COUNTERS, lane=0, shard=0)
     assert counts == _counters(tele_r.registry, PRESSURE_COUNTERS, lane=0,
                                shard=0)
     if n == 1:
@@ -299,3 +320,209 @@ def test_num_blocks_sizes_the_pool_as_the_reference(models):
     assert _sc(cfg).pool_blocks(ROWS) == ROWS * 5 + 1
     with pytest.raises(ValueError, match="need >= 2 blocks"):
         _sc(cfg, num_blocks=1)
+
+
+# ------------------------------------------------------------ telemetry
+
+def _telemetry_case(models, seed):
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, seed)
+
+    def arm(telemetry=None):
+        got, stats = _port_arm(port, _sc(cfg), arrivals, chunk=4,
+                               use_kernels=False, telemetry=telemetry)
+        return got, dict(stats["trace_counts"]), stats
+
+    base, base_traces, _ = arm()
+    tele = Telemetry(snapshot_every=2)
+    got, traces, stats = arm(tele)
+    assert got == base, "telemetry changed the token streams"
+    assert traces == base_traces, "telemetry changed the step signatures"
+    reg = tele.registry
+    generated = sum(len(out) for _, out in got.values())
+    assert reg.value("tokens_generated", lane=0) == generated
+    assert reg.value("requests_completed", lane=0) == len(arrivals)
+    assert (reg.hist("decode_step_s", lane=0, shard=0).count
+            == stats["decode_steps"])
+    assert reg.hist("ttft_s", lane=0).count == len(arrivals)
+    for r in stats["completed"]:
+        assert r.t_submit <= r.t_admit <= r.t_first <= r.t_done
+    assert tele.snapshots and all("step" in s for s in tele.snapshots)
+    assert ({e["ph"] for e in tele.tracer.chrome_trace()["traceEvents"]}
+            <= {"X", "i", "M"})
+    tele_r = RefTelemetry(snapshot_every=2)
+    want, _ = _ref_arm(ref, _sc_ref(cfg_r), arrivals, chunk=4,
+                       telemetry=tele_r)
+    assert got == want
+    assert (tele.registry.snapshot()["counters"]
+            == tele_r.registry.snapshot()["counters"])
+    assert ([s["step"] for s in tele.snapshots]
+            == [s["step"] for s in tele_r.snapshots])
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_fuzz_telemetry_parity(models, seed):
+    _telemetry_case(models, seed)
+
+
+# ---------------------------------------------------------- lanes, disagg
+
+@pytest.fixture(scope="module")
+def lane_models():
+    """width -> (reference params, port params), the reference fuzz's
+    per-width init (``fold_in(KEY, w)``)."""
+    cfg_r = ref_config("qwen2-1.5b", reduced=True)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    out = {}
+    for w in LANE_WIDTHS:
+        ref = RefLM.init(jax.random.fold_in(KEY, w), cfg_r, RefMux(n=w))
+        out[w] = (ref, interop.params_from_reference(
+            jax.tree.map(np.asarray, ref), cfg, device="cpu"))
+    return cfg_r, cfg, out
+
+
+def _slo_arrivals(arrivals, seed):
+    rng = np.random.default_rng(seed + 99)
+    return [(t, p, m, None, str(rng.choice(SLO_CLASSES)))
+            for t, p, m in arrivals]
+
+
+def _copy5(arrivals):
+    return [(a[0], a[1].copy(), *a[2:]) for a in arrivals]
+
+
+def _routed(stats):
+    return {r.uid: (r.lane, r.routed_step) for r in stats["completed"]}
+
+
+def _both_lanes(cfg_r, cfg, params, arrivals, port_lanes, ref_lanes, **kw):
+    """The arm on both packages: the port's stats after the reference's
+    lanes contract holds (pools drained, step signatures once per lane),
+    equal to the reference's run of the same arm."""
+    n = len(arrivals)
+    got = cli.run_continuous({w: p for w, (_, p) in params.items()},
+                             _sc(cfg), ROWS, _copy5(arrivals), chunk=4,
+                             lanes=port_lanes, use_kernels=False,
+                             device="cpu", **kw)
+    want = ref_run_continuous({w: r for w, (r, _) in params.items()},
+                              _sc_ref(cfg_r), ROWS, _copy5(arrivals),
+                              chunk=4, lanes=ref_lanes, **kw)
+    assert _tokens(got, range(n)) == _tokens(want, range(n))
+    assert _routed(got) == _routed(want)
+    assert got["routing"] == want["routing"]
+    assert [ls["trace_counts"] for ls in got["lanes"]] == [
+        ls["trace_counts"] for ls in want["lanes"]]
+    rec_keys = ("handoffs", "handoff_streams", "migrated_kv_bytes",
+                "lane_drains", "lane_adds", "lanes_retired")
+    assert ({k: got["recovery"][k] for k in rec_keys}
+            == {k: want["recovery"][k] for k in rec_keys})
+    for pool in got["pools"]:
+        assert pool.n_used_blocks == 0
+        pool.check_invariants()
+    return got
+
+
+def _replay_lanes(cfg, params, stats):
+    """Every lane that served equals a fixed-width run at its N fed its
+    routed sub-schedule; one decode and one signature per bucket."""
+    for ls in stats["lanes"]:
+        served = bool(ls["completed"])
+        assert ls["trace_counts"].get("decode", 0) == int(served)
+        assert all(v == 1 for v in ls["trace_counts"].values())
+        if not served:
+            continue
+        routed = sorted(ls["completed"], key=lambda r: r.uid)
+        assert all(r.lane == ls["lane"] for r in routed)
+        sub = [(r.routed_step, np.asarray(r.prompt), r.max_new)
+               for r in routed]
+        fixed, _ = _port_arm(params[ls["n_mux"]][1], _sc(cfg, ls["n_mux"]),
+                             sub, chunk=4, use_kernels=False)
+        for i, r in enumerate(routed):
+            assert fixed[i] == (tuple(r.prompt), list(r.output)), (
+                f"lane {ls['lane']} (N={ls['n_mux']}) diverged from the "
+                f"fixed-width run for uid {r.uid}")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fuzz_lane_parity(lane_models, seed):
+    cfg_r, cfg, params = lane_models
+    arrivals = _slo_arrivals(_schedule(cfg, seed), seed)
+    stats = _both_lanes(cfg_r, cfg, params, arrivals, LANE_WIDTHS,
+                        LANE_WIDTHS)
+    assert len(stats["completed"]) == len(arrivals)
+    _replay_lanes(cfg, params, stats)
+
+
+def test_fuzz_lane_resize(lane_models):
+    cfg_r, cfg, params = lane_models
+    arrivals = _slo_arrivals(_schedule(cfg, 0), 0)
+    events = [{"step": 3, "op": "drain_lane", "width": 4},
+              {"step": 6, "op": "add_lane", "width": 8}]
+    stats = _both_lanes(cfg_r, cfg, params, arrivals, (1, 4), (1, 4),
+                        events=events)
+    rec = stats["recovery"]
+    assert rec["lane_drains"] == 1 and rec["lane_adds"] == 1
+    assert rec["lanes_retired"] == 1
+    _replay_lanes(cfg, params, stats)
+
+
+def _disagg(models, arrivals, *, pool_budget=None, route="load"):
+    """Prefill-only + decode-only lanes at width 1 on both packages; the
+    disaggregation contract, then the port's streams."""
+    cfg_r, ref, cfg, port = models[1]
+    lanes = lambda spec: (spec(n_mux=1, rows=ROWS, chunk=4, role="prefill"),
+                          spec(n_mux=1, rows=ROWS, chunk=4, role="decode"))
+    stats = _both_lanes(cfg_r, cfg, {1: (ref, port)},
+                        [(*a, None, None) for a in arrivals],
+                        lanes(LaneSpec), lanes(RefLaneSpec),
+                        pool_budget=pool_budget, route=route)
+    pre, dec = stats["lanes"]
+    assert pre["role"] == "prefill" and dec["role"] == "decode"
+    assert pre["decode_steps"] == 0, "prefill lane ran decode"
+    assert dec["prefill_events"] == 0 and dec["prefill_tokens"] == 0
+    assert all(k.startswith("prefill_") for k in pre["trace_counts"])
+    assert dict(dec["trace_counts"]) == (
+        {"decode": 1} if dec["completed"] else {})
+    assert all(v == 1 for v in pre["trace_counts"].values())
+    rec = stats["recovery"]
+    assert rec["handoffs"] == pre["handoffs_out"] == dec["handoffs_in"]
+    assert rec["migrated_kv_bytes"] == pre["migrated_bytes"]
+    if rec["handoffs"]:
+        assert rec["migrated_kv_bytes"] > 0
+    return _tokens(stats, arrivals), stats
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fuzz_disagg(models, seed):
+    """Prefill, migrate, decode: the single-lane chunked arm's tokens and
+    solo greedy's, one handoff per stream needing a decode step."""
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, seed)
+    base, _ = _port_arm(port, _sc(cfg), arrivals, chunk=4,
+                        use_kernels=False)
+    got, stats = _disagg(models, arrivals)
+    assert got == base, "disagg arm diverged from single-lane chunked"
+    _solo_greedy(port, _sc(cfg), arrivals, got)
+    assert (stats["recovery"]["handoff_streams"]
+            == sum(1 for _, _, m in arrivals if m >= 2))
+
+
+def test_fuzz_disagg_pressure(models):
+    """A shared budget of 20 blocks: rollbacks and parked handoffs change
+    no token."""
+    cfg_r, ref, cfg, port = models[1]
+    arrivals = _schedule(cfg, 3, n_req=3)
+    base, _ = _port_arm(port, _sc(cfg), arrivals, chunk=4,
+                        use_kernels=False)
+    got, _ = _disagg(models, arrivals, pool_budget=20)
+    assert got == base, "budget-pressure disagg arm diverged"
+
+
+def test_fuzz_disagg_goodput(models):
+    """Goodput routing only reorders candidates: with one lane of each
+    role it serves the load-routed arm's tokens."""
+    cfg = models[1][2]
+    arrivals = _schedule(cfg, 0)
+    load, _ = _disagg(models, arrivals, route="load")
+    goodput, _ = _disagg(models, arrivals, route="goodput")
+    assert goodput == load, "goodput routing changed the token streams"

@@ -303,9 +303,12 @@ def test_cli_no_use_kernels_runs_the_plain_path(capsys, argv):
     (["--kv-dtype", "int4"], "invalid choice"),
     (["--cache", "ring", "--kv-dtype", "int8"],
      "--kv-dtype requires --continuous --cache paged"),
-    (["--lanes", "1,2"], "item 10"),
+    (["--lanes", "1,2"], "--lanes/--disagg require --continuous --cache "
+                         "paged"),
     (["--mesh", "2,2"], "item 12"),
     (["--kill-shard", "3:1"], "item 11"),
+    (["--shards", "2"], "item 11"),
+    (["--restart-step", "3"], "item 11"),
 ])
 def test_cli_rejects_later_slices(capsys, argv, match):
     with pytest.raises(SystemExit) as e:
@@ -367,13 +370,13 @@ def test_telemetry_records_the_runtime():
                                 if ev[0] == "X")
     assert spans["decode"] == on["decode_steps"]
     assert spans["prefill_chunk"] == on["prefill_events"]
-    compiles = [ev[4]["program"] for ev in tele.tracer.events
+    compiles = [ev[6]["program"] for ev in tele.tracer.events
                 if ev[0] == "i" and ev[1] == "compile"]
     assert sorted(compiles) == sorted(on["trace_counts"])
     reg = tele.registry
-    assert reg.value("requests_completed") == len(arrivals)
-    assert reg.value("tokens_generated") == on["generated_tokens"]
-    h = reg.hist("decode_step_s")
+    assert reg.value("requests_completed", lane=0) == len(arrivals)
+    assert reg.value("tokens_generated", lane=0) == on["generated_tokens"]
+    h = reg.hist("decode_step_s", lane=0, shard=0)
     assert h.count == on["decode_steps"]
     assert h.vmin <= h.percentile(50) <= h.percentile(99) <= h.vmax
-    assert reg.hist("ttft_s").count == len(arrivals)
+    assert reg.hist("ttft_s", lane=0).count == len(arrivals)
