@@ -223,7 +223,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 step identical, the metrics JSON, ``.prom`` and Chrome
                 trace written and parsed back (engine_step spans = engine
                 steps, pid = lane), one profiled step showing the
-                ``record_function`` ranges, the host wall of both runs.
+                ``record_function`` ranges, the host wall of both runs;
+  12. shards  — phase 11's N=2 weights (phase 4's), full-width qwen2-1.5b
+                in fp32 on phase 4's trace, then freed: (a) two logical
+                shards (``ServeConfig.n_shards=2``, 34 blocks, a trash
+                block each) with straggler fencing armed — every request
+                complete, launches exact, nothing fenced, greedy
+                agreement with phase 4's one-shard run printed; then
+                shard 1 killed at the first step both its rows decode:
+                every request complete, the survivors token-identical to
+                the undisturbed run, the re-prefill tokens those of the
+                replayed requests' logs, every page of shard 1's segment
+                but its trash block ``torch.equal`` from the kill to the
+                end and the trash block's positions -1, the replayed
+                streams' agreement and the recovery latency (host)
+                printed; (b) one shard: a restart (snapshot into a
+                temporary directory under ``build/``, a fresh runtime,
+                restore) at the first step with nothing queued or
+                mid-prefill on fp32, bf16 and fp8 pages — every restored
+                cache leaf ``torch.equal`` to the one captured, no
+                prefill after the restore, phase 4's tokens on that
+                storage — and one fp32 restart mid-prefill that runs only
+                the chunks an undisturbed run does; snapshot bytes, save
+                and restore times (host) beside the card.
 The kernels' JSON line lists every kernel of phases 3-10 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
@@ -1960,7 +1982,12 @@ def main() -> int:
     # qwen2-1.5b in fp32; phase 10's weights were its own and are gone
     gc.collect()
     torch.cuda.empty_cache()
-    phase_lanes(torch, rows, prompt_len, new_tokens, runs)
+    p2 = phase_lanes(torch, rows, prompt_len, new_tokens, runs)
+
+    # 12. logical shards, kill-shard replay and hot restart on phase 11's
+    # N=2 weights (phase 4's), then they are freed
+    phase_shards(torch, p2, rows, prompt_len, new_tokens, runs)
+    del p2
 
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
@@ -3684,7 +3711,8 @@ def phase_lanes(torch, rows, prompt_len, new_tokens, fp32_runs):
     reference across mux widths (phase 4's N=2 weights; N=1 drops its mux
     and demux, N=4 has its own), served (a) as width lanes at N = 1, 2, 4,
     (b) disaggregated (a prefill lane handing rows to a decode lane, N=2,
-    fp32 and int8 pages) and (c) with the telemetry outputs on and off."""
+    fp32 and int8 pages) and (c) with the telemetry outputs on and off.
+    Returns the N=2 weights (phase 12 serves them)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core import MuxEngine, MuxSpec
@@ -3710,11 +3738,12 @@ def phase_lanes(torch, rows, prompt_len, new_tokens, fp32_runs):
                  fp32_runs)
     telemetry_phase(torch, cfg, params[2], base, rows, prompt_len,
                     new_tokens, tempfile)
-    del params, p2, backbone
+    del params, backbone
     print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s; "
           f"torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{smi_line()}", flush=True)
+    return p2
 
 
 def _check_lanes(kind, stats, trace, new_tokens, n_layers, log):
@@ -3955,6 +3984,305 @@ def telemetry_phase(torch, cfg, params, base, rows, prompt_len, new_tokens,
           f"profiled step ranges {sorted(names & {'engine_step', 'admit', 'prefill_chunk', 'decode'})}; "
           f"host wall {on['wall']:.3f} s on, {off['wall']:.3f} s off",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: logical shards, kill-shard replay and hot snapshot / restore
+
+SHARD_BLOCKS = 34          # 4 rows x 8 blocks of 16 + one trash block a shard
+RESTART_KINDS = ("fp32", "bf16", "fp8")
+
+
+@contextlib.contextmanager
+def step_states():
+    """Log each ``ServeRuntime.step``'s state as it starts: yields a list
+    of (engine step, queued requests, {row: [filled, total]} mid-prefill,
+    decoding rows) — the state an event applied before that step sees."""
+    from repro_torch.serve import runtime
+    log, orig = [], runtime.ServeRuntime.step
+
+    def step(self):
+        sched = self.sched
+        log.append((self.engine_steps, len(sched.queue),
+                    {j: list(v) for j, v in sched.prefill_progress.items()},
+                    {j for j in self.row_len
+                     if j not in sched.prefill_progress
+                     and sched.row_active(j)}))
+        orig(self)
+
+    runtime.ServeRuntime.step = step
+    try:
+        yield log
+    finally:
+        runtime.ServeRuntime.step = orig
+
+
+@contextlib.contextmanager
+def checked_kill(shard):
+    """Wrap ``ServeRuntime.kill_shard``: record the replayed requests'
+    prompt plus generated tokens just before the kill, and clone every
+    layer's pages of ``shard``'s segment just after it.  Yields a dict the
+    caller reads after the run (``tokens``, ``uids``, ``pages``, ``rt``,
+    ``blocks``)."""
+    from repro_torch.serve import runtime
+    got, orig = {}, runtime.ServeRuntime.kill_shard
+
+    def kill_shard(self, s):
+        rps = self.nrows // self.sc.n_shards
+        reqs = [sl.request for j in range(s * rps, (s + 1) * rps)
+                for sl in self.sched.slots[j] if sl.request is not None]
+        got["tokens"] = sum(len(r.prompt) + len(r.output) for r in reqs)
+        got["uids"] = {r.uid for r in reqs}
+        out = orig(self, s)
+        bps = self.pool.blocks_per_shard
+        got["blocks"] = (s * bps, (s + 1) * bps)
+        got["pages"] = [{k: _page_bits(c[k][s * bps:(s + 1) * bps]).clone()
+                         for k in ("kp", "vp", "ppos")}
+                        for c in self.cache["layers"]]
+        got["rt"] = self
+        return out
+
+    runtime.ServeRuntime.kill_shard = kill_shard
+    try:
+        yield got
+    finally:
+        runtime.ServeRuntime.kill_shard = orig
+
+
+def _served(kind, stats, trace, new_tokens, n_layers):
+    """Every request complete with its tokens, the pool drained, launches
+    exactly what chunked serving requires."""
+    from repro_torch.kernels import ops
+    need(len(stats["completed"]) == len(trace)
+         and all(len(r.output) == new_tokens for r in stats["completed"]),
+         f"{kind}: a request did not complete with its {new_tokens} tokens")
+    pool = stats["runtime"].pool
+    need(pool.n_used_blocks == 0, f"{kind}: the pool did not drain")
+    pool.check_invariants()
+    launches = ops.counts("launches")
+    want = paged_launches(launches, n_layers, stats["decode_steps"],
+                          stats["prefill_events"])
+    need(launches == want, f"{kind}: launch counts {launches} != required "
+         f"{want} ({stats['decode_steps']} decode steps, "
+         f"{stats['prefill_events']} prefill chunks)")
+    return {r.uid: r.output for r in stats["completed"]}, launches
+
+
+def phase_shards(torch, params, rows, prompt_len, new_tokens, fp32_runs):
+    """Phase 12: full-width qwen2-1.5b N=2 in fp32 on phase 4's trace, (a)
+    over two logical shards, undisturbed with straggler fencing armed and
+    with shard 1 killed at the first step both its rows decode, and (b)
+    restarted (snapshot, a fresh runtime, restore) on fp32, bf16 and fp8
+    pages, with nothing in flight and mid-prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.serve import engine
+    print(f"phase 12: logical shards, kill-shard replay and hot restart, "
+          f"qwen2-1.5b full width N=2 in fp32; {smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    base = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=2), dtype=torch.float32,
+                              capacity=prompt_len + new_tokens + 8,
+                              cache_layout="paged", block_size=16)
+    states, chunks = shard_phase(torch, cfg, params, base, rows, trace,
+                                 new_tokens, fp32_runs)
+    restart_phase(torch, cfg, params, base, rows, trace, new_tokens,
+                  fp32_runs, states, chunks)
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line()}", flush=True)
+
+
+def shard_phase(torch, cfg, params, base, rows, trace, new_tokens,
+                fp32_runs):
+    """(a) ``n_shards=2``: undisturbed (fencing armed, nothing fenced),
+    then shard 1 killed: survivors token-identical, the replay's prefill
+    tokens the replayed logs', shard 1's pages untouched but its trash
+    block.  Returns the undisturbed run's step states and prefill
+    chunks."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    sc = dataclasses.replace(base, n_shards=2)
+    need(sc.pool_blocks(rows * 2) == SHARD_BLOCKS,
+         f"shards: pool of {sc.pool_blocks(rows * 2)} blocks, want "
+         f"{SHARD_BLOCKS}")
+    ops.reset_counts()
+    with step_states() as states:
+        stats = run_continuous(params, sc, rows, trace, chunk=32,
+                               device="cuda", fence_stragglers=True)
+    torch.cuda.synchronize()
+    undisturbed, launches = _served("shards", stats, trace, new_tokens,
+                                    cfg.n_layers)
+    rec = stats["recovery"]
+    need(rec["stragglers_fenced"] == 0 and not stats["runtime"].pool.
+         dead_shards, f"shards: a shard was fenced ({rec})")
+    same = "{}/{}".format(*agreement(undisturbed,
+                                     fp32_runs["fp32"]["outputs"]))
+    chunks = stats["prefill_events"]
+    print(f"  2 shards ({SHARD_BLOCKS} blocks, fencing armed): "
+          f"{len(undisturbed)} requests in {stats['wall']:.3f} s, "
+          f"{stats['decode_steps']} decode steps, {stats['prefill_events']} "
+          f"chunks, launches {launches}; {rec['global_slow_steps']} global "
+          f"slow steps, nothing fenced; greedy tokens identical to phase "
+          f"4's one-shard fp32 run {same}", flush=True)
+    rps = rows // 2
+    dead_rows = set(range(rps, 2 * rps))
+    kill = next((st for st, _, _, dec in states if dead_rows <= dec), None)
+    need(kill is not None, "shards: shard 1's rows never decoded together")
+    ops.reset_counts()
+    with checked_kill(1) as got:
+        stats = run_continuous(params, sc, rows, trace, chunk=32,
+                               device="cuda", events=[
+                                   {"step": kill, "op": "kill_shard",
+                                    "shard": 1}])
+    torch.cuda.synchronize()
+    killed, launches = _served("kill-shard", stats, trace, new_tokens,
+                               cfg.n_layers)
+    rec = stats["recovery"]
+    need(rec["shards_killed"] == 1 and rec["requests_replayed"]
+         == len(got["uids"]) > 0, f"kill-shard: {rec}")
+    need(rec["replay_prefill_tokens"] == got["tokens"],
+         f"kill-shard: {rec['replay_prefill_tokens']} re-prefill tokens, "
+         f"the replayed logs held {got['tokens']}")
+    survivors = [u for u in killed if u not in got["uids"]]
+    need(survivors and all(killed[u] == undisturbed[u] for u in survivors),
+         "kill-shard: a surviving stream changed its tokens")
+    rt = got["rt"]
+    need(rt is stats["runtime"], "kill-shard: the run changed runtimes")
+    lo, hi = got["blocks"]
+    for layer, (c, want) in enumerate(zip(rt.cache["layers"], got["pages"])):
+        for k, x in want.items():
+            now = _page_bits(c[k][lo:hi])
+            need(torch.equal(now[1:], x[1:]), f"kill-shard: layer {layer} "
+                 f"{k} of the dead segment changed after the kill")
+        need(bool((c["ppos"][lo] == -1).all()),
+             f"kill-shard: layer {layer}'s trash block holds a position")
+    replayed = {u: killed[u] for u in got["uids"]}
+    lat = rec["recovery_latency_s"]
+    print(f"  kill shard 1 at step {kill}: {len(killed)} requests complete; "
+          f"{len(survivors)} survivors token-identical to the undisturbed "
+          f"run; {rec['requests_replayed']} streams replayed "
+          f"({rec['replay_prefill_tokens']} re-prefill tokens = their "
+          f"prompts plus generated tokens), greedy agreement with the "
+          f"undisturbed run {'{}/{}'.format(*agreement(replayed, undisturbed))}"
+          f"; blocks "
+          f"{lo + 1}..{hi - 1} of the dead segment unchanged after the "
+          f"kill, its trash block {lo} at position -1; recovery latency "
+          f"(host) max {max(lat) * 1e3:.1f} ms over {len(lat)} streams; "
+          f"launches {launches}; {smi_line()}", flush=True)
+    return states, chunks
+
+
+@contextlib.contextmanager
+def checked_restart(torch, mid_prefill):
+    """Wrap ``RecoverySupervisor.snapshot`` / ``restore``: the snapshot is
+    taken where asked (nothing queued or mid-prefill, or mid-prefill),
+    its write is joined and timed, every cache leaf is cloned; after the
+    restore every leaf must equal its clone.  Yields a dict (``bytes``,
+    ``save_s``, ``restore_s``, ``prefill_before``, ``remaining``: the
+    chunks left of the rows mid-prefill)."""
+    from repro_torch.serve import recovery
+    got = {}
+    Sup = recovery.RecoverySupervisor
+    orig_snap, orig_restore = Sup.snapshot, Sup.restore
+
+    def leaves(rt):
+        return [{k: _page_bits(x).clone() for k, x in c.items()}
+                for c in rt.cache["layers"]]
+
+    def snapshot(self, rt, step):
+        sched = rt.sched
+        if mid_prefill:
+            need(sched.prefill_progress and all(
+                0 < f < t for f, t in sched.prefill_progress.values()),
+                f"restart: no row mid-prefill at step {step}")
+            got["remaining"] = sum(-(-(t - f) // rt.chunk) for f, t in
+                                   sched.prefill_progress.values())
+        else:
+            need(not sched.queue and not sched.prefill_progress,
+                 f"restart: work in flight at step {step}")
+            got["remaining"] = 0
+        got["cache"] = leaves(rt)
+        got["prefill_before"] = rt.stats["prefill_events"]
+        t0 = time.perf_counter()
+        orig_snap(self, rt, step)
+        self.ckpt.wait()
+        got["save_s"] = time.perf_counter() - t0
+        d = pathlib.Path(self.ckpt.directory) / f"step_{step:09d}"
+        got["bytes"] = sum(f.stat().st_size for f in d.iterdir())
+
+    def restore(self, rt, step=None):
+        out = orig_restore(self, rt, step=step)
+        torch.cuda.synchronize()
+        got["restore_s"] = self.stats["restore_latency_s"][-1]
+        for layer, (c, want) in enumerate(zip(rt.cache["layers"],
+                                              got["cache"])):
+            for k, x in want.items():
+                need(torch.equal(_page_bits(c[k]), x),
+                     f"restart: layer {layer} {k} differs after restore")
+        need(rt.stats["prefill_events"] == 0, "restart: the fresh runtime "
+             "prefilled before serving")
+        return out
+
+    Sup.snapshot, Sup.restore = snapshot, restore
+    try:
+        yield got
+    finally:
+        Sup.snapshot, Sup.restore = orig_snap, orig_restore
+
+
+def restart_phase(torch, cfg, params, base, rows, trace, new_tokens,
+                  fp32_runs, states, chunks):
+    """(b) ``n_shards=1``: a restart at the first step with nothing queued
+    or mid-prefill (read from (a)'s undisturbed run, whose admissions
+    follow the same timeline), on fp32, bf16 and fp8 pages: every
+    restored leaf equal to the captured one, no prefill after the
+    restore, phase 4's tokens on that storage; then one fp32 restart
+    mid-prefill that finishes only the remaining chunks (the run's chunks
+    those of an undisturbed run, ``chunks``)."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    idle = next((st for st, q, pre, dec in states if st and not q
+                 and not pre and dec), None)
+    mid = next((st for st, _, pre, _ in states
+                if pre and all(0 < f < t for f, t in pre.values())), None)
+    need(idle is not None and mid is not None,
+         "restart: the trace never reached the snapshot points")
+    cases = [(kind, idle, False) for kind in RESTART_KINDS] + [
+        ("fp32", mid, True)]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    for kind, step, mid_prefill in cases:
+        sc = dataclasses.replace(base, kv_dtype=kind)
+        label = f"restart {kind} pages at step {step}" + (
+            " (mid-prefill)" if mid_prefill else "")
+        ops.reset_counts()
+        with tempfile.TemporaryDirectory(dir=build) as d, \
+                checked_restart(torch, mid_prefill) as got:
+            stats = run_continuous(params, sc, rows, trace, chunk=32,
+                                   device="cuda", ckpt_dir=d, events=[
+                                       {"step": step, "op": "restart"}])
+            torch.cuda.synchronize()
+        out, launches = _served(label, stats, trace, new_tokens,
+                                cfg.n_layers)
+        rec = stats["recovery"]
+        need(rec["snapshots"] == rec["restarts"] == 1, f"{label}: {rec}")
+        after = stats["prefill_events"] - got["prefill_before"]
+        need(stats["prefill_events"] == chunks
+             and (mid_prefill or after == 0),
+             f"{label}: {after} prefill chunks after the restore, "
+             f"{stats['prefill_events']} in all; an undisturbed run "
+             f"prefills {chunks}")
+        need(out == fp32_runs[kind]["outputs"], f"{label}: tokens differ "
+             f"from phase 4's run on {kind} pages")
+        print(f"  {label}: every restored leaf equal to the captured one, "
+              f"{after} prefill chunks after the restore ({got['remaining']} "
+              f"left of the rows mid-prefill), {chunks} in all as "
+              f"undisturbed; tokens identical to phase 4's; snapshot {got['bytes']} bytes, save "
+              f"{got['save_s'] * 1e3:.1f} ms (host, write joined), restore "
+              f"{got['restore_s'] * 1e3:.1f} ms (host); launches "
+              f"{launches}; {smi_line()}", flush=True)
 
 
 def _leaves(tree):

@@ -18,7 +18,9 @@ untied ``lm_head`` beside the embedding.  Leaf layouts are the
 reference's ((in, out) weights), so no leaf is transposed.
 ``pages_from_reference`` carries one layer's reference page pool across
 bit for bit, ``ring_cache_from_reference`` a whole reference ring cache.
-Nothing here imports JAX.
+``paged_cache_to_reference`` / ``paged_cache_from_reference`` map a
+whole paged cache to and from the reference's layout (the serve
+snapshot's tree, ``serve.recovery``).  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -162,3 +164,87 @@ def ring_cache_from_reference(cache, cfg, *, device):
         layers.append(layer(cache["periods"][pos], p)
                       if p < _n_periods(cfg) else layer(cache["tail"][pos]))
     return {"layers": layers}
+
+
+# the leaves of one paged attention layer in the reference's cache tree
+PAGE_LEAVES = ("bt", "kp", "vp", "ppos", "ksc", "vsc")
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _stack(ts):
+    """torch.stack, fp8 through its bytes (no fp8 cat kernel needed)."""
+    return torch.stack([_bits(t) for t in ts]).view(ts[0].dtype)
+
+
+def _paged_layer(cache, i):
+    c = cache["layers"][i]
+    if "ppos" not in c:
+        raise ValueError(f"layer {i} holds no pages: the paged cache's "
+                         "reference layout covers attention layers only")
+    return {k: cache["bt"] if k == "bt" else c[k]
+            for k in PAGE_LEAVES if k in c or k == "bt"}
+
+
+def paged_cache_to_reference(cache, cfg, *, meta: bool = False):
+    """The port's paged cache (``{"layers": [...], "bt": ...}``) in the
+    reference's layout: per pattern position under ``periods``, each
+    leaf stacked over the periods (``bt`` repeated per layer, as the
+    reference holds it), leftover layers unstacked under ``tail``.
+    Leaves are tensors on the cache's device (stacked ones are copies);
+    meta: meta tensors of the same shapes and dtypes instead, copying
+    nothing (a restore target)."""
+    pat, n_per = len(cfg.block_pattern), _n_periods(cfg)
+
+    def stacked(ts):
+        if meta:
+            return torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype,
+                               device="meta")
+        return _stack(ts)
+
+    periods = tuple(
+        {k: stacked([_paged_layer(cache, p * pat + pos)[k]
+                     for p in range(n_per)])
+         for k in _paged_layer(cache, pos)} if n_per else None
+        for pos in range(pat))
+    tail = tuple(
+        {k: torch.empty(t.shape, dtype=t.dtype, device="meta") if meta
+         else t for k, t in _paged_layer(cache, i).items()}
+        for i in range(n_per * pat, cfg.n_layers))
+    return {"periods": periods, "tail": tail}
+
+
+def paged_cache_from_reference(tree, cfg, cache):
+    """Install a reference-layout paged cache tree (``paged_cache_to_
+    reference``'s layout, tensors on any device) into the port's cache
+    ``cache`` in place, bit for bit.  Every layer's ``bt`` must agree
+    before the shared table is installed; dtypes must match the cache's.
+    Returns ``cache``."""
+    pat, n_per = len(cfg.block_pattern), _n_periods(cfg)
+    bts = []
+    for i, dst in enumerate(cache["layers"]):
+        p, pos = divmod(i, pat)
+        src = (tree["periods"][pos] if p < n_per
+               else tree["tail"][pos])
+        pick = (lambda t: t[p]) if p < n_per else (lambda t: t)
+        for k in PAGE_LEAVES[1:]:
+            if (k in dst) != (k in src):
+                raise ValueError(f"layer {i}: leaf {k!r} in one cache only "
+                                 "(page storage differs)")
+            if k not in dst:
+                continue
+            t = pick(src[k])
+            if t.dtype != dst[k].dtype or t.shape != dst[k].shape:
+                raise ValueError(
+                    f"layer {i} {k}: {t.dtype} {tuple(t.shape)} does not "
+                    f"fit {dst[k].dtype} {tuple(dst[k].shape)}")
+            _bits(dst[k]).copy_(_bits(t))
+        bts.append(pick(src["bt"]))
+    for i, bt in enumerate(bts[1:], 1):
+        if not torch.equal(bt.cpu(), bts[0].cpu()):
+            raise ValueError(f"layer {i}'s block table differs from layer "
+                             "0's: a paged cache shares one table")
+    cache["bt"].copy_(bts[0])
+    return cache

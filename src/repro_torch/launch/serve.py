@@ -45,8 +45,21 @@ Telemetry: ``--metrics-out PATH`` writes the metrics JSON and a
 Prometheus ``.prom`` beside it, ``--trace-out PATH`` the Chrome trace
 (one track per lane), ``--metrics-interval K`` snapshots the registry
 every K steps, ``--trace-annotate`` adds ``torch.profiler`` ranges.
-Shards, kill-shard, restarts and the mesh are later slices: their flags
-are rejected with an error that names the slice.
+
+Fault injection (paged continuous): ``--shards N`` splits the rows and
+the page pool into N logical data shards on the one device; ``--kill-shard
+STEP:SHARD`` kills a shard at a step (its streams replay from their host
+token logs onto the survivors; with ``--lanes`` / ``--disagg`` it kills
+that shard of lane 0); ``--fence-stragglers`` fences a shard whose step
+times leave its baseline alone; ``--restart-step STEP --ckpt-dir DIR``
+snapshots the whole serving state (pages, block tables, scheduler) and
+restores it into a rebuilt runtime, which re-prefills nothing:
+
+    python -m repro_torch.launch.serve --continuous --cache paged \
+        --shards 2 --kill-shard 6:1 --requests 8 --new-tokens 8
+
+The device mesh (``--mesh``) is a later slice: the flag is rejected with
+an error that names it.
 """
 from __future__ import annotations
 
@@ -71,21 +84,26 @@ from repro_torch.serve.runtime import (PAD_ID, ServeRuntime, grid_sampling,
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
-_ITEM_11 = ("shards, kill-shard, restarts and straggler fencing, ROADMAP §1 "
-            "item 11")
+# stats merged across a restart's runtime swap: counters sum, per-step
+# traces concatenate (the old runtime's first)
+_COUNTER_KEYS = ("prefill_tokens", "prefill_compute_tokens",
+                 "prefill_events", "decode_steps")
+_TRACE_KEYS = ("prefill_log", "slot_util", "cache_util")
 
 
 def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
                 step, chunk, prefill_mode, on_prefill, use_kernels,
                 telemetry, device):
-    """Apply one resize event to the lane set: ``drain_lane`` starts
-    removing the lane at a width (its streams finish in place, its queue
-    re-routes), ``add_lane`` brings up a fresh runtime at a new width
-    under traffic."""
+    """Apply one failure or resize event to the lane set: ``kill_shard``
+    fences a data shard of one lane's grid (``lane``, default 0),
+    ``drain_lane`` starts removing the lane at a width (its streams finish
+    in place, its queue re-routes), ``add_lane`` brings up a fresh runtime
+    at a new width under traffic."""
     op = ev["op"]
     if op == "kill_shard":
-        raise NotImplementedError(f"kill_shard: {_ITEM_11}")
-    if op == "drain_lane":
+        idx = router._index_of(ev.get("lane", 0))
+        sup.kill_shard(router.runtimes[idx], ev["shard"])
+    elif op == "drain_lane":
         width = ev["width"]
         lane = next((rt.lane for rt in router.runtimes
                      if rt.n_mux == width), None)
@@ -113,7 +131,7 @@ def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
 def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
                arrivals, lanes, *, on_prefill, chunk, prefill_mode,
                use_kernels, pool_budget, spill_queue, telemetry, events,
-               route, device):
+               route, device, ckpt_dir=None, fence_stragglers=False):
     """Width-lane serve loop: one ``ServeRuntime`` per lane at its mux
     width, ``LaneRouter`` admitting each arrival by SLO class and live
     load, every lane stepping once per loop iteration (narrowest first).
@@ -126,7 +144,8 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
     rows migrate (pages and the sampled next token, no re-prefill) to a
     free row of a same-width decode lane from
     ``router.handoff_targets``; requests a decode lane bounced back into
-    its queue (preemption) go through the router to a prefill lane."""
+    its queue (preemption, shard-loss replay) go through the router to a
+    prefill lane."""
     specs = [s if isinstance(s, LaneSpec)
              else LaneSpec(n_mux=int(s), rows=backbone_rows, chunk=chunk)
              for s in lanes]
@@ -155,7 +174,9 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
     router = LaneRouter(runtimes, budget=pool_budget,
                         spill_queue=spill_queue, telemetry=telemetry,
                         mode=route)
-    sup = RecoverySupervisor()
+    sup = RecoverySupervisor(ckpt_dir=ckpt_dir, telemetry=telemetry)
+    if fence_stragglers:
+        sup.enable_straggler_fencing()
     pending = collections.deque(
         sorted(events or [], key=lambda e: e["step"]))
     arrivals = collections.deque(sorted(arrivals, key=lambda a: a[0]))
@@ -192,7 +213,10 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
         # narrow lanes first: the latency lane admits before wider lanes
         # draw on freshly rebalanced quota
         for rt in sorted(router.runtimes, key=lambda rt: rt.n_mux):
+            t_step = time.time()
             rt.step()
+            if sup.fencing_enabled and rt.sc.n_shards >= 2:
+                _observe_shards(sup, rt, time.time() - t_step)
         if disagg:
             # handoff pass: each prefill lane's finished rows go to a free
             # row of a same-width decode lane; with none free the row
@@ -250,11 +274,19 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
     }
 
 
+def _observe_shards(sup, rt, dt):
+    """Feed one step's time to every alive shard of ``rt`` (one device
+    steps every shard at once, so they share the step's time)."""
+    sup.observe_shard_times(rt, {s: dt for s in range(rt.sc.n_shards)
+                                 if s not in rt.sched.dead_shards})
+
+
 def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                    *, on_prefill=None, chunk: int = 32,
                    prefill_mode: str = "chunked", use_kernels: bool = True,
                    telemetry=None, device=None, lanes=None, pool_budget=None,
-                   spill_queue=None, events=None, route: str = "load"):
+                   spill_queue=None, events=None, route: str = "load",
+                   ckpt_dir=None, fence_stragglers: bool = False):
     """Continuous-batching serve loop for both cache layouts.
 
     arrivals: iterable of (step, prompt_tokens, max_new[, SamplingParams
@@ -269,16 +301,26 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     disaggregated serving).  ``params`` is then {width: params} and ``sc``
     the base config (``engine.lane_config`` derives each lane's);
     pool_budget / spill_queue / route ('load' | 'goodput') go to the
-    ``LaneRouter``; events: resize dicts ``{"step": K, "op": "drain_lane"
-    | "add_lane", "width": W[, "rows": R]}`` applied before step K's
-    admissions.  The stats then hold per-lane ``lanes`` / ``runtimes`` /
-    ``pools`` / ``lane_stats``, the router's ``routing`` counters, the
-    supervisor's ``recovery`` dict and sums over lanes.
+    ``LaneRouter``.  The stats then hold per-lane ``lanes`` /
+    ``runtimes`` / ``pools`` / ``lane_stats``, the router's ``routing``
+    counters and sums over lanes.
+
+    events (paged only): failure and resize dicts ``{"step": K, "op":
+    ...}`` applied before step K's admissions by a
+    ``serve.recovery.RecoverySupervisor``, whose accounting is
+    ``stats["recovery"]``.  One runtime: ``kill_shard`` (``shard``; needs
+    ``sc.n_shards >= 2``) and ``restart`` (snapshot, rebuild, restore;
+    needs ``ckpt_dir``).  Lanes: ``kill_shard`` (``shard``, optional
+    ``lane``), ``drain_lane`` and ``add_lane`` (``width``, optional
+    ``rows``).  fence_stragglers: arm per-shard ``StragglerDetector`` s
+    over the step times; a shard flagged alone is fenced through the
+    kill-shard replay path.
 
     paged: one ``ServeRuntime``; a joining row's prompt advances one
     chunk per engine step (``prefill_mode='chunked'``) or is prefilled
-    whole at admission (``'blocking'``).  The stats are the runtime's,
-    plus the runtime itself (``runtime``).
+    whole at admission (``'blocking'``).  The stats are the runtime's
+    (the restored one's after a restart, the counters and traces of both
+    merged), plus the runtime itself (``runtime``).
     ring: admission re-prefills the WHOLE grid from every row's current
     tokens, right-padded with the pad token (the shared slot-position
     vector makes positions uniform across rows), and so does the write
@@ -312,11 +354,10 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                           prefill_mode=prefill_mode, use_kernels=use_kernels,
                           pool_budget=pool_budget, spill_queue=spill_queue,
                           telemetry=telemetry, events=events, route=route,
-                          device=device)
-    if events:
-        raise NotImplementedError(
-            f"single-runtime events ({sorted({e['op'] for e in events})}): "
-            f"{_ITEM_11}")
+                          device=device, ckpt_dir=ckpt_dir,
+                          fence_stragglers=fence_stragglers)
+    if events and sc.cache_layout != "paged":
+        raise ValueError("failure/resize events require the paged layout")
     arrivals = collections.deque(sorted(arrivals, key=lambda a: a[0]))
     uid = 0
 
@@ -330,25 +371,67 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
 
     t0 = time.time()
     if sc.cache_layout == "paged":
-        rt = ServeRuntime(params, sc, backbone_rows,
-                          chunk=None if prefill_mode == "blocking" else chunk,
-                          on_prefill=on_prefill, use_kernels=use_kernels,
-                          device=device, telemetry=telemetry)
-        step = 0
-        while arrivals or rt.has_work():
-            pop_arrivals(step, rt.submit)
-            rt.step()
-            step += 1
-            telemetry.maybe_snapshot(step)
-        rt.check_compile_once()
-        stats = rt.stats
-        stats["runtime"] = rt
+        stats = _run_paged(params, sc, backbone_rows, arrivals, pop_arrivals,
+                           chunk=None if prefill_mode == "blocking" else chunk,
+                           on_prefill=on_prefill, use_kernels=use_kernels,
+                           device=device, telemetry=telemetry, events=events,
+                           ckpt_dir=ckpt_dir,
+                           fence_stragglers=fence_stragglers)
     else:
         stats = _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals,
                           on_prefill=on_prefill, use_kernels=use_kernels,
                           telemetry=telemetry, device=device)
     stats["wall"] = time.time() - t0
     stats["generated_tokens"] = sum(len(r.output) for r in stats["completed"])
+    return stats
+
+
+def _run_paged(params, sc, backbone_rows, arrivals, pop_arrivals, *, chunk,
+               on_prefill, use_kernels, device, telemetry, events, ckpt_dir,
+               fence_stragglers):
+    """One ``ServeRuntime`` stepped until every request is served, with
+    the failure events applied before their steps' admissions."""
+    def make_rt():
+        return ServeRuntime(params, sc, backbone_rows, chunk=chunk,
+                            on_prefill=on_prefill, use_kernels=use_kernels,
+                            device=device, telemetry=telemetry)
+
+    rt = make_rt()
+    sup = RecoverySupervisor(ckpt_dir=ckpt_dir, telemetry=telemetry)
+    if fence_stragglers:
+        sup.enable_straggler_fencing()
+    pending = collections.deque(sorted(events or [], key=lambda e: e["step"]))
+    step = 0
+    while arrivals or pending or rt.has_work():
+        while pending and pending[0]["step"] <= step:
+            ev = pending.popleft()
+            if ev["op"] == "kill_shard":
+                sup.kill_shard(rt, ev["shard"])
+            elif ev["op"] == "restart":
+                # a process restart: snapshot, a fresh runtime, restore;
+                # the old runtime's delivered results and counters carry
+                sup.snapshot(rt, step)
+                old, rt = rt, make_rt()
+                sup.restore(rt)
+                rt.sched.completed[:0] = old.sched.completed
+                for k in _COUNTER_KEYS:
+                    rt.stats[k] += old.stats[k]
+                for k in _TRACE_KEYS:
+                    rt.stats[k][:0] = old.stats[k]
+            else:
+                raise ValueError(f"unknown serve event op {ev['op']!r}")
+        pop_arrivals(step, rt.submit)
+        t_step = time.time()
+        rt.step()
+        if sup.fencing_enabled and sc.n_shards >= 2:
+            _observe_shards(sup, rt, time.time() - t_step)
+        sup.note_step()
+        step += 1
+        telemetry.maybe_snapshot(step)
+    rt.check_compile_once()
+    stats = rt.stats
+    stats["runtime"] = rt
+    stats["recovery"] = sup.stats
     return stats
 
 
@@ -503,14 +586,7 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
 
 
 # flag -> where its mode stands in ROADMAP §1 (the reference still runs it)
-_LATER = {
-    "--shards": "logical shards, ROADMAP §1 item 11",
-    "--kill-shard": "recovery, ROADMAP §1 item 11",
-    "--restart-step": "recovery, ROADMAP §1 item 11",
-    "--ckpt-dir": "recovery, ROADMAP §1 item 11",
-    "--fence-stragglers": "recovery, ROADMAP §1 item 11",
-    "--mesh": "sharding, ROADMAP §1 item 12",
-}
+_LATER = {"--mesh": "sharding, ROADMAP §1 item 12"}
 
 
 def _parser():
@@ -566,6 +642,29 @@ def _parser():
                     metavar="STEP:WIDTH[:ROWS]",
                     help="live resize (repeatable, needs --lanes): at step "
                          "STEP add a lane at WIDTH")
+    ap.add_argument("--shards", type=int, default=None, metavar="N",
+                    help="paged continuous: split the rows and the page "
+                         "pool into N logical data shards on the one "
+                         "device (the substrate of --kill-shard)")
+    ap.add_argument("--kill-shard", action="append", default=None,
+                    metavar="STEP:SHARD",
+                    help="fault injection (repeatable): at step STEP kill "
+                         "data shard SHARD; its streams replay from their "
+                         "host token logs onto the surviving shards "
+                         "(needs --shards >= 2)")
+    ap.add_argument("--fence-stragglers", action="store_true",
+                    help="paged continuous: per-shard step-time straggler "
+                         "detectors; a shard flagged alone is fenced "
+                         "through the kill-shard replay path (needs >= 2 "
+                         "data shards)")
+    ap.add_argument("--restart-step", type=int, default=None,
+                    metavar="STEP",
+                    help="paged continuous: at step STEP snapshot the "
+                         "whole serving state into --ckpt-dir, rebuild the "
+                         "runtime and restore it (no re-prefill)")
+    ap.add_argument("--ckpt-dir", default=None, metavar="PATH",
+                    help="checkpoint directory of --restart-step's "
+                         "snapshot")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="continuous: write telemetry metrics as JSON "
                          "(lane/shard labels, periodic snapshots) to PATH "
@@ -638,6 +737,9 @@ def _lane_args(ap, args):
         return vals
 
     events, add_widths = [], []
+    for spec in args.kill_shard or []:
+        s, sh = ints(spec, "--kill-shard", ":", (2,))
+        events.append({"step": s, "op": "kill_shard", "shard": sh})
     for spec in args.drain_lane or []:
         s, w = ints(spec, "--drain-lane", ":", (2,))
         events.append({"step": s, "op": "drain_lane", "width": w})
@@ -648,10 +750,18 @@ def _lane_args(ap, args):
             ev["rows"] = v[2]
         events.append(ev)
         add_widths.append(v[1])
+    if args.restart_step is not None:
+        if not args.ckpt_dir:
+            ap.error("--restart-step requires --ckpt-dir")
+        if args.lanes is not None:
+            ap.error("--restart-step supports the single-runtime "
+                     "paged mode (drop --lanes)")
+        events.append({"step": args.restart_step, "op": "restart"})
     if events and not (args.continuous and args.cache == "paged"):
-        ap.error("resize flags (--drain-lane/--add-lane) require "
-                 "--continuous --cache paged")
-    if events and args.lanes is None:
+        ap.error("failure/resize flags (--kill-shard/--drain-lane/"
+                 "--add-lane/--restart-step) require --continuous "
+                 "--cache paged")
+    if (args.drain_lane or args.add_lane) and args.lanes is None:
         ap.error("--drain-lane/--add-lane require --lanes")
     if args.disagg:
         if args.lanes is not None:
@@ -722,6 +832,27 @@ def _print_lanes(args, stats):
               f"{ls['slo_attainment']:.2f} × {ls['tok_s']:.1f} tok/s)")
 
 
+def _print_recovery(args, rec, events):
+    """The reference CLI's ``stragglers:`` and ``recovery:`` lines."""
+    if args.fence_stragglers and rec:
+        print(f"stragglers: {rec['stragglers_fenced']} fenced, "
+              f"{rec['global_slow_steps']} global slow steps")
+    if events and rec:
+        lat = rec["recovery_latency_s"]
+        line = (f"recovery: {rec['shards_killed']} shard kills, "
+                f"{rec['requests_replayed']} streams replayed "
+                f"({rec['replay_prefill_tokens']} re-prefill tokens), "
+                f"{rec['lane_drains']} drains / {rec['lane_adds']} adds "
+                f"({rec['lanes_retired']} lanes retired), "
+                f"{rec['restarts']} restarts")
+        if lat:
+            line += f"; worst recovery latency {max(lat) * 1e3:.1f}ms"
+        if rec["restore_latency_s"]:
+            line += (f"; restore "
+                     f"{max(rec['restore_latency_s']) * 1e3:.1f}ms")
+        print(line)
+
+
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
@@ -735,6 +866,22 @@ def main(argv=None):
         ap.error(f"--block-size must be >= 1, got {args.block_size}")
     lanes, events, lane_widths = _lane_args(ap, args)
     slo_mix = _parse_slo_mix(ap, args.slo_mix) if lanes else None
+    n_shards = 1
+    if args.shards is not None:
+        if not (args.continuous and args.cache == "paged"):
+            ap.error("--shards requires --continuous --cache paged")
+        if args.shards < 1:
+            ap.error(f"--shards must be >= 1, got {args.shards}")
+        n_shards = args.shards
+    if args.kill_shard and n_shards < 2:
+        ap.error("--kill-shard needs >= 2 data shards (set --shards N)")
+    if args.fence_stragglers:
+        if not (args.continuous and args.cache == "paged"):
+            ap.error("--fence-stragglers requires --continuous "
+                     "--cache paged")
+        if n_shards < 2:
+            ap.error("--fence-stragglers needs >= 2 data shards "
+                     "(set --shards N)")
     if (args.metrics_out or args.trace_out) and not args.continuous:
         ap.error("--metrics-out/--trace-out require --continuous")
     try:
@@ -771,8 +918,8 @@ def main(argv=None):
     sc = ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                      capacity=args.prompt_len + args.new_tokens + 8,
                      cache_layout=args.cache if args.continuous else "ring",
-                     block_size=args.block_size, kv_dtype=args.kv_dtype,
-                     kind=kind)
+                     block_size=args.block_size, n_shards=n_shards,
+                     kv_dtype=args.kv_dtype, kind=kind)
     rng = np.random.default_rng(args.seed)
     sampled = args.temperature > 0
 
@@ -815,7 +962,8 @@ def main(argv=None):
                            use_kernels=args.use_kernels, device=dev,
                            lanes=lanes, pool_budget=args.pool_budget,
                            telemetry=telemetry, events=events or None,
-                           route=args.route)
+                           route=args.route, ckpt_dir=args.ckpt_dir,
+                           fence_stragglers=args.fence_stragglers)
     util = float(np.mean(stats["slot_util"])) if stats["slot_util"] else 0.0
     mode = (f"paged/{stats['prefill_mode']}" if sc.cache_layout == "paged"
             else "ring")
@@ -841,6 +989,7 @@ def main(argv=None):
         compiled = ", ".join(f"{k}×{v}" for k, v in
                              sorted(stats["trace_counts"].items()))
         print(f"step signatures: {compiled}")
+    _print_recovery(args, stats.get("recovery"), events)
     if telemetry is not None:
         if args.metrics_out:
             prom = telemetry.write_metrics(args.metrics_out)

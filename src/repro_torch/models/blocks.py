@@ -18,8 +18,9 @@ block kind ('attn', 'local', 'rwkv', 'xattn').
 pages) or a ring buffer (``k``/``v``/``pos``/``idx``); None is the
 no-cache forward (an encoder, or a full forward without serving state).
 ``ctx`` carries sin/cos, q_offset, q_end, rows, chunked, impl,
-use_kernels and, for the cross-attention block, enc_out, shared across
-layers.  Branches:
+use_kernels, the per-row trash block ids of logical shards (``trash``,
+one per row of the batch) and, for the cross-attention block, enc_out,
+shared across layers.  Branches:
 
   * decode (L == 1, no ``rows``): write the token's K/V, attend over the
     row's pages (``kernels.ops.paged_attention`` under use_kernels) or
@@ -180,7 +181,8 @@ def _self_attention(p, cfg, blk, x, ctx, cache):
     elif "bt" in cache:
         bt = cache["bt"] if rows is None else cache["bt"][rows]
         posm = paged_positions(ctx, b, l, x.device)
-        paged_write(cache, k, v, posm, block_tables=bt)
+        paged_write(cache, k, v, posm, block_tables=bt,
+                    trash=ctx.get("trash"))
         if decode or ctx.get("chunked"):
             o = _paged_attention(q, cfg, window, cache, bt, posm, kernels,
                                  chunked=not decode)

@@ -38,7 +38,8 @@ from repro_torch.core import quant as quantlib
 from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve.kvpool import KVPool, blocks_for, copy_pages
+from repro_torch.serve.kvpool import (KVPool, ShardedKVPool, blocks_for,
+                                      copy_pages)
 
 
 def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
@@ -68,8 +69,10 @@ class ServeConfig:
     size in blocks, the trash block included; None sizes it for the
     worst case, every row at capacity.  A smaller pool makes the runtime
     roll admissions back and preempt decoding rows (``serve.runtime``).
-    The reference's 'vlm' kind and its ``n_shards`` field are later
-    slices (``n_shards`` is 1)."""
+    n_shards (paged only): logical data shards on the one device — rows
+    and pool blocks split into per-shard segments (``ShardedKVPool``),
+    each with its own trash block, the substrate of kill-shard replay.
+    The reference's 'vlm' kind is not ported."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
@@ -77,6 +80,7 @@ class ServeConfig:
     cache_layout: str = "ring"      # ring | paged
     block_size: int = 16            # paged: tokens per block
     num_blocks: int | None = None   # paged: pool size (default: worst case)
+    n_shards: int = 1               # paged: logical data shards
     kv_dtype: str | None = None     # paged: page storage
     kind: str = "lm"                # lm | encdec
 
@@ -90,6 +94,8 @@ class ServeConfig:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
         if self.num_blocks is not None and self.num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
         quantlib.resolve_kv_dtype(self.kv_dtype)
         check_dtype(self.dtype)
 
@@ -133,17 +139,24 @@ class ServeConfig:
 
     def pool_blocks(self, global_batch: int) -> int:
         """Pool size: ``num_blocks`` when set, else the worst case (every
-        row at capacity) plus the trash block."""
+        row at capacity) plus one trash block per shard."""
         if self.num_blocks is not None:
+            if self.num_blocks % self.n_shards:
+                raise ValueError(
+                    f"num_blocks={self.num_blocks} not divisible by "
+                    f"n_shards={self.n_shards}")
             return self.num_blocks
         b = backbone_batch(global_batch, self.mux)
-        return b * self.max_blocks_per_seq + 1
+        if b % self.n_shards:
+            raise ValueError(f"backbone batch {b} not divisible by "
+                             f"n_shards={self.n_shards}")
+        return b * self.max_blocks_per_seq + self.n_shards
 
 
 def lane_config(sc: ServeConfig, n_mux: int) -> ServeConfig:
     """One serving lane's ``ServeConfig`` from a base config (width-lane
-    serving): the same model, capacity, dtype and pages, only the mux
-    width changes.  ``num_blocks`` is reset to None so each lane sizes
+    serving): the same model, capacity, dtype, pages and shard count,
+    only the mux width changes.  ``num_blocks`` is reset to None so each lane sizes
     its own pool from its own row count (a router's global budget then
     caps live usage through per-lane quotas)."""
     if n_mux < 1:
@@ -152,8 +165,15 @@ def lane_config(sc: ServeConfig, n_mux: int) -> ServeConfig:
         sc, mux=dataclasses.replace(sc.mux, n=n_mux), num_blocks=None)
 
 
-def make_pool(sc: ServeConfig, global_batch: int) -> KVPool:
-    """Host allocator matching ``init_cache(sc, global_batch)``."""
+def make_pool(sc: ServeConfig, global_batch: int):
+    """Host allocator matching ``init_cache(sc, global_batch)``: a
+    ``ShardedKVPool`` when ``sc.n_shards > 1``, else a ``KVPool``."""
+    if sc.n_shards > 1:
+        return ShardedKVPool(num_blocks=sc.pool_blocks(global_batch),
+                             block_size=sc.block_size,
+                             max_blocks_per_seq=sc.max_blocks_per_seq,
+                             n_shards=sc.n_shards,
+                             n_rows=backbone_batch(global_batch, sc.mux))
     return KVPool(num_blocks=sc.pool_blocks(global_batch),
                   block_size=sc.block_size,
                   max_blocks_per_seq=sc.max_blocks_per_seq)
@@ -228,7 +248,7 @@ def copy_cache_pages(src_cache, dst_cache, src_ids, dst_ids):
 
 
 def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
-            rows=None, use_kernels: bool = False):
+            rows=None, use_kernels: bool = False, extra_ctx=None):
     """Blocking prefill of whole prompts: tokens (NB, L).  The K/V go into
     the ring at positions 0 .. L-1, or (paged) into the pages of the
     backbone rows ``rows`` (default: every row), and every query attends
@@ -238,9 +258,11 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
     embeddings the encoder runs over.  use_kernels: the layers' kernels
     (the RWKV6 recurrence; the attention follows ``cfg.attn_impl`` either
     way) and the mux-combine kernel of the entries.  As in the
-    reference, the entry and exit are the plain (unfused) ones.  Returns
-    (last-position logits (NB, V), cache)."""
-    ctx = {}
+    reference, the entry and exit are the plain (unfused) ones.
+    extra_ctx: more layer-context entries (``trash``: the rows' trash
+    block ids under logical shards).  Returns (last-position logits
+    (NB, V), cache)."""
+    ctx = dict(extra_ctx or {})
     if rows is not None:
         if sc.cache_layout != "paged":
             raise ValueError("rows= requires the paged cache layout")
@@ -258,14 +280,14 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
 
 
 def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
-                  length, use_kernels: bool = True):
+                  length, use_kernels: bool = True, extra_ctx=None):
     """One bucket-padded prompt chunk for the backbone rows ``rows``.
 
     tokens: (len(rows) * N, C); KV is written at positions start ..
     start + length - 1 of the rows' pages (the padded tail goes to the
     trash block) and each query attends causally over the rows' written
-    blocks.  Returns (logits at the chunk's last valid position
-    (len(rows) * N, V), cache)."""
+    blocks.  extra_ctx as ``prefill``'s.  Returns (logits at the chunk's
+    last valid position (len(rows) * N, V), cache)."""
     if sc.cache_layout != "paged":
         raise ValueError("prefill_chunk requires the paged cache layout")
     if sc.kind != "lm":
@@ -274,8 +296,9 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
     dev = cache["bt"].device
     start = torch.as_tensor(start, device=dev).long()
     length = torch.as_tensor(length, device=dev).long()
-    ctx = {"rows": torch.as_tensor(rows, device=dev).long(),
-           "chunked": True, "q_end": start + length}
+    ctx = dict(extra_ctx or {})
+    ctx.update({"rows": torch.as_tensor(rows, device=dev).long(),
+                "chunked": True, "q_end": start + length})
     h = TransformerLM.apply(params, sc.cfg, tokens, mux=sc.mux, cache=cache,
                             q_offset=start, dtype=sc.dtype,
                             logits_out=False,
@@ -290,16 +313,18 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
 
 
 def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
-                use_kernels: bool = True):
+                use_kernels: bool = True, extra_ctx=None):
     """One decode step.  tokens (N*B, 1); pos: an int, the position every
     row writes at (the ring's only form), or on the paged layout a (B,)
     tensor of per-row positions (-1 = inactive row).  An encoder-decoder
-    step reads the cross-K/V its prefill left in the cache.  Returns
-    (logits (N*B, 1, V), cache)."""
+    step reads the cross-K/V its prefill left in the cache.  extra_ctx as
+    ``prefill``'s.  Returns (logits (N*B, 1, V), cache)."""
     if sc.cache_layout == "ring" and isinstance(pos, torch.Tensor):
         raise TypeError("the ring cache decodes at one int position")
     kw = dict(mux=sc.mux, cache=cache, q_offset=pos, dtype=sc.dtype,
               use_kernels=use_kernels)
+    if extra_ctx:
+        kw["extra_ctx"] = extra_ctx
     model = EncDecLM if sc.kind == "encdec" else TransformerLM
     out = model.apply(params, sc.cfg, tokens, **kw)
     return out["logits"], cache

@@ -1,10 +1,17 @@
 """Paged KV-cache pool: host block allocator + device page ops
-(counterpart of ``repro.serve.kvpool``; one shard).
+(counterpart of ``repro.serve.kvpool``).
 
   * ``KVPool``   — host-side allocator (numpy only): free list, per-client
                    block tables, allocate / append / free.  A client is one
                    backbone row of the serve grid (a mux group of N
                    streams sharing the row's muxed KV).
+  * ``ShardedKVPool`` — logical data shards on one device: the global
+                   block ids split into ``n_shards`` contiguous segments,
+                   one per shard, each with its own free list and its own
+                   trash block (its local block 0, global id ``s *
+                   blocks_per_shard``).  Row j lives on shard ``j //
+                   (n_rows // n_shards)`` and only ever holds blocks of
+                   its own segment; ``kill_shard`` fences a lost shard.
   * page ops     — per attention layer, ``(num_blocks, block_size, Hkv,
                    Dh)`` K/V pages plus a per-slot absolute position map;
                    ``copy_pages`` moves whole pages between two layer
@@ -18,7 +25,9 @@
 
 Block 0 is the trash block: writes for invalid positions (bucket padding,
 inactive rows) go there and its position entries stay -1, so they are
-always masked out of attention.
+always masked out of attention.  Under ``ShardedKVPool`` each shard has
+its own, and ``paged_write`` takes a per-row ``trash`` vector, so no
+invalid write crosses shards.
 """
 from __future__ import annotations
 
@@ -228,6 +237,290 @@ class KVPool:
             assert len(blks) >= blocks_for(self._lens[cid], self.block_size)
             assert len(blks) <= self.max_blocks_per_seq
 
+    def dump_state(self) -> dict:
+        """JSON-able allocator snapshot (free list, tables, lengths,
+        quota) with block ids local to this pool; ``ShardedKVPool`` nests
+        one per shard.  Clients (backbone rows) are ints."""
+        return {"free": [int(b) for b in self._free],
+                "tables": {str(c): [int(b) for b in blks]
+                           for c, blks in self._tables.items()},
+                "lens": {str(c): int(n) for c, n in self._lens.items()},
+                "quota": self.quota}
+
+    def load_state(self, state: dict):
+        """Install a ``dump_state`` snapshot into this freshly built pool
+        of the same size."""
+        self._free = [int(b) for b in state["free"]]
+        self._tables = {int(c): [int(b) for b in blks]
+                        for c, blks in state["tables"].items()}
+        self._lens = {int(c): int(n) for c, n in state["lens"].items()}
+        self.quota = state["quota"]
+        self.check_invariants()
+
+
+@dataclass
+class ShardedKVPool:
+    """Per-shard block allocator: ``KVPool``'s API over GLOBAL block ids.
+
+    The id space [0, num_blocks) splits into ``n_shards`` segments of
+    ``num_blocks // n_shards`` blocks; segment s belongs to shard s, whose
+    local block 0 (global ``s * blocks_per_shard``) is its trash block.
+    Clients are backbone rows in [0, n_rows); row j lives on shard
+    ``j // (n_rows // n_shards)`` and receives blocks of its own segment
+    only.  ``dead_shards``: shards fenced by ``kill_shard`` (quota 0,
+    allocations refused, their pages dark)."""
+    num_blocks: int
+    block_size: int
+    max_blocks_per_seq: int
+    n_shards: int
+    n_rows: int
+    _shards: list = field(init=False, repr=False)
+    dead_shards: set = field(default_factory=set, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        if self.num_blocks % self.n_shards:
+            raise ValueError(
+                f"num_blocks={self.num_blocks} not divisible by "
+                f"n_shards={self.n_shards}")
+        if self.n_rows % self.n_shards:
+            raise ValueError(
+                f"n_rows={self.n_rows} not divisible by "
+                f"n_shards={self.n_shards}")
+        self._shards = [KVPool(num_blocks=self.blocks_per_shard,
+                               block_size=self.block_size,
+                               max_blocks_per_seq=self.max_blocks_per_seq)
+                        for _ in range(self.n_shards)]
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.num_blocks // self.n_shards
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.n_rows // self.n_shards
+
+    @property
+    def alive_shards(self) -> list:
+        return [s for s in range(self.n_shards) if s not in self.dead_shards]
+
+    def shard_of(self, cid) -> int:
+        j = int(cid)
+        if not 0 <= j < self.n_rows:
+            raise PoolError(f"row {cid!r} outside [0, {self.n_rows})")
+        return j // self.rows_per_shard
+
+    def _offset(self, s: int) -> int:
+        return s * self.blocks_per_shard
+
+    def trash_for(self, cid) -> int:
+        """Global id of the trash block of ``cid``'s shard."""
+        return self._offset(self.shard_of(cid))
+
+    def trash_vector(self, clients) -> np.ndarray:
+        """(len(clients),) int32 per-row trash ids (``paged_write``'s
+        ``trash``)."""
+        return np.asarray([self.trash_for(c) for c in clients], np.int32)
+
+    @property
+    def n_free_blocks(self) -> int:
+        return sum(p.n_free_blocks for p in self._shards)
+
+    @property
+    def n_used_blocks(self) -> int:
+        return sum(p.n_used_blocks for p in self._shards)
+
+    @property
+    def headroom(self) -> int:
+        """Allocatable blocks summed over shards (quota-capped per shard)."""
+        return sum(p.headroom for p in self._shards)
+
+    @property
+    def quota(self) -> int | None:
+        """Sum of the ALIVE shards' quotas (None = uncapped); a dead
+        shard's quota 0 neither counts nor un-Nones the sum."""
+        qs = [self._shards[s].quota for s in self.alive_shards]
+        return None if any(q is None for q in qs) else sum(qs)
+
+    @property
+    def ceiling(self) -> int:
+        """Device-side allocatable blocks over ALIVE shards (each segment
+        minus its trash block): a killed shard's pages stop counting."""
+        return sum(self._shards[s].ceiling for s in self.alive_shards)
+
+    def set_quota(self, quota: int | None):
+        """Split an aggregate soft cap over the ALIVE shards, each share
+        floored at the shard's current usage (a donation never drops a
+        hot shard below its live blocks); the spare above the floors
+        splits evenly, remainder to the low shards.  A quota below the
+        total usage splits evenly instead.  Dead shards keep quota 0."""
+        alive = self.alive_shards
+        for s in self.dead_shards:
+            self._shards[s].set_quota(0)
+        if quota is None:
+            for s in alive:
+                self._shards[s].set_quota(None)
+            return
+        used = [self._shards[s].n_used_blocks for s in alive]
+        if quota >= sum(used):
+            base, rem = divmod(quota - sum(used), len(alive))
+            for k, s in enumerate(alive):
+                self._shards[s].set_quota(used[k] + base
+                                          + (1 if k < rem else 0))
+        else:
+            base, rem = divmod(quota, len(alive))
+            for k, s in enumerate(alive):
+                self._shards[s].set_quota(base + (1 if k < rem else 0))
+
+    def kill_shard(self, s: int) -> int:
+        """Fence shard ``s`` after its loss: its segment serves no more
+        allocations and its quota goes to the survivors (evenly,
+        remainder to the low shards).  The caller frees the shard's rows
+        first: a table still addressing a dead segment would read pages
+        that are gone.  Returns the quota handed over (0 when
+        uncapped)."""
+        if not 0 <= s < self.n_shards:
+            raise PoolError(f"shard {s} outside [0, {self.n_shards})")
+        if s in self.dead_shards:
+            raise PoolError(f"shard {s} already dead")
+        if len(self.alive_shards) <= 1:
+            raise PoolError("cannot kill the last surviving shard")
+        p = self._shards[s]
+        if p._tables:
+            raise PoolError(
+                f"shard {s} still owns rows {sorted(p._tables)} — "
+                "preempt/free them before kill_shard")
+        reclaimed = p.quota or 0
+        p.set_quota(0)
+        self.dead_shards.add(s)
+        survivors = self.alive_shards
+        if reclaimed:
+            base, rem = divmod(reclaimed, len(survivors))
+            for k, t in enumerate(survivors):
+                q = self._shards[t].quota
+                if q is not None:
+                    self._shards[t].set_quota(q + base
+                                              + (1 if k < rem else 0))
+        return reclaimed
+
+    def shard_used_blocks(self, cid) -> int:
+        """Used blocks on ``cid``'s own shard (backpressure is
+        shard-local)."""
+        return self._shards[self.shard_of(cid)].n_used_blocks
+
+    def has(self, cid) -> bool:
+        return self._shards[self.shard_of(cid)].has(cid)
+
+    def num_tokens(self, cid) -> int:
+        return self._shards[self.shard_of(cid)].num_tokens(cid)
+
+    def used_tokens(self) -> int:
+        return sum(p.used_tokens() for p in self._shards)
+
+    def utilization(self) -> float:
+        return self.used_tokens() / (
+            (self.num_blocks - self.n_shards) * self.block_size)
+
+    def occupancy_stats(self) -> list:
+        """``KVPool.occupancy_stats`` per shard, index s for shard s."""
+        return [st for p in self._shards for st in p.occupancy_stats()]
+
+    def allocate(self, cid, num_tokens: int = 0):
+        s = self.shard_of(cid)
+        if s in self.dead_shards:
+            raise PoolError(f"shard {s} is dead (row {cid!r} cannot be "
+                            "placed there until the shard is repaired)")
+        try:
+            local = self._shards[s].allocate(cid, num_tokens)
+        except PoolExhausted as e:
+            raise PoolExhausted(f"shard {s}: {e}") from e
+        return [b + self._offset(s) for b in local]
+
+    def append(self, cid, n: int = 1) -> list:
+        s = self.shard_of(cid)
+        try:
+            local = self._shards[s].append(cid, n)
+        except PoolExhausted as e:
+            raise PoolExhausted(f"shard {s}: {e}") from e
+        return [b + self._offset(s) for b in local]
+
+    def free(self, cid):
+        self._shards[self.shard_of(cid)].free(cid)
+
+    def migrate_pages(self, cid, dst_cid=None, dst=None):
+        """``KVPool.migrate_rows`` over global ids: move row ``cid``'s
+        pages into ``dst`` (another pool, or this one for a cross-shard
+        move) as ``dst_cid``.  Returns ``(src_blocks, dst_blocks)``, each
+        in its pool's own id space; the destination allocates through its
+        normal allocator (segment, quota and dead-shard rules hold), and
+        on ``PoolExhausted`` nothing moves."""
+        if dst is None:
+            dst = self
+        if dst_cid is None:
+            dst_cid = cid
+        s = self.shard_of(cid)
+        if not self._shards[s].has(cid):
+            raise PoolError(f"row {cid!r} not allocated")
+        if dst is self and dst_cid == cid:
+            raise PoolError(f"row {cid!r}: migration onto itself")
+        dst_blocks = dst.allocate(dst_cid, self._shards[s].num_tokens(cid))
+        src_blocks = [b + self._offset(s)
+                      for b in self._shards[s]._tables[cid]]
+        assert len(dst_blocks) == len(src_blocks), \
+            "source table not minimal — allocator invariant broken"
+        self.free(cid)
+        return src_blocks, dst_blocks
+
+    def block_table(self, cid) -> np.ndarray:
+        s = self.shard_of(cid)
+        bt = self._shards[s].block_table(cid)
+        return np.where(bt >= 0, bt + self._offset(s), bt).astype(np.int32)
+
+    def table_array(self, clients) -> np.ndarray:
+        out = np.full((len(clients), self.max_blocks_per_seq), -1, np.int32)
+        for i, cid in enumerate(clients):
+            if cid is not None and self.has(cid):
+                out[i] = self.block_table(cid)
+        return out
+
+    def check_invariants(self):
+        """Each shard's ``KVPool`` invariants; a dead shard owns nothing
+        and has quota 0; a table holds blocks of its own segment only,
+        never a trash block."""
+        for s, p in enumerate(self._shards):
+            p.check_invariants()
+            if s in self.dead_shards:
+                assert not p._tables, "dead shard still owns rows"
+                assert p.quota == 0, "dead shard has non-zero quota"
+            off = self._offset(s)
+            for cid, blks in p._tables.items():
+                assert self.shard_of(cid) == s, "row on the wrong shard"
+                for b in blks:
+                    g = b + off
+                    assert off < g < off + self.blocks_per_shard, \
+                        "block table crosses shard boundary"
+                    assert g % self.blocks_per_shard != 0, \
+                        "trash block referenced by a live table"
+
+    def dump_state(self) -> dict:
+        """Per-shard ``KVPool.dump_state`` (local ids) and the dead
+        shards."""
+        return {"shards": [p.dump_state() for p in self._shards],
+                "dead_shards": sorted(self.dead_shards)}
+
+    def load_state(self, state: dict):
+        """Install a ``dump_state`` snapshot into this freshly built pool
+        of the same shape."""
+        if len(state["shards"]) != self.n_shards:
+            raise PoolError(
+                f"snapshot has {len(state['shards'])} shards, pool has "
+                f"{self.n_shards}")
+        for p, st in zip(self._shards, state["shards"]):
+            p.load_state(st)
+        self.dead_shards = set(int(s) for s in state["dead_shards"])
+        self.check_invariants()
+
 
 # ---------------------------------------------------------------- device
 
@@ -267,13 +560,15 @@ def init_pages(num_blocks: int, block_size: int, n_kv_heads: int,
     return out
 
 
-def paged_write(cache, k, v, positions, block_tables=None):
+def paged_write(cache, k, v, positions, block_tables=None, trash=None):
     """Scatter L new KV entries per row into their pages, in place.
 
     k, v: (B, L, Hkv, Dh) in the compute dtype; positions: (B, L)
     absolute positions, entries < 0 (padding, inactive rows) go to the
     trash block and stay masked.  block_tables overrides ``cache['bt']``
-    (a row subset).  Rows own disjoint blocks, so scatters never collide
+    (a row subset).  trash: the trash block id, an int or a (B,) per-row
+    tensor (logical shards route each row's invalid writes to its own
+    shard's trash block); default block 0.  Rows own disjoint blocks, so scatters never collide
     across rows.
     Quantized caches (``ksc`` present) quantize at write time, per
     (slot, head) vector; bf16 pages store the rounded cast.  Returns
@@ -285,7 +580,13 @@ def paged_write(cache, k, v, positions, block_tables=None):
     in_range = (positions >= 0) & (blk < bt.shape[1])
     page = torch.gather(bt, 1, blk.clamp(0, bt.shape[1] - 1))
     valid = in_range & (page >= 0)
-    page = torch.where(valid, page, TRASH_BLOCK)
+    if trash is None:
+        trash = TRASH_BLOCK
+    elif isinstance(trash, torch.Tensor):
+        trash = trash.to(page.device, torch.long)
+        if trash.ndim:
+            trash = trash[:, None]
+    page = torch.where(valid, page, trash)
     slot = torch.where(valid, positions % bs, 0)
     stored = torch.where(valid, positions, -1)
     idx = (page, slot)

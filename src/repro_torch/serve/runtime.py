@@ -1,6 +1,6 @@
 """Serve runtime: chunked or blocking prefill interleaved with decode, one
-device (counterpart of ``repro.serve.runtime``; mesh, shards and
-kill-shard are later slices, ROADMAP §1 items 11-12).
+device (counterpart of ``repro.serve.runtime``; the device mesh is a
+later slice, ROADMAP §1 item 12).
 
 ``ServeRuntime`` executes the scheduler's plans against the paged cache:
 
@@ -28,6 +28,14 @@ chunks only; finished rows park until ``handoff_to`` migrates their
 pages into a decode lane) or ``decode`` (decode only; rows arrive by
 ``handoff_to``).  ``load()`` is the snapshot ``serve.router.LaneRouter``
 routes on.
+
+Logical shards (``ServeConfig.n_shards > 1``): rows and pool blocks
+split into per-shard segments (``ShardedKVPool``), each shard's invalid
+writes go to its own trash block (a per-row trash vector in the step
+context), backpressure is shard-local (a rolled-back admission is
+re-planned onto sibling shards) and ``kill_shard`` fences a lost shard,
+replaying its streams onto the survivors from their host token logs.
+The tables are installed in place, so a kill changes no device shape.
 """
 from __future__ import annotations
 
@@ -115,7 +123,8 @@ class ServeRuntime:
     the CPU); False runs the plain model path.  device: defaults to
     ``cuda`` and raises without a card.  telemetry: a
     ``serve.telemetry.Telemetry`` (None = disabled); its spans, counters
-    and gauges carry ``lane`` (and ``shard``, 0 on one device) labels.
+    and gauges carry ``lane`` (and ``shard``) labels.  ``sc.n_shards``
+    logical shards need ``backbone_rows`` divisible by it.
     lane: the serving-lane id (tags plans, stats, telemetry and
     ``load()``).  role: 'both' | 'prefill' | 'decode' (module docstring);
     a prefill lane needs chunked prefill.  ``stats`` also counts
@@ -142,6 +151,10 @@ class ServeRuntime:
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1 (or None for blocking "
                              f"prefill), got {chunk}")
+        if backbone_rows % sc.n_shards:
+            raise ValueError(
+                f"backbone_rows={backbone_rows} not divisible by "
+                f"n_shards={sc.n_shards}")
         recurrent = sorted(set(sc.cfg.block_pattern) - {"attn", "local"})
         if recurrent:
             # The reference sends recurrent blocks to blocking prefill
@@ -173,10 +186,17 @@ class ServeRuntime:
                 lane, f"lane {lane} (N={self.n_mux}){tag}")
         self.sched = ContinuousScheduler(n_mux=self.n_mux,
                                          backbone_batch=backbone_rows,
-                                         max_len=sc.capacity, lane=lane,
+                                         max_len=sc.capacity,
+                                         n_shards=sc.n_shards, lane=lane,
                                          telemetry=self.tele)
         self.pool = make_pool(sc, self.nb)
         self.cache = init_cache(sc, self.nb, device=self.device)
+        # per-row trash routing: each shard's invalid writes stay in its
+        # own segment (block 0 everywhere on one shard)
+        self._trash = (torch.as_tensor(
+            self.pool.trash_vector(range(backbone_rows)),
+            dtype=torch.long, device=self.device)
+            if sc.n_shards > 1 else None)
         self.row_len: dict[int, int] = {}      # rows holding blocks
         self.row_tokens: dict[int, np.ndarray] = {}
         self.next_tok = np.full((self.n_mux, backbone_rows), PAD_ID,
@@ -225,6 +245,14 @@ class ServeRuntime:
         return arr, steps
 
 
+    def _step_ctx(self, rows=None):
+        """The trash routing of the rows the step writes (all rows when
+        ``rows`` is None); empty on one shard."""
+        if self._trash is None:
+            return None
+        return {"trash": self._trash if rows is None
+                else self._trash[rows]}
+
     def _sample(self, logits, arr, steps):
         return sampling.sample(logits, arr["temperature"], arr["top_k"],
                                arr["top_p"], arr["seed"], steps)
@@ -256,10 +284,58 @@ class ServeRuntime:
                 and self.sched.row_active(j)]
 
     def free_rows(self):
-        """Rows that can take a handoff: empty and holding no blocks."""
+        """Rows that can take a handoff: empty, holding no blocks, and on
+        an alive shard."""
         return [j for j in range(self.nrows)
                 if not self.sched.row_active(j) and j not in self.row_len
-                and j not in self.sched.prefill_progress]
+                and j not in self.sched.prefill_progress
+                and self.sched.shard_of(j) not in self.sched.dead_shards]
+
+    def kill_shard(self, shard: int):
+        """Fence a lost data shard and replay its streams.
+
+        The shard's pages are gone, but every stream's token log (prompt
+        plus generated-so-far) lives on the host in its ``Request``: each
+        of the shard's rows is preempted (its live requests requeued at
+        the head of the queue) and re-admitted onto the surviving shards,
+        where prefill of the token log rebuilds the KV that died.
+        Surviving rows keep their slots, blocks and positions, so their
+        streams equal an undisturbed run's.  The pool fences the shard
+        (its quota goes to the survivors) and the scheduler's
+        ``dead_shards`` keeps admission off its rows; the dead rows'
+        tables go to all -1 in place.  Returns the replayed requests in
+        requeue order.  Raises on one shard, on a dead shard and on the
+        last one alive."""
+        if self.sc.n_shards < 2:
+            raise ValueError("kill_shard requires n_shards >= 2")
+        if shard in self.sched.dead_shards:
+            raise ValueError(f"shard {shard} is already dead")
+        if len(self.sched.dead_shards) + 2 > self.sc.n_shards:
+            raise ValueError("cannot kill the last surviving shard")
+        rps = self.nrows // self.sc.n_shards
+        rows = range(shard * rps, (shard + 1) * rps)
+        replayed = [s.request for j in rows for s in self.sched.slots[j]
+                    if s.request is not None]
+        # preempt_row appendlefts: the last row first keeps ascending row
+        # order at the queue head
+        for j in reversed(rows):
+            self.sched.preempt_row(j)
+            if j in self.row_len:
+                self.pool.free(j)
+                del self.row_len[j]
+                del self.row_tokens[j]
+            self.next_tok[:, j] = PAD_ID
+        self.sched.dead_shards.add(shard)
+        reclaimed = self.pool.kill_shard(shard)
+        self._install_tables()
+        if self.tele.enabled:
+            self.tele.inc("shards_lost", lane=self.lane, shard=shard)
+            self.tele.inc("requests_replayed", len(replayed),
+                          lane=self.lane)
+            self.tele.instant("shard_lost", lane=self.lane, shard=shard,
+                              rows=rps, requests=len(replayed),
+                              reclaimed_quota=reclaimed)
+        return replayed
 
     def handoff_to(self, dst, j: int, dst_row: int):
         """Migrate row ``j``'s finished-prefill mux group into runtime
@@ -285,8 +361,12 @@ class ServeRuntime:
         plan = self.sched.plan_handoff(j, dst.lane, dst_row,
                                        self.pool.num_tokens(j))
         try:
-            src_blocks, dst_blocks = self.pool.migrate_rows(j, dst.pool,
-                                                            dst_row)
+            if hasattr(self.pool, "migrate_pages"):
+                src_blocks, dst_blocks = self.pool.migrate_pages(
+                    j, dst_row, dst=dst.pool)
+            else:
+                src_blocks, dst_blocks = self.pool.migrate_rows(
+                    j, dst.pool, dst_row)
         except PoolExhausted:
             if self.tele.enabled:
                 self.tele.inc("handoff_deferrals", lane=self.lane,
@@ -331,6 +411,7 @@ class ServeRuntime:
                 self._exec_admissions()
                 for plan in self.sched.plan_chunks(self.chunk):
                     with self.tele.span("prefill_chunk", lane=self.lane,
+                                        shard=self.sched.shard_of(plan.row),
                                         metric="prefill_chunk_s",
                                         row=plan.row, start=plan.start,
                                         length=plan.length, last=plan.last):
@@ -361,12 +442,36 @@ class ServeRuntime:
     def _install_tables(self):
         set_block_tables(self.cache, self.pool.table_array(range(self.nrows)))
 
+    def _shard_used_blocks(self, row: int) -> int:
+        """Used blocks on ``row``'s shard (the whole pool on one shard)."""
+        if hasattr(self.pool, "shard_used_blocks"):
+            return self.pool.shard_used_blocks(row)
+        return self.pool.n_used_blocks
+
     def _exec_admissions(self):
+        """Execute this step's admission plans.  A plan whose shard has no
+        blocks is rolled back and the queue re-planned with that shard
+        skipped, so a group lands on a sibling shard with free blocks
+        instead of waiting behind a busy one."""
+        failed: set = set()
         admitted = False
-        for plan in self.sched.plan_admissions(PAD_ID):
-            with self.tele.span("admit", lane=self.lane, shard=plan.shard,
-                                row=plan.row, tokens=plan.total):
-                admitted |= self._exec_admit(plan)
+        plans = self.sched.plan_admissions(PAD_ID)
+        while plans:
+            retry = False
+            for plan in plans:
+                with self.tele.span("admit", lane=self.lane,
+                                    shard=plan.shard, row=plan.row,
+                                    tokens=plan.total):
+                    ok = self._exec_admit(plan)
+                admitted |= ok
+                if not ok:
+                    failed.add(plan.shard)
+                    retry = True
+            alive = self.sc.n_shards - len(self.sched.dead_shards)
+            if not retry or len(failed) >= alive or not self.sched.queue:
+                break
+            # each round adds a failed shard: at most n_shards rounds
+            plans = self.sched.plan_admissions(PAD_ID, skip_shards=failed)
         if admitted:
             self._install_tables()
 
@@ -382,12 +487,13 @@ class ServeRuntime:
                 self.tele.instant("cancel", lane=self.lane,
                                   shard=plan.shard, row=plan.row,
                                   tokens=plan.total)
-            if self.pool.n_used_blocks == 0:
+            if self._shard_used_blocks(plan.row) == 0:
                 raise PoolExhausted(
                     f"request group of {plan.total} tokens cannot fit "
-                    f"an empty pool (num_blocks={self.pool.num_blocks}, "
-                    f"block_size={self.pool.block_size}, quota "
-                    f"{self.pool.quota})")
+                    f"an empty pool shard (num_blocks="
+                    f"{self.pool.num_blocks}, block_size="
+                    f"{self.pool.block_size}, shards {self.sc.n_shards}, "
+                    f"quota {self.pool.quota})")
             return False
         self.row_len[plan.row] = plan.total
         self.row_tokens[plan.row] = np.asarray(plan.tokens, np.int32)
@@ -406,7 +512,8 @@ class ServeRuntime:
             toks = self.row_tokens[j].astype(np.int64)
             logits, _ = prefill(self.params, self.sc, self.cache,
                                 torch.from_numpy(toks).to(self.device),
-                                rows=[j], use_kernels=self.use_kernels)
+                                rows=[j], use_kernels=self.use_kernels,
+                                extra_ctx=self._step_ctx([j]))
         else:
             compute = self._bucket(plan.length)
             buf = np.full((self.n_mux, compute), PAD_ID, np.int64)
@@ -417,7 +524,7 @@ class ServeRuntime:
                 self.params, self.sc, self.cache,
                 torch.from_numpy(buf).to(self.device), rows=[j],
                 start=plan.start, length=plan.length,
-                use_kernels=self.use_kernels)
+                use_kernels=self.use_kernels, extra_ctx=self._step_ctx([j]))
         out = self._sample(logits, arr, steps)
         self.stats["prefill_tokens"] += plan.length
         self.stats["prefill_compute_tokens"] += compute
@@ -441,6 +548,12 @@ class ServeRuntime:
                 if self.sched.slots[j][i].request is None:
                     self.next_tok[i, j] = PAD_ID
 
+    def _shard_mates(self, j: int) -> int:
+        """Rows holding blocks on ``j``'s shard (j included): the rows
+        whose drains could unblock it."""
+        s = self.sched.shard_of(j)
+        return sum(1 for r in self.row_len if self.sched.shard_of(r) == s)
+
     def _exec_decode(self, rows):
         pos_vec = np.full((self.nrows,), -1, np.int64)
         fresh, preempt = [], []
@@ -451,19 +564,25 @@ class ServeRuntime:
                 preempt.append(j)
                 continue
             pos_vec[j] = self.row_len[j]
-        if preempt and len(self.row_len) == 1:
-            raise PoolExhausted(
-                f"a single row outgrew the whole pool (num_blocks="
-                f"{self.pool.num_blocks}, block_size={self.pool.block_size})"
-                " — it can never be served")
+        # a row that outgrows its shard while it is the shard's only user
+        # can never be served; with shard-mates it retries after drains
+        for j in preempt:
+            if self._shard_mates(j) == 1:
+                raise PoolExhausted(
+                    f"a single row outgrew its whole pool shard (num_blocks="
+                    f"{self.pool.num_blocks}, block_size="
+                    f"{self.pool.block_size}, shards {self.sc.n_shards})"
+                    " — it can never be served")
         for j in preempt:
             self.sched.preempt_row(j)
             self.pool.free(j)
             del self.row_len[j]
             del self.row_tokens[j]
             if self.tele.enabled:
-                self.tele.inc("preempts", lane=self.lane, shard=0)
-                self.tele.instant("preempt", lane=self.lane, shard=0, row=j)
+                shard = self.sched.shard_of(j)
+                self.tele.inc("preempts", lane=self.lane, shard=shard)
+                self.tele.instant("preempt", lane=self.lane, shard=shard,
+                                  row=j)
         reset_blocks(self.cache, fresh)
         if fresh or preempt:
             self._install_tables()
@@ -480,7 +599,8 @@ class ServeRuntime:
             logits, _ = decode_step(self.params, self.sc, self.cache,
                                     toks_in,
                                     torch.from_numpy(pos_vec).to(self.device),
-                                    use_kernels=self.use_kernels)
+                                    use_kernels=self.use_kernels,
+                                    extra_ctx=self._step_ctx())
             out = self._sample(logits[:, 0], arr, steps)
             grid = out.cpu().numpy().reshape(self.n_mux, self.nrows)
         now = time.time()
@@ -499,5 +619,6 @@ class ServeRuntime:
                 del self.row_len[plan.row]
                 del self.row_tokens[plan.row]
                 if self.tele.enabled:
-                    self.tele.instant("free", lane=self.lane, shard=0,
+                    self.tele.instant("free", lane=self.lane,
+                                      shard=self.sched.shard_of(plan.row),
                                       row=plan.row)

@@ -1,5 +1,4 @@
-"""Continuous batching policy (host-side copy of ``repro.serve.scheduler``
-for one device; shards are a later slice, ROADMAP §1 item 11).
+"""Continuous batching policy (host-side copy of ``repro.serve.scheduler``).
 
 ``ContinuousScheduler`` keeps an N_mux × B grid of stream slots: slot
 (i, j) is mux stream i of backbone row j.  Paged admission is row-level:
@@ -17,6 +16,12 @@ finished-prefill row whole into a decode lane: ``plan_handoff`` emits a
 ``HandoffPlan``, ``retire_handoff`` detaches the row's slots on the
 source and ``admit_handoff`` installs them on the destination, which
 never prefills the row again.
+
+Logical data shards (``n_shards``): row j belongs to shard ``j //
+(B // n_shards)``, as the pool's segments; paged admission visits rows
+round-robin across shards, can pass over shards whose pool is full
+(``skip_shards``) and never places a group on a shard in
+``dead_shards`` (fenced by ``ServeRuntime.kill_shard``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.serve.telemetry import NULL_TELEMETRY
 class StreamSlot:
     request: object = None        # serve.batcher.Request | None
     pos: int = 0                  # next decode position
+    prompt_len: int = 0
 
 
 @dataclass(frozen=True)
@@ -45,7 +51,7 @@ class AdmitPlan:
     placed: tuple                 # ((slot, request), ...)
     tokens: np.ndarray            # (N_mux, total) padded current sequences
     total: int
-    shard: int = 0                # owning data shard (0: one device)
+    shard: int = 0                # owning data shard (row -> shard map)
     lane: int = 0                 # owning serving lane
 
 
@@ -97,19 +103,41 @@ class ContinuousScheduler:
     n_mux: int
     backbone_batch: int
     max_len: int
+    n_shards: int = 1             # logical data shards (contiguous rows)
     lane: int = 0                 # serving lane: tags plans and telemetry
     telemetry: object = None
     queue: collections.deque = field(default_factory=collections.deque)
     slots: list = field(init=False)
+    steps: int = field(default=0, init=False)    # ring grid decode steps
     completed: list = field(default_factory=list, init=False)
     # row -> [filled, total] for rows mid-way through chunked prefill
     prefill_progress: dict = field(default_factory=dict, init=False)
+    # shards fenced by ServeRuntime.kill_shard: admission never places a
+    # group on their rows (unlike a step's transient ``skip_shards``)
+    dead_shards: set = field(default_factory=set, init=False)
 
     def __post_init__(self):
+        if self.n_shards < 1 or self.backbone_batch % self.n_shards:
+            raise ValueError(
+                f"backbone_batch {self.backbone_batch} not divisible by "
+                f"n_shards {self.n_shards}")
         if self.telemetry is None:
             self.telemetry = NULL_TELEMETRY
         self.slots = [[StreamSlot() for _ in range(self.n_mux)]
                       for _ in range(self.backbone_batch)]
+
+    def shard_of(self, j: int) -> int:
+        return j // (self.backbone_batch // self.n_shards)
+
+    def _admission_order(self):
+        """Paged admission's row visit order: plain on one shard, else
+        round-robin over the shards (row r of shard 0, of shard 1, ...),
+        spreading load over every shard's pool."""
+        if self.n_shards == 1:
+            return range(self.backbone_batch)
+        rps = self.backbone_batch // self.n_shards
+        return [s * rps + r for r in range(rps)
+                for s in range(self.n_shards)]
 
     def submit(self, request):
         if getattr(request, "t_submit", None) is None:
@@ -137,27 +165,32 @@ class ContinuousScheduler:
                     return sorted(dirty)
                 if self.slots[j][i].request is None:
                     r = self.queue.popleft()
-                    self.slots[j][i] = StreamSlot(request=r,
-                                                  pos=len(r.prompt))
+                    self.slots[j][i] = StreamSlot(
+                        request=r, pos=len(r.prompt),
+                        prompt_len=len(r.prompt))
                     self._stamp_admit(r)
                     dirty.add(j)
         return sorted(dirty)
 
-    def admit_paged(self):
-        """Group queued requests (up to N per row) into empty rows.
-        Returns [(row, [(slot, request), ...]), ...]."""
+    def admit_paged(self, skip_shards=()):
+        """Group queued requests (up to N per row) into empty rows, passing
+        over the shards in ``skip_shards`` and the dead ones.  Returns
+        [(row, [(slot, request), ...]), ...]."""
         placements = []
-        for j in range(self.backbone_batch):
+        for j in self._admission_order():
             if not self.queue:
                 break
-            if self.row_active(j):
+            if (self.shard_of(j) in skip_shards
+                    or self.shard_of(j) in self.dead_shards
+                    or self.row_active(j)):
                 continue
             placed = []
             for i in range(self.n_mux):
                 if not self.queue:
                     break
                 r = self.queue.popleft()
-                self.slots[j][i] = StreamSlot(request=r)
+                self.slots[j][i] = StreamSlot(request=r,
+                                              prompt_len=len(r.prompt))
                 self._stamp_admit(r)
                 placed.append((i, r))
             # every stream's position in the muxed row is the row's padded
@@ -169,16 +202,17 @@ class ContinuousScheduler:
             placements.append((j, placed))
         return placements
 
-    def plan_admissions(self, pad_id: int = 0):
+    def plan_admissions(self, pad_id: int = 0, skip_shards=()):
         """One AdmitPlan per newly formed group; registers the row for
-        chunked prefill."""
+        chunked prefill.  skip_shards: as ``admit_paged``'s (the runtime
+        re-plans a rolled-back group onto sibling shards)."""
         plans = []
-        for j, placed in self.admit_paged():
+        for j, placed in self.admit_paged(skip_shards):
             tokens = self.row_prompts(j, pad_id)
             self.prefill_progress[j] = [0, tokens.shape[1]]
             plans.append(AdmitPlan(row=j, placed=tuple(placed),
                                    tokens=tokens, total=tokens.shape[1],
-                                   lane=self.lane))
+                                   shard=self.shard_of(j), lane=self.lane))
         return plans
 
     def cancel_admit(self, plan: AdmitPlan):
@@ -327,6 +361,7 @@ class ContinuousScheduler:
         if self.telemetry.enabled:
             self.telemetry.inc("tokens_generated", self.n_active + retired,
                                lane=self.lane)
+        self.steps += 1
         return retired
 
     def record_row_tokens(self, j: int, tokens, now: float | None = None):

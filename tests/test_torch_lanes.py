@@ -544,15 +544,18 @@ def test_cli_lanes_print_the_reference_counts(capsys, tmp_path, case):
     (["--lanes", "1,2", "--slo-mix", "fast=1"], "--slo-mix: expected"),
     (["--lanes", "1,2", "--cache", "ring"], "require --continuous --cache "
                                             "paged"),
-    (["--kill-shard", "3:1"], "item 11"),
-    (["--shards", "2"], "item 11"),
-    (["--restart-step", "3", "--ckpt-dir", "x"], "item 11"),
-    (["--fence-stragglers"], "item 11"),
+    (["--kill-shard", "3:1"], "--kill-shard needs >= 2 data shards"),
+    (["--shards", "2", "--cache", "ring"],
+     "--shards requires --continuous --cache paged"),
+    (["--lanes", "1,2", "--restart-step", "3", "--ckpt-dir", "x"],
+     "--restart-step supports the single-runtime paged mode"),
+    (["--fence-stragglers"], "--fence-stragglers needs >= 2 data shards"),
     (["--mesh", "2,2"], "item 12"),
 ])
 def test_cli_refuses_as_the_reference(capsys, argv, match):
-    """The reference CLI's refusals are argparse errors; the flags of
-    shards, recovery and the mesh name their ROADMAP item."""
+    """The reference CLI's refusals are argparse errors (its refusals of
+    the shard and recovery flags included); the mesh flag names its
+    ROADMAP item."""
     from repro_torch.launch import serve as cli
     with pytest.raises(SystemExit) as e:
         cli.main(["--continuous", "--cache", "paged", "--device", "cpu",

@@ -516,8 +516,8 @@ def test_router_resize_resplits_budget():
 
 
 def test_supervisor_counts_resize_and_refuses_item_11():
-    """The supervisor's lane half counts drains, adds and retirements and
-    handoffs under the reference's keys; the shard half raises."""
+    """The supervisor counts drains, adds and retirements, handoffs and
+    shard kills under the reference's keys."""
     sup = RecoverySupervisor()
     ref_keys = set(ref_supervisor_stats())
     assert set(sup.stats) == ref_keys
@@ -534,11 +534,22 @@ def test_supervisor_counts_resize_and_refuses_item_11():
                                       "migrated_kv_bytes")} == {
         "lane_drains": 1, "lane_adds": 1, "lanes_retired": 1,
         "handoffs": 1, "handoff_streams": 2, "migrated_kv_bytes": 1024}
-    for call in (lambda: sup.kill_shard(lanes[0], 1),
-                 lambda: sup.snapshot(lanes[0], 1),
-                 lambda: sup.restore(lanes[0]),
-                 lambda: sup.enable_straggler_fencing()):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # the shard half: a kill is counted with its shrink plan, fencing
+    # arms, snapshots need a checkpoint directory
+    killed = SimpleNamespace(
+        kill_shard=lambda shard: [SimpleNamespace(prompt=[1, 2], output=[3])],
+        sc=SimpleNamespace(n_shards=2), nrows=2,
+        sched=SimpleNamespace(dead_shards={1}))
+    assert len(sup.kill_shard(killed, 1)) == 1
+    assert (sup.stats["shards_killed"], sup.stats["requests_replayed"],
+            sup.stats["replay_prefill_tokens"]) == (1, 1, 3)
+    assert sup.shrink_plans[-1].mesh_shape == (1, 1)
+    assert not sup.fencing_enabled
+    sup.enable_straggler_fencing(warmup_steps=2)
+    assert sup.fencing_enabled
+    for call in (lambda: sup.snapshot(lanes[0], 1),
+                 lambda: sup.restore(lanes[0])):
+        with pytest.raises(ValueError, match="needs ckpt_dir"):
             call()
 
 

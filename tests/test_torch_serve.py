@@ -306,9 +306,10 @@ def test_cli_no_use_kernels_runs_the_plain_path(capsys, argv):
     (["--lanes", "1,2"], "--lanes/--disagg require --continuous --cache "
                          "paged"),
     (["--mesh", "2,2"], "item 12"),
-    (["--kill-shard", "3:1"], "item 11"),
-    (["--shards", "2"], "item 11"),
-    (["--restart-step", "3"], "item 11"),
+    (["--cache", "paged", "--kill-shard", "3:1"],
+     "--kill-shard needs >= 2 data shards"),
+    (["--shards", "2"], "--shards requires --continuous --cache paged"),
+    (["--restart-step", "3"], "--restart-step requires --ckpt-dir"),
 ])
 def test_cli_rejects_later_slices(capsys, argv, match):
     with pytest.raises(SystemExit) as e:
