@@ -257,6 +257,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1988,6 +1989,12 @@ def main() -> int:
     # N=2 weights (phase 4's), then they are freed
     phase_shards(torch, p2, rows, prompt_len, new_tokens, runs)
     del p2
+
+    # 13. training on the plain model path, then serving the trained
+    # weights through the kernels; phase 12's weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(torch)
 
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
@@ -4283,6 +4290,343 @@ def restart_phase(torch, cfg, params, base, rows, trace, new_tokens,
               f"{got['save_s'] * 1e3:.1f} ms (host, write joined), restore "
               f"{got['restore_s'] * 1e3:.1f} ms (host); launches "
               f"{launches}; {smi_line()}", flush=True)
+
+
+# phase 13: training.  (a) the launcher: retrieval warm-up, then MLM for
+# --steps; its one cosine schedule spans --steps while the optimizer's
+# count runs on through both stages (the reference's launcher), so MLM
+# learns over its first --steps - --warmup-steps steps and runs the rest
+# at lr 0.  One step's MLM loss varies by ~0.05 from batch to batch at
+# full width (measured on an H100), more than 20 steps move it: the
+# check holds the mean of the last LOSS_WINDOW steps (the final weights,
+# at lr 0) below the mean of the first LOSS_WINDOW
+TRAIN_ARGS = ("--model", "mux-bert-base", "--mux-n", "2", "--batch", "32",
+              "--seq", "128", "--warmup-steps", "20", "--steps", "100")
+LOSS_WINDOW = 10
+# (b) one retrieval step on the card against the same step on the CPU (fp32,
+# TF32 off): loss and grad norm relative, every gradient against the
+# tree's largest |grad|, every updated param absolute (1e-3 of the lr,
+# 1e-3).  AdamW's first step moves an element by lr * g / (|g| + eps):
+# where g is within the two devices' summation noise (a key bias's, zero
+# in exact arithmetic) its sign, and so the move, may differ (by up to
+# 2 lr).  Above GRAD_BAND of the largest |grad|, the gradient tolerance
+# itself, the gradient check fixes each sign and the param tolerance
+# holds; within the band the updates are held to NOISE_MOVE, the
+# largest difference measured there on an H100 (8.5e-5, over the
+# 19.75 M of 89.6 M elements within 1e-4 of the largest) with 3x margin
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grad": 1e-5, "param": 1e-6}
+GRAD_BAND = STEP_TOL["grad"]
+NOISE_MOVE = 2.5e-4
+STEP_LR = 1e-3
+# (c) full-width qwen2-1.5b causal LM: 4 x 256 instance tokens at N=2,
+# three AdamW steps, remat on and off from the same seeded weights; the
+# same kernels in the same order, so losses and grad norms agree to
+# within LM_REMAT_TOL relative
+LM_TRAIN = {"batch": 4, "seq": 256, "steps": 3, "lr": 1e-4}
+LM_REMAT_TOL = 1e-6
+
+
+def phase_train(torch):
+    """Phase 13: training on the card, the plain model path (no kernel has
+    a backward): (a) ``python -m repro_torch.launch.train`` at full-width
+    mux-bert-base through ``main``, (b) one step against the CPU's, (c)
+    full-width qwen2-1.5b with remat on and off, (d) the kernels refuse
+    the trained weights under autograd and serve them under no_grad."""
+    print(f"phase 13: training, the plain model path; {smi_line()}",
+          flush=True)
+    t0 = time.perf_counter()
+    out = train_launcher(torch)
+    train_step_vs_cpu(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lm_remat(torch)
+    serve_trained(torch, out)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s; {smi_line()}",
+          flush=True)
+
+
+def train_launcher(torch):
+    """(a): the launcher's two stages at full width with launch counts set
+    to 0 before and read after (training launches no kernel); retrieval
+    accuracy must rise over the warm-up and the MLM loss fall (windows of
+    LOSS_WINDOW steps).  Returns the launcher's ``out``."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [*TRAIN_ARGS, "--ckpt", str(ckpt), "--device", "cuda"]
+    print(f"  (a) python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    out = {}
+    need(train_cli.main(argv, out=out) == 0, "the train launcher failed")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.counts().items() if v}
+    need(not launched, f"training launched kernels {launched}")
+    peak = torch.cuda.max_memory_allocated()
+    saved = sorted(p.name for p in ckpt.iterdir())
+    shutil.rmtree(ckpt)
+    batch = int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1])
+    for st in out["stages"]:
+        hist = [h for h in st["history"] if "loss" in h]
+        need(len(hist) == st["steps"], f"{st['stage']}: {len(hist)} steps")
+        loss = [float(h["loss"]) for h in hist]
+        need(all(map(math.isfinite, loss)), f"{st['stage']}: loss not finite")
+        ms = statistics.median(st["step_ms"][1:])
+        extra = ""
+        if st["stage"] == "retrieval-warmup":
+            acc = [float(h["retrieval_acc"]) for h in hist]
+            need(acc[-1] > acc[0], f"retrieval accuracy did not rise: {acc}")
+            extra = f", retrieval accuracy {acc[0]:.4f} -> {acc[-1]:.4f}"
+        else:
+            first, last = (statistics.mean(loss[:LOSS_WINDOW]),
+                           statistics.mean(loss[-LOSS_WINDOW:]))
+            need(last < first, f"MLM loss did not fall: {loss}")
+            extra = (f", mean of the first / last {LOSS_WINDOW} steps "
+                     f"{first:.4f} / {last:.4f}")
+        print(f"  {st['stage']}: {st['steps']} steps, loss {loss[0]:.4f} -> "
+              f"{loss[-1]:.4f}{extra}; {ms:.2f} ms/step (median CUDA "
+              f"events, first step {st['step_ms'][0]:.1f} ms), "
+              f"{batch / ms * 1e3:.1f} trained instances/s; "
+              f"{smi_line()}", flush=True)
+    print(f"  (a) peak {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); checkpoints {saved}; no "
+          f"kernel launched", flush=True)
+    return out
+
+
+class _Capture:
+    """An optimizer that keeps the gradients it is handed."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
+
+
+def train_step_vs_cpu(torch):
+    """(b): full-width mux-bert-base (the launcher's vocabulary 512, seeded
+    on the CPU and copied to the card), one retrieval-stage AdamW step on
+    32 instances of 128 tokens on each device, held within STEP_TOL."""
+    import numpy as np
+    from repro_torch.core import MuxSpec
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.models import MuxBERT, bert_config
+    from repro_torch.optim import AdamW, reference_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train.mux_stages import retrieval_stage
+    cfg = bert_config("base", vocab_size=512, max_seq_len=128)
+    mux = MuxSpec(n=2)
+    toks = MarkovCorpus(512, seed=0).sample(np.random.default_rng(0), 32, 128)
+    cpu = MuxBERT.init(torch.Generator().manual_seed(0), cfg, mux)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(cpu, dev)
+        opt = _Capture(AdamW(lr=STEP_LR))
+        step = make_train_step(retrieval_stage(cfg, mux), opt)
+        t0 = time.perf_counter()
+        p, state, m = step(p, opt.opt.init(p), {"tokens": torch.as_tensor(
+            toks, device=dev)}, torch.Generator(dev).manual_seed(0))
+        runs[dev] = {"loss": float(m["loss"]),
+                     "norm": float(m["grad_norm"]), "params": p,
+                     "grads": opt.grads, "state": state, "step": step,
+                     "s": time.perf_counter() - t0}
+    c, g = runs["cpu"], runs["cuda"]
+    errs = {k: abs(g[k] - c[k]) / abs(c[k]) for k in ("loss", "norm")}
+    pairs = reference_leaves(c["grads"], g["grads"])
+    gmax = max(float(a.abs().max()) for _, _, a, _ in pairs)
+    gerr = max(float((b.cpu() - a).abs().max()) for _, _, a, b in pairs)
+    # the elements within 10 GRAD_BAND (the band this check had before,
+    # 1e-4 of the largest) but above GRAD_BAND are read out on their own
+    perr, nerr, serr, n_band, n_shell, n = 0.0, 0.0, 0.0, 0, 0, 0
+    for (path, _, a, b), (_, _, ga, _) in zip(
+            reference_leaves(c["params"], g["params"]), pairs):
+        d = (b.detach().cpu() - a.detach()).abs()
+        band = ga.abs() <= GRAD_BAND * gmax
+        shell = ~band & (ga.abs() <= 10 * GRAD_BAND * gmax)
+        if (~band).any():
+            perr = max(perr, float(d[~band].max()))
+        if band.any():
+            nerr = max(nerr, float(d[band].max()))
+        if shell.any():
+            serr = max(serr, float(d[shell].max()))
+        n_band += int(band.sum())
+        n_shell += int(shell.sum())
+        n += d.numel()
+    print(f"  (b) one retrieval step, mux-bert-base N=2, 32 x 128, cuda vs "
+          f"cpu: loss {c['loss']:.6f} rel err {errs['loss']:.2e}, grad norm "
+          f"{c['norm']:.6f} rel err {errs['norm']:.2e}, grads max err "
+          f"{gerr / gmax:.2e} of max |grad| {gmax:.3e}; updated params max "
+          f"err {perr:.2e} (tol {STEP_TOL['param']:g}) where |grad| > "
+          f"{GRAD_BAND:g} of the max ({serr:.2e} over the {n_shell} "
+          f"elements up to {10 * GRAD_BAND:g}), {nerr:.2e} (tol "
+          f"{NOISE_MOVE:g}, lr {STEP_LR:g}) over the {n_band} of {n} "
+          f"elements within it (AdamW's first step takes the sign of "
+          f"their noise); cpu {c['s']:.1f} s, cuda {g['s']:.2f} s; "
+          f"{smi_line()}", flush=True)
+    need(perr <= STEP_TOL["param"], "(b) an update differs where the "
+         "gradient is resolved")
+    need(nerr <= NOISE_MOVE, "(b) an update within the gradient's noise "
+         "band differs by more than measured")
+    need(errs["loss"] <= STEP_TOL["loss"], "(b) loss differs")
+    need(errs["norm"] <= STEP_TOL["grad_norm"], "(b) grad norm differs")
+    need(gerr <= STEP_TOL["grad"] * gmax, "(b) gradients differ")
+    profile_train_step(torch, g, toks)
+
+
+TRAIN_GROUPS = {"matmul": ("gemm", "cutlass", "xmma", "sm90_"),
+                "softmax": ("softmax",), "reduce": ("reduce",),
+                "elementwise": ("elementwise", "vectorized", "unrolled")}
+
+
+def profile_train_step(torch, run, toks):
+    """Where (b)'s card step spends its time: two more steps timed on the
+    host (ending in a synchronize), then two under ``torch.profiler``:
+    device busy, idle share and device time by kernel group."""
+    from repro_torch.launch import profile_step
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+
+    def one():
+        run["step"](run["params"], run["state"], batch,
+                    torch.Generator("cuda").manual_seed(1))
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace, prof_wall = profile_step.profile_calls(one, 2)
+    profile_step.summarize("  (b) retrieval step on the card, profiled",
+                           trace, 2, wall, prof_wall, 6, TRAIN_GROUPS)
+    print(f"  {smi_line()}", flush=True)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.detach().to(dev, copy=True)
+
+
+def train_lm_remat(torch):
+    """(c): full-width qwen2-1.5b, seeded tokens straight to
+    ``make_train_step`` (``MarkovCorpus`` cannot be built at its
+    vocabulary), three AdamW steps with remat on and off from the same
+    seeded weights: losses and grad norms within LM_REMAT_TOL, ms per step
+    and the peak memory of each printed."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import causal_lm_loss, make_train_step
+    cfg = get_config("qwen2-1.5b")
+    mux = MuxSpec(n=2)
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        4, cfg.vocab_size, (LM_TRAIN["batch"], LM_TRAIN["seq"])),
+        device="cuda")
+    runs = {}
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = TransformerLM.init(
+            torch.Generator(device="cuda").manual_seed(0), c, mux)
+        opt = AdamW(lr=LM_TRAIN["lr"])
+        state = opt.init(params)
+
+        def loss_fn(p, batch, generator, c=c):
+            logits = TransformerLM.apply(p, c, batch["tokens"], mux=mux,
+                                         dtype=torch.float32,
+                                         use_kernels=False)["logits"]
+            return causal_lm_loss(logits, batch["tokens"]), {}
+        step = make_train_step(loss_fn, opt)
+        r = {"loss": [], "norm": [], "ms": []}
+        for i in range(LM_TRAIN["steps"]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, state, m = step(params, state, {"tokens": toks},
+                                    torch.Generator("cuda").manual_seed(i))
+            b.record()
+            b.synchronize()
+            r["ms"].append(a.elapsed_time(b))
+            r["loss"].append(float(m["loss"]))
+            r["norm"].append(float(m["grad_norm"]))
+        r["peak"] = torch.cuda.max_memory_allocated()
+        need(all(map(math.isfinite, r["loss"] + r["norm"])),
+             f"qwen2-1.5b remat={remat}: not finite")
+        runs[remat] = r
+        del params, state, step
+        print(f"  (c) qwen2-1.5b full width, remat={remat}: "
+              f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']} at N=2, loss "
+              + " -> ".join(f"{x:.6f}" for x in r["loss"])
+              + ", grad norm " + ", ".join(f"{x:.4f}" for x in r["norm"])
+              + ", ms/step " + ", ".join(f"{x:.1f}" for x in r["ms"])
+              + f" (CUDA events); peak {r['peak'] / 2**30:.2f} GiB; "
+              f"{smi_line()}", flush=True)
+    on, off = runs[True], runs[False]
+    err = max(abs(a - b) / abs(b) for k in ("loss", "norm")
+              for a, b in zip(on[k], off[k]))
+    print(f"  (c) remat on vs off: worst relative difference of losses and "
+          f"grad norms {err:.2e} (tol {LM_REMAT_TOL:g}); peak "
+          f"{on['peak'] / 2**30:.2f} vs {off['peak'] / 2**30:.2f} GiB",
+          flush=True)
+    need(err <= LM_REMAT_TOL, "(c) remat changes the training step")
+    need(on["loss"][-1] < on["loss"][0], "(c) the LM loss did not fall")
+
+
+def serve_trained(torch, out):
+    """(d): the trained mux-bert-base of (a), whose params require grad:
+    the kernel path refuses them under autograd; under ``torch.no_grad()``
+    ``mlm_logits`` goes through the fused entry, flash attention (once a
+    layer) and the fused exit, launch counts exact, within LOGIT_TOL of
+    the plain path."""
+    import numpy as np
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import MuxBERT
+    p, cfg, mux = out["params"], out["cfg"], out["mux"]
+    kcfg = cfg.replace(attn_impl="flash")
+    toks = torch.as_tensor(MarkovCorpus(cfg.vocab_size, seed=1).sample(
+        np.random.default_rng(1), 32, cfg.max_seq_len), device="cuda")
+    need(all(t.requires_grad for t in _leaves(p)),
+         "the trained params should require grad")
+    ops.reset_counts()
+    refused = None
+    try:
+        MuxBERT.mlm_logits(p, kcfg, toks, mux=mux, use_kernels=True)
+    except RuntimeError as e:
+        refused = str(e)
+    need(refused is not None and "no backward" in refused,
+         "the kernel path took params that require grad under autograd")
+    need(not any(ops.counts().values()), "a refused call launched")
+    with torch.no_grad():
+        ops.reset_counts()
+        k = MuxBERT.mlm_logits(p, kcfg, toks, mux=mux, use_kernels=True)
+        torch.cuda.synchronize()
+        got = ops.counts()
+        pl = MuxBERT.mlm_logits(p, cfg, toks, mux=mux, use_kernels=False)
+    want = {w: 0 for w in got}
+    want.update(mux_embed_combine=1, flash_attention=cfg.n_layers,
+                demux_rsa=1)
+    need(got == want, f"(d) launches {got}, want {want}")
+    err = (k - pl).abs().max().item()
+    share = (k.argmax(-1) == pl.argmax(-1)).float().mean().item()
+    print(f"  (d) under autograd the kernel path refuses the trained "
+          f"weights ({refused.split(';')[0]}); under no_grad mlm_logits on "
+          f"32 x {cfg.max_seq_len}: launches {got}; kernel vs plain path "
+          f"max_abs_err {err:.3e} (tol {LOGIT_TOL:g}), argmax identical "
+          f"{share:.5f}; {smi_line()}", flush=True)
+    need(err <= LOGIT_TOL, "(d) kernel path disagrees with the plain path")
+    need(share >= ARGMAX_SHARE, f"(d) argmax identical at {share}")
 
 
 def _leaves(tree):

@@ -10,8 +10,10 @@ reference's on-disk layout byte for byte (counterpart of
 
 A tree is nested dicts (keys sorted, as the reference's pytrees
 flatten) and lists / tuples (by index); ``None`` holds no leaf; a leaf's
-path joins the keys and indices with '/'.  Leaves are torch tensors or
-numpy arrays in, torch tensors out on the caller's ``device``.
+path joins the keys and indices with '/'.  Leaves are torch tensors,
+numpy arrays or host ints in (an int is a 0-d int64 array on disk, as
+the reference's ``np.asarray`` of one), torch tensors out on the
+caller's ``device``, or ints where the restore target holds an int.
 
 bf16 and fp8 leaves: numpy has no such dtype, and the reference's
 ``np.save`` of an ml_dtypes array writes a void header ('<V2' / '<V1')
@@ -153,8 +155,9 @@ def prune(directory: str, keep_k: int):
 
 def restore_checkpoint(directory: str, target_tree, *, step: int | None = None,
                        device="cpu"):
-    """Restore into the structure of ``target_tree`` (leaves with a
-    ``shape``; only their paths and shapes are read) on ``device``.
+    """Restore into the structure of ``target_tree`` (tensor leaves, or
+    host ints such as an optimizer's ``count``; only their paths and
+    shapes are read) on ``device``; an int leaf comes back an int.
     Returns (tree, step, metadata)."""
     steps = available_steps(directory)
     if not steps:
@@ -169,12 +172,12 @@ def restore_checkpoint(directory: str, target_tree, *, step: int | None = None,
         if path not in by_path:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         e = by_path[path]
-        if tuple(e["shape"]) != tuple(leaf.shape):
+        if tuple(e["shape"]) != np.shape(leaf):
             raise ValueError(
                 f"shape mismatch for {path!r}: ckpt {e['shape']} vs "
-                f"target {list(leaf.shape)}")
-        out[path] = _load_leaf(os.path.join(d, e["file"]), e["dtype"],
-                               device)
+                f"target {list(np.shape(leaf))}")
+        t = _load_leaf(os.path.join(d, e["file"]), e["dtype"], device)
+        out[path] = int(t) if isinstance(leaf, int) else t
     return _unflatten(target_tree, out), step, index["metadata"]
 
 

@@ -1,7 +1,6 @@
 """gemma-2b [dense] — 18L d_model=2048 8H (MQA kv=1) d_ff=16384
 vocab=256000 — GeGLU, head_dim=256, MQA.  [arXiv:2403.08295]
-(Same values as ``repro/configs/gemma_2b.py``; the reference's REDUCED
-also sets ``remat=False``, a training field the port does not have.)
+(Same values as ``repro/configs/gemma_2b.py``.)
 """
 from repro_torch.models.config import ModelConfig
 
@@ -15,7 +14,7 @@ CONFIG = ModelConfig(
 
 REDUCED = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=1, head_dim=16,
-    d_ff=256, vocab_size=512, max_seq_len=128,
+    d_ff=256, vocab_size=512, max_seq_len=128, remat=False,
 )
 
 MODEL_KIND = "lm"

@@ -1,7 +1,6 @@
 """gemma-7b [dense] — 28L d_model=3072 16H (GQA kv=16) d_ff=24576
 vocab=256000 — GeGLU, head_dim=256.  [arXiv:2403.08295]
-(Same values as ``repro/configs/gemma_7b.py``; the reference's REDUCED
-also sets ``remat=False``, a training field the port does not have.)
+(Same values as ``repro/configs/gemma_7b.py``.)
 """
 from repro_torch.models.config import ModelConfig
 
@@ -15,7 +14,7 @@ CONFIG = ModelConfig(
 
 REDUCED = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-    d_ff=256, vocab_size=512, max_seq_len=128,
+    d_ff=256, vocab_size=512, max_seq_len=128, remat=False,
 )
 
 MODEL_KIND = "lm"

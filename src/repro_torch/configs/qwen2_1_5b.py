@@ -14,7 +14,7 @@ CONFIG = ModelConfig(
 
 REDUCED = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-    vocab_size=512, max_seq_len=128,
+    vocab_size=512, max_seq_len=128, remat=False,
 )
 
 MODEL_KIND = "lm"

@@ -1,8 +1,7 @@
 """rwkv6-7b [ssm] — 32L d_model=4096 (attention-free) d_ff=14336
 vocab=65536 — Finch: data-dependent decay linear attention.
 [arXiv:2404.05892]
-(Same values as ``repro/configs/rwkv6_7b.py``; the reference's REDUCED
-also sets ``remat=False``, a training field the port does not have.)
+(Same values as ``repro/configs/rwkv6_7b.py``.)
 """
 from repro_torch.models.config import ModelConfig
 
@@ -16,7 +15,7 @@ CONFIG = ModelConfig(
 
 REDUCED = CONFIG.replace(
     n_layers=2, d_model=64, d_ff=128, vocab_size=512, max_seq_len=128,
-    rwkv_heads=2,
+    rwkv_heads=2, remat=False,
 )
 
 MODEL_KIND = "lm"

@@ -1,9 +1,7 @@
 """whisper-small [audio] — 12L d_model=768 12H d_ff=3072 vocab=51865 —
 encoder-decoder; conv frontend stubbed (the caller provides precomputed
 frame embeddings, 1500 frames).  [arXiv:2212.04356]
-(Same values as ``repro/configs/whisper_small.py``; the reference's REDUCED
-also sets ``remat=False`` on both stacks, a training field the port does
-not have.)
+(Same values as ``repro/configs/whisper_small.py``.)
 """
 from repro_torch.models.config import ModelConfig
 
@@ -25,10 +23,11 @@ CONFIG = ModelConfig(
 
 REDUCED = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
-    vocab_size=512, max_seq_len=128,
+    vocab_size=512, max_seq_len=128, remat=False,
     encoder=_ENCODER.replace(n_layers=2, d_model=64, n_heads=4,
                              n_kv_heads=4, d_ff=128, vocab_size=512,
-                             max_seq_len=24, frontend_len=24),
+                             max_seq_len=24, frontend_len=24,
+                             remat=False),
 )
 
 MODEL_KIND = "encdec"

@@ -72,6 +72,16 @@ class MuxEngine:
         baseline)."""
         return spec.n if (spec.enabled and spec.demux_kind == "prefix") else 0
 
+    @staticmethod
+    def frozen_paths(spec: MuxSpec):
+        """Param paths the optimizer must not update (the fixed Gaussian
+        keys, unless ``spec.learn_keys_v``).  As in the reference, nothing
+        reads it: ``optim.default_trainable_mask`` freezes the same
+        ``mux_engine/mux/v`` by its path."""
+        if spec.enabled and not spec.learn_keys_v:
+            return (("mux_engine", "mux", "v"),)
+        return ()
+
 
 def retrieval_loss(demuxed_logits, token_ids, *, valid_mask=None):
     """Token-retrieval warmup: the mean NLL of all N*L tokens.

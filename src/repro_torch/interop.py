@@ -7,8 +7,12 @@ into the port's param tree; ``params_to_reference`` goes back.  An
 by stack, the encoder under ``cfg.encoder``; a ``MuxBERT`` tree
 (``backbone``, ``mlm``, ``rtd`` where present, and any head dicts kept
 beside them) converts its backbone as a ``TransformerLM`` tree and every
-other subtree leaf for leaf.  A ``mux_engine`` subtree (Gaussian or
-contextual mux, RSA or prefix demux) crosses leaf for leaf.  The
+other subtree leaf for leaf, and a fine-tuning tree (``model``: a
+MuxBERT tree, ``head``: a classifier head) its two halves.
+``opt_state_from_reference`` / ``opt_state_to_reference`` carry an AdamW
+state across (``m`` and ``v`` as the params).  A ``mux_engine`` subtree
+(Gaussian or contextual mux, RSA or prefix demux) crosses leaf for
+leaf.  The
 reference groups layers into periods of ``cfg.block_pattern`` and stacks
 each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
@@ -52,6 +56,10 @@ def params_from_reference(tree, cfg, *, device):
         return {k: (params_from_reference(v, cfg, device=device)
                     if k == "backbone" else _map(tensor, v))
                 for k, v in tree.items()}
+    if "model" in tree and "head" in tree:      # a fine-tuning tree
+        return {"model": params_from_reference(tree["model"], cfg,
+                                               device=device),
+                "head": _map(tensor, tree["head"])}
     if "encoder" in tree:
         out = {"encoder": params_from_reference(tree["encoder"], cfg.encoder,
                                                 device=device),
@@ -92,6 +100,9 @@ def params_to_reference(params, cfg):
         return {k: (params_to_reference(v, cfg) if k == "backbone"
                     else _map(arr, v))
                 for k, v in params.items()}
+    if "model" in params and "head" in params:
+        return {"model": params_to_reference(params["model"], cfg),
+                "head": _map(arr, params["head"])}
     if "encoder" in params:
         out = {"encoder": params_to_reference(params["encoder"], cfg.encoder),
                "decoder": params_to_reference(params["decoder"], cfg)}
@@ -117,6 +128,23 @@ def params_to_reference(params, cfg):
         if key in params:
             out[key] = _map(arr, params[key])
     return out
+
+
+def opt_state_from_reference(state, cfg, *, device):
+    """A reference AdamW state (``m``, ``v`` in the params' layout, numpy
+    leaves; ``count`` a 0-d int) -> the port's: ``m`` and ``v`` mapped as
+    the params, ``count`` a host int."""
+    return {"m": params_from_reference(state["m"], cfg, device=device),
+            "v": params_from_reference(state["v"], cfg, device=device),
+            "count": int(np.asarray(state["count"]))}
+
+
+def opt_state_to_reference(state, cfg):
+    """The port's AdamW state -> the reference's (numpy leaves, ``count``
+    a 0-d int32 as the reference's)."""
+    return {"m": params_to_reference(state["m"], cfg),
+            "v": params_to_reference(state["v"], cfg),
+            "count": np.asarray(state["count"], np.int32)}
 
 
 # numpy dtypes (from ml_dtypes) that torch.from_numpy refuses: cross as

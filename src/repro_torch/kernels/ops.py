@@ -7,6 +7,11 @@ two plain integer counts as attributes: ``calls`` (every call) and
 ``launches`` (kernel launches only, added right after the launch).  The
 two paged wrappers also count their launches per page storage kind
 (``by_storage``: 'fp32' / 'bf16' / 'int8' / 'fp8').
+
+No kernel has a backward (nor has any Pallas kernel of the reference):
+under autograd, a wrapper given a tensor that requires grad raises on
+either device, before it counts the call, so a training path that
+reaches a kernel fails on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -29,6 +34,16 @@ def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
 
 
+def _refuse_autograd(wrapper, *tensors):
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"kernels.ops.{wrapper.__name__}: an input requires grad and the "
+            "kernel has no backward; train on the plain model path "
+            "(use_kernels=False, the reference's training path) or call it "
+            "under torch.no_grad()")
+
+
 def _launched(wrapper, pages):
     """Count one launch of a paged kernel over ``pages``' storage."""
     wrapper.launches += 1
@@ -40,6 +55,7 @@ def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0,
     """Fused embed + embedding scale + Gaussian mux-combine:
     tokens (N, T), emb (V, D), v (N, D) fp32 or bf16 -> (T, D) in
     ``out_dtype`` (fp32 or bf16)."""
+    _refuse_autograd(mux_embed_combine, tokens, emb, v)
     mux_embed_combine.calls += 1
     if _on_cpu(emb):
         return _mux.mux_embed_ref(tokens, emb, v, scale=scale,
@@ -53,6 +69,7 @@ def mux_embed_combine(tokens, emb, v, *, scale: float = 1.0,
 def mux_combine(x, v):
     """Gaussian mux-combine of precomputed embeddings: x (N, T, D),
     v (N, D) -> (T, D) = mean_i x_i ⊙ v_i in x's dtype."""
+    _refuse_autograd(mux_combine, x, v)
     mux_combine.calls += 1
     if _on_cpu(x):
         return _combine.mux_combine_ref(x, v)
@@ -66,6 +83,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, page_pos, q_pos, *,
                     causal: bool = True):
     """Decode attention over the paged pool: q (B, 1, H, Dh); pages fp32,
     bf16, or int8/fp8 with their (P, BS, Hkv) fp32 scales."""
+    _refuse_autograd(paged_attention, q, k_pages, v_pages, k_scales,
+                     v_scales)
     paged_attention.calls += 1
     if _on_cpu(q):
         _paged.storage_kind(k_pages, v_pages, k_scales, v_scales)
@@ -89,6 +108,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, page_pos,
                             window=None, causal: bool = True):
     """Chunked-prefill attention over the paged pool: q (B, Lq, H, Dh);
     pages as ``paged_attention``."""
+    _refuse_autograd(paged_prefill_attention, q, k_pages, v_pages, k_scales,
+                     v_scales)
     paged_prefill_attention.calls += 1
     if _on_cpu(q):
         _paged.storage_kind(k_pages, v_pages, k_scales, v_scales)
@@ -110,6 +131,7 @@ def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
     """Fused demux exit; h may be (B, L, D) or (T, D) -> (N, [B, L,] D).
     ``norms``: entry_kind / entry_scale / entry_bias / exit_scale /
     exit_bias, as ``kernels.demux_rsa.demux_rsa_fused_ref``."""
+    _refuse_autograd(demux_rsa, h, k, w1h, w1k, b1, w2, b2, *norms.values())
     demux_rsa.calls += 1
     lead = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1])
@@ -128,6 +150,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, *, q_pos,
     (B, C, Hkv, Dh); slot_pos (C,) (-1 = empty); q_pos an int or a 0-d
     integer tensor on q's device (the kernel reads it there, so a
     captured call replays at the position the tensor holds)."""
+    _refuse_autograd(decode_attention, q, k_cache, v_cache)
     decode_attention.calls += 1
     if _on_cpu(q):
         return _dec.decode_attention_ref(q, k_cache, v_cache, slot_pos,
@@ -145,6 +168,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     """Attention over fresh K/V: q (B, Lq, H, Dh); k, v (B, Lk, Hkv, Dh),
     all fp32 or all bf16; queries at q_offset + arange(Lq), keys at
     arange(Lk).  Returns q's dtype."""
+    _refuse_autograd(flash_attention, q, k, v)
     flash_attention.calls += 1
     if _on_cpu(q):
         return _flash.flash_attention_ref(q, k, v, causal=causal,
@@ -163,6 +187,7 @@ def rwkv6_chunked(r, k, v, logw, u, s0, *, chunk: int):
     sT fp32).  ``chunk`` is the plain version's
     (chunkwise, the reference's rule); the kernel scans token by token
     and takes any L."""
+    _refuse_autograd(rwkv6_chunked, r, k, v, logw, u, s0)
     rwkv6_chunked.calls += 1
     if _on_cpu(r):
         return _rwkv.rwkv_chunked(r, k, v, logw, u, s0, chunk)

@@ -37,6 +37,7 @@ The counted dispatching wrapper is ``kernels.ops.rwkv6_chunked``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import build
 
@@ -52,12 +53,16 @@ PLAN = {16: (16, 4, 4, 8), 32: (32, 4, 4, 8), 64: (64, 8, 4, 16),
 
 
 def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
-                 intra_dtype=torch.float32):
+                 intra_dtype=torch.float32, remat_inner: bool = False):
     """Chunkwise-parallel recurrence in chunks of ``chunk`` tokens (L a
     multiple of it).  The (c, c, hd) pairwise decay and the intra-chunk
     products run in ``intra_dtype`` (fp32 or bf16), as the reference's;
     bf16 r, k and v are widened first (the reference promotes them where
-    they meet fp32) and out comes back in r's dtype."""
+    they meet fp32) and out comes back in r's dtype.  remat_inner: under
+    autograd (an input that requires grad), each chunk step is
+    checkpointed (the reference's nested remat of the training scan):
+    its (c, c, hd) decay is recomputed for the backward instead of
+    kept."""
     dt = r.dtype
     r, k, v = r.float(), k.float(), v.float()
     b, l, h, hd = r.shape
@@ -68,10 +73,9 @@ def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
     def chunks(x):                    # (B, L, H, hd) -> (nc, B, H, c, hd)
         return x.reshape(b, nc, c, h, hd).permute(1, 0, 3, 2, 4)
 
-    rc, kc, vc, lwc = map(chunks, (r, k, v, logw))
     below = torch.ones(c, c, dtype=torch.bool, device=r.device).tril(-1)
-    s, outs = s0, []
-    for rj, kj, vj, lw in zip(rc, kc, vc, lwc):      # (B, H, c, hd) each
+
+    def step(s, rj, kj, vj, lw):                     # (B, H, c, hd) each
         la = torch.cumsum(lw, dim=2)                 # log decay incl. t
         la_prev = la - lw                            # ... up to t-1
         out = torch.einsum("bhck,bhkv->bhcv", rj * torch.exp(la_prev), s)
@@ -88,6 +92,14 @@ def rwkv_chunked(r, k, v, logw, u, s0, chunk: int,
         k_scaled = kj * torch.exp(la_end - la)
         s = (torch.exp(la_end[:, :, 0, :])[..., None] * s
              + torch.einsum("bhck,bhcv->bhkv", k_scaled, vj))
+        return s, out
+
+    remat = remat_inner and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, logw, u, s0))
+    s, outs = s0, []
+    for xs in zip(*map(chunks, (r, k, v, logw))):
+        s, out = (checkpoint(step, s, *xs, use_reentrant=False) if remat
+                  else step(s, *xs))
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, l, h, hd)
     return out.to(dt), s

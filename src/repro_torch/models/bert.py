@@ -36,13 +36,13 @@ SIZES = {
 
 def bert_config(size: str = "base", **kw) -> ModelConfig:
     """The reference's ``bert_config``: BERT-``size`` widths, vocab 30522,
-    512 positions; ``kw`` overrides fields (heads derive from the final
-    ``n_heads`` and ``d_model``)."""
+    512 positions, no remat; ``kw`` overrides fields (heads derive from
+    the final ``n_heads`` and ``d_model``)."""
     base = dict(
         name=f"mux-bert-{size}", family="encoder", vocab_size=30522,
         activation="gelu_tanh", glu=False, qkv_bias=True, norm="ln",
         positions="learned", max_seq_len=512, causal=False,
-        tie_embeddings=True)
+        tie_embeddings=True, remat=False)
     base.update(SIZES[size])
     base.update(kw)
     return ModelConfig(**base)

@@ -346,8 +346,10 @@ def apply_rwkv(p, cfg, blk, x, ctx, cache):
         out, s_t = kops.rwkv6_chunked(r, k, v, logw, p["u"].float(), s0,
                                       chunk=chunk)
     else:
+        # nested remat of the training forward (no cache), as the
+        # reference's remat_inner
         out, s_t = rwkv_chunked(r, k, v, logw, p["u"].float(), s0, chunk,
-                                intra_dtype=intra)
+                                intra_dtype=intra, remat_inner=not cache)
     out = out.to(x.dtype)
     if cache:
         cache["s"] = s_t

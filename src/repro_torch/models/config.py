@@ -52,6 +52,9 @@ class ModelConfig:
     frontend: str | None = None   # vision|audio
     frontend_len: int = 0
     encoder: "ModelConfig | None" = None   # enc-dec models (whisper)
+    # training: checkpoint each period of the no-cache forward under
+    # autograd (its activations recomputed for the backward)
+    remat: bool = True
 
     def __post_init__(self):
         if self.n_kv_heads == 0:

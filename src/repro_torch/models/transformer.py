@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import MuxEngine, MuxSpec
 from repro_torch.kernels import ops as kops
@@ -208,8 +209,27 @@ class TransformerLM:
         if extra_ctx:
             ctx.update(extra_ctx)
 
-        for i, blk in enumerate(cfg.pattern_layers):
-            x = apply_block(params["layers"][i], cfg, blk, x, ctx,
+        blocks = cfg.pattern_layers
+        pat = len(cfg.block_pattern)
+        # training: checkpoint each whole period of the no-cache forward
+        # (cfg.remat, as the reference's jax.checkpoint of its period
+        # scan; leftover tail layers are not); backward recomputes it.
+        # Only where something needs gradients: a serving forward (params
+        # that require no grad) runs its periods directly
+        remat = (cfg.remat and cache is None and torch.is_grad_enabled()
+                 and x.requires_grad)
+        n_remat = len(blocks) // pat * pat if remat else 0
+
+        def period(x, start):
+            for i in range(start, start + pat):
+                x = apply_block(params["layers"][i], cfg, blocks[i], x, ctx,
+                                None)
+            return x
+
+        for start in range(0, n_remat, pat):
+            x = checkpoint(period, x, start, use_reentrant=False)
+        for i in range(n_remat, len(blocks)):
+            x = apply_block(params["layers"][i], cfg, blocks[i], x, ctx,
                             None if cache is None else cache["layers"][i])
 
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm

@@ -92,3 +92,13 @@ class RMSNorm:
         y = x32 * torch.rsqrt(var + eps)
         y = y * (1.0 + p["scale"].float())
         return y.to(x.dtype)
+
+
+def dropout(generator, x, rate: float, *, deterministic: bool):
+    """Inverted dropout drawn from ``generator`` (on x's device).  As in the
+    reference, no model's forward calls it (``ModelConfig.dropout`` is
+    read by no block)."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
