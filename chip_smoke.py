@@ -72,6 +72,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 the row max, the fp32 state within it), flash-decode at
                 whisper's cross decode, and the LN-entry demux at
                 rwkv6-7b's, whisper-small's and mux-bert-base's exits;
+                phase 14's shapes (``MOE_ROWS``), read from the configs:
+                both paged kernels at granite-moe-3b-a800m's heads (24
+                over 8 of 64) and qwen2-moe-a2.7b's (16 over 16 of 128)
+                in fp32 and with a bf16 q over bf16 pages, and the fused
+                entry at granite's vocabulary 49155 and d 1536;
                 and the timer's floor, a one-element ``add_`` timed the
                 same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
@@ -246,7 +251,35 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 storage — and one fp32 restart mid-prefill that runs only
                 the chunks an undisturbed run does; snapshot bytes, save
                 and restore times (host) beside the card.
-The kernels' JSON line lists every kernel of phases 3-10 and the timer
+  13. train   — the paper's training on the plain model path:
+                full-width mux-bert-base through the launcher, one step
+                against the CPU, full-width qwen2-1.5b AdamW steps with
+                remat on and off, then the trained weights served through
+                the kernels;
+  14. moe     — phase 13's weights gone, full-width granite-moe-3b-a800m
+                (40 experts, top 8) and then qwen2-moe-a2.7b (60 routed
+                experts, top 4, 4 shared; 53.3 GiB of fp32 weights),
+                seeded random weights, on phase 4's trace: granite in
+                fp32 paged chunked on fp32 and int8 pages, the ring arm,
+                paged blocking with flash and fill-drain, every request
+                complete, launch counts exact and one MoE call a layer a
+                forward (dropped assignments per prefill event and the
+                load per expert printed), the kernel path against the
+                plain path (a chunk's and a decode step's logits from
+                identical caches within 2e-3, greedy tokens identical);
+                at the default bf16, paged chunked and on the ring,
+                launch counts exact, logits against ``kernels_as_plain``
+                within ``BF16_LOGIT_ULPS`` and greedy agreement with fp32
+                printed; one granite decode step twice from one cache
+                (bit for bit), once under ``set_sync_debug_mode("error")``
+                and once under the profiler (device time by group, the
+                dispatch's "moe dispatch" beside matmuls and the main-path
+                kernels); one granite AdamW step on the plain path (2 x
+                128 tokens, N=2, remat on: loss and aux finite, peak
+                memory); qwen2-moe-a2.7b paged chunked in fp32 and bf16
+                with the same checks; ``torch.cuda.max_memory_allocated``
+                of each.
+The kernels' JSON line lists every kernel of phases 3-14 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -1317,6 +1350,8 @@ def phase_kernels(torch, timer):
                  decode_cases[0], prefill_cases[0])
     bf16_rest_kernels(torch, timer, record, visible)
     bert_kernels(torch, timer, record)
+    moe_kernels(torch, timer, record, pool, sdpa, store, decode_cases[0],
+                prefill_cases[0])
     torch.cuda.synchronize()
     return out
 
@@ -1996,6 +2031,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(torch)
 
+    # 14. the MoE LMs, granite-moe-3b-a800m and qwen2-moe-a2.7b, full
+    # width; phase 13's weights were its own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_runs = phase_moe(torch, mux, rows, prompt_len, new_tokens)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -2032,6 +2073,8 @@ def main() -> int:
         meta[kname] = meta[wrapper]
     for kname, (wrapper, _) in BF16_REST_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, (wrapper, _, _) in MOE_ROWS.items():
+        meta[kname] = meta[wrapper]
     rest_runs = {"rwkv": rwkv["ring, bf16"]["launches"],
                  "whisper": whisper["bf16"]["launches"], "bert": bert["bf16"]}
     rows_json = []
@@ -2040,7 +2083,10 @@ def main() -> int:
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in BF16_REST_ROWS:       # phases 6-8's bf16 runs
+        if kname in MOE_ROWS:             # phase 14's run of that arch
+            wrapper, arch, run = MOE_ROWS[kname]
+            launches = moe_runs[arch][run]["launches"][wrapper]
+        elif kname in BF16_REST_ROWS:     # phases 6-8's bf16 runs
             wrapper, run = BF16_REST_ROWS[kname]
             launches = rest_runs[run][wrapper]
         elif kname in BF16_ROWS:          # phase 10's run of that arch
@@ -2173,7 +2219,8 @@ def serve_once(params, sc, rows, trace, new_tokens, ref_bytes=True,
           f"{sc.kv_bytes_per_token()}); launches {launches}", flush=True)
     return {"outputs": {r.uid: r.output for r in stats["completed"]},
             "launches": launches, "by_storage": by_storage,
-            "decode_ms": decode_ms, "chunk_ms": chunk_ms, "tok_s": tok_s}
+            "decode_ms": decode_ms, "chunk_ms": chunk_ms, "tok_s": tok_s,
+            "forwards": dsteps + chunks}
 
 
 def clone_pages(c):
@@ -2327,7 +2374,7 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
           f"steps; prefill p50 {statistics.median(pre):.3f} ms over "
           f"{events} prefills; launches {launches}", flush=True)
     return {"outputs": {r.uid: r.output for r in stats["completed"]},
-            "launches": launches}
+            "launches": launches, "forwards": dsteps + events}
 
 
 def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
@@ -3282,14 +3329,21 @@ def kernels_as_plain():
         ops._on_cpu = on_cpu
 
 
-def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32=None):
-    """Phase 10's gate on one set of logits (fp32 copies; phases 6-8 use
-    it too): the kernel path against the same model with the wrappers at
-    their plain versions (``kernels_as_plain``), within
+def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32=None,
+                     routing=None):
+    """Phase 10's gate on one set of logits (fp32 copies; phases 6-8 and
+    14 use it too): the kernel path against the same model with the
+    wrappers at their plain versions (``kernels_as_plain``), within
     ``BF16_LOGIT_ULPS`` bf16 ulps of the kernel path's |logits| max.  Also
     prints what the plain model path (``attention_core``'s and the
     oracle's rounding points) and, where given, fp32 compute read against
-    the kernel path, and whether the argmax moved."""
+    the kernel path, and whether the argmax moved.  ``routing`` (an MoE
+    model): the two runs' ``blocks.record_moe`` records.  A routing
+    decision is a step function of the router's bf16 logits, so where the
+    logits differ by more than the tolerance the two runs must have chosen
+    differently (``routing_flip``), first where a token's router logits
+    moved by at most ``BF16_LOGIT_ULPS`` bf16 ulps of their largest
+    |value|: a near tie that the kernels' rounding tips."""
     err = (kernel - plain).abs().max().item()
     tol = BF16_LOGIT_ULPS * BF16_ULP * kernel.abs().max().item()
     am = kernel.argmax(-1)
@@ -3304,8 +3358,40 @@ def bf16_logit_check(kind, what, kernel, plain, model_plain, fp32=None):
           + "; argmax moved in " + " / ".join(
               str(int((am != x.argmax(-1)).sum())) for x in [plain] + others)
           + f" of {am.numel()} rows", flush=True)
+    if err > tol and routing is not None:
+        flip = routing_flip(*routing)
+        need(flip is not None, f"{kind}: the {what} logits differ by {err} "
+             f"> {tol} with every MoE routing decision alike")
+        call, n_tok, gap = flip
+        print(f"  {kind}: {what}: the two runs route differently from "
+              f"layer {call} on, {n_tok} token(s) there, whose router "
+              f"logits moved by {gap:.2f} bf16 ulps of their largest |value| "
+              f"(tol {BF16_LOGIT_ULPS}): a near tie tipped by rounding; past "
+              f"it the logits are another routing's", flush=True)
+        need(gap <= BF16_LOGIT_ULPS, f"{kind}: the {what} routing differs "
+             f"where the router logits moved by {gap:.2f} bf16 ulps")
+        return
     need(err <= tol, f"{kind}: the bf16 kernel path's {what} logits differ "
          f"from its plain versions' by {err} > {tol}")
+
+
+def routing_flip(a, b):
+    """The first MoE call at which two runs' ``blocks.record_moe`` records
+    choose different experts (or the same in another order): (its index,
+    the tokens whose choices differ, and how far those tokens' router
+    logits moved between the runs: the largest |difference|, in bf16 ulps
+    of the token's largest |router logit|); None if every call chose
+    alike.  Every earlier call chose alike, so the router's inputs there
+    differ by the kernels' rounding alone."""
+    import torch
+    for i, (x, y) in enumerate(zip(a, b)):
+        if torch.equal(x["topi"], y["topi"]):
+            continue
+        diff = (x["topi"] != y["topi"]).any(-1)
+        la, lb = x["logits"][diff], y["logits"][diff]
+        moved = (la - lb).abs().amax(-1) / (BF16_ULP * la.abs().amax(-1))
+        return i, int(diff.sum()), moved.max().item()
+    return None
 
 
 def bf16_vs_plain(params, sc, rows, trace, prompt_len, label):
@@ -3342,17 +3428,22 @@ def bf16_vs_plain(params, sc, rows, trace, prompt_len, label):
 
     def three(fn, cache):
         """The kernel path on ``cache``, its plain versions and the plain
-        model path each on a copy of it as it was."""
+        model path each on a copy of it as it was; an MoE model's records
+        of the first two runs."""
+        from repro_torch.models import blocks
         twins = clone_pages(cache), clone_pages(cache)
-        got = fn(sc, cache)
-        with kernels_as_plain():
+        with blocks.record_moe() as ks:
+            got = fn(sc, cache)
+        with kernels_as_plain(), blocks.record_moe() as ps:
             plain = fn(sc, twins[0])
-        return got, plain, fn(sc, twins[1], False)
+        routing = (ks, ps) if sc.cfg.moe is not None else None
+        return (got, plain, fn(sc, twins[1], False)), routing
     sc32 = dataclasses.replace(sc, dtype=torch.float32, kv_dtype=store)
     c32 = fresh(sc32)
     cache = fresh(sc)
-    bf16_logit_check(kind, "chunk", *three(chunk, cache), chunk(sc32, c32))
-    bf16_logit_check(kind, "decode", *three(step, cache), step(sc32, c32))
+    for what, fn in (("chunk", chunk), ("decode", step)):
+        runs, routing = three(fn, cache)
+        bf16_logit_check(kind, what, *runs, fn(sc32, c32), routing=routing)
 
 
 def bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens, label):
@@ -3381,18 +3472,21 @@ def bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens, label):
                 b[key].copy_(a[key])
             b["idx"] = a["idx"]
         return c
+    from repro_torch.models import blocks
     sc, cache, logits = prefilled(torch.bfloat16)
     dtok = logits.argmax(-1)[:, None]
     twins = twin(), twin()
-    got = engine.decode_step(params, sc, cache, dtok, pos)[0]
-    with kernels_as_plain():
+    with blocks.record_moe() as ks:
+        got = engine.decode_step(params, sc, cache, dtok, pos)[0]
+    with kernels_as_plain(), blocks.record_moe() as ps:
         plain = engine.decode_step(params, sc, twins[0], dtok, pos)[0]
     model_plain = engine.decode_step(params, sc, twins[1], dtok, pos,
                                      use_kernels=False)[0]
     sc32, cache32, _ = prefilled(torch.float32)
     fp32 = engine.decode_step(params, sc32, cache32, dtok, pos)[0]
     bf16_logit_check(f"{label}ring", "decode", got.float(), plain.float(),
-                     model_plain.float(), fp32)
+                     model_plain.float(), fp32,
+                     routing=(ks, ps) if cfg.moe is not None else None)
 
 
 def near_ties(params, cfg, mux, rows, trace, label):
@@ -4627,6 +4721,374 @@ def serve_trained(torch, out):
           f"{share:.5f}; {smi_line()}", flush=True)
     need(err <= LOGIT_TOL, "(d) kernel path disagrees with the plain path")
     need(share >= ARGMAX_SHARE, f"(d) argmax identical at {share}")
+
+
+# phase 14: the MoE LMs at full width
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen2-moe-a2.7b")
+MOE_TAGS = {"granite-moe-3b-a800m": "granite", "qwen2-moe-a2.7b": "qwen2-moe"}
+# phase 3's rows at phase 14's shapes: the wrapper, the architecture and
+# the phase-14 run whose launches the JSON reports
+MOE_ROWS = {
+    **{f"{w}[{tag}{sfx}]": (w, arch, run)
+       for arch, tag in MOE_TAGS.items()
+       for sfx, run in (("", "fp32"), (", bf16 q, bf16", "bf16"))
+       for w in ("paged_attention", "paged_prefill_attention")},
+    "mux_embed_combine[granite]": ("mux_embed_combine",
+                                   "granite-moe-3b-a800m", "fp32"),
+}
+# the MoE dispatch's kernels in a profiled step (lower-case name
+# substrings): its sorts, gathers, scatters and searchsorted; the expert
+# products are matmuls, as the attention projections are
+MOE_DISPATCH = ("sort", "gather", "scatter", "searchsorted")
+MOE_TRAIN = {"batch": 2, "seq": 128, "lr": 1e-4}
+
+
+def moe_kernels(torch, timer, record, pool, sdpa, store, decode_case,
+                prefill_case):
+    """Phase 3's rows at phase 14's shapes, read from the configs: both
+    paged kernels at granite-moe-3b-a800m's heads (24 over 8 of 64) and
+    qwen2-moe-a2.7b's (16 over 16 of 128) at phase 4's decode rows and
+    32-token chunk, in fp32 (within ATT_TOL of the plain version) and with
+    a bf16 q over bf16 pages (within one bf16 ulp of the row max), and the
+    fused entry at granite's vocabulary 49155 and d 1536 (T 4 and 32).
+    Each timed beside its library call and its bound."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mux_embed as km
+    from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rng = np.random.default_rng(37)     # phase 3's other rows keep theirs
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    case, lens, qpos, mb, p = decode_case
+    pcase, plens, qs, ql, lq, pmb, pp_ = prefill_case
+    for arch, tag in MOE_TAGS.items():
+        cfg = get_config(arch)
+        h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        heads = f"{arch}: {h} over {hkv} of {dh}"
+        for kind in ("fp32", "bf16"):
+            sfx = "" if kind == "fp32" else ", bf16 q, bf16"
+            dt = torch.float32 if kind == "fp32" else bf
+
+            def check(name, what, got, want, timing):
+                if kind == "fp32":
+                    record(name, what, (got - want).abs().max().item(),
+                           ATT_TOL, timing)
+                else:
+                    err, share = bf16_share(got, want, 1)
+                    record(name, what, err, "1 bf16 ulp of the row max",
+                           timing, share=share)
+            k_p, v_p, bt, pp = pool(lens, P=p, MB=mb, hkv=hkv, dh=dh)
+            kq, vq, _ = (k_p, v_p, {}) if kind == "fp32" else store(
+                kind, k_p, v_p)
+            q = t(rng.standard_normal((len(lens), 1, h, dh),
+                                      np.float32)).to(dt)
+            qp = t(np.asarray(qpos, np.int32))
+            nb, fl, work = attn_bytes_flops(q, bt, pp, qp[:, None], hkv, dh,
+                                            elem=kq.element_size())
+            bms, by = (bound(nb, fl) if kind == "fp32"
+                       else bound(nb, fl // 2, fl // 2))
+            check(f"paged_attention[{tag}{sfx}]", f"{case}; {heads}",
+                  kp.paged_attention_cuda(q, kq, vq, bt, pp, qp),
+                  ref.paged_attention_ref(q, kq, vq, bt, pp, qp), {
+                      "work": work,
+                      "ms": timer(lambda: kp.paged_attention_cuda(
+                          q, kq, vq, bt, pp, qp)),
+                      "plain_ms": timer(lambda: ref.paged_attention_ref(
+                          q, kq, vq, bt, pp, qp)),
+                      "library_ms": timer(lambda: sdpa(q, kq, vq, bt, pp,
+                                                       qp[:, None])),
+                      "bound_ms": bms, "bound_by": by, "bytes": nb,
+                      "flops": fl})
+
+            k_p, v_p, bt, pp = pool(plens, P=pp_, MB=pmb, hkv=hkv, dh=dh)
+            kq, vq, _ = (k_p, v_p, {}) if kind == "fp32" else store(
+                kind, k_p, v_p)
+            q = t(rng.standard_normal((len(plens), lq, h, dh),
+                                      np.float32)).to(dt)
+            qs_t = t(np.asarray(qs, np.int32))
+            ql_t = t(np.asarray(ql, np.int32))
+            li = torch.arange(lq, device=dev)[None]
+            qrows = qs_t[:, None] + li
+            masked = (li >= ql_t[:, None]) | (qs_t[:, None] < 0)
+            nb, fl, work = attn_bytes_flops(
+                q, bt, pp, torch.where(masked, -1, qrows), hkv, dh,
+                elem=kq.element_size())
+            bms, by = (bound(nb, fl) if kind == "fp32"
+                       else bound(nb, fl // 2, fl // 2))
+            check(f"paged_prefill_attention[{tag}{sfx}]", f"{pcase}; {heads}",
+                  kp.paged_prefill_attention_cuda(q, kq, vq, bt, pp, qs_t,
+                                                  ql_t),
+                  ref.paged_prefill_attention_ref(q, kq, vq, bt, pp, qs_t,
+                                                  ql_t), {
+                      "work": work,
+                      "ms": timer(lambda: kp.paged_prefill_attention_cuda(
+                          q, kq, vq, bt, pp, qs_t, ql_t)),
+                      "plain_ms": timer(
+                          lambda: ref.paged_prefill_attention_ref(
+                              q, kq, vq, bt, pp, qs_t, ql_t)),
+                      "library_ms": timer(lambda: sdpa(q, kq, vq, bt, pp,
+                                                       qrows)),
+                      "bound_ms": bms, "bound_by": by, "bytes": nb,
+                      "flops": fl})
+
+    # granite's fused entry: vocabulary 49155, d 1536, no embedding scale
+    g = get_config("granite-moe-3b-a800m")
+    d, vocab = g.d_model, g.vocab_size
+    emb = t(rng.standard_normal((vocab, d), np.float32) * 0.02)
+    v = t(rng.standard_normal((2, d), np.float32))
+    for tt in (4, 32):
+        tok = t(rng.integers(0, vocab, (2, tt)).astype(np.int32))
+        tl = tok.long()
+        got = km.mux_embed_combine_cuda(tok, emb, v)
+        nb = embed_bytes(tok, d, 4)
+        bms, by = bound(nb, 3 * 2 * tt * d)
+        record("mux_embed_combine[granite]", f"granite: T={tt} V {vocab} "
+               f"d {d}", (got - ref.mux_embed_ref(tok, emb, v)).abs().max()
+               .item(), MUX_TOL, {
+                   "ms": timer(lambda: km.mux_embed_combine_cuda(tok, emb,
+                                                                 v)),
+                   "plain_ms": timer(lambda: ref.mux_embed_ref(tok, emb, v)),
+                   "library_ms": timer(lambda: torch.einsum(
+                       "ntd,nd->td", F.embedding(tl, emb), v) * 0.5),
+                   "bound_ms": bms, "bound_by": by, "bytes": nb,
+                   "flops": 3 * 2 * tt * d,
+                   "work": f"{tok.unique().numel()} distinct table rows of "
+                           f"{tok.numel()} gathers"})
+    del emb
+
+
+def moe_log(label, stats, cfg, forwards):
+    """Check and print phase 14's MoE record of one run (``blocks.
+    record_moe``): one MoE call a layer a forward; the assignments dropped
+    past capacity in each prefill event (a forward of one row) and in the
+    decode steps, and the load per expert summed over the run."""
+    import torch
+    need(len(stats) == cfg.n_layers * forwards,
+         f"{label}: {len(stats)} MoE calls, want {cfg.n_layers} a forward "
+         f"over {forwards} forwards")
+    per_fwd = [stats[i:i + cfg.n_layers]
+               for i in range(0, len(stats), cfg.n_layers)]
+    drops = [int(torch.stack([s["dropped"] for s in f]).sum())
+             for f in per_fwd]
+    pre = [(f[0]["shape"], n) for f, n in zip(per_fwd, drops)
+           if f[0]["shape"][1] > 1]
+    dec = sum(n for f, n in zip(per_fwd, drops) if f[0]["shape"][1] == 1)
+    load = torch.stack([s["load"] for s in stats]).sum(0).tolist()
+    caps = sorted({(s["tokens"], s["cap"]) for s in stats})
+    print(f"  {label}: {len(stats)} MoE calls ({cfg.n_layers} a forward, "
+          f"{forwards} forwards); capacity by tokens {caps}; dropped "
+          f"assignments per prefill event (all layers) "
+          f"{[n for _, n in pre]} over shapes "
+          f"{sorted({sh for sh, _ in pre})}, in the decode steps {dec}; "
+          f"load per expert (assignments over the run) {load}",
+          flush=True)
+
+
+def phase_moe(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 14: granite-moe-3b-a800m, then qwen2-moe-a2.7b, full width
+    from seeded random weights, on the phase-4 trace.  granite in fp32:
+    paged chunked on fp32 and int8 pages, the ring arm, paged blocking
+    with ``attn_impl='flash'`` and fill-drain, every request complete,
+    launch counts exact and one MoE call a layer a forward (dropped
+    assignments per prefill event and the per-expert load printed), then
+    the kernel path against the plain path (a chunk's and a decode step's
+    logits from identical caches within 2e-3, greedy tokens identical);
+    at the default bf16 paged chunked and on the ring (launch counts
+    exact, logits against ``kernels_as_plain`` within
+    ``BF16_LOGIT_ULPS``, greedy agreement with fp32 printed); one decode
+    step twice from the same cache (bit for bit), once under
+    ``torch.cuda.set_sync_debug_mode("error")`` and once under the
+    profiler; one AdamW step on the plain path (2 x 128 tokens, N=2,
+    remat on).  qwen2-moe-a2.7b (53.3 GiB of fp32 weights) paged chunked
+    in fp32 then bf16 with the same checks, and the peak memory.  Returns
+    {arch: {run: result}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (TransformerLM, active_param_count,
+                                    blocks, param_count)
+    from repro_torch.serve import engine
+    print(f"phase 14: granite-moe-3b-a800m and qwen2-moe-a2.7b full width; "
+          f"{smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in MOE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        m = cfg.moe
+        t0 = time.perf_counter()
+        params = TransformerLM.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(params))
+        print(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
+              f"{cfg.head_dim}, {m.n_experts} experts top {m.top_k} of "
+              f"{m.d_expert}, {m.n_shared} shared of {m.d_shared}, "
+              f"capacity factor {m.capacity_factor}, vocab "
+              f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+              f"({param_count(cfg) / 1e9:.3f} B backbone, "
+              f"{active_param_count(cfg) / 1e9:.3f} B active) in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+              flush=True)
+        trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+        label = f"{MOE_TAGS[arch]} "
+        granite = arch == MOE_ARCHS[0]
+        runs = {}
+        sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+                                capacity=prompt_len + new_tokens + 8,
+                                cache_layout="paged", block_size=16)
+        for kind in ("fp32", "int8") if granite else ("fp32",):
+            with blocks.record_moe() as stats:
+                runs[kind] = serve_once(
+                    params, dataclasses.replace(sc, kv_dtype=kind), rows,
+                    trace, new_tokens, ref_bytes=False, label=label)
+            moe_log(f"{label}{kind} pages", stats, cfg,
+                    runs[kind]["forwards"])
+        compare_paths(params, dataclasses.replace(sc, kv_dtype="fp32"), rows,
+                      trace, prompt_len, runs["fp32"], identical=True,
+                      label=label)
+        if granite:
+            cfg_flash = cfg.replace(attn_impl="flash")
+            for mode in ("ring", "blocking", "fill-drain"):
+                with blocks.record_moe() as stats:
+                    runs[mode] = serve_dense(params, cfg_flash, mux, rows,
+                                             trace, new_tokens, mode,
+                                             label=label)
+                moe_log(f"{label}{mode}", stats, cfg, runs[mode]["forwards"])
+        sc16 = dataclasses.replace(sc, dtype=torch.bfloat16)
+        with blocks.record_moe() as stats:
+            runs["bf16"] = serve_once(params, sc16, rows, trace, new_tokens,
+                                      ref_bytes=False, label=f"{label}bf16 ")
+        moe_log(f"{label}bf16 pages", stats, cfg, runs["bf16"]["forwards"])
+        bf16_vs_plain(params, sc16, rows, trace, prompt_len, f"{label}bf16 ")
+        same, total = agreement(runs["bf16"]["outputs"],
+                                runs["fp32"]["outputs"])
+        print(f"  {label}bf16 pages: greedy tokens identical to the fp32 "
+              f"run: {same}/{total} ({same / total:.3f})", flush=True)
+        if granite:
+            runs["ring, bf16"] = serve_dense(params, cfg, mux, rows, trace,
+                                             new_tokens, "ring",
+                                             label=f"{label}bf16 ",
+                                             dtype=torch.bfloat16)
+            bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens,
+                               f"{label}bf16 ")
+            moe_decode_checks(torch, params, sc, rows, trace, label)
+            moe_train_step(torch, params, cfg, mux)
+        out[arch] = runs
+        print(f"  {arch}: torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{smi_line()}", flush=True)
+        del params
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line()}", flush=True)
+    return out
+
+
+def moe_decode_checks(torch, params, sc, rows, trace, label):
+    """Phase 14 on one granite decode step of every row (each row's first
+    32 prompt tokens prefilled): the step twice from copies of one cache,
+    bit for bit; once more under ``set_sync_debug_mode("error")`` (the
+    dispatch makes no host sync); then its host wall time over 5 steps and
+    one step under ``torch.profiler``: device busy, idle share, kernels
+    and device time by group (``profile_step.STEP_GROUPS`` and "moe
+    dispatch", ``MOE_DISPATCH``)."""
+    from repro_torch.launch import profile_step
+    from repro_torch.serve import engine
+    cache = engine.init_cache(sc, 2 * rows, device="cuda")
+    pool = engine.make_pool(sc, 2 * rows)
+    for j in range(rows):
+        pool.allocate(j, 64)
+    engine.set_block_tables(cache, pool.table_array(range(rows)))
+    for j in range(rows):
+        toks = torch.as_tensor(trace[2 * j][1][:32],
+                               device="cuda").repeat(2, 1)
+        engine.prefill_chunk(params, sc, cache, toks, rows=[j], start=0,
+                             length=32)
+    dtok = torch.as_tensor([[int(trace[j % len(trace)][1][32])]
+                            for j in range(2 * rows)], device="cuda")
+    pos = torch.full((rows,), 32, dtype=torch.int32, device="cuda")
+    twins = [clone_pages(cache) for _ in range(3)]
+    a = engine.decode_step(params, sc, twins[0], dtok, pos)[0]
+    b = engine.decode_step(params, sc, twins[1], dtok, pos)[0]
+    torch.cuda.synchronize()
+    need(torch.equal(a, b), f"{label}decode step: a repeat from the same "
+         "cache changed the logits' bits")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = engine.decode_step(params, sc, twins[2], dtok, pos)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    need(torch.equal(a, c), f"{label}decode step under sync debug differs")
+    print(f"  {label}decode step ({rows} rows at 32): bit for bit over two "
+          f"calls from one cache; a third under set_sync_debug_mode('error') "
+          f"made no host sync and gave the same bits", flush=True)
+
+    def step():
+        engine.decode_step(params, sc, cache, dtok, pos)
+    step()
+    wall = profile_step.wall_time(step, 5)
+    trace_, prof_wall = profile_step.profile_calls(step, 1)
+    profile_step.summarize(f"  {label}fp32 decode step, profiled", trace_, 1,
+                           wall / 5, prof_wall, 8,
+                           {"moe dispatch": MOE_DISPATCH,
+                            **profile_step.STEP_GROUPS})
+    print(f"  {smi_line()}", flush=True)
+
+
+def moe_train_step(torch, params, cfg, mux):
+    """Phase 14: one AdamW step of full-width granite-moe on the plain
+    model path from phase 14's weights: seeded 2 x 128 tokens at N=2,
+    remat on, the causal-LM loss plus ``router_aux_weight * aux`` (the
+    launcher's); loss, aux and grad norm finite; ms (CUDA events) and the
+    peak memory (params, grads and both moments) printed."""
+    import numpy as np
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import causal_lm_loss, make_train_step
+    c = cfg.replace(remat=True)
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        4, c.vocab_size, (MOE_TRAIN["batch"], MOE_TRAIN["seq"])),
+        device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(lr=MOE_TRAIN["lr"])
+    state = opt.init(params)
+
+    def loss_fn(p, batch, generator):
+        out = TransformerLM.apply(p, c, batch["tokens"], mux=mux,
+                                  dtype=torch.float32, use_kernels=False)
+        xent = causal_lm_loss(out["logits"], batch["tokens"])
+        return (xent + c.moe.router_aux_weight * out["aux"],
+                {"xent": xent.detach(), "aux": out["aux"].detach()})
+    step = make_train_step(loss_fn, opt)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, state, met = step(params, state, {"tokens": toks},
+                         torch.Generator("cuda").manual_seed(0))
+    b.record()
+    b.synchronize()
+    vals = {k: float(met[k]) for k in ("loss", "xent", "aux", "grad_norm")}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {cfg.name} AdamW step on the plain path: "
+          f"{MOE_TRAIN['batch']} x {MOE_TRAIN['seq']} at N=2, remat on: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+          + f"; {a.elapsed_time(b):.1f} ms (CUDA events); peak "
+          f"{peak / 2**30:.2f} GiB; {smi_line()}", flush=True)
+    need(all(map(math.isfinite, vals.values())),
+         f"{cfg.name} training step: not finite {vals}")
+    del state
+    for t in _leaves(params):
+        t.requires_grad_(False)
 
 
 def _leaves(tree):

@@ -19,7 +19,12 @@ each pattern position's params over the periods (leading axis
 leftover layers unstacked under ``tail``; the port keeps one dict per
 layer in a list, whatever the block kind (attention or RWKV), and an
 untied ``lm_head`` beside the embedding.  Leaf layouts are the
-reference's ((in, out) weights), so no leaf is transposed.
+reference's ((in, out) weights), so no leaf is transposed; an MoE
+layer's stacked experts (``w_up`` / ``w_gate`` (E, d, f), ``w_down``
+(E, f, d)) take the period axis in front, as every leaf does, beside its
+``router`` and ``shared_*`` linears.  The cache converters below hold
+for the MoE configs as for the dense ones: their caches are attention
+pages or rings.
 ``pages_from_reference`` carries one layer's reference page pool across
 bit for bit, ``ring_cache_from_reference`` a whole reference ring cache.
 ``paged_cache_to_reference`` / ``paged_cache_from_reference`` map a

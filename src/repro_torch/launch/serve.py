@@ -16,7 +16,8 @@ Three modes, as in the reference:
         --no-reduced --mux-n 2 --requests 8 --new-tokens 16
 
 Architectures: the dense LMs ``--arch qwen2-1.5b`` (default),
-``gemma-2b``, ``gemma-7b`` and ``h2o-danube-1.8b`` (every arm),
+``gemma-2b``, ``gemma-7b`` and ``h2o-danube-1.8b`` and the MoE LMs
+``granite-moe-3b-a800m`` and ``qwen2-moe-a2.7b`` (every arm),
 ``--arch rwkv6-7b`` (RWKV6, on the ring arm and in fill-drain: the
 reference's paged arm fails on RWKV, so ``--cache paged`` with it is an
 error) and ``--arch whisper-small`` (encoder-decoder, fill-drain only,

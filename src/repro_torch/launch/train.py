@@ -12,12 +12,14 @@ The flags and defaults are the reference's, plus ``--device`` (``cuda``
 unless the caller names the CPU; no card raises).  ``--model
 mux-bert-{small,base,large}`` or ``mux-electra-base`` trains
 ``MuxBERT`` at the launcher's synthetic vocabulary (``--vocab``, 512);
-``--arch`` trains one of the served decoder-only LMs on ``MarkovCorpus``
-at the config's vocabulary, which the corpus's (V - 4)² float64 CDF
-keeps to ``--reduced`` configs.  Both run through ``Supervisor`` with
-async checkpoints and straggler detection, on the plain model path
-(``use_kernels=False``: the kernels have no backward), in fp32 with TF32
-off, and print the reference's stage lines and ``done.``.
+``--arch`` trains one of the served decoder-only LMs (the MoE ones with
+their routers' aux loss, weighted by ``router_aux_weight``) on
+``MarkovCorpus`` at the config's vocabulary, which the corpus's (V - 4)²
+float64 CDF keeps to ``--reduced`` configs.  Both run through
+``Supervisor`` with async checkpoints and straggler detection, on the
+plain model path (``use_kernels=False``: the kernels have no backward),
+in fp32 with TF32 off, and print the reference's stage lines and
+``done.``.
 """
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ from repro_torch.train.mux_stages import mlm_stage, retrieval_stage
 
 MODELS = ("mux-bert-small", "mux-bert-base", "mux-bert-large",
           "mux-electra-base")
-MOE_ARCHS = ("granite-moe-3b-a800m", "qwen2-moe-a2.7b")
 CORPUS_CDF_LIMIT = 8 << 30      # bytes of MarkovCorpus's float64 CDF
 
 
@@ -86,9 +87,6 @@ def _check(ap, args):
         ap.error("--arch whisper-small: an encoder-decoder; the causal-LM "
                  "trainer takes decoder-only LMs (the reference's builds a "
                  "TransformerLM for it and fails)")
-    if args.arch in MOE_ARCHS:
-        ap.error(f"--arch {args.arch}: MoE blocks are not in the port yet "
-                 "(ROADMAP §1 item 14)")
     if args.arch in MODELS:
         ap.error(f"--arch {args.arch}: a paper model; use --model")
     if args.arch not in ARCHS:
@@ -118,10 +116,12 @@ def main(argv=None, *, out: dict | None = None) -> int:
         params = TransformerLM.init(gen, cfg, mux)
 
         def loss_fn(p, batch, generator):
-            logits = TransformerLM.apply(p, cfg, batch["tokens"], mux=mux,
-                                         dtype=torch.float32,
-                                         use_kernels=False)["logits"]
-            return causal_lm_loss(logits, batch["tokens"]), {}
+            out = TransformerLM.apply(p, cfg, batch["tokens"], mux=mux,
+                                      dtype=torch.float32, use_kernels=False)
+            loss = causal_lm_loss(out["logits"], batch["tokens"])
+            if cfg.moe is not None:      # the routers' load-balancing loss
+                loss = loss + cfg.moe.router_aux_weight * out["aux"]
+            return loss, {}
         stages = [("lm", loss_fn, args.steps)]
     else:
         name = args.model or "mux-bert-base"

@@ -49,9 +49,20 @@ self-attention over a ring, then attends over the encoder's output:
 the layer keeps in its cache (``xk``/``xv``, (B, Lenc, Hkv, Dh)), the
 cached cross-K/V at a decode step.  Ring only, as in the reference.
 
-The MoE and RG-LRU branches are later slices.
+An attention block's FFN is dense (GLU or plain) or, with ``cfg.moe``
+set, a mixture of experts (``apply_moe``): a softmax router picks each
+token's top_k experts, each expert takes at most ``moe_capacity`` of its
+assignments (the rest are dropped), the stacked (E, d, f) expert weights
+run as one batched product, and shared experts add a plain GLU.  Its
+load-balancing aux loss goes on ``ctx['aux']`` (a list the backbone sums
+into its output's ``"aux"``).  The dispatch makes no host sync: static
+shapes, sorts and gathers, no boolean-mask indexing.
+
+The RG-LRU branch is a later slice.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -70,6 +81,8 @@ def _norm(cfg):
 
 
 def init_ffn(generator, cfg):
+    if cfg.moe is not None:
+        return init_moe(generator, cfg)
     d, f = cfg.d_model, cfg.d_ff
     p = {"up": Linear.init(generator, d, f, use_bias=False),
          "down": Linear.init(generator, f, d, use_bias=False)}
@@ -78,14 +91,236 @@ def init_ffn(generator, cfg):
     return p
 
 
-def apply_ffn(p, cfg, x):
+def apply_ffn(p, cfg, x, ctx=None):
+    """The dense FFN's output, or the MoE FFN's (output, aux), as the
+    reference's."""
+    if cfg.moe is not None:
+        return apply_moe(p, cfg, x, ctx)
+    return _glu(p, cfg, x, "")
+
+
+def _glu(p, cfg, x, prefix):
+    """The dense FFN over ``p[prefix + 'up' | 'gate' | 'down']``."""
     act = ACTIVATIONS[cfg.activation]
-    u = Linear.apply(p["up"], x)
+    u = Linear.apply(p[prefix + "up"], x)
     if cfg.glu:
-        u = act(Linear.apply(p["gate"], x)) * u
+        u = act(Linear.apply(p[prefix + "gate"], x)) * u
     else:
         u = act(u)
-    return Linear.apply(p["down"], u)
+    return Linear.apply(p[prefix + "down"], u)
+
+
+def _block_ffn(p, cfg, h, ctx):
+    """A block's FFN output; an MoE FFN's aux loss goes on ctx['aux']."""
+    y = apply_ffn(p, cfg, h, ctx)
+    if isinstance(y, tuple):
+        y, aux = y
+        if ctx.get("aux") is not None:
+            ctx["aux"].append(aux)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: top-k routing, capacity dispatch by a stable sort, stacked experts
+# ---------------------------------------------------------------------------
+
+def init_moe(generator, cfg):
+    """The reference's leaves: ``router`` (d, E), the stacked experts
+    ``w_up`` / ``w_gate`` (E, d, f) and ``w_down`` (E, f, d), and with
+    shared experts ``shared_up`` / ``shared_gate`` / ``shared_down``, one
+    GLU n_shared * d_shared wide."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_expert, m.n_experts
+    p = {"router": Linear.init(generator, d, e, use_bias=False),
+         "w_up": normal(generator, (e, d, f), 0.02),
+         "w_down": normal(generator, (e, f, d), 0.02)}
+    if cfg.glu:
+        p["w_gate"] = normal(generator, (e, d, f), 0.02)
+    if m.n_shared:
+        fs = (m.d_shared or m.d_expert) * m.n_shared
+        p["shared_up"] = Linear.init(generator, d, fs, use_bias=False)
+        p["shared_down"] = Linear.init(generator, fs, d, use_bias=False)
+        if cfg.glu:
+            p["shared_gate"] = Linear.init(generator, d, fs, use_bias=False)
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg) -> int:
+    """Assignments an expert takes from ``n_tokens`` tokens: int(n * k / E
+    * capacity_factor) + 1, rounded up to a multiple of 8, at least 8."""
+    m = cfg.moe
+    c = int(n_tokens * m.top_k / m.n_experts * m.capacity_factor) + 1
+    return max(8, -(-c // 8) * 8)
+
+
+_STATS: list | None = None
+
+
+@contextlib.contextmanager
+def record_moe():
+    """Record every MoE layer call made inside: yields a list that gets
+    one dict per call — ``shape`` ((B, L) of its input),
+    ``tokens`` (the n the capacity is computed from), ``cap``, the
+    router's ``logits`` (fp32, rounded to the compute dtype first) and
+    chosen experts ``topi``, ``dropped`` (a 0-d tensor: assignments past
+    their expert's capacity), ``load`` ((E,) tensor: assignments per
+    expert) and ``aux``.  The tensors stay on the device (no sync)."""
+    global _STATS
+    prev, _STATS = _STATS, []
+    try:
+        yield _STATS
+    finally:
+        _STATS = prev
+
+
+def apply_moe(p, cfg, x, ctx=None):
+    """x (B, L, D) -> (out (B, L, D), aux 0-d fp32), by ``cfg.moe.impl``:
+    'global_sort' routes the B*L tokens as one group, 'local_group' each
+    row as its own (capacity from L)."""
+    if cfg.moe.impl == "local_group":
+        return apply_moe_grouped(p, cfg, x, ctx)
+    return apply_moe_global(p, cfg, x)
+
+
+def _ep_constrain(x, ctx, expert_axis):
+    """The reference pins the expert-parallel layout on its device mesh
+    here.  The port has no mesh before ROADMAP §1 item 12, so this is the
+    identity."""
+    return x
+
+
+def _route(p, cfg, x):
+    """Router: logits in the compute dtype, softmax in fp32, the top_k
+    gates (ties toward the lower expert index, as ``jax.lax.top_k``: a
+    stable descending sort, where ``torch.topk`` promises no order)
+    renormalised to sum to 1.  Returns the logits (widened to fp32) and
+    gates (..., E), topv and topi (..., K)."""
+    k = cfg.moe.top_k
+    logits = Linear.apply(p["router"], x).float()
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    return (logits, gates,
+            topv / topv.sum(-1, keepdim=True).clamp(min=1e-9), topi)
+
+
+def _dispatch(xs, e_flat, k, n_experts, cap):
+    """Capacity dispatch of G groups at once.  xs (G, n, D) tokens; e_flat
+    (G, n*k) their experts in (token, choice) order.  An assignment's
+    place within its expert is its rank in a stable sort of e_flat; places
+    at or past ``cap`` are dropped.  Built from sorts and gathers only, so
+    every kept slot is written once and the result is deterministic.
+    Returns xe (G, E, cap, D) (empty slots zero), slot (G, n*k) into the
+    flattened E*cap slots (clamped in range; a dropped assignment's is
+    weighted 0 by ``keep``), keep (G, n*k) and counts (G, E)."""
+    g, nk = e_flat.shape
+    dev = e_flat.device
+    order = torch.sort(e_flat, dim=1, stable=True).indices
+    e_sorted = torch.gather(e_flat, 1, order)
+    experts = torch.arange(n_experts, device=dev).expand(g, -1).contiguous()
+    start = torch.searchsorted(e_sorted, experts)                  # (G, E)
+    counts = torch.searchsorted(e_sorted, experts, right=True) - start
+    pos_sorted = (torch.arange(nk, device=dev)[None]
+                  - torch.gather(start, 1, e_sorted))
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < cap
+    slot = e_flat * cap + pos.clamp(max=cap - 1)
+    # slot (e, c) holds expert e's c-th assignment in sorted order
+    c = torch.arange(cap, device=dev)
+    src = (start[:, :, None] + c).clamp(max=nk - 1).reshape(g, -1)
+    tok = torch.gather(order, 1, src) // k                    # (G, E*cap)
+    valid = (c < counts.clamp(max=cap)[:, :, None]).reshape(g, -1, 1)
+    d = xs.shape[-1]
+    xe = torch.gather(xs, 1, tok[..., None].expand(-1, -1, d))
+    xe = torch.where(valid, xe, torch.zeros((), dtype=xs.dtype, device=dev))
+    return xe.reshape(g, n_experts, cap, d), slot, keep, counts
+
+
+def _experts(p, cfg, xe):
+    """The routed experts: xe (G, E, cap, D) -> (G, E, cap, D), each
+    expert's GLU over its slots, the stacked weights cast to the compute
+    dtype."""
+    act = ACTIVATIONS[cfg.activation]
+    dt = xe.dtype
+    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
+    if cfg.glu:
+        up = act(torch.einsum("gecd,edf->gecf", xe,
+                              p["w_gate"].to(dt))) * up
+    else:
+        up = act(up)
+    return torch.einsum("gecf,efd->gecd", up, p["w_down"].to(dt))
+
+
+def _gathered(ye, slot, keep, topv):
+    """Each assignment's expert output times its gate weight, the weight
+    rounded to the compute dtype first: (G, n*k, D)."""
+    g, _, _, d = ye.shape
+    yk = torch.gather(ye.reshape(g, -1, d), 1,
+                      slot[..., None].expand(-1, -1, d))
+    return yk * (keep * topv.reshape(g, -1)).to(ye.dtype)[..., None]
+
+
+def _record(x, tokens, cap, logits, topi, keep, counts, aux):
+    if _STATS is not None:
+        _STATS.append({"shape": tuple(x.shape[:2]),
+                       "tokens": tokens, "cap": cap,
+                       "logits": logits.detach(), "topi": topi,
+                       "dropped": (~keep).sum(), "load": counts.sum(0),
+                       "aux": aux.detach()})
+
+
+def apply_moe_global(p, cfg, x):
+    """Sort-based dispatch of all B*L tokens with one static capacity
+    (GShard-style drops), as the reference's ``apply_moe_global``.  A
+    token's K weighted choices add one after another in the compute
+    dtype, as its ``.at[tok].add`` into zeros does (no ``index_add_``,
+    whose CUDA atomics add in no fixed order)."""
+    m = cfg.moe
+    b, l, d = x.shape
+    t = b * l
+    xt = x.reshape(t, d)
+    cap = moe_capacity(t, cfg)
+    logits, gates, topv, topi = _route(p, cfg, xt)        # (T, E), (T, K)
+    xe, slot, keep, counts = _dispatch(xt[None], topi.reshape(1, -1),
+                                       m.top_k, m.n_experts, cap)
+    yk = _gathered(_experts(p, cfg, xe), slot, keep, topv).reshape(
+        t, m.top_k, d)
+    out = yk[:, 0]
+    for j in range(1, m.top_k):
+        out = out + yk[:, j]
+    if m.n_shared:
+        out = out + _glu(p, cfg, xt, "shared_")
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+    density = counts[0].float() / t
+    aux = m.n_experts * torch.sum(density / m.top_k * gates.mean(0))
+    _record(x, t, cap, logits, topi, keep, counts, aux)
+    return out.reshape(b, l, d), aux
+
+
+def apply_moe_grouped(p, cfg, x, ctx=None):
+    """Per-row dispatch, as the reference's ``apply_moe_grouped``:
+    routing, sort and capacity (from L) row by row; a token's K weighted
+    choices are summed in fp32 and rounded once (the reference's
+    reshape-sum)."""
+    m = cfg.moe
+    b, l, d = x.shape
+    cap = moe_capacity(l, cfg)
+    logits, gates, topv, topi = _route(p, cfg, x)         # (B, L, E), K
+    x = _ep_constrain(x, ctx, None)
+    xe, slot, keep, counts = _dispatch(x, topi.reshape(b, -1), m.top_k,
+                                       m.n_experts, cap)
+    ye = _ep_constrain(_experts(p, cfg, _ep_constrain(xe, ctx, 1)), ctx,
+                       None)
+    yk = _gathered(ye, slot, keep, topv)
+    out = yk.reshape(b, l, m.top_k, d).sum(2, dtype=torch.float32).to(
+        x.dtype)
+    if m.n_shared:
+        out = out + _glu(p, cfg, x.reshape(b * l, d), "shared_").reshape(
+            b, l, d)
+    density = counts.float().sum(0) / (b * l)
+    aux = m.n_experts * torch.sum(density / m.top_k * gates.mean((0, 1)))
+    _record(x, l, cap, logits, topi, keep, counts, aux)
+    return out, aux
 
 
 def init_attention(generator, cfg):
@@ -157,7 +392,7 @@ def paged_positions(ctx, batch: int, l: int, device):
 
 def apply_attention(p, cfg, blk, x, ctx, cache):
     x = _self_attention(p, cfg, blk, x, ctx, cache)
-    return x + apply_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x))
+    return x + _block_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x), ctx)
 
 
 def _self_attention(p, cfg, blk, x, ctx, cache):
@@ -437,7 +672,7 @@ def apply_xattn(p, cfg, blk, x, ctx, cache):
         o = multi_head_attention(xq, xk, xv, impl=ctx["impl"], causal=False,
                                  chunk_size=cfg.attn_chunk)
     x = x + Linear.apply(p["xwo"], o.reshape(b, l, -1))
-    return x + apply_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x))
+    return x + _block_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x), ctx)
 
 
 # ---------------------------------------------------------------------------

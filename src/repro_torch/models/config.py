@@ -2,9 +2,10 @@
 
 The same frozen dataclass as the reference, so a reference config and its
 port compare field by field.  The port runs the dense attention blocks
-('attn' / 'local'), RWKV6 ('rwkv') and the cross-attention decoder block
-('xattn', with ``encoder`` set: whisper); ``models.transformer`` rejects
-the rest.  ``attn_impl`` picks the attention of a blocking
+('attn' / 'local'), with a dense or a mixture-of-experts FFN (``moe``
+set: ``MoEConfig``), RWKV6 ('rwkv') and the cross-attention decoder
+block ('xattn', with ``encoder`` set: whisper); ``models.transformer``
+rejects the rest.  ``attn_impl`` picks the attention of a blocking
 (whole-prompt) forward: 'naive', 'chunked' (online softmax over
 ``attn_chunk``-key chunks), 'flash' (the flash-attention kernel) or
 'auto' (chunked above 2048 tokens, else naive), as the reference's field
@@ -14,6 +15,21 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """The reference's MoE FFN settings, the same 8 fields and defaults."""
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    n_shared: int = 0             # always-on shared experts (qwen2-moe)
+    d_shared: int = 0             # shared-expert hidden dim (0 -> d_expert)
+    router_aux_weight: float = 0.01
+    capacity_factor: float = 1.25
+    # dispatch: 'global_sort' (one sort over the B*L tokens) or
+    # 'local_group' (per-row routing, sort and capacity)
+    impl: str = "global_sort"
 
 
 @dataclass(frozen=True)
@@ -41,6 +57,7 @@ class ModelConfig:
     causal: bool = True
     block_pattern: tuple = ("attn",)
     local_window: int = 2048
+    moe: MoEConfig | None = None  # the attention blocks' FFN is MoE
     attn_impl: str = "auto"       # auto|naive|chunked|flash
     attn_chunk: int = 1024
     # rwkv6
@@ -87,6 +104,28 @@ def param_count(cfg: ModelConfig) -> int:
     return n
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top_k routed experts and the
+    shared ones), as the reference's."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    m = cfg.moe
+    per_expert = (3 if cfg.glu else 2) * cfg.d_model * m.d_expert
+    return param_count(cfg) - (m.n_experts - m.top_k) * per_expert \
+        * cfg.n_layers
+
+
+def _ffn_params(cfg: ModelConfig) -> int:
+    d, ff = cfg.d_model, 3 if cfg.glu else 2
+    if cfg.moe is None:
+        return ff * d * cfg.d_ff
+    m = cfg.moe
+    n = m.n_experts * ff * d * m.d_expert + d * m.n_experts   # + router
+    if m.n_shared:
+        n += ff * d * (m.d_shared or m.d_expert) * m.n_shared
+    return n
+
+
 def _block_params(cfg: ModelConfig, blk: str) -> int:
     d, hd = cfg.d_model, cfg.head_dim
     n = 2 * d * (2 if cfg.norm == "ln" else 1)    # two norms (LN has bias)
@@ -100,7 +139,7 @@ def _block_params(cfg: ModelConfig, blk: str) -> int:
     attn += cfg.n_heads * hd * d
     if cfg.qkv_bias:
         attn += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-    ffn = (3 if cfg.glu else 2) * d * cfg.d_ff
+    ffn = _ffn_params(cfg)
     if blk == "xattn":                            # third norm, cross-attn
         return n + d * (2 if cfg.norm == "ln" else 1) + 2 * attn + ffn
     return n + attn + ffn

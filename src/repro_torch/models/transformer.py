@@ -7,10 +7,11 @@ that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
 ``interop`` converts between the two.  Layers are attention blocks, RWKV6
 blocks or cross-attention decoder blocks (``models.blocks`` dispatches on
-``cfg.block_pattern``).  The port serves from a ring cache (blocking
-prefill, decode at one shared position) or a paged cache (blocking or
-chunked prefill, decode at per-row positions) with fp32, bf16, int8 or
-fp8 pages; an RWKV layer's cache is its recurrent state on either
+``cfg.block_pattern``); an attention block's FFN is dense or, with
+``cfg.moe``, a mixture of experts.  The port serves from a ring cache
+(blocking prefill, decode at one shared position) or a paged cache
+(blocking or chunked prefill, decode at per-row positions) with fp32,
+bf16, int8 or fp8 pages; an RWKV layer's cache is its recurrent state on either
 layout.  ``cache=None`` is the no-cache forward (whisper's encoder,
 MUX-BERT).  Positions are RoPE, learned (``params["pos_emb"]``, added
 after the entry) or none.  Embeddings are tied, or untied with
@@ -149,7 +150,9 @@ class TransformerLM:
         normed hidden without the demux (an encoder).  The attention of a
         blocking forward follows ``cfg.attn_impl`` ('auto': chunked above
         2048 tokens, else naive; 'flash' launches the flash kernel).
-        Returns dict(logits | hidden)."""
+        Returns dict(logits | hidden, aux): ``aux`` is the MoE layers'
+        summed load-balancing loss, a 0-d fp32 tensor (0.0 without MoE
+        layers)."""
         _check_supported(cfg, mux)
         check_dtype(dtype)
         d = cfg.d_model
@@ -220,17 +223,24 @@ class TransformerLM:
                  and x.requires_grad)
         n_remat = len(blocks) // pat * pat if remat else 0
 
+        # an MoE layer puts its aux loss on ctx["aux"]; the layers' sum is
+        # the output's "aux", in fp32 (0.0 without MoE layers)
+        aux = ctx["aux"] = []
+
         def period(x, start):
+            sub = {**ctx, "aux": []}
             for i in range(start, start + pat):
-                x = apply_block(params["layers"][i], cfg, blocks[i], x, ctx,
+                x = apply_block(params["layers"][i], cfg, blocks[i], x, sub,
                                 None)
-            return x
+            return (x, *sub["aux"])
 
         for start in range(0, n_remat, pat):
-            x = checkpoint(period, x, start, use_reentrant=False)
+            x, *a = checkpoint(period, x, start, use_reentrant=False)
+            aux += a
         for i in range(n_remat, len(blocks)):
             x = apply_block(params["layers"][i], cfg, blocks[i], x, ctx,
                             None if cache is None else cache["layers"][i])
+        aux_total = sum(aux, torch.zeros((), device=dev)) if aux else 0.0
 
         norm = RMSNorm if cfg.norm == "rms" else LayerNorm
         if fused and demux and mux.demux_kind == "rsa":
@@ -243,8 +253,9 @@ class TransformerLM:
             if demux:
                 x = MuxEngine.separate(params.get("mux_engine", {}), mux, x)
         if logits_out:
-            return {"logits": TransformerLM.logits(params, cfg, x)}
-        return {"hidden": x}
+            return {"logits": TransformerLM.logits(params, cfg, x),
+                    "aux": aux_total}
+        return {"hidden": x, "aux": aux_total}
 
     @staticmethod
     def logits(params, cfg: ModelConfig, hidden):

@@ -5,9 +5,10 @@ gemma-7b (MHA at head_dim 256) and h2o-danube-1.8b (head_dim 80 from
 the reference's reduced configs.  The reduced h2o-danube keeps head_dim
 80 at d 64 and a window of 16, as the reference's does.
 
-  * the registry: ``get_config`` of every served architecture, full and
-    reduced, equal to the reference's field for field (the reference's
-    training-only fields aside), with the same ``param_count``;
+  * the registry: ``get_config`` of every served architecture (the MoE
+    pair too), full and reduced, equal to the reference's field for field
+    (the reference's training-only fields aside; ``moe`` field by field),
+    with the same ``param_count`` and ``active_param_count``;
   * ``interop``: reference -> port -> reference, leaf for leaf;
   * logits within test_torch_model.py's 1e-5 on the plain and the kernel
     path (reference: Pallas in interpret mode; port: the wrappers' plain
@@ -35,14 +36,15 @@ from repro.configs import model_kind as ref_model_kind
 from repro.core import MuxSpec as RefMux
 from repro.launch.serve import run_continuous as ref_run_continuous
 from repro.models import TransformerLM as RefLM
+from repro.models.config import active_param_count as ref_active_param_count
 from repro.models.config import param_count as ref_param_count
 from repro.serve import engine as ref_engine
 from repro_torch import interop
 from repro_torch.configs import ARCHS, get_config, model_kind
 from repro_torch.core import MuxSpec
 from repro_torch.launch import serve as cli
-from repro_torch.models import param_count
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import active_param_count, param_count
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serve import engine
 from test_torch_model import _leaves
 from test_torch_ring import ref_fill_drain
@@ -56,11 +58,15 @@ N = 2
 
 def _same_config(mine, want):
     """Every field of the port's ``ModelConfig`` equals the reference's
-    (an encoder config field by field)."""
+    (an encoder config and an ``MoEConfig`` field by field)."""
     for f in dataclasses.fields(ModelConfig):
         a, b = getattr(mine, f.name), getattr(want, f.name)
         if isinstance(a, ModelConfig):
             _same_config(a, b)
+        elif isinstance(a, MoEConfig):
+            assert [f.name for f in dataclasses.fields(a)] == [
+                f.name for f in dataclasses.fields(b)]
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
         else:
             assert a == b, f.name
 
@@ -71,12 +77,17 @@ def test_served_configs_match_reference(arch, reduced):
     mine, want = get_config(arch, reduced=reduced), ref_config(
         arch, reduced=reduced)
     _same_config(mine, want)
+    assert (mine.moe is None) == (want.moe is None)
     assert param_count(mine) == ref_param_count(want)
+    assert active_param_count(mine) == ref_active_param_count(want)
     assert model_kind(arch) == ref_model_kind(arch)
 
 
 def test_registry_serves_six_architectures():
-    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 6
+    """The six dense / RWKV / encoder-decoder architectures, and since the
+    MoE slice granite-moe-3b-a800m and qwen2-moe-a2.7b: eight."""
+    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 8
+    assert {"granite-moe-3b-a800m", "qwen2-moe-a2.7b"} < set(ARCHS)
     h2o = get_config("h2o-danube-1.8b", reduced=True)
     assert (h2o.d_model, h2o.head_dim, h2o.window) == (64, 80, 16)
 

@@ -21,8 +21,11 @@ init (``repro_torch.interop``); schedules from the reference fuzz's
     fuzz's kill-shard arm (seeds 0 and 1) and its disaggregated kill-shard
     arm (seeds 0 and 1), tokens, prefill events and the recovery counters
     equal to the reference's run of the same arm;
+  * straggler fencing on injected step times, fenced shard, step and
+    counters equal to the reference supervisor's;
   * the CLI's ``--shards 2 --kill-shard 4:1``, ``--shards 2
-    --fence-stragglers`` and a lanes kill print the reference CLI's counts.
+    --fence-stragglers`` and a lanes kill print the reference CLI's counts
+    (the ``stragglers:`` line's two counts, wall-clock figures, masked).
 """
 import re
 
@@ -450,6 +453,47 @@ def test_straggler_fenced_before_failure(models, base2):
     assert all(v == 1 for v in rt.trace_counts.values())
 
 
+def test_straggler_fencing_on_injected_times_as_the_reference(models):
+    """Both packages' supervisors fed the same injected per-shard step
+    times on the same arm — a global stall at step 4, shard 1 alone 50x
+    slow from step 6 — fence the same shard at the same step, count the
+    same global slow steps, kill and replay as the reference does, and
+    serve the same tokens.  (The CLI's ``stragglers:`` counts read the
+    wall clock, so ``cli_counts`` masks them.)"""
+    cfg_r, ref, cfg, port = models
+    runs = {}
+    for name, sup, rt, req in (
+            ("port", RecoverySupervisor(),
+             ServeRuntime(port, sc_port(cfg, n_shards=2), ROWS, chunk=4,
+                          device="cpu"), Request),
+            ("ref", RefSupervisor(),
+             RefRuntime(ref, sc_ref(cfg_r, n_shards=2), ROWS, chunk=4),
+             RefRequest)):
+        sup.enable_straggler_fencing(warmup_steps=3)
+        fenced = []
+
+        def on_step(rt, step, sup=sup, fenced=fenced):
+            live = [s for s in range(2) if s not in rt.sched.dead_shards]
+            times = {s: 0.5 if step == 4 else 0.01 for s in live}
+            if step >= 6 and 1 in times:
+                times[1] = 0.5
+            got = sup.observe_shard_times(rt, times)
+            if got is not None:
+                fenced.append((step, got))
+            sup.note_step()
+            return rt
+
+        out, rt = drive(rt, requests(cfg), req, on_step=on_step)
+        runs[name] = (out, rt, sup, fenced)
+    (out, rt, sup, fenced), (want, rt_r, sup_r, fenced_r) = (runs["port"],
+                                                           runs["ref"])
+    assert fenced == fenced_r and [s for _, s in fenced] == [1]
+    assert sup.stats["global_slow_steps"] == 1
+    assert recovery_counts(sup.stats) == recovery_counts(sup_r.stats)
+    assert rt.pool.dead_shards == {1} == rt_r.pool.dead_shards
+    assert out == want
+
+
 def test_global_slowdown_is_not_fenced(models):
     """Every shard slow at once is a global stall: counted, not fenced;
     the sole shard of a one-shard runtime is never fenced."""
@@ -582,13 +626,20 @@ CLI_CASES = {
 
 
 def cli_counts(out: str):
-    """A serve CLI's count lines (wall-clock figures dropped)."""
+    """A serve CLI's count lines (wall-clock figures dropped).  The two
+    counts of the ``stragglers:`` line are wall-clock figures too: they
+    come from each CLI's own step times, so a loaded machine can make one
+    step slow in one CLI only
+    (``test_straggler_fencing_on_injected_times_as_the_reference`` holds
+    the fencing to the reference on injected times)."""
     got = []
     for line in out.splitlines():
         line = re.sub(r"in [0-9.]+s|[0-9.]+ tok/s|goodput [0-9.]+|"
                       r"attainment [0-9.]+|× [0-9.]+|/cpu|"
                       r"; (worst recovery latency|restore) [0-9.]+ms", "",
                       line)
+        line = re.sub(r"^stragglers: [0-9]+ fenced, [0-9]+ global",
+                      "stragglers: <n> fenced, <n> global", line)
         line = line.replace("compiled [", "step signatures [")
         if line.startswith(("continuous[", "  lane", "routing[", "disagg:",
                             "recovery:", "stragglers:")):

@@ -822,7 +822,7 @@ def test_cli_causal_lm_and_refusals(capsys, tmp_path):
                      "--ckpt", str(tmp_path)], out=got) == 0
     assert got["stages"][0]["steps"] == 1 and got["cfg"].name == "rwkv6-7b"
     for argv, msg in ((["--arch", "whisper-small"], "encoder-decoder"),
-                      (["--arch", "qwen2-moe-a2.7b"], "item 14"),
+                      (["--arch", "qwen2-moe-a2.7b"], "pass --reduced"),
                       (["--arch", "qwen2-1.5b"], "pass --reduced"),
                       (["--model", "mux-bert-huge"], "one of")):
         with pytest.raises(SystemExit):
