@@ -77,6 +77,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 over 8 of 64) and qwen2-moe-a2.7b's (16 over 16 of 128)
                 in fp32 and with a bf16 q over bf16 pages, and the fused
                 entry at granite's vocabulary 49155 and d 1536;
+                phase 15's shapes (``HYBRID_ROWS``), read from
+                recurrentgemma-9b's config, in fp32 and bf16: the ring
+                decode at 16 query heads over 1 KV head of 256 (B 4, C
+                124; the long request's B 1 over a wrapped 2048-slot ring,
+                window 2048), flash attention at the same heads (B 4,
+                causal L 116; B 1, L 2200, window 2048), the demux with its
+                RMS entry at d 4096, F 8192, T 4, and in fp32 the fused
+                entry at vocab 256000, d 4096 scaled by sqrt(d), and the
+                mux-combine entry at (2, 464, 4096);
                 and the timer's floor, a one-element ``add_`` timed the
                 same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
@@ -278,8 +287,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 128 tokens, N=2, remat on: loss and aux finite, peak
                 memory); qwen2-moe-a2.7b paged chunked in fp32 and bf16
                 with the same checks; ``torch.cuda.max_memory_allocated``
-                of each.
-The kernels' JSON line lists every kernel of phases 3-14 and the timer
+                of each;
+  15. hybrid  — phase 14's weights gone, full-width recurrentgemma-9b (38
+                layers: 12 periods of two RG-LRU blocks and one local
+                attention block, a tail of two RG-LRU blocks; 9.40 B
+                params, 35.0 GiB in fp32; seeded random weights) on phase
+                4's trace with ``attn_impl='flash'``: the ring arm in fp32
+                and bf16 and fill-drain in fp32, every request complete,
+                launch counts exact (a ring decode step 12
+                decode_attention and the fused entry and exit once, a grid
+                re-prefill mux_combine once and 12 flash_attention, no
+                paged kernel); kernel path against plain path from
+                identical caches (fp32: the prefill's and a decode step's
+                logits within 2e-3, the ring arm's greedy tokens
+                identical; bf16: within ``BF16_LOGIT_ULPS`` of the
+                wrappers' plain versions, greedy agreement with fp32
+                printed); one 2200-token request (16 new, one row, N=2) in
+                fill-drain in fp32 and bf16, every local ring wrapped,
+                greedy identical to the plain path and its prefill's and a
+                decode step's logits within 2e-3; one ring decode step
+                twice from one cache (bit for bit), once under
+                ``set_sync_debug_mode("error")`` and once under the
+                profiler (device time by group: matmuls, the four kernels,
+                the RG-LRU's conv, scan and gate kernels); the peak
+                memory.
+The kernels' JSON line lists every kernel of phases 3-15 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -1352,6 +1384,7 @@ def phase_kernels(torch, timer):
     bert_kernels(torch, timer, record)
     moe_kernels(torch, timer, record, pool, sdpa, store, decode_cases[0],
                 prefill_cases[0])
+    hybrid_kernels(torch, timer, record, ring_pos, visible)
     torch.cuda.synchronize()
     return out
 
@@ -2037,6 +2070,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_runs = phase_moe(torch, mux, rows, prompt_len, new_tokens)
 
+    # 15. recurrentgemma-9b, full width; phase 14's weights were its own
+    # and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_runs = phase_hybrid(torch, mux, rows, prompt_len, new_tokens)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -2075,6 +2114,8 @@ def main() -> int:
         meta[kname] = meta[wrapper]
     for kname, (wrapper, _, _) in MOE_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, (wrapper, _) in HYBRID_ROWS.items():
+        meta[kname] = meta[wrapper]
     rest_runs = {"rwkv": rwkv["ring, bf16"]["launches"],
                  "whisper": whisper["bf16"]["launches"], "bert": bert["bf16"]}
     rows_json = []
@@ -2083,7 +2124,10 @@ def main() -> int:
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in MOE_ROWS:             # phase 14's run of that arch
+        if kname in HYBRID_ROWS:          # phase 15's run
+            wrapper, run = HYBRID_ROWS[kname]
+            launches = hybrid_runs[run]["launches"][wrapper]
+        elif kname in MOE_ROWS:           # phase 14's run of that arch
             wrapper, arch, run = MOE_ROWS[kname]
             launches = moe_runs[arch][run]["launches"][wrapper]
         elif kname in BF16_REST_ROWS:     # phases 6-8's bf16 runs
@@ -2321,7 +2365,10 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
     ring decode step runs decode_attention once per layer, a paged one
     paged_attention; each decode step runs the fused entry and exit, each
     prefill the mux-combine kernel of its unfused entry.  A paged pool's
-    bytes per token on the card equal ``ServeConfig.kv_bytes_per_token``."""
+    bytes per token on the card equal ``ServeConfig.kv_bytes_per_token``.
+    The attention counts are per attention layer ('attn' or 'local'):
+    every layer of a dense model, recurrentgemma-9b's 12 local layers of
+    38 (phase 15)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
@@ -2350,8 +2397,9 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
     attn = "paged_attention" if layout == "paged" else "decode_attention"
     want = dict.fromkeys(launches, 0)
     flash = cfg.attn_impl == "flash"
-    want.update({attn: cfg.n_layers * dsteps,
-                 "flash_attention": cfg.n_layers * events * flash,
+    n_attn = sum(b in ("attn", "local") for b in cfg.pattern_layers)
+    want.update({attn: n_attn * dsteps,
+                 "flash_attention": n_attn * events * flash,
                  "mux_embed_combine": dsteps, "demux_rsa": dsteps,
                  "mux_combine": events})
     need(launches == want, f"{mode}: launch counts {launches} != required "
@@ -2377,11 +2425,24 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
             "launches": launches, "forwards": dsteps + events}
 
 
-def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
+def copy_ring(src, dst):
+    """Copy a ring cache's every layer (ring K/V and positions, recurrent
+    state) into ``dst``, a cache of the same config, in place."""
+    for a, b in zip(src["layers"], dst["layers"]):
+        for key, x in a.items():
+            if isinstance(x, int):
+                b[key] = x
+            else:
+                b[key].copy_(x)
+
+
+def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run,
+                       identical=False, label=""):
     """Phase 5 for the ring: the flash prefill against the naive one, and
     the kernel decode step against the plain one from identical caches
     (logits of every stream), then the share of identical greedy tokens
-    of the ring arm's kernel and plain paths over the phase-4 trace."""
+    of the ring arm's kernel and plain paths over the phase-4 trace
+    (``identical``: all of them, as phase 15 requires)."""
     import torch
     from repro_torch.launch.serve import run_continuous
     from repro_torch.serve import engine
@@ -2396,31 +2457,34 @@ def compare_ring_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
     plain_cache = engine.init_cache(sc_naive, nb, device="cuda")
     lk, _ = engine.prefill(params, sc, cache, toks)
     lp, _ = engine.prefill(params, sc_naive, plain_cache, toks)
+    need(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+         f"{label}ring: prefill logits are not finite")
     err_pre = (lk - lp).abs().max().item()
-    for a, b in zip(cache["layers"], plain_cache["layers"]):
-        b["k"].copy_(a["k"])
-        b["v"].copy_(a["v"])
+    copy_ring(cache, plain_cache)
     dtok = lk.argmax(-1)[:, None]
     pos = toks.shape[1]
     dk, _ = engine.decode_step(params, sc, cache, dtok, pos, use_kernels=True)
     dp, _ = engine.decode_step(params, sc, plain_cache, dtok, pos,
                                use_kernels=False)
     err_dec = (dk - dp).abs().max().item()
-    print(f"  ring: logits max_abs_err: flash vs naive prefill {err_pre:.3e}, "
-          f"decode from identical caches {err_dec:.3e} (tol {LOGIT_TOL:g})",
+    print(f"  {label}ring: logits max_abs_err: flash vs naive prefill "
+          f"{err_pre:.3e}, decode from identical caches {err_dec:.3e} (tol "
+          f"{LOGIT_TOL:g}); |logits| max {lk.abs().max().item():.3f}",
           flush=True)
     need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
-         "ring: kernel path disagrees with the plain path")
+         f"{label}ring: kernel path disagrees with the plain path")
     plain = run_continuous(params, sc_naive, rows, trace, use_kernels=False,
                            device="cuda")
     ko = ring_run["outputs"]
     po = {r.uid: r.output for r in plain["completed"]}
     same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
     total = sum(len(v) for v in ko.values())
-    print(f"  ring: greedy tokens identical, kernel vs plain path: "
+    print(f"  {label}ring: greedy tokens identical, kernel vs plain path: "
           f"{same}/{total} ({same / total:.3f}); plain path "
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
+    need(same == total or not identical, f"{label}ring: the kernel path's "
+         "greedy tokens differ from the plain path's")
 
 
 def phase_rwkv(torch, mux, rows, prompt_len, new_tokens):
@@ -2518,12 +2582,13 @@ def serve_rwkv(params, cfg, mux, rows, trace, new_tokens, mode,
 
 
 def bf16_rwkv_vs_plain(params, cfg, mux, rows, trace, new_tokens,
-                       ring_run):
-    """Phase 6 in bf16: from identical (zero) states, one blocking prefill
-    of the grid and then one decode step from identical states, the
-    kernel path against the same model with the wrappers at their plain
-    versions (``bf16_logit_check``, the plain model path printed beside);
-    the ring arm's greedy agreement with those plain versions printed."""
+                       ring_run, label="rwkv"):
+    """Phase 6 in bf16 (phase 15's too, ``label`` 'hybrid'): from
+    identical (zero) states, one blocking prefill of the grid and then one
+    decode step from identical states, the kernel path against the same
+    model with the wrappers at their plain versions (``bf16_logit_check``,
+    the plain model path printed beside); the ring arm's greedy agreement
+    with those plain versions printed."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import run_continuous
@@ -2538,12 +2603,10 @@ def bf16_rwkv_vs_plain(params, cfg, mux, rows, trace, new_tokens,
     with kernels_as_plain():
         lp = engine.prefill(params, sc, caches[1], toks, use_kernels=True)[0]
     lm = engine.prefill(params, sc, caches[2], toks, use_kernels=False)[0]
-    bf16_logit_check("rwkv, bf16", "prefill", lk.float(), lp.float(),
+    bf16_logit_check(f"{label}, bf16", "prefill", lk.float(), lp.float(),
                      lm.float())
     for c in caches[1:]:
-        for a, b in zip(caches[0]["layers"], c["layers"]):
-            for key in a:
-                b[key].copy_(a[key])
+        copy_ring(caches[0], c)
     dtok = lk.argmax(-1)[:, None]
     dk = engine.decode_step(params, sc, caches[0], dtok, toks.shape[1])[0]
     with kernels_as_plain():
@@ -2551,12 +2614,12 @@ def bf16_rwkv_vs_plain(params, cfg, mux, rows, trace, new_tokens,
                                 toks.shape[1])[0]
     dm = engine.decode_step(params, sc, caches[2], dtok, toks.shape[1],
                             use_kernels=False)[0]
-    bf16_logit_check("rwkv, bf16", "decode", dk.float(), dp.float(),
+    bf16_logit_check(f"{label}, bf16", "decode", dk.float(), dp.float(),
                      dm.float())
     with kernels_as_plain():
         plain = run_continuous(params, sc, rows, trace, device="cuda")
-    print("  rwkv ring, bf16: greedy agreement of the kernel path with its "
-          "plain versions %d/%d" % agreement(
+    print(f"  {label} ring, bf16: greedy agreement of the kernel path with "
+          "its plain versions %d/%d" % agreement(
               ring_run["outputs"],
               {r.uid: r.output for r in plain["completed"]}), flush=True)
 
@@ -2582,9 +2645,7 @@ def compare_rwkv_paths(params, cfg, mux, rows, trace, new_tokens, ring_run):
     need(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
          "rwkv: prefill logits are not finite")
     err_pre = (lk - lp).abs().max().item()
-    for a, b in zip(cache["layers"], plain_cache["layers"]):
-        for key in a:
-            b[key] = a[key].clone()
+    copy_ring(cache, plain_cache)
     dtok = lk.argmax(-1)[:, None]
     dk, _ = engine.decode_step(params, sc, cache, dtok, toks.shape[1],
                                use_kernels=True)
@@ -3467,10 +3528,7 @@ def bf16_ring_vs_plain(params, cfg, mux, rows, trace, new_tokens, label):
 
     def twin():
         c = engine.init_cache(sc, nb, device="cuda")
-        for a, b in zip(cache["layers"], c["layers"]):
-            for key in ("k", "v", "pos"):
-                b[key].copy_(a[key])
-            b["idx"] = a["idx"]
+        copy_ring(cache, c)
         return c
     from repro_torch.models import blocks
     sc, cache, logits = prefilled(torch.bfloat16)
@@ -5089,6 +5147,465 @@ def moe_train_step(torch, params, cfg, mux):
     del state
     for t in _leaves(params):
         t.requires_grad_(False)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid family, recurrentgemma-9b at full width
+HYBRID = "recurrentgemma-9b"
+# the long request: a prompt past the local window of 2048, one backbone
+# row (the prefill's logits at every position are 2.1 GiB a stream)
+HYBRID_LONG_PROMPT, HYBRID_LONG_NEW = 2200, 16
+# phase 3's rows at phase 15's shapes: the wrapper and the phase-15 run
+# whose launches the JSON reports
+HYBRID_ROWS = {
+    "decode_attention[rg-9b]": ("decode_attention", "ring"),
+    "decode_attention[rg-9b, C 2048]": ("decode_attention", "long"),
+    "decode_attention[rg-9b, bf16]": ("decode_attention", "ring, bf16"),
+    "decode_attention[rg-9b, C 2048, bf16]": ("decode_attention",
+                                              "long, bf16"),
+    "flash_attention[rg-9b]": ("flash_attention", "ring"),
+    "flash_attention[rg-9b, L 2200]": ("flash_attention", "long"),
+    "flash_attention[rg-9b, bf16]": ("flash_attention", "ring, bf16"),
+    "flash_attention[rg-9b, L 2200, bf16]": ("flash_attention", "long, bf16"),
+    "demux_rsa[rg-9b]": ("demux_rsa", "ring"),
+    "demux_rsa[rg-9b, bf16]": ("demux_rsa", "ring, bf16"),
+    "mux_embed_combine[rg-9b]": ("mux_embed_combine", "ring"),
+    "mux_combine[rg-9b]": ("mux_combine", "ring"),
+}
+# a profiled decode step's kernels by group: first by name (matmuls and
+# the main path's kernels; ``hybrid_groups``), then by the
+# ``record_function`` range they were launched in (``rglru_ranges``), else
+# "other"
+HYBRID_RANGES = (("rg-lru conv", "rglru.conv"), ("rg-lru scan", "rglru.scan"),
+                 ("rg-lru gates (elementwise)", "rglru"))
+
+
+def hybrid_kernels(torch, timer, record, ring_pos, visible):
+    """Phase 3's rows at phase 15's shapes (``HYBRID_ROWS``), read from
+    recurrentgemma-9b's config (16 query heads over 1 KV head of 256, the
+    decode kernel's limit; local window 2048; d 4096; vocab 256000), each
+    in fp32 (within ATT_TOL / DEMUX_TOL / MUX_TOL of its plain version)
+    and, for the attention and the demux, with bf16 operands (within one
+    bf16 ulp of the row max, the demux two), bit for bit over two calls
+    where a repeat is checked, timed beside its plain version and library
+    call with its bound: ``decode_attention`` over the ring arm's B 4, C
+    124 at 116 and over the long request's wrapped ring (B 1, C 2048,
+    window 2048, at its last decode position); ``flash_attention`` at the
+    grid re-prefill's B 4, causal L 116 and the long request's B 1, L 2200
+    with window 2048; ``demux_rsa`` with the RMS entry at d 4096, F 8192,
+    T 4; the fused entry at V 256000, d 4096, T 4, scaled by sqrt(d); the
+    mux-combine entry at the re-prefill's (2, 4 * 116, 4096)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import demux_rsa as kd
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import mux_combine as kc
+    from repro_torch.kernels import mux_embed as km
+    from repro_torch.kernels import ref
+    cfg = get_config(HYBRID)
+    h, hkv, dh, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       cfg.local_window)
+    d, vocab = cfg.d_model, cfg.vocab_size
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    rng = np.random.default_rng(43)     # phase 3's other rows keep theirs
+    heads = f"{h} over {hkv} of {dh}, window {win}"
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * s).astype(
+            np.float32), device=dev)
+
+    def timed(kernel, plain, library, nb, fl, bf16_fl=0, work=None):
+        bms, by = bound(nb, fl, bf16_fl)
+        return {**({"work": work} if work else {}), "ms": timer(kernel),
+                "plain_ms": timer(plain), "library_ms": timer(library),
+                "bound_ms": bms, "bound_by": by, "bytes": nb,
+                "flops": fl + bf16_fl}
+
+    def check(name, case, got, want, tol, timing):
+        if got.dtype == torch.float32:
+            record(name, case, (got - want).abs().max().item(), tol, timing)
+        else:
+            err, share = bf16_share(got, want, 1)
+            record(name, case, err, "1 bf16 ulp of the row max", timing,
+                   share=share)
+
+    last = HYBRID_LONG_PROMPT + HYBRID_LONG_NEW - 2  # the last decode's q_pos
+    for sfx, dt in (("", torch.float32), (", bf16", bf)):
+        # the ring decode: the ring arm's rows, the long request's row
+        for tag, b, c, q_pos in (("", 4, 124, 116), (", C 2048", 1, win,
+                                                     last)):
+            q = r(b, 1, h, dh).to(dt)
+            kc_, vc_ = r(b, c, hkv, dh).to(dt), r(b, c, hkv, dh).to(dt)
+            pos = ring_pos(c, q_pos + 1)
+            kw = dict(q_pos=q_pos, window=win)
+            got = kdec.decode_attention_cuda(q, kc_, vc_, pos, **kw)
+            need(torch.equal(kdec.decode_attention_cuda(q, kc_, vc_, pos,
+                                                        **kw), got),
+                 f"decode_attention[rg-9b{tag}{sfx}]: a repeat changed "
+                 "the bits")
+            vis = visible(torch.full((1,), q_pos, device=dev), pos.long(),
+                          True, win, pos >= 0)
+            nb, fl, work = dense_bound(q, kc_, vis)
+            nb += c * 4                                   # slot positions
+            split = (fl, 0) if dt == torch.float32 else (fl // 2, fl // 2)
+            check(f"decode_attention[rg-9b{tag}{sfx}]",
+                  f"B={b}, C={c} at {q_pos}; {heads}", got,
+                  ref.decode_attention_ref(q, kc_, vc_, pos, **kw), ATT_TOL,
+                  timed(lambda: kdec.decode_attention_cuda(q, kc_, vc_, pos,
+                                                           **kw),
+                        lambda: ref.decode_attention_ref(q, kc_, vc_, pos,
+                                                         **kw),
+                        lambda: sdpa_dense(q, kc_, vc_, vis), nb, *split,
+                        work))
+        del kc_, vc_
+        # flash: the grid re-prefill's rows, the long request's row
+        for tag, b, l in (("", 4, 116), (", L 2200", 1, HYBRID_LONG_PROMPT)):
+            q = r(b, l, h, dh).to(dt)
+            k, v = r(b, l, hkv, dh).to(dt), r(b, l, hkv, dh).to(dt)
+            kw = dict(window=win)
+            got = kfl.flash_attention_cuda(q, k, v, **kw)
+            need(torch.equal(kfl.flash_attention_cuda(q, k, v, **kw), got),
+                 f"flash_attention[rg-9b{tag}{sfx}]: a repeat changed the "
+                 "bits")
+            ar = torch.arange(l, device=dev)
+            vis = visible(ar, ar, True, win, torch.ones(l, dtype=torch.bool,
+                                                        device=dev))
+            nb, fl, work = dense_bound(q, k, vis)
+            split = (fl, 0) if dt == torch.float32 else (fl // 2, fl // 2)
+            check(f"flash_attention[rg-9b{tag}{sfx}]",
+                  f"B={b}, causal L={l}; {heads}", got,
+                  ref.flash_attention_ref(q, k, v, **kw), ATT_TOL,
+                  timed(lambda: kfl.flash_attention_cuda(q, k, v, **kw),
+                        lambda: ref.flash_attention_ref(q, k, v, **kw),
+                        lambda: sdpa_dense(q, k, v, vis), nb, *split, work))
+        del q, k, v, vis
+
+        # the fused exit: RMS entry, d 4096, F 8192, T 4
+        f, n, tt = 2 * d, 2, 4
+        w = tuple(x.to(dt) for x in (r(n, d), r(d, f, s=0.02),
+                                     r(d, f, s=0.02), r(f, s=0.02),
+                                     r(f, d, s=0.02), r(d, s=0.02)))
+        norms = {"entry_kind": "rms", "entry_scale": r(d, s=0.1),
+                 "exit_scale": 1.0 + r(d, s=0.1), "exit_bias": r(d, s=0.1)}
+        x = r(tt, d).to(dt)
+        got = kd.demux_rsa_cuda(x, *w, **norms)
+        need(torch.equal(kd.demux_rsa_cuda(x, *w, **norms), got),
+             f"demux_rsa[rg-9b{sfx}]: a repeat changed the bits")
+        want = ref.demux_rsa_fused_ref(x, *w, **norms)
+        el = x.element_size()
+        nb = ((3 * d * f + f + d + n * d + tt * d + n * tt * d) * el
+              + 3 * d * 4)
+        fl = 2 * tt * d * f + 2 * n * tt * f * d      # fp32 activations
+        kf = 2 * n * d * f                             # k @ W1k
+
+        def library():
+            x32 = x.float()
+            hn = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
+                                    + 1e-6) * (1 + norms["entry_scale"]))
+            z = F.gelu(torch.matmul(hn.to(dt), w[1])[None]
+                       + (w[0] @ w[2] + w[3])[:, None], approximate="tanh")
+            return F.layer_norm(torch.matmul(z, w[4]) + w[5], (d,),
+                                norms["exit_scale"].to(dt),
+                                norms["exit_bias"].to(dt), eps=1e-6)
+        timing = timed(lambda: kd.demux_rsa_cuda(x, *w, **norms),
+                       lambda: ref.demux_rsa_fused_ref(x, *w, **norms),
+                       library, nb, *((fl + kf, 0) if dt == torch.float32
+                                      else (fl, kf)))
+        name, case = f"demux_rsa[rg-9b{sfx}]", f"T={tt} d {d} F {f}"
+        if dt == torch.float32:
+            record(name, case, (got - want).abs().max().item(), DEMUX_TOL,
+                   timing)
+        else:
+            err, share = bf16_share(got, want, 2)
+            record(name, case, err, "2 bf16 ulps of the row max", timing,
+                   share=share)
+        del w
+
+    # the fused entry: vocabulary 256000, d 4096, scaled by sqrt(d), T 4;
+    # the 1.05 G-entry table drawn on the card (numpy takes ~15 s for it)
+    scale = d ** 0.5
+    emb = torch.randn((vocab, d), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(43)) * 0.02
+    v = r(2, d)
+    tok = torch.as_tensor(rng.integers(0, vocab, (2, 4)).astype(np.int32),
+                          device=dev)
+    tl = tok.long()
+    got = km.mux_embed_combine_cuda(tok, emb, v, scale=scale)
+    record("mux_embed_combine[rg-9b]", f"T=4 V {vocab} d {d}, x sqrt(d)",
+           (got - ref.mux_embed_ref(tok, emb, v, scale=scale)).abs().max()
+           .item(), MUX_TOL,
+           timed(lambda: km.mux_embed_combine_cuda(tok, emb, v, scale=scale),
+                 lambda: ref.mux_embed_ref(tok, emb, v, scale=scale),
+                 lambda: torch.einsum("ntd,nd->td",
+                                      F.embedding(tl, emb) * scale, v) * 0.5,
+                 embed_bytes(tok, d, 4), 3 * 2 * 4 * d,
+                 work=f"{tok.unique().numel()} distinct table rows of "
+                      f"{tok.numel()} gathers"))
+    del emb
+    # the mux-combine entry of a grid re-prefill: 4 rows of 116 tokens
+    tt = 4 * 116
+    x = r(2, tt, d)
+    got = kc.mux_combine_cuda(x, v)
+    need(torch.equal(got, kc.mux_combine_cuda(x, v)),
+         "mux_combine[rg-9b]: a repeat changed the bits")
+    record("mux_combine[rg-9b]", f"(2, {tt}, {d})",
+           (got - ref.mux_combine_ref(x, v)).abs().max().item(),
+           COMBINE_TOL["fp32"],
+           timed(lambda: kc.mux_combine_cuda(x, v),
+                 lambda: ref.mux_combine_ref(x, v),
+                 lambda: torch.einsum("ntd,nd->td", x, v) / 2,
+                 (3 * tt * d + 2 * d) * 4, 4 * tt * d))
+    del x
+
+
+def phase_hybrid(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 15: full-width recurrentgemma-9b from seeded random weights
+    (38 layers: 12 periods of (rglru, rglru, local) and two RG-LRU tail
+    layers; 16 query heads over 1 KV head of 256, local window 2048) on
+    the phase-4 trace with ``attn_impl='flash'``: the ring arm in fp32,
+    fill-drain, and the ring arm in bf16, every request complete and the
+    launch counts exact (a ring decode step 12 ``decode_attention``, the
+    fused entry and exit once; a grid re-prefill ``mux_combine`` once and
+    12 ``flash_attention``; no paged kernel); the kernel path against the
+    plain path from identical caches (fp32: the prefill's and a decode
+    step's logits within 2e-3 and the ring arm's greedy tokens identical;
+    bf16: within ``BF16_LOGIT_ULPS`` of ``kernels_as_plain``, greedy
+    agreement with fp32 printed); one 2200-token request past the window
+    (``hybrid_long``); one decode step repeated, under sync debug and
+    profiled (``hybrid_decode_checks``); the peak memory.  Returns {run:
+    serve_dense's result}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, param_count
+    print(f"phase 15: {HYBRID} full width; {smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HYBRID)
+    flash = cfg.replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    params = TransformerLM.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    kinds, pat = cfg.pattern_layers, len(cfg.block_pattern)
+    print(f"  {HYBRID}: {cfg.n_layers} layers ({kinds.count('rglru')} "
+          f"RG-LRU, {kinds.count('local')} local attention; pattern "
+          f"{cfg.block_pattern}, tail {kinds[len(kinds) // pat * pat:]}), d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, window {cfg.local_window}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+          f"({param_count(cfg) / 1e9:.3f} B backbone) in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    runs = {mode: serve_dense(params, flash, mux, rows, trace, new_tokens,
+                              mode, label="hybrid ")
+            for mode in ("ring", "fill-drain")}
+    compare_ring_paths(params, flash, mux, rows, trace, new_tokens,
+                       runs["ring"], identical=True, label="hybrid ")
+    runs["ring, bf16"] = serve_dense(params, flash, mux, rows, trace,
+                                     new_tokens, "ring", label="hybrid bf16 ",
+                                     dtype=torch.bfloat16)
+    print("  hybrid ring, bf16: greedy agreement with the fp32 run %d/%d"
+          % agreement(runs["ring, bf16"]["outputs"], runs["ring"]["outputs"]),
+          flush=True)
+    bf16_rwkv_vs_plain(params, flash, mux, rows, trace, new_tokens,
+                       runs["ring, bf16"], label="hybrid")
+    runs.update(hybrid_long(torch, params, cfg, mux))
+    hybrid_decode_checks(torch, params, flash, mux, rows, trace)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{smi_line()}", flush=True)
+    return runs
+
+
+def hybrid_long(torch, params, cfg, mux):
+    """Phase 15's long request: one seeded prompt of
+    ``HYBRID_LONG_PROMPT`` tokens and ``HYBRID_LONG_NEW`` new, one
+    backbone row at N=2 (the spare stream duplicates it), in fill-drain
+    through the kernels with ``attn_impl='flash'`` in fp32 and bf16
+    (launch counts exact: flash over 2200 tokens with window 2048, the
+    decode over a full, wrapped 2048-slot ring); the plain path's greedy
+    tokens (chunked attention) identical to the fp32 kernel path's; from
+    identical caches the prefill's and a decode step's logits within
+    2e-3, every local ring wrapped.  Returns {"long": ..., "long, bf16":
+    ...}."""
+    import numpy as np
+    from repro_torch.launch.serve import fill_drain
+    from repro_torch.serve import engine
+    prompt = np.random.default_rng(47).integers(4, cfg.vocab_size,
+                                                HYBRID_LONG_PROMPT)
+    new = HYBRID_LONG_NEW
+    flash = cfg.replace(attn_impl="flash")
+    trace = [(0, prompt, new)]
+    out = {"long": serve_dense(params, flash, mux, 1, trace, new,
+                               "fill-drain", label="hybrid long "),
+           "long, bf16": serve_dense(params, flash, mux, 1, trace, new,
+                                     "fill-drain", label="hybrid long bf16 ",
+                                     dtype=torch.bfloat16)}
+    print("  hybrid long, bf16: greedy agreement with the fp32 run %d/%d"
+          % agreement(out["long, bf16"]["outputs"], out["long"]["outputs"]),
+          flush=True)
+    cap = HYBRID_LONG_PROMPT + new + 8
+    sc = engine.ServeConfig(cfg=flash, mux=mux, dtype=torch.float32,
+                            capacity=cap)
+    sc_plain = dataclasses.replace(sc, cfg=cfg)      # 'auto': chunked here
+    plain = fill_drain(params, sc_plain, 1, [prompt], new, use_kernels=False,
+                       device="cuda")
+    same, total = agreement({r.uid: r.output for r in plain["completed"]},
+                            out["long"]["outputs"])
+    print(f"  hybrid long: greedy tokens identical, kernel vs plain path "
+          f"{same}/{total}", flush=True)
+    need(same == total, "hybrid long: the kernel path's greedy tokens "
+         "differ from the plain path's")
+    toks = torch.as_tensor(prompt, device="cuda").repeat(mux.n, 1)
+    cache = engine.init_cache(sc, mux.n, device="cuda")
+    plain_cache = engine.init_cache(sc_plain, mux.n, device="cuda")
+    lk, _ = engine.prefill(params, sc, cache, toks, use_kernels=True)
+    lp, _ = engine.prefill(params, sc_plain, plain_cache, toks,
+                           use_kernels=False)
+    rings = [c for c, b in zip(cache["layers"], cfg.pattern_layers)
+             if b == "local"]
+    need(all(c["k"].shape[1] == cfg.local_window
+             and int(c["pos"].min()) == HYBRID_LONG_PROMPT - cfg.local_window
+             and int(c["pos"].max()) == HYBRID_LONG_PROMPT - 1
+             for c in rings), "hybrid long: a local ring did not wrap")
+    err_pre = (lk - lp).abs().max().item()
+    copy_ring(cache, plain_cache)
+    dtok = lk.argmax(-1)[:, None]
+    dk, _ = engine.decode_step(params, sc, cache, dtok, HYBRID_LONG_PROMPT)
+    dp, _ = engine.decode_step(params, sc_plain, plain_cache, dtok,
+                               HYBRID_LONG_PROMPT, use_kernels=False)
+    err_dec = (dk - dp).abs().max().item()
+    print(f"  hybrid long: {len(rings)} local rings of {cfg.local_window} "
+          f"slots wrapped (positions {HYBRID_LONG_PROMPT - cfg.local_window}"
+          f"-{HYBRID_LONG_PROMPT - 1}); logits max_abs_err kernel vs plain "
+          f"path: prefill {err_pre:.3e}, decode from identical caches "
+          f"{err_dec:.3e} (tol {LOGIT_TOL:g}); |logits| max "
+          f"{lk.abs().max().item():.3f}", flush=True)
+    need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
+         "hybrid long: kernel path disagrees with the plain path")
+    return out
+
+
+@contextlib.contextmanager
+def rglru_ranges():
+    """``torch.profiler.record_function`` ranges around every RG-LRU
+    layer ("rglru"), its conv ("rglru.conv") and its scan ("rglru.scan"),
+    so a profile can attribute their kernels."""
+    import torch
+    from repro_torch.models import blocks
+    saved = (blocks._APPLY["rglru"], blocks._causal_depthwise_conv,
+             blocks.linear_scan)
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+    blocks._APPLY["rglru"] = ranged("rglru", saved[0])
+    blocks._causal_depthwise_conv = ranged("rglru.conv", saved[1])
+    blocks.linear_scan = ranged("rglru.scan", saved[2])
+    try:
+        yield
+    finally:
+        (blocks._APPLY["rglru"], blocks._causal_depthwise_conv,
+         blocks.linear_scan) = saved
+
+
+def hybrid_groups(trace, steps):
+    """Device time and kernels per step of a profile by group: a kernel
+    whose lower-case name holds a matmul's (``profile_step.STEP_GROUPS``)
+    or one of the main path's kernels' substrings falls in that group;
+    else in the innermost of ``HYBRID_RANGES`` that its launch (the
+    runtime call with its correlation id) lies in; else "other"."""
+    from repro_torch.launch import profile_step
+    named = {"matmul": profile_step.STEP_GROUPS["matmul"],
+             "decode_attention": ("decode_kernel",), "demux_rsa": ("demux_",),
+             "mux entry": ("mux_embed", "mux_combine")}
+    evs = trace["traceEvents"]
+    spans = {rng: [(e["ts"], e["ts"] + e["dur"]) for e in evs
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                   and e["name"] == rng] for _, rng in HYBRID_RANGES}
+    launched = {e["args"]["correlation"]: e["ts"] for e in evs
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    by, n, unmatched = {}, {}, 0
+    for e in evs:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        low = e["name"].lower()
+        g = next((g for g, subs in named.items()
+                  if any(x in low for x in subs)), None)
+        if g is None:
+            ts = launched.get(e.get("args", {}).get("correlation"))
+            unmatched += ts is None
+            g = next((g for g, rng in HYBRID_RANGES if ts is not None
+                      and any(a <= ts <= b for a, b in spans[rng])), "other")
+        by[g] = by.get(g, 0.0) + e["dur"]
+        n[g] = n.get(g, 0) + 1
+    busy = sum(by.values())
+    print("  by group: " + ", ".join(
+        f"{g} {us / steps / 1e3:.3f} ms ({us / busy:.1%}, "
+        f"{n[g] / steps:.0f} kernels)"
+        for g, us in sorted(by.items(), key=lambda kv: -kv[1]))
+        + f"; {unmatched} kernels without a matched launch", flush=True)
+
+
+def hybrid_decode_checks(torch, params, cfg, mux, rows, trace):
+    """Phase 15 on one fp32 ring decode step of the grid (the trace's
+    first N * rows prompts prefilled): the step twice from copies of one
+    cache, bit for bit; once more under ``set_sync_debug_mode("error")``;
+    then its host wall time over 5 steps and one step under
+    ``torch.profiler``: device busy, idle share, kernels and device time
+    by group (``hybrid_groups``: matmuls, the four kernels, the RG-LRU's
+    conv, scan and gate kernels, other)."""
+    import numpy as np
+    from repro_torch.launch import profile_step
+    from repro_torch.serve import engine
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+                            capacity=len(trace[0][1]) + 24)
+    nb = mux.n * rows
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    cache = engine.init_cache(sc, nb, device="cuda")
+    logits, _ = engine.prefill(params, sc, cache, toks)
+    dtok = logits.argmax(-1)[:, None]
+    pos = toks.shape[1]
+    twins = [engine.init_cache(sc, nb, device="cuda") for _ in range(3)]
+    for c in twins:
+        copy_ring(cache, c)
+    a = engine.decode_step(params, sc, twins[0], dtok, pos)[0]
+    b = engine.decode_step(params, sc, twins[1], dtok, pos)[0]
+    torch.cuda.synchronize()
+    need(torch.equal(a, b), "hybrid decode step: a repeat from the same "
+         "cache changed the logits' bits")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = engine.decode_step(params, sc, twins[2], dtok, pos)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    need(torch.equal(a, c), "hybrid decode step under sync debug differs")
+    print(f"  hybrid decode step ({rows} rows at {pos}): bit for bit over "
+          "two calls from one cache; a third under "
+          "set_sync_debug_mode('error') made no host sync and gave the same "
+          "bits", flush=True)
+    del twins
+
+    def step():
+        engine.decode_step(params, sc, cache, dtok, pos)
+    step()
+    wall = profile_step.wall_time(step, 5)
+    with rglru_ranges():
+        trace_, prof_wall = profile_step.profile_calls(step, 1)
+    profile_step.summarize("  hybrid fp32 ring decode step, profiled",
+                           trace_, 1, wall / 5, prof_wall, 8)
+    hybrid_groups(trace_, 1)
+    print(f"  {smi_line()}", flush=True)
 
 
 def _leaves(tree):

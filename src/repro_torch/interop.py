@@ -16,8 +16,10 @@ leaf.  The
 reference groups layers into periods of ``cfg.block_pattern`` and stacks
 each pattern position's params over the periods (leading axis
 ``n_periods``; ``repro/models/transformer.py`` ``_stack_init``), with
-leftover layers unstacked under ``tail``; the port keeps one dict per
-layer in a list, whatever the block kind (attention or RWKV), and an
+leftover layers unstacked under ``tail`` (recurrentgemma-9b: a period
+of two RG-LRU layers and a local-attention one, and a tail of two); the
+port keeps one dict per layer in a list, whatever the block kind
+(attention, RG-LRU or RWKV), and an
 untied ``lm_head`` beside the embedding.  Leaf layouts are the
 reference's ((in, out) weights), so no leaf is transposed; an MoE
 layer's stacked experts (``w_up`` / ``w_gate`` (E, d, f), ``w_down``
@@ -26,7 +28,8 @@ layer's stacked experts (``w_up`` / ``w_gate`` (E, d, f), ``w_down``
 for the MoE configs as for the dense ones: their caches are attention
 pages or rings.
 ``pages_from_reference`` carries one layer's reference page pool across
-bit for bit, ``ring_cache_from_reference`` a whole reference ring cache.
+bit for bit, ``ring_cache_from_reference`` a whole reference ring cache
+(attention rings and recurrent state).
 ``paged_cache_to_reference`` / ``paged_cache_from_reference`` map a
 whole paged cache to and from the reference's layout (the serve
 snapshot's tree, ``serve.recovery``).  Nothing here imports JAX.
@@ -158,27 +161,30 @@ _BIT_VIEWS = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
               "bfloat16": (np.int16, torch.bfloat16)}
 
 
+def _tensor(a, device):
+    """A numpy or JAX array -> a tensor on ``device``, bit for bit (bf16
+    and fp8 through their raw bits)."""
+    a = np.asarray(a)
+    if a.dtype.name in _BIT_VIEWS:
+        bits, dt = _BIT_VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(bits).copy()).view(dt).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def pages_from_reference(pages, *, device):
     """One layer's reference page pool (a dict of numpy or JAX arrays:
     ``kp``, ``vp``, ``ppos``, for int8/fp8 pages ``ksc`` and ``vsc``, and
     ``bt`` where present) -> the port's dict of tensors on ``device``,
     every payload, scale and position bit for bit."""
-    out = {}
-    for key, a in pages.items():
-        a = np.asarray(a)
-        if a.dtype.name in _BIT_VIEWS:
-            bits, dt = _BIT_VIEWS[a.dtype.name]
-            t = torch.from_numpy(a.view(bits).copy()).view(dt)
-        else:
-            t = torch.from_numpy(np.array(a))
-        out[key] = t.to(device)
-    return out
+    return {key: _tensor(a, device) for key, a in pages.items()}
 
 
 def ring_cache_from_reference(cache, cfg, *, device):
-    """A reference ring cache (``TransformerLM.init_cache`` pytree:
-    period-stacked ``k``/``v``/``pos``/``idx`` per pattern position, then
-    ``tail``), with numpy or JAX leaves -> the port's ring cache
+    """A reference ring cache (``TransformerLM.init_cache`` pytree: per
+    pattern position the period-stacked leaves of its layers — an
+    attention layer's ``k``/``v``/``pos``/``idx``, an RG-LRU layer's ``h``
+    and ``conv``, an RWKV layer's ``s`` and token shifts —, then the
+    unstacked ``tail``), with numpy or JAX leaves -> the port's ring cache
     (``{"layers": [...]}``, one dict per layer, ``idx`` a host int) on
     ``device``, bit for bit."""
     pat = len(cfg.block_pattern)
@@ -186,10 +192,8 @@ def ring_cache_from_reference(cache, cfg, *, device):
     def layer(c, p=None):
         pick = (lambda a: np.asarray(a)) if p is None else (
             lambda a: np.asarray(a)[p])
-        return {"k": torch.from_numpy(np.array(pick(c["k"]))).to(device),
-                "v": torch.from_numpy(np.array(pick(c["v"]))).to(device),
-                "pos": torch.from_numpy(np.array(pick(c["pos"]))).to(device),
-                "idx": int(pick(c["idx"]))}
+        return {k: int(pick(a)) if k == "idx" else _tensor(pick(a), device)
+                for k, a in c.items()}
 
     layers = []
     for i in range(cfg.n_layers):

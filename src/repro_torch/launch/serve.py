@@ -18,9 +18,10 @@ Three modes, as in the reference:
 Architectures: the dense LMs ``--arch qwen2-1.5b`` (default),
 ``gemma-2b``, ``gemma-7b`` and ``h2o-danube-1.8b`` and the MoE LMs
 ``granite-moe-3b-a800m`` and ``qwen2-moe-a2.7b`` (every arm),
-``--arch rwkv6-7b`` (RWKV6, on the ring arm and in fill-drain: the
-reference's paged arm fails on RWKV, so ``--cache paged`` with it is an
-error) and ``--arch whisper-small`` (encoder-decoder, fill-drain only,
+``--arch rwkv6-7b`` (RWKV6) and ``--arch recurrentgemma-9b`` (RG-LRU
+with local attention), each on the ring arm and in fill-drain (the
+reference's paged arm fails on recurrent blocks, so ``--cache paged``
+with them is an error) and ``--arch whisper-small`` (encoder-decoder, fill-drain only,
 as the reference; its frame embeddings are zeros, as the reference
 CLI's); the paper's encoders (``mux-bert-*``, ``mux-electra-base``) are
 an error.  Runs on
@@ -74,6 +75,7 @@ import torch
 from repro_torch.configs import get_config, model_kind
 from repro_torch.core import MuxSpec
 from repro_torch.models import EncDecLM, TransformerLM
+from repro_torch.models.blocks import RECURRENT
 from repro_torch.serve import sampling
 from repro_torch.serve.batcher import MuxBatcher, Request
 from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
@@ -330,9 +332,9 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     exit) — the reference's CLI decodes plain, its
     ``decode_step(use_kernels=True)`` takes this route — and the RWKV6
     kernel of the blocking prefill, whose entry and exit stay plain and
-    whose attention follows ``attn_impl``.  An RWKV grid restarts from a
-    zero state at each re-prefill and takes the pad tokens into it, as in
-    the reference.
+    whose attention follows ``attn_impl``.  An RG-LRU or RWKV grid
+    restarts from a zero state at each re-prefill and takes the pad
+    tokens into it, as in the reference.
 
     Either way the stats hold ``wall`` and ``generated_tokens``, and the
     prefill accounting: ``prefill_tokens`` backbone token positions,
@@ -897,12 +899,13 @@ def main(argv=None):
         ap.error(f"--continuous with {args.arch}: continuous serving "
                  "supports decoder-only LM families, as the reference's "
                  "(repro/serve/runtime.py:128); serve it in fill-drain")
-    if args.cache == "paged" and "rwkv" in cfg.block_pattern:
+    recurrent = sorted(set(cfg.block_pattern) & set(RECURRENT))
+    if args.cache == "paged" and recurrent:
         ap.error(f"--cache paged with {args.arch}: the reference's paged arm "
-                 "fails on RWKV (its blocking prefill of one row meets the "
-                 "whole batch's token-shift state: 'Cannot concatenate "
-                 "arrays'; ROADMAP.md §3); serve it with --cache ring or in "
-                 "fill-drain")
+                 f"fails on {'/'.join(recurrent)} blocks (its blocking "
+                 "prefill of one row meets the whole batch's recurrent "
+                 "state: 'Cannot concatenate arrays'; ROADMAP.md §3); serve "
+                 "it with --cache ring or in fill-drain")
     dev = resolve_device(args.device)
     mux = MuxSpec(n=args.mux_n)
     model = EncDecLM if kind == "encdec" else TransformerLM

@@ -138,7 +138,8 @@ def main(argv=None, *, out: dict | None = None) -> int:
           f"mux N={mux.n}  devices=1 ({dev.type})")
 
     opt = AdamW(lr=linear_warmup_cosine_decay(
-        args.lr, max(args.steps // 10, 10), args.steps))
+        args.lr, max(args.steps // 10, 10), args.steps),
+        pattern=len(cfg.block_pattern))
     opt_state = opt.init(params)
 
     corpus = MarkovCorpus(vocab_size=cfg.vocab_size, seed=args.seed)

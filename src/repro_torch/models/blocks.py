@@ -1,12 +1,15 @@
 """Per-layer blocks (counterpart of ``repro.models.blocks``): the attention
-block with its serving branches, the dense (GLU) FFN, the RWKV6 (Finch)
-block and the cross-attention decoder block (whisper);
-``init_block`` / ``init_block_cache`` / ``apply_block`` dispatch on the
-block kind ('attn', 'local', 'rwkv', 'xattn').
+block with its serving branches, the dense (GLU) FFN, the RG-LRU
+(Griffin / RecurrentGemma) block, the RWKV6 (Finch) block and the
+cross-attention decoder block (whisper); ``init_block`` /
+``init_block_cache`` / ``apply_block`` dispatch on the block kind
+('attn', 'local', 'rglru', 'rwkv', 'xattn').
 
     init_attention(generator, cfg)              -> params
     init_kv_cache(cfg, batch, capacity, dtype, device=...) -> ring cache
     apply_attention(p, cfg, blk, x, ctx, cache) -> x
+    init_rglru(generator, cfg) / init_rglru_cache(cfg, batch, dtype, ...)
+    apply_rglru(p, cfg, blk, x, ctx, cache)     -> x
     init_rwkv(generator, cfg) / init_rwkv_cache(cfg, batch, dtype, ...)
     apply_rwkv(p, cfg, blk, x, ctx, cache)      -> x
     init_xattn(generator, cfg) / init_xattn_cache(cfg, batch, capacity,
@@ -35,6 +38,14 @@ shared across layers.  Branches:
     (``kernels.ops.flash_attention``, whatever use_kernels says, as in
     the reference).
 
+An RG-LRU layer's cache is its recurrent state, O(1) per row on either
+layout: ``h`` (B, W) in fp32 and ``conv`` (B, 3, W), the last three
+inputs of its 4-tap causal depthwise conv, in the cache dtype.
+``apply_rglru`` runs the linear recurrence h_t = a_t h_{t-1} + u_t as
+``linear_scan``, the odd/even recursion of the reference's
+``jax.lax.associative_scan`` in plain tensor ops (the reference has no
+Pallas kernel for it).
+
 An RWKV layer's cache is its recurrent state, O(1) per row on either
 layout: the (B, H, hd, hd) fp32 matrix state ``s`` and the last token's
 normed input to the time mix and to the channel mix (``shift_tm``,
@@ -57,8 +68,6 @@ run as one batched product, and shared experts add a plain GLU.  Its
 load-balancing aux loss goes on ``ctx['aux']`` (a list the backbone sums
 into its output's ``"aux"``).  The dispatch makes no host sync: static
 shapes, sorts and gathers, no boolean-mask indexing.
-
-The RG-LRU branch is a later slice.
 """
 from __future__ import annotations
 
@@ -71,7 +80,7 @@ from repro_torch.kernels.rwkv6 import rwkv_chunked
 from repro_torch.nn import (ACTIVATIONS, LayerNorm, Linear, RMSNorm,
                             apply_rope, attention_core, make_attention_mask,
                             multi_head_attention)
-from repro_torch.nn.activations import silu, squared_relu
+from repro_torch.nn.activations import gelu_tanh, silu, squared_relu
 from repro_torch.nn.layers import normal, rounded
 from repro_torch.serve.kvpool import init_pages, paged_view, paged_write
 
@@ -480,6 +489,121 @@ def _fresh_attention(q, k, v, cfg, window, ctx):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU block (Griffin / RecurrentGemma temporal mixing + MLP)
+# ---------------------------------------------------------------------------
+
+def init_rglru(generator, cfg):
+    """The reference's leaves; the recurrence is d_model wide."""
+    d = w = cfg.d_model
+    dev = generator.device
+    return {
+        "ln1": _norm(cfg).init(dev, d),
+        "w_in": Linear.init(generator, d, w, use_bias=False),
+        "w_gate": Linear.init(generator, d, w, use_bias=False),
+        "conv_w": normal(generator, (4, w), 0.02),       # depthwise, 4 taps
+        "conv_b": torch.zeros(w, device=dev),
+        "w_a": Linear.init(generator, w, w, use_bias=True),   # recurrence gate
+        "w_i": Linear.init(generator, w, w, use_bias=True),   # input gate
+        "lam": normal(generator, (w,), 0.5),    # a = exp(-8 softplus(lam) r)
+        "w_out": Linear.init(generator, w, d, use_bias=False),
+        "ln2": _norm(cfg).init(dev, d),
+        "ffn": init_ffn(generator, cfg),
+    }
+
+
+def init_rglru_cache(cfg, batch: int, dtype=torch.float32, *, device):
+    """One layer's recurrent state on ``device``: ``h`` in fp32, the conv's
+    last three inputs in ``dtype``."""
+    w = cfg.d_model
+    return {"h": torch.zeros((batch, w), device=device),
+            "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device)}
+
+
+def _causal_depthwise_conv(y, w, b, conv_state=None):
+    """y (B, L, W) through the 4-tap causal depthwise conv; conv_state
+    (B, 3, W), the inputs before y (None: zeros).  The taps add in the
+    reference's order, ((t0 + t1) + t2) + t3, then the bias, each op in
+    y's dtype.  Returns (out, the new state: the last three inputs)."""
+    if conv_state is None:
+        ypad = torch.nn.functional.pad(y, (0, 0, 3, 0))
+    else:
+        ypad = torch.cat([conv_state.to(y.dtype), y], dim=1)
+    l = y.shape[1]
+    w = w.to(y.dtype)
+    out = ypad[:, :l] * w[0]
+    for i in range(1, 4):
+        out = out + ypad[:, i:i + l] * w[i]
+    return out + b.to(y.dtype), ypad[:, -3:]
+
+
+def linear_scan(a, u):
+    """The first-order recurrence h_t = a_t h_{t-1} + u_t along dim 1 (h
+    before the first step 0): (prod a, h), the reference's
+    ``jax.lax.associative_scan`` of (a1 a2, a2 u1 + u2) as its odd/even
+    recursion, about 2 log2(L) levels of elementwise ops.  a2 u1 + u2 is
+    ``torch.addcmul``, one rounding as in the reference's compiled step,
+    where XLA fuses it into an FMA."""
+    n = a.shape[1]
+    if n < 2:
+        return a, u
+    a1, u1, a2, u2 = a[:, 0:-1:2], u[:, 0:-1:2], a[:, 1::2], u[:, 1::2]
+    a_odd, u_odd = linear_scan(a1 * a2, torch.addcmul(u2, a2, u1))
+    k = a_odd.shape[1] - (n % 2 == 0)
+    a3, u3 = a[:, 2::2], u[:, 2::2]
+    a_even = torch.cat([a[:, :1], a_odd[:, :k] * a3], dim=1)
+    u_even = torch.cat([u[:, :1], torch.addcmul(u3, a3, u_odd[:, :k])],
+                       dim=1)
+    out = []
+    for even, odd in ((a_even, a_odd), (u_even, u_odd)):
+        x = torch.empty_like(a)
+        x[:, 0::2] = even
+        x[:, 1::2] = odd
+        out.append(x)
+    return tuple(out)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def apply_rglru(p, cfg, blk, x, ctx, cache):
+    """One RG-LRU layer.  ``cache``: the layer's state, read and then
+    updated in place (None or empty: a zero state, nothing kept).  The
+    gates, the decay and the scan are fp32; the recurrence's output meets
+    the GELU gate in x's dtype."""
+    if ctx.get("rows") is not None:
+        raise NotImplementedError(
+            "a row-subset prefill of RG-LRU state: the reference's "
+            "apply_rglru ignores ctx['rows'] and its _causal_depthwise_conv "
+            "joins the whole batch's conv state to the rows' prompt "
+            "('Cannot concatenate arrays'; ROADMAP.md §3)")
+    b, l, d = x.shape
+    h = _norm(cfg).apply(p["ln1"], x)
+    y = Linear.apply(p["w_in"], h)
+    gate = Linear.apply(p["w_gate"], h)
+    y, conv_state = _causal_depthwise_conv(
+        y, p["conv_w"], p["conv_b"], cache["conv"] if cache else None)
+
+    r = torch.sigmoid(Linear.apply(p["w_a"], y).float())
+    i = torch.sigmoid(Linear.apply(p["w_i"], y).float())
+    log_a = -8.0 * _softplus(p["lam"].float()) * r            # (B, L, W)
+    a = torch.exp(log_a)
+    gated_in = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                       min=1e-12)) * i * y.float())
+    h0 = cache["h"] if cache else torch.zeros((b, d), device=x.device)
+    u = torch.cat([torch.addcmul(gated_in[:, :1], a[:, :1], h0[:, None]),
+                   gated_in[:, 1:]], dim=1)
+    _, h_seq = linear_scan(a, u)
+    if cache:
+        cache["h"].copy_(h_seq[:, -1])
+        cache["conv"].copy_(conv_state)
+
+    x = x + Linear.apply(p["w_out"], h_seq.to(x.dtype) * gelu_tanh(gate))
+    return x + _block_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x), ctx)
+
+
+# ---------------------------------------------------------------------------
 # RWKV6 block (Finch: data-dependent decay linear attention + channel mix)
 # ---------------------------------------------------------------------------
 
@@ -679,11 +803,14 @@ def apply_xattn(p, cfg, blk, x, ctx, cache):
 # dispatch
 # ---------------------------------------------------------------------------
 
-_INIT = {"attn": init_attention, "local": init_attention, "rwkv": init_rwkv,
-         "xattn": init_xattn}
+_INIT = {"attn": init_attention, "local": init_attention,
+         "rglru": init_rglru, "rwkv": init_rwkv, "xattn": init_xattn}
 _APPLY = {"attn": apply_attention, "local": apply_attention,
-          "rwkv": apply_rwkv, "xattn": apply_xattn}
+          "rglru": apply_rglru, "rwkv": apply_rwkv, "xattn": apply_xattn}
 BLOCKS = tuple(_APPLY)
+# blocks whose cache is recurrent state: the paged arm refuses them, as the
+# reference's fails on them (ROADMAP.md §3)
+RECURRENT = ("rglru", "rwkv")
 
 
 def init_block(generator, cfg, blk: str):
@@ -700,12 +827,14 @@ def init_block_cache(cfg, blk: str, batch: int, capacity: int,
                      kv_quant: str | None = None, device):
     """One layer's cache.  Attention: a ring buffer cut to the layer's
     window, or (paged) a page pool with its slot-position map, whose block
-    table the caller installs; RWKV: its recurrent state, the same on both
-    layouts; cross-attention: a ring and the cross-K/V of
+    table the caller installs; RG-LRU and RWKV: their recurrent state,
+    the same on both layouts; cross-attention: a ring and the cross-K/V of
     ``cfg.encoder.frontend_len`` frames (ring only, as in the
     reference)."""
     if layout not in ("ring", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
+    if blk == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device=device)
     if blk == "rwkv":
         return init_rwkv_cache(cfg, batch, dtype, device=device)
     if blk == "xattn":

@@ -1,11 +1,11 @@
 """ModelConfig (counterpart of ``repro.models.config``).
 
 The same frozen dataclass as the reference, so a reference config and its
-port compare field by field.  The port runs the dense attention blocks
-('attn' / 'local'), with a dense or a mixture-of-experts FFN (``moe``
-set: ``MoEConfig``), RWKV6 ('rwkv') and the cross-attention decoder
-block ('xattn', with ``encoder`` set: whisper); ``models.transformer``
-rejects the rest.  ``attn_impl`` picks the attention of a blocking
+port compare field by field.  The port runs every block kind of the
+reference: the dense attention blocks ('attn' / 'local'), with a dense
+or a mixture-of-experts FFN (``moe`` set: ``MoEConfig``), the RG-LRU
+recurrent block ('rglru'), RWKV6 ('rwkv') and the cross-attention
+decoder block ('xattn', with ``encoder`` set: whisper).  ``attn_impl`` picks the attention of a blocking
 (whole-prompt) forward: 'naive', 'chunked' (online softmax over
 ``attn_chunk``-key chunks), 'flash' (the flash-attention kernel) or
 'auto' (chunked above 2048 tokens, else naive), as the reference's field
@@ -129,6 +129,12 @@ def _ffn_params(cfg: ModelConfig) -> int:
 def _block_params(cfg: ModelConfig, blk: str) -> int:
     d, hd = cfg.d_model, cfg.head_dim
     n = 2 * d * (2 if cfg.norm == "ln" else 1)    # two norms (LN has bias)
+    if blk == "rglru":
+        w = d                                     # lru width = d_model
+        n += 3 * d * w                            # w_in, w_gate, w_out
+        n += 4 * w + w                            # conv taps + bias
+        n += 2 * (w * w + w) + w                  # w_a, w_i, lam
+        return n + _ffn_params(cfg)
     if blk == "rwkv":
         lora = 64
         n += 4 * d + 4 * d * d                    # mu; w_r, w_k, w_v, w_g

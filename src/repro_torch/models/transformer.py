@@ -5,14 +5,16 @@ MUX-BERT's encoder.
 Params are a nested dict of tensors in the reference's layouts, except
 that the layers are a list (one dict per layer): the reference's
 ``lax.scan`` over period-stacked params becomes a Python loop.
-``interop`` converts between the two.  Layers are attention blocks, RWKV6
-blocks or cross-attention decoder blocks (``models.blocks`` dispatches on
-``cfg.block_pattern``); an attention block's FFN is dense or, with
-``cfg.moe``, a mixture of experts.  The port serves from a ring cache
-(blocking prefill, decode at one shared position) or a paged cache
-(blocking or chunked prefill, decode at per-row positions) with fp32,
-bf16, int8 or fp8 pages; an RWKV layer's cache is its recurrent state on either
-layout.  ``cache=None`` is the no-cache forward (whisper's encoder,
+``interop`` converts between the two.  Layers are attention blocks
+(global or local), RG-LRU blocks, RWKV6 blocks or cross-attention
+decoder blocks (``models.blocks`` dispatches on ``cfg.block_pattern``,
+cycled to ``n_layers``: recurrentgemma-9b's (rglru, rglru, local) over
+38 layers is 12 periods and a tail of two RG-LRU layers); an attention
+block's FFN is dense or, with ``cfg.moe``, a mixture of experts.  The
+port serves from a ring cache (blocking prefill, decode at one shared
+position) or a paged cache (blocking or chunked prefill, decode at
+per-row positions) with fp32, bf16, int8 or fp8 pages; an RG-LRU or RWKV
+layer's cache is its recurrent state on either layout.  ``cache=None`` is the no-cache forward (whisper's encoder,
 MUX-BERT).  Positions are RoPE, learned (``params["pos_emb"]``, added
 after the entry) or none.  Embeddings are tied, or untied with
 ``params["lm_head"]``; ``embeds=`` replaces the token embedding with
@@ -62,9 +64,10 @@ class TransformerLM:
     def init(generator: torch.Generator, cfg: ModelConfig,
              mux: MuxSpec = MuxSpec()):
         """The port's own seeded init, on ``generator.device``, with the
-        reference's distributions: N(0, 0.02) weights, embeddings and RWKV
-        mixing / decay / bonus vectors, zero biases, zero RMSNorm scales
-        (the norm is 1 + scale), unit LayerNorm and group-norm scales,
+        reference's distributions: N(0, 0.02) weights, embeddings, conv
+        taps and RWKV mixing / decay / bonus vectors, N(0, 0.5) RG-LRU
+        Λ, zero biases, zero RMSNorm scales (the norm is 1 + scale),
+        unit LayerNorm and group-norm scales,
         N(0, 0.02) learned positions, N(0, 1) mux keys v and demux keys
         k.  Draws are the port's own:
         the same seed does not give the reference's values (use
@@ -101,9 +104,9 @@ class TransformerLM:
         by every layer (installed in place by
         ``serve.engine.set_block_tables``); pages are stored as ``dtype``,
         or quantized with per-slot scales under kv_quant='int8'/'fp8'
-        (``ServeConfig.page_dtype`` / ``kv_quant`` give both).  An RWKV
-        layer holds its recurrent state on either layout (its token
-        shifts in ``dtype``)."""
+        (``ServeConfig.page_dtype`` / ``kv_quant`` give both).  An RG-LRU
+        or RWKV layer holds its recurrent state on either layout (the
+        conv inputs and token shifts in ``dtype``)."""
         layers = [init_block_cache(cfg, blk, batch, capacity, dtype,
                                    layout=layout, block_size=block_size,
                                    num_blocks=num_blocks, kv_quant=kv_quant,

@@ -9,14 +9,15 @@ copy of the params (the reference's ``updates`` tree) would cost as much
 memory as the params themselves.
 
 The masks decide on the reference's path and rank.  The port keeps one
-dict per layer in a ``layers`` list, where the reference stacks the
-layers over the periods (``periods/0/…``, one more axis).  A per-layer
-vector is 1-D here but 2-D there, and the reference's decay mask decays
-it (rwkv6's ``dec_w0`` and ``mu_cm``).  ``reference_leaves`` gives each
-leaf the path and rank it has in the reference, and the masks read
-those.  Every model the port trains has a one-block pattern, so every
-layer is stacked at position 0; a model with a longer pattern (the
-reference's ``periods/<pos>`` and ``tail/<k>``) is not ported.
+dict per layer in a ``layers`` list, where the reference stacks layer i
+of a block pattern of length P at ``periods/<i % P>`` over the n_layers
+// P periods (one more axis) and keeps the leftover layers unstacked
+under ``tail/<k>``.  A per-layer vector of a stacked layer is 1-D here
+but 2-D there, and the reference's decay mask decays it (rwkv6's
+``dec_w0`` and ``mu_cm``; recurrentgemma-9b's ``lam`` and ``conv_b`` in
+its periods, not in its tail).  ``reference_leaves`` gives each leaf
+the path and rank it has in the reference, and the masks read those;
+``AdamW.pattern`` is P (``len(cfg.block_pattern)``).
 """
 from __future__ import annotations
 
@@ -47,12 +48,13 @@ def default_trainable_mask(path, ndim: int) -> bool:
     return not path_str(path).endswith("mux_engine/mux/v")
 
 
-def reference_leaves(tree, *others):
+def reference_leaves(tree, *others, pattern: int = 1):
     """[(reference path, reference rank, leaf, *others' leaves)] of a port
     tree in the reference's order (dict keys sorted), each with the leaf
     at the same place in every tree of ``others`` (None where one holds
-    none).  The layers of a ``layers`` list are stacked in the
-    reference's ``periods/0``, one more axis."""
+    none).  Layer i of a ``layers`` list of n is the reference's
+    ``periods/<i % pattern>`` with one more axis while i < n // pattern *
+    pattern, else ``tail/<i % pattern>`` at its own rank."""
     out = []
 
     def pick(trees, k):
@@ -67,8 +69,12 @@ def reference_leaves(tree, *others):
                 if k != "layers" or not isinstance(t[k], list):
                     walk(t[k], sub, ref + (k,), stacked)
                     continue
+                n_stacked = len(t[k]) // pattern * pattern
                 for i in range(len(t[k])):
-                    walk(t[k][i], pick(sub, i), ref + ("periods", 0), 1)
+                    stack = i < n_stacked
+                    walk(t[k][i], pick(sub, i),
+                         ref + ("periods" if stack else "tail",
+                                i % pattern), int(stack))
         elif isinstance(t, (list, tuple)):
             for i, v in enumerate(t):
                 walk(v, pick(os, i), ref + (i,), stacked)
@@ -95,6 +101,7 @@ class AdamW:
     clip_norm: float | None = 1.0
     decay_mask: Callable = staticmethod(default_decay_mask)
     trainable_mask: Callable = staticmethod(default_trainable_mask)
+    pattern: int = 1              # the model's len(cfg.block_pattern)
 
     def init(self, params):
         def zeros(t):
@@ -118,7 +125,8 @@ class AdamW:
         frozen leaf keeps its value, ``m`` and ``v``."""
         count = state["count"] + 1
         lr = float(self.lr(count) if callable(self.lr) else self.lr)
-        leaves = reference_leaves(params, grads, state["m"], state["v"])
+        leaves = reference_leaves(params, grads, state["m"], state["v"],
+                                  pattern=self.pattern)
         gs = [torch.zeros_like(p) if g is None else g
               for _, _, p, g, _, _ in leaves]
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))

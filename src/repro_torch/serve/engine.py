@@ -14,8 +14,9 @@ Two cache layouts, as in the reference:
                 positions and ``prefill(..., rows=[j])`` writes one
                 joining row's K/V without touching its siblings.
 
-An RWKV layer's cache is its recurrent state, O(1) per row, on both
-layouts; the paged runtime refuses RWKV (``serve.runtime``).  An
+An RG-LRU or RWKV layer's cache is its recurrent state, O(1) per row,
+on both layouts; the paged runtime refuses recurrent blocks
+(``serve.runtime``), so they serve on the ring and in fill-drain.  An
 encoder-decoder model (``ServeConfig.kind='encdec'``, whisper) serves on
 the ring only, as in the reference: its prefill takes the frame
 embeddings (``extra``), runs the encoder and fills each decoder layer's
@@ -181,9 +182,9 @@ def make_pool(sc: ServeConfig, global_batch: int):
 
 def init_cache(sc: ServeConfig, global_batch: int, *, device):
     """The cache for ``global_batch`` streams on ``device``: a ring in
-    ``sc.dtype``, or pages stored as ``sc.page_dtype`` says; RWKV layers
-    hold their recurrent state on either layout (token shifts in
-    ``sc.dtype``), cross-attention layers their cross-K/V beside a
+    ``sc.dtype``, or pages stored as ``sc.page_dtype`` says; RG-LRU and RWKV
+    layers hold their recurrent state on either layout (conv inputs and
+    token shifts in ``sc.dtype``), cross-attention layers their cross-K/V beside a
     ring."""
     b = backbone_batch(global_batch, sc.mux)
     if sc.kind == "encdec":
@@ -252,9 +253,9 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
     """Blocking prefill of whole prompts: tokens (NB, L).  The K/V go into
     the ring at positions 0 .. L-1, or (paged) into the pages of the
     backbone rows ``rows`` (default: every row), and every query attends
-    over the prompt's own fresh K/V with ``cfg.attn_impl``; an RWKV layer
-    runs its recurrence from the cache's state and leaves its final state
-    there.  extra (kind 'encdec'): the (NB, frames, D_enc) frame
+    over the prompt's own fresh K/V with ``cfg.attn_impl``; an RG-LRU or
+    RWKV layer runs its recurrence from the cache's state and leaves its
+    final state there.  extra (kind 'encdec'): the (NB, frames, D_enc) frame
     embeddings the encoder runs over.  use_kernels: the layers' kernels
     (the RWKV6 recurrence; the attention follows ``cfg.attn_impl`` either
     way) and the mux-combine kernel of the entries.  As in the

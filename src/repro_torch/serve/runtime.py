@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models.blocks import RECURRENT
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import (ServeConfig, copy_cache_pages,
                                       decode_step, init_cache, make_pool,
@@ -112,8 +113,8 @@ class ServeRuntime:
     ``cache_layout='paged'`` (its ``kv_dtype`` sets the page storage;
     ``stats`` records the pool's bytes and bytes per token) of a
     decoder-only LM (kind 'lm', as the reference) over attention blocks
-    only: recurrent (RWKV) blocks raise ``NotImplementedError``, as the
-    reference fails there.
+    only: recurrent (RG-LRU, RWKV) blocks raise ``NotImplementedError``,
+    as the reference fails there.
     backbone_rows: B rows of the N_mux × B grid.  chunk: prefill chunk
     size in tokens; None is blocking prefill (a joining row's whole
     prompt in one call, ``stats['prefill_mode']`` says which ran).
@@ -155,18 +156,20 @@ class ServeRuntime:
             raise ValueError(
                 f"backbone_rows={backbone_rows} not divisible by "
                 f"n_shards={sc.n_shards}")
-        recurrent = sorted(set(sc.cfg.block_pattern) - {"attn", "local"})
+        recurrent = sorted(set(sc.cfg.block_pattern) & set(RECURRENT))
         if recurrent:
             # The reference sends recurrent blocks to blocking prefill
             # (chunk=None: bucket padding would run pad tokens through
-            # their state), and its blocking prefill fails on RWKV: refuse.
+            # their state), and its blocking prefill fails on them: refuse.
             raise NotImplementedError(
                 f"paged serving of {recurrent} blocks: the reference falls "
                 "back to blocking prefill (repro/serve/runtime.py:155-161), "
-                "whose prefill(rows=[j]) reaches apply_rwkv with one row "
-                "against the whole batch's token-shift state and fails "
-                "('Cannot concatenate arrays'); the port serves RWKV on the "
-                "ring arm and in fill-drain (ROADMAP.md §3)")
+                "whose prefill(rows=[j]) ignores the rows in apply_rwkv "
+                "(its _token_shift) and apply_rglru (its "
+                "_causal_depthwise_conv) and meets the whole batch's state "
+                "with one row's prompt ('Cannot concatenate arrays'); the "
+                "port serves these blocks on the ring arm and in fill-drain "
+                "(ROADMAP.md §3)")
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.sc = sc

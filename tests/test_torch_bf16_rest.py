@@ -289,7 +289,7 @@ def _whisper_inputs(length=12, seed=0):
             rng.standard_normal((4, 24, 64)).astype(np.float32))
 
 
-@pytest.mark.parametrize("kind", ["attn", "xattn", "rwkv"])
+@pytest.mark.parametrize("kind", ["attn", "xattn", "rwkv", "rglru"])
 def test_bf16_layers_match_the_reference_op_by_op(kind):
     """One layer of each new kind in bf16, the reference run op by op
     (``jax.disable_jit``): whisper-small's encoder block and its
@@ -297,7 +297,10 @@ def test_bf16_layers_match_the_reference_op_by_op(kind):
     JAX's ops round; the RWKV6 block (from a carried state) bit for bit
     but for an element whose recurrence sums, taken in another order,
     round the other way (``_assert_bf16_close``), its state within
-    ``RWKV_TOL``.  The reference's model path runs its layers inside a
+    ``RWKV_TOL``; recurrentgemma-9b's RG-LRU block (from a carried state)
+    the same way, its bf16 conv state bit for bit and its fp32 ``h``
+    within 1e-6 (the port's scan rounds a2 u1 + u2 once, the reference's
+    ops twice).  The reference's model path runs its layers inside a
     compiled ``lax.scan``, where XLA keeps fused elementwise chains in
     fp32 (``xla_allow_excess_precision``, on by default) and skips some
     of those roundings: the source of the model-level differences the
@@ -317,6 +320,17 @@ def test_bf16_layers_match_the_reference_op_by_op(kind):
         cache_r = {"s": jnp.asarray(s0.numpy()), "shift_tm": _to_jax(shifts[0]),
                    "shift_cm": _to_jax(shifts[1])}
         layer_r, layer = ref_p["periods"][0], port["layers"][0]
+    elif kind == "rglru":
+        cfg_r, cfg = (ref_config("recurrentgemma-9b", reduced=True),
+                      get_config("recurrentgemma-9b", reduced=True))
+        port = TransformerLM.init(torch.Generator().manual_seed(5), cfg,
+                                  MuxSpec(n=2))
+        ref_p = _ref_params(port, cfg)
+        h0 = torch.as_tensor(rng.standard_normal((2, 64)).astype(np.float32))
+        conv = _bf16(rng, 2, 3, 64)
+        cache = {"h": h0.clone(), "conv": conv.clone()}
+        cache_r = {"h": jnp.array(h0.numpy()), "conv": _to_jax(conv)}
+        layer_r, layer = ref_p["periods"][0], port["layers"][0]
     else:
         cfg_r, cfg, ref_p, port = _whisper("auto")
         stack = "encoder" if kind == "attn" else "decoder"
@@ -331,11 +345,17 @@ def test_bf16_layers_match_the_reference_op_by_op(kind):
             jax.tree.map(lambda a: a[0], layer_r), cfg_r, kind, _to_jax(x),
             ctx_r, cache_r)
     got = blocks.apply_block(layer, cfg, kind, x, ctx, cache)
-    if kind != "rwkv":
+    if kind not in ("rwkv", "rglru"):
         assert np.array_equal(got.view(torch.int16).numpy(),
                               np.asarray(want).view(np.int16))
         return
     _assert_bf16_close(got, want)
+    if kind == "rglru":
+        assert np.array_equal(cache["conv"].view(torch.int16).numpy(),
+                              np.asarray(new_r["conv"]).view(np.int16))
+        np.testing.assert_allclose(cache["h"].numpy(),
+                                   np.asarray(new_r["h"]), rtol=0, atol=1e-6)
+        return
     np.testing.assert_allclose(cache["s"].numpy(), np.asarray(new_r["s"]),
                                **RWKV_TOL)
     for key in ("shift_tm", "shift_cm"):

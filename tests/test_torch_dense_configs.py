@@ -6,7 +6,7 @@ the reference's reduced configs.  The reduced h2o-danube keeps head_dim
 80 at d 64 and a window of 16, as the reference's does.
 
   * the registry: ``get_config`` of every served architecture (the MoE
-    pair too), full and reduced, equal to the reference's field for field
+    pair and recurrentgemma-9b too), full and reduced, equal to the reference's field for field
     (the reference's training-only fields aside; ``moe`` field by field),
     with the same ``param_count`` and ``active_param_count``;
   * ``interop``: reference -> port -> reference, leaf for leaf;
@@ -84,10 +84,12 @@ def test_served_configs_match_reference(arch, reduced):
 
 
 def test_registry_serves_six_architectures():
-    """The six dense / RWKV / encoder-decoder architectures, and since the
-    MoE slice granite-moe-3b-a800m and qwen2-moe-a2.7b: eight."""
-    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 8
-    assert {"granite-moe-3b-a800m", "qwen2-moe-a2.7b"} < set(ARCHS)
+    """The six dense / RWKV / encoder-decoder architectures, since the
+    MoE slice granite-moe-3b-a800m and qwen2-moe-a2.7b, and since the
+    hybrid slice recurrentgemma-9b: nine."""
+    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 9
+    assert {"granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+            "recurrentgemma-9b"} < set(ARCHS)
     h2o = get_config("h2o-danube-1.8b", reduced=True)
     assert (h2o.d_model, h2o.head_dim, h2o.window) == (64, 80, 16)
 
