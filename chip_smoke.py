@@ -85,7 +85,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 causal L 116; B 1, L 2200, window 2048), the demux with its
                 RMS entry at d 4096, F 8192, T 4, and in fp32 the fused
                 entry at vocab 256000, d 4096 scaled by sqrt(d), and the
-                mux-combine entry at (2, 464, 4096);
+                mux-combine entry at (2, 464, 4096); phase 16's shapes
+                (``LLAVA_ROWS``), read from llava-next-mistral-7b's config,
+                in fp32: the mux-combine entry of a prefill over 576
+                patches and a 100-token prompt (2, 4 * 676, 4096), flash
+                attention at 32 query heads over 8 KV heads of 128 (B 4,
+                causal L 676), the ring decode at the same heads over a
+                700-slot ring at 690, and the fused entry at vocab 32000,
+                d 4096;
                 and the timer's floor, a one-element ``add_`` timed the
                 same way, beside every kernel time;
   4. serve    — ``run_continuous`` on full-width qwen2-1.5b (28 layers,
@@ -310,8 +317,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 ``set_sync_debug_mode("error")`` and once under the
                 profiler (device time by group: matmuls, the four kernels,
                 the RG-LRU's conv, scan and gate kernels); the peak
-                memory.
-The kernels' JSON line lists every kernel of phases 3-15 and the timer
+                memory;
+  16. vlm     — phase 15's weights gone, full-width llava-next-mistral-7b
+                (32 layers, d 4096, 32 query heads over 8 KV heads of 128,
+                the multimodal projector 1024 -> 4096 -> 4096; seeded
+                random weights, depth not cut) on phase 4's trace with 576
+                seeded N(0, 1) patch embeddings a request and
+                ``attn_impl='flash'``: (a) fill-drain at the reference
+                CLI's capacity and decode positions, every request
+                complete, launch counts exact (a prefill mux_combine once
+                and 32 flash_attention, no demux kernel; a decode step 32
+                decode_attention and the fused entry and exit once; no
+                paged or RWKV kernel), kernel path against plain path (the
+                prefill's and a decode step's logits from identical caches
+                within 2e-3, greedy tokens identical); (b) the true
+                positions (capacity 700, decode at 676 + t) through
+                ``engine.prefill`` / ``decode_step``: launch counts exact,
+                every step's logits within 2e-3 of the plain path's
+                no-cache forward over [patches, prompt, tokens so far],
+                greedy identical to the plain path; (c) bf16 on (b)'s path
+                within ``BF16_LOGIT_ULPS`` of the wrappers' plain versions,
+                greedy agreement with fp32 printed; (d) one decode step
+                twice from one cache (bit for bit), under
+                ``set_sync_debug_mode("error")`` and profiled (device time
+                by group: matmuls, the kernels), one prefill profiled, the
+                projector alone timed by CUDA events; (e) the peak memory.
+The kernels' JSON line lists every kernel of phases 3-16 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -1385,6 +1416,7 @@ def phase_kernels(torch, timer):
     moe_kernels(torch, timer, record, pool, sdpa, store, decode_cases[0],
                 prefill_cases[0])
     hybrid_kernels(torch, timer, record, ring_pos, visible)
+    llava_kernels(torch, timer, record, ring_pos, visible)
     torch.cuda.synchronize()
     return out
 
@@ -2076,6 +2108,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_runs = phase_hybrid(torch, mux, rows, prompt_len, new_tokens)
 
+    # 16. llava-next-mistral-7b, full width; phase 15's weights were its
+    # own and are gone with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_runs = phase_vlm(torch, mux, rows, prompt_len, new_tokens)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -2116,6 +2154,8 @@ def main() -> int:
         meta[kname] = meta[wrapper]
     for kname, (wrapper, _) in HYBRID_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, (wrapper, _) in LLAVA_ROWS.items():
+        meta[kname] = meta[wrapper]
     rest_runs = {"rwkv": rwkv["ring, bf16"]["launches"],
                  "whisper": whisper["bf16"]["launches"], "bert": bert["bf16"]}
     rows_json = []
@@ -2124,7 +2164,10 @@ def main() -> int:
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in HYBRID_ROWS:          # phase 15's run
+        if kname in LLAVA_ROWS:           # phase 16's run
+            wrapper, run = LLAVA_ROWS[kname]
+            launches = vlm_runs[run][wrapper]
+        elif kname in HYBRID_ROWS:        # phase 15's run
             wrapper, run = HYBRID_ROWS[kname]
             launches = hybrid_runs[run]["launches"][wrapper]
         elif kname in MOE_ROWS:           # phase 14's run of that arch
@@ -2356,7 +2399,7 @@ def compare_paths(params, sc, rows, trace, prompt_len, kernel_run,
 
 
 def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
-                dtype=None):
+                dtype=None, kind="lm", frames=None):
     """Phase 4b (or 10) for one mode: the continuous ring arm, paged
     serving with blocking prefill, or fill-drain, on the phase-4 trace in
     ``dtype`` (fp32 by default), with the launch counts set to 0 just
@@ -2368,7 +2411,9 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
     bytes per token on the card equal ``ServeConfig.kv_bytes_per_token``.
     The attention counts are per attention layer ('attn' or 'local'):
     every layer of a dense model, recurrentgemma-9b's 12 local layers of
-    38 (phase 15)."""
+    38 (phase 15).  kind 'vlm' (phase 16): fill-drain with the requests'
+    patch embeddings ``frames``, each prefill over the patches and the
+    prompt."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import fill_drain, run_continuous
@@ -2377,12 +2422,13 @@ def serve_dense(params, cfg, mux, rows, trace, new_tokens, mode, label="",
     layout = "paged" if mode == "blocking" else "ring"
     sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=dtype or torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
-                            cache_layout=layout, block_size=16)
+                            cache_layout=layout, block_size=16, kind=kind)
     tele = Telemetry()
     ops.reset_counts()
     if mode == "fill-drain":
         stats = fill_drain(params, sc, rows, [a[1] for a in trace],
-                           new_tokens, telemetry=tele, device="cuda")
+                           new_tokens, frames=frames, telemetry=tele,
+                           device="cuda")
     else:
         stats = run_continuous(
             params, sc, rows, trace, prefill_mode="blocking", telemetry=tele,
@@ -2697,8 +2743,8 @@ def phase_whisper(torch, mux, rows, prompt_len, new_tokens):
     frames = np.random.default_rng(7).standard_normal(
         (len(trace), enc.frontend_len, enc.d_model), np.float32)
     run = serve_whisper(params, cfg, mux, rows, trace, frames, new_tokens)
-    compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
-                          run)
+    compare_fill_drain_paths(params, cfg, mux, rows, trace, frames,
+                             new_tokens, run, "encdec", "whisper")
     # the same weights in the reference's default compute dtype, bf16
     run_bf16 = serve_whisper(params, cfg, mux, rows, trace, frames,
                              new_tokens, dtype=torch.bfloat16)
@@ -2813,22 +2859,25 @@ def bf16_whisper_vs_plain(params, cfg, mux, rows, trace, frames, new_tokens,
           flush=True)
 
 
-def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
-                          kernel_run):
-    """Phase 7, kernel path (flash attention, mux-combine, flash-decode,
-    fused entry and exit) against plain path (naive attention, einsum
-    entries, the plain model path): the logits of the prefill and of one
-    decode step from identical caches, then the greedy tokens of the
-    whole trace, which must be identical."""
+def compare_fill_drain_paths(params, cfg, mux, rows, trace, frames,
+                             new_tokens, kernel_run, kind, label):
+    """Phase 7 (kind 'encdec') and 16 (a) (kind 'vlm'), fill-drain at the
+    reference CLI's capacity and positions: kernel path (flash
+    attention, mux-combine, flash-decode, fused entry and exit) against
+    plain path (naive attention, einsum entries, the plain model path):
+    the logits of the prefill over ``frames`` (frame or patch embeddings)
+    and of one decode step from identical caches, then the greedy tokens
+    of the whole trace, which must be identical."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import fill_drain
     from repro_torch.serve import engine
     sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + new_tokens + 8,
-                            kind="encdec")
-    naive = cfg.replace(attn_impl="naive",
-                        encoder=cfg.encoder.replace(attn_impl="naive"))
+                            kind=kind)
+    naive = cfg.replace(attn_impl="naive")
+    if cfg.encoder is not None:
+        naive = naive.replace(encoder=cfg.encoder.replace(attn_impl="naive"))
     sc_plain = dataclasses.replace(sc, cfg=naive)
     nb = max(mux.n, 1) * rows
     toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
@@ -2841,23 +2890,21 @@ def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
     lp, _ = engine.prefill(params, sc_plain, plain_cache, toks, extra=extra,
                            use_kernels=False)
     need(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
-         "whisper: prefill logits are not finite")
+         f"{label}: prefill logits are not finite")
     err_pre = (lk - lp).abs().max().item()
-    for a, b in zip(cache["layers"], plain_cache["layers"]):
-        for key in ("k", "v", "pos", "xk", "xv"):
-            b[key] = a[key].clone()
+    copy_ring(cache, plain_cache)
     dtok = lk.argmax(-1)[:, None]
     dk, _ = engine.decode_step(params, sc, cache, dtok, toks.shape[1],
                                use_kernels=True)
     dp, _ = engine.decode_step(params, sc_plain, plain_cache, dtok,
                                toks.shape[1], use_kernels=False)
     err_dec = (dk - dp).abs().max().item()
-    print(f"  whisper: logits max_abs_err kernel vs plain path: prefill "
+    print(f"  {label}: logits max_abs_err kernel vs plain path: prefill "
           f"{err_pre:.3e}, decode from identical caches {err_dec:.3e} (tol "
           f"{LOGIT_TOL:g}); |logits| max {lk.abs().max().item():.3f}",
           flush=True)
     need(err_pre <= LOGIT_TOL and err_dec <= LOGIT_TOL,
-         "whisper: kernel path disagrees with the plain path")
+         f"{label}: kernel path disagrees with the plain path")
     plain = fill_drain(params, sc_plain, rows, [a[1] for a in trace],
                        new_tokens, frames=frames, use_kernels=False,
                        device="cuda")
@@ -2865,11 +2912,11 @@ def compare_whisper_paths(params, cfg, mux, rows, trace, frames, new_tokens,
     po = {r.uid: r.output for r in plain["completed"]}
     same = sum(a == b for u in ko for a, b in zip(ko[u], po[u]))
     total = sum(len(v) for v in ko.values())
-    print(f"  whisper: greedy tokens identical, kernel vs plain path: "
+    print(f"  {label}: greedy tokens identical, kernel vs plain path: "
           f"{same}/{total} ({same / total:.3f}); plain path "
           f"{plain['generated_tokens'] / plain['wall']:.2f} tok/s",
           flush=True)
-    need(same == total, "whisper: the kernel path's greedy tokens differ "
+    need(same == total, f"{label}: the kernel path's greedy tokens differ "
          "from the plain path's")
 
 
@@ -5173,7 +5220,7 @@ HYBRID_ROWS = {
     "mux_combine[rg-9b]": ("mux_combine", "ring"),
 }
 # a profiled decode step's kernels by group: first by name (matmuls and
-# the main path's kernels; ``hybrid_groups``), then by the
+# the main path's kernels; ``profile_groups``), then by the
 # ``record_function`` range they were launched in (``rglru_ranges``), else
 # "other"
 HYBRID_RANGES = (("rg-lru conv", "rglru.conv"), ("rg-lru scan", "rglru.scan"),
@@ -5517,22 +5564,25 @@ def rglru_ranges():
          blocks.linear_scan) = saved
 
 
-def hybrid_groups(trace, steps):
+def profile_groups(trace, steps, ranges=()):
     """Device time and kernels per step of a profile by group: a kernel
     whose lower-case name holds a matmul's (``profile_step.STEP_GROUPS``)
     or one of the main path's kernels' substrings falls in that group;
-    else in the innermost of ``HYBRID_RANGES`` that its launch (the
-    runtime call with its correlation id) lies in; else "other"."""
+    else in the innermost of ``ranges`` ((group, ``record_function``
+    range) pairs, innermost first) that its launch (the runtime or driver
+    call with its correlation id) lies in; else "other"."""
     from repro_torch.launch import profile_step
     named = {"matmul": profile_step.STEP_GROUPS["matmul"],
+             "flash_attention": ("flash_",),
              "decode_attention": ("decode_kernel",), "demux_rsa": ("demux_",),
              "mux entry": ("mux_embed", "mux_combine")}
     evs = trace["traceEvents"]
     spans = {rng: [(e["ts"], e["ts"] + e["dur"]) for e in evs
                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                   and e["name"] == rng] for _, rng in HYBRID_RANGES}
+                   and e["name"] == rng] for _, rng in ranges}
     launched = {e["args"]["correlation"]: e["ts"] for e in evs
-                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                if e.get("ph") == "X"
+                and e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
     by, n, unmatched = {}, {}, 0
     for e in evs:
@@ -5544,7 +5594,7 @@ def hybrid_groups(trace, steps):
         if g is None:
             ts = launched.get(e.get("args", {}).get("correlation"))
             unmatched += ts is None
-            g = next((g for g, rng in HYBRID_RANGES if ts is not None
+            g = next((g for g, rng in ranges if ts is not None
                       and any(a <= ts <= b for a, b in spans[rng])), "other")
         by[g] = by.get(g, 0.0) + e["dur"]
         n[g] = n.get(g, 0) + 1
@@ -5558,54 +5608,387 @@ def hybrid_groups(trace, steps):
 
 def hybrid_decode_checks(torch, params, cfg, mux, rows, trace):
     """Phase 15 on one fp32 ring decode step of the grid (the trace's
-    first N * rows prompts prefilled): the step twice from copies of one
-    cache, bit for bit; once more under ``set_sync_debug_mode("error")``;
-    then its host wall time over 5 steps and one step under
-    ``torch.profiler``: device busy, idle share, kernels and device time
-    by group (``hybrid_groups``: matmuls, the four kernels, the RG-LRU's
+    first N * rows prompts prefilled): ``step_checks`` with the RG-LRU's
+    ranges (``profile_groups``: matmuls, the four kernels, the RG-LRU's
     conv, scan and gate kernels, other)."""
     import numpy as np
-    from repro_torch.launch import profile_step
     from repro_torch.serve import engine
     sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
                             capacity=len(trace[0][1]) + 24)
-    nb = mux.n * rows
-    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:mux.n * rows]]),
                            device="cuda")
+    step_checks(torch, params, sc, toks, toks.shape[1], "hybrid",
+                ranges=HYBRID_RANGES, annotate=rglru_ranges)
+
+
+def step_checks(torch, params, sc, toks, pos, label, *, extra=None,
+                ranges=(), annotate=contextlib.nullcontext, prefill=False):
+    """One fp32 ring decode step at ``pos`` after a prefill of ``toks``
+    (and ``extra``, kind 'vlm' or 'encdec'): the step twice from copies of
+    one cache, bit for bit; once more under ``set_sync_debug_mode
+    ("error")``; then its host wall time over 5 steps and one step under
+    ``torch.profiler`` inside ``annotate()``: device busy, idle share,
+    kernels and device time by group (``profile_groups`` over
+    ``ranges``).  ``prefill``: the same profile of one prefill (wall time
+    over 2)."""
+    from repro_torch.launch import profile_step
+    from repro_torch.serve import engine
+    nb = toks.shape[0]
     cache = engine.init_cache(sc, nb, device="cuda")
-    logits, _ = engine.prefill(params, sc, cache, toks)
+    logits, _ = engine.prefill(params, sc, cache, toks, extra=extra)
     dtok = logits.argmax(-1)[:, None]
-    pos = toks.shape[1]
     twins = [engine.init_cache(sc, nb, device="cuda") for _ in range(3)]
     for c in twins:
         copy_ring(cache, c)
     a = engine.decode_step(params, sc, twins[0], dtok, pos)[0]
     b = engine.decode_step(params, sc, twins[1], dtok, pos)[0]
     torch.cuda.synchronize()
-    need(torch.equal(a, b), "hybrid decode step: a repeat from the same "
+    need(torch.equal(a, b), f"{label} decode step: a repeat from the same "
          "cache changed the logits' bits")
     torch.cuda.set_sync_debug_mode("error")
     try:
         c = engine.decode_step(params, sc, twins[2], dtok, pos)[0]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    need(torch.equal(a, c), "hybrid decode step under sync debug differs")
-    print(f"  hybrid decode step ({rows} rows at {pos}): bit for bit over "
-          "two calls from one cache; a third under "
+    need(torch.equal(a, c), f"{label} decode step under sync debug differs")
+    print(f"  {label} decode step ({nb // max(sc.mux.n, 1)} rows at {pos}): "
+          "bit for bit over two calls from one cache; a third under "
           "set_sync_debug_mode('error') made no host sync and gave the same "
           "bits", flush=True)
     del twins
 
     def step():
         engine.decode_step(params, sc, cache, dtok, pos)
-    step()
-    wall = profile_step.wall_time(step, 5)
-    with rglru_ranges():
-        trace_, prof_wall = profile_step.profile_calls(step, 1)
-    profile_step.summarize("  hybrid fp32 ring decode step, profiled",
-                           trace_, 1, wall / 5, prof_wall, 8)
-    hybrid_groups(trace_, 1)
+
+    def fill():
+        engine.prefill(params, sc, twin, toks, extra=extra)
+    twin = engine.init_cache(sc, nb, device="cuda")
+    calls = [("decode step", step, 5)] + ([("prefill", fill, 2)]
+                                          if prefill else [])
+    for what, fn, n in calls:
+        fn()
+        wall = profile_step.wall_time(fn, n)
+        with annotate():
+            trace_, prof_wall = profile_step.profile_calls(fn, 1)
+        profile_step.summarize(f"  {label} fp32 ring {what}, profiled",
+                               trace_, 1, wall / n, prof_wall, 8)
+        profile_groups(trace_, 1, ranges)
     print(f"  {smi_line()}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the VLM family, llava-next-mistral-7b at full width
+VLM_ARCH = "llava-next-mistral-7b"
+# phase 3's rows at phase 16's shapes: the wrapper and the phase-16 run
+# whose launches the JSON reports ("cli": fill-drain at the reference
+# CLI's positions, "true": the true positions)
+LLAVA_ROWS = {
+    "mux_combine[llava]": ("mux_combine", "cli"),
+    "flash_attention[llava]": ("flash_attention", "cli"),
+    "decode_attention[llava]": ("decode_attention", "true"),
+    "mux_embed_combine[llava]": ("mux_embed_combine", "cli"),
+}
+
+
+def llava_kernels(torch, timer, record, ring_pos, visible):
+    """Phase 3's rows at phase 16's shapes (``LLAVA_ROWS``), read from
+    llava-next-mistral-7b's config (32 query heads over 8 KV heads of
+    128, d 4096, vocab 32000, 576 patches) and phase 4's trace (4 rows, a
+    100-token prompt, 16 new), fp32, each within ATT_TOL / MUX_TOL /
+    COMBINE_TOL of its plain version, bit for bit over two calls, timed
+    beside its plain version and library call with its bound: the
+    mux-combine entry of a prefill over the patch-prefixed rows (2, 4 *
+    676, 4096); ``flash_attention`` at B 4, causal L 676 (SDPA beside);
+    ``decode_attention`` at B 4 over a 700-slot ring at 690, the last
+    decode step of phase 16's run at the true positions; the fused entry
+    at V 32000, d 4096, T 4."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import flash_attention as kfl
+    from repro_torch.kernels import mux_combine as kc
+    from repro_torch.kernels import mux_embed as km
+    from repro_torch.kernels import ref
+    cfg = get_config(VLM_ARCH)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d, vocab = cfg.d_model, cfg.vocab_size
+    rows, prompt, new = 4, 100, 16                 # phase 4's trace
+    l = cfg.frontend_len + prompt                  # a prefill's row
+    cap = l + new + 8                              # the true positions' ring
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(53)     # phase 3's other rows keep theirs
+    heads = f"{h} over {hkv} of {dh}"
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * s).astype(
+            np.float32), device=dev)
+
+    def timed(kernel, plain, library, nb, fl, work=None):
+        bms, by = bound(nb, fl)
+        return {**({"work": work} if work else {}), "ms": timer(kernel),
+                "plain_ms": timer(plain), "library_ms": timer(library),
+                "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+
+    def repeat(name, fn, got):
+        need(torch.equal(fn(), got), f"{name}: a repeat changed the bits")
+
+    # the mux-combine entry of a prefill: 4 rows of 576 patches + 100 tokens
+    tt = rows * l
+    x, v = r(2, tt, d), r(2, d)
+    got = kc.mux_combine_cuda(x, v)
+    repeat("mux_combine[llava]", lambda: kc.mux_combine_cuda(x, v), got)
+    record("mux_combine[llava]", f"(2, {tt}, {d})",
+           (got - ref.mux_combine_ref(x, v)).abs().max().item(),
+           COMBINE_TOL["fp32"],
+           timed(lambda: kc.mux_combine_cuda(x, v),
+                 lambda: ref.mux_combine_ref(x, v),
+                 lambda: torch.einsum("ntd,nd->td", x, v) / 2,
+                 (3 * tt * d + 2 * d) * 4, 4 * tt * d))
+    del x
+
+    # flash: the prefill's rows, causal over patches and prompt
+    q, k, vv = r(rows, l, h, dh), r(rows, l, hkv, dh), r(rows, l, hkv, dh)
+    got = kfl.flash_attention_cuda(q, k, vv)
+    repeat("flash_attention[llava]",
+           lambda: kfl.flash_attention_cuda(q, k, vv), got)
+    ar = torch.arange(l, device=dev)
+    vis = visible(ar, ar, True, None, torch.ones(l, dtype=torch.bool,
+                                                 device=dev))
+    nb, fl, work = dense_bound(q, k, vis)
+    record("flash_attention[llava]", f"B={rows}, causal L={l}; {heads}", (
+        got - ref.flash_attention_ref(q, k, vv)).abs().max().item(), ATT_TOL,
+        timed(lambda: kfl.flash_attention_cuda(q, k, vv),
+              lambda: ref.flash_attention_ref(q, k, vv),
+              lambda: sdpa_dense(q, k, vv, vis), nb, fl, work))
+    del q, k, vv, vis
+
+    # the ring decode at the true positions' last step
+    q_pos = l + new - 2
+    q = r(rows, 1, h, dh)
+    kc_, vc_ = r(rows, cap, hkv, dh), r(rows, cap, hkv, dh)
+    pos = ring_pos(cap, q_pos + 1)
+    got = kdec.decode_attention_cuda(q, kc_, vc_, pos, q_pos=q_pos)
+    repeat("decode_attention[llava]", lambda: kdec.decode_attention_cuda(
+        q, kc_, vc_, pos, q_pos=q_pos), got)
+    vis = visible(torch.full((1,), q_pos, device=dev), pos.long(), True, None,
+                  pos >= 0)
+    nb, fl, work = dense_bound(q, kc_, vis)
+    nb += cap * 4                                     # slot positions
+    record("decode_attention[llava]", f"B={rows}, C={cap} at {q_pos}; "
+           f"{heads}", (got - ref.decode_attention_ref(
+               q, kc_, vc_, pos, q_pos=q_pos)).abs().max().item(), ATT_TOL,
+           timed(lambda: kdec.decode_attention_cuda(q, kc_, vc_, pos,
+                                                    q_pos=q_pos),
+                 lambda: ref.decode_attention_ref(q, kc_, vc_, pos,
+                                                  q_pos=q_pos),
+                 lambda: sdpa_dense(q, kc_, vc_, vis), nb, fl, work))
+    del kc_, vc_
+
+    # the fused entry of a decode step: vocabulary 32000, d 4096, T 4
+    emb = torch.randn((vocab, d), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(53)) * 0.02
+    tok = torch.as_tensor(rng.integers(0, vocab, (2, rows)).astype(np.int32),
+                          device=dev)
+    tl = tok.long()
+    got = km.mux_embed_combine_cuda(tok, emb, v)
+    repeat("mux_embed_combine[llava]",
+           lambda: km.mux_embed_combine_cuda(tok, emb, v), got)
+    record("mux_embed_combine[llava]", f"T={rows} V {vocab} d {d}",
+           (got - ref.mux_embed_ref(tok, emb, v)).abs().max().item(), MUX_TOL,
+           timed(lambda: km.mux_embed_combine_cuda(tok, emb, v),
+                 lambda: ref.mux_embed_ref(tok, emb, v),
+                 lambda: torch.einsum("ntd,nd->td", F.embedding(tl, emb),
+                                      v) * 0.5,
+                 embed_bytes(tok, d, 4), 2 * 2 * rows * d,
+                 work=f"{tok.unique().numel()} distinct table rows of "
+                      f"{tok.numel()} gathers"))
+    del emb
+
+
+def phase_vlm(torch, mux, rows, prompt_len, new_tokens):
+    """Phase 16: full-width llava-next-mistral-7b from seeded random
+    weights (32 layers, d 4096, 32 query heads over 8 KV heads of 128, the
+    multimodal projector 1024 -> 4096 -> 4096), phase 4's trace with 576
+    seeded N(0, 1) patch embeddings a request and ``attn_impl='flash'``:
+    (a) fill-drain at the reference CLI's capacity and decode positions
+    (``serve_dense``, launch counts exact) and its kernel path against the
+    plain path (``compare_fill_drain_paths``); (b) and (c) the true
+    positions in fp32 and bf16 (``vlm_true_positions``); (d) one decode
+    step and one prefill (``step_checks``), and the projector alone by
+    CUDA events; (e) the peak memory.  Returns {run: launches}."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import VLM, param_count
+    from repro_torch.models.vlm import D_VISION
+    from repro_torch.serve import engine
+    print(f"phase 16: {VLM_ARCH} full width; {smi_line()}", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM_ARCH)
+    flash = cfg.replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    params = VLM.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      mux)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"  {VLM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, rope theta "
+          f"{cfg.rope_theta:g}, {cfg.frontend_len} patches of {D_VISION}; "
+          f"{n_params / 1e9:.3f} B params ({param_count(cfg) / 1e9:.3f} B "
+          f"backbone) in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    patches = torch.randn(
+        (len(trace), cfg.frontend_len, D_VISION), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(59)).cpu().numpy()
+    # (a) the reference CLI's fill-drain: capacity prompt + new + 8,
+    # decode step t at prompt_len + t
+    cli = serve_dense(params, flash, mux, rows, trace, new_tokens,
+                      "fill-drain", label="llava (CLI positions) ",
+                      kind="vlm", frames=patches)
+    compare_fill_drain_paths(params, flash, mux, rows, trace, patches,
+                             new_tokens, cli, "vlm", "llava (CLI positions)")
+    # (b), (c) the true positions, fp32 then bf16
+    true = vlm_true_positions(torch, params, flash, mux, rows, trace,
+                              patches, new_tokens)
+    # (d) one decode step at the true position and one prefill, profiled
+    nb = mux.n * rows
+    sc = engine.ServeConfig(cfg=flash, mux=mux, dtype=torch.float32,
+                            capacity=cfg.frontend_len + prompt_len
+                            + new_tokens + 8, kind="vlm")
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    extra = torch.as_tensor(patches[:nb], device="cuda")
+    step_checks(torch, params, sc, toks, cfg.frontend_len + prompt_len,
+                "llava", extra=extra, prefill=True)
+    # the projector alone, by CUDA events: a prefill's profile groups its
+    # GEMMs with the backbone's
+    ms = Timer(torch)(lambda: VLM.project(params, extra, torch.float32),
+                      iters=10)
+    print(f"  llava projector alone ({nb} x {cfg.frontend_len} patches, "
+          f"{D_VISION} -> {cfg.d_model} -> {cfg.d_model}): {ms:.3f} ms "
+          "(CUDA events, cold L2)", flush=True)
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{smi_line()}", flush=True)
+    return {"cli": cli["launches"], "true": true}
+
+
+def vlm_true_positions(torch, params, cfg, mux, rows, trace, patches,
+                       new_tokens):
+    """Phase 16 (b) and (c): the trace's first N * rows requests (one
+    batch, no duplicate) through ``engine.prefill`` / ``decode_step`` at
+    the true positions (capacity P + L + new + 8, decode step t at P + L +
+    t), greedy.  (b) fp32: the kernel path's launches exact (a prefill's
+    mux_combine once and flash_attention once a layer, no demux kernel; a
+    decode step's decode_attention once a layer and the fused entry and
+    exit once); the prefill's and every decode step's logits within
+    LOGIT_TOL of one no-cache forward of the plain model path over
+    [patches, prompt, the tokens fed] at their positions; the plain path's
+    (naive attention, no kernel) greedy tokens identical.  (c) bf16
+    (``ServeConfig.dtype``'s default): the prefill's and one decode step's
+    logits from identical caches within ``BF16_LOGIT_ULPS`` of the
+    wrappers' plain versions (``bf16_logit_check``), greedy agreement
+    with fp32 printed.  Returns the fp32 kernel path's launches."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import VLM
+    from repro_torch.serve import engine
+    p, l = cfg.frontend_len, len(trace[0][1])
+    nb = mux.n * rows
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+                            capacity=p + l + new_tokens + 8, kind="vlm")
+    naive = cfg.replace(attn_impl="naive")
+    toks = torch.as_tensor(np.stack([a[1] for a in trace[:nb]]),
+                           device="cuda")
+    extra = torch.as_tensor(patches[:nb], device="cuda")
+
+    def generate(sc_, use_kernels=True):
+        """(logits (nb, new, V): the prefill's, then each decode step's;
+        the tokens fed to the decode steps (nb, new - 1))."""
+        cache = engine.init_cache(sc_, nb, device="cuda")
+        lg, _ = engine.prefill(params, sc_, cache, toks, extra=extra,
+                               use_kernels=use_kernels)
+        outs, fed = [lg], []
+        for t in range(new_tokens - 1):
+            fed.append(outs[-1].argmax(-1)[:, None])
+            lg, _ = engine.decode_step(params, sc_, cache, fed[-1],
+                                       p + l + t, use_kernels=use_kernels)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1), torch.cat(fed, 1)
+
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    lk, fed = generate(sc)
+    launches = ops.counts("launches")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = new_tokens - 1
+    want = dict.fromkeys(launches, 0)
+    want.update({"mux_combine": 1, "flash_attention": cfg.n_layers,
+                 "decode_attention": cfg.n_layers * steps,
+                 "mux_embed_combine": steps, "demux_rsa": steps})
+    need(launches == want, f"llava (true positions): launch counts "
+         f"{launches} != required {want}")
+    need(bool(torch.isfinite(lk).all()), "llava (true positions): logits "
+         "are not finite")
+    full = VLM.apply(params, naive, torch.cat([toks, fed], 1), extra,
+                     mux=mux, dtype=torch.float32,
+                     use_kernels=False)["logits"][:, p + l - 1:]
+    err = (lk - full).abs().amax((0, 2))
+    print(f"  llava (true positions, capacity {sc.capacity}, decode at "
+          f"{p + l}..{p + l + steps - 1}): {nb} streams x {new_tokens} "
+          f"tokens in {wall:.3f} s; logits max_abs_err against the plain "
+          f"path's no-cache forward over [patches, prompt, tokens so far]: "
+          f"prefill {err[0].item():.3e}, decode steps max "
+          f"{err[1:].max().item():.3e} (tol {LOGIT_TOL:g}); |logits| max "
+          f"{lk.abs().max().item():.3f}; launches {launches}", flush=True)
+    need(err.max().item() <= LOGIT_TOL, "llava (true positions): the "
+         "decode steps disagree with the no-cache forward")
+    del full
+    lp, _ = generate(dataclasses.replace(sc, cfg=naive), use_kernels=False)
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    print(f"  llava (true positions): greedy tokens identical, kernel vs "
+          f"plain path {same}/{lk.shape[0] * lk.shape[1]}", flush=True)
+    need(same == lk.shape[0] * lk.shape[1], "llava (true positions): the "
+         "kernel path's greedy tokens differ from the plain path's")
+    del lp
+
+    # (c) bf16 on the same path
+    sc16 = dataclasses.replace(sc, dtype=torch.bfloat16)
+    caches = [engine.init_cache(sc16, nb, device="cuda") for _ in range(3)]
+    pre = engine.prefill(params, sc16, caches[0], toks, extra=extra,
+                         use_kernels=True)[0]
+    with kernels_as_plain():
+        pre_p = engine.prefill(params, sc16, caches[1], toks, extra=extra,
+                               use_kernels=True)[0]
+    pre_m = engine.prefill(params, sc16, caches[2], toks, extra=extra,
+                           use_kernels=False)[0]
+    bf16_logit_check("llava, bf16", "prefill", pre.float(), pre_p.float(),
+                     pre_m.float(), fp32=lk[:, 0])
+    for c in caches[1:]:
+        copy_ring(caches[0], c)
+    dtok = pre.argmax(-1)[:, None]
+    dk = engine.decode_step(params, sc16, caches[0], dtok, p + l)[0]
+    with kernels_as_plain():
+        dp = engine.decode_step(params, sc16, caches[1], dtok, p + l)[0]
+    dm = engine.decode_step(params, sc16, caches[2], dtok, p + l,
+                            use_kernels=False)[0]
+    bf16_logit_check("llava, bf16", "decode", dk.float(), dp.float(),
+                     dm.float())
+    del caches
+    ops.reset_counts()
+    l16, _ = generate(sc16)
+    need(ops.counts("launches") == want, f"llava bf16: launch counts "
+         f"{ops.counts('launches')} != required {want}")
+    same = int((l16.argmax(-1) == lk.argmax(-1)).sum())
+    print(f"  llava (true positions), bf16: greedy agreement with the fp32 "
+          f"run {same}/{lk.shape[0] * lk.shape[1]}", flush=True)
+    return launches
 
 
 def _leaves(tree):

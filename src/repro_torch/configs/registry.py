@@ -2,15 +2,16 @@
 ``repro.configs.registry``).  The port serves the dense LMs
 ``qwen2-1.5b``, ``gemma-2b``, ``gemma-7b`` and ``h2o-danube-1.8b``, the
 MoE LMs ``granite-moe-3b-a800m`` and ``qwen2-moe-a2.7b``, the hybrid
-``recurrentgemma-9b`` (RG-LRU and local attention), ``rwkv6-7b`` and
-``whisper-small`` (kind 'encdec'), each in full and reduced form; the
-last served architecture (llava) is a later slice.  The
+``recurrentgemma-9b`` (RG-LRU and local attention), ``rwkv6-7b``,
+``whisper-small`` (kind 'encdec') and ``llava-next-mistral-7b`` (kind
+'vlm'), each in full and reduced form: all ten of the reference's.  The
 paper's models (``PAPER_MODELS``, kind 'bert': ``models.bert.MuxBERT``)
 run as encoders, not through the serving stack."""
 from __future__ import annotations
 
 from repro_torch.configs import (gemma_2b, gemma_7b, granite_moe_3b_a800m,
-                                 h2o_danube_1_8b, qwen2_1_5b, qwen2_moe_a2_7b,
+                                 h2o_danube_1_8b, llava_next_mistral_7b,
+                                 qwen2_1_5b, qwen2_moe_a2_7b,
                                  recurrentgemma_9b, rwkv6_7b, whisper_small)
 from repro_torch.models.bert import bert_config
 
@@ -19,7 +20,8 @@ _ARCH_MODULES = {"qwen2-1.5b": qwen2_1_5b, "gemma-2b": gemma_2b,
                  "granite-moe-3b-a800m": granite_moe_3b_a800m,
                  "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
                  "recurrentgemma-9b": recurrentgemma_9b,
-                 "rwkv6-7b": rwkv6_7b, "whisper-small": whisper_small}
+                 "rwkv6-7b": rwkv6_7b, "whisper-small": whisper_small,
+                 "llava-next-mistral-7b": llava_next_mistral_7b}
 ARCHS = tuple(_ARCH_MODULES)
 
 PAPER_MODELS = ("mux-bert-small", "mux-bert-base", "mux-bert-large",

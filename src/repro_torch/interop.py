@@ -6,8 +6,9 @@ into the port's param tree; ``params_to_reference`` goes back.  An
 ``EncDecLM`` tree (``encoder``, ``decoder``, ``enc_mux``) converts stack
 by stack, the encoder under ``cfg.encoder``; a ``MuxBERT`` tree
 (``backbone``, ``mlm``, ``rtd`` where present, and any head dicts kept
-beside them) converts its backbone as a ``TransformerLM`` tree and every
-other subtree leaf for leaf, and a fine-tuning tree (``model``: a
+beside them) or a ``VLM`` tree (``backbone``, the projector's ``proj1``
+and ``proj2``) converts its backbone as a ``TransformerLM`` tree and
+every other subtree leaf for leaf, and a fine-tuning tree (``model``: a
 MuxBERT tree, ``head``: a classifier head) its two halves.
 ``opt_state_from_reference`` / ``opt_state_to_reference`` carry an AdamW
 state across (``m`` and ``v`` as the params).  A ``mux_engine`` subtree

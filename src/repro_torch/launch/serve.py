@@ -21,10 +21,11 @@ Architectures: the dense LMs ``--arch qwen2-1.5b`` (default),
 ``--arch rwkv6-7b`` (RWKV6) and ``--arch recurrentgemma-9b`` (RG-LRU
 with local attention), each on the ring arm and in fill-drain (the
 reference's paged arm fails on recurrent blocks, so ``--cache paged``
-with them is an error) and ``--arch whisper-small`` (encoder-decoder, fill-drain only,
-as the reference; its frame embeddings are zeros, as the reference
-CLI's); the paper's encoders (``mux-bert-*``, ``mux-electra-base``) are
-an error.  Runs on
+with them is an error), ``--arch whisper-small`` (encoder-decoder) and
+``--arch llava-next-mistral-7b`` (vision-language), both in fill-drain
+only, as the reference, with zero frame or patch embeddings and (the
+VLM) the reference CLI's decode positions (ROADMAP.md §3); the paper's
+encoders (``mux-bert-*``, ``mux-electra-base``) are an error.  Runs on
 ``cuda`` unless ``--device cpu``; weights come from a seeded init.
 ``--use-kernels`` (default) runs the kernel path, ``--no-use-kernels``
 the plain model path.
@@ -74,12 +75,11 @@ import torch
 
 from repro_torch.configs import get_config, model_kind
 from repro_torch.core import MuxSpec
-from repro_torch.models import EncDecLM, TransformerLM
 from repro_torch.models.blocks import RECURRENT
 from repro_torch.serve import sampling
 from repro_torch.serve.batcher import MuxBatcher, Request
-from repro_torch.serve.engine import (ServeConfig, decode_step, init_cache,
-                                      lane_config, prefill)
+from repro_torch.serve.engine import (MODELS, ServeConfig, decode_step,
+                                      init_cache, lane_config, prefill)
 from repro_torch.serve.recovery import RecoverySupervisor
 from repro_torch.serve.router import LaneRouter, LaneSpec, SLO_CLASSES
 from repro_torch.serve.runtime import (PAD_ID, ServeRuntime, grid_sampling,
@@ -517,11 +517,14 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
     requests, spare slots holding duplicates whose logits are averaged
     (ensembling).  prompts: equal-length token sequences; every request
     gets ``new_tokens`` tokens.  samplings: one ``SamplingParams`` (or
-    None, greedy) per prompt.  frames (kind 'encdec'): one
-    (frontend_len, d_enc) array of frame embeddings per prompt, stacked
-    in slot order for each batch's prefill; None gives zeros, as the
+    None, greedy) per prompt.  frames: one array per prompt, stacked in
+    slot order for each batch's prefill — for kind 'encdec' its
+    (frontend_len, d_enc) frame embeddings, for kind 'vlm' its
+    (frontend_len, D_VISION) patch embeddings; None gives zeros, as the
     reference's CLI.  Each batch is one blocking prefill and
-    ``new_tokens - 1`` decode steps, on the kernel path under use_kernels
+    ``new_tokens - 1`` decode steps, decode step t at position L + t as
+    the reference CLI's (for a VLM the prefill wrote P + L positions:
+    ROADMAP.md §3), on the kernel path under use_kernels
     as in ``run_continuous``'s ring arm (the reference's CLI decodes
     plain); each step's tokens come to the host (the step's one device
     wait, as in the continuous arms), so the telemetry spans ``prefill``
@@ -536,10 +539,9 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
     for i, p in enumerate(prompts):
         r = batcher.submit(np.asarray(p), max_new=new_tokens)
         r.sampling = samplings[i] if samplings else None
-        if sc.kind == "encdec":
-            enc = sc.cfg.encoder
-            frame_of[r.uid] = (np.zeros((enc.frontend_len, enc.d_model),
-                                        np.float32) if frames is None
+        if sc.kind != "lm":
+            shape = MODELS[sc.kind].frontend_shape(sc.cfg)
+            frame_of[r.uid] = (np.zeros(shape, np.float32) if frames is None
                                else np.asarray(frames[i], np.float32))
     stats = {"completed": [], "prefill_events": 0, "decode_steps": 0}
     t0 = time.time()
@@ -565,7 +567,10 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
         if frame_of:
             extra = torch.from_numpy(np.stack([frame_of[s.uid]
                                                for s in slots])).to(dev)
-        with telemetry.span("prefill", tokens=toks.numel()):
+        # a VLM's prefill runs the P patch positions before the prompt's
+        n_pos = toks.numel() + (extra.shape[0] * extra.shape[1]
+                                if sc.kind == "vlm" else 0)
+        with telemetry.span("prefill", tokens=n_pos):
             logits, _ = prefill(params, sc, cache, toks, extra=extra,
                                 use_kernels=use_kernels)
             tok, toks_in = sample(logits, 0)
@@ -908,7 +913,7 @@ def main(argv=None):
                  "it with --cache ring or in fill-drain")
     dev = resolve_device(args.device)
     mux = MuxSpec(n=args.mux_n)
-    model = EncDecLM if kind == "encdec" else TransformerLM
+    model = MODELS[kind]
     if lanes:
         # one model per mux width (MUX-PLMs are width-specific), widths
         # that join later through --add-lane included

@@ -13,9 +13,12 @@ unless the caller names the CPU; no card raises).  ``--model
 mux-bert-{small,base,large}`` or ``mux-electra-base`` trains
 ``MuxBERT`` at the launcher's synthetic vocabulary (``--vocab``, 512);
 ``--arch`` trains one of the served decoder-only LMs (the MoE ones with
-their routers' aux loss, weighted by ``router_aux_weight``) on
-``MarkovCorpus`` at the config's vocabulary, which the corpus's (V - 4)²
-float64 CDF keeps to ``--reduced`` configs.  Both run through
+their routers' aux loss, weighted by ``router_aux_weight``; for
+``llava-next-mistral-7b`` its text backbone, a ``TransformerLM`` on the
+VLM's config, as the reference's) on ``MarkovCorpus`` at the config's
+vocabulary, whose (V - 4)² float64 CDF is refused above 8 GiB (every
+full config but the two at vocabulary 32000, h2o-danube-1.8b and
+llava-next-mistral-7b: 8.2 GB).  Both run through
 ``Supervisor`` with async checkpoints and straggler detection, on the
 plain model path (``use_kernels=False``: the kernels have no backward),
 in fp32 with TF32 off, and print the reference's stage lines and

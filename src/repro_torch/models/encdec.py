@@ -22,6 +22,8 @@ from repro_torch.models.transformer import TransformerLM
 
 
 class EncDecLM:
+    FRONTEND = "frame embeddings"   # what the stub frontend hands in
+
     @staticmethod
     def init(generator: torch.Generator, cfg: ModelConfig,
              mux: MuxSpec = MuxSpec()):
@@ -36,6 +38,12 @@ class EncDecLM:
             params["enc_mux"] = {"mux": init_mux(generator, mux,
                                                  cfg.encoder.d_model)}
         return params
+
+    @staticmethod
+    def frontend_shape(cfg: ModelConfig):
+        """One request's stub-frontend input: (frames, D_enc) frame
+        embeddings."""
+        return (cfg.encoder.frontend_len, cfg.encoder.d_model)
 
     @staticmethod
     def encode(params, cfg: ModelConfig, enc_embeds, *,

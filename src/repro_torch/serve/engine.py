@@ -20,7 +20,11 @@ on both layouts; the paged runtime refuses recurrent blocks
 encoder-decoder model (``ServeConfig.kind='encdec'``, whisper) serves on
 the ring only, as in the reference: its prefill takes the frame
 embeddings (``extra``), runs the encoder and fills each decoder layer's
-cross-K/V, which its decode steps read.
+cross-K/V, which its decode steps read.  A vision-language model
+(``kind='vlm'``, llava) also serves on the ring only, as in the
+reference: its prefill takes the patch embeddings (``extra``) and runs
+the backbone over the projected patches and then the prompt; its decode
+steps take text tokens, at the positions the caller gives.
 
 Unlike the reference's functional updates, ``set_block_tables``,
 ``reset_blocks`` and the step functions update the cache IN PLACE; they
@@ -36,7 +40,7 @@ import torch
 
 from repro_torch.core import MuxSpec
 from repro_torch.core import quant as quantlib
-from repro_torch.models import EncDecLM, TransformerLM
+from repro_torch.models import VLM, EncDecLM, TransformerLM
 from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import (KVPool, ShardedKVPool, blocks_for,
@@ -49,7 +53,9 @@ def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
     return global_batch // max(mux.n, 1)
 
 
-KINDS = ("lm", "encdec")
+# the model class of each serve kind
+MODELS = {"lm": TransformerLM, "encdec": EncDecLM, "vlm": VLM}
+KINDS = tuple(MODELS)
 
 
 @dataclass(frozen=True)
@@ -57,9 +63,9 @@ class ServeConfig:
     """A model served from a ring cache or from paged KV of ``block_size``
     tokens (``cache_layout``, 'ring' by default as in the reference).
 
-    kind: 'lm' (decoder-only, the default) or 'encdec' (whisper; ring
-    only, as the reference).  dtype: the compute dtype the model runs in
-    (``TransformerLM.apply`` / ``EncDecLM.apply(dtype=)``), bf16 by
+    kind: 'lm' (decoder-only, the default), 'encdec' (whisper) or 'vlm'
+    (llava); the last two on the ring only, as the reference.  dtype: the
+    compute dtype the model runs in (``MODELS[kind].apply(dtype=)``), bf16 by
     default as in the reference, or fp32, for every model kind, block kind
     and attention implementation; the ring, the cross-K/V and an RWKV
     layer's token shifts are stored in it (its matrix state is fp32).
@@ -72,8 +78,7 @@ class ServeConfig:
     roll admissions back and preempt decoding rows (``serve.runtime``).
     n_shards (paged only): logical data shards on the one device — rows
     and pool blocks split into per-shard segments (``ShardedKVPool``),
-    each with its own trash block, the substrate of kill-shard replay.
-    The reference's 'vlm' kind is not ported."""
+    each with its own trash block, the substrate of kill-shard replay."""
     cfg: ModelConfig
     mux: MuxSpec
     capacity: int              # KV capacity (max context)
@@ -83,7 +88,7 @@ class ServeConfig:
     num_blocks: int | None = None   # paged: pool size (default: worst case)
     n_shards: int = 1               # paged: logical data shards
     kv_dtype: str | None = None     # paged: page storage
-    kind: str = "lm"                # lm | encdec
+    kind: str = "lm"                # lm | encdec | vlm
 
     def __post_init__(self):
         if self.kind not in KINDS:
@@ -187,12 +192,12 @@ def init_cache(sc: ServeConfig, global_batch: int, *, device):
     token shifts in ``sc.dtype``), cross-attention layers their cross-K/V beside a
     ring."""
     b = backbone_batch(global_batch, sc.mux)
-    if sc.kind == "encdec":
+    if sc.kind != "lm":
         if sc.cache_layout == "paged":
             raise NotImplementedError(
                 "paged cache layout: decoder-only LM families")
-        return EncDecLM.init_cache(sc.cfg, b, sc.capacity, sc.dtype,
-                                   device=device)
+        return MODELS[sc.kind].init_cache(sc.cfg, b, sc.capacity, sc.dtype,
+                                          device=device)
     if sc.cache_layout == "ring":
         return TransformerLM.init_cache(sc.cfg, b, sc.capacity, sc.dtype,
                                         device=device)
@@ -255,11 +260,14 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
     backbone rows ``rows`` (default: every row), and every query attends
     over the prompt's own fresh K/V with ``cfg.attn_impl``; an RG-LRU or
     RWKV layer runs its recurrence from the cache's state and leaves its
-    final state there.  extra (kind 'encdec'): the (NB, frames, D_enc) frame
-    embeddings the encoder runs over.  use_kernels: the layers' kernels
-    (the RWKV6 recurrence; the attention follows ``cfg.attn_impl`` either
-    way) and the mux-combine kernel of the entries.  As in the
-    reference, the entry and exit are the plain (unfused) ones.
+    final state there.  extra: kind 'encdec', the (NB, frames, D_enc)
+    frame embeddings the encoder runs over; kind 'vlm', the (NB, P,
+    D_VISION) patch embeddings, projected and put in front of the prompt
+    (the ring then holds positions 0 .. P + L - 1).  use_kernels: the
+    layers' kernels (the RWKV6 recurrence; the attention follows
+    ``cfg.attn_impl`` either way) and the mux-combine kernel of the
+    entries.  As in the reference, the entry and exit are the plain
+    (unfused) ones.
     extra_ctx: more layer-context entries (``trash``: the rows' trash
     block ids under logical shards).  Returns (last-position logits
     (NB, V), cache)."""
@@ -270,13 +278,12 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
         ctx["rows"] = torch.as_tensor(rows, device=cache["bt"].device).long()
     kw = dict(mux=sc.mux, cache=cache, dtype=sc.dtype,
               use_kernels=use_kernels, fuse_io=False, extra_ctx=ctx)
-    if sc.kind == "encdec":
-        if extra is None:
-            raise ValueError("an encoder-decoder prefill needs the frame "
-                             "embeddings (extra=)")
-        logits = EncDecLM.apply(params, sc.cfg, tokens, extra, **kw)["logits"]
-    else:
-        logits = TransformerLM.apply(params, sc.cfg, tokens, **kw)["logits"]
+    if sc.kind != "lm" and extra is None:
+        raise ValueError(f"a {sc.kind!r} prefill needs the "
+                         f"{MODELS[sc.kind].FRONTEND} (extra=)")
+    args = () if sc.kind == "lm" else (extra,)
+    logits = MODELS[sc.kind].apply(params, sc.cfg, tokens, *args,
+                                   **kw)["logits"]
     return logits[:, -1], cache
 
 
@@ -326,9 +333,14 @@ def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,
               use_kernels=use_kernels)
     if extra_ctx:
         kw["extra_ctx"] = extra_ctx
-    model = EncDecLM if sc.kind == "encdec" else TransformerLM
-    out = model.apply(params, sc.cfg, tokens, **kw)
+    out = MODELS[sc.kind].apply(params, sc.cfg, tokens, **kw)
     return out["logits"], cache
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree
 
 
 def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int,
@@ -336,9 +348,12 @@ def greedy_generate(params, sc: ServeConfig, prompt, *, steps: int,
     """Host-loop greedy decoding of prompt (NB, L) for ``steps`` tokens on
     the params' device (decode steps on the kernel path), from a fresh
     cache of either layout (paged: every row's blocks allocated up
-    front); ``extra`` as ``prefill``'s.  Returns (NB, steps) tokens."""
-    dec = params["decoder"] if sc.kind == "encdec" else params
-    dev = dec["embed"]["table"].device
+    front); ``extra`` as ``prefill``'s.  Decode step t runs at position
+    L + t, as the reference's: for kind 'vlm' that leaves out the P patch
+    positions the prefill wrote (ROADMAP.md §3); ``prefill`` and
+    ``decode_step`` serve it at the true positions.  Returns (NB, steps)
+    tokens."""
+    dev = _first_leaf(params).device
     prompt = torch.as_tensor(prompt, device=dev)
     cache = init_cache(sc, prompt.shape[0], device=dev)
     if sc.cache_layout == "paged":

@@ -42,7 +42,8 @@ and of 130 tokens, bidirectional), at gemma-2b's heads (Dh 256, one KV
 head), at head dims that pad to the mma depth, and bit for bit over two
 calls; flash-decode with ``q_pos`` as a device tensor, captured in a CUDA
 graph and replayed at new positions, at 16 query heads over one KV head
-and head dim 256, and at whisper's cross-attention decode.  The card's machine has no JAX, so
+and head dim 256, and at whisper's cross-attention decode; the reduced
+VLM's kernel path against its plain path.  The card's machine has no JAX, so
 the reference is imported inside the CPU tests only (``_reference``):
 ``pytest --noconftest -m cuda`` runs there.
 """
@@ -56,7 +57,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.core import MuxSpec
 from repro_torch.kernels import ops, ref
-from repro_torch.models import TransformerLM
+from repro_torch.models import VLM, TransformerLM
 from repro_torch.nn import multi_head_attention
 from repro_torch.serve import engine
 
@@ -854,3 +855,43 @@ def test_flash_attention_head_dims_on_card(cuda, lq, lk, dh, h, hkv, kw):
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, **kw),
                                **ATT_TOL)
     assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_vlm_kernel_path_matches_plain_on_card(cuda):
+    """The reduced llava-next-mistral-7b at N=2, 8 patches and 6 tokens:
+    the prefill (the mux-combine kernel over the patch-prefixed row, the
+    flash kernel once a layer) and a decode step at the true position
+    (fused entry, decode attention, fused exit) against the plain path
+    from identical caches, within 1e-4."""
+    cfg = get_config("llava-next-mistral-7b", reduced=True)
+    mux = MuxSpec(n=2)
+    params = VLM.init(torch.Generator(device=cuda).manual_seed(7), cfg, mux)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(4, cfg.vocab_size, (4, 6)),
+                           device=cuda)
+    pe = torch.as_tensor(rng.standard_normal(
+        (4, cfg.frontend_len, 1024)).astype(np.float32), device=cuda)
+    p = cfg.frontend_len + 6
+    sc = engine.ServeConfig(cfg=cfg.replace(attn_impl="flash"), mux=mux,
+                            capacity=p + 8, dtype=torch.float32, kind="vlm")
+    sc_plain = engine.ServeConfig(cfg=cfg, mux=mux, capacity=p + 8,
+                                  dtype=torch.float32, kind="vlm")
+    caches = [engine.init_cache(s, 4, device=cuda) for s in (sc, sc_plain)]
+    ops.reset_counts()
+    lk, _ = engine.prefill(params, sc, caches[0], toks, extra=pe,
+                           use_kernels=True)
+    lp, _ = engine.prefill(params, sc_plain, caches[1], toks, extra=pe)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    for a, b in zip(caches[0]["layers"], caches[1]["layers"]):
+        for key in ("k", "v", "pos"):
+            b[key].copy_(a[key])
+    d = lk.argmax(-1)[:, None]
+    dk, _ = engine.decode_step(params, sc, caches[0], d, p)
+    dp, _ = engine.decode_step(params, sc_plain, caches[1], d, p,
+                               use_kernels=False)
+    torch.testing.assert_close(dk, dp, atol=1e-4, rtol=0)
+    launches = ops.counts("launches")
+    assert (launches["mux_combine"], launches["flash_attention"],
+            launches["decode_attention"], launches["mux_embed_combine"],
+            launches["demux_rsa"]) == (1, cfg.n_layers, cfg.n_layers, 1, 1)

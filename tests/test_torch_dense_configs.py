@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCHS as ref_archs
 from repro.configs import get_config as ref_config
 from repro.configs import model_kind as ref_model_kind
 from repro.core import MuxSpec as RefMux
@@ -85,11 +86,13 @@ def test_served_configs_match_reference(arch, reduced):
 
 def test_registry_serves_six_architectures():
     """The six dense / RWKV / encoder-decoder architectures, since the
-    MoE slice granite-moe-3b-a800m and qwen2-moe-a2.7b, and since the
-    hybrid slice recurrentgemma-9b: nine."""
-    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 9
+    MoE slice granite-moe-3b-a800m and qwen2-moe-a2.7b, since the hybrid
+    slice recurrentgemma-9b, and since the VLM slice
+    llava-next-mistral-7b: all ten of the reference's."""
+    assert set(DENSE) < set(ARCHS) and len(ARCHS) == 10
     assert {"granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-            "recurrentgemma-9b"} < set(ARCHS)
+            "recurrentgemma-9b", "llava-next-mistral-7b"} < set(ARCHS)
+    assert set(ARCHS) == set(ref_archs)
     h2o = get_config("h2o-danube-1.8b", reduced=True)
     assert (h2o.d_model, h2o.head_dim, h2o.window) == (64, 80, 16)
 
