@@ -342,7 +342,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 ``set_sync_debug_mode("error")`` and profiled (device time
                 by group: matmuls, the kernels), one prefill profiled, the
                 projector alone timed by CUDA events; (e) the peak memory.
-The kernels' JSON line lists every kernel of phases 3-16 and the timer
+  17. mesh    — phase 16's weights gone: (a) the shard-local wrappers
+                ``sharded_paged_attention`` / ``sharded_paged_prefill_attention``
+                at qwen2-1.5b's heads (12 over 2 of 128), phase 4's decode
+                rows and a 32-token chunk a row, on fp32 and int8 pages in
+                ``ShardedKVPool``'s layout split over 2 data shards and a
+                model axis of 2 (6 query heads over 1 KV head a rank):
+                each shard's call in this process against the unsharded
+                kernel's rows and heads on the whole pool and the plain
+                version, timed beside the unsharded call; (b) full-width
+                qwen2-1.5b (seed 0, phase 4's weights) on a (2, 2) serve
+                mesh, four ranks sharing the card over gloo
+                (``launch.mesh.spawn``), phase 4's trace in fp32 at N=2,
+                paged chunked with the kernels: every request complete on
+                every rank, one decode signature and one per bucket, the
+                main path's kernels and both shard-local wrappers
+                launched, the first chunk's logits within ``LOGIT_TOL`` of
+                the single-device run's, greedy agreement with phase 4
+                printed, each rank's decode p50 and peak memory; (c)
+                full-width granite-moe-3b-a800m on (1, 2): 20 of 40 experts
+                a rank, its vocabulary of 49155 on the embedding's d axis,
+                the same checks against phase 14.  The parent holds no
+                weights while the ranks run; a rank's failure or timeout
+                fails the run.
+The kernels' JSON line lists every kernel of phases 3-17 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
 JSON.  Imports neither JAX nor the JAX package.
@@ -2114,6 +2137,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm_runs = phase_vlm(torch, mux, rows, prompt_len, new_tokens)
 
+    # 17. the serve mesh: the shard-local paged wrappers, then full-width
+    # qwen2-1.5b on (2, 2) and granite-moe-3b-a800m on (1, 2), ranks
+    # sharing the card; phase 16's weights were its own and are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_summary, mesh_runs = phase_mesh(torch, timer, mux, rows, prompt_len,
+                                         new_tokens, runs, moe_runs)
+    summary.update(mesh_summary)
+
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
     meta = {
@@ -2156,6 +2188,8 @@ def main() -> int:
         meta[kname] = meta[wrapper]
     for kname, (wrapper, _) in LLAVA_ROWS.items():
         meta[kname] = meta[wrapper]
+    for kname, repl in MESH_ROWS.items():
+        meta[kname] = ("cuda", paged_src, repl)
     rest_runs = {"rwkv": rwkv["ring, bf16"]["launches"],
                  "whisper": whisper["bf16"]["launches"], "bert": bert["bf16"]}
     rows_json = []
@@ -2164,7 +2198,9 @@ def main() -> int:
         tm = s["timing"]
         base, _, kind = kname.partition("[")
         kind = kind.rstrip("]") or "fp32"
-        if kname in LLAVA_ROWS:           # phase 16's run
+        if kname in MESH_ROWS:            # phase 17 (b), summed over ranks
+            launches = mesh_runs["qwen2-1.5b"]["sharded"][kname]
+        elif kname in LLAVA_ROWS:         # phase 16's run
             wrapper, run = LLAVA_ROWS[kname]
             launches = vlm_runs[run][wrapper]
         elif kname in HYBRID_ROWS:        # phase 15's run
@@ -5989,6 +6025,372 @@ def vlm_true_positions(torch, params, cfg, mux, rows, trace, patches,
     print(f"  llava (true positions), bf16: greedy agreement with the fp32 "
           f"run {same}/{lk.shape[0] * lk.shape[1]}", flush=True)
     return launches
+
+
+MESH_TRACE_ARCHS = {"qwen2-1.5b": (2, 2), "granite-moe-3b-a800m": (1, 2)}
+MESH_TIMEOUT = 420             # seconds a mesh spawn may take
+# the shard-local wrappers' rows in the kernels line: (wrapper, the
+# reference's shard_map wrapper over the paged Pallas kernel)
+MESH_ROWS = {"sharded_paged_attention":
+             "src/repro/kernels/paged_attention.py:337",
+             "sharded_paged_prefill_attention":
+             "src/repro/kernels/paged_attention.py:390"}
+
+
+class ShardCoords:
+    """One mesh position of the shard-local wrappers, in this process:
+    what ``kernels.ops.sharded_paged_*`` read of a mesh."""
+
+    def __init__(self, data, model, sizes):
+        self.coords = {"data": data, "model": model}
+        self.shape = dict(sizes)
+
+
+def mesh_kernels(torch, timer, dev="cuda"):
+    """Phase 17 (a): both shard-local wrappers at qwen2-1.5b's heads (12
+    over 2 of 128): phase 4's decode rows (4 rows at 100-117) and its
+    32-token chunk (2 rows at 64), over fp32 and int8 pages in
+    ``ShardedKVPool``'s layout (2 data shards of 17 blocks of 16, a trash
+    block each), split over 2 data shards and a model axis of 2 (6 query
+    heads over 1 KV head a rank).  Each shard's call runs in this
+    process, against the unsharded kernel's rows and heads on the whole
+    pool and against the plain version on its own inputs, timed beside
+    the unsharded call.  Returns the JSON rows' summaries (fp32)."""
+    import numpy as np
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as kp
+    rng = np.random.default_rng(17)
+    sizes = {"data": 2, "model": 2}
+    bs, mb, bps, h, hkv, dh = 16, 8, 17, 12, 2, 128
+
+    def pool(lens):
+        kk = rng.standard_normal((2 * bps, bs, hkv, dh), np.float32)
+        vv = rng.standard_normal((2 * bps, bs, hkv, dh), np.float32)
+        bt = np.full((len(lens), mb), -1, np.int32)
+        pp = np.full((2 * bps, bs), -1, np.int32)
+        rps = len(lens) // 2
+        free = {s: list(range(s * bps + 1, (s + 1) * bps)) for s in (0, 1)}
+        for r, n in enumerate(lens):
+            blocks = [free[r // rps].pop(0) for _ in range(-(-n // bs))]
+            bt[r, :len(blocks)] = blocks
+            for i in range(n):
+                pp[blocks[i // bs], i % bs] = i
+        return [torch.as_tensor(x, device=dev) for x in (kk, vv, bt, pp)]
+
+    cases = {"sharded_paged_attention": ([117, 108, 101, 100], 1,
+                                         ([116, 107, 100, 99],)),
+             "sharded_paged_prefill_attention": ([96, 96], 32,
+                                                 ([64, 64], [32, 32]))}
+    out = {}
+    for name, (lens, lq, vecs) in cases.items():
+        decode = name == "sharded_paged_attention"
+        kpages, vpages, bt, pp = pool(lens)
+        q = torch.as_tensor(rng.standard_normal((len(lens), lq, h, dh),
+                                                np.float32), device=dev)
+        vec = [torch.as_tensor(np.asarray(v, np.int32), device=dev)
+               for v in vecs]
+        for kind in ("fp32", "int8"):
+            kw = {}
+            k_p, v_p = kpages, vpages
+            if kind == "int8":
+                k_p, ks = quant.quantize_kv(kpages, "int8")
+                v_p, vs = quant.quantize_kv(vpages, "int8")
+                kw = {"k_scales": ks, "v_scales": vs}
+            unsharded = kp.paged_attention_cuda if decode else \
+                kp.paged_prefill_attention_cuda
+            plain = ((kp.paged_attention_ref if decode else
+                      kp.paged_prefill_attention_ref) if not kw else
+                     (kp.paged_attention_quant_ref if decode else
+                      kp.paged_prefill_attention_quant_ref))
+            whole = unsharded(q, k_p, v_p, bt, pp, *vec, **kw)
+            rows = len(lens) // 2
+            err_k = err_p = 0.0
+            shard_ms = []
+            for d in (0, 1):
+                for m in (0, 1):
+                    r = slice(d * rows, (d + 1) * rows)
+                    b = slice(d * bps, (d + 1) * bps)
+                    hs = slice(m * h // 2, (m + 1) * h // 2)
+                    ks_ = slice(m * hkv // 2, (m + 1) * hkv // 2)
+                    at = ShardCoords(d, m, sizes)
+                    sq = q[r, :, hs].contiguous()
+                    sk = k_p[b, :, ks_].contiguous()
+                    sv = v_p[b, :, ks_].contiguous()
+                    skw = {k2: x[b, :, ks_].contiguous()
+                           for k2, x in kw.items()}
+                    sbt, spp = bt[r].contiguous(), pp[b].contiguous()
+                    svec = [x[r].contiguous() for x in vec]
+                    wrapper = getattr(ops, name)
+
+                    def call():
+                        return wrapper(at, sq, sk, sv, sbt, spp, *svec,
+                                       **skw)
+                    got = call()
+                    local = kp._local_tables(sbt, d, bps)
+                    scales = ([skw["k_scales"], skw["v_scales"]] if skw
+                              else [])
+                    want = plain(sq, sk, sv, *scales, local, spp, *svec)
+                    err_k = max(err_k, (got - whole[r, :, hs]).abs().max()
+                                .item())
+                    err_p = max(err_p, (got - want).abs().max().item())
+                    if d == 0 and m == 0:
+                        if decode:
+                            qrows = svec[0][:, None]
+                        else:
+                            li = torch.arange(lq, device=dev)[None]
+                            qrows = torch.where(
+                                li >= svec[1][:, None], -1,
+                                svec[0][:, None] + li)
+                        nb, fl, work = attn_bytes_flops(
+                            sq, local, spp, qrows, hkv // 2, dh,
+                            elem=sk.element_size(), scaled=bool(skw))
+                        bms, by = bound(nb, fl)
+                        timing = {
+                            "ms": timer(call),
+                            "plain_ms": timer(lambda: plain(
+                                sq, sk, sv, *scales, local, spp, *svec)),
+                            "library_ms": timer(lambda: mesh_sdpa(
+                                torch, sq, sk, sv, local, spp, qrows,
+                                skw)),
+                            "bound_ms": bms, "bound_by": by,
+                            "bytes": nb, "flops": fl, "work": work}
+                    shard_ms.append(timer(call, iters=5))
+            whole_ms = timer(lambda: unsharded(q, k_p, v_p, bt, pp, *vec,
+                                               **kw))
+            row = f"{name}[{kind}]" if kind != "fp32" else name
+            print(f"  {row:<40} 2 x 2 shards: max_abs_err vs the unsharded "
+                  f"kernel {err_k:.3e}, vs the plain version {err_p:.3e} "
+                  f"(tol {ATT_TOL:g}); shard (0, 0) {timing['ms']:.5f} ms "
+                  f"(shards {', '.join(f'{x:.5f}' for x in shard_ms)}) "
+                  f"beside the unsharded call {whole_ms:.5f} ms; plain "
+                  f"{timing['plain_ms']:.5f} ms, library "
+                  f"{timing['library_ms']:.5f} ms, bound "
+                  f"{timing['bound_ms']:.6f} ms ({timing['bound_by']}: "
+                  f"{timing['bytes']} bytes, {timing['flops']} flops) "
+                  f"[{timing['work']}]", flush=True)
+            need(err_k <= ATT_TOL and err_p <= ATT_TOL,
+                 f"{row}: a shard disagrees (unsharded {err_k}, plain "
+                 f"{err_p})")
+            if kind == "fp32":
+                out[name] = {"max_abs_err": max(err_k, err_p),
+                             "timing": timing}
+    return out
+
+
+def mesh_sdpa(torch, q, k_pages, v_pages, bt, pp, qrows, scales):
+    """Library yardstick of a shard's call: its pages gathered (and
+    dequantized), SDPA over them."""
+    import torch.nn.functional as F
+    b, lq, h, dh = q.shape
+    btc = bt.long().clamp(min=0)
+    k, v = k_pages[btc].float(), v_pages[btc].float()
+    if scales:
+        k = k * scales["k_scales"][btc][..., None]
+        v = v * scales["v_scales"][btc][..., None]
+    k = k.reshape(b, -1, *k_pages.shape[2:])
+    v = v.reshape(b, -1, *v_pages.shape[2:])
+    pos = torch.where(bt[..., None] >= 0, pp[btc], -1).reshape(b, -1)
+    g = h // k.shape[2]
+    k = k.repeat_interleave(g, 2).transpose(1, 2)
+    v = v.repeat_interleave(g, 2).transpose(1, 2)
+    mask = (pos[:, None, :] >= 0) & (pos[:, None, :] <= qrows[..., None])
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                          attn_mask=mask[:, None])
+
+
+@contextlib.contextmanager
+def first_chunk_logits():
+    """Record the logits of the first prefill chunk a runtime computes in
+    this process (a list: empty where none ran here)."""
+    from repro_torch.serve import runtime as rt_mod
+    seen = []
+    real = rt_mod.prefill_chunk
+
+    def recording(*a, **kw):
+        logits, cache = real(*a, **kw)
+        if not seen:
+            seen.append(logits.float().cpu().numpy())
+        return logits, cache
+    rt_mod.prefill_chunk = recording
+    try:
+        yield seen
+    finally:
+        rt_mod.prefill_chunk = real
+
+
+def mesh_reference_chunk(torch, arch, mux, rows, trace, prompt_len,
+                         new_tokens):
+    """The single-device run's first prefill chunk (its logits), phase 4's
+    weights (seed 0) and config; the weights are freed on return."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+    from repro_torch.serve import engine
+    from repro_torch.serve.batcher import Request
+    from repro_torch.serve.runtime import ServeRuntime
+    cfg = get_config(arch)
+    params = TransformerLM.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, mux)
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+                            capacity=prompt_len + new_tokens + 8,
+                            cache_layout="paged", block_size=16)
+    rt = ServeRuntime(params, sc, rows, chunk=32, device="cuda")
+    for uid, (t, p, m) in enumerate(trace):
+        if t <= 0:
+            rt.submit(Request(uid=uid, prompt=list(p), max_new=m))
+    with first_chunk_logits() as seen:
+        rt.step()
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen[0]
+
+
+def _mesh_child(mesh, arch, n_mux, rows, trace, prompt_len, new_tokens):
+    """One rank of phase 17 (b) / (c): the arch's full-width weights (seed
+    0, phase 4's / 14's), cut to this rank's shards and the whole ones
+    dropped, then ``run_continuous`` on the mesh with the launch counts
+    set to 0 just before and read just after.  Returns what the parent
+    checks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime.sharding import shard_params
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch)
+    mux = MuxSpec(n=n_mux)
+    t0 = time.perf_counter()
+    params = shard_params(TransformerLM.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg, mux), mesh,
+        pattern=len(cfg.block_pattern))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sc = engine.ServeConfig(cfg=cfg, mux=mux, dtype=torch.float32,
+                            capacity=prompt_len + new_tokens + 8,
+                            cache_layout="paged", block_size=16,
+                            n_shards=mesh.shape["data"])
+    tele = Telemetry()
+    with first_chunk_logits() as seen:
+        ops.reset_counts()
+        mesh.counts.clear()
+        stats = run_continuous(params, sc, rows, trace, chunk=32,
+                               telemetry=tele, device="cuda", mesh=mesh)
+        launches = ops.counts("launches")
+        sharded = {w.__name__: w.launches for w in ops.SHARDED}
+    torch.cuda.synchronize()
+    spans = {}
+    for ev in tele.tracer.events:
+        if ev[0] == "X":
+            spans.setdefault(ev[1], []).append(ev[3] / 1e3)
+    return {"coords": dict(mesh.coords), "backend": mesh.backend,
+            "reason": mesh.backend_reason,
+            "outputs": {r.uid: list(r.output) for r in stats["completed"]},
+            "trace_counts": dict(stats["trace_counts"]),
+            "launches": launches, "sharded": sharded,
+            "collectives": dict(mesh.counts),
+            "decode_ms": statistics.median(spans["decode"]),
+            "chunk_ms": statistics.median(spans["prefill_chunk"]),
+            "wall": stats["wall"], "init_s": t_init,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "first_chunk": seen[0] if seen else None}
+
+
+def mesh_serve(torch, arch, shape, mux, rows, prompt_len, new_tokens,
+               single_outputs, single_run):
+    """Phase 17 (b) / (c): ``arch`` at full width on a ``shape`` mesh of
+    ranks sharing the card, with every check; the parent holds no weights
+    while the ranks run.  Returns rank 0's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = get_config(arch)
+    trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
+    want = mesh_reference_chunk(torch, arch, mux, rows, trace, prompt_len,
+                                new_tokens)
+    t0 = time.perf_counter()
+    res = mesh_lib.spawn(_mesh_child, *shape, device="cuda",
+                         args=(arch, mux.n, rows, trace, prompt_len,
+                               new_tokens), timeout=MESH_TIMEOUT)
+    dt = time.perf_counter() - t0
+    tag = f"{arch} on mesh{shape}"
+    for r in res:
+        need(len(r["outputs"]) == len(trace) and all(
+            len(o) == new_tokens for o in r["outputs"].values()),
+            f"{tag}: rank {r['coords']} completed {len(r['outputs'])} of "
+            f"{len(trace)} requests")
+        need(r["outputs"] == res[0]["outputs"],
+             f"{tag}: rank {r['coords']} disagrees with rank 0's tokens")
+        need(set(r["trace_counts"]) == {"decode", "prefill_4", "prefill_32"}
+             and all(v == 1 for v in r["trace_counts"].values()),
+             f"{tag}: step signatures {r['trace_counts']}")
+        for k in ("mux_embed_combine", "paged_attention",
+                  "paged_prefill_attention", "demux_rsa"):
+            need(r["launches"][k] > 0, f"{tag}: rank {r['coords']} never "
+                 f"launched {k}")
+        if shape[0] > 1:
+            need(all(r["sharded"].values()), f"{tag}: rank {r['coords']}: "
+                 f"the shard-local wrappers launched {r['sharded']}")
+    # row 0's first chunk, on its data shard's ranks (the other shards'
+    # first chunks are other rows')
+    chunks = [r["first_chunk"] for r in res if r["coords"]["data"] == 0]
+    need(all(c is not None for c in chunks),
+         f"{tag}: a rank of row 0's shard ran no prefill chunk")
+    err = max(float(abs(c - want).max()) for c in chunks)
+    need(err <= LOGIT_TOL, f"{tag}: the first chunk's logits are {err} from "
+         f"the single-device run's (tol {LOGIT_TOL})")
+    same, total = agreement(res[0]["outputs"], single_outputs)
+    r0 = res[0]
+    print(f"  {tag}: {shape[0] * shape[1]} ranks on one card over "
+          f"{r0['backend']} ({r0['reason']}); every request complete "
+          f"({len(r0['outputs'])} x {new_tokens} tokens), step signatures "
+          f"{', '.join(f'{k}×{v}' for k, v in sorted(r0['trace_counts'].items()))}"
+          f"; first chunk's logits within {err:.3e} of the single-device "
+          f"run's (tol {LOGIT_TOL}); greedy tokens identical to {single_run} "
+          f"{same}/{total} ({same / total:.3f}); spawn {dt:.1f} s",
+          flush=True)
+    for r in res:
+        print(f"    rank {r['coords']}: decode step p50 {r['decode_ms']:.3f} "
+              f"ms, prefill chunk p50 {r['chunk_ms']:.3f} ms, serve wall "
+              f"{r['wall']:.3f} s, weights {r['init_s']:.1f} s, peak "
+              f"{r['peak_gib']:.2f} GiB; launches {r['launches']}, "
+              f"shard-local {r['sharded']}; collectives "
+              f"{r['collectives']}", flush=True)
+    print(f"    {smi_line()}", flush=True)
+    return {"launches": r0["launches"],
+            "sharded": {k: sum(r["sharded"][k] for r in res)
+                        for k in r0["sharded"]}}
+
+
+def phase_mesh(torch, timer, mux, rows, prompt_len, new_tokens, fp32_runs,
+               moe_runs):
+    """Phase 17: (a) the shard-local paged wrappers on the card; (b)
+    full-width qwen2-1.5b on a (2, 2) mesh; (c) full-width
+    granite-moe-3b-a800m on (1, 2).  Returns (the wrappers' summaries,
+    {arch: the mesh run's counts})."""
+    t_phase = time.perf_counter()
+    print(f"phase 17: mesh; {smi_line()}", flush=True)
+    summary = mesh_kernels(torch, timer)
+    runs = {}
+    single = {"qwen2-1.5b": (fp32_runs["fp32"]["outputs"], "phase 4's"),
+              "granite-moe-3b-a800m": (
+                  moe_runs["granite-moe-3b-a800m"]["fp32"]["outputs"],
+                  "phase 14's")}
+    for arch, shape in MESH_TRACE_ARCHS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[arch] = mesh_serve(torch, arch, shape, mux, rows, prompt_len,
+                                new_tokens, *single[arch])
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line()}", flush=True)
+    return summary, runs
 
 
 def _leaves(tree):

@@ -6,7 +6,10 @@ hand-written kernel or raises — there is no fallback.  Each wrapper keeps
 two plain integer counts as attributes: ``calls`` (every call) and
 ``launches`` (kernel launches only, added right after the launch).  The
 two paged wrappers also count their launches per page storage kind
-(``by_storage``: 'fp32' / 'bf16' / 'int8' / 'fp8').
+(``by_storage``: 'fp32' / 'bf16' / 'int8' / 'fp8').  The shard-local
+``sharded_paged_attention`` / ``sharded_paged_prefill_attention`` (the
+reference's ``shard_map`` wrappers, one data shard's part on its rank)
+call the paged wrappers and keep counts of their own (``SHARDED``).
 
 No kernel has a backward (nor has any Pallas kernel of the reference):
 under autograd, a wrapper given a tensor that requires grad raises on
@@ -127,6 +130,48 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, page_pos,
     return out
 
 
+def sharded_paged_attention(mesh, q, k_pages, v_pages, block_tables,
+                            page_pos, q_pos, *, k_scales=None, v_scales=None,
+                            window=None, causal: bool = True,
+                            axis: str = "data"):
+    """One data shard's part of the reference's ``shard_map``'d decode
+    kernel, on this rank: q, block_tables and q_pos hold the shard's rows,
+    the pages, page_pos and scales its page segment (and its head group
+    where ``_head_axis`` splits heads over ``model``), the tables GLOBAL
+    block ids, which are rebased to the segment before
+    ``paged_attention`` runs.  Collective-free, as in the reference:
+    ``ShardedKVPool`` gives a row blocks of its own segment only.
+    ``mesh``: anything with ``coords`` ({axis: index})."""
+    sharded_paged_attention.calls += 1
+    local = _paged._local_tables(block_tables, mesh.coords[axis],
+                                 k_pages.shape[0])
+    out = paged_attention(q, k_pages, v_pages, local, page_pos, q_pos,
+                          k_scales=k_scales, v_scales=v_scales,
+                          window=window, causal=causal)
+    if not _on_cpu(q):
+        sharded_paged_attention.launches += 1
+    return out
+
+
+def sharded_paged_prefill_attention(mesh, q, k_pages, v_pages, block_tables,
+                                    page_pos, q_start, q_len, *,
+                                    k_scales=None, v_scales=None,
+                                    window=None, causal: bool = True,
+                                    axis: str = "data"):
+    """``sharded_paged_attention``'s contract for the chunk kernel
+    (``paged_prefill_attention``)."""
+    sharded_paged_prefill_attention.calls += 1
+    local = _paged._local_tables(block_tables, mesh.coords[axis],
+                                 k_pages.shape[0])
+    out = paged_prefill_attention(q, k_pages, v_pages, local, page_pos,
+                                  q_start, q_len, k_scales=k_scales,
+                                  v_scales=v_scales, window=window,
+                                  causal=causal)
+    if not _on_cpu(q):
+        sharded_paged_prefill_attention.launches += 1
+    return out
+
+
 def demux_rsa(h, k, w1h, w1k, b1, w2, b2, **norms):
     """Fused demux exit; h may be (B, L, D) or (T, D) -> (N, [B, L,] D).
     ``norms``: entry_kind / entry_scale / entry_bias / exit_scale /
@@ -200,10 +245,13 @@ WRAPPERS = (mux_embed_combine, paged_attention, paged_prefill_attention,
             demux_rsa, decode_attention, flash_attention, rwkv6_chunked,
             mux_combine)
 PAGED = (paged_attention, paged_prefill_attention)
+# shard-local wrappers over the two paged kernels (their launches count in
+# ``paged_attention`` / ``paged_prefill_attention`` too); not in ``counts``
+SHARDED = (sharded_paged_attention, sharded_paged_prefill_attention)
 
 
 def reset_counts():
-    for w in WRAPPERS:
+    for w in WRAPPERS + SHARDED:
         w.calls = 0
         w.launches = 0
     for w in PAGED:

@@ -16,7 +16,8 @@ are in ``kernels/ops.py``.
 
 Each row's table is split across blocks (``decode_plan``,
 ``prefill_plan``): a split walks a contiguous run of table entries and the
-splits merge by their log-sum-exp.  The plan depends on shapes only, so a
+splits merge by their log-sum-exp.  ``_local_tables`` and ``_head_axis``
+serve the shard-local wrappers of ``ops`` (``sharded_paged_*``).  The plan depends on shapes only, so a
 wrapper never reads a device tensor on the host.
 """
 from __future__ import annotations
@@ -167,6 +168,25 @@ def paged_prefill_attention_quant_ref(q, k_pages, v_pages, k_scales,
                                        dequantize_kv(v_pages, v_scales),
                                        block_tables, page_pos, q_start,
                                        q_len, window=window, causal=causal)
+
+
+# ------------------------------------------------- shard-local tables
+
+def _local_tables(bt, shard: int, blocks_per_shard: int):
+    """A data shard's block tables rebased to its page segment: shard s
+    owns global ids [s * bps, (s + 1) * bps) (``ShardedKVPool``'s
+    segments), so a local id is global - s * bps; -1 stays -1."""
+    return torch.where(bt >= 0, bt - shard * blocks_per_shard,
+                       torch.full_like(bt, -1))
+
+
+def _head_axis(mesh_shape, h: int, hkv: int):
+    """'model' when a rank's head group splits over the model axis: only
+    when BOTH head counts divide it (splitting query heads without their
+    KV heads would break the GQA grouping); else None (every model rank
+    holds every head)."""
+    m = mesh_shape.get("model", 1)
+    return "model" if m > 1 and h % m == 0 and hkv % m == 0 else None
 
 
 # ----------------------------------------------------------- CUDA launch

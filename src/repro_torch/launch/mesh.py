@@ -1,0 +1,255 @@
+"""Serve meshes over ``torch.distributed`` and the one place the port's
+collectives run (counterpart of ``repro.launch.mesh``).
+
+The reference is one program that GSPMD partitions over a ``('data',
+'model')`` device mesh.  The port is SPMD: one process per mesh position,
+``data * model`` ranks, each building the same ``ServeMesh`` over the
+current process group (``make_serve_mesh``).  ``spawn`` starts the ranks
+on this host.
+
+Every collective of the mesh path goes through a ``ServeMesh`` method and
+uses ``all_reduce`` alone: a gather is a zero-filled buffer with this
+rank's part in place, summed over the axis (x + 0 is x, so it is exact).
+The same code then runs on gloo over CPU tensors, on gloo over CUDA
+tensors (ranks sharing one card: gloo takes CUDA tensors for
+``all_reduce`` and ``broadcast`` only) and on NCCL.  ``pick_backend``
+chooses, and ``backend_reason`` says why: gloo on the CPU; NCCL when each
+rank has a GPU of its own; gloo over CUDA tensors when ranks share a GPU
+(NCCL refuses two ranks on one GPU).  Nothing swaps one for another after the choice; the mesh carries
+it (``backend``, ``backend_reason``).
+
+``ServeMesh.counts`` counts the collectives by kind: ``all_reduce``
+(partial sums of a row-parallel product, the MoE combine, the vocab- or
+d-sharded embedding), ``gather`` (activation gathers: tokens over
+``data``, an L-sharded attention output, the fallback axes) and
+``weight_gather`` (a weight stored on an axis its layer cannot use
+locally, gathered to full before use).
+"""
+from __future__ import annotations
+
+import collections
+import datetime
+import os
+import pickle
+import queue as queue_mod
+import tempfile
+import traceback
+
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit (nvidia-smi), the card the
+# port's figures are taken on; rates from NVIDIA's H100 SXM data sheet
+HW = {
+    "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+    "peak_flops_bf16": 989e12,     # FLOP/s, dense tensor cores
+    "peak_flops_fp32": 67e12,      # FLOP/s, outside the tensor cores
+    "hbm_bw": 3.35e12,             # B/s
+    "nvlink_bw": 450e9,            # B/s each way to the host's other cards
+    "hbm_bytes": 80e9,
+}
+
+
+def pick_backend(device, world: int) -> str:
+    """The backend for ``world`` ranks on ``device`` ('cpu' or 'cuda'):
+    gloo on the CPU, NCCL when every rank has a GPU of its own, else gloo
+    over CUDA tensors."""
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def backend_reason(backend: str, device) -> str:
+    """Why ``backend`` serves ranks on ``device`` (the mode line's note)."""
+    if backend == "nccl":
+        return "NCCL: a GPU per rank"
+    if torch.device(device).type == "cpu":
+        return "gloo: CPU tensors"
+    return ("gloo over CUDA tensors: the ranks share a GPU, which NCCL "
+            "refuses")
+
+
+class ServeMesh:
+    """This rank's view of a ``('data', 'model')`` mesh: ``shape`` ({axis:
+    size}, what the sharding rules read), ``coords`` ({axis: index}), the
+    torch ``DeviceMesh`` and one process group per axis, the backend, and
+    the collectives."""
+
+    def __init__(self, device_mesh, device, backend: str):
+        self.device_mesh = device_mesh
+        self.device = torch.device(device)
+        self.backend = backend
+        self.backend_reason = backend_reason(backend, device)
+        self.shape = dict(zip(AXES, device_mesh.mesh.shape))
+        self.coords = dict(zip(AXES, device_mesh.get_coordinate()))
+        self.groups = {a: device_mesh.get_group(a) for a in AXES}
+        self.counts = collections.Counter()
+
+    def __repr__(self):
+        return (f"ServeMesh(data={self.shape['data']}, model="
+                f"{self.shape['model']}, coords={self.coords}, "
+                f"{self.backend})")
+
+    @property
+    def tag(self) -> str:
+        """The mode tag: ``mesh(D, M)``."""
+        return f"mesh{(self.shape['data'], self.shape['model'])}"
+
+    def all_reduce(self, x, axis: str, *, kind: str = "all_reduce"):
+        """Sum ``x`` over ``axis`` in place; returns it."""
+        if self.shape[axis] > 1:
+            dist.all_reduce(x, group=self.groups[axis])
+            self.counts[kind] += 1
+        return x
+
+    def gather(self, x, axis: str, dim: int, *, kind: str = "gather"):
+        """Concatenate every rank's ``x`` along ``dim`` over ``axis``, in
+        rank order (a zero-filled ``all_reduce``)."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        dim %= x.ndim
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        step = x.shape[dim]
+        out.narrow(dim, self.coords[axis] * step, step).copy_(x)
+        return self.all_reduce(out, axis, kind=kind)
+
+    def barrier(self):
+        """Wait for every rank (an ``all_reduce`` of one element)."""
+        one = torch.ones(1, device=self.device)
+        for a in AXES:
+            if self.shape[a] > 1:
+                dist.all_reduce(one, group=self.groups[a])
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_serve_mesh(data: int = 1, model: int = 1, *, device=None):
+    """The serve mesh over the current process group: rows, their block
+    tables and the paged pool's pages partition over ``data`` (one
+    ``ShardedKVPool`` segment per data shard), heads and MLP width over
+    ``model`` by the sharding rules.  Ranks 0 .. data * model - 1 in
+    row-major order; every rank of the group calls it, and a rank past
+    them gets None.  device: the ranks' device type ('cuda' unless the
+    caller names another)."""
+    need = data * model
+    have = _world()
+    if need > have:
+        raise ValueError(
+            f"serve mesh ({data}, {model}) needs {need} devices (ranks), "
+            f"have {have}: start the ranks with launch.mesh.spawn")
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = torch.device("cuda" if device is None else device)
+    dm = DeviceMesh(dev.type, torch.arange(need).reshape(data, model),
+                    mesh_dim_names=AXES)
+    if dm.get_coordinate() is None:
+        return None
+    return ServeMesh(dm, dev, dist.get_backend())
+
+
+def make_test_mesh(data: int = 1, model: int = 1, *, device="cpu"):
+    """A small mesh over the current process group (tests; the CPU by
+    default)."""
+    return make_serve_mesh(data, model, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The reference's production meshes, as shapes only ({axis: size}):
+    one pod (data=16, model=16) or two (pod=2, data=16, model=16)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def _rank_main(rank, world, init, backend, data, model, device, work,
+               results):
+    try:
+        with open(work, "rb") as f:        # this program's own pickle
+            fn, args = pickle.load(f)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_serve_mesh(data, model, device=dev.type)
+            results.put((rank, True, fn(mesh, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:      # reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn(fn, data: int, model: int, *, device="cuda", args=(),
+          timeout: float = 600.0, tmpdir=None):
+    """Run ``fn(mesh, *args)`` on ``data * model`` new processes of this
+    host, one per mesh position, and return their results in rank order.
+
+    The ranks rendezvous through a ``file://`` store in a new temporary
+    directory (under ``tmpdir`` when given), so no port is chosen and two
+    spawns never meet.  ``fn`` and ``args`` must pickle (``fn`` by import
+    path).  A rank that raises, or a run past ``timeout`` seconds, stops
+    every rank and raises here."""
+    world = data * model
+    backend = pick_backend(device, world)
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(dir=tmpdir) as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        # the work goes by file: a large pickle in a child's start pipe
+        # would hold each start until that child had read it
+        work = os.path.join(tmp, "work.pkl")
+        with open(work, "wb") as f:
+            pickle.dump((fn, args), f)
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, world, init, backend, data, model,
+                                   device, work, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        out, errors = {}, []
+        deadline = (datetime.datetime.now()
+                    + datetime.timedelta(seconds=timeout))
+        try:
+            while len(out) + len(errors) < world:
+                left = (deadline - datetime.datetime.now()).total_seconds()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"mesh ({data}, {model}): {world - len(out)} of "
+                        f"{world} ranks gave no result within {timeout} s")
+                try:
+                    rank, ok, val = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in out and p.exitcode is not None]
+                    if dead:     # died before it could report
+                        errors.append(f"rank {dead[0]} exited with code "
+                                      f"{procs[dead[0]].exitcode} and no "
+                                      "result")
+                        break
+                    continue
+                if ok:
+                    out[rank] = val
+                else:
+                    errors.append(f"rank {rank}:\n{val}")
+                    break        # the others may wait on it forever
+            if errors:
+                raise RuntimeError(f"mesh ({data}, {model}) failed on "
+                                   + "\n".join(errors))
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors and len(out) == world
+                       else 0.1)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+    return [out[r] for r in range(world)]

@@ -61,13 +61,22 @@ restores it into a rebuilt runtime, which re-prefills nothing:
     python -m repro_torch.launch.serve --continuous --cache paged \
         --shards 2 --kill-shard 6:1 --requests 8 --new-tokens 8
 
-The device mesh (``--mesh``) is a later slice: the flag is rejected with
-an error that names it.
+``--mesh DATA,MODEL`` serves paged continuous batching on a
+``('data', 'model')`` mesh of DATA * MODEL ranks that the CLI starts on
+this host (``launch.mesh.spawn``): rows and page segments over ``data``
+(``--shards`` must equal it), heads, MLP width and experts over ``model``;
+rank 0 prints, and the mode tag reads ``mesh(D, M)`` with the backend:
+
+    python -m repro_torch.launch.serve --device cpu --continuous \
+        --cache paged --mesh 2,2 --requests 5 --new-tokens 4
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import io
+import sys
 import time
 
 import numpy as np
@@ -75,6 +84,7 @@ import torch
 
 from repro_torch.configs import get_config, model_kind
 from repro_torch.core import MuxSpec
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.blocks import RECURRENT
 from repro_torch.serve import sampling
 from repro_torch.serve.batcher import MuxBatcher, Request
@@ -289,7 +299,7 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                    prefill_mode: str = "chunked", use_kernels: bool = True,
                    telemetry=None, device=None, lanes=None, pool_budget=None,
                    spill_queue=None, events=None, route: str = "load",
-                   ckpt_dir=None, fence_stragglers: bool = False):
+                   ckpt_dir=None, fence_stragglers: bool = False, mesh=None):
     """Continuous-batching serve loop for both cache layouts.
 
     arrivals: iterable of (step, prompt_tokens, max_new[, SamplingParams
@@ -340,7 +350,17 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     prefill accounting: ``prefill_tokens`` backbone token positions,
     ``prefill_compute_tokens`` the same after bucket padding,
     ``prefill_log`` (rows, per-row tokens) per event.
+
+    mesh: this rank's ``launch.mesh.ServeMesh`` (paged, one runtime):
+    every rank of the mesh calls ``run_continuous`` with the same arguments
+    and gets the same stats; a restart's snapshot holds the whole cache,
+    written by rank 0.
     """
+    if mesh is not None:
+        if sc.cache_layout != "paged":
+            raise ValueError("mesh serving requires the paged cache layout")
+        if lanes is not None:
+            raise NotImplementedError("width lanes on a mesh")
     if sc.kind != "lm":
         raise NotImplementedError(
             "continuous serving supports decoder-only LM families")
@@ -379,7 +399,7 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                            on_prefill=on_prefill, use_kernels=use_kernels,
                            device=device, telemetry=telemetry, events=events,
                            ckpt_dir=ckpt_dir,
-                           fence_stragglers=fence_stragglers)
+                           fence_stragglers=fence_stragglers, mesh=mesh)
     else:
         stats = _run_ring(params, sc, backbone_rows, arrivals, pop_arrivals,
                           on_prefill=on_prefill, use_kernels=use_kernels,
@@ -391,13 +411,13 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
 
 def _run_paged(params, sc, backbone_rows, arrivals, pop_arrivals, *, chunk,
                on_prefill, use_kernels, device, telemetry, events, ckpt_dir,
-               fence_stragglers):
+               fence_stragglers, mesh=None):
     """One ``ServeRuntime`` stepped until every request is served, with
     the failure events applied before their steps' admissions."""
     def make_rt():
         return ServeRuntime(params, sc, backbone_rows, chunk=chunk,
                             on_prefill=on_prefill, use_kernels=use_kernels,
-                            device=device, telemetry=telemetry)
+                            device=device, telemetry=telemetry, mesh=mesh)
 
     rt = make_rt()
     sup = RecoverySupervisor(ckpt_dir=ckpt_dir, telemetry=telemetry)
@@ -593,10 +613,6 @@ def fill_drain(params, sc: ServeConfig, backbone_rows: int, prompts,
     return stats
 
 
-# flag -> where its mode stands in ROADMAP §1 (the reference still runs it)
-_LATER = {"--mesh": "sharding, ROADMAP §1 item 12"}
-
-
 def _parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen2-1.5b")
@@ -704,9 +720,13 @@ def _parser():
                     help="the kernel path (default; the kernels' plain "
                          "versions on the CPU); --no-use-kernels runs the "
                          "plain model path")
-    for flag in _LATER:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="paged continuous serving on a (data, model) mesh "
+                         "of DATA * MODEL ranks started on this host, e.g. "
+                         "--mesh 2,2: rows and KV block segments over "
+                         "'data', heads / MLP width / experts over 'model' "
+                         "(gloo on the CPU; on GPUs NCCL with a GPU per "
+                         "rank, else gloo over CUDA tensors)")
     return ap
 
 
@@ -861,20 +881,44 @@ def _print_recovery(args, rec, events):
         print(line)
 
 
-def main(argv=None):
+def _mesh_rank(mesh, argv):
+    """One rank of ``--mesh``: the CLI on this rank's mesh, printing on
+    rank 0 only."""
+    quiet = mesh.coords["data"] or mesh.coords["model"]
+    with (contextlib.redirect_stdout(io.StringIO()) if quiet
+          else contextlib.nullcontext()):
+        return main(argv, mesh=mesh)
+
+
+def main(argv=None, *, mesh=None):
+    """The CLI.  mesh: this rank's mesh when ``--mesh`` started it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, where in _LATER.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet ({where}); the JAX package "
-                     "serves it: python -m repro.launch.serve")
+    mesh_shape = None
+    if args.mesh is not None:
+        if not (args.continuous and args.cache == "paged"):
+            ap.error("--mesh requires --continuous --cache paged")
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+            data, model = mesh_shape
+        except ValueError:
+            ap.error("--mesh expects DATA,MODEL, e.g. --mesh 2,4")
+        if data < 1 or model < 1:
+            ap.error(f"--mesh {args.mesh}: both axes must be >= 1")
+        if args.shards is not None and args.shards != data:
+            ap.error(f"--shards {args.shards} must match the --mesh data "
+                     f"axis ({data})")
+        if args.lanes or args.disagg:
+            ap.error("--mesh serves one runtime: --lanes / --disagg on a "
+                     "mesh are not ported")
     if args.kv_dtype and not (args.continuous and args.cache == "paged"):
         ap.error("--kv-dtype requires --continuous --cache paged")
     if args.block_size < 1:
         ap.error(f"--block-size must be >= 1, got {args.block_size}")
     lanes, events, lane_widths = _lane_args(ap, args)
     slo_mix = _parse_slo_mix(ap, args.slo_mix) if lanes else None
-    n_shards = 1
+    n_shards = 1 if mesh_shape is None else mesh_shape[0]
     if args.shards is not None:
         if not (args.continuous and args.cache == "paged"):
             ap.error("--shards requires --continuous --cache paged")
@@ -882,7 +926,8 @@ def main(argv=None):
             ap.error(f"--shards must be >= 1, got {args.shards}")
         n_shards = args.shards
     if args.kill_shard and n_shards < 2:
-        ap.error("--kill-shard needs >= 2 data shards (set --shards N)")
+        ap.error("--kill-shard needs >= 2 data shards (set --shards N or "
+                 "--mesh DATA,MODEL)")
     if args.fence_stragglers:
         if not (args.continuous and args.cache == "paged"):
             ap.error("--fence-stragglers requires --continuous "
@@ -912,6 +957,11 @@ def main(argv=None):
                  "state: 'Cannot concatenate arrays'; ROADMAP.md §3); serve "
                  "it with --cache ring or in fill-drain")
     dev = resolve_device(args.device)
+    if mesh_shape is not None and mesh is None:
+        # start the ranks; each runs this CLI on its mesh, rank 0 prints
+        mesh_lib.spawn(_mesh_rank, *mesh_shape, device=dev.type,
+                       args=(argv,), timeout=3600)
+        return 0
     mux = MuxSpec(n=args.mux_n)
     model = MODELS[kind]
     if lanes:
@@ -972,10 +1022,12 @@ def main(argv=None):
                            lanes=lanes, pool_budget=args.pool_budget,
                            telemetry=telemetry, events=events or None,
                            route=args.route, ckpt_dir=args.ckpt_dir,
-                           fence_stragglers=args.fence_stragglers)
+                           fence_stragglers=args.fence_stragglers, mesh=mesh)
     util = float(np.mean(stats["slot_util"])) if stats["slot_util"] else 0.0
     mode = (f"paged/{stats['prefill_mode']}" if sc.cache_layout == "paged"
             else "ring")
+    if mesh is not None:
+        mode += f"/{mesh.tag}"
     width = f"mux N={mux.n}"
     if lanes:
         desc = (f"P:{args.prefill_lanes}>D:{args.decode_lanes}"
@@ -998,6 +1050,11 @@ def main(argv=None):
         compiled = ", ".join(f"{k}×{v}" for k, v in
                              sorted(stats["trace_counts"].items()))
         print(f"step signatures: {compiled}")
+    if mesh is not None:
+        print(f"{mesh.tag}: {mesh.shape['data'] * mesh.shape['model']} ranks "
+              f"over {mesh.backend} ({mesh.backend_reason}); rank 0's "
+              "collectives: " + ", ".join(
+                  f"{k}×{v}" for k, v in sorted(mesh.counts.items())))
     _print_recovery(args, stats.get("recovery"), events)
     if telemetry is not None:
         if args.metrics_out:

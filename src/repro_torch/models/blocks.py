@@ -68,6 +68,26 @@ run as one batched product, and shared experts add a plain GLU.  Its
 load-balancing aux loss goes on ``ctx['aux']`` (a list the backbone sums
 into its output's ``"aux"``).  The dispatch makes no host sync: static
 shapes, sorts and gathers, no boolean-mask indexing.
+
+On a serve mesh (``ctx['mesh']``, a ``launch.mesh.ServeMesh``) a rank
+holds its data shard's rows and page segment and its shards of the
+params (``nn.layers``):
+
+  * ``data`` > 1: the paged pages are the shard's segment and the block
+    tables hold global ids, rebased to the segment for the page writes;
+    the kernels run shard-local (``kernels.ops.sharded_paged_*``);
+  * ``model`` > 1, both head counts dividing it: q / k / v
+    column-parallel by heads (the pages hold the rank's KV heads), ``wo``
+    row-parallel, one ``all_reduce``; else (``_want_seq_shard``) q / k /
+    v whole, each model rank attends over its L-slice of the queries
+    (``_seq_shard``) with K/V whole and the output is gathered (a decode
+    step's one query attends whole on every rank);
+  * the FFN: ``up`` / ``gate`` column-parallel, ``down`` row-parallel,
+    one ``all_reduce``, when d_ff divides the model axis;
+  * MoE: expert parallelism (``_ep_constrain``) when E divides the model
+    axis — each rank runs its E / M experts on the same capacity
+    dispatch and one ``all_reduce`` combines them; else every rank runs
+    every expert on the gathered weights.
 """
 from __future__ import annotations
 
@@ -76,12 +96,13 @@ import contextlib
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.paged_attention import _head_axis, _local_tables
 from repro_torch.kernels.rwkv6 import rwkv_chunked
 from repro_torch.nn import (ACTIVATIONS, LayerNorm, Linear, RMSNorm,
                             apply_rope, attention_core, make_attention_mask,
                             multi_head_attention)
 from repro_torch.nn.activations import gelu_tanh, silu, squared_relu
-from repro_torch.nn.layers import normal, rounded
+from repro_torch.nn.layers import model_axis, normal, rounded, tp_view
 from repro_torch.serve.kvpool import init_pages, paged_view, paged_write
 
 
@@ -105,18 +126,28 @@ def apply_ffn(p, cfg, x, ctx=None):
     reference's."""
     if cfg.moe is not None:
         return apply_moe(p, cfg, x, ctx)
-    return _glu(p, cfg, x, "")
+    return _glu(p, cfg, x, "", _tp(ctx))
 
 
-def _glu(p, cfg, x, prefix):
-    """The dense FFN over ``p[prefix + 'up' | 'gate' | 'down']``."""
+def _tp(ctx):
+    """The mesh when its model axis splits the params, else None."""
+    mesh = (ctx or {}).get("mesh")
+    return mesh if mesh is not None and mesh.shape["model"] > 1 else None
+
+
+def _glu(p, cfg, x, prefix, tp=None):
+    """The dense FFN over ``p[prefix + 'up' | 'gate' | 'down']``; on a
+    model axis that divides its width, column- then row-parallel."""
     act = ACTIVATIONS[cfg.activation]
-    u = Linear.apply(p[prefix + "up"], x)
+    # the rules split up / gate on their width exactly when it divides
+    split = tp is not None and model_axis(p[prefix + "up"]["w"]) == 1
+    col = {"out_axis": 1} if split else {}
+    u = Linear.apply(p[prefix + "up"], x, tp, **col)
     if cfg.glu:
-        u = act(Linear.apply(p[prefix + "gate"], x)) * u
+        u = act(Linear.apply(p[prefix + "gate"], x, tp, **col)) * u
     else:
         u = act(u)
-    return Linear.apply(p[prefix + "down"], u)
+    return Linear.apply(p[prefix + "down"], u, tp, x_split=split)
 
 
 def _block_ffn(p, cfg, h, ctx):
@@ -188,24 +219,56 @@ def apply_moe(p, cfg, x, ctx=None):
     row as its own (capacity from L)."""
     if cfg.moe.impl == "local_group":
         return apply_moe_grouped(p, cfg, x, ctx)
-    return apply_moe_global(p, cfg, x)
+    return apply_moe_global(p, cfg, x, ctx)
+
+
+def _ep(ctx, n_experts: int):
+    """The mesh when expert parallelism applies (a model axis that divides
+    E: the rules then split the stacked expert weights on E), else None."""
+    tp = _tp(ctx)
+    return tp if tp is not None and n_experts % tp.shape["model"] == 0 \
+        else None
 
 
 def _ep_constrain(x, ctx, expert_axis):
-    """The reference pins the expert-parallel layout on its device mesh
-    here.  The port has no mesh before ROADMAP §1 item 12, so this is the
-    identity."""
-    return x
+    """The expert-parallel layout the reference pins on its mesh, as this
+    rank's part of it: ``x``'s expert dim narrowed to this rank's E / M
+    experts under expert parallelism; else ``x``."""
+    tp = None if expert_axis is None else _ep(ctx, x.shape[expert_axis])
+    if tp is None:
+        return x
+    n = x.shape[expert_axis] // tp.shape["model"]
+    return x.narrow(expert_axis, tp.coords["model"] * n, n)
 
 
-def _route(p, cfg, x):
+def _ep_slots(slot, keep, ctx, n_experts, cap):
+    """The assignments of this rank's experts, their slots in its local
+    (E / M) * cap slots (others weighted 0); unchanged without expert
+    parallelism."""
+    tp = _ep(ctx, n_experts)
+    if tp is None:
+        return slot, keep
+    n = n_experts // tp.shape["model"] * cap
+    lo = tp.coords["model"] * n
+    mine = (slot >= lo) & (slot < lo + n)
+    return (slot - lo).clamp(0, n - 1), keep & mine
+
+
+def _ep_combine(out, ctx, n_experts):
+    """Sum the ranks' expert outputs over ``model`` (one ``all_reduce``)
+    under expert parallelism."""
+    tp = _ep(ctx, n_experts)
+    return out if tp is None else tp.all_reduce(out.contiguous(), "model")
+
+
+def _route(p, cfg, x, tp=None):
     """Router: logits in the compute dtype, softmax in fp32, the top_k
     gates (ties toward the lower expert index, as ``jax.lax.top_k``: a
     stable descending sort, where ``torch.topk`` promises no order)
     renormalised to sum to 1.  Returns the logits (widened to fp32) and
     gates (..., E), topv and topi (..., K)."""
     k = cfg.moe.top_k
-    logits = Linear.apply(p["router"], x).float()
+    logits = Linear.apply(p["router"], x, tp).float()
     gates = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = topv[..., :k], topi[..., :k]
@@ -245,19 +308,24 @@ def _dispatch(xs, e_flat, k, n_experts, cap):
     return xe.reshape(g, n_experts, cap, d), slot, keep, counts
 
 
-def _experts(p, cfg, xe):
+def _experts(p, cfg, xe, tp=None):
     """The routed experts: xe (G, E, cap, D) -> (G, E, cap, D), each
     expert's GLU over its slots, the stacked weights cast to the compute
-    dtype."""
+    dtype.  On a mesh: this rank's experts (E split) or every expert's
+    weights gathered whole."""
     act = ACTIVATIONS[cfg.activation]
     dt = xe.dtype
-    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
+
+    def w(name):
+        t = p[name]
+        return t if tp is None or model_axis(t) == 0 else tp_view(t, None, tp)
+
+    up = torch.einsum("gecd,edf->gecf", xe, w("w_up").to(dt))
     if cfg.glu:
-        up = act(torch.einsum("gecd,edf->gecf", xe,
-                              p["w_gate"].to(dt))) * up
+        up = act(torch.einsum("gecd,edf->gecf", xe, w("w_gate").to(dt))) * up
     else:
         up = act(up)
-    return torch.einsum("gecf,efd->gecd", up, p["w_down"].to(dt))
+    return torch.einsum("gecf,efd->gecd", up, w("w_down").to(dt))
 
 
 def _gathered(ye, slot, keep, topv):
@@ -278,27 +346,30 @@ def _record(x, tokens, cap, logits, topi, keep, counts, aux):
                        "aux": aux.detach()})
 
 
-def apply_moe_global(p, cfg, x):
+def apply_moe_global(p, cfg, x, ctx=None):
     """Sort-based dispatch of all B*L tokens with one static capacity
     (GShard-style drops), as the reference's ``apply_moe_global``.  A
     token's K weighted choices add one after another in the compute
     dtype, as its ``.at[tok].add`` into zeros does (no ``index_add_``,
     whose CUDA atomics add in no fixed order)."""
     m = cfg.moe
+    tp = _tp(ctx)
     b, l, d = x.shape
     t = b * l
     xt = x.reshape(t, d)
     cap = moe_capacity(t, cfg)
-    logits, gates, topv, topi = _route(p, cfg, xt)        # (T, E), (T, K)
+    logits, gates, topv, topi = _route(p, cfg, xt, tp)    # (T, E), (T, K)
     xe, slot, keep, counts = _dispatch(xt[None], topi.reshape(1, -1),
                                        m.top_k, m.n_experts, cap)
-    yk = _gathered(_experts(p, cfg, xe), slot, keep, topv).reshape(
-        t, m.top_k, d)
+    ye = _experts(p, cfg, _ep_constrain(xe, ctx, 1), tp)
+    yk = _gathered(ye, *_ep_slots(slot, keep, ctx, m.n_experts, cap),
+                   topv).reshape(t, m.top_k, d)
     out = yk[:, 0]
     for j in range(1, m.top_k):
         out = out + yk[:, j]
+    out = _ep_combine(out, ctx, m.n_experts)
     if m.n_shared:
-        out = out + _glu(p, cfg, xt, "shared_")
+        out = out + _glu(p, cfg, xt, "shared_", tp)
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     density = counts[0].float() / t
     aux = m.n_experts * torch.sum(density / m.top_k * gates.mean(0))
@@ -312,20 +383,19 @@ def apply_moe_grouped(p, cfg, x, ctx=None):
     choices are summed in fp32 and rounded once (the reference's
     reshape-sum)."""
     m = cfg.moe
+    tp = _tp(ctx)
     b, l, d = x.shape
     cap = moe_capacity(l, cfg)
-    logits, gates, topv, topi = _route(p, cfg, x)         # (B, L, E), K
-    x = _ep_constrain(x, ctx, None)
+    logits, gates, topv, topi = _route(p, cfg, x, tp)     # (B, L, E), K
     xe, slot, keep, counts = _dispatch(x, topi.reshape(b, -1), m.top_k,
                                        m.n_experts, cap)
-    ye = _ep_constrain(_experts(p, cfg, _ep_constrain(xe, ctx, 1)), ctx,
-                       None)
-    yk = _gathered(ye, slot, keep, topv)
-    out = yk.reshape(b, l, m.top_k, d).sum(2, dtype=torch.float32).to(
-        x.dtype)
+    ye = _experts(p, cfg, _ep_constrain(xe, ctx, 1), tp)
+    yk = _gathered(ye, *_ep_slots(slot, keep, ctx, m.n_experts, cap), topv)
+    out = _ep_combine(yk.reshape(b, l, m.top_k, d).sum(2, dtype=torch.float32),
+                      ctx, m.n_experts).to(x.dtype)
     if m.n_shared:
-        out = out + _glu(p, cfg, x.reshape(b * l, d), "shared_").reshape(
-            b, l, d)
+        out = out + _glu(p, cfg, x.reshape(b * l, d), "shared_",
+                         tp).reshape(b, l, d)
     density = counts.float().sum(0) / (b * l)
     aux = m.n_experts * torch.sum(density / m.top_k * gates.mean((0, 1)))
     _record(x, l, cap, logits, topi, keep, counts, aux)
@@ -404,14 +474,60 @@ def apply_attention(p, cfg, blk, x, ctx, cache):
     return x + _block_ffn(p["ffn"], cfg, _norm(cfg).apply(p["ln2"], x), ctx)
 
 
+def _want_seq_shard(cfg, ctx) -> bool:
+    """Whether attention runs sequence-sharded over ``model``: a mesh
+    whose model axis one of the head counts does not divide (the head
+    split would break the GQA grouping), as the reference's auto policy."""
+    mesh = ctx.get("mesh")
+    if mesh is None:
+        return False
+    m = mesh.shape.get("model", 1)
+    return m > 1 and _head_axis(mesh.shape, cfg.n_heads,
+                                cfg.n_kv_heads) is None
+
+
+def heads_split(cfg, mesh) -> bool:
+    """Whether a rank holds a 1 / M head group (q / k / v, the pages'
+    KV heads) on ``mesh``: a model axis both head counts divide."""
+    return (mesh is not None
+            and _head_axis(mesh.shape, cfg.n_heads, cfg.n_kv_heads)
+            is not None)
+
+
+def _seq_shard(x, ctx, *, on_model: bool):
+    """The sequence-sharded attention's layout on this rank: queries
+    (``on_model``) keep this model rank's L-slice when M divides L; K/V
+    stay whole.  No-op without a mesh."""
+    mesh = ctx.get("mesh")
+    m = 1 if mesh is None else mesh.shape["model"]
+    if not on_model or m == 1 or x.shape[1] % m:
+        return x
+    n = x.shape[1] // m
+    return x.narrow(1, mesh.coords["model"] * n, n)
+
+
+def _seq_offset(x, ctx, l: int) -> int:
+    """Where this rank's L-slice ``x`` (of l) starts: 0 unless sharded."""
+    return 0 if x.shape[1] == l else ctx["mesh"].coords["model"] * x.shape[1]
+
+
+def _seq_gather(o, ctx, l: int):
+    """A sequence-sharded attention output gathered whole along L."""
+    return o if o.shape[1] == l else ctx["mesh"].gather(o, "model", 1)
+
+
 def _self_attention(p, cfg, blk, x, ctx, cache):
     """x plus the block's self-attention (``ln1``, ``wq``/``wk``/``wv``,
     ``wo``) over its cache, or over the fresh K/V without one."""
     b, l, _ = x.shape
+    tp = _tp(ctx)
+    heads = heads_split(cfg, tp)
+    seq = _want_seq_shard(cfg, ctx)
+    col = {"out_axis": 1} if heads else {}
     h = _norm(cfg).apply(p["ln1"], x)
-    q = Linear.apply(p["wq"], h)          # (B, L, H, hd)
-    k = Linear.apply(p["wk"], h)          # (B, L, Hkv, hd)
-    v = Linear.apply(p["wv"], h)
+    q = Linear.apply(p["wq"], h, tp, **col)          # (B, L, H, hd)
+    k = Linear.apply(p["wk"], h, tp, **col)          # (B, L, Hkv, hd)
+    v = Linear.apply(p["wv"], h, tp, **col)
     window = cfg.local_window if blk == "local" else cfg.window
     if ctx.get("sin") is not None:
         q = apply_rope(q, ctx["sin"], ctx["cos"])
@@ -421,22 +537,30 @@ def _self_attention(p, cfg, blk, x, ctx, cache):
     # a 1-token prompt of a row-subset prefill is not a decode step
     decode = l == 1 and rows is None
     if not cache:                         # the no-cache forward
-        o = _fresh_attention(q, k, v, cfg, window, ctx)
+        o = _fresh_attention(q, k, v, cfg, window, ctx, seq)
     elif "bt" in cache:
         bt = cache["bt"] if rows is None else cache["bt"][rows]
+        shard = _data_shard(ctx)
+        # the tables hold global block ids; the pages are this data
+        # shard's segment (its local block 0 the trash block)
+        bt_pages = bt if shard is None else _local_tables(
+            bt, shard.coords["data"], cache["kp"].shape[0])
         posm = paged_positions(ctx, b, l, x.device)
-        paged_write(cache, k, v, posm, block_tables=bt,
+        paged_write(cache, k, v, posm, block_tables=bt_pages,
                     trash=ctx.get("trash"))
         if decode or ctx.get("chunked"):
-            o = _paged_attention(q, cfg, window, cache, bt, posm, kernels,
-                                 chunked=not decode)
+            qs = _seq_shard(q, ctx, on_model=seq)
+            ps = _seq_shard(posm, ctx, on_model=seq)
+            o = _seq_gather(_paged_attention(
+                qs, cfg, window, cache, bt, bt_pages, ps, kernels,
+                chunked=not decode, shard=shard), ctx, l)
         else:
-            o = _fresh_attention(q, k, v, cfg, window, ctx)
+            o = _fresh_attention(q, k, v, cfg, window, ctx, seq)
     else:
         q_offset = ctx.get("q_offset", 0)
         cache_write(cache, k, v, q_offset)
         if not decode:
-            o = _fresh_attention(q, k, v, cfg, window, ctx)
+            o = _fresh_attention(q, k, v, cfg, window, ctx, seq)
         elif kernels:
             o = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
                                       q_pos=q_offset, window=window,
@@ -448,25 +572,38 @@ def _self_attention(p, cfg, blk, x, ctx, cache):
                                        window=window, kv_valid=pos >= 0)
             o = attention_core(q, cache["k"], cache["v"], mask=mask[None],
                                logit_softcap=cfg.logit_softcap)
-    return x + Linear.apply(p["wo"], o.reshape(b, l, -1))
+    return x + Linear.apply(p["wo"], o.reshape(b, l, -1), tp, x_split=heads)
 
 
-def _paged_attention(q, cfg, window, cache, bt, posm, kernels, *, chunked):
-    """Attention over the rows' pages (already holding the new K/V)."""
+def _data_shard(ctx):
+    """The mesh when its data axis splits the rows and pages, else None."""
+    mesh = ctx.get("mesh")
+    return mesh if mesh is not None and mesh.shape["data"] > 1 else None
+
+
+def _paged_attention(q, cfg, window, cache, bt, bt_pages, posm, kernels, *,
+                     chunked, shard=None):
+    """Attention over the rows' pages (already holding the new K/V).  bt:
+    the rows' tables (global ids); bt_pages: the same rebased to this data
+    shard's segment (``shard``: its mesh, None on one shard)."""
     if kernels:
         # quantized pages: the kernels take the per-slot scales and fuse
         # the dequant into their page loads
-        scale_kw = ({"k_scales": cache["ksc"], "v_scales": cache["vsc"]}
-                    if "ksc" in cache else {})
+        kw = {"window": window, "causal": cfg.causal}
+        if "ksc" in cache:
+            kw.update(k_scales=cache["ksc"], v_scales=cache["vsc"])
         if chunked:
-            return kops.paged_prefill_attention(
-                q, cache["kp"], cache["vp"], bt, cache["ppos"], posm[:, 0],
-                (posm >= 0).sum(-1), window=window, causal=cfg.causal,
-                **scale_kw)
-        return kops.paged_attention(q, cache["kp"], cache["vp"], bt,
-                                    cache["ppos"], posm[:, 0], window=window,
-                                    causal=cfg.causal, **scale_kw)
-    kc, vc, kvpos = paged_view(cache, bt)     # as stored, or dequantized
+            args = (q, cache["kp"], cache["vp"], bt, cache["ppos"],
+                    posm[:, 0], (posm >= 0).sum(-1))
+            if shard is not None:
+                return kops.sharded_paged_prefill_attention(shard, *args,
+                                                            **kw)
+            return kops.paged_prefill_attention(*args, **kw)
+        args = (q, cache["kp"], cache["vp"], bt, cache["ppos"], posm[:, 0])
+        if shard is not None:
+            return kops.sharded_paged_attention(shard, *args, **kw)
+        return kops.paged_attention(*args, **kw)
+    kc, vc, kvpos = paged_view(cache, bt_pages)   # as stored, or dequantized
     mask = make_attention_mask(posm, kvpos, causal=cfg.causal,
                                window=window, kv_valid=kvpos >= 0)
     mask = mask & (posm >= 0)[..., None]
@@ -477,15 +614,20 @@ def _paged_attention(q, cfg, window, cache, bt, posm, kernels, *, chunked):
                           logit_softcap=cfg.logit_softcap).to(q.dtype)
 
 
-def _fresh_attention(q, k, v, cfg, window, ctx):
+def _fresh_attention(q, k, v, cfg, window, ctx, seq=False):
     """Blocking prefill: the prompt's queries attend over its own fresh
     K/V (right for any window / capacity relation).  Positions are
     relative to the prompt's start, as the reference's naive and flash
-    branches take them."""
-    return multi_head_attention(q, k, v, impl=ctx.get("impl", "naive"),
-                                causal=cfg.causal, window=window,
-                                chunk_size=cfg.attn_chunk,
-                                logit_softcap=cfg.logit_softcap)
+    branches take them.  seq: this model rank's L-slice of the queries
+    over K/V whole, the output gathered."""
+    l = q.shape[1]
+    qs = _seq_shard(q, ctx, on_model=seq)
+    o = multi_head_attention(qs, k, v, impl=ctx.get("impl", "naive"),
+                             causal=cfg.causal, window=window,
+                             q_offset=_seq_offset(qs, ctx, l),
+                             chunk_size=cfg.attn_chunk,
+                             logit_softcap=cfg.logit_softcap)
+    return _seq_gather(o, ctx, l)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ from repro_torch.models.blocks import (BLOCKS, apply_block, init_block,
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import (Embedding, LayerNorm, Linear, RMSNorm,
                             rope_frequencies)
-from repro_torch.nn.layers import normal, rounded
+from repro_torch.nn.layers import model_axis, normal, rounded, tp_view
 
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -160,33 +160,36 @@ class TransformerLM:
         check_dtype(dtype)
         d = cfg.d_model
         dev = params["embed"]["table"].device
+        mesh = (extra_ctx or {}).get("mesh")
+        tp = mesh if mesh is not None and mesh.shape["model"] > 1 else None
         scale = math.sqrt(d) if cfg.embedding_scale else 1.0
         fused = (use_kernels and fuse_io and mux.enabled
                  and "mux_engine" in params)
         fuse_entry = (fused and embeds is None and mux.mux_kind == "gaussian"
                       and mux.demux_kind != "prefix")
+        # on a model axis: the mux and demux weights whole, the table split
+        mux_engine = _whole(params.get("mux_engine", {}), tp)
         if fuse_entry:
             # fused entry: gather + embedding scale + mux combine, one kernel
             tokens = torch.as_tensor(tokens, device=dev)
             nb, l_in = tokens.shape
             bb = nb // mux.n
-            x = kops.mux_embed_combine(
-                tokens.clamp(min=0).reshape(mux.n, bb * l_in),
-                params["embed"]["table"], params["mux_engine"]["mux"]["v"],
-                scale=scale, out_dtype=dtype)
+            x = _fused_entry(params["embed"]["table"], mux_engine["mux"]["v"],
+                             tokens.clamp(min=0).reshape(mux.n, bb * l_in),
+                             scale, dtype, tp)
             x = x.reshape(bb, l_in, d)
         else:
             if embeds is None:
                 x = Embedding.apply(params["embed"],
                                     torch.as_tensor(tokens, device=dev),
-                                    dtype=dtype)
+                                    dtype=dtype, mesh=tp)
             else:
                 x = torch.as_tensor(embeds, device=dev).to(dtype)
             if cfg.embedding_scale:
                 # the scale rounded to the dtype first, as the reference's
                 # jnp.asarray(sqrt(d), dtype): 45.25 for d 2048 in bf16
                 x = x * rounded(scale, dtype)
-            x = MuxEngine.combine(params.get("mux_engine", {}), mux, x,
+            x = MuxEngine.combine(mux_engine, mux, x,
                                   use_kernels=use_kernels)
         b, l, _ = x.shape
 
@@ -210,7 +213,7 @@ class TransformerLM:
             ctx["sin"], ctx["cos"] = ((sin, cos) if per_row
                                       else (sin[None], cos[None]))
         elif cfg.positions == "learned":
-            pe = params["pos_emb"][pos].to(dtype)
+            pe = _whole(params["pos_emb"], tp)[pos].to(dtype)
             x = x + (pe if per_row else pe[None])
         if extra_ctx:
             ctx.update(extra_ctx)
@@ -249,21 +252,53 @@ class TransformerLM:
         if fused and demux and mux.demux_kind == "rsa":
             # fused exit: final norm + RSA demux + demux LN, one kernel
             x = MuxEngine.separate_fused(
-                params["mux_engine"], mux, x, final_norm=params["final_norm"],
+                mux_engine, mux, x, final_norm=params["final_norm"],
                 norm_kind=cfg.norm)
         else:
             x = norm.apply(params["final_norm"], x)
             if demux:
-                x = MuxEngine.separate(params.get("mux_engine", {}), mux, x)
+                x = MuxEngine.separate(mux_engine, mux, x)
         if logits_out:
-            return {"logits": TransformerLM.logits(params, cfg, x),
+            return {"logits": TransformerLM.logits(params, cfg, x, mesh=tp),
                     "aux": aux_total}
         return {"hidden": x, "aux": aux_total}
 
     @staticmethod
-    def logits(params, cfg: ModelConfig, hidden):
+    def logits(params, cfg: ModelConfig, hidden, *, mesh=None):
         """hidden @ table.T (tied) or hidden @ lm_head (untied); plain
-        matmuls."""
+        matmuls.  mesh: a serve mesh whose model axis splits the table or
+        head (the whole logits come back)."""
+        if mesh is not None and mesh.shape["model"] == 1:
+            mesh = None
         if cfg.tie_embeddings:
-            return Embedding.attend(params["embed"], hidden)
-        return Linear.apply(params["lm_head"], hidden)
+            return Embedding.attend(params["embed"], hidden, mesh)
+        return Linear.apply(params["lm_head"], hidden, mesh)
+
+
+def _whole(tree, tp):
+    """Every param of ``tree`` whole on this rank (gathered where the
+    rules split it over ``model``); ``tree`` itself without a model
+    axis."""
+    if tp is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _whole(v, tp) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_whole(v, tp) for v in tree)
+    return tp_view(tree, None, tp)
+
+
+def _fused_entry(table, v, ids, scale, dtype, tp):
+    """The fused entry kernel over this rank's table: whole, a vocab slice
+    (ids of other ranks read its zero row; the ranks' partial sums add up
+    over ``model``) or a d slice (with the keys' d slice; the output
+    gathered over ``model``)."""
+    a = None if tp is None else model_axis(table)
+    if a == 0:
+        ids = Embedding.local_ids(table, ids, tp)
+    elif a == 1:
+        v = tp_view(v, 1, tp)          # the keys' d slice of the whole v
+    x = kops.mux_embed_combine(ids, table, v, scale=scale, out_dtype=dtype)
+    if a == 0:
+        return tp.all_reduce(x, "model")
+    return x if a is None else tp.gather(x, "model", -1)

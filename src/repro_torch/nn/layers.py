@@ -2,6 +2,25 @@
 
 ``init(generator, ...)`` draws from an explicit ``torch.Generator`` on the
 generator's device; ``apply`` casts params to the input's dtype.
+
+On a serve mesh (``launch.mesh.ServeMesh`` with a model axis of M > 1)
+each param is this rank's shard under the sharding rules
+(``runtime.sharding.shard_params``), and the dim it is split on over
+``model`` is its ``model_axis`` attribute (none: whole).  ``Linear.apply``
+and ``Embedding`` then take the mesh:
+
+  * ``out_axis=a``: column-parallel, the output stays split on the
+    weight's dim ``a`` (a head or feature slice of 1 / M);
+  * ``x_split=True``: row-parallel, x holds this rank's slice of the
+    input features; the partial product is summed over ``model`` (one
+    ``all_reduce``);
+  * neither: the whole output.  A weight split on its input dim takes x's
+    slice and sums; one split on an output dim gathers its output slices
+    (``ServeMesh.gather``).
+
+``tp_view`` gives a param as a layer needs it where the rules put it
+elsewhere: a slice of a whole param is local, a param split on another
+dim is gathered to whole first (``weight_gather``, counted).
 """
 from __future__ import annotations
 
@@ -21,6 +40,29 @@ def normal(generator, shape, stddev: float):
                        device=generator.device) * stddev
 
 
+def model_axis(t):
+    """The dim of param ``t`` split over the mesh's model axis, or None."""
+    return getattr(t, "model_axis", None)
+
+
+def tp_view(t, want, mesh):
+    """Param ``t`` split over ``model`` on dim ``want`` (None: whole), as
+    this rank's layer needs it."""
+    have = model_axis(t)
+    if have == want:
+        return t
+    if have is not None:
+        t = mesh.gather(t, "model", have, kind="weight_gather")
+    if want is None:
+        return t
+    n = t.shape[want] // mesh.shape["model"]
+    return t.narrow(want, mesh.coords["model"] * n, n)
+
+
+def _matmul(x, w):
+    return torch.tensordot(x, w, dims=1) if w.ndim > 2 else x @ w
+
+
 class Linear:
     """y = x @ w (+ b).  w: (in, out) or (in, *outs) for fused projections."""
 
@@ -34,29 +76,84 @@ class Linear:
         return p
 
     @staticmethod
-    def apply(p, x):
-        w = p["w"].to(x.dtype)
-        y = torch.tensordot(x, w, dims=1) if w.ndim > 2 else x @ w
-        if "b" in p:
-            y = y + p["b"].to(x.dtype)
+    def apply(p, x, mesh=None, *, out_axis=None, x_split: bool = False):
+        """mesh / out_axis / x_split: the tensor-parallel forms (module
+        docstring); without a mesh of M > 1 the plain product."""
+        if mesh is None or mesh.shape["model"] == 1:
+            y = _matmul(x, p["w"].to(x.dtype))
+            if "b" in p:
+                y = y + p["b"].to(x.dtype)
+            return y
+        w, b = p["w"], p.get("b")
+        a = model_axis(w)
+        if a == 0:                         # row-parallel: sum the partials
+            if not x_split:
+                n = w.shape[0]
+                x = x.narrow(-1, mesh.coords["model"] * n, n)
+            y = mesh.all_reduce(_matmul(x, w.to(x.dtype)), "model")
+            if b is not None:
+                y = y + tp_view(b, None, mesh).to(x.dtype)
+            return y
+        if x_split:                        # an input slice the weight lacks
+            x = mesh.gather(x, "model", -1)
+        if out_axis is None and a is None:
+            w_use, b_use = w, b
+        else:
+            # the output slice of dim ``keep`` (a split weight's own dim when
+            # the caller wants the whole output: gathered after the product)
+            keep = out_axis if out_axis is not None else a
+            w_use = tp_view(w, keep, mesh)
+            b_use = None if b is None else tp_view(b, keep - 1, mesh)
+        y = _matmul(x, w_use.to(x.dtype))
+        if b_use is not None:
+            y = y + b_use.to(x.dtype)
+        if out_axis is None and a is not None:
+            y = mesh.gather(y, "model", a - w.ndim)
         return y
 
 
 class Embedding:
-    """Token embedding with tied-softmax logits (``attend``)."""
+    """Token embedding with tied-softmax logits (``attend``).
+
+    On a mesh of M > 1 the table is split on the vocab (``model_axis`` 0:
+    this rank's ``vocab_rows`` rows, then one zero row that out-of-range
+    ids read) or on d (``model_axis`` 1)."""
 
     @staticmethod
     def init(generator, vocab: int, d: int, *, stddev: float = 0.02):
         return {"table": normal(generator, (vocab, d), stddev)}
 
     @staticmethod
-    def apply(p, ids, dtype=torch.float32):
-        return p["table"][ids].to(dtype)
+    def local_ids(table, ids, mesh):
+        """A vocab-split table's row of each id: id - this rank's first
+        vocab id, or the zero row for an id of another rank."""
+        n = table.vocab_rows
+        lo = mesh.coords["model"] * n
+        return torch.where((ids >= lo) & (ids < lo + n), ids - lo, n)
 
     @staticmethod
-    def attend(p, x):
+    def apply(p, ids, dtype=torch.float32, mesh=None):
+        t = p["table"]
+        a = None if mesh is None else model_axis(t)
+        if a == 0:                # each id's row lives on one rank: sum
+            x = t[Embedding.local_ids(t, ids, mesh)].to(dtype)
+            return mesh.all_reduce(x.contiguous(), "model")
+        x = t[ids].to(dtype)
+        return x if a is None else mesh.gather(x, "model", -1)
+
+    @staticmethod
+    def attend(p, x, mesh=None):
         """(..., d) @ (d, vocab)."""
-        return x @ p["table"].to(x.dtype).T
+        t = p["table"]
+        a = None if mesh is None else model_axis(t)
+        if a == 0:                # this rank's vocab slice of the logits
+            y = x @ t[:t.vocab_rows].to(x.dtype).T
+            return mesh.gather(y, "model", -1)
+        if a == 1:                # this rank's d slice: partial logits
+            n = t.shape[1]
+            xs = x.narrow(-1, mesh.coords["model"] * n, n)
+            return mesh.all_reduce(xs @ t.to(x.dtype).T, "model")
+        return x @ t.to(x.dtype).T
 
 
 class LayerNorm:

@@ -1,7 +1,8 @@
-"""Elastic shrink plans (counterpart of ``repro.runtime.elastic``,
-without its device mesh): after losing devices, keep the model axis
-(its degree is fixed by memory), take the largest data degree the
-survivors fit, and re-round the batch to it."""
+"""Elastic shrink plans (counterpart of ``repro.runtime.elastic``): after
+losing devices, keep the model axis (its degree is fixed by memory), take
+the largest data degree the survivors fit, and re-round the batch to it;
+``make_elastic_mesh`` builds the plan's serve mesh over the current
+process group."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -41,3 +42,11 @@ def plan_serve_shrink(alive_shards: int, *, model_parallel: int = 1,
     return plan_elastic(alive_shards * model_parallel,
                         model_parallel=model_parallel,
                         old_global_batch=rows)
+
+
+def make_elastic_mesh(plan: ElasticPlan, *, device=None):
+    """The plan's ``(data, model)`` serve mesh over the first
+    ``plan.n_devices`` ranks of the current process group
+    (``launch.mesh.make_serve_mesh``; a rank past them gets None)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    return make_serve_mesh(*plan.mesh_shape, device=device)

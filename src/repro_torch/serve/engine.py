@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import MuxSpec
 from repro_torch.core import quant as quantlib
 from repro_torch.models import VLM, EncDecLM, TransformerLM
+from repro_torch.models.blocks import heads_split
 from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import (KVPool, ShardedKVPool, blocks_for,
@@ -185,13 +186,19 @@ def make_pool(sc: ServeConfig, global_batch: int):
                   max_blocks_per_seq=sc.max_blocks_per_seq)
 
 
-def init_cache(sc: ServeConfig, global_batch: int, *, device):
+def init_cache(sc: ServeConfig, global_batch: int, *, device, mesh=None):
     """The cache for ``global_batch`` streams on ``device``: a ring in
     ``sc.dtype``, or pages stored as ``sc.page_dtype`` says; RG-LRU and RWKV
     layers hold their recurrent state on either layout (conv inputs and
     token shifts in ``sc.dtype``), cross-attention layers their cross-K/V beside a
-    ring."""
+    ring.  mesh (paged only): this rank's part of the cache on a serve
+    mesh — its data shard's rows and page segment (``num_blocks / data``
+    blocks, its local block 0 the shard's trash block) and, where the
+    model axis splits the heads (``models.blocks.heads_split``), its KV
+    heads."""
     b = backbone_batch(global_batch, sc.mux)
+    if mesh is not None and (sc.kind != "lm" or sc.cache_layout != "paged"):
+        raise ValueError("a mesh cache needs the paged layout of an LM")
     if sc.kind != "lm":
         if sc.cache_layout == "paged":
             raise NotImplementedError(
@@ -204,10 +211,16 @@ def init_cache(sc: ServeConfig, global_batch: int, *, device):
     # a quantized pool takes its storage from kv_quant; the dtype then
     # types only non-attention state, which stays floating-point
     dt = sc.dtype if sc.kv_quant is not None else sc.page_dtype
+    cfg, blocks = sc.cfg, sc.pool_blocks(global_batch)
+    if mesh is not None:
+        b //= mesh.shape["data"]
+        blocks //= mesh.shape["data"]
+        if heads_split(cfg, mesh):
+            cfg = cfg.replace(
+                n_kv_heads=cfg.n_kv_heads // mesh.shape["model"])
     return TransformerLM.init_cache(
-        sc.cfg, b, sc.capacity, dt, layout="paged",
-        block_size=sc.block_size, num_blocks=sc.pool_blocks(global_batch),
-        kv_quant=sc.kv_quant, device=device)
+        cfg, b, sc.capacity, dt, layout="paged", block_size=sc.block_size,
+        num_blocks=blocks, kv_quant=sc.kv_quant, device=device)
 
 
 def set_block_tables(cache, block_tables):
@@ -269,8 +282,9 @@ def prefill(params, sc: ServeConfig, cache, tokens, *, extra=None,
     entries.  As in the reference, the entry and exit are the plain
     (unfused) ones.
     extra_ctx: more layer-context entries (``trash``: the rows' trash
-    block ids under logical shards).  Returns (last-position logits
-    (NB, V), cache)."""
+    block ids under logical shards; ``mesh``: the serve mesh, whose rank
+    holds ``rows`` and the cache's part of them).  Returns (last-position
+    logits (NB, V), cache)."""
     ctx = dict(extra_ctx or {})
     if rows is not None:
         if sc.cache_layout != "paged":
@@ -317,7 +331,8 @@ def prefill_chunk(params, sc: ServeConfig, cache, tokens, *, rows, start,
     else:
         last = (length - 1).expand(h.shape[0])
     h_last = h[torch.arange(h.shape[0], device=dev), last]
-    return TransformerLM.logits(params, sc.cfg, h_last), cache
+    return TransformerLM.logits(params, sc.cfg, h_last,
+                                mesh=ctx.get("mesh")), cache
 
 
 def decode_step(params, sc: ServeConfig, cache, tokens, pos, *,

@@ -18,7 +18,11 @@ loop reports (``stats``, the reference's dict key for key):
   * **hot snapshot / restore** — ``snapshot_state`` captures a runtime's
     whole serving state: the paged cache as the checkpoint tree and the
     host state as JSON metadata; ``restore_into`` rebuilds a fresh
-    runtime from it, live rows resuming decode with no re-prefill.
+    runtime from it, live rows resuming decode with no re-prefill.  On a
+    serve mesh the snapshot holds the whole cache (``ServeRuntime.
+    whole_cache``, gathered by every rank; rank 0 writes it), so it is
+    the files one device writes, and a restore places each rank's part
+    again (``ServeRuntime.place_cache``).
 
 Snapshot format (``checkpoint.manager``'s layout; one format for both
 packages, so each restores the other's)::
@@ -53,7 +57,7 @@ from repro_torch.checkpoint.manager import AsyncCheckpointManager
 from repro_torch.runtime.elastic import plan_serve_shrink
 from repro_torch.runtime.fault_tolerance import StragglerDetector
 from repro_torch.serve.batcher import Request
-from repro_torch.serve.engine import set_block_tables
+from repro_torch.serve.engine import init_cache
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import StreamSlot
 from repro_torch.serve.telemetry import NULL_TELEMETRY
@@ -124,7 +128,7 @@ def snapshot_state(rt):
         "pending_handoffs": ([int(j) for j in rt.handoff_ready()]
                              if rt.role == "prefill" else []),
     }
-    return {"cache": interop.paged_cache_to_reference(rt.cache,
+    return {"cache": interop.paged_cache_to_reference(rt.whole_cache(),
                                                       rt.sc.cfg)}, meta
 
 
@@ -141,8 +145,14 @@ def restore_state(rt, cache_tree, meta):
         raise ValueError(
             f"snapshot config {want} does not match runtime {have} — "
             "restore requires an identically shaped grid")
-    interop.paged_cache_from_reference(cache_tree["cache"], rt.sc.cfg,
-                                       rt.cache)
+    if rt.mesh is None:
+        interop.paged_cache_from_reference(cache_tree["cache"], rt.sc.cfg,
+                                           rt.cache)
+    else:        # the whole cache, then this rank's part of it
+        whole = init_cache(rt.sc, rt.nb, device=rt.device)
+        interop.paged_cache_from_reference(cache_tree["cache"], rt.sc.cfg,
+                                           whole)
+        rt.place_cache(whole)
     rt.pool.load_state(meta["pool"])
     sched = rt.sched
     sched.queue.clear()
@@ -174,7 +184,7 @@ def restore_state(rt, cache_tree, meta):
                 f"snapshot pending handoffs {want_pending} do not match "
                 f"restored state {have_pending} — torn handoff")
     # the pool is the source of truth for the tables
-    set_block_tables(rt.cache, rt.pool.table_array(range(rt.nrows)))
+    rt._install_tables()
     return rt
 
 
@@ -184,8 +194,10 @@ def restore_into(rt, ckpt, *, step: int | None = None):
     built runtime ``rt``.  Returns ``(rt, step)``."""
     if isinstance(ckpt, str):
         ckpt = AsyncCheckpointManager(ckpt)
+    whole = (rt.cache if rt.mesh is None else
+             init_cache(rt.sc, rt.nb, device="meta"))
     target = {"cache": interop.paged_cache_to_reference(
-        rt.cache, rt.sc.cfg, meta=True)}
+        whole, rt.sc.cfg, meta=True)}
     tree, got_step, meta = ckpt.restore(target, step=step, device=rt.device)
     restore_state(rt, tree, meta)
     return rt, got_step
@@ -237,8 +249,11 @@ class RecoverySupervisor:
         self.stats["replay_prefill_tokens"] += sum(
             len(r.prompt) + len(r.output) for r in replayed)
         self._pending.extend((r, len(r.output), t0) for r in replayed)
+        mesh = getattr(rt, "mesh", None)      # a runtime's serve mesh
+        model_ax = mesh.shape.get("model", 1) if mesh is not None else 1
         alive = rt.sc.n_shards - len(rt.sched.dead_shards)
-        self.shrink_plans.append(plan_serve_shrink(alive, rows=rt.nrows))
+        self.shrink_plans.append(plan_serve_shrink(
+            alive, model_parallel=model_ax, rows=rt.nrows))
         return replayed
 
     def note_step(self):
@@ -341,7 +356,8 @@ class RecoverySupervisor:
             raise ValueError("RecoverySupervisor needs ckpt_dir for "
                              "snapshot/restore")
         tree, meta = snapshot_state(rt)
-        self.ckpt.save(step, tree, metadata=meta)
+        if rt.mesh is None or not any(rt.mesh.coords.values()):
+            self.ckpt.save(step, tree, metadata=meta)     # rank 0 writes
         self.stats["snapshots"] += 1
         if self.tele.enabled:
             self.tele.instant("snapshot", lane=rt.lane, step=step)
@@ -355,6 +371,9 @@ class RecoverySupervisor:
             raise ValueError("RecoverySupervisor needs ckpt_dir for "
                              "snapshot/restore")
         t0 = time.perf_counter()
+        if rt.mesh is not None:       # rank 0's write lands before any read
+            self.ckpt.wait()
+            rt.mesh.barrier()
         rt, got_step = restore_into(rt, self.ckpt, step=step)
         dt = time.perf_counter() - t0
         self.stats["restarts"] += 1

@@ -1,6 +1,6 @@
-"""Serve runtime: chunked or blocking prefill interleaved with decode, one
-device (counterpart of ``repro.serve.runtime``; the device mesh is a
-later slice, ROADMAP §1 item 12).
+"""Serve runtime: chunked or blocking prefill interleaved with decode, on
+one device or one rank of a serve mesh (counterpart of
+``repro.serve.runtime``).
 
 ``ServeRuntime`` executes the scheduler's plans against the paged cache:
 
@@ -36,6 +36,18 @@ context), backpressure is shard-local (a rolled-back admission is
 re-planned onto sibling shards) and ``kill_shard`` fences a lost shard,
 replaying its streams onto the survivors from their host token logs.
 The tables are installed in place, so a kill changes no device shape.
+
+A serve mesh (``mesh``, a ``launch.mesh.ServeMesh``; ``sc.n_shards`` its
+data axis) puts the logical shards on ranks: every rank runs this same
+host loop — the same scheduler, ``ShardedKVPool`` (global block ids) and
+tokens, so all admit, preempt and kill alike — while its device holds
+only its data shard's rows and page segment and its shards of the params
+(``runtime.sharding.shard_params``).  A decode step runs on every rank
+over its rows, and the new tokens are gathered over ``data`` once a step
+(the reference's one replicated token output); a prompt chunk runs on
+its row's data shard, and its first tokens reach the others the same
+way.  Each model rank's layers take their collectives from the mesh
+(``models.blocks``).
 """
 from __future__ import annotations
 
@@ -44,13 +56,15 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.blocks import RECURRENT
+from repro_torch.models.blocks import RECURRENT, heads_split
+from repro_torch.runtime.sharding import shard_params
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import (ServeConfig, copy_cache_pages,
                                       decode_step, init_cache, make_pool,
                                       prefill, prefill_chunk, reset_blocks,
                                       set_block_tables)
 from repro_torch.serve.kvpool import PoolExhausted
+from repro_torch.serve.kvpool import _bits as _page_bits
 from repro_torch.serve.router import LaneLoad
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.telemetry import NULL_TELEMETRY
@@ -128,7 +142,10 @@ class ServeRuntime:
     logical shards need ``backbone_rows`` divisible by it.
     lane: the serving-lane id (tags plans, stats, telemetry and
     ``load()``).  role: 'both' | 'prefill' | 'decode' (module docstring);
-    a prefill lane needs chunked prefill.  ``stats`` also counts
+    a prefill lane needs chunked prefill.  mesh: this rank's serve mesh
+    (module docstring): ``sc.n_shards`` must equal its data axis and
+    ``backbone_rows`` divide by it; whole ``params`` are cut to the rank's
+    shards.  ``stats`` also counts
     ``handoffs_out``, ``handoffs_in`` and ``migrated_bytes``.  Params on
     the device already are used as they are, so lanes may share a
     backbone's tensors.
@@ -137,7 +154,7 @@ class ServeRuntime:
     def __init__(self, params, sc: ServeConfig, backbone_rows: int, *,
                  chunk: int | None = 32, on_prefill=None,
                  use_kernels: bool = True, device=None, telemetry=None,
-                 lane: int = 0, role: str = "both"):
+                 lane: int = 0, role: str = "both", mesh=None):
         if sc.cache_layout != "paged":
             raise ValueError("ServeRuntime requires cache_layout='paged'")
         if role not in ("both", "prefill", "decode"):
@@ -152,6 +169,16 @@ class ServeRuntime:
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1 (or None for blocking "
                              f"prefill), got {chunk}")
+        if mesh is not None:
+            data = mesh.shape["data"]
+            if sc.n_shards != data:
+                raise ValueError(
+                    f"ServeConfig.n_shards={sc.n_shards} must equal the "
+                    f"mesh 'data' axis size {data}")
+            if backbone_rows % data:
+                raise ValueError(
+                    f"backbone_rows={backbone_rows} not divisible by the "
+                    f"mesh 'data' axis size {data}")
         if backbone_rows % sc.n_shards:
             raise ValueError(
                 f"backbone_rows={backbone_rows} not divisible by "
@@ -172,6 +199,10 @@ class ServeRuntime:
                 "(ROADMAP.md §3)")
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.params = shard_params(self.params, mesh,
+                                       pattern=len(sc.cfg.block_pattern))
         self.sc = sc
         self.n_mux = max(sc.mux.n, 1)
         self.nrows = backbone_rows
@@ -193,13 +224,19 @@ class ServeRuntime:
                                          n_shards=sc.n_shards, lane=lane,
                                          telemetry=self.tele)
         self.pool = make_pool(sc, self.nb)
-        self.cache = init_cache(sc, self.nb, device=self.device)
+        self.cache = init_cache(sc, self.nb, device=self.device, mesh=mesh)
+        # the rows this rank holds: its data shard's on a mesh
+        rps = backbone_rows // sc.n_shards
+        self._shard = 0 if mesh is None else mesh.coords["data"]
+        self._rows = (range(backbone_rows) if mesh is None else
+                      range(self._shard * rps, (self._shard + 1) * rps))
         # per-row trash routing: each shard's invalid writes stay in its
-        # own segment (block 0 everywhere on one shard)
+        # own segment (block 0 everywhere on one shard, and on a mesh,
+        # whose rank holds one segment with its trash block first)
         self._trash = (torch.as_tensor(
             self.pool.trash_vector(range(backbone_rows)),
             dtype=torch.long, device=self.device)
-            if sc.n_shards > 1 else None)
+            if sc.n_shards > 1 and mesh is None else None)
         self.row_len: dict[int, int] = {}      # rows holding blocks
         self.row_tokens: dict[int, np.ndarray] = {}
         self.next_tok = np.full((self.n_mux, backbone_rows), PAD_ID,
@@ -249,12 +286,15 @@ class ServeRuntime:
 
 
     def _step_ctx(self, rows=None):
-        """The trash routing of the rows the step writes (all rows when
-        ``rows`` is None); empty on one shard."""
-        if self._trash is None:
-            return None
-        return {"trash": self._trash if rows is None
-                else self._trash[rows]}
+        """The layer context of a step: the mesh, and under logical shards
+        the trash routing of the rows the step writes (all rows when
+        ``rows`` is None)."""
+        ctx = {}
+        if self.mesh is not None:
+            ctx["mesh"] = self.mesh
+        if self._trash is not None:
+            ctx["trash"] = self._trash if rows is None else self._trash[rows]
+        return ctx or None
 
     def _sample(self, logits, arr, steps):
         return sampling.sample(logits, arr["temperature"], arr["top_k"],
@@ -352,6 +392,8 @@ class ServeRuntime:
         mux width and the page geometry and storage."""
         if dst is self:
             raise ValueError("handoff requires a distinct destination lane")
+        if self.mesh is not None or dst.mesh is not None:
+            raise NotImplementedError("a handoff between lanes on a mesh")
         if dst.n_mux != self.n_mux:
             raise ValueError(
                 f"handoff across widths (N={self.n_mux} -> {dst.n_mux}): "
@@ -443,7 +485,78 @@ class ServeRuntime:
                                 lane=self.lane, shard=s)
 
     def _install_tables(self):
-        set_block_tables(self.cache, self.pool.table_array(range(self.nrows)))
+        set_block_tables(self.cache, self.pool.table_array(self._rows))
+
+    def _reset_blocks(self, blocks):
+        """Mark fresh blocks empty: on a mesh only this rank's segment's,
+        at their local ids."""
+        if self.mesh is not None:
+            bps = self.pool.num_blocks // self.sc.n_shards
+            off = self._shard * bps
+            blocks = [b - off for b in blocks if off <= b < off + bps]
+        reset_blocks(self.cache, blocks)
+
+    def _owns(self, j: int) -> bool:
+        """Whether row ``j`` lives on this rank's data shard."""
+        return self.mesh is None or self.sched.shard_of(j) == self._shard
+
+    def _local(self, grid):
+        """This rank's columns of a mux-major (n_mux * B,) or (n_mux, B)
+        grid array, flattened mux-major."""
+        g = np.asarray(grid).reshape(self.n_mux, self.nrows)
+        return g[:, self._rows.start:self._rows.stop].reshape(-1)
+
+    def whole_cache(self):
+        """The paged cache as one device holds it.  On a mesh every rank
+        calls this (it gathers): this rank's part summed into zero-filled
+        whole tensors — the pages, scales and positions over ``data`` in
+        segment order, the KV heads over ``model`` where they are split,
+        the block tables over ``data``.  Without a mesh, the cache."""
+        if self.mesh is None:
+            return self.cache
+        m, heads = self.mesh, heads_split(self.sc.cfg, self.mesh)
+        bt = m.gather(self.cache["bt"], "data", 0)
+        layers = []
+        for c in self.cache["layers"]:
+            out = {}
+            for k, x in c.items():
+                if k == "bt":
+                    out[k] = bt
+                    continue
+                w = m.gather(_page_bits(x), "data", 0)
+                if heads and k != "ppos":
+                    w = m.gather(w, "model", 2)
+                out[k] = w.view(x.dtype)
+            layers.append(out)
+        return {"layers": layers, "bt": bt}
+
+    def place_cache(self, whole):
+        """Install this mesh rank's part of a whole paged cache
+        (``whole_cache``'s layout) into its own, in place: its segment's
+        pages, scales and positions (its KV heads where they are split)
+        and its rows' tables."""
+        bps = whole["layers"][0]["ppos"].shape[0] // self.sc.n_shards
+        seg = slice(self._shard * bps, (self._shard + 1) * bps)
+        heads = slice(None)
+        if heads_split(self.sc.cfg, self.mesh):
+            n = self.cache["layers"][0]["kp"].shape[2]
+            heads = slice(self.mesh.coords["model"] * n,
+                          (self.mesh.coords["model"] + 1) * n)
+        for c, w in zip(self.cache["layers"], whole["layers"], strict=True):
+            for k, x in c.items():
+                if k != "bt":
+                    src = w[k][seg] if k == "ppos" else w[k][seg, :, heads]
+                    _page_bits(x).copy_(_page_bits(src))
+        self.cache["bt"].copy_(whole["bt"][self._rows.start:
+                                           self._rows.stop])
+
+    def _tokens_to_host(self, buf):
+        """A token buffer on the host.  On a mesh ``buf`` is zero but for
+        the part this rank's data shard computed, and is summed over
+        ``data`` first (a gather: the step's one token exchange)."""
+        if self.mesh is not None:
+            buf = self.mesh.all_reduce(buf.long(), "data")
+        return buf.cpu().numpy()
 
     def _shard_used_blocks(self, row: int) -> int:
         """Used blocks on ``row``'s shard (the whole pool on one shard)."""
@@ -500,35 +613,43 @@ class ServeRuntime:
             return False
         self.row_len[plan.row] = plan.total
         self.row_tokens[plan.row] = np.asarray(plan.tokens, np.int32)
-        reset_blocks(self.cache, blocks)
+        self._reset_blocks(blocks)
         return True
 
     def _bucket(self, n: int) -> int:
         return next((b for b in self.buckets if b >= n), self.buckets[-1])
 
     def _exec_chunk(self, plan):
+        """One chunk (or, blocking, the whole prompt) of row ``plan.row``,
+        run by the ranks of the row's data shard."""
         j = plan.row
         arr, steps = self._sampling_row(j)
-        if self.chunk is None:
+        local = j - self._rows.start          # the row on this rank
+        compute = (plan.length if self.chunk is None
+                   else self._bucket(plan.length))
+        if self.chunk is not None:
+            self._first_run(f"prefill_{compute}")
+        out = None
+        if not self._owns(j):
+            pass
+        elif self.chunk is None:
             # blocking prefill: the whole prompt, unpadded, fresh-KV attention
-            compute = plan.length
             toks = self.row_tokens[j].astype(np.int64)
             logits, _ = prefill(self.params, self.sc, self.cache,
                                 torch.from_numpy(toks).to(self.device),
-                                rows=[j], use_kernels=self.use_kernels,
+                                rows=[local], use_kernels=self.use_kernels,
                                 extra_ctx=self._step_ctx([j]))
+            out = self._sample(logits, arr, steps)
         else:
-            compute = self._bucket(plan.length)
             buf = np.full((self.n_mux, compute), PAD_ID, np.int64)
             buf[:, :plan.length] = self.row_tokens[j][
                 :, plan.start:plan.start + plan.length]
-            self._first_run(f"prefill_{compute}")
             logits, _ = prefill_chunk(
                 self.params, self.sc, self.cache,
-                torch.from_numpy(buf).to(self.device), rows=[j],
+                torch.from_numpy(buf).to(self.device), rows=[local],
                 start=plan.start, length=plan.length,
                 use_kernels=self.use_kernels, extra_ctx=self._step_ctx([j]))
-        out = self._sample(logits, arr, steps)
+            out = self._sample(logits, arr, steps)
         self.stats["prefill_tokens"] += plan.length
         self.stats["prefill_compute_tokens"] += compute
         self.stats["prefill_events"] += 1
@@ -538,7 +659,10 @@ class ServeRuntime:
         done = self.sched.chunk_done(j, plan.length)
         if plan.last:
             assert done
-            first = out.cpu().numpy()          # the row's first tokens
+            if self.mesh is not None and out is None:
+                out = torch.zeros(self.n_mux, dtype=torch.long,
+                                  device=self.device)
+            first = self._tokens_to_host(out)  # the row's first tokens
             self.sched.record_row_tokens(j, first, now=time.time())
             self.next_tok[:, j] = first
 
@@ -586,26 +710,36 @@ class ServeRuntime:
                 self.tele.inc("preempts", lane=self.lane, shard=shard)
                 self.tele.instant("preempt", lane=self.lane, shard=shard,
                                   row=j)
-        reset_blocks(self.cache, fresh)
+        self._reset_blocks(fresh)
         if fresh or preempt:
             self._install_tables()
         rows = [j for j in rows if j not in preempt]
         if not rows:
             return
         self._clear_dead_slots()
-        toks_in = torch.from_numpy(
-            self.next_tok.reshape(-1, 1).astype(np.int64)).to(self.device)
         arr, steps = grid_sampling(self.sched)
+        if self.mesh is not None:            # this rank's rows
+            arr = {k: self._local(v) for k, v in arr.items()}
+            steps = self._local(steps)
+        toks_in = torch.from_numpy(self._local(self.next_tok).reshape(
+            -1, 1).astype(np.int64)).to(self.device)
+        pos_in = torch.from_numpy(
+            pos_vec[self._rows.start:self._rows.stop]).to(self.device)
         self._first_run("decode")
         with self.tele.span("decode", lane=self.lane, metric="decode_step_s",
                             rows=len(rows)):
             logits, _ = decode_step(self.params, self.sc, self.cache,
-                                    toks_in,
-                                    torch.from_numpy(pos_vec).to(self.device),
+                                    toks_in, pos_in,
                                     use_kernels=self.use_kernels,
                                     extra_ctx=self._step_ctx())
             out = self._sample(logits[:, 0], arr, steps)
-            grid = out.cpu().numpy().reshape(self.n_mux, self.nrows)
+            if self.mesh is not None:
+                buf = torch.zeros((self.n_mux, self.nrows), dtype=torch.long,
+                                  device=self.device)
+                buf[:, self._rows.start:self._rows.stop] = out.reshape(
+                    self.n_mux, -1)
+                out = buf
+            grid = self._tokens_to_host(out).reshape(self.n_mux, self.nrows)
         now = time.time()
         for j in rows:
             self.sched.record_row_tokens(j, grid[:, j], now=now)

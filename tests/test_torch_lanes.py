@@ -550,12 +550,12 @@ def test_cli_lanes_print_the_reference_counts(capsys, tmp_path, case):
     (["--lanes", "1,2", "--restart-step", "3", "--ckpt-dir", "x"],
      "--restart-step supports the single-runtime paged mode"),
     (["--fence-stragglers"], "--fence-stragglers needs >= 2 data shards"),
-    (["--mesh", "2,2"], "item 12"),
+    (["--mesh", "2,2", "--shards", "4"],
+     "--shards 4 must match the --mesh data axis (2)"),
 ])
 def test_cli_refuses_as_the_reference(capsys, argv, match):
     """The reference CLI's refusals are argparse errors (its refusals of
-    the shard and recovery flags included); the mesh flag names its
-    ROADMAP item."""
+    the shard, recovery and mesh flags included)."""
     from repro_torch.launch import serve as cli
     with pytest.raises(SystemExit) as e:
         cli.main(["--continuous", "--cache", "paged", "--device", "cpu",

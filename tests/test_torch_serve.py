@@ -305,7 +305,7 @@ def test_cli_no_use_kernels_runs_the_plain_path(capsys, argv):
      "--kv-dtype requires --continuous --cache paged"),
     (["--lanes", "1,2"], "--lanes/--disagg require --continuous --cache "
                          "paged"),
-    (["--mesh", "2,2"], "item 12"),
+    (["--mesh", "2,2"], "--mesh requires --continuous --cache paged"),
     (["--cache", "paged", "--kill-shard", "3:1"],
      "--kill-shard needs >= 2 data shards"),
     (["--shards", "2"], "--shards requires --continuous --cache paged"),
