@@ -365,6 +365,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 the same checks against phase 14.  The parent holds no
                 weights while the ranks run; a rank's failure or timeout
                 fails the run.
+  18. train mesh — training on a device mesh, on the plain model path
+                (no kernel has a backward): one spawn of four ranks
+                sharing the card over gloo over CUDA tensors.  (a)
+                full-width mux-bert-base N=2, the retrieval stage, 32 x
+                128 over a data axis of 4 (8 rows a rank):
+                ``make_compressed_dp_step`` three steps plain and
+                compressed, every rank's params ``torch.equal`` to rank
+                0's after each step, the compressed mean within gscale /
+                2 of the plain mean on the same gradients, the plain
+                step against one device's full-batch steps (losses, grad
+                norms, the first step's gradient), step ms and the bytes
+                each step hands to ``all_reduce``; (b) full-width
+                qwen2-1.5b N=2, 4 x 256, on (data=2, model=2): three
+                sharded AdamW steps (``make_train_step(mesh=)``) against
+                the same steps on one device in the parent (loss within
+                1e-4, Σ|params| within 1e-5 relative), each rank's peak
+                memory and collectives a step (``weight_gather`` among
+                them); (c) qwen2-1.5b's 28 blocks as 4 stages of 7 on
+                ``('pipe',)`` 4, 8 microbatches of 128 tokens:
+                ``pipeline_apply`` within 1e-5 of the blocks in turn, the
+                gradients of a scalar of its output against the
+                sequential ones.  The parent holds no weights while the
+                ranks run.
 The kernels' JSON line lists every kernel of phases 3-17 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
@@ -2145,6 +2168,13 @@ def main() -> int:
     mesh_summary, mesh_runs = phase_mesh(torch, timer, mux, rows, prompt_len,
                                          new_tokens, runs, moe_runs)
     summary.update(mesh_summary)
+
+    # 18. training on a device mesh: the compressed data-parallel step,
+    # the sharded train step and the pipeline, ranks sharing the card;
+    # phase 17's ranks and weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dist_train(torch)
 
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
@@ -6391,6 +6421,521 @@ def phase_mesh(torch, timer, mux, rows, prompt_len, new_tokens, fp32_runs,
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s; "
           f"{smi_line()}", flush=True)
     return summary, runs
+
+
+# phase 18: training on a device mesh, four ranks sharing the card
+DIST_RANKS = 4
+DIST_TIMEOUT = 600             # seconds the spawn may take
+DP_STEPS = 3
+DP_BATCH = {"batch": 32, "seq": 128, "vocab": 512}      # 8 rows a rank
+# (a) the compressed mean against the plain one on the same gradients:
+# gscale / 2 (each rank's int8 rounding), plus the fp32 rounding of two
+# means of values up to 127 gscale (127 * 2^-23 < 2^-16 of gscale each)
+COMPRESS_SLACK = 2.0 ** -15
+# (a) the plain DP step against one device's: the first step from the
+# same params within phase 13 (b)'s STEP_TOL; after it the params differ
+# by AdamW's moves of elements whose gradient is fp32 noise (up to ~0.1
+# lr, phase 13 (b)'s NOISE_MOVE band), which moves the later grad norms
+# by ~1e-5 relative (2.35e-05 measured on an H100)
+DP_LATER_NORM_TOL = 1e-4
+# (b) the sharded step against one device's: the reference suite's bars
+# (tests/test_distributed.py::test_pjit_train_step_matches_single_device)
+SHARD_LOSS_TOL = 1e-4
+SHARD_PSUM_RTOL = 1e-5
+# (c) qwen2-1.5b's 28 blocks as 4 stages of 7, 8 microbatches of one
+# 128-token row: the output against the blocks applied in turn (the
+# reference suite's tolerance), the gradients of sum(y * r) against the
+# sequential ones over the largest |grad|
+PIPE = {"stages": 4, "micro": 8, "seq": 128}
+PIPE_TOL = 1e-5
+PIPE_GRAD_TOL = 1e-5
+
+
+def _cuda_ms(torch, fn):
+    """fn()'s result and its time in ms by CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _replicas_equal(torch, mesh, params):
+    """Whether every rank's params are rank 0's, bit for bit (rank 0's
+    broadcast over ``data``, ``torch.equal`` on each rank)."""
+    same = True
+    for leaf in _leaves(params):
+        buf = leaf.detach().clone()
+        mesh.broadcast(buf, "data", kind="check")
+        same = same and torch.equal(buf, leaf.detach())
+    return bool(same)
+
+
+def _compress_check(torch, mesh, loss_fn, params, batch):
+    """On one step's gradients: each compressed leaf's int8 mean against
+    the plain mean over ``data``, in units of gscale / 2 (the worst)."""
+    from repro_torch.core.quant import int8_scale
+    from repro_torch.optim import compressed_psum
+    from repro_torch.train.step import value_and_grad
+    _, _, grads = value_and_grad(loss_fn, params, batch,
+                                 torch.Generator("cuda").manual_seed(0))
+    n = mesh.shape["data"]
+    worst, leaves = 0.0, 0
+    for g in _leaves(grads):
+        if g is None or g.ndim <= 1 or g.numel() < 4096:
+            continue
+        mean, _ = compressed_psum(g, torch.zeros_like(g), mesh, "data")
+        plain = mesh.all_reduce(g.clone(), "data", kind="check") / n
+        gscale = mesh.all_reduce(int8_scale(g).reshape(1), "data",
+                                 kind="check", op="max")[0]
+        worst = max(worst, float((mean - plain).abs().max() / (gscale / 2)))
+        leaves += 1
+    return {"worst": worst, "leaves": leaves}
+
+
+def _dist_dp(torch, mesh, toks):
+    """(a): full-width mux-bert-base N=2, the retrieval stage, on a data
+    axis of 4: three steps of ``make_compressed_dp_step`` with and without
+    compression, the replicas compared after each step; rank 0 also runs
+    the same steps on one device on the whole batch."""
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import MuxBERT, bert_config
+    from repro_torch.optim import AdamW, reference_leaves
+    from repro_torch.runtime import (init_dp_state, local_batch,
+                                     make_compressed_dp_step)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.mux_stages import retrieval_stage
+    cfg = bert_config("base", vocab_size=DP_BATCH["vocab"],
+                      max_seq_len=DP_BATCH["seq"])
+    mux = MuxSpec(n=2)
+    loss_fn = retrieval_stage(cfg, mux)
+    batches = [local_batch({"tokens": torch.as_tensor(t, device="cuda")},
+                           mesh, n_mux=2) for t in toks]
+
+    def init():
+        return MuxBERT.init(torch.Generator("cuda").manual_seed(0), cfg, mux)
+    out = {"check": _compress_check(torch, mesh, loss_fn, init(),
+                                    batches[0]),
+           "rows": int(batches[0]["tokens"].shape[0])}
+    for compress in (False, True):
+        opt = _Capture(AdamW(lr=STEP_LR))
+        state = init_dp_state(init(), opt.opt)
+        step = make_compressed_dp_step(loss_fn, opt, mesh=mesh,
+                                       compress=compress)
+        run = {"loss": [], "norm": [], "ms": [], "bytes": [], "equal": []}
+        for i, batch in enumerate(batches):
+            mesh.bytes.clear()
+            (state, m), ms = _cuda_ms(torch, lambda: step(
+                state, batch, torch.Generator("cuda").manual_seed(i)))
+            run["bytes"].append(dict(mesh.bytes))
+            run["ms"].append(ms)
+            run["loss"].append(float(m["loss"]))
+            run["norm"].append(float(m["grad_norm"]))
+            if i == 0:
+                first = opt.grads
+            run["equal"].append(_replicas_equal(torch, mesh,
+                                                state["params"]))
+        if not compress and not mesh.coords["data"]:
+            # one device, the whole batch, the same three steps
+            p1 = init()
+            one = _Capture(AdamW(lr=STEP_LR))
+            s1 = one.opt.init(p1)
+            step1 = make_train_step(loss_fn, one)
+            single = {"loss": [], "norm": []}
+            for i, t in enumerate(toks):
+                p1, s1, m1 = step1(p1, s1, {"tokens": torch.as_tensor(
+                    t, device="cuda")}, torch.Generator("cuda").manual_seed(i))
+                single["loss"].append(float(m1["loss"]))
+                single["norm"].append(float(m1["grad_norm"]))
+                if i == 0:
+                    g1 = one.grads
+            pairs = [(a, b) for _, _, a, b in reference_leaves(g1, first)
+                     if a is not None]
+            gmax = max(float(a.abs().max()) for a, _ in pairs)
+            single["grad_err"] = max(float((a - b).abs().max())
+                                     for a, b in pairs) / gmax
+            diffs = [(a.detach() - b.detach()).abs() for _, _, a, b in
+                     reference_leaves(p1, state["params"])]
+            single["param_max"] = max(float(d.max()) for d in diffs)
+            single["param_share"] = (sum(int((d <= 1e-5).sum())
+                                         for d in diffs)
+                                     / sum(d.numel() for d in diffs))
+            run["single"] = single
+            del p1, s1, step1, one, g1, pairs, diffs
+        out[compress] = run
+        del state, step, opt, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_mesh_loss(torch, cfg, mux, mesh):
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import causal_lm_loss
+    ctx = None if mesh is None else {"mesh": mesh}
+
+    def loss_fn(p, batch, generator):
+        logits = TransformerLM.apply(p, cfg, batch["tokens"], mux=mux,
+                                     dtype=torch.float32, use_kernels=False,
+                                     extra_ctx=ctx)["logits"]
+        return causal_lm_loss(logits, batch["tokens"]), {}
+    return loss_fn
+
+
+def _abs_sum(torch, mesh, params):
+    """Σ|params| of the whole tree in fp64: the shards' sums (a vocab-split
+    table's zero row left out) summed over ``model``, whole leaves once."""
+    sums = torch.zeros(2, dtype=torch.float64, device="cuda")
+    for p in _leaves(params):
+        t = p.detach()
+        if hasattr(p, "vocab_rows"):
+            t = t[:p.vocab_rows]
+        sums[int(getattr(p, "model_axis", None) is not None)] += \
+            t.double().abs().sum()
+    split = sums[1:].clone()
+    if mesh is not None:
+        split = mesh.all_reduce(split, "model", kind="check")
+    return float(sums[0] + split[0])
+
+
+def _lm_steps(torch, params, step, batch):
+    """Three steps of ``step``: loss, grad norm and ms (CUDA events) of
+    each; the mesh's collective counts and bytes of each when the step
+    has one (``step.mesh``)."""
+    run = {"loss": [], "norm": [], "ms": [], "counts": [], "bytes": []}
+    state = step.opt.init(params)
+    for i in range(LM_TRAIN["steps"]):
+        if step.mesh is not None:
+            step.mesh.counts.clear()
+            step.mesh.bytes.clear()
+        (params, state, m), ms = _cuda_ms(torch, lambda: step(
+            params, state, batch, torch.Generator("cuda").manual_seed(i)))
+        run["loss"].append(float(m["loss"]))
+        run["norm"].append(float(m["grad_norm"]))
+        run["ms"].append(ms)
+        if step.mesh is not None:
+            run["counts"].append(dict(step.mesh.counts))
+            run["bytes"].append(sum(step.mesh.bytes.values()))
+    return params, run
+
+
+def _lm_step_fn(torch, cfg, mux, mesh):
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+    opt = AdamW(lr=LM_TRAIN["lr"], pattern=len(cfg.block_pattern))
+    step = make_train_step(_lm_mesh_loss(torch, cfg, mux, mesh), opt,
+                           mesh=mesh)
+    step.opt, step.mesh = opt, mesh
+    return step
+
+
+def dist_single_lm(torch, toks):
+    """(b)'s single-device run, in the parent before the ranks start:
+    full-width qwen2-1.5b (seed 0, remat off as the sharded run), three
+    AdamW steps on the whole batch; the weights are freed on return."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import TransformerLM
+    cfg = get_config("qwen2-1.5b").replace(remat=False)
+    mux = MuxSpec(n=2)
+    torch.cuda.reset_peak_memory_stats()
+    params = TransformerLM.init(torch.Generator("cuda").manual_seed(0), cfg,
+                                mux)
+    params, run = _lm_steps(torch, params, _lm_step_fn(torch, cfg, mux,
+                                                       None),
+                            {"tokens": torch.as_tensor(toks, device="cuda")})
+    run["psum"] = _abs_sum(torch, None, params)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _dist_sharded(torch, mesh, toks):
+    """(b): full-width qwen2-1.5b N=2 on (data=2, model=2): this rank's
+    shards of the seeded weights (the whole ones dropped) and its data
+    slice of the batch, three sharded AdamW steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime import local_batch
+    from repro_torch.runtime.sharding import shard_params
+    cfg = get_config("qwen2-1.5b").replace(remat=False)
+    mux = MuxSpec(n=2)
+    params = shard_params(TransformerLM.init(
+        torch.Generator("cuda").manual_seed(0), cfg, mux), mesh,
+        pattern=len(cfg.block_pattern))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = local_batch({"tokens": torch.as_tensor(toks, device="cuda")},
+                        mesh, n_mux=2)
+    params, run = _lm_steps(torch, params, _lm_step_fn(torch, cfg, mux,
+                                                       mesh), batch)
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["psum"] = _abs_sum(torch, mesh, params)
+    run["rows"] = int(batch["tokens"].shape[0])
+    run["coords"] = dict(mesh.coords)
+    return run
+
+
+def _dist_pipe(torch, mesh):
+    """(c): qwen2-1.5b's 28 blocks (seed 0, full width) as 4 stages of 7
+    on ``('pipe',)`` 4, 8 microbatches of one 128-token row of seeded
+    hidden states: ``pipeline_apply`` and the gradients of sum(y * r) on
+    this rank's stage, against the blocks applied in turn in this
+    process (per microbatch, as the stages take them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.nn import rope_frequencies
+    from repro_torch.runtime import pipeline_apply, stack_stages
+    cfg = get_config("qwen2-1.5b")
+    n_stages, s = mesh.shape["pipe"], mesh.coords["pipe"]
+    per = cfg.n_layers // n_stages
+    blocks = cfg.pattern_layers
+    layers = TransformerLM.init(torch.Generator("cuda").manual_seed(0), cfg,
+                                MuxSpec(n=1))["layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator("cuda").manual_seed(1)
+    shape = (PIPE["micro"], 1, PIPE["seq"], cfg.d_model)
+    x = torch.randn(shape, generator=g, device="cuda")
+    r = torch.randn(shape, generator=g, device="cuda")
+    sin, cos = rope_frequencies(cfg.head_dim,
+                                torch.arange(PIPE["seq"], device="cuda"),
+                                theta=cfg.rope_theta)
+    ctx = {"sin": sin[None], "cos": cos[None], "impl": "naive",
+           "use_kernels": False}
+
+    def run_blocks(ps, idx, h):
+        for p, i in zip(ps, idx):
+            h = apply_block(p, cfg, blocks[i], h, ctx, None)
+        return h
+
+    mine = range(s * per, (s + 1) * per)
+    own = [t for i in mine for t in _leaves(layers[i])]
+    for t in own:
+        t.requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def sequential():
+        y = torch.stack([run_blocks(layers, range(cfg.n_layers), x[m])
+                         for m in range(PIPE["micro"])])
+        return y.detach(), torch.autograd.grad((y * r).sum(), own)
+    (y_seq, g_seq), seq_ms = _cuda_ms(torch, sequential)
+    for t in own:
+        t.requires_grad_(False)
+    stage = stack_stages([{"layers": [layers[i] for i in mine]}])
+    local = list(_leaves(stage))
+    for t in local:
+        t.requires_grad_(True)
+    del layers
+    gc.collect()
+    mesh.counts.clear()
+    mesh.bytes.clear()
+
+    def pipelined():
+        y = pipeline_apply(lambda p, h: run_blocks(p["layers"], mine, h),
+                           stage, x, mesh=mesh)
+        return y.detach(), torch.autograd.grad((y * r).sum(), local)
+    (y, g_pipe), pipe_ms = _cuda_ms(torch, pipelined)
+    gmax = max(float(a.abs().max()) for a in g_seq)
+    return {"stage": s, "n_layers": cfg.n_layers,
+            "y_err": float((y - y_seq).abs().max()),
+            "y_max": float(y_seq.abs().max()),
+            "grad_err": max(float((a[0] - b).abs().max())
+                            for a, b in zip(g_pipe, g_seq)) / gmax,
+            "seq_ms": seq_ms, "pipe_ms": pipe_ms,
+            "counts": dict(mesh.counts), "bytes": dict(mesh.bytes),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _dist_train_child(mesh, dp_tokens, lm_tokens):
+    """One rank of phase 18: (a) on the spawn's data axis of 4, (b) on a
+    (2, 2) mesh, (c) on a ``('pipe',)`` 4 mesh, all over one process
+    group.  Returns what the parent checks."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"coords": dict(mesh.coords), "backend": mesh.backend,
+           "reason": mesh.backend_reason}
+    out["dp"] = _dist_dp(torch, mesh, dp_tokens)
+    out["dp_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["sharded"] = _dist_sharded(torch, mesh_lib.make_serve_mesh(2, 2),
+                                   lm_tokens)
+    out["sharded_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["pipe"] = _dist_pipe(torch, mesh_lib.make_mesh(
+        {"pipe": PIPE["stages"]}))
+    out["pipe_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_dist_train(torch):
+    """Phase 18: training on a device mesh, four ranks sharing the card
+    over gloo (``launch.mesh.spawn``): (a) the compressed data-parallel
+    step, (b) the sharded train step, (c) the GPipe pipeline."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    print(f"phase 18: training on a device mesh; {smi_line()}", flush=True)
+    corpus = MarkovCorpus(DP_BATCH["vocab"], seed=0)
+    dp_tokens = [corpus.sample(np.random.default_rng(i), DP_BATCH["batch"],
+                               DP_BATCH["seq"]) for i in range(DP_STEPS)]
+    lm_tokens = np.random.default_rng(13).integers(
+        4, get_config("qwen2-1.5b").vocab_size,
+        (LM_TRAIN["batch"], LM_TRAIN["seq"]))
+    single = dist_single_lm(torch, lm_tokens)
+    t0 = time.perf_counter()
+    res = mesh_lib.spawn(_dist_train_child, DIST_RANKS, 1, device="cuda",
+                         args=(dp_tokens, lm_tokens), timeout=DIST_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r0 = res[0]
+    print(f"  {DIST_RANKS} ranks on one card over {r0['backend']} "
+          f"({r0['reason']}); spawn {spawn_s:.1f} s (the ranks: (a) "
+          f"{r0['dp_s']:.1f} s, (b) {r0['sharded_s']:.1f} s, (c) "
+          f"{r0['pipe_s']:.1f} s)", flush=True)
+    dist_check_dp(res)
+    dist_check_sharded(res, single)
+    dist_check_pipe(res)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line()}", flush=True)
+
+
+def dist_check_dp(res):
+    dp = [r["dp"] for r in res]
+    check = max(d["check"]["worst"] for d in dp)
+    print(f"  (a) mux-bert-base N=2 full width, retrieval stage, "
+          f"{DP_BATCH['batch']} x {DP_BATCH['seq']} over data={DIST_RANKS} "
+          f"({dp[0]['rows']} rows a rank): compressed mean - plain mean "
+          f"<= {check:.4f} x gscale / 2 over {dp[0]['check']['leaves']} "
+          f"compressed leaves (tol 1 + {COMPRESS_SLACK:g})", flush=True)
+    need(check <= 1 + COMPRESS_SLACK, "(a) a compressed mean is more than "
+         "gscale / 2 from the plain mean")
+    for compress in (False, True):
+        runs = [d[compress] for d in dp]
+        tag = "compressed" if compress else "plain"
+        for r in runs:
+            need(all(r["equal"]), f"(a) {tag}: the replicas' params differ "
+                 f"after a step: {r['equal']}")
+            need(r["loss"] == runs[0]["loss"], f"(a) {tag}: the ranks' "
+                 "averaged losses differ")
+            need(all(map(math.isfinite, r["loss"] + r["norm"])),
+                 f"(a) {tag}: not finite")
+        b = runs[0]["bytes"][-1]
+        print(f"  (a) {tag}: loss " + " -> ".join(
+            f"{x:.6f}" for x in runs[0]["loss"]) + ", step ms "
+            + ", ".join(f"{x:.1f}" for x in runs[0]["ms"])
+            + " (rank 0, CUDA events); every rank's params torch.equal "
+            f"after each step; bytes handed to all_reduce a step and rank: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(b.items())),
+            flush=True)
+    one = dp[0][False]["single"]
+    loss_err = [abs(a - b) / abs(b) for a, b in
+                zip(dp[0][False]["loss"], one["loss"])]
+    norm_err = [abs(a - b) / abs(b) for a, b in
+                zip(dp[0][False]["norm"], one["norm"])]
+    print(f"  (a) plain DP against one device's full-batch steps: losses "
+          f"within " + ", ".join(f"{x:.2e}" for x in loss_err)
+          + f" relative (tol {STEP_TOL['loss']:g}), grad norms "
+          + ", ".join(f"{x:.2e}" for x in norm_err)
+          + f" (tol {STEP_TOL['grad_norm']:g} on the first step, "
+          f"{DP_LATER_NORM_TOL:g} after), the first step's mean gradient "
+          f"{one['grad_err']:.2e} of the largest (tol {STEP_TOL['grad']:g});"
+          f" params after {DP_STEPS} steps: max diff {one['param_max']:.2e}"
+          f", {one['param_share']:.6f} of them within 1e-5", flush=True)
+    need(max(loss_err) <= STEP_TOL["loss"], "(a) plain DP loss differs "
+         "from one device's")
+    need(norm_err[0] <= STEP_TOL["grad_norm"]
+         and max(norm_err) <= DP_LATER_NORM_TOL, "(a) plain DP grad norm "
+         "differs from one device's")
+    need(one["grad_err"] <= STEP_TOL["grad"], "(a) the plain DP mean "
+         "gradient differs from one device's")
+
+
+def dist_check_sharded(res, single):
+    sh = [r["sharded"] for r in res]
+    loss_err = max(abs(a - b) for r in sh
+                   for a, b in zip(r["loss"], single["loss"]))
+    psum_err = max(abs(r["psum"] - single["psum"]) / single["psum"]
+                   for r in sh)
+    # Adam's first step hardly sees a gradient's scale, so the loss and
+    # Σ|params| cannot: the grad norm AdamW clips by (each step's, the
+    # worst rank) must match one device's, as in (a)
+    norm_err = [max(abs(r["norm"][i] - b) / b for r in sh)
+                for i, b in enumerate(single["norm"])]
+    print(f"  (b) qwen2-1.5b full width, {LM_TRAIN['batch']} x "
+          f"{LM_TRAIN['seq']} at N=2 on (data=2, model=2) ({sh[0]['rows']} "
+          f"rows a rank), {LM_TRAIN['steps']} AdamW steps: loss "
+          + " -> ".join(f"{x:.6f}" for x in sh[0]["loss"])
+          + f" (one device " + " -> ".join(f"{x:.6f}" for x in
+                                          single["loss"])
+          + f"; worst diff {loss_err:.2e}, tol {SHARD_LOSS_TOL:g}); "
+          f"Σ|params| {sh[0]['psum']:.6f} vs {single['psum']:.6f} (rel "
+          f"{psum_err:.2e}, tol {SHARD_PSUM_RTOL:g}); grad norm "
+          + " -> ".join(f"{x:.6f}" for x in sh[0]["norm"])
+          + ", relative to one device's " + ", ".join(f"{x:.2e}" for x in
+                                                     norm_err)
+          + f" (tol {STEP_TOL['grad_norm']:g} on the first step, "
+          f"{DP_LATER_NORM_TOL:g} after); one device: ms/step "
+          + ", ".join(f"{x:.1f}" for x in single["ms"])
+          + f", peak {single['peak_gib']:.2f} GiB", flush=True)
+    for r in sh:
+        c = r["counts"][-1]
+        print(f"    rank {r['coords']}: ms/step " + ", ".join(
+            f"{x:.1f}" for x in r["ms"]) + f" (CUDA events), peak "
+            f"{r['peak_gib']:.2f} GiB; a step's collectives: "
+            + ", ".join(f"{k}×{v}" for k, v in sorted(c.items()))
+            + f" ({r['bytes'][-1] / 2**20:.1f} MiB)", flush=True)
+        need(c.get("weight_gather", 0) > 0 and c.get("backward", 0) > 0,
+             f"(b) rank {r['coords']}: no weight_gather or backward "
+             f"collective: {c}")
+        need(all(map(math.isfinite, r["loss"] + r["norm"])),
+             "(b) not finite")
+    need(loss_err <= SHARD_LOSS_TOL, "(b) the sharded loss differs from one "
+         "device's")
+    need(psum_err <= SHARD_PSUM_RTOL, "(b) the sharded Σ|params| differs "
+         "from one device's")
+    need(norm_err[0] <= STEP_TOL["grad_norm"]
+         and max(norm_err) <= DP_LATER_NORM_TOL, "(b) the sharded grad "
+         "norm differs from one device's")
+
+
+def dist_check_pipe(res):
+    pp = sorted((r["pipe"] for r in res), key=lambda p: p["stage"])
+    y_err = max(p["y_err"] for p in pp)
+    g_err = max(p["grad_err"] for p in pp)
+    print(f"  (c) qwen2-1.5b's {pp[0]['n_layers']} blocks as "
+          f"{PIPE['stages']} stages on ('pipe',)={PIPE['stages']}, "
+          f"{PIPE['micro']} microbatches of 1 x {PIPE['seq']}: output "
+          f"within {y_err:.2e} of the blocks in turn (tol {PIPE_TOL:g}, "
+          f"|y| max {pp[0]['y_max']:.3f}), gradients of sum(y * r) "
+          f"{g_err:.2e} of the largest (tol {PIPE_GRAD_TOL:g})", flush=True)
+    for p in pp:
+        print(f"    stage {p['stage']}: pipeline forward + backward "
+              f"{p['pipe_ms']:.1f} ms, the sequential blocks "
+              f"{p['seq_ms']:.1f} ms (CUDA events); collectives "
+              + ", ".join(f"{k}×{v}" for k, v in sorted(p["counts"].items()))
+              + f", {sum(p['bytes'].values()) / 2**20:.1f} MiB; peak "
+              f"{p['peak_gib']:.2f} GiB", flush=True)
+    need(y_err <= PIPE_TOL, "(c) the pipeline's output differs from the "
+         "sequential blocks'")
+    need(g_err <= PIPE_GRAD_TOL, "(c) the pipeline's gradients differ from "
+         "the sequential ones")
 
 
 def _leaves(tree):

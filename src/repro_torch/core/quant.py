@@ -1,5 +1,6 @@
-"""Per-vector KV-page quantization (counterpart of the KV half of
-``repro.core.quant``).
+"""Symmetric quantization (counterpart of ``repro.core.quant``): per-tensor
+int8, the payload of the data-parallel gradient compression
+(``optim.compression``), and per-vector KV-page quantization.
 
 Each (slot, kv-head) head-vector of a K/V page is quantized against its
 own abs-max with one fp32 scale, stored beside the payload in the pool's
@@ -9,11 +10,11 @@ attention kernels fuse the dequantize (``payload.float() * scale``) into
 their page loads.  The expressions below are the reference's, op for op
 (``torch.round`` and ``jnp.round`` both round half to even; both fp8
 casts round to nearest even), so payloads and scales are bit-identical to
-the reference's on the same fp32 inputs.
+the reference's on the same fp32 inputs.  So are ``quantize_int8`` /
+``dequantize_int8``'s.
 
 The error-bound helpers give the parity tests their tolerances
-analytically from the stored scales.  The per-tensor int8 of gradient
-compression waits for the ``optim/compression`` port.
+analytically from the stored scales.
 """
 from __future__ import annotations
 
@@ -34,6 +35,23 @@ KV_DTYPES = ("fp32", "bf16", "int8", "fp8")
 KV_QUANT_KINDS = ("int8", "fp8")
 _STORE = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
           "fp8": torch.float8_e4m3fn}
+
+
+def int8_scale(x):
+    """The per-tensor int8 scale of fp32 ``x``: max|x| / 127 (a 0-d
+    tensor, at least EPS / 127)."""
+    return x.abs().max().clamp_min(EPS) / INT8_LEVELS
+
+
+def quantize_int8(x):
+    """x fp32 -> (int8 payload, fp32 0-d scale).  Symmetric per-tensor."""
+    scale = int8_scale(x)
+    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
 
 
 def resolve_kv_dtype(name):

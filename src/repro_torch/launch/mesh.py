@@ -23,7 +23,34 @@ it (``backend``, ``backend_reason``).
 d-sharded embedding), ``gather`` (activation gathers: tokens over
 ``data``, an L-sharded attention output, the fallback axes) and
 ``weight_gather`` (a weight stored on an axis its layer cannot use
-locally, gathered to full before use).
+locally, gathered to full before use); a caller may name other kinds.
+``ServeMesh.bytes`` counts the bytes each kind hands to its collectives
+on this rank.
+
+Training runs the same collectives under autograd (Megatron's
+conventions: the loss, and every tensor replicated over an axis, is the
+same on each of its ranks and counted once).  Where autograd is on and
+the input requires grad, each collective runs out of place through a
+``torch.autograd.Function`` with the backward its forward needs:
+
+  * ``all_reduce`` (a sum of partial results that replicated work then
+    uses): the identity;
+  * ``gather`` (replicated work then uses the whole): this rank's slice;
+  * ``enter`` (the identity on a replicated tensor that each rank then
+    uses a part of: a head or feature slice, its experts, a pipeline
+    stage): each rank's gradient is only its part's, so the backward
+    sums it over the axis;
+  * ``shift`` (each rank's tensor to the next rank, a pipeline's step):
+    the reverse shift.
+
+The backward's collectives count as ``backward``.  Without autograd (or
+on a tensor that requires no grad) every call is the serving path: in
+place where it was, ``enter`` the identity.  ``torch.distributed.nn``'s
+collectives are not used: their backward sums, which counts replicated
+work once per rank.
+
+A mesh's axes are ``('data', 'model')`` for serving and training, or any
+others a caller names (``make_mesh``: ``('pipe',)`` for the pipeline).
 """
 from __future__ import annotations
 
@@ -72,86 +99,222 @@ def backend_reason(backend: str, device) -> str:
             "refuses")
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _needs_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 class ServeMesh:
-    """This rank's view of a ``('data', 'model')`` mesh: ``shape`` ({axis:
-    size}, what the sharding rules read), ``coords`` ({axis: index}), the
-    torch ``DeviceMesh`` and one process group per axis, the backend, and
-    the collectives."""
+    """This rank's view of a mesh (``('data', 'model')`` unless made with
+    other axes): ``axes``, ``shape`` ({axis: size}, what the sharding
+    rules read), ``coords`` ({axis: index}), the torch ``DeviceMesh`` and
+    one process group per axis, the backend, and the collectives."""
 
     def __init__(self, device_mesh, device, backend: str):
         self.device_mesh = device_mesh
         self.device = torch.device(device)
         self.backend = backend
         self.backend_reason = backend_reason(backend, device)
-        self.shape = dict(zip(AXES, device_mesh.mesh.shape))
-        self.coords = dict(zip(AXES, device_mesh.get_coordinate()))
-        self.groups = {a: device_mesh.get_group(a) for a in AXES}
+        self.axes = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axes, device_mesh.mesh.shape))
+        self.coords = dict(zip(self.axes, device_mesh.get_coordinate()))
+        self.groups = {a: device_mesh.get_group(a) for a in self.axes}
         self.counts = collections.Counter()
+        self.bytes = collections.Counter()
 
     def __repr__(self):
-        return (f"ServeMesh(data={self.shape['data']}, model="
-                f"{self.shape['model']}, coords={self.coords}, "
-                f"{self.backend})")
+        sizes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"ServeMesh({sizes}, coords={self.coords}, {self.backend})"
 
     @property
     def tag(self) -> str:
         """The mode tag: ``mesh(D, M)``."""
-        return f"mesh{(self.shape['data'], self.shape['model'])}"
+        return f"mesh{tuple(self.shape.values())}"
 
-    def all_reduce(self, x, axis: str, *, kind: str = "all_reduce"):
-        """Sum ``x`` over ``axis`` in place; returns it."""
-        if self.shape[axis] > 1:
-            dist.all_reduce(x, group=self.groups[axis])
-            self.counts[kind] += 1
+    def _all_reduce(self, x, axis: str, kind: str, op: str = "sum"):
+        if not x.is_contiguous():     # gloo would reduce the wrong memory
+            raise ValueError("all_reduce of a non-contiguous tensor")
+        dist.all_reduce(x, op=_OPS[op], group=self.groups[axis])
+        self.counts[kind] += 1
+        self.bytes[kind] += x.numel() * x.element_size()
         return x
 
-    def gather(self, x, axis: str, dim: int, *, kind: str = "gather"):
-        """Concatenate every rank's ``x`` along ``dim`` over ``axis``, in
-        rank order (a zero-filled ``all_reduce``)."""
-        n = self.shape[axis]
-        if n == 1:
+    def all_reduce(self, x, axis: str, *, kind: str = "all_reduce",
+                   op: str = "sum"):
+        """Sum ``x`` over ``axis`` (op 'max': the largest element of each
+        place) in place; returns it.  Under autograd, out of place with
+        an identity backward (module docstring)."""
+        if self.shape[axis] == 1:
             return x
-        dim %= x.ndim
+        if _needs_grad(x):
+            if op != "sum":
+                raise ValueError(f"all_reduce {op!r} has no gradient")
+            return _AllReduce.apply(x, self, axis, kind)
+        return self._all_reduce(x, axis, kind, op)
+
+    def mean(self, x, axis: str, *, kind: str = "mean"):
+        """The mean of ``x`` over ``axis``: the sum ``all_reduce`` (in
+        place on a contiguous ``x``, its gradient under autograd) over the
+        axis size; returns it."""
+        return self.all_reduce(x.contiguous(), axis,
+                               kind=kind).div_(self.shape[axis])
+
+    def _gather(self, x, axis: str, dim: int, kind: str):
         shape = list(x.shape)
-        shape[dim] *= n
+        shape[dim] *= self.shape[axis]
         out = torch.zeros(shape, dtype=x.dtype, device=x.device)
         step = x.shape[dim]
         out.narrow(dim, self.coords[axis] * step, step).copy_(x)
-        return self.all_reduce(out, axis, kind=kind)
+        return self._all_reduce(out, axis, kind)
+
+    def gather(self, x, axis: str, dim: int, *, kind: str = "gather"):
+        """Concatenate every rank's ``x`` along ``dim`` over ``axis``, in
+        rank order (a zero-filled ``all_reduce``).  Under autograd the
+        backward takes this rank's slice of the gradient."""
+        if self.shape[axis] == 1:
+            return x
+        dim %= x.ndim
+        if _needs_grad(x):
+            return _Gather.apply(x, self, axis, dim, kind)
+        return self._gather(x, axis, dim, kind)
+
+    def enter(self, x, axis: str):
+        """``x``, replicated over ``axis``, as each rank's part of the work
+        that follows takes it: the identity; under autograd the backward
+        sums the ranks' gradients over ``axis``."""
+        if self.shape[axis] == 1 or not _needs_grad(x):
+            return x
+        return _Enter.apply(x, self, axis)
+
+    def _shift(self, x, axis: str, step: int, kind: str):
+        """Rank i's ``x`` to rank i + step (step +1 or -1) of ``axis``, a
+        zero-filled ``all_reduce`` of n - 1 slots (slot j between ranks j
+        and j + 1); a rank with no sender gets zeros."""
+        n, i = self.shape[axis], self.coords[axis]
+        out = torch.zeros_like(x)
+        if n == 1:
+            return out
+        buf = torch.zeros((n - 1, *x.shape), dtype=x.dtype, device=x.device)
+        send, recv = (i, i - 1) if step == 1 else (i - 1, i)
+        if 0 <= send < n - 1:
+            buf[send].copy_(x)
+        self._all_reduce(buf, axis, kind)
+        if 0 <= recv < n - 1:
+            out.copy_(buf[recv])
+        return out
+
+    def shift(self, x, axis: str, *, kind: str = "shift"):
+        """Each rank's ``x`` to the next rank of ``axis``: rank 0 gets
+        zeros and the last rank's goes nowhere (a point-to-point send as
+        a zero-filled ``all_reduce``).  Its backward is the reverse
+        shift."""
+        if _needs_grad(x):
+            return _Shift.apply(x, self, axis, kind)
+        return self._shift(x, axis, 1, kind)
+
+    def broadcast(self, x, axis: str, *, kind: str = "broadcast"):
+        """Rank 0 of ``axis``'s ``x`` on every rank of it, in place;
+        returns it."""
+        if self.shape[axis] > 1:
+            if not x.is_contiguous():
+                raise ValueError("broadcast of a non-contiguous tensor")
+            group = self.groups[axis]
+            dist.broadcast(x, src=dist.get_global_rank(group, 0),
+                           group=group)
+            self.counts[kind] += 1
+            self.bytes[kind] += x.numel() * x.element_size()
+        return x
 
     def barrier(self):
         """Wait for every rank (an ``all_reduce`` of one element)."""
         one = torch.ones(1, device=self.device)
-        for a in AXES:
+        for a in self.axes:
             if self.shape[a] > 1:
                 dist.all_reduce(one, group=self.groups[a])
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, kind):
+        out = x.clone(memory_format=torch.contiguous_format)
+        return mesh._all_reduce(out, axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, kind):
+        ctx.at = (dim, mesh.coords[axis] * x.shape[dim], x.shape[dim])
+        return mesh._gather(x, axis, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.at).contiguous(), None, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.mesh._all_reduce(g, ctx.axis, "backward"), None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, kind):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._shift(x, axis, 1, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._shift(g.contiguous(), ctx.axis, -1, "backward"),
+                None, None, None)
 
 
 def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def make_mesh(shape: dict, *, device=None):
+    """A mesh of the named axes ``shape`` ({axis: size}, in order) over
+    the current process group: ranks 0 .. prod(sizes) - 1 in row-major
+    order.  Every rank of the group calls it, and a rank past them gets
+    None.  device: the ranks' device type ('cuda' unless the caller
+    names another)."""
+    need = 1
+    for n in shape.values():
+        need *= n
+    have = _world()
+    if need > have:
+        raise ValueError(
+            f"mesh {tuple(shape.values())} needs {need} devices (ranks), "
+            f"have {have}: start the ranks with launch.mesh.spawn")
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = torch.device("cuda" if device is None else device)
+    dm = DeviceMesh(dev.type, torch.arange(need).reshape(*shape.values()),
+                    mesh_dim_names=tuple(shape))
+    if dm.get_coordinate() is None:
+        return None
+    return ServeMesh(dm, dev, dist.get_backend())
+
+
 def make_serve_mesh(data: int = 1, model: int = 1, *, device=None):
     """The serve mesh over the current process group: rows, their block
     tables and the paged pool's pages partition over ``data`` (one
     ``ShardedKVPool`` segment per data shard), heads and MLP width over
-    ``model`` by the sharding rules.  Ranks 0 .. data * model - 1 in
-    row-major order; every rank of the group calls it, and a rank past
-    them gets None.  device: the ranks' device type ('cuda' unless the
-    caller names another)."""
-    need = data * model
-    have = _world()
-    if need > have:
-        raise ValueError(
-            f"serve mesh ({data}, {model}) needs {need} devices (ranks), "
-            f"have {have}: start the ranks with launch.mesh.spawn")
-    from torch.distributed.device_mesh import DeviceMesh
-    dev = torch.device("cuda" if device is None else device)
-    dm = DeviceMesh(dev.type, torch.arange(need).reshape(data, model),
-                    mesh_dim_names=AXES)
-    if dm.get_coordinate() is None:
-        return None
-    return ServeMesh(dm, dev, dist.get_backend())
+    ``model`` by the sharding rules (``make_mesh`` with the axes
+    ``AXES``)."""
+    return make_mesh(dict(zip(AXES, (data, model))), device=device)
 
 
 def make_test_mesh(data: int = 1, model: int = 1, *, device="cpu"):

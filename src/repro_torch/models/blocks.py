@@ -238,20 +238,21 @@ def _ep_constrain(x, ctx, expert_axis):
     if tp is None:
         return x
     n = x.shape[expert_axis] // tp.shape["model"]
-    return x.narrow(expert_axis, tp.coords["model"] * n, n)
+    return tp.enter(x, "model").narrow(expert_axis, tp.coords["model"] * n,
+                                       n)
 
 
-def _ep_slots(slot, keep, ctx, n_experts, cap):
+def _ep_slots(slot, keep, topv, ctx, n_experts, cap):
     """The assignments of this rank's experts, their slots in its local
-    (E / M) * cap slots (others weighted 0); unchanged without expert
-    parallelism."""
+    (E / M) * cap slots (others weighted 0), and the gates that weight
+    them; unchanged without expert parallelism."""
     tp = _ep(ctx, n_experts)
     if tp is None:
-        return slot, keep
+        return slot, keep, topv
     n = n_experts // tp.shape["model"] * cap
     lo = tp.coords["model"] * n
     mine = (slot >= lo) & (slot < lo + n)
-    return (slot - lo).clamp(0, n - 1), keep & mine
+    return (slot - lo).clamp(0, n - 1), keep & mine, tp.enter(topv, "model")
 
 
 def _ep_combine(out, ctx, n_experts):
@@ -362,8 +363,8 @@ def apply_moe_global(p, cfg, x, ctx=None):
     xe, slot, keep, counts = _dispatch(xt[None], topi.reshape(1, -1),
                                        m.top_k, m.n_experts, cap)
     ye = _experts(p, cfg, _ep_constrain(xe, ctx, 1), tp)
-    yk = _gathered(ye, *_ep_slots(slot, keep, ctx, m.n_experts, cap),
-                   topv).reshape(t, m.top_k, d)
+    yk = _gathered(ye, *_ep_slots(slot, keep, topv, ctx, m.n_experts,
+                                  cap)).reshape(t, m.top_k, d)
     out = yk[:, 0]
     for j in range(1, m.top_k):
         out = out + yk[:, j]
@@ -390,7 +391,7 @@ def apply_moe_grouped(p, cfg, x, ctx=None):
     xe, slot, keep, counts = _dispatch(x, topi.reshape(b, -1), m.top_k,
                                        m.n_experts, cap)
     ye = _experts(p, cfg, _ep_constrain(xe, ctx, 1), tp)
-    yk = _gathered(ye, *_ep_slots(slot, keep, ctx, m.n_experts, cap), topv)
+    yk = _gathered(ye, *_ep_slots(slot, keep, topv, ctx, m.n_experts, cap))
     out = _ep_combine(yk.reshape(b, l, m.top_k, d).sum(2, dtype=torch.float32),
                       ctx, m.n_experts).to(x.dtype)
     if m.n_shared:
@@ -503,7 +504,7 @@ def _seq_shard(x, ctx, *, on_model: bool):
     if not on_model or m == 1 or x.shape[1] % m:
         return x
     n = x.shape[1] // m
-    return x.narrow(1, mesh.coords["model"] * n, n)
+    return mesh.enter(x, "model").narrow(1, mesh.coords["model"] * n, n)
 
 
 def _seq_offset(x, ctx, l: int) -> int:
@@ -622,6 +623,8 @@ def _fresh_attention(q, k, v, cfg, window, ctx, seq=False):
     over K/V whole, the output gathered."""
     l = q.shape[1]
     qs = _seq_shard(q, ctx, on_model=seq)
+    if qs.shape[1] != l:       # each rank's queries over the whole K/V
+        k, v = ctx["mesh"].enter(k, "model"), ctx["mesh"].enter(v, "model")
     o = multi_head_attention(qs, k, v, impl=ctx.get("impl", "naive"),
                              causal=cfg.causal, window=window,
                              q_offset=_seq_offset(qs, ctx, l),

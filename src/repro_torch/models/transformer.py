@@ -299,6 +299,6 @@ def _fused_entry(table, v, ids, scale, dtype, tp):
     elif a == 1:
         v = tp_view(v, 1, tp)          # the keys' d slice of the whole v
     x = kops.mux_embed_combine(ids, table, v, scale=scale, out_dtype=dtype)
-    if a == 0:
-        return tp.all_reduce(x, "model")
+    if a == 0:            # the plain version's einsum may be strided
+        return tp.all_reduce(x.contiguous(), "model")
     return x if a is None else tp.gather(x, "model", -1)

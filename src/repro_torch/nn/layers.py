@@ -21,6 +21,12 @@ and ``Embedding`` then take the mesh:
 ``tp_view`` gives a param as a layer needs it where the rules put it
 elsewhere: a slice of a whole param is local, a param split on another
 dim is gathered to whole first (``weight_gather``, counted).
+
+Under autograd (training on the mesh) a replicated input or param that
+each rank then uses a slice of goes through ``ServeMesh.enter``, whose
+backward sums the ranks' partial gradients over ``model`` (Megatron's
+f); the sums and gathers have their own backward (``launch.mesh``).
+Without autograd ``enter`` is the identity.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ def tp_view(t, want, mesh):
     if want is None:
         return t
     n = t.shape[want] // mesh.shape["model"]
-    return t.narrow(want, mesh.coords["model"] * n, n)
+    return mesh.enter(t, "model").narrow(want, mesh.coords["model"] * n, n)
 
 
 def _matmul(x, w):
@@ -89,7 +95,8 @@ class Linear:
         if a == 0:                         # row-parallel: sum the partials
             if not x_split:
                 n = w.shape[0]
-                x = x.narrow(-1, mesh.coords["model"] * n, n)
+                x = mesh.enter(x, "model").narrow(
+                    -1, mesh.coords["model"] * n, n)
             y = mesh.all_reduce(_matmul(x, w.to(x.dtype)), "model")
             if b is not None:
                 y = y + tp_view(b, None, mesh).to(x.dtype)
@@ -104,6 +111,7 @@ class Linear:
             keep = out_axis if out_axis is not None else a
             w_use = tp_view(w, keep, mesh)
             b_use = None if b is None else tp_view(b, keep - 1, mesh)
+            x = mesh.enter(x, "model")     # each rank: its output slice
         y = _matmul(x, w_use.to(x.dtype))
         if b_use is not None:
             y = y + b_use.to(x.dtype)
@@ -136,7 +144,10 @@ class Embedding:
         t = p["table"]
         a = None if mesh is None else model_axis(t)
         if a == 0:                # each id's row lives on one rank: sum
-            x = t[Embedding.local_ids(t, ids, mesh)].to(dtype)
+            rows = Embedding.local_ids(t, ids, mesh)
+            x = t[rows].to(dtype)
+            if x.requires_grad:   # the zero row takes no gradient
+                x = x * (rows < t.vocab_rows)[..., None]
             return mesh.all_reduce(x.contiguous(), "model")
         x = t[ids].to(dtype)
         return x if a is None else mesh.gather(x, "model", -1)
@@ -146,6 +157,8 @@ class Embedding:
         """(..., d) @ (d, vocab)."""
         t = p["table"]
         a = None if mesh is None else model_axis(t)
+        if a is not None:
+            x = mesh.enter(x, "model")
         if a == 0:                # this rank's vocab slice of the logits
             y = x @ t[:t.vocab_rows].to(x.dtype).T
             return mesh.gather(y, "model", -1)

@@ -114,10 +114,12 @@ class AdamW:
         return {"m": zeros(params), "v": zeros(params), "count": 0}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *, grad_norm=None):
         """One step; ``params`` and ``state`` change in place.  ``grads``
         has the params' structure (a missing or ``None`` leaf is a zero
-        gradient, as JAX's gradient of an unused param).  Returns
+        gradient, as JAX's gradient of an unused param).  grad_norm: the
+        norm to clip by when the caller has it (a sharded step's, over
+        every rank's shards), else that of ``grads``.  Returns
         (state, {"grad_norm": 0-d tensor before clipping, "lr": float}).
         The arithmetic is the reference's, in fp32: the learning rate at
         the incremented count, clipping by clip_norm / (norm + 1e-9),
@@ -129,7 +131,8 @@ class AdamW:
                                   pattern=self.pattern)
         gs = [torch.zeros_like(p) if g is None else g
               for _, _, p, g, _, _ in leaves]
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        gnorm = (torch.sqrt(sum(g.float().square().sum() for g in gs))
+                 if grad_norm is None else grad_norm)
         scale = (None if self.clip_norm is None else
                  torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0))
         # fp32 on the host, as the reference's count is; host scalars, so

@@ -8,7 +8,11 @@ JAX, so its card tests run under ``pytest --noconftest -m cuda``):
     kernels, marked ``cuda``);
   * on the card, a (1, 2) mesh of two ranks sharing it: gloo over CUDA
     tensors (``launch.mesh.pick_backend``), ``all_reduce`` and the
-    zero-filled gather through ``ServeMesh``.
+    zero-filled gather through ``ServeMesh``;
+  * what training on a mesh needs of gloo, on the CPU and on the card:
+    an int32 ``all_reduce(SUM)`` and an fp32 ``all_reduce(MAX)`` (the
+    compressed gradient mean's), and one round trip through the
+    collectives' autograd ``Function``s (sum, gather, enter, shift).
 """
 import numpy as np
 import pytest
@@ -134,3 +138,55 @@ def test_gloo_over_cuda_all_reduce_on_card(tmp_path):
         assert r["gather"] == [[0.0, 1.0], [0.0, 1.0]]
         assert r["backend"] == "gloo" and "CUDA" in r["reason"]
         assert r["counts"] == {"all_reduce": 1, "gather": 1}
+
+
+def _train_collectives_rank(mesh, device):
+    """Rank i of (1, 2): the int32 sum and fp32 max the compressed mean
+    runs, then y = gather(all_reduce(x * w)) and shift(enter(x) * w),
+    their gradients by autograd."""
+    i = mesh.coords["model"]
+    ints = mesh.all_reduce(torch.tensor([i + 1, -7 * i, (i + 1) * 2 ** 29],
+                                        dtype=torch.int32, device=device),
+                           "model", kind="grad_sum")
+    big = mesh.all_reduce(torch.tensor([float(i), -1.0 - i, 0.5],
+                                       device=device), "model",
+                          kind="grad_scale", op="max")
+    w = torch.full((3,), 2.0 + i, device=device, requires_grad=True)
+    x = torch.arange(3.0, device=device).requires_grad_()
+    summed = mesh.all_reduce(x * w, "model")          # (2 + 3) x
+    y = mesh.gather(summed[None], "model", 0)          # (2, 3)
+    s = mesh.shift(mesh.enter(x, "model") * w, "model")
+    loss = (y * torch.tensor([[1.0], [10.0]], device=device)).sum() \
+        + s.sum()
+    gx, gw = torch.autograd.grad(loss, [x, w])
+    return {"ints": ints.tolist(), "max": big.tolist(), "y": y.tolist(),
+            "s": s.tolist(), "gx": gx.tolist(), "gw": gw.tolist(),
+            "counts": dict(mesh.counts), "dtype": str(ints.dtype)}
+
+
+def test_training_collectives_and_autograd(device, tmp_path):
+    """int32 SUM and fp32 MAX over gloo (on the card: CUDA tensors, the
+    ranks sharing it), and the backward of each collective: the sum's
+    the identity, the gather's this rank's slice, enter's a sum over the
+    axis, the shift's the reverse shift."""
+    if device.type == "cuda" and torch.cuda.device_count() != 1:
+        pytest.skip("the ranks must share one card")
+    res = mesh_lib.spawn(_train_collectives_rank, 1, 2,
+                         device=device.type, args=(device.type,),
+                         timeout=120, tmpdir=str(tmp_path))
+    for i, r in enumerate(res):
+        assert r["dtype"] == "torch.int32"
+        assert r["ints"] == [3, -7, 3 * 2 ** 29]
+        assert r["max"] == [1.0, -1.0, 0.5]
+        assert r["y"] == [[0.0, 5.0, 10.0]] * 2
+        # rank 0's x * w shifted to rank 1; rank 0 gets zeros
+        assert r["s"] == ([0.0] * 3 if i == 0 else [0.0, 2.0, 4.0])
+        # loss = (1 + 10) (2 + 3) . x over the gather's slices, + rank 0's
+        # w0 . x via the shift: d/dx sums the ranks' parts (enter)
+        slice_w = 1.0 if i == 0 else 10.0
+        assert r["gx"] == [slice_w * (2.0 + i) + 2.0] * 3
+        assert r["gw"] == [slice_w * x + (x if i == 0 else 0.0)
+                           for x in (0.0, 1.0, 2.0)]
+        assert r["counts"] == {"grad_sum": 1, "grad_scale": 1,
+                               "all_reduce": 1, "gather": 1, "shift": 1,
+                               "backward": 2}
