@@ -388,6 +388,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 gradients of a scalar of its output against the
                 sequential ones.  The parent holds no weights while the
                 ranks run.
+  19. dry run — (a) ``launch.dryrun`` over the four cells of the reference's
+                integration test (gemma-2b train, granite-moe-3b-a800m
+                train at N=2, rwkv6-7b decode at N=2, whisper-small
+                train) at full width, as rank (0, 0) of the (16, 16)
+                production mesh on fake tensors, four host processes that
+                touch no card: each row and the roofline table, all ok;
+                (b) full-width qwen2-1.5b at N=2 materialised on the card
+                with seeded weights, three cells each cut to fit one card
+                (``DRY_CUTS``): a kernel prefill (``build_prefill(
+                use_kernels=True)``), a ring decode and one AdamW step
+                (``build_train_step``), each timed by CUDA events (2
+                warm-ups, the median of 5) and traced by the dry run at
+                the same cut on a (1, 1) recording mesh: the time must
+                be at least the dry run's bound, the dry run's argument
+                bytes exactly the bytes of the params, optimizer state,
+                cache and batch on the card, the prefill must launch the
+                fused entry and exit, and its logits meet phase 10's bf16
+                gate against the wrappers' plain versions; (c)
+                ``examples/torch_quickstart.py`` and
+                ``examples/torch_serve_mux.py`` on the card, the serve
+                demo's count lines equal to its CPU run's.
 The kernels' JSON line lists every kernel of phases 3-17 and the timer
 floor (``floor_ms``).  The last two
 lines are the card's name and power limit, then the device
@@ -400,6 +421,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -2175,6 +2197,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_dist_train(torch)
+
+    # 19. the dry run on the host, and three of its cells materialised on
+    # the card; phase 18's ranks and weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(torch)
 
     # summary
     entry_src = "src/repro_torch/kernels/csrc/mux_entry.cu"
@@ -6936,6 +6964,256 @@ def dist_check_pipe(res):
          "sequential blocks'")
     need(g_err <= PIPE_GRAD_TOL, "(c) the pipeline's gradients differ from "
          "the sequential ones")
+
+
+# phase 19 (a): the reference integration test's four cells, at full width
+DRY_CELLS = (("gemma-2b", "train_4k", 1), ("granite-moe-3b-a800m",
+                                          "train_4k", 2),
+             ("rwkv6-7b", "decode_32k", 2), ("whisper-small", "train_4k", 1))
+DRY_TIMEOUT = 400          # seconds the host processes of (a) may take
+# phase 19 (b): qwen2-1.5b at N=2, each cell cut from the registry's shape
+# to fit one card: (shape, seq_len, global batch)
+DRY_CUTS = {"prefill": ("prefill_32k", 2048, 8),
+            "decode": ("decode_32k", 8192, 128),
+            "train": ("train_4k", 1024, 8)}
+DRY_WARMUP, DRY_ITERS = 2, 5
+
+
+def phase_dryrun(torch):
+    """Phase 19: (a) the dry run of four full-width cells on the host,
+    (b) three cells of qwen2-1.5b materialised on the card against their
+    dry run, (c) two examples on the card."""
+    import tempfile
+    t_phase = time.perf_counter()
+    print(f"phase 19: the dry run; {smi_line()}", flush=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}          # the host processes: no card
+    procs = []
+    for arch, shape, n in DRY_CELLS:
+        out = tmp / f"{arch}_{shape}.jsonl"
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mux-n", str(n), "--out", str(out)],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)))
+    serve_cpu = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "torch_serve_mux.py"),
+         "--device", "cpu"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        cells = dry_materialised(torch)
+        examples = dry_examples(torch)
+        t0 = time.perf_counter()
+        recs = []
+        for out, p in procs:
+            _, err = p.communicate(timeout=DRY_TIMEOUT)
+            need(p.returncode == 0, f"(a) dry run of {out.name} exited "
+                 f"{p.returncode}: {err[-2000:]}")
+            recs += [json.loads(ln) for ln in out.read_text().splitlines()]
+        cpu_out, err = serve_cpu.communicate(timeout=DRY_TIMEOUT)
+        need(serve_cpu.returncode == 0, f"(c) the serve demo on the CPU "
+             f"exited {serve_cpu.returncode}: {err[-2000:]}")
+        waited = time.perf_counter() - t0
+    finally:
+        for _, p in procs + [(None, serve_cpu)]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dry_report_host(recs, waited)
+    dry_check_examples(examples, cpu_out)
+    print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s ((b) "
+          f"{cells:.1f} s); {smi_line()}", flush=True)
+
+
+def dry_report_host(recs, waited):
+    from repro_torch.launch import dryrun, roofline
+    print(f"  (a) {len(recs)} cells at full width on the (16, 16) mesh's "
+          f"rank (0, 0), fake tensors, host processes (waited {waited:.1f} "
+          f"s after (b) and (c)):", flush=True)
+    for r in recs:
+        print("    " + dryrun.fmt_row(r), flush=True)
+    for r in recs:
+        need(r["status"] == "ok", f"(a) {r['arch']} {r['shape']}: "
+             f"{r['status']} {r.get('traceback', '')[-1500:]}")
+        m = r["memory"]
+        print(f"    {r['arch']} {r['shape']}: {r['cost']['flops']:.4e} FLOPs, "
+              f"{r['cost']['bytes accessed']:.4e} B of eager traffic, "
+              f"argument {m['argument_bytes'] / 2**30:.2f} GiB, peak "
+              f"{m['peak_bytes'] / 2**30:.2f} GiB a rank; collectives "
+              + ", ".join(f"{k}×{int(v)}" for k, v in
+                          sorted(r["collectives"]["counts"].items())),
+              flush=True)
+    need(len(recs) == len(DRY_CELLS), "(a) a cell wrote no record")
+    print(roofline.format_md(recs), flush=True)
+
+
+def dry_materialised(torch):
+    """Phase 19 (b); returns its seconds."""
+    from repro_torch.configs import SHAPES, Shape, get_config
+    from repro_torch.core import MuxSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as S
+    from repro_torch.models import TransformerLM
+    t0 = time.perf_counter()
+    arch, mux = "qwen2-1.5b", MuxSpec(n=2)
+    cfg = get_config(arch)
+    for kind, (shape, seq, gb) in DRY_CUTS.items():
+        full = SHAPES[shape]
+        SHAPES[f"{kind}_cut"] = Shape(f"{kind}_cut", seq, gb, full.kind)
+        print(f"  (b) {kind}: {arch} N=2 cut from {shape} ({full.global_batch}"
+              f" x {full.seq_len}) to {gb} x {seq} to fit one card", flush=True)
+    dev = "cuda"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = TransformerLM.init(torch.Generator(device=dev).manual_seed(0),
+                                cfg, mux)
+    torch.cuda.synchronize()
+    held = {"params": (params, torch.cuda.memory_allocated() - base)}
+    rng = torch.Generator(device=dev).manual_seed(1)
+    try:
+        for kind in DRY_CUTS:
+            name = f"{kind}_cut"
+            sh = SHAPES[name]
+            rec = dryrun.run_cell(arch, name, mux_n=2,
+                                  mesh_shape={"data": 1, "model": 1},
+                                  use_kernels=(kind == "prefill"))
+            need(rec["status"] == "ok", f"(b) {kind}: the dry run failed: "
+                 f"{rec['status']} {rec.get('traceback', '')}")
+            before = torch.cuda.memory_allocated()
+            batch = {"tokens": torch.randint(4, cfg.vocab_size,
+                                             (sh.global_batch, sh.seq_len
+                                              if kind != "decode" else 1),
+                                             generator=rng, device=dev)}
+            state = {"batch": batch}
+            if kind == "train":
+                opt = S.make_optimizer(pattern=len(cfg.block_pattern))
+                state["opt"] = opt.init(params)
+                step = S.build_train_step(arch, mux=mux, optimizer=opt)
+                args = (params, state["opt"], batch)
+            else:
+                state["cache"] = TransformerLM.init_cache(
+                    cfg, sh.global_batch // mux.n, sh.seq_len, torch.bfloat16,
+                    device=dev)
+                step = (S.build_prefill(arch, mux=mux, use_kernels=True)
+                        if kind == "prefill" else
+                        S.build_decode_step(arch, mux=mux,
+                                            seq_len=sh.seq_len))
+                args = (params, state["cache"], batch)
+            torch.cuda.synchronize()
+            alloc = (torch.cuda.memory_allocated() - before
+                     + held["params"][1])
+            dry_one(torch, kind, rec, step, args, alloc, ops,
+                    S.build_prefill(arch, mux=mux, use_kernels=False))
+            del args, state, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for kind in DRY_CUTS:
+            SHAPES.pop(f"{kind}_cut", None)
+    return time.perf_counter() - t0
+
+
+def dry_one(torch, kind, rec, step, args, alloc, ops, plain_prefill):
+    """One materialised cell of phase 19 (b) against its dry run;
+    ``plain_prefill``: the prefill on the plain model path."""
+    from repro_torch.launch.hlo_analysis import storage_bytes
+    grad = torch.enable_grad() if kind == "train" else torch.no_grad()
+    exact = storage_bytes(args)
+    n_tensors = sum(1 for t in _leaves(args) if isinstance(t, torch.Tensor))
+    dry = rec["memory"]["argument_bytes"]
+    print(f"  (b) {kind}: argument bytes: dry run {dry}, on the card "
+          f"{exact} (the tensors' storages; the caching allocator holds "
+          f"{alloc} for their {n_tensors} blocks, each rounded up to 512 B, "
+          f"a large one with the unsplit rest of its segment)", flush=True)
+    need(dry == exact, f"(b) {kind}: the dry run's argument bytes {dry} "
+         f"differ from the card's {exact}")
+    need(alloc >= exact, f"(b) {kind}: the allocator holds {alloc} bytes "
+         f"for {exact} bytes of storage")
+    with grad:
+        if kind == "prefill":
+            ops.reset_counts()
+        for _ in range(DRY_WARMUP):
+            out = step(*args)
+        launches = ops.counts("launches")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DRY_ITERS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    rl = rec["roofline"]
+    lb_ms = rl["step_time_lb_s"] * 1e3
+    print(f"  (b) {kind}: median {ms:.3f} ms of {DRY_ITERS} (CUDA events; "
+          + ", ".join(f"{t:.3f}" for t in times) + f"), the dry run's bound "
+          f"{lb_ms:.3f} ms ({rl['bottleneck']}: compute "
+          f"{rl['compute_s'] * 1e3:.3f} ms for {rl['flops']:.4e} FLOPs at "
+          f"bf16 peak, memory {rl['memory_s'] * 1e3:.3f} ms for "
+          f"{rl['bytes']:.4e} B of eager traffic); measured / bound "
+          f"{ms / lb_ms:.3f}; peak: dry run {rec['memory']['peak_bytes']} B,"
+          f" torch.cuda.max_memory_allocated {peak} B (ratio "
+          f"{peak / rec['memory']['peak_bytes']:.3f})", flush=True)
+    need(ms >= lb_ms, f"(b) {kind}: measured {ms} ms is under the dry run's "
+         f"bound {lb_ms} ms: its count missed work")
+    if kind != "prefill":
+        return
+    print(f"  (b) prefill launches in {DRY_WARMUP} warm-up calls: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + "; the dry run traced the wrappers' plain versions: "
+          + ", ".join(f"{k} {v}" for k, v in
+                      sorted(rec["op_census"].items())
+                      if k.startswith("kernel:")), flush=True)
+    for w in ("mux_embed_combine", "demux_rsa"):
+        need(launches[w] == DRY_WARMUP, f"(b) prefill: {w} launched "
+             f"{launches[w]} times in {DRY_WARMUP} calls")
+    with torch.no_grad():
+        kernel = step(*args)[0].float()
+        with kernels_as_plain():
+            plain = step(*args)[0].float()
+        model_plain = plain_prefill(*args)[0].float()
+    bf16_logit_check("(b) prefill", "last-position", kernel, plain,
+                     model_plain)
+
+
+def dry_examples(torch):
+    """Phase 19 (c): the quickstart and the serve demo on the card."""
+    out = {}
+    for name in ("torch_quickstart.py", "torch_serve_mux.py"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                           capture_output=True, text=True, timeout=300,
+                           env={**os.environ,
+                                "PYTHONPATH": str(ROOT / "src")})
+        need(r.returncode == 0, f"(c) {name} on the card exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+        out[name] = r.stdout
+        print(f"  (c) {name} on the card: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for ln in r.stdout.splitlines():
+            if not ln.startswith("request "):
+                print("    " + ln, flush=True)
+    return out
+
+
+def dry_check_examples(out, cpu_out):
+    def counts(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith(("prefill ", "step signatures"))]
+    card, cpu = counts(out["torch_serve_mux.py"]), counts(cpu_out)
+    print(f"  (c) serve demo count lines, card vs CPU: {card} / {cpu}",
+          flush=True)
+    need(len(card) == 2 and card == cpu, "(c) the serve demo's count lines "
+         "differ between the card and the CPU")
+    need("CUDA events" in out["torch_quickstart.py"], "(c) the quickstart "
+         "did not time with CUDA events")
 
 
 def _leaves(tree):

@@ -720,8 +720,14 @@ size_t out_smem(int rows) {
   return sizeof(float) * (size_t)kStages * (kKC * kLDW + rows * kLDX);
 }
 
+// The 48 KiB a block gets without opting in covers its static and dynamic
+// shared memory together (demux_hidden_kernel's static arrays take ~4 KiB):
+// opt in whenever the two exceed it.
 cudaError_t set_smem(const void* fn, size_t bytes) {
-  return bytes > 48 * 1024
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  return fa.sharedSizeBytes + bytes > 48 * 1024
              ? cudaFuncSetAttribute(
                    fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes)
              : cudaSuccess;

@@ -51,6 +51,14 @@ work once per rank.
 
 A mesh's axes are ``('data', 'model')`` for serving and training, or any
 others a caller names (``make_mesh``: ``('pipe',)`` for the pipeline).
+
+``RecordingMesh`` stands for rank (0, ..., 0) of a mesh that is not
+there (a ``make_production_mesh`` shape: the counterpart of the
+reference dry run's 512 placeholder host devices).  It has
+``ServeMesh``'s interface and its autograd Functions, never calls
+``torch.distributed``, returns tensors of the shapes the real rank would
+get, and counts each collective kind's calls and max(operand, result)
+bytes.
 """
 from __future__ import annotations
 
@@ -279,6 +287,61 @@ class _Shift(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.mesh._shift(g.contiguous(), ctx.axis, -1, "backward"),
                 None, None, None)
+
+
+class RecordingMesh(ServeMesh):
+    """Rank (0, ..., 0) of a mesh of ``shape`` ({axis: size}) with no
+    process group: the collectives run no communication and leave their
+    values as this rank's (a sum or a gather of one rank's part), so only
+    shapes are right.  ``counts`` / ``bytes``: each kind's calls and
+    max(operand, result) bytes (the reference's HLO rule), the autograd
+    Functions' backward collectives under ``backward`` as ``ServeMesh``
+    counts them.  Used with fake tensors by ``launch.dryrun``."""
+
+    def __init__(self, shape: dict, device="cpu"):
+        self.device_mesh = None
+        self.device = torch.device(device)
+        self.backend = "recording"
+        self.backend_reason = "recording: no process group"
+        self.axes = tuple(shape)
+        self.shape = dict(shape)
+        self.coords = dict.fromkeys(self.axes, 0)
+        self.groups = {}
+        self.counts = collections.Counter()
+        self.bytes = collections.Counter()
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def _record(self, kind: str, nbytes: int):
+        self.counts[kind] += 1
+        self.bytes[kind] += nbytes
+
+    def _all_reduce(self, x, axis: str, kind: str, op: str = "sum"):
+        if not x.is_contiguous():
+            raise ValueError("all_reduce of a non-contiguous tensor")
+        self._record(kind, x.numel() * x.element_size())
+        return x
+
+    def _shift(self, x, axis: str, step: int, kind: str):
+        out = torch.zeros_like(x)
+        if self.shape[axis] > 1:
+            self._record(kind, x.numel() * x.element_size())
+        return out
+
+    def broadcast(self, x, axis: str, *, kind: str = "broadcast"):
+        if self.shape[axis] > 1:
+            if not x.is_contiguous():
+                raise ValueError("broadcast of a non-contiguous tensor")
+            self._record(kind, x.numel() * x.element_size())
+        return x
+
+    def barrier(self):
+        pass
 
 
 def _world() -> int:

@@ -85,6 +85,13 @@ class ModelConfig:
         p = self.block_pattern
         return tuple(p[i % len(p)] for i in range(self.n_layers))
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if per-token decode cost and state are O(1) or O(window):
+        no global attention block, or a window on every attention block."""
+        return all(b != "attn" for b in self.block_pattern) or (
+            self.window is not None)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -802,6 +802,9 @@ def test_demux_plan_streams_each_weight_once():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d,f", [(4, 64, 128), (5, 64, 100),
+                                   # static + dynamic shared memory past 48
+                                   # KiB, the dynamic part under it
+                                   (32, 64, 128), (64, 64, 128),
                                    (4, 1536, 3072), (33, 1536, 3072),
                                    (32, 1536, 3072), (40, 1536, 3072)])
 def test_demux_rsa_kernel_on_card(cuda, t, d, f):
