@@ -362,9 +362,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 printed, each rank's decode p50 and peak memory; (c)
                 full-width granite-moe-3b-a800m on (1, 2): 20 of 40 experts
                 a rank, its vocabulary of 49155 on the embedding's d axis,
-                the same checks against phase 14.  The parent holds no
-                weights while the ranks run; a rank's failure or timeout
-                fails the run.
+                the same checks against phase 14; (d) in (b)'s spawn,
+                after (b)'s weights are freed: width lanes N = 1, 2 (seeds
+                1 and 2, as the CLI's) on (2, 2), the trace's requests
+                latency and throughput in turn, then disaggregated N=2 (a
+                prefill lane of 4 rows handing rows to a decode lane of 4),
+                whose handoffs cross data shards, so ranks (``page_move``
+                broadcasts): every request complete, the ranks' tokens
+                identical, requests, tokens, prefill, handoffs and
+                migrated bytes equal to the same runs unsharded (2 logical
+                shards, in this process before the spawn), the first
+                chunk's logits within ``LOGIT_TOL`` of the unsharded run's,
+                each moved row's pages equal as bytes (sha256) on the
+                source and the destination rank, the main path's four
+                kernels and both shard-local wrappers launched on every
+                rank; greedy agreement, each rank's decode p50, handoff
+                time and bytes, peak and collectives printed.  The parent
+                holds no weights while the ranks run; a rank's failure or
+                timeout fails the run.
   18. train mesh — training on a device mesh, on the plain model path
                 (no kernel has a backward): one spawn of four ranks
                 sharing the card over gloo over CUDA tensors.  (a)
@@ -6086,7 +6101,8 @@ def vlm_true_positions(torch, params, cfg, mux, rows, trace, patches,
 
 
 MESH_TRACE_ARCHS = {"qwen2-1.5b": (2, 2), "granite-moe-3b-a800m": (1, 2)}
-MESH_TIMEOUT = 420             # seconds a mesh spawn may take
+MESH_LANES_ARCH = "qwen2-1.5b"  # (d) runs in this arch's spawn
+MESH_TIMEOUT = 540             # seconds a mesh spawn may take
 # the shard-local wrappers' rows in the kernels line: (wrapper, the
 # reference's shard_map wrapper over the paged Pallas kernel)
 MESH_ROWS = {"sharded_paged_attention":
@@ -6304,12 +6320,13 @@ def mesh_reference_chunk(torch, arch, mux, rows, trace, prompt_len,
     return seen[0]
 
 
-def _mesh_child(mesh, arch, n_mux, rows, trace, prompt_len, new_tokens):
+def _mesh_child(mesh, arch, n_mux, rows, trace, prompt_len, new_tokens,
+                lanes=False):
     """One rank of phase 17 (b) / (c): the arch's full-width weights (seed
     0, phase 4's / 14's), cut to this rank's shards and the whole ones
     dropped, then ``run_continuous`` on the mesh with the launch counts
-    set to 0 just before and read just after.  Returns what the parent
-    checks."""
+    set to 0 just before and read just after; with ``lanes``, (d) after
+    it (``_mesh_lanes_child``).  Returns what the parent checks."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import MuxSpec
@@ -6345,38 +6362,308 @@ def _mesh_child(mesh, arch, n_mux, rows, trace, prompt_len, new_tokens):
         launches = ops.counts("launches")
         sharded = {w.__name__: w.launches for w in ops.SHARDED}
     torch.cuda.synchronize()
+    spans = _spans_by_name(tele)
+    out = {"coords": dict(mesh.coords), "backend": mesh.backend,
+           "reason": mesh.backend_reason,
+           "outputs": {r.uid: list(r.output) for r in stats["completed"]},
+           "trace_counts": dict(stats["trace_counts"]),
+           "launches": launches, "sharded": sharded,
+           "collectives": dict(mesh.counts),
+           "decode_ms": statistics.median(spans["decode"]),
+           "chunk_ms": statistics.median(spans["prefill_chunk"]),
+           "wall": stats["wall"], "init_s": t_init,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_chunk": seen[0] if seen else None, "lanes": None}
+    if lanes:
+        del stats, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["lanes"] = _mesh_lanes_child(mesh, cfg, rows, trace, prompt_len,
+                                         new_tokens)
+    return out
+
+
+def _spans_by_name(tele):
+    """A telemetry trace's span durations in ms, by span name."""
     spans = {}
     for ev in tele.tracer.events:
         if ev[0] == "X":
             spans.setdefault(ev[1], []).append(ev[3] / 1e3)
-    return {"coords": dict(mesh.coords), "backend": mesh.backend,
-            "reason": mesh.backend_reason,
+    return spans
+
+
+# phase 17 (d): width lanes and disaggregated serving on the (2, 2) mesh
+MESH_LANE_WIDTHS = (1, 2)
+MESH_LANE_SLO = ("latency", "throughput")     # the trace's requests in turn
+
+
+def mesh_lane_runs(rows, trace):
+    """(d)'s two runs: name -> (lane specs, arrivals, the widths' params
+    they need)."""
+    from repro_torch.serve.router import LaneSpec
+    slo = [(*a, None, MESH_LANE_SLO[i % len(MESH_LANE_SLO)])
+           for i, a in enumerate(trace)]
+    return {"lanes": ([LaneSpec(n_mux=w, rows=rows, chunk=32)
+                       for w in MESH_LANE_WIDTHS], slo),
+            "disagg": ([LaneSpec(n_mux=2, rows=rows, chunk=32,
+                                 role="prefill"),
+                        LaneSpec(n_mux=2, rows=rows, chunk=32,
+                                 role="decode")], trace)}
+
+
+def mesh_lane_params(torch, cfg, mesh=None):
+    """Width -> (d)'s full-width params, seed = width as the CLI's; on a
+    mesh each cut to the rank's shards as soon as it is made."""
+    from repro_torch.core import MuxSpec
+    from repro_torch.models import TransformerLM
+    from repro_torch.runtime.sharding import shard_params
+    out = {}
+    for w in MESH_LANE_WIDTHS:
+        p = TransformerLM.init(torch.Generator(device="cuda").manual_seed(w),
+                               cfg, MuxSpec(n=w))
+        if mesh is not None:
+            p = shard_params(p, mesh, pattern=len(cfg.block_pattern))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[w] = p
+    return out
+
+
+def _lane_counts(stats):
+    """What (d) holds the mesh runs to the unsharded runs on."""
+    rec = stats["recovery"]
+    return {"requests": len(stats["completed"]),
+            "tokens": stats["generated_tokens"],
+            "prefill": (stats["prefill_tokens"],
+                        stats["prefill_compute_tokens"],
+                        stats["prefill_events"]),
+            "per_lane": [(ls["lane"], ls["n_mux"], len(ls["completed"]),
+                          sum(len(r.output) for r in ls["completed"]))
+                         for ls in stats["lanes"]],
+            "routing": dict(stats["routing"]["routed"]),
+            "handoffs": (rec["handoffs"], rec["handoff_streams"]),
+            "migrated_bytes": rec["migrated_kv_bytes"]}
+
+
+@contextlib.contextmanager
+def watch_handoffs(moves):
+    """Record each handoff of a mesh run in this process: the source and
+    destination data shards and a sha256 of this rank's bytes of the
+    row's pages before the move (on the source shard's ranks) and after
+    it (on the destination's), None where this rank holds no part."""
+    import hashlib
+    from repro_torch.serve import runtime as rt_mod
+    from repro_torch.serve.kvpool import pages_as_bytes, take_pages
+    real = rt_mod.ServeRuntime.handoff_to
+
+    def digest(rt, row):
+        shard = rt.sched.shard_of(row)
+        if rt.mesh.coords["data"] != shard:
+            return None
+        ids = rt._segment_ids([int(b) for b in rt.pool.block_table(row)
+                               if b >= 0], shard)
+        buf = pages_as_bytes([x for c in rt.cache["layers"] if "ppos" in c
+                              for x in take_pages(c, ids)])
+        return hashlib.sha256(buf.cpu().numpy().tobytes()).hexdigest()
+
+    def watching(self, dst, j, dst_row):
+        before = digest(self, j)
+        plan = real(self, dst, j, dst_row)
+        if plan is not None:
+            moves.append((self.sched.shard_of(j), dst.sched.shard_of(dst_row),
+                          before, digest(dst, dst_row)))
+        return plan
+    rt_mod.ServeRuntime.handoff_to = watching
+    try:
+        yield moves
+    finally:
+        rt_mod.ServeRuntime.handoff_to = real
+
+
+def _mesh_lanes_child(mesh, cfg, rows, trace, prompt_len, new_tokens):
+    """Phase 17 (d) on this rank: ``mesh_lane_runs`` on the mesh, each
+    with the launch and collective counts set to 0 just before it and
+    read just after."""
+    import torch
+    from repro_torch.core import MuxSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    from repro_torch.serve.telemetry import Telemetry
+    t0 = time.perf_counter()
+    params = mesh_lane_params(torch, cfg, mesh)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=1), dtype=torch.float32,
+                            capacity=prompt_len + new_tokens + 8,
+                            cache_layout="paged", block_size=16,
+                            n_shards=mesh.shape["data"])
+    out = {"init_s": t_init}
+    for name, (lanes, arr) in mesh_lane_runs(rows, trace).items():
+        tele = Telemetry()
+        torch.cuda.reset_peak_memory_stats()
+        with first_chunk_logits() as seen, watch_handoffs([]) as moves:
+            ops.reset_counts()
+            mesh.counts.clear()
+            mesh.bytes.clear()
+            stats = run_continuous(params, sc, rows, arr, chunk=32,
+                                   telemetry=tele, device="cuda", mesh=mesh,
+                                   lanes=lanes)
+            launches = ops.counts("launches")
+            sharded = {w.__name__: w.launches for w in ops.SHARDED}
+        torch.cuda.synchronize()
+        spans = _spans_by_name(tele)
+        out[name] = {
             "outputs": {r.uid: list(r.output) for r in stats["completed"]},
-            "trace_counts": dict(stats["trace_counts"]),
+            "counts": _lane_counts(stats),
+            "trace_counts": [dict(ls["trace_counts"])
+                             for ls in stats["lanes"]],
             "launches": launches, "sharded": sharded,
             "collectives": dict(mesh.counts),
+            "page_move_bytes": mesh.bytes["page_move"],
             "decode_ms": statistics.median(spans["decode"]),
-            "chunk_ms": statistics.median(spans["prefill_chunk"]),
-            "wall": stats["wall"], "init_s": t_init,
+            "handoff_ms": spans.get("handoff", []),
+            "wall": stats["wall"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "first_chunk": seen[0] if seen else None}
+            "moves": moves, "first_chunk": seen[0] if seen else None}
+        del stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lanes_reference(torch, cfg, rows, trace, prompt_len, new_tokens):
+    """(d)'s runs unsharded on the card (2 logical shards, the mesh's
+    schedule) in this process: each run's tokens, counts and first
+    chunk's logits; the weights are freed on return."""
+    from repro_torch.core import MuxSpec
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.serve import engine
+    params = mesh_lane_params(torch, cfg)
+    sc = engine.ServeConfig(cfg=cfg, mux=MuxSpec(n=1), dtype=torch.float32,
+                            capacity=prompt_len + new_tokens + 8,
+                            cache_layout="paged", block_size=16, n_shards=2)
+    out = {}
+    for name, (lanes, arr) in mesh_lane_runs(rows, trace).items():
+        with first_chunk_logits() as seen:
+            stats = run_continuous(params, sc, rows, arr, chunk=32,
+                                   device="cuda", lanes=lanes)
+        out[name] = {"outputs": {r.uid: list(r.output)
+                                 for r in stats["completed"]},
+                     "counts": _lane_counts(stats), "first_chunk": seen[0],
+                     "wall": stats["wall"]}
+        del stats
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lanes_check(res, want, new_tokens, n_req):
+    """Phase 17 (d)'s checks and lines over the ranks' results ``res``
+    against the unsharded runs ``want``."""
+    for name, ref in want.items():
+        tag = f"qwen2-1.5b {name} on mesh(2, 2)"
+        runs = [r["lanes"][name] for r in res]
+        for r, run in zip(res, runs):
+            at = r["coords"]
+            need(len(run["outputs"]) == n_req and all(
+                len(o) == new_tokens for o in run["outputs"].values()),
+                f"{tag}: rank {at} completed {len(run['outputs'])} of "
+                f"{n_req} requests")
+            need(run["outputs"] == runs[0]["outputs"],
+                 f"{tag}: rank {at} disagrees with rank 0's tokens")
+            need(run["counts"] == ref["counts"], f"{tag}: rank {at}'s "
+                 f"counts {run['counts']} != the unsharded run's "
+                 f"{ref['counts']}")
+            need(all(set(tc) <= {"decode", "prefill_4", "prefill_32"}
+                     and all(v == 1 for v in tc.values())
+                     for tc in run["trace_counts"]),
+                 f"{tag}: step signatures {run['trace_counts']}")
+            for k in ("mux_embed_combine", "paged_attention",
+                      "paged_prefill_attention", "demux_rsa"):
+                need(run["launches"][k] > 0, f"{tag}: rank {at} never "
+                     f"launched {k}")
+            need(all(run["sharded"].values()), f"{tag}: rank {at}: the "
+                 f"shard-local wrappers launched {run['sharded']}")
+        chunks = [run["first_chunk"] for r, run in zip(res, runs)
+                  if r["coords"]["data"] == 0]
+        need(all(c is not None for c in chunks),
+             f"{tag}: a rank of row 0's shard ran no prefill chunk")
+        err = max(float(abs(c - ref["first_chunk"]).max()) for c in chunks)
+        need(err <= LOGIT_TOL, f"{tag}: the first chunk's logits are {err} "
+             f"from the unsharded run's (tol {LOGIT_TOL})")
+        # each moved row's pages: the source rank's bytes before the move
+        # equal the destination rank's after it, model rank by model rank
+        moves = [run["moves"] for run in runs]
+        need(len({len(m) for m in moves}) == 1
+             and len(moves[0]) == ref["counts"]["handoffs"][0],
+             f"{tag}: the ranks saw {[len(m) for m in moves]} handoffs")
+        cross = 0
+        for i, (a, b, _, _) in enumerate(moves[0]):
+            cross += a != b
+            for m in (0, 1):
+                src = next(mv[i][2] for r, mv in zip(res, moves)
+                           if r["coords"] == {"data": a, "model": m})
+                dst = next(mv[i][3] for r, mv in zip(res, moves)
+                           if r["coords"] == {"data": b, "model": m})
+                need(src is not None and src == dst,
+                     f"{tag}: handoff {i} (shard {a} -> {b}), model rank "
+                     f"{m}: the pages' bytes changed in the move")
+        if name == "disagg":
+            need(cross >= 1, f"{tag}: no handoff crossed data shards")
+        same, total = agreement(runs[0]["outputs"], ref["outputs"])
+        c = ref["counts"]
+        print(f"  {tag}: every request complete ({n_req} x {new_tokens} "
+              f"tokens), ranks' tokens identical; counts equal to the "
+              f"unsharded run's (per lane {c['per_lane']}, prefill "
+              f"{c['prefill']}, handoffs {c['handoffs']}, "
+              f"{c['migrated_bytes']} KV bytes migrated); first chunk's "
+              f"logits within {err:.3e} of it (tol {LOGIT_TOL}); greedy "
+              f"tokens identical to it {same}/{total} "
+              f"({same / total:.3f}); {len(moves[0])} handoffs, {cross} "
+              f"across ranks, every moved page equal as bytes", flush=True)
+        for r, run in zip(res, runs):
+            ho = run["handoff_ms"]
+            print(f"    rank {r['coords']}: decode step p50 "
+                  f"{run['decode_ms']:.3f} ms, handoffs "
+                  f"{len(ho)} (p50 {statistics.median(ho) if ho else 0:.3f}"
+                  f" ms host, page_move {run['page_move_bytes']} bytes), "
+                  f"serve wall {run['wall']:.3f} s, peak "
+                  f"{run['peak_gib']:.2f} GiB; launches {run['launches']}, "
+                  f"shard-local {run['sharded']}; collectives "
+                  f"{run['collectives']}", flush=True)
 
 
 def mesh_serve(torch, arch, shape, mux, rows, prompt_len, new_tokens,
                single_outputs, single_run):
     """Phase 17 (b) / (c): ``arch`` at full width on a ``shape`` mesh of
-    ranks sharing the card, with every check; the parent holds no weights
-    while the ranks run.  Returns rank 0's launch counts."""
+    ranks sharing the card, with every check, and for ``MESH_LANES_ARCH``
+    (d) in the same spawn against its unsharded runs, made here first;
+    the parent holds no weights while the ranks run.  Returns rank 0's
+    launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
     cfg = get_config(arch)
     trace = serve_trace(cfg, prompt_len=prompt_len, new_tokens=new_tokens)
     want = mesh_reference_chunk(torch, arch, mux, rows, trace, prompt_len,
                                 new_tokens)
+    lanes = arch == MESH_LANES_ARCH
+    want_lanes = None
+    if lanes:                    # (d)'s unsharded runs, before the spawn
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        want_lanes = mesh_lanes_reference(torch, cfg, rows, trace,
+                                          prompt_len, new_tokens)
+        print(f"  (d) unsharded lanes / disagg runs: "
+              f"{time.perf_counter() - t0:.1f} s (serve wall "
+              + ", ".join(f"{k} {v['wall']:.3f} s"
+                          for k, v in want_lanes.items()) + ")", flush=True)
     t0 = time.perf_counter()
     res = mesh_lib.spawn(_mesh_child, *shape, device="cuda",
                          args=(arch, mux.n, rows, trace, prompt_len,
-                               new_tokens), timeout=MESH_TIMEOUT)
+                               new_tokens, lanes), timeout=MESH_TIMEOUT)
     dt = time.perf_counter() - t0
     tag = f"{arch} on mesh{shape}"
     for r in res:
@@ -6421,6 +6708,11 @@ def mesh_serve(torch, arch, shape, mux, rows, prompt_len, new_tokens,
               f"{r['peak_gib']:.2f} GiB; launches {r['launches']}, "
               f"shard-local {r['sharded']}; collectives "
               f"{r['collectives']}", flush=True)
+    if lanes:
+        print(f"  (d) width lanes and disagg in the same spawn: params "
+              f"{max(r['lanes']['init_s'] for r in res):.1f} s a rank",
+              flush=True)
+        mesh_lanes_check(res, want_lanes, new_tokens, len(trace))
     print(f"    {smi_line()}", flush=True)
     return {"launches": r0["launches"],
             "sharded": {k: sum(r["sharded"][k] for r in res)
@@ -6431,8 +6723,9 @@ def phase_mesh(torch, timer, mux, rows, prompt_len, new_tokens, fp32_runs,
                moe_runs):
     """Phase 17: (a) the shard-local paged wrappers on the card; (b)
     full-width qwen2-1.5b on a (2, 2) mesh; (c) full-width
-    granite-moe-3b-a800m on (1, 2).  Returns (the wrappers' summaries,
-    {arch: the mesh run's counts})."""
+    granite-moe-3b-a800m on (1, 2); (d) width lanes and disaggregated
+    serving in (b)'s spawn.  Returns (the wrappers' summaries, {arch: the
+    mesh run's counts})."""
     t_phase = time.perf_counter()
     print(f"phase 17: mesh; {smi_line()}", flush=True)
     summary = mesh_kernels(torch, timer)

@@ -8,8 +8,10 @@ current process group (``make_serve_mesh``).  ``spawn`` starts the ranks
 on this host.
 
 Every collective of the mesh path goes through a ``ServeMesh`` method and
-uses ``all_reduce`` alone: a gather is a zero-filled buffer with this
-rank's part in place, summed over the axis (x + 0 is x, so it is exact).
+uses ``all_reduce`` or ``broadcast``: a gather is a zero-filled buffer
+with this rank's part in place, summed over the axis (x + 0 is x, so it
+is exact but for a float ``-0.0``, which comes back ``+0.0``); what must
+arrive bit for bit (a handoff's pages) goes by ``broadcast``.
 The same code then runs on gloo over CPU tensors, on gloo over CUDA
 tensors (ranks sharing one card: gloo takes CUDA tensors for
 ``all_reduce`` and ``broadcast`` only) and on NCCL.  ``pick_backend``
@@ -23,7 +25,11 @@ it (``backend``, ``backend_reason``).
 d-sharded embedding), ``gather`` (activation gathers: tokens over
 ``data``, an L-sharded attention output, the fallback axes) and
 ``weight_gather`` (a weight stored on an axis its layer cannot use
-locally, gathered to full before use); a caller may name other kinds.
+locally, gathered to full before use), ``page_move`` (a handoff's KV
+pages between data shards: a ``broadcast`` from the source shard, which
+moves bytes and sums nothing), ``agree`` (rank 0's host readings) and
+``step_times`` (each shard's slowest rank's step time, for straggler
+fencing); a caller may name other kinds.
 ``ServeMesh.bytes`` counts the bytes each kind hands to its collectives
 on this rank.
 
@@ -222,18 +228,32 @@ class ServeMesh:
             return _Shift.apply(x, self, axis, kind)
         return self._shift(x, axis, 1, kind)
 
-    def broadcast(self, x, axis: str, *, kind: str = "broadcast"):
-        """Rank 0 of ``axis``'s ``x`` on every rank of it, in place;
+    def broadcast(self, x, axis: str, *, src: int = 0,
+                  kind: str = "broadcast"):
+        """Rank ``src`` of ``axis``'s ``x`` on every rank of it, in place,
+        byte for byte (no arithmetic: a page move's ``-0.0`` stays);
         returns it."""
         if self.shape[axis] > 1:
             if not x.is_contiguous():
                 raise ValueError("broadcast of a non-contiguous tensor")
             group = self.groups[axis]
-            dist.broadcast(x, src=dist.get_global_rank(group, 0),
+            dist.broadcast(x, src=dist.get_global_rank(group, src),
                            group=group)
             self.counts[kind] += 1
             self.bytes[kind] += x.numel() * x.element_size()
         return x
+
+    def agree(self, values, *, kind: str = "agree") -> list:
+        """Rank (0, ..., 0)'s ``values`` (floats) on every rank: a float64
+        broadcast over each axis in turn.  Host readings that differ
+        between ranks (a wall clock) pass through it before a decision or
+        a result reads them."""
+        buf = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                           device=self.device)
+        if buf.numel():
+            for a in self.axes:
+                self.broadcast(buf, a, kind=kind)
+        return buf.tolist()
 
     def barrier(self):
         """Wait for every rank (an ``all_reduce`` of one element)."""
@@ -333,7 +353,8 @@ class RecordingMesh(ServeMesh):
             self._record(kind, x.numel() * x.element_size())
         return out
 
-    def broadcast(self, x, axis: str, *, kind: str = "broadcast"):
+    def broadcast(self, x, axis: str, *, src: int = 0,
+                  kind: str = "broadcast"):
         if self.shape[axis] > 1:
             if not x.is_contiguous():
                 raise ValueError("broadcast of a non-contiguous tensor")

@@ -65,10 +65,17 @@ restores it into a rebuilt runtime, which re-prefills nothing:
 ``('data', 'model')`` mesh of DATA * MODEL ranks that the CLI starts on
 this host (``launch.mesh.spawn``): rows and page segments over ``data``
 (``--shards`` must equal it), heads, MLP width and experts over ``model``;
-rank 0 prints, and the mode tag reads ``mesh(D, M)`` with the backend:
+rank 0 prints (and writes the telemetry files), and the mode tag reads
+``mesh(D, M)`` with the backend.  Every lane of ``--lanes`` / ``--disagg``
+(resize, ``--kill-shard`` and ``--pool-budget`` included) is then a
+runtime on the mesh, and a handoff between data shards moves its pages
+between ranks:
 
     python -m repro_torch.launch.serve --device cpu --continuous \
         --cache paged --mesh 2,2 --requests 5 --new-tokens 4
+    python -m repro_torch.launch.serve --device cpu --continuous \
+        --cache paged --mesh 2,2 --disagg --prefill-lanes 2 \
+        --decode-lanes 2 --requests 6
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ import argparse
 import collections
 import contextlib
 import io
+import math
 import sys
 import time
 
@@ -106,12 +114,12 @@ _TRACE_KEYS = ("prefill_log", "slot_util", "cache_util")
 
 def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
                 step, chunk, prefill_mode, on_prefill, use_kernels,
-                telemetry, device):
+                telemetry, device, mesh=None):
     """Apply one failure or resize event to the lane set: ``kill_shard``
     fences a data shard of one lane's grid (``lane``, default 0),
     ``drain_lane`` starts removing the lane at a width (its streams finish
     in place, its queue re-routes), ``add_lane`` brings up a fresh runtime
-    at a new width under traffic."""
+    at a new width under traffic (on ``mesh``, on every rank at once)."""
     op = ev["op"]
     if op == "kill_shard":
         idx = router._index_of(ev.get("lane", 0))
@@ -135,7 +143,7 @@ def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
             chunk=None if prefill_mode == "blocking"
             else ev.get("chunk", chunk),
             on_prefill=on_prefill, use_kernels=use_kernels, device=device,
-            lane=lane_id, telemetry=telemetry)
+            lane=lane_id, telemetry=telemetry, mesh=mesh)
         sup.add_lane(router, rt)
     else:
         raise ValueError(f"unknown serve event op {op!r}")
@@ -144,7 +152,8 @@ def _lane_event(ev, router, sup, params_by_width, sc, backbone_rows, *,
 def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
                arrivals, lanes, *, on_prefill, chunk, prefill_mode,
                use_kernels, pool_budget, spill_queue, telemetry, events,
-               route, device, ckpt_dir=None, fence_stragglers=False):
+               route, device, ckpt_dir=None, fence_stragglers=False,
+               mesh=None):
     """Width-lane serve loop: one ``ServeRuntime`` per lane at its mux
     width, ``LaneRouter`` admitting each arrival by SLO class and live
     load, every lane stepping once per loop iteration (narrowest first).
@@ -158,7 +167,16 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
     free row of a same-width decode lane from
     ``router.handoff_targets``; requests a decode lane bounced back into
     its queue (preemption, shard-loss replay) go through the router to a
-    prefill lane."""
+    prefill lane.
+
+    mesh: every lane is a ``ServeRuntime(mesh=)`` on this rank, and every
+    rank runs this same loop (router, supervisor, events, handoffs) over
+    the same host state, so all decide alike; a handoff between data
+    shards moves its pages between ranks (``ServeRuntime.handoff_to``).
+    The one host reading that differs between ranks, the wall clock,
+    reaches a fencing decision as every rank's step times gathered
+    (``_observe_shards``) and the returned stats as rank 0's
+    (``_one_clock``, in ``run_continuous``)."""
     specs = [s if isinstance(s, LaneSpec)
              else LaneSpec(n_mux=int(s), rows=backbone_rows, chunk=chunk)
              for s in lanes]
@@ -173,7 +191,7 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
             spec.rows,
             chunk=None if prefill_mode == "blocking" else spec.chunk,
             on_prefill=on_prefill, use_kernels=use_kernels, device=device,
-            lane=idx, telemetry=telemetry, role=spec.role))
+            lane=idx, telemetry=telemetry, role=spec.role, mesh=mesh))
     disagg = any(rt.role != "both" for rt in runtimes)
     for rt in runtimes:
         # a prefill lane with nowhere to hand off would park its finished
@@ -202,7 +220,7 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
                         backbone_rows, step=step, chunk=chunk,
                         prefill_mode=prefill_mode, on_prefill=on_prefill,
                         use_kernels=use_kernels, telemetry=telemetry,
-                        device=device)
+                        device=device, mesh=mesh)
         if disagg:
             # requests a decode lane bounced back cannot prefill there
             for rt in router.runtimes:
@@ -262,7 +280,7 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
     wall = time.time() - t0
     completed = [r for rt in all_lanes for r in rt.stats["completed"]]
     return {
-        "lane_stats": router.lane_stats(wall=wall),
+        "router": router,       # run_continuous adds its lane_stats
         "lanes": [rt.stats for rt in all_lanes],
         "runtimes": all_lanes,
         "widths": [rt.n_mux for rt in all_lanes],
@@ -288,10 +306,49 @@ def _run_lanes(params_by_width, sc: ServeConfig, backbone_rows: int,
 
 
 def _observe_shards(sup, rt, dt):
-    """Feed one step's time to every alive shard of ``rt`` (one device
-    steps every shard at once, so they share the step's time)."""
-    sup.observe_shard_times(rt, {s: dt for s in range(rt.sc.n_shards)
+    """Feed one step's time to every alive shard of ``rt``.  One device
+    steps every shard at once, so they share the step's time; on a mesh
+    each rank times its own step (``_shard_step_times``), so every rank
+    fences alike and a slow rank's shard is the one that flags."""
+    times = ([dt] * rt.sc.n_shards if rt.mesh is None
+             else _shard_step_times(rt.mesh, rt.sc.n_shards, dt))
+    sup.observe_shard_times(rt, {s: times[s] for s in range(rt.sc.n_shards)
                                  if s not in rt.sched.dead_shards})
+
+
+def _shard_step_times(mesh, n_shards: int, dt: float) -> list:
+    """Each data shard's step time on every rank of ``mesh``: the slowest
+    of its ranks' own ``dt``, a max ``all_reduce`` of one slot per shard
+    over each axis (times are >= 0, so the empty slots' zeros lose; it is
+    exact, so every rank gets the same floats)."""
+    buf = torch.zeros(n_shards, dtype=torch.float64, device=mesh.device)
+    buf[mesh.coords["data"]] = dt
+    for a in mesh.axes:
+        mesh.all_reduce(buf, a, kind="step_times", op="max")
+    return buf.tolist()
+
+
+_STAMPS = ("t_submit", "t_admit", "t_first", "t_done")
+
+
+def _one_clock(mesh, stats):
+    """Rank 0's wall-clock readings of a mesh run's ``stats`` on every
+    rank of ``mesh``, in place: the serve ``wall``, each completed
+    request's stamps (uid order) and the supervisor's recovery latencies.
+    Every rank then returns the same stats, goodput and TTFT attainment
+    included."""
+    reqs = sorted(stats["completed"], key=lambda r: r.uid)
+    lat = stats["recovery"]["recovery_latency_s"]
+    vals = mesh.agree([stats["wall"]]
+                      + [math.nan if getattr(r, k) is None else getattr(r, k)
+                         for r in reqs for k in _STAMPS] + lat)
+    at = 1
+    for r in reqs:
+        for k in _STAMPS:
+            setattr(r, k, None if math.isnan(vals[at]) else vals[at])
+            at += 1
+    lat[:] = vals[at:]
+    stats["wall"] = vals[0]
 
 
 def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
@@ -351,16 +408,13 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
     ``prefill_compute_tokens`` the same after bucket padding,
     ``prefill_log`` (rows, per-row tokens) per event.
 
-    mesh: this rank's ``launch.mesh.ServeMesh`` (paged, one runtime):
-    every rank of the mesh calls ``run_continuous`` with the same arguments
-    and gets the same stats; a restart's snapshot holds the whole cache,
-    written by rank 0.
+    mesh: this rank's ``launch.mesh.ServeMesh`` (paged; one runtime or
+    lanes): every rank of the mesh calls ``run_continuous`` with the same
+    arguments and gets the same stats; a restart's snapshot holds the
+    whole cache, written by rank 0.
     """
-    if mesh is not None:
-        if sc.cache_layout != "paged":
-            raise ValueError("mesh serving requires the paged cache layout")
-        if lanes is not None:
-            raise NotImplementedError("width lanes on a mesh")
+    if mesh is not None and sc.cache_layout != "paged":
+        raise ValueError("mesh serving requires the paged cache layout")
     if sc.kind != "lm":
         raise NotImplementedError(
             "continuous serving supports decoder-only LM families")
@@ -372,13 +426,19 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
         if sc.cache_layout != "paged":
             raise ValueError(
                 "width-lane serving requires the paged cache layout")
-        return _run_lanes(params, sc, backbone_rows, arrivals, lanes,
-                          on_prefill=on_prefill, chunk=chunk,
-                          prefill_mode=prefill_mode, use_kernels=use_kernels,
-                          pool_budget=pool_budget, spill_queue=spill_queue,
-                          telemetry=telemetry, events=events, route=route,
-                          device=device, ckpt_dir=ckpt_dir,
-                          fence_stragglers=fence_stragglers)
+        stats = _run_lanes(params, sc, backbone_rows, arrivals, lanes,
+                           on_prefill=on_prefill, chunk=chunk,
+                           prefill_mode=prefill_mode,
+                           use_kernels=use_kernels, pool_budget=pool_budget,
+                           spill_queue=spill_queue, telemetry=telemetry,
+                           events=events, route=route, device=device,
+                           ckpt_dir=ckpt_dir,
+                           fence_stragglers=fence_stragglers, mesh=mesh)
+        if mesh is not None:
+            _one_clock(mesh, stats)
+        stats["lane_stats"] = stats.pop("router").lane_stats(
+            wall=stats["wall"])
+        return stats
     if events and sc.cache_layout != "paged":
         raise ValueError("failure/resize events require the paged layout")
     arrivals = collections.deque(sorted(arrivals, key=lambda a: a[0]))
@@ -406,6 +466,8 @@ def run_continuous(params, sc: ServeConfig, backbone_rows: int, arrivals,
                           telemetry=telemetry, device=device)
     stats["wall"] = time.time() - t0
     stats["generated_tokens"] = sum(len(r.output) for r in stats["completed"])
+    if mesh is not None:
+        _one_clock(mesh, stats)
     return stats
 
 
@@ -909,9 +971,6 @@ def main(argv=None, *, mesh=None):
         if args.shards is not None and args.shards != data:
             ap.error(f"--shards {args.shards} must match the --mesh data "
                      f"axis ({data})")
-        if args.lanes or args.disagg:
-            ap.error("--mesh serves one runtime: --lanes / --disagg on a "
-                     "mesh are not ported")
     if args.kv_dtype and not (args.continuous and args.cache == "paged"):
         ap.error("--kv-dtype requires --continuous --cache paged")
     if args.block_size < 1:
@@ -1056,7 +1115,9 @@ def main(argv=None, *, mesh=None):
               "collectives: " + ", ".join(
                   f"{k}×{v}" for k, v in sorted(mesh.counts.items())))
     _print_recovery(args, stats.get("recovery"), events)
-    if telemetry is not None:
+    # on a mesh rank 0 writes the files, as it prints
+    if telemetry is not None and (mesh is None
+                                  or not any(mesh.coords.values())):
         if args.metrics_out:
             prom = telemetry.write_metrics(args.metrics_out)
             print(f"metrics written to {args.metrics_out} (+ {prom})")

@@ -45,7 +45,9 @@ from repro_torch.models.blocks import heads_split
 from repro_torch.models.transformer import check_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.kvpool import (KVPool, ShardedKVPool, blocks_for,
-                                      copy_pages)
+                                      check_page_storage, copy_pages,
+                                      pages_as_bytes, pages_from_bytes,
+                                      pages_nbytes, put_pages, take_pages)
 
 
 def backbone_batch(global_batch: int, mux: MuxSpec) -> int:
@@ -245,24 +247,53 @@ def reset_blocks(cache, block_ids):
     return cache
 
 
-def copy_cache_pages(src_cache, dst_cache, src_ids, dst_ids):
+def copy_cache_pages(src_cache, dst_cache, src_ids, dst_ids, *, mesh=None,
+                     src_shard: int = 0, dst_shard: int = 0):
     """Migrate whole pool pages between two paged caches (disaggregated
     serving), in place: pages ``src_ids`` of every layer of ``src_cache``
     land in slots ``dst_ids`` of the same layer of ``dst_cache`` —
-    payload, quant scales and position entries (``kvpool.copy_pages``
-    per layer); the ids are int lists or device tensors.  The caches must
-    share layers, page shape and storage; the block tables are the
-    caller's to install.  Returns ``dst_cache``."""
+    payload, quant scales and position entries (``kvpool.take_pages`` /
+    ``put_pages`` per layer, bit for bit); the ids are int lists or device
+    tensors.  The caches must share layers, page shape and storage; the
+    block tables are the caller's to install.  Returns ``dst_cache``.
+
+    mesh: a serve mesh whose data shard ``src_shard`` holds the source
+    pages and ``dst_shard`` the destination's, each rank its segment
+    (the ids are local to it) and, where the KV heads split, its heads.
+    Every rank calls it.  On one shard its ranks copy locally; between
+    two, rank (src_shard, m) sends every layer's pages as bytes to rank
+    (dst_shard, m) for each model coordinate m: one ``page_move``
+    broadcast over ``data``, which moves bytes and sums nothing."""
     if len(src_ids) != len(dst_ids):
         raise ValueError("page migration needs equal-length id lists")
     if len(src_ids) == 0:
         return dst_cache
+    # the ids go to the device once for every layer
     dev = dst_cache["bt"].device
-    si = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
-    di = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
-    for s, d in zip(src_cache["layers"], dst_cache["layers"], strict=True):
-        if "ppos" in d:
-            copy_pages(s, d, si, di)
+    src_ids = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
+    dst_ids = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
+    pairs = [(s, d) for s, d in zip(src_cache["layers"], dst_cache["layers"],
+                                    strict=True) if "ppos" in d]
+    # before any collective, on every rank alike
+    check_page_storage([s for s, _ in pairs], [d for _, d in pairs])
+    me = None if mesh is None else mesh.coords["data"]
+    if mesh is None or src_shard == dst_shard:
+        if me is None or me == src_shard:
+            for s, d in pairs:
+                copy_pages(s, d, src_ids, dst_ids)
+        return dst_cache
+    like = [d for _, d in pairs]
+    n = len(dst_ids)
+    nbytes = pages_nbytes(like, n)
+    if me == src_shard:
+        buf = pages_as_bytes([x for s, _ in pairs
+                              for x in take_pages(s, src_ids)])
+    else:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    mesh.broadcast(buf, "data", src=src_shard, kind="page_move")
+    if me == dst_shard:
+        for d, pages in zip(like, pages_from_bytes(buf, like, n)):
+            put_pages(d, dst_ids, pages)
     return dst_cache
 
 

@@ -31,6 +31,7 @@ invalid write crosses shards.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -612,10 +613,11 @@ def copy_pages(src, dst, src_ids, dst_ids):
     ``src_ids`` of ``src`` land in slots ``dst_ids`` of ``dst``.  Moves the
     payload (``kp`` / ``vp``, fp8 as its bytes), the quant scales when
     present (``ksc`` / ``vsc``) and the per-slot position map (``ppos``,
-    whose -1 entries keep a partly filled tail page masked), bit for bit.
-    An ``index_select`` then an ``index_copy_`` per tensor, on the pages'
-    device (the ids go there once; no value comes back to the host).
-    ``src`` and ``dst`` may be the same dict.  Page dtypes must match:
+    whose -1 entries keep a partly filled tail page masked), bit for bit:
+    ``take_pages`` then ``put_pages``, an ``index_select`` and an
+    ``index_copy_`` per tensor on the pages' device (the ids go there
+    once; no value comes back to the host).  ``src`` and ``dst`` may be
+    the same dict.  Page storage must match (``check_page_storage``):
     migration never re-quantizes.  Returns ``dst``."""
     if len(src_ids) != len(dst_ids):
         raise ValueError(
@@ -623,17 +625,86 @@ def copy_pages(src, dst, src_ids, dst_ids):
             f"{len(dst_ids)}")
     if len(src_ids) == 0:
         return dst
-    if src["kp"].dtype != dst["kp"].dtype or ("ksc" in src) != ("ksc" in dst):
-        raise ValueError("source/destination page dtypes differ — "
-                         "cannot migrate pages across kv_dtype")
+    check_page_storage([src], [dst])
     dev = dst["kp"].device
-    si = torch.as_tensor(src_ids, dtype=torch.long).to(dev)
-    di = torch.as_tensor(dst_ids, dtype=torch.long).to(dev)
-    for key in PAGE_KEYS:
-        if key in dst:
-            _bits(dst[key]).index_copy_(
-                0, di, _bits(src[key]).index_select(0, si))
-    return dst
+    return put_pages(dst, _ids(dst_ids, dev),
+                     take_pages(src, _ids(src_ids, dev)))
+
+
+def _ids(ids, device):
+    return torch.as_tensor(ids, dtype=torch.long).to(device)
+
+
+def check_page_storage(src_layers, dst_layers):
+    """Raise unless two paged caches' layer caches hold the same page
+    tensors: the same keys (``PAGE_KEYS``), dtypes and per-page shapes,
+    layer by layer.  Reads shapes and dtypes only, so every rank of a
+    mesh that holds both caches decides alike before a page move."""
+    def specs(layers):
+        return [[(k, c[k].dtype, tuple(c[k].shape[1:])) for k in PAGE_KEYS
+                 if k in c] for c in layers]
+    if specs(src_layers) != specs(dst_layers):
+        raise ValueError("source/destination page storage differs — "
+                         "cannot migrate pages across kv_dtype, dtype or "
+                         "page shape")
+
+
+def take_pages(cache, ids) -> list:
+    """Pages ``ids`` of a layer cache: one tensor per page tensor present
+    (``PAGE_KEYS`` order), fp8 as its bytes."""
+    si = _ids(ids, cache["kp"].device)
+    return [_bits(cache[k]).index_select(0, si) for k in PAGE_KEYS
+            if k in cache]
+
+
+def put_pages(cache, ids, pages):
+    """Write ``take_pages``' tensors into slots ``ids`` of a layer cache,
+    in place; returns the cache."""
+    di = _ids(ids, cache["kp"].device)
+    keys = [k for k in PAGE_KEYS if k in cache]
+    if len(keys) != len(pages):
+        raise ValueError("page tensors do not match the cache's storage")
+    for k, x in zip(keys, pages):
+        _bits(cache[k]).index_copy_(0, di, x)
+    return cache
+
+
+def pages_as_bytes(pages):
+    """``take_pages``' tensors (of one layer or several) as one flat uint8
+    tensor: what a move between ranks sends."""
+    return torch.cat([x.reshape(-1).view(torch.uint8) for x in pages])
+
+
+def _page_specs(like, n: int):
+    """(layer, bits dtype, shape) of each tensor ``take_pages`` gives for
+    ``n`` pages of each layer cache in ``like``, in order."""
+    for i, cache in enumerate(like):
+        for k in PAGE_KEYS:
+            if k in cache:
+                x = _bits(cache[k])
+                yield i, x.dtype, (n, *x.shape[1:])
+
+
+def pages_nbytes(like, n: int) -> int:
+    """Bytes of ``n`` pages of each layer cache in ``like``, as
+    ``pages_as_bytes`` lays them out."""
+    return sum(dt.itemsize * math.prod(shape)
+               for _, dt, shape in _page_specs(like, n))
+
+
+def pages_from_bytes(buf, like, n: int) -> list:
+    """``pages_as_bytes``' inverse for ``n`` pages of each layer cache in
+    ``like`` (their shapes and storage): per layer, the tensors
+    ``put_pages`` takes."""
+    out, at = [[] for _ in like], 0
+    for i, dt, shape in _page_specs(like, n):
+        nb = dt.itemsize * math.prod(shape)
+        chunk = buf.narrow(0, at, nb)
+        if at % dt.itemsize:             # a view needs aligned bytes
+            chunk = chunk.clone()
+        out[i].append(chunk.view(dt).reshape(shape))
+        at += nb
+    return out
 
 
 def paged_view(cache, block_tables=None):

@@ -389,20 +389,27 @@ class ServeRuntime:
         and host token state transfer.  Returns the executed
         ``HandoffPlan``, or None when ``dst``'s pool cannot take the row
         now (nothing changed; retry later).  The lanes must share the
-        mux width and the page geometry and storage."""
+        mux width, the page geometry and storage, and the mesh.  On a mesh
+        every rank calls it with the same arguments: the pool accounting
+        runs alike everywhere, and the pages move from row ``j``'s data
+        shard to ``dst_row``'s, between ranks when those differ
+        (``copy_cache_pages(mesh=)``)."""
         if dst is self:
             raise ValueError("handoff requires a distinct destination lane")
-        if self.mesh is not None or dst.mesh is not None:
-            raise NotImplementedError("a handoff between lanes on a mesh")
+        if dst.mesh is not self.mesh:
+            raise ValueError("handoff lanes must share one serve mesh "
+                             "(or both have none)")
         if dst.n_mux != self.n_mux:
             raise ValueError(
                 f"handoff across widths (N={self.n_mux} -> {dst.n_mux}): "
                 "a muxed row cannot change composition")
         if (dst.sc.block_size != self.sc.block_size
                 or dst.sc.kv_dtype != self.sc.kv_dtype
+                or dst.sc.page_dtype != self.sc.page_dtype
                 or dst.sc.capacity != self.sc.capacity):
             raise ValueError("handoff lanes must share page geometry "
-                             "(block_size / capacity / kv_dtype)")
+                             "(block_size / capacity / kv_dtype / page "
+                             "dtype)")
         plan = self.sched.plan_handoff(j, dst.lane, dst_row,
                                        self.pool.num_tokens(j))
         try:
@@ -423,7 +430,17 @@ class ServeRuntime:
                             metric="handoff_s", row=j, dst_row=dst_row,
                             tokens=plan.tokens, blocks=len(src_blocks),
                             bytes=nbytes):
-            copy_cache_pages(self.cache, dst.cache, src_blocks, dst_blocks)
+            if self.mesh is None:
+                copy_cache_pages(self.cache, dst.cache, src_blocks,
+                                 dst_blocks)
+            else:
+                # row j's shard holds the source pages, dst_row's the
+                # destination's: a move between ranks when they differ
+                a, b = self.sched.shard_of(j), dst.sched.shard_of(dst_row)
+                copy_cache_pages(self.cache, dst.cache,
+                                 self._segment_ids(src_blocks, a),
+                                 dst._segment_ids(dst_blocks, b),
+                                 mesh=self.mesh, src_shard=a, dst_shard=b)
             self._install_tables()
             dst._install_tables()
             slots = self.sched.retire_handoff(plan)
@@ -487,13 +504,18 @@ class ServeRuntime:
     def _install_tables(self):
         set_block_tables(self.cache, self.pool.table_array(self._rows))
 
+    def _segment_ids(self, blocks, shard: int):
+        """Global block ids of ``shard``'s segment as ids within it (a
+        mesh rank's cache holds its segment alone); others dropped."""
+        bps = self.pool.num_blocks // self.sc.n_shards
+        off = shard * bps
+        return [b - off for b in blocks if off <= b < off + bps]
+
     def _reset_blocks(self, blocks):
         """Mark fresh blocks empty: on a mesh only this rank's segment's,
         at their local ids."""
         if self.mesh is not None:
-            bps = self.pool.num_blocks // self.sc.n_shards
-            off = self._shard * bps
-            blocks = [b - off for b in blocks if off <= b < off + bps]
+            blocks = self._segment_ids(blocks, self._shard)
         reset_blocks(self.cache, blocks)
 
     def _owns(self, j: int) -> bool:
